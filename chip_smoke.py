@@ -4,20 +4,30 @@
     python3 chip_smoke.py            # the check: build, kernels, main path
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
                                      # one steady headline run
+    python3 chip_smoke.py --parent DIR   # also times the kernels of another
+                                     # checkout (e.g. the parent commit,
+                                     # unpacked with git archive) against
+                                     # this one's, in turns, in one process
 
 Phases, each printing its result as it goes:
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. build the CUDA kernels from ttcross_tpu_torch/csrc/ with nvcc;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it (and one large shape each), with both
-     times (CUDA events, median of 20);
+     shapes the main path gives it (and larger ones), with both times per
+     call (CUDA events, median of 20), the device-only time and kernels
+     per call (torch.profiler), the bound (bytes over 3.35 TB/s or f64
+     flops over 67 TFLOP/s, whichever is larger) and its share, and for
+     kernel B the one PyTorch call that computes the same gather; a rook
+     pass's kernel-A call must be one kernel; then the wrappers' host time
+     per call;
   4. the main path: the f64 cross on the Ising C_6 integrand at rank 24
      with oversample=6 (bench.py's headline configuration) on the card,
      twice with key 0 (first and steady time; the kernels' launch counts
      of the first run), then keys 1-7; the digits against the analytic
      C_6; the rounding of each key's rank-30 train on the card against
      the same rounding on the host; and a small C_5 cross on the card
-     against the same cross on the CPU;
+     against the same cross on the CPU, with rook and with full pivoting
+     (kernel A's 2-D path);
   5. the greedy (no oversample) C_6 cross, holding its state on the card.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
@@ -49,6 +59,9 @@ ROUND_RTOL = 1e-14          # card vs host rounding of one train: SVDs of
                             # the same matrices in other orders
 KEYS = range(8)
 SCORE_RTOL = 1e-12          # kernel A vs cuBLAS: f64 sums in another order
+                            # (the 2-D path's DMMA tiles in yet another)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
+F64_FLOPS = 67e12           # ... f64 on the tensor cores, the card's f64 peak
 
 
 def _emit(obj) -> None:
@@ -89,21 +102,96 @@ def _score_inputs(gen, M, K, R, dev):
             return vals, colf, rowf, mask
 
 
-def check_kernels(dev):
-    """Phase 3: kernel vs plain on the card, with both times."""
+def _bound_us(nbytes: int, flops: int):
+    """The least time the card could take: bytes over the memory rate or
+    flops over the f64 peak, whichever is larger, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F64_FLOPS
+    return max(t_bytes, t_ops) * 1e6, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _score_bound(M, K, R):
+    # vals, colf, rowf and the mask read once; three 8-byte results written
+    return _bound_us(8 * (M * K + M * R + R * K) + M * K + 24, 2 * M * K * R)
+
+
+def _lookup_bound(L, E, n):
+    # the tables and the int32 indices read once, L f64 outputs per index
+    return _bound_us(8 * L * n + 4 * E + 8 * L * E, 0)
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def device_per_call(fn, calls: int = 50) -> dict:
+    """Device-only time and kernels per call of fn (torch.profiler over
+    `calls` back-to-back calls after one warm-up): the CUDA-event times
+    include the host's launch overhead, which these leave out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    return {"device_us": sum(_device_us(e) for e in kern) / calls,
+            "kernels_per_call": sum(e.count for e in kern) / calls,
+            "by_kernel_us": {e.key[:60]: _device_us(e) / calls for e in kern}}
+
+
+def host_us_per_call(fn, calls: int = 1000) -> float:
+    """Host clock around `calls` calls and one synchronize, per call."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def kernel_cases(dev, gen):
+    """Kernel A's and kernel B's inputs: the main path's shapes (the rook
+    passes, the integrand's batches) and the larger ones of full pivoting
+    and long chains."""
+    import torch
+
+    R, N, B = 30, 65, 1950            # the headline's padded rank and mode size
+    a = [(name, _score_inputs(gen, M, Kc, Rr, dev)) for name, M, Kc, Rr in
+         [("col_pass", B, 1, R), ("row_pass", 1, B, R), ("superblock", B, B, R),
+          ("random", 8192, 8192, 32), ("long_col", 100000, 1, R), ("long_row", 1, 70001, R)]]
+    b = []
+    for name, Bb, d, n in [("rook_fiber", B, 5, N), ("lottery", 190, 5, N),
+                           ("init_diag", 520, 5, N), ("init_fibers", 325, 5, N),
+                           ("long_chain", 100584, 255, 33)]:
+        tables = torch.randn((2, n), generator=gen, dtype=torch.float64).to(dev)
+        ind = torch.randint(-2, n + 2, (Bb, d), generator=gen, dtype=torch.int32).to(dev)
+        b.append((name, (tables, ind)))
+    return a, b
+
+
+def check_kernels(dev, a_cases, b_cases):
+    """Phase 3: kernel vs plain on the card, with times, bounds and shares."""
     import torch
 
     from ttcross_tpu_torch.ops import kernels as K
 
-    gen = torch.Generator().manual_seed(1234)
-    R, N, B = 30, 65, 1950            # the headline's padded rank and mode size
-    a_shapes = [("col_pass", B, 1, R), ("row_pass", 1, B, R),
-                ("superblock", B, B, R), ("random", 8192, 8192, 32)]
     a_err, a_rows = 0.0, []
-    for name, M, Kc, Rr in a_shapes:
-        vals, colf, rowf, mask = _score_inputs(gen, M, Kc, Rr, dev)
-        got = K.score_residual_argmax(vals, colf, rowf, mask)
-        want = K.score_residual_argmax_plain(vals, colf, rowf, mask)
+    for name, args in a_cases:
+        vals, colf, rowf, mask = args
+        M, Kc = vals.shape
+        Rr = colf.shape[1]
+        got = K.score_residual_argmax(*args)
+        want = K.score_residual_argmax_plain(*args)
         torch.cuda.synchronize()
         gi, gs, gr = (float(x) for x in got)
         wi, ws, wr = (float(x) for x in want)
@@ -113,31 +201,95 @@ def check_kernels(dev):
         if err > SCORE_RTOL * abs(ws):
             raise AssertionError(f"kernel A {name}: score {gs} vs plain {ws}")
         a_err = max(a_err, err)
+        dev_k = device_per_call(lambda: K.score_residual_argmax(*args))
+        dev_p = device_per_call(lambda: K.score_residual_argmax_plain(*args))
+        bound, by = _score_bound(M, Kc, Rr)
+        fiber = M == 1 or Kc == 1
+        if fiber and not 0 < dev_k["kernels_per_call"] <= 1:
+            raise AssertionError(f"kernel A {name}: {dev_k['kernels_per_call']} kernels "
+                                 "per fiber call (one is the design)")
         row = {"kernel": "score_residual_argmax", "shape": [M, Kc, Rr],
                "case": name, "index": int(gi), "max_abs_err": err,
-               "ms": _time_ms(lambda: K.score_residual_argmax(vals, colf, rowf, mask)),
-               "plain_ms": _time_ms(lambda: K.score_residual_argmax_plain(vals, colf, rowf, mask))}
+               "ms": _time_ms(lambda: K.score_residual_argmax(*args)),
+               "plain_ms": _time_ms(lambda: K.score_residual_argmax_plain(*args)),
+               "device_us": dev_k["device_us"], "kernels_per_call": dev_k["kernels_per_call"],
+               "by_kernel_us": dev_k["by_kernel_us"],
+               "plain_device_us": dev_p["device_us"], "bound_us": bound, "bound_by": by,
+               "share_of_bound": bound / dev_k["device_us"],
+               "l2": "warm: back-to-back calls" if 8 * M * Kc < 40e6 else "exceeds L2"}
+        if fiber:
+            row["host_us_per_call"] = host_us_per_call(lambda: K.score_residual_argmax(*args))
         _emit(row)
         a_rows.append(row)
 
-    b_shapes = [("rook_fiber", B, 5, N), ("lottery", 190, 5, N), ("init_diag", 520, 5, N),
-                ("init_fibers", 325, 5, N), ("long_chain", 100584, 255, 33)]
     b_rows = []
-    for name, Bb, d, n in b_shapes:
-        tables = torch.randn((2, n), generator=gen, dtype=torch.float64).to(dev)
-        ind = torch.randint(-2, n + 2, (Bb, d), generator=gen, dtype=torch.int32).to(dev)
+    for name, (tables, ind) in b_cases:
+        L, n = tables.shape
         got = K.small_table_lookup(tables, ind)
         want = K.small_table_lookup_plain(tables, ind)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"kernel B {name}: not bitwise equal to the plain version")
-        row = {"kernel": "small_table_lookup", "shape": [2, Bb, d, n], "case": name,
+        inside = ind.clamp(0, n - 1)   # the library gather takes in-range indices only
+        flat = inside.view(-1)
+        if not torch.equal(K.small_table_lookup(tables, inside).view(L, -1),
+                           torch.index_select(tables, 1, flat)):
+            raise AssertionError(f"kernel B {name}: index_select disagrees")
+        dev_k = device_per_call(lambda: K.small_table_lookup(tables, ind))
+        dev_l = device_per_call(lambda: torch.index_select(tables, 1, flat))
+        bound, by = _lookup_bound(L, ind.numel(), n)
+        row = {"kernel": "small_table_lookup", "shape": [L, *ind.shape, n], "case": name,
                "max_abs_err": 0.0,
                "ms": _time_ms(lambda: K.small_table_lookup(tables, ind)),
-               "plain_ms": _time_ms(lambda: K.small_table_lookup_plain(tables, ind))}
+               "plain_ms": _time_ms(lambda: K.small_table_lookup_plain(tables, ind)),
+               "library_ms": _time_ms(lambda: torch.index_select(tables, 1, flat)),
+               "device_us": dev_k["device_us"], "kernels_per_call": dev_k["kernels_per_call"],
+               "library_device_us": dev_l["device_us"], "bound_us": bound, "bound_by": by,
+               "share_of_bound": bound / dev_k["device_us"]}
+        if name == "rook_fiber":
+            row["host_us_per_call"] = host_us_per_call(lambda: K.small_table_lookup(tables, ind))
         _emit(row)
         b_rows.append(row)
     return a_rows, a_err, b_rows
+
+
+def _kernels_of(root: str):
+    """The ops.kernels module of the checkout at `root`, imported under
+    another package name so that it sits beside this checkout's."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+
+    name = "other_ttcross_tpu_torch"
+    pkg = Path(root).resolve() / "ttcross_tpu_torch"
+    spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(name + ".ops.kernels")
+
+
+def compare_with(root: str, a_cases, b_cases) -> dict:
+    """Device-only and host time per call of the kernels of the checkout at
+    `root` and of this one, on the same inputs, in turns: other, this,
+    this, other."""
+    from ttcross_tpu_torch.ops import kernels as K
+
+    other = _kernels_of(root)
+    cases = [(name, "score_residual_argmax", args) for name, args in a_cases]
+    cases += [(name, "small_table_lookup", args) for name, args in b_cases[:1]]
+    out = {}
+    for name, fn, args in cases:
+        reads = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            f = getattr(other if who == "other" else K, fn)
+            dev = device_per_call(lambda: f(*args))
+            reads[who].append({"device_us": dev["device_us"],
+                               "kernels_per_call": dev["kernels_per_call"],
+                               "host_us_per_call": host_us_per_call(lambda: f(*args))})
+        out[f"{fn} {name}"] = reads
+    return {"phase": "compare", "other": root, "per_call": out}
 
 
 def run_headline(dev, oversample, return_state=False, key=0):
@@ -201,71 +353,24 @@ def check_small_against_cpu(dev) -> dict:
     from ttcross_tpu_torch.apps import make_ising
     from ttcross_tpu_torch.cross import cross
 
-    out = {}
-    for where in ("cpu", dev):
-        p = make_ising("C", 5, 17, device=where)
-        out[str(where)] = cross(p.fun, [p.n] * p.d, max_rank=8, pivoting=1,
-                                quad=[p.quad_weights] * p.d, truth=p.truth,
-                                oversample=2, device=where)
-    c, g = out["cpu"], out[str(dev)]
-    if (c.ranks, c.neval, c.sweeps) != (g.ranks, g.neval, g.sweeps):
-        raise AssertionError(f"C_5 on the card {g.ranks} {g.neval} != CPU {c.ranks} {c.neval}")
-    rel = float(np.max(np.abs(np.subtract(g.values, c.values)) / np.abs(c.values)))
-    if rel > 1e-11:
-        raise AssertionError(f"C_5 values on the card differ from the CPU by {rel}")
-    return {"phase": "small_vs_cpu", "ranks": list(g.ranks), "n_evals": g.neval,
-            "max_rel_value_diff": rel}
-
-
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
-def profile_kernels(dev, calls: int = 50) -> None:
-    """Device time per call (torch.profiler, kernels only) of each kernel and
-    its plain version at the main path's shapes: the CUDA-event times of
-    phase 3 include the host's launch overhead, which these leave out."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from ttcross_tpu_torch.ops import kernels as K
-
-    gen = torch.Generator().manual_seed(99)
-    R, N, B = 30, 65, 1950
-    col = _score_inputs(gen, B, 1, R, dev)
-    row = _score_inputs(gen, 1, B, R, dev)
-    sup = _score_inputs(gen, B, B, R, dev)
-    big = _score_inputs(gen, 8192, 8192, 32, dev)
-    tables = torch.randn((2, N), generator=gen, dtype=torch.float64).to(dev)
-    ind = torch.randint(0, N, (B, 5), generator=gen, dtype=torch.int32).to(dev)
-    cases = {
-        "score_residual_argmax superblock": lambda: K.score_residual_argmax(*sup),
-        "score_residual_argmax_plain superblock": lambda: K.score_residual_argmax_plain(*sup),
-        "score_residual_argmax random_8192": lambda: K.score_residual_argmax(*big),
-        "score_residual_argmax_plain random_8192": lambda: K.score_residual_argmax_plain(*big),
-        "score_residual_argmax col_pass": lambda: K.score_residual_argmax(*col),
-        "score_residual_argmax_plain col_pass": lambda: K.score_residual_argmax_plain(*col),
-        "score_residual_argmax row_pass": lambda: K.score_residual_argmax(*row),
-        "score_residual_argmax_plain row_pass": lambda: K.score_residual_argmax_plain(*row),
-        "small_table_lookup rook_fiber": lambda: K.small_table_lookup(tables, ind),
-        "small_table_lookup_plain rook_fiber": lambda: K.small_table_lookup_plain(tables, ind),
-    }
-    out = {}
-    for label, fn in cases.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
-        out[label] = {"device_us": sum(_device_us(e) for e in kern) / calls,
-                      "kernels_per_call": sum(e.count for e in kern) / calls,
-                      "by_kernel_us": {e.key[:60]: _device_us(e) / calls for e in kern}}
-    _emit({"phase": "profile_kernels", "per_call": out})
+    rows = {}
+    for piv in (1, -1):          # -1 scores each superblock on kernel A's 2-D path
+        out = {}
+        for where in ("cpu", dev):
+            p = make_ising("C", 5, 17, device=where)
+            out[str(where)] = cross(p.fun, [p.n] * p.d, max_rank=8, pivoting=piv,
+                                    quad=[p.quad_weights] * p.d, truth=p.truth,
+                                    oversample=2, device=where)
+        c, g = out["cpu"], out[str(dev)]
+        if (c.ranks, c.neval, c.sweeps) != (g.ranks, g.neval, g.sweeps):
+            raise AssertionError(f"C_5 pivoting={piv} on the card {g.ranks} {g.neval} "
+                                 f"!= CPU {c.ranks} {c.neval}")
+        rel = float(np.max(np.abs(np.subtract(g.values, c.values)) / np.abs(c.values)))
+        if rel > 1e-11:
+            raise AssertionError(f"C_5 pivoting={piv}: the card differs from the CPU by {rel}")
+        rows[f"pivoting={piv}"] = {"ranks": list(g.ranks), "n_evals": g.neval,
+                                   "max_rel_value_diff": rel}
+    return {"phase": "small_vs_cpu", **rows}
 
 
 def profile_headline(dev) -> None:
@@ -318,7 +423,12 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
 
-    a_rows, a_err, b_rows = check_kernels(dev)
+    a_cases, b_cases = kernel_cases(dev, torch.Generator().manual_seed(1234))
+    a_rows, a_err, b_rows = check_kernels(dev, a_cases, b_cases)
+    args = sys.argv[1:]
+    if "--parent" in args:
+        _emit(compare_with(args[args.index("--parent") + 1], a_cases, b_cases))
+    del a_cases, b_cases
 
     K.reset_launch_counts()
     res, first, digits = run_headline(dev, oversample=6)
@@ -335,9 +445,8 @@ def main() -> int:
            "steady_s": steady, "steady_digits": digits2, "launches": launches,
            "steady_launches": steady_launches, "digits_by_key": by_key,
            "median_digits": median})
-    if "--profile" in sys.argv[1:]:
+    if "--profile" in args:
         profile_headline(dev)
-        profile_kernels(dev)
     if median < DIGITS_MEDIAN or min(by_key) < DIGITS_FLOOR:
         raise AssertionError(f"headline digits over keys {by_key}: median {median} < "
                              f"{DIGITS_MEDIAN} or a key < {DIGITS_FLOOR}")
@@ -358,19 +467,21 @@ def main() -> int:
     if not on_card:
         raise AssertionError("the cross state left the card")
 
-    main_rows = {"score_residual_argmax": a_rows[0], "small_table_lookup": b_rows[0]}
+    def summary(row, launched, err):
+        return {"launches": launched, "max_abs_err": err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "device_ms": row["device_us"] * 1e-3,
+                "bound_ms": row["bound_us"] * 1e-3, "bound_us": row["bound_us"],
+                "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+                "shape": row["shape"]}
+
     print(smi, flush=True)
     _emit({"kernels": [
         {"name": "score_residual_argmax", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "ttcross_tpu/ops/pallas_kernels.py:62",
-         "launches": launches["score_residual_argmax"], "max_abs_err": a_err,
-         "ms": main_rows["score_residual_argmax"]["ms"],
-         "plain_ms": main_rows["score_residual_argmax"]["plain_ms"]},
+         **summary(a_rows[0], launches["score_residual_argmax"], a_err)},
         {"name": "small_table_lookup", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "ttcross_tpu/ops/pallas_kernels.py:151",
-         "launches": launches["small_table_lookup"], "max_abs_err": 0.0,
-         "ms": main_rows["small_table_lookup"]["ms"],
-         "plain_ms": main_rows["small_table_lookup"]["plain_ms"]},
+         **summary(b_rows[0], launches["small_table_lookup"], 0.0)},
     ]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

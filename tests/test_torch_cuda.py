@@ -40,7 +40,9 @@ def _score_args(gen, M, Kc, R, dev, frac=0.2):
 
 
 @pytest.mark.parametrize("shape", [(48, 80, 6), (130, 1, 5), (1, 130, 5), (1950, 1, 30),
-                                   (1, 1950, 30), (700, 900, 30), (3, 5000, 17)])
+                                   (1, 1950, 30), (700, 900, 30), (3, 5000, 17),
+                                   (100000, 1, 30), (1, 70001, 30), (1950, 1950, 30),
+                                   (129, 257, 17), (37, 1001, 3), (8192, 8192, 32)])
 def test_score_kernel_matches_plain(shape, gen, cuda_device):
     args = _score_args(gen, *shape, cuda_device)
     n0 = K.score_residual_argmax.launches
@@ -69,6 +71,52 @@ def test_score_kernel_one_entry_tie_and_nan(cuda_device):
     assert torch.isnan(got[1])
 
 
+def _zero_factors(M, Kc, R, dev):
+    f64 = dict(dtype=torch.float64, device=dev)
+    return torch.zeros((M, R), **f64), torch.zeros((R, Kc), **f64)
+
+
+@pytest.mark.parametrize("M,Kc", [(1950, 1), (1, 1950), (100000, 1), (1950, 1950), (129, 257)])
+def test_score_kernel_ties_nan_and_all_masked_across_blocks(M, Kc, cuda_device):
+    """Ties in different blocks (and cluster ranks) go to the first flat
+    index, a NaN in the last block wins, and an all-masked matrix gives
+    index 0 and score -1, as the plain version does."""
+    colf, rowf = _zero_factors(M, Kc, 30, cuda_device)
+    vals = torch.zeros((M, Kc), dtype=torch.float64, device=cuda_device)
+    mask = torch.ones((M, Kc), dtype=torch.bool, device=cuda_device)
+    n = M * Kc
+    first, second = n // 7, n - 2          # several blocks / tiles apart
+    vals.view(-1)[second] = -3.0
+    vals.view(-1)[first] = 3.0
+    got = K.score_residual_argmax(vals, colf, rowf, mask)
+    assert int(got[0]) == int(K.score_residual_argmax_plain(vals, colf, rowf, mask)[0]) == first
+    assert float(got[1]) == 3.0 and float(got[2]) == 3.0
+    vals.view(-1)[n - 1] = float("nan")
+    got = K.score_residual_argmax(vals, colf, rowf, mask)
+    assert int(got[0]) == n - 1 and torch.isnan(got[1])
+    mask.zero_()
+    got = K.score_residual_argmax(vals, colf, rowf, mask)
+    want = K.score_residual_argmax_plain(vals, colf, rowf, mask)
+    assert int(got[0]) == int(want[0]) == 0 and float(got[1]) == float(want[1]) == -1.0
+
+
+@pytest.mark.parametrize("shape", [(1950, 1, 30), (1, 1950, 30)])
+def test_score_kernel_fiber_is_one_kernel(shape, gen, cuda_device):
+    """A rook pass's call of kernel A is one launch on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _score_args(gen, *shape, cuda_device)
+    K.score_residual_argmax(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            K.score_residual_argmax(*args)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    assert [e.key for e in kern] and all("score_fiber_kernel" in e.key for e in kern)
+    assert 0 < sum(e.count for e in kern) <= 10
+
+
 @pytest.mark.parametrize("B,d,n", [(1950, 5, 65), (190, 5, 65), (4097, 17, 33), (0, 5, 65)])
 def test_lookup_kernel_matches_plain(B, d, n, gen, cuda_device):
     tables = torch.as_tensor(gen.standard_normal((2, n))).to(cuda_device)
@@ -92,7 +140,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
                                                              device=cuda_device))
 
 
-def test_small_cross_on_the_card_matches_the_cpu(cuda_device):
+@pytest.mark.parametrize("pivoting", [1, 0, -1])
+def test_small_cross_on_the_card_matches_the_cpu(pivoting, cuda_device):
     from ttcross_tpu_torch.apps import make_ising
     from ttcross_tpu_torch.cross import cross
 
@@ -100,12 +149,13 @@ def test_small_cross_on_the_card_matches_the_cpu(cuda_device):
     K.reset_launch_counts()
     for where in ("cpu", cuda_device):
         p = make_ising("C", 5, 17, device=where)
-        runs[str(where)] = cross(p.fun, [p.n] * p.d, max_rank=8, pivoting=1,
+        runs[str(where)] = cross(p.fun, [p.n] * p.d, max_rank=8, pivoting=pivoting,
                                  quad=[p.quad_weights] * p.d, truth=p.truth,
                                  return_state=True, device=where)
     counts = K.launch_counts()
     c, g = runs["cpu"], runs[str(cuda_device)]
-    assert min(counts.values()) > 0
+    assert counts["small_table_lookup"] > 0
+    assert (counts["score_residual_argmax"] > 0) == (pivoting != 0)   # piv 0 scores no fiber
     assert all(t.device.type == "cuda" for t in g.state)
     assert (g.ranks, g.neval, g.sweeps) == (c.ranks, c.neval, c.sweeps)
     np.testing.assert_allclose(g.values, c.values, rtol=1e-11)

@@ -6,7 +6,9 @@ JAX engine's lottery uniforms, recomputed here from the same key chain
 sweep).  With the same uniforms the pivot choices, ranks and evaluation
 counts agree exactly; floating-point values agree to rounding."""
 
+import inspect
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -23,6 +25,7 @@ from ttcross_tpu.config import precision_thresholds
 from ttcross_tpu.cross import cross as jcross
 from ttcross_tpu.cross.engine import CrossConfig as JCrossConfig
 from ttcross_tpu.cross.engine import make_engine as jmake_engine
+from ttcross_tpu_torch.apps import make_ising
 from ttcross_tpu_torch.cross import cross
 from ttcross_tpu_torch.cross.engine import CrossConfig, _cross, make_engine
 from ttcross_tpu_torch.interop import ising_from_numpy, state_from_numpy
@@ -154,21 +157,44 @@ def test_public_cross_runs_and_rejects_unported(problems):
     _, tp = problems
     res = cross(tp.fun, [tp.n] * tp.d, max_rank=6, accuracy=1e-10, pivoting=1,
                 quad=[tp.quad_weights] * tp.d, truth=tp.truth, key=3,
-                use_pallas=True, return_state=True)
+                use_pallas=True, return_state=True, device="cpu")
     assert res.tt.ready() and res.tt.r == res.ranks and max(res.ranks) <= 6
     assert res.state.cores.device.type == "cpu"
     assert -np.log10(res.errors[-1]) > 4.0
     for kw in (dict(host_reeval=True), dict(rank_chunks="auto"), dict(chain=object()),
                dict(sweep_mode="jacobi-rb"), dict(refine_sweeps=1), dict(adaptive=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cross(tp.fun, [tp.n] * tp.d, max_rank=4, **kw)
+            cross(tp.fun, [tp.n] * tp.d, max_rank=4, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("entry", [cross, make_ising])
+def test_entry_points_default_to_the_card(entry):
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_no_card_and_no_device_raises(problems):
+    """Without a card, the default device fails at its first allocation
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises((RuntimeError, AssertionError)):
+        make_ising("C", 5, 17)
+    _, tp = problems
+    with pytest.raises((RuntimeError, AssertionError)):
+        cross(tp.fun, [tp.n] * tp.d, max_rank=4, pivoting=1)
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, ttcross_tpu_torch\n"
-            "from ttcross_tpu_torch.cross import cross\n"
-            "from ttcross_tpu_torch.apps import make_ising\n"
-            "import ttcross_tpu_torch.interop\n"
+    """Every module of the port, and chip_smoke.py, import without JAX or
+    the JAX package being loaded."""
+    import ttcross_tpu_torch
+
+    mods = sorted(m.name for m in pkgutil.walk_packages(ttcross_tpu_torch.__path__,
+                                                        "ttcross_tpu_torch."))
+    assert "ttcross_tpu_torch.ops.kernels" in mods and len(mods) > 15
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ttcross_tpu.'))"
             " or m == 'ttcross_tpu']\n"
             "assert not bad, bad\n")

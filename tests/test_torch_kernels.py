@@ -131,3 +131,55 @@ def test_cpu_wrappers_take_the_plain_path(rng):
     assert out.shape == (2,) + ind.shape
     K.score_residual_argmax(*[torch.as_tensor(a) for a in _score_case("random", rng)])
     assert K.launch_counts() == {"score_residual_argmax": 0, "small_table_lookup": 0}
+
+
+_SMS = 132    # an H100 SXM; the plan takes the count of the card it runs on
+
+
+def _coverage(plan, M, Kc):
+    """How many times the kernel's walk over the plan's blocks visits each
+    element (fibers) or each tile (2-D; the tiles partition the matrix)."""
+    if plan.path == K.TWO_D:
+        tm, tk = plan.tile
+        tiles = -(-M // tm) * -(-Kc // tk)
+        seen = np.zeros(tiles, np.int64)
+        for b in range(plan.blocks):
+            seen[b::plan.blocks] += 1
+        return seen
+    length = max(M, Kc)
+    per = max(plan.tile)
+    tiles = -(-length // per)
+    seen = np.zeros(length, np.int64)
+    for rank in range(plan.cluster):
+        for tile in range(rank, tiles, plan.cluster):
+            seen[tile * per:(tile + 1) * per] += 1
+    return seen
+
+
+@pytest.mark.parametrize("M,Kc,R", [
+    (1950, 1, 30), (1, 1950, 30), (1, 1, 30), (100000, 1, 30), (1, 70001, 30),
+    (1950, 1950, 30), (8192, 8192, 32), (129, 257, 17), (37, 1001, 3),
+    (1950, 1, 1), (1950, 1, 17), (1950, 1, 64), (1, 1950, 64),
+    (2, 1950, 1), (513, 3, 64), (4096, 1, 500)])
+def test_plan_covers_each_element_once_within_the_card(M, Kc, R):
+    plan = K._plan(M, Kc, R, _SMS)
+    fiber = M == 1 or Kc == 1
+    assert plan.path == ((K.COL if Kc == 1 else K.ROW) if fiber else K.TWO_D)
+    assert np.all(_coverage(plan, M, Kc) == 1)
+    assert plan.smem <= K.SMEM_OPTIN - 1024      # room for the static shared memory
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512
+    assert 1 <= plan.cluster <= 16      # non-portable clusters above 8
+    if fiber:      # one launch: the whole grid is one cluster, one partial per warp
+        assert plan.cluster == plan.blocks and plan.nparts == plan.blocks * plan.threads // 32
+        assert plan.tile == ((plan.threads, 1) if Kc == 1 else (1, plan.threads))
+    else:          # persistent: at most one block per SM, one partial each
+        assert plan.cluster == 1 and plan.blocks <= _SMS and plan.nparts == plan.blocks
+    if (M, Kc) in ((1950, 1), (1, 1950)) and R <= 64:
+        assert (plan.blocks, plan.threads) == (16, 128)  # the rook passes: 16 blocks
+
+
+def test_plan_refuses_what_no_block_holds():
+    with pytest.raises(ValueError):
+        K._plan(1950, 1, 2000, _SMS)       # 32 rows of colf exceed shared memory
+    with pytest.raises(ValueError):
+        K._plan(0, 5, 3, _SMS)

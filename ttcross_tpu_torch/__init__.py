@@ -6,7 +6,8 @@ Hopper (sm_90a).  The JAX package ``ttcross_tpu`` is the reference this
 package is tested against; this package imports neither it nor jax.
 
 Entry points: ``ttcross_tpu_torch.apps.make_ising`` and
-``ttcross_tpu_torch.cross.cross``, each with an explicit ``device``.
+``ttcross_tpu_torch.cross.cross``; both run on the card (``device="cuda"``)
+unless the caller passes ``device="cpu"``.
 """
 
 __all__ = ["apps", "cross", "interop", "ops", "tt", "utils"]

@@ -92,11 +92,12 @@ def _tables(nodes, weights, device) -> torch.Tensor:
 
 
 def make_ising(kind: str = "C", m: int = 6, n: int = 65,
-               device: str | torch.device = "cpu") -> IsingProblem:
+               device: str | torch.device = "cuda") -> IsingProblem:
     """Build the discretized Ising problem exactly as the reference's test
     program does (test_crs_ising.f90:102-144): Gauss-Legendre on [0, 1] with the
     measure normalization, underflow rescaling for D/E with m >= 10, and
-    max-weight normalization for m >= 32.  ``device`` places the tables."""
+    max-weight normalization for m >= 32.  ``device`` places the tables:
+    the card unless the caller asks for ``device="cpu"`` (no fallback)."""
     from .truths import ising_truth
 
     kind = kind.upper()

@@ -504,12 +504,14 @@ def cross(
     rank_caps=None,
     adaptive: float | bool = 0.0,
     chain=None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> CrossResult:
     """Approximate the black-box tensor fun in TT format by DMRG-greedy
     cross interpolation; the signature of ttcross_tpu.cross.cross plus
     ``device``, which places the state (fun must accept int32 index
-    tensors on that device).
+    tensors on that device): the card unless the caller asks for
+    ``device="cpu"``.  Nothing probes for a GPU and nothing falls back:
+    without one, the default raises at the first allocation.
 
     fun: batched integrand, ind (B, d) int32 -> (B,) values.
     n: per-mode sizes.  max_rank: padded/maximum TT rank.  accuracy: stop

@@ -6,6 +6,9 @@
 // ttcross_tpu_torch/ops/kernels.py.  Every entry point launches on the
 // stream it is given, allocates nothing (the Python wrapper allocates
 // outputs and scratch with torch.empty) and returns cudaGetLastError().
+// The launch geometry (grid, block, cluster, shared memory) is chosen by
+// ops/kernels.py::_plan and passed in; the kernels derive their walk over
+// the matrix from gridDim and blockDim.
 //
 // Both kernels compute in float64: the H100 has native FP64, so the f32
 // scoring and the f32 limb split of the TPU kernels (Mosaic has no f64)
@@ -15,16 +18,37 @@
 #include <cmath>
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;  // threads per block of both kernels
-constexpr int kRChunk = 8;     // rows of rowf staged in shared memory at once
-constexpr int kTile = 64;      // 2-D case: a block scores a kTile x kTile tile
-constexpr int kMicro = 4;      // ... each thread kMicro x kMicro elements of it
-constexpr int kRTile = 16;     // ... with kRTile values of r staged per step
+constexpr int kThreads = 256;  // threads per block of kernel B
 constexpr int kReduceThreads = 1024;
+
+constexpr int kFiberThreadsMax = 512;  // block size bound of the fiber kernels
+
+// 2-D path tiles: a block step scores a kBM x kBN tile of (M, K); R is
+// walked in chunks of kKC (zero-padded to the MMA depth of 8).  The +4
+// pitches put the 16 lanes of a half-warp on 16 distinct 8-byte bank
+// pairs for the A and B fragment loads.  vals and mask rows are copied as
+// the 16-byte chunks that cover them, so their tile rows have room for an
+// offset of up to 8 (vals) or 15 (mask) bytes.
+constexpr int kTileThreads = 512;
+constexpr int kBM = 64;
+constexpr int kBN = 64;
+constexpr int kKC = 32;
+constexpr int kStages = 3;        // depth of the cp.async ring
+constexpr int kAP = kKC + 4;      // colf tile pitch (doubles)
+constexpr int kBP = kBN + 4;      // rowf tile pitch (doubles)
+constexpr int kVP = kBN + 4;      // vals tile pitch (doubles; 16-byte rows)
+constexpr int kVChunks = (kBN * 8 + 16) / 16;  // 16-byte chunks per vals row
+constexpr int kMP = 80;                        // mask tile pitch (bytes)
+constexpr int kMChunks = (kBN + 16) / 16;      // 16-byte chunks per mask row
+constexpr int kTileSmem =
+    kStages * ((kBM * kAP + kKC * kBP + kBM * kVP) * (int)sizeof(double) + kBM * kMP);
 
 // ---------------------------------------------------------------------------
 // Kernel A: masked |residual| argmax.
@@ -36,20 +60,45 @@ constexpr int kReduceThreads = 1024;
 //     argmax_f  mask[f] ? |vals[f] - (colf @ rowf)[f]| : -1
 // with ties broken toward the SMALLER flat index (jnp.argmax / torch.argmax
 // semantics; the TPU kernel took the last) and NaN ranking above every
-// number, as torch.argmax does.
+// number, as torch.argmax does.  better() is a total order on (score,
+// index), so every reduction tree gives the same answer: the result is
+// deterministic, and no atomics are used.
 //
-// What bounds it: at the rook-fiber shapes of the main path ((1950, 1) and
-// (1, 1950) with R = 30) the work is ~60k FMAs, so launch and memory
-// latency are the whole cost.  At a full-pivoting superblock (1950 x 1950,
-// ~114 M FMAs) and larger it is the f64 FMA pipe fed from shared memory:
-// the 2-D kernel register-tiles 4 x 4 elements per thread so that each
-// shared load feeds two FMAs; at (8192, 8192, R=32) it reaches ~20 % of
-// the f64 peak and ~30 % of the memory bandwidth (PERF.md), and DMMA/TMA
-// are later work.  The design keeps the residual out of device memory:
-// pass 1 forms it in registers (R looped, colf/rowf staged in shared
-// memory in chunks of r so any R fits), scores it and reduces each block
-// to one (score, index, residual) partial; pass 2 reduces the partials in
-// one block.  No atomics: the result is deterministic.
+// Two paths, picked by the shape:
+//
+// * Fibers (K = 1: a rook column pass, M = 1: a row pass; the main path's
+//   (1950, 1) and (1, 1950) at R = 30).  ~60k FMAs and ~0.5 MB: launch and
+//   memory latency are the whole cost, so the design is about latency.
+//   ONE launch: a thread block cluster of up to 16 blocks (one per 128
+//   elements on the main path) walks the fiber; each warp writes its best
+//   to the scratch buffer and arrives on the cluster barrier, and rank 0's
+//   first warp alone waits there, then reduces the partials and writes the
+//   result.  The block copies its tile's factor into shared memory with
+//   cp.async, every copy in flight at once; a column pass's rows of colf
+//   (R contiguous doubles each) are one contiguous range, copied as 16-byte
+//   chunks by neighbouring threads, instead of each thread walking its own
+//   240-byte row.  Each element's sum is acc = fma(colf[m, r], rowf[r, k],
+//   acc) for r = 0..R-1 in order from 0.0, then vals - acc: the bits of the
+//   earlier two-pass kernel, so the cross takes the same pivots.
+//
+// * 2-D (M > 1 and K > 1: the full-pivoting superblock, (1950, 1950) at
+//   R = 30).  Bounded by device memory: 9 bytes of vals and mask per
+//   element against 2R flops (at R = 32: 7 flop/byte, below the ~20
+//   flop/byte where 67 TFLOP/s of f64 tensor cores and 3.35 TB/s meet).
+//   colf @ rowf runs on the f64 tensor cores (mma.sync m16n8k8 DMMA), so
+//   the FMA pipe no longer limits it; a persistent grid (one block of 16
+//   warps per SM) walks 64 x 64 tiles, and cp.async copies the next two
+//   tiles' vals, mask, colf and rowf into a three-stage shared-memory ring
+//   while the current tile is multiplied and scored.  TMA is not used: it
+//   needs 16-byte row strides, which an odd K does not give.  What limits
+//   it is instruction issue (copies, fragments, epilogue), so the copies
+//   use fixed per-thread assignments and the epilogue compares integer
+//   keys.  The per-block partials are reduced by a second, one-block
+//   launch (score_final_kernel): at these shapes a call takes tens of
+//   microseconds, against ~2 for that launch.  The DMMA sum runs in another
+//   order than the fiber path's FMA chain; scores agree with the plain
+//   version (cuBLAS) to ~1e-15 relative, and chip_smoke.py holds them to
+//   1e-12.
 // ---------------------------------------------------------------------------
 
 struct Best {
@@ -106,137 +155,380 @@ __device__ Best block_reduce(Best b) {
   return b;
 }
 
-// Fibers (K = 1 or M = 1).  Block (blockIdx.x, blockIdx.y) covers columns
-// [bx*tk, bx*tk + tk) and rows [by*tm, by*tm + tm) with tm = kThreads / tk;
-// thread t takes element (t / tk, t % tk) of that tile.  The wrapper picks
-// tk = 1 for a column fiber (K = 1) and kThreads for a row fiber (M = 1),
-// so no thread idles.  Each element's sum runs over r = 0..R-1 in order.
-__global__ void __launch_bounds__(kThreads)
-score_partial_kernel(const double* __restrict__ vals,
-                     const double* __restrict__ colf,
-                     const double* __restrict__ rowf,
-                     const uint8_t* __restrict__ mask, long long M,
-                     long long K, int R, int tk, double* __restrict__ part_score,
-                     long long* __restrict__ part_idx,
-                     double* __restrict__ part_resid) {
-  __shared__ double rowf_s[kRChunk * kThreads];
+__device__ __forceinline__ void keep(Best& b, double sc, long long f, double res) {
+  if (better(sc, f, b.score, b.idx)) b = Best{sc, f, res};
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Fibers.  COL: K = 1, the fiber runs down colf's rows; else M = 1, along
+// rowf's columns.  L is the fiber's length.  The grid is one cluster of at
+// most 16 blocks; its blocks take tiles of blockDim.x elements in turn
+// (rank, rank + C, ...).  Dynamic shared memory: the tile's factor, then
+// the R-vector that every element shares (rowf for COL, colf otherwise).
+// The factor is, for COL, blockDim.x rows of colf as they lie in memory
+// (pitch R, from a 16-byte boundary), else R rows of blockDim.x columns of
+// rowf.  Every copy of a tile is issued at once with cp.async (no register
+// round trip), so the tile waits for one memory latency, not R of them.
+// The scratch buffer holds one partial per warp of the cluster.
+template <bool COL>
+__global__ void __launch_bounds__(kFiberThreadsMax)
+score_fiber_kernel(const double* __restrict__ vals,
+                   const double* __restrict__ colf,
+                   const double* __restrict__ rowf,
+                   const uint8_t* __restrict__ mask, long long L, int R,
+                   double* __restrict__ part_score, long long* __restrict__ part_idx,
+                   double* __restrict__ part_resid, long long* __restrict__ out_idx,
+                   double* __restrict__ out_score,
+                   double* __restrict__ out_resid) {
+  extern __shared__ __align__(16) double fiber_s[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned C = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
   const int t = threadIdx.x;
-  const int tm = kThreads / tk;
-  const long long m = (long long)blockIdx.y * tm + t / tk;
-  const long long k0 = (long long)blockIdx.x * tk;
-  const long long k = k0 + t % tk;
-  const bool inside = m < M && k < K;
+  const int T = blockDim.x;
+  double* tile_f = fiber_s;
+  double* vec = fiber_s + (COL ? T * R + 2 : T * R);
+  const double* vsrc = COL ? rowf : colf;
+  for (int r = t; r < R; r += T) cp_async8(vec + r, vsrc + r);
 
-  double acc = 0.0;
-  for (int r0 = 0; r0 < R; r0 += kRChunk) {
-    const int rc = min(kRChunk, R - r0);
-    __syncthreads();  // the previous chunk has been consumed
-    for (int e = t; e < kRChunk * tk; e += kThreads) {
-      const int rr = e / tk;
-      const long long kg = k0 + e % tk;
-      rowf_s[e] = (rr < rc && kg < K) ? rowf[(long long)(r0 + rr) * K + kg] : 0.0;
-    }
-    __syncthreads();
-    if (inside) {
-      const double* crow = colf + m * R + r0;
-#pragma unroll
-      for (int rr = 0; rr < kRChunk; ++rr) {
-        if (rr < rc) acc = fma(crow[rr], rowf_s[rr * tk + t % tk], acc);
-      }
-    }
-  }
-
+  const long long ntiles = (L + T - 1) / T;
   Best b{-INFINITY, LLONG_MAX, 0.0};
-  if (inside) {
-    const long long f = m * K + k;
-    const double res = vals[f] - acc;
-    b = Best{mask[f] ? fabs(res) : -1.0, f, res};
+  for (long long tile = rank; tile < ntiles; tile += C) {
+    const long long e0 = tile * T;
+    const int n = (int)min((long long)T, L - e0);
+    const long long f = e0 + t;
+    if (tile != rank) __syncthreads();  // the previous tile has been consumed
+    int off = 0;  // COL: doubles between the tile's first 16-byte chunk and its first row
+    if (COL) {
+      // n rows of colf are one contiguous range, copied raw (pitch R) as the
+      // 16-byte chunks that cover it: neighbouring threads on neighbouring
+      // chunks, each chunk holding at least one byte of the range
+      const uintptr_t src = reinterpret_cast<uintptr_t>(colf + e0 * R);
+      const uintptr_t base = src & ~uintptr_t(15);
+      off = (int)((src - base) >> 3);
+      const int chunks = (off + n * R + 1) / 2;
+      for (int j = t; j < chunks; j += T) {
+        cp_async16(tile_f + 2 * j, reinterpret_cast<const void*>(base + 16 * j));
+      }
+    } else if (t < n) {
+      for (int r = 0; r < R; ++r) cp_async8(tile_f + r * T + t, rowf + (long long)r * L + f);
+    }
+    cp_async_commit();
+    double v = 0.0;
+    bool on = false;
+    if (t < n) {  // in flight with the copies
+      v = vals[f];
+      on = mask[f] != 0;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (t < n) {
+      double acc = 0.0;
+      if (COL && R <= 32) {
+        // the main path's rank: unrolled in full, so every shared load can
+        // be issued ahead of the chain (the row pass reads faster without)
+        const double* a = tile_f + off + t * R;
+#pragma unroll
+        for (int r = 0; r < 32; ++r)
+          if (r < R) acc = fma(a[r], vec[r], acc);
+      } else if (COL) {
+        const double* a = tile_f + off + t * R;
+#pragma unroll 6
+        for (int r = 0; r < R; ++r) acc = fma(a[r], vec[r], acc);
+      } else {
+#pragma unroll 6
+        for (int r = 0; r < R; ++r) acc = fma(vec[r], tile_f[r * T + t], acc);
+      }
+      const double res = v - acc;
+      keep(b, on ? fabs(res) : -1.0, f, res);
+    }
   }
-  b = block_reduce(b);
+  const unsigned nparts = C * (T >> 5);
+  b = warp_reduce(b);
+  if ((t & 31) == 0) {
+    const unsigned i = rank * (T >> 5) + (t >> 5);
+    part_score[i] = b.score;
+    part_idx[i] = b.idx;
+    part_resid[i] = b.resid;
+  }
+  // release: the warps' partials are visible to whoever acquires the barrier
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  if (rank != 0 || t >= 32) return;
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+  Best q{-INFINITY, LLONG_MAX, 0.0};
+  for (unsigned i = t; i < nparts; i += 32) {
+    keep(q, __ldcg(part_score + i), __ldcg(part_idx + i), __ldcg(part_resid + i));
+  }
+  q = warp_reduce(q);
   if (t == 0) {
-    const long long bid = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-    part_score[bid] = b.score;
-    part_idx[bid] = b.idx;
-    part_resid[bid] = b.resid;
+    *out_idx = q.idx;
+    *out_score = q.score;
+    *out_resid = q.resid;
   }
 }
 
-// The 2-D case (M > 1 and K > 1).  A block of 16 x 16 threads scores a
-// kTile x kTile tile; thread (ty, tx) owns rows ty + 16 i and columns
-// tx + 16 j (i, j < kMicro) in registers.  Each step stages a kTile x kRTile
-// slab of colf and a kRTile x kTile slab of rowf in shared memory, after
-// which every thread does kMicro^2 FMAs per 2 kMicro shared loads (the
-// fiber kernel does one FMA per load).  Each element's sum still runs over
-// r = 0..R-1 in order, so both kernels give the same residual bits.
-__global__ void __launch_bounds__(kThreads)
-score_partial_tiled_kernel(const double* __restrict__ vals,
-                           const double* __restrict__ colf,
-                           const double* __restrict__ rowf,
-                           const uint8_t* __restrict__ mask, long long M,
-                           long long K, int R, double* __restrict__ part_score,
-                           long long* __restrict__ part_idx,
-                           double* __restrict__ part_resid) {
-  constexpr int kSide = kTile / kMicro;  // 16 threads per tile side
-  __shared__ double colf_s[kTile][kRTile + 1];  // +1: rows start on new banks
-  __shared__ double rowf_s[kRTile][kTile];
-  const int t = threadIdx.x;
-  const int tx = t % kSide;
-  const int ty = t / kSide;
-  const long long mb = (long long)blockIdx.y * kTile;
-  const long long kb = (long long)blockIdx.x * kTile;
+// D = A B + D for one 16 x 8 x 8 f64 tile on the tensor cores.  Fragments
+// (PTX ISA, mma.m16n8k8 .f64), with g = lane / 4 and q = lane % 4:
+// a = A[g][q], A[g+8][q], A[g][q+4], A[g+8][q+4]; b = B[q][g], B[q+4][g];
+// d = D[g][2q .. 2q+1], D[g+8][2q .. 2q+1].
+__device__ __forceinline__ void dmma16(double (&d)[4], const double (&a)[4], const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
 
-  double acc[kMicro][kMicro];
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0;
-
-  for (int r0 = 0; r0 < R; r0 += kRTile) {
-    __syncthreads();  // the previous slabs have been consumed
-    for (int e = t; e < kTile * kRTile; e += kThreads) {
-      const long long m = mb + e / kRTile;
-      const int rc = r0 + e % kRTile;
-      colf_s[e / kRTile][e % kRTile] = (m < M && rc < R) ? colf[m * R + rc] : 0.0;
-      const long long k = kb + e % kTile;
-      const int rr = r0 + e / kTile;
-      rowf_s[e / kTile][e % kTile] = (k < K && rr < R) ? rowf[(long long)rr * K + k] : 0.0;
-    }
-    __syncthreads();
-    const int rn = min(kRTile, R - r0);
-    for (int r = 0; r < rn; ++r) {
-      double a[kMicro], b[kMicro];
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i) a[i] = colf_s[ty + kSide * i][r];
-#pragma unroll
-      for (int j = 0; j < kMicro; ++j) b[j] = rowf_s[r][tx + kSide * j];
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-    }
+// The 2-D path.  A persistent grid: block b takes tiles b, b + gridDim.x,
+// ... of the ceil(M/kBM) x ceil(K/kBN) tiles (row-major), and each tile
+// takes ceil(R/kKC) chunks of R: the block's "items" are (tile, chunk)
+// pairs, and the copies of the next kStages - 1 items are in flight while
+// item i is computed.  One barrier per item: after it, item i has landed
+// and item i - 1 is consumed, so its slots are refilled then.  Sixteen warps as 4 x 4, each a 16 x 16 sub-tile
+// (2 x 2 DMMA tiles).  colf/rowf elements outside the matrix or past R are
+// zero, so the padded depth adds nothing; vals and mask rows are copied as
+// the 16-byte chunks that hold at least one of the row's bytes (such a
+// chunk lies in the same allocation), at the row address's offset in its
+// chunk.  Edge elements are copied or not, and never read.  Tile and item
+// counts fit in 32 bits (_plan checks), so no 64-bit division runs per
+// tile.  The epilogue ranks an element by an integer key: 0 if masked,
+// else the bits of |residual| (which order like the values) plus one, with
+// every NaN made the same largest key; ties go to the smaller flat index.
+// A thread's 8 elements of a tile are reduced as a tree, then compared
+// with its running best.
+__device__ __forceinline__ void ring_next(int& tl, int& kc, int& slot, int& vslot, int nk) {
+  slot = slot + 1 == kStages ? 0 : slot + 1;
+  if (++kc == nk) {
+    kc = 0;
+    ++tl;
+    vslot = vslot + 1 == kStages ? 0 : vslot + 1;
   }
+}
 
-  Best b{-INFINITY, LLONG_MAX, 0.0};
+__global__ void __launch_bounds__(kTileThreads, 1)
+score_dmma_kernel(const double* __restrict__ vals,
+                  const double* __restrict__ colf,
+                  const double* __restrict__ rowf,
+                  const uint8_t* __restrict__ mask, long long M, long long K,
+                  int R, double* __restrict__ part_score,
+                  long long* __restrict__ part_idx,
+                  double* __restrict__ part_resid) {
+  extern __shared__ __align__(16) unsigned char tile_s[];
+  double* As = reinterpret_cast<double*>(tile_s);  // [kStages][kBM][kAP]
+  double* Bs = As + kStages * kBM * kAP;           // [kStages][kKC][kBP]
+  double* Vs = Bs + kStages * kKC * kBP;           // [kStages][kBM][kVP]
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(Vs + kStages * kBM * kVP);  // [kStages][kBM][kMP]
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = (warp >> 2) * 16;  // warp's first row in the tile
+  const int wn = (warp & 3) * 16;   // ... and first column
+  const int ntk = (int)((K + kBN - 1) / kBN);
+  const int ntiles = (int)((M + kBM - 1) / kBM) * ntk;
+  const int nk = max(1, (R + kKC - 1) / kKC);  // R = 0: one chunk of zeros
+  const int mine = (int)blockIdx.x < ntiles ? (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int nitems = mine * nk;
+
+  // Fixed per-thread copy assignments (kTileThreads = 512): colf tile
+  // column ac of rows ai + 16 k, rowf tile column bc of rows bi + 8 k,
+  // vals row vi chunks vj + 8 k, mask row t / 5 chunk t % 5.
+  const int ac = t % kKC, ai = t / kKC;
+  const int bc = t % kBN, bi = t / kBN;
+  const int vi = t / 8, vj = t % 8;
+  auto load = [&](int tl, int kc, int slot, int vslot) {
+    const int tile = (int)blockIdx.x + tl * (int)gridDim.x;
+    const int tm = tile / ntk;
+    const long long m0 = (long long)tm * kBM, k0 = (long long)(tile - tm * ntk) * kBN;
+    const int r0 = kc * kKC;
+    double* A = As + slot * kBM * kAP;
+    double* B = Bs + slot * kKC * kBP;
+    const double* ca = colf + (m0 + ai) * R + r0 + ac;
+    if (m0 + kBM <= M && r0 + kKC <= R) {
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const long long m = mb + ty + kSide * i;
+      for (int k = 0; k < kBM * kKC / kTileThreads; ++k) {
+        cp_async8(A + (ai + 16 * k) * kAP + ac, ca + 16 * k * R);
+      }
+    } else {
 #pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      const long long k = kb + tx + kSide * j;
-      if (m < M && k < K) {
-        const long long f = m * K + k;
-        const double res = vals[f] - acc[i][j];
-        const double sc = mask[f] ? fabs(res) : -1.0;
-        if (better(sc, f, b.score, b.idx)) b = Best{sc, f, res};
+      for (int k = 0; k < kBM * kKC / kTileThreads; ++k) {
+        if (m0 + ai + 16 * k < M && r0 + ac < R) {
+          cp_async8(A + (ai + 16 * k) * kAP + ac, ca + 16 * k * R);
+        } else {
+          A[(ai + 16 * k) * kAP + ac] = 0.0;
+        }
       }
     }
+    const double* rb = rowf + (long long)(r0 + bi) * K + k0 + bc;
+    if (k0 + kBN <= K && r0 + kKC <= R) {
+#pragma unroll
+      for (int k = 0; k < kKC * kBN / kTileThreads; ++k) {
+        cp_async8(B + (bi + 8 * k) * kBP + bc, rb + 8 * k * K);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kKC * kBN / kTileThreads; ++k) {
+        if (r0 + bi + 8 * k < R && k0 + bc < K) {
+          cp_async8(B + (bi + 8 * k) * kBP + bc, rb + 8 * k * K);
+        } else {
+          B[(bi + 8 * k) * kBP + bc] = 0.0;
+        }
+      }
+    }
+    if (kc == 0 && m0 + vi < M) {
+      const int width = (int)min((long long)kBN, K - k0);
+      double* V = Vs + vslot * kBM * kVP + vi * kVP;
+      const uintptr_t row = reinterpret_cast<uintptr_t>(vals + (m0 + vi) * K + k0);
+      const uintptr_t base = row & ~uintptr_t(15), end = row + 8 * width;
+#pragma unroll
+      for (int j = vj; j < kVChunks; j += 8) {
+        if (base + 16 * j < end) {
+          cp_async16(V + 2 * j, reinterpret_cast<const void*>(base + 16 * j));
+        }
+      }
+      if (t < kBM * kMChunks && m0 + t / kMChunks < M) {
+        const int i = t / kMChunks, j = t % kMChunks;
+        const uintptr_t mrow = reinterpret_cast<uintptr_t>(mask + (m0 + i) * K + k0);
+        const uintptr_t chunk = (mrow & ~uintptr_t(15)) + 16 * j;
+        if (chunk < mrow + width) {
+          cp_async16(Ms + vslot * kBM * kMP + i * kMP + 16 * j,
+                     reinterpret_cast<const void*>(chunk));
+        }
+      }
+    }
+  };
+
+  unsigned long long bkey = 0;  // this thread's best: key, flat index, residual
+  long long bidx = LLONG_MAX;
+  double bres = 0.0;
+  double acc[2][4];  // per n-tile j: rows g and g + 8, columns 2q and 2q + 1
+  int ltl = 0, lkc = 0, lslot = 0, lvslot = 0;  // the next item to load
+#pragma unroll
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < nitems) {
+      load(ltl, lkc, lslot, lvslot);
+      ring_next(ltl, lkc, lslot, lvslot, nk);
+    }
+    cp_async_commit();
   }
+  int tl = 0, kc = 0, slot = 0, vslot = 0;  // the item computed
+  for (int it = 0; it < nitems; ++it) {
+    cp_async_wait<kStages - 2>();  // item it has landed (this thread's copies)
+    __syncthreads();               // ... everyone's; and item it - 1 is consumed
+    if (it + kStages - 1 < nitems) {  // refill item it - 1's slots
+      load(ltl, lkc, lslot, lvslot);
+      ring_next(ltl, lkc, lslot, lvslot, nk);
+    }
+    cp_async_commit();  // possibly empty: keeps the count of groups in flight exact
+    if (kc == 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0;
+    }
+    const double* A = As + slot * kBM * kAP;
+    const double* B = Bs + slot * kKC * kBP;
+    const int ksteps = (min(kKC, R - kc * kKC) + 7) / 8;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const double* Ak = A + (wm + g) * kAP + 8 * ks + q;
+      const double a[4] = {Ak[0], Ak[8 * kAP], Ak[4], Ak[8 * kAP + 4]};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const double* Bk = B + (8 * ks + q) * kBP + wn + 8 * j + g;
+        const double bb[2] = {Bk[0], Bk[4 * kBP]};
+        dmma16(acc[j], a, bb);
+      }
+    }
+    if (kc == nk - 1) {  // the tile's product is complete: score it
+      const int tile = (int)blockIdx.x + tl * (int)gridDim.x;
+      const int tm = tile / ntk;
+      const long long m0 = (long long)tm * kBM, k0 = (long long)(tile - tm * ntk) * kBN;
+      const double* V = Vs + vslot * kBM * kVP;
+      const uint8_t* Mk = Ms + vslot * kBM * kMP;
+      // keys of the 8 elements, in increasing flat order: rows i, columns
+      // (j, c); an element outside the matrix gets key 0 and is never
+      // preferred to an element inside (which has a smaller position)
+      unsigned long long key[8];
+      double res[8];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = wm + 8 * i + g;
+        const long long f0 = (m0 + row) * K + k0;
+        const double* Vr = V + row * kVP + (int)((reinterpret_cast<uintptr_t>(vals + f0) >> 3) & 1);
+        const uint8_t* Mr = Mk + row * kMP + (int)(reinterpret_cast<uintptr_t>(mask + f0) & 15);
+        const bool in_row = m0 + row < M;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = wn + 8 * j + 2 * q + c;
+            const int e = 4 * i + 2 * j + c;
+            key[e] = 0;
+            res[e] = 0.0;
+            if (in_row && k0 + col < K) {
+              res[e] = Vr[col] - acc[j][2 * i + c];
+              if (Mr[col]) {
+                const unsigned long long ab = __double_as_longlong(fabs(res[e]));
+                key[e] = (ab > 0x7ff0000000000000ull ? 0x7ff8000000000000ull : ab) + 1;
+              }
+            }
+          }
+        }
+      }
+      int pos[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) pos[e] = e;
+#pragma unroll
+      for (int w = 1; w < 8; w *= 2) {  // pairwise; the right one wins only if larger
+#pragma unroll
+        for (int e = 0; e < 8; e += 2 * w) {
+          if (key[e + w] > key[e]) {
+            key[e] = key[e + w];
+            res[e] = res[e + w];
+            pos[e] = pos[e + w];
+          }
+        }
+      }
+      const int p = pos[0];
+      const int row = wm + 8 * (p >> 2) + g, col = wn + 8 * ((p >> 1) & 1) + 2 * q + (p & 1);
+      if (m0 + row < M && k0 + col < K) {
+        const long long f = (m0 + row) * K + k0 + col;
+        if (key[0] > bkey || (key[0] == bkey && f < bidx)) {
+          bkey = key[0];
+          bidx = f;
+          bres = res[0];
+        }
+      }
+    }
+    ring_next(tl, kc, slot, vslot, nk);
+  }
+  Best b{-INFINITY, LLONG_MAX, 0.0};
+  if (bidx != LLONG_MAX) b = Best{bkey ? fabs(bres) : -1.0, bidx, bres};
   b = block_reduce(b);
   if (t == 0) {
-    const long long bid = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-    part_score[bid] = b.score;
-    part_idx[bid] = b.idx;
-    part_resid[bid] = b.resid;
+    part_score[blockIdx.x] = b.score;
+    part_idx[blockIdx.x] = b.idx;
+    part_resid[blockIdx.x] = b.resid;
   }
 }
 
@@ -249,9 +541,7 @@ score_final_kernel(const double* __restrict__ part_score,
                    double* __restrict__ out_resid) {
   Best b{-INFINITY, LLONG_MAX, 0.0};
   for (long long i = threadIdx.x; i < nparts; i += blockDim.x) {
-    if (better(part_score[i], part_idx[i], b.score, b.idx)) {
-      b = Best{part_score[i], part_idx[i], part_resid[i]};
-    }
+    keep(b, part_score[i], part_idx[i], part_resid[i]);
   }
   b = block_reduce(b);
   if (threadIdx.x == 0) {
@@ -259,6 +549,29 @@ score_final_kernel(const double* __restrict__ part_score,
     *out_score = b.score;
     *out_resid = b.resid;
   }
+}
+
+template <bool COL>
+cudaError_t launch_fiber(const double* vals, const double* colf, const double* rowf,
+                         const uint8_t* mask, long long L, int R, int blocks,
+                         int threads, int smem, double* part_score, long long* part_idx,
+                         double* part_resid, long long* out_idx, double* out_score,
+                         double* out_resid, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;  // the grid is one cluster
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, score_fiber_kernel<COL>, vals, colf, rowf, mask, L,
+                            R, part_score, part_idx, part_resid, out_idx, out_score,
+                            out_resid);
 }
 
 // ---------------------------------------------------------------------------
@@ -301,32 +614,70 @@ lookup_kernel(const double* __restrict__ tables, int L, int n,
 
 extern "C" {
 
-// vals/colf/rowf f64 row-major, mask one byte per element; the grid is
-// (gx, gy) blocks of kThreads, of score_partial_kernel with column tile tk
-// for a fiber, of score_partial_tiled_kernel (kTile x kTile) when tk = 0;
-// part_* hold gx*gy partials; out_* one element each.
+// Allows the kernels of the current device their largest shared memory
+// (fiber_smem bytes for the fiber kernels, the most _plan asks for, and
+// kTileSmem for the 2-D kernel) and the fiber kernels clusters of up to 16
+// blocks.  Call once per device before launching.
+int ttc_configure(int fiber_smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      score_fiber_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_fiber_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
+  }
+  if (err == cudaSuccess) {  // clusters of up to 16 blocks
+    err = cudaFuncSetAttribute(score_fiber_kernel<true>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(score_fiber_kernel<false>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_dmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+  }
+  return static_cast<int>(err);
+}
+
+// vals/colf/rowf f64 row-major, mask one byte per element.  path 0: column
+// fiber (K = 1), 1: row fiber (M = 1), each one cluster of `blocks` blocks;
+// 2: the 2-D kernel on `blocks` blocks, then score_final_kernel.  scratch
+// holds 8-byte words: [index, score, residual] of the result, then the
+// partials (one per warp of a fiber's cluster, one per block of the 2-D
+// grid): their scores, their indices, their residuals.
 int ttc_score_residual_argmax(const double* vals, const double* colf,
                               const double* rowf, const uint8_t* mask,
-                              long long M, long long K, int R, int tk, int gx,
-                              int gy, double* part_score, long long* part_idx,
-                              double* part_resid, long long* out_idx,
-                              double* out_score, double* out_resid,
+                              long long M, long long K, int R, int path,
+                              int blocks, int threads, int smem, void* scratch,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tk == 0) {
-    score_partial_tiled_kernel<<<dim3(gx, gy), kThreads, 0, s>>>(
-        vals, colf, rowf, mask, M, K, R, part_score, part_idx, part_resid);
-  } else {
-    score_partial_kernel<<<dim3(gx, gy), kThreads, 0, s>>>(
-        vals, colf, rowf, mask, M, K, R, tk, part_score, part_idx, part_resid);
+  long long* out_idx = static_cast<long long*>(scratch);
+  double* out_score = static_cast<double*>(scratch) + 1;
+  double* out_resid = static_cast<double*>(scratch) + 2;
+  const long long nparts = path == 2 ? blocks : (long long)blocks * (threads / 32);
+  double* part_score = static_cast<double*>(scratch) + 3;
+  long long* part_idx = static_cast<long long*>(scratch) + 3 + nparts;
+  double* part_resid = static_cast<double*>(scratch) + 3 + 2 * nparts;
+  if (path == 0 || path == 1) {
+    const cudaError_t err =
+        path == 0 ? launch_fiber<true>(vals, colf, rowf, mask, M, R, blocks, threads, smem,
+                                       part_score, part_idx, part_resid, out_idx,
+                                       out_score, out_resid, s)
+                  : launch_fiber<false>(vals, colf, rowf, mask, K, R, blocks, threads, smem,
+                                        part_score, part_idx, part_resid, out_idx,
+                                        out_score, out_resid, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
   }
+  score_dmma_kernel<<<blocks, threads, smem, s>>>(vals, colf, rowf, mask, M, K, R,
+                                                  part_score, part_idx, part_resid);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // one warp per 32 partials, up to kReduceThreads
-  const long long nparts = (long long)gx * gy;
-  const int threads = (int)(nparts >= kReduceThreads ? kReduceThreads : (nparts + 31) / 32 * 32);
-  score_final_kernel<<<1, threads, 0, s>>>(
-      part_score, part_idx, part_resid, nparts, out_idx, out_score, out_resid);
+  const int rthreads =
+      blocks >= kReduceThreads ? kReduceThreads : (blocks + 31) / 32 * 32;
+  score_final_kernel<<<1, rthreads, 0, s>>>(part_score, part_idx, part_resid, blocks,
+                                            out_idx, out_score, out_resid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -343,6 +694,8 @@ int ttc_small_table_lookup(const double* tables, int L, int n,
 
 int ttc_threads_per_block(void) { return kThreads; }
 
-int ttc_tile(void) { return kTile; }
+int ttc_tile_threads(void) { return kTileThreads; }
+
+int ttc_tile_smem(void) { return kTileSmem; }
 
 }  // extern "C"
