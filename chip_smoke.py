@@ -4,10 +4,11 @@
     python3 chip_smoke.py            # the check: build, kernels, main path
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
                                      # one steady headline run
-    python3 chip_smoke.py --parent DIR   # also times the kernels of another
-                                     # checkout (e.g. the parent commit,
-                                     # unpacked with git archive) against
-                                     # this one's, in turns, in one process
+    python3 chip_smoke.py --parent DIR   # also times the kernels and the
+                                     # integrand of another checkout (e.g.
+                                     # the parent commit, unpacked with git
+                                     # archive) against this one's, in
+                                     # turns, in one process
 
 Phases, each printing its result as it goes:
   1. the card: nvidia-smi's name and power limit, torch's device name;
@@ -19,11 +20,15 @@ Phases, each printing its result as it goes:
      flops over 67 TFLOP/s, whichever is larger) and its share, and for
      kernel B the one PyTorch call that computes the same gather; a rook
      pass's kernel-A call must be one kernel; then the wrappers' host time
-     per call;
+     per call; the fused Ising integrand (kernel B's redesign) against its
+     plain version at the headline's batch shapes (C, D and E at d = 5)
+     and at C_256's (100584, 255), one kernel per call;
   4. the main path: the f64 cross on the Ising C_6 integrand at rank 24
      with oversample=6 (bench.py's headline configuration) on the card,
      twice with key 0 (first and steady time; the kernels' launch counts
-     of the first run), then keys 1-7; the digits against the analytic
+     of the first run: kernel A and the fused integrand must have
+     launched; the standalone lookup, off this path, is reported), then
+     keys 1-7; the digits against the analytic
      C_6; the rounding of each key's rank-30 train on the card against
      the same rounding on the host; and a small C_5 cross on the card
      against the same cross on the CPU, with rook and with full pivoting
@@ -43,6 +48,7 @@ import sys
 import time
 
 KERNEL_SOURCE = "ttcross_tpu_torch/csrc/kernels.cu"
+MAIN_PATH_KERNELS = ("score_residual_argmax", "ising_integrand_fused")
 HEADLINE = dict(m=6, n=64, max_rank=24, accuracy=500 * 2.2e-16, pivoting=1)
 # The digits are a random variable over the lottery key.  Keys 0-47 of the
 # JAX package on the CPU give 12.71-15.35 oversampled (3 of 48 below 13.0;
@@ -119,6 +125,39 @@ def _lookup_bound(L, E, n):
     return _bound_us(8 * L * n + 4 * E + 8 * L * E, 0)
 
 
+def _integrand_bound(kind, B, d, n):
+    # the int32 indices and the (2, n) table read once, one f64 per row
+    # written; per variable a prefix product and a weight product, for C
+    # and D also the prefix sum and the suffix product and sum; for D and
+    # E five operations per pair i < j (difference, sum, ratio, square,
+    # product); four per row to combine
+    per_row = 2 * d + (3 * d if kind in "CD" else 0) + (5 * d * (d + 1) // 2 if kind in "DE" else 0)
+    return _bound_us(4 * B * d + 16 * n + 8 * B, B * (per_row + 4))
+
+
+def _integrand_rtol(kind, d, on_card):
+    """Fused kernel vs plain, per value.  The row path (d <= 8) keeps the
+    order of the plain version on the CPU: a few ulps.  The plain version on
+    the card forms its prefix products as a tree (torch's CUDA cumprod),
+    and the a-term's ratios of nearby prefix products (P_j / P_i up to
+    1 - 3e-4 at n = 65) magnify its one-ulp differences ~3000-fold, so D
+    and E are held to it at 1e-11.  The warp path's tree scans give C's
+    sums of prefix products to 1e-12 and D's and E's products of ~d^2/2
+    ratios to 1e-10."""
+    if d <= 8:
+        return 1e-11 if on_card and kind != "C" else 1e-14
+    return 1e-12 if kind == "C" else 1e-10
+
+
+def _rel_errs(got, want, rtol):
+    """(max |got - want|, max relative error over want != 0, within rtol per
+    value); a zero of want must be a zero of got."""
+    diff = (got - want).abs()
+    nz = want != 0
+    rel = float((diff[nz] / want[nz].abs()).max()) if bool(nz.any()) else 0.0
+    return float(diff.max()), rel, bool((diff <= rtol * want.abs()).all())
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -126,20 +165,26 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def device_per_call(fn, calls: int = 50) -> dict:
+def device_per_call(fn, calls: int = 50, tries: int = 3) -> dict:
     """Device-only time and kernels per call of fn (torch.profiler over
     `calls` back-to-back calls after one warm-up): the CUDA-event times
-    include the host's launch overhead, which these leave out."""
+    include the host's launch overhead, which these leave out.  The
+    profiler now and then records no device event at all for such a
+    window (seen once in some 200 windows on an H100), so an empty window is
+    profiled again, up to `tries` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+        if kern:
+            break
     return {"device_us": sum(_device_us(e) for e in kern) / calls,
             "kernels_per_call": sum(e.count for e in kern) / calls,
             "by_kernel_us": {e.key[:60]: _device_us(e) / calls for e in kern}}
@@ -177,6 +222,81 @@ def kernel_cases(dev, gen):
         ind = torch.randint(-2, n + 2, (Bb, d), generator=gen, dtype=torch.int32).to(dev)
         b.append((name, (tables, ind)))
     return a, b
+
+
+def integrand_cases(dev, gen):
+    """The fused integrand's inputs: the headline's four batch shapes (C_6,
+    n = 65), the rook fiber's at D_6 and E_6, and C_256's long chain at
+    n = 33; tables from make_ising, indices in range but for two rows."""
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising
+
+    cases = []
+    for name, kind, m, n, B in [("rook_fiber", "C", 6, 64, 1950), ("lottery", "C", 6, 64, 190),
+                                ("init_diag", "C", 6, 64, 520), ("init_fibers", "C", 6, 64, 325),
+                                ("rook_fiber_D", "D", 6, 64, 1950),
+                                ("rook_fiber_E", "E", 6, 64, 1950),
+                                ("long_chain", "C", 256, 33, 100584)]:
+        p = make_ising(kind, m, n, device=dev)
+        ind = torch.randint(0, p.n, (B, p.d), generator=gen, dtype=torch.int32)
+        ind[0, 0] = -1                 # out of range: the row's value is 0
+        ind[1, p.d - 1] = p.n
+        cases.append((name, kind, p.tables, ind.to(dev)))
+    return cases
+
+
+def check_integrand(cases):
+    """Phase 3, the fused integrand against its plain version on the same
+    inputs, on the card and on the host: per-value error within
+    _integrand_rtol, one kernel per call, times, bound and share.  No
+    single PyTorch call computes the integrand, so it has no library
+    yardstick."""
+    import torch
+
+    from ttcross_tpu_torch.ops import kernels as K
+
+    rows, abs_err = [], 0.0
+    for name, kind, tables, ind in cases:
+        B, d = ind.shape
+        n = tables.shape[1]
+        got = K.ising_integrand_fused(tables, ind, kind)
+        want = K.ising_integrand_plain(tables, ind, kind)
+        torch.cuda.synchronize()
+        err = {}
+        for where, w in (("card", want), ("cpu", K.ising_integrand_plain(tables.cpu(), ind.cpu(), kind))):
+            rtol = _integrand_rtol(kind, d, where == "card")
+            err[where] = _rel_errs(got.cpu(), w.cpu(), rtol)
+            if not err[where][2] or not bool((got[:2] == 0).all()):
+                raise AssertionError(f"fused integrand {name}: max |got - plain on the {where}| "
+                                     f"{err[where][0]} exceeds {rtol} relative")
+        fn = lambda: K.ising_integrand_fused(tables, ind, kind)  # noqa: E731
+        plain = lambda: K.ising_integrand_plain(tables, ind, kind)  # noqa: E731
+        dev_k = device_per_call(fn)
+        if not (0 < dev_k["kernels_per_call"] <= 1
+                and all("integrand" in k for k in dev_k["by_kernel_us"])):
+            raise AssertionError(f"fused integrand {name}: {dev_k['by_kernel_us']} at "
+                                 f"{dev_k['kernels_per_call']} kernels per call (one is the design)")
+        dev_p = device_per_call(plain)
+        bound, by = _integrand_bound(kind, B, d, n)
+        row = {"kernel": "ising_integrand_fused", "kind": kind, "shape": [B, d, n],
+               "case": name, "max_abs_err": err["card"][0],
+               "max_rel_err_vs_card_plain": err["card"][1],
+               "max_rel_err_vs_cpu_plain": err["cpu"][1],
+               "rtol_card": _integrand_rtol(kind, d, True),
+               "rtol_cpu": _integrand_rtol(kind, d, False),
+               "ms": _time_ms(fn), "plain_ms": _time_ms(plain),
+               "library_ms": None, "device_us": dev_k["device_us"],
+               "kernels_per_call": dev_k["kernels_per_call"],
+               "plain_device_us": dev_p["device_us"],
+               "plain_kernels_per_call": dev_p["kernels_per_call"],
+               "bound_us": bound, "bound_by": by, "share_of_bound": bound / dev_k["device_us"]}
+        if name == "rook_fiber":
+            row["host_us_per_call"] = host_us_per_call(fn)
+        _emit(row)
+        rows.append(row)
+        abs_err = max(abs_err, row["max_abs_err"])
+    return rows, abs_err
 
 
 def check_kernels(dev, a_cases, b_cases):
@@ -253,10 +373,9 @@ def check_kernels(dev, a_cases, b_cases):
     return a_rows, a_err, b_rows
 
 
-def _kernels_of(root: str):
-    """The ops.kernels module of the checkout at `root`, imported under
-    another package name so that it sits beside this checkout's."""
-    import importlib
+def _package_of(root: str):
+    """The name of the ttcross_tpu_torch package of the checkout at `root`,
+    imported under another name so that it sits beside this checkout's."""
     import importlib.util
     from pathlib import Path
 
@@ -267,28 +386,39 @@ def _kernels_of(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module(name + ".ops.kernels")
+    return name
 
 
-def compare_with(root: str, a_cases, b_cases) -> dict:
+def compare_with(root: str, a_cases, b_cases, i_cases) -> dict:
     """Device-only and host time per call of the kernels of the checkout at
     `root` and of this one, on the same inputs, in turns: other, this,
-    this, other."""
+    this, other.  The integrand is each checkout's apps.ising.
+    ising_integrand at the rook fiber's shape and at C_256's (e.g. the
+    parent's kernel B and eager chain against this one's fused kernel)."""
+    import importlib
+
+    from ttcross_tpu_torch.apps import ising
     from ttcross_tpu_torch.ops import kernels as K
 
-    other = _kernels_of(root)
-    cases = [(name, "score_residual_argmax", args) for name, args in a_cases]
-    cases += [(name, "small_table_lookup", args) for name, args in b_cases[:1]]
+    name = _package_of(root)
+    other_k = importlib.import_module(name + ".ops.kernels")
+    other_i = importlib.import_module(name + ".apps.ising")
+    cases = [(f"score_residual_argmax {c}", other_k.score_residual_argmax,
+              K.score_residual_argmax, args) for c, args in a_cases]
+    cases += [(f"small_table_lookup {c}", other_k.small_table_lookup,
+               K.small_table_lookup, args) for c, args in b_cases[:1]]
+    cases += [(f"ising_integrand {c}", other_i.ising_integrand, ising.ising_integrand,
+               (ind, tables, kind)) for c, kind, tables, ind in (i_cases[0], i_cases[-1])]
     out = {}
-    for name, fn, args in cases:
+    for label, f_other, f_this, args in cases:
         reads = {"other": [], "this": []}
         for who in ("other", "this", "this", "other"):
-            f = getattr(other if who == "other" else K, fn)
+            f = f_other if who == "other" else f_this
             dev = device_per_call(lambda: f(*args))
             reads[who].append({"device_us": dev["device_us"],
                                "kernels_per_call": dev["kernels_per_call"],
                                "host_us_per_call": host_us_per_call(lambda: f(*args))})
-        out[f"{fn} {name}"] = reads
+        out[label] = reads
     return {"phase": "compare", "other": root, "per_call": out}
 
 
@@ -423,12 +553,15 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
 
-    a_cases, b_cases = kernel_cases(dev, torch.Generator().manual_seed(1234))
+    gen = torch.Generator().manual_seed(1234)
+    a_cases, b_cases = kernel_cases(dev, gen)
+    i_cases = integrand_cases(dev, gen)
     a_rows, a_err, b_rows = check_kernels(dev, a_cases, b_cases)
+    i_rows, i_err = check_integrand(i_cases)
     args = sys.argv[1:]
     if "--parent" in args:
-        _emit(compare_with(args[args.index("--parent") + 1], a_cases, b_cases))
-    del a_cases, b_cases
+        _emit(compare_with(args[args.index("--parent") + 1], a_cases, b_cases, i_cases))
+    del a_cases, b_cases, i_cases
 
     K.reset_launch_counts()
     res, first, digits = run_headline(dev, oversample=6)
@@ -450,7 +583,9 @@ def main() -> int:
     if median < DIGITS_MEDIAN or min(by_key) < DIGITS_FLOOR:
         raise AssertionError(f"headline digits over keys {by_key}: median {median} < "
                              f"{DIGITS_MEDIAN} or a key < {DIGITS_FLOOR}")
-    if min(launches.values()) <= 0:
+    # the headline's integrand runs on the fused kernel, so the standalone
+    # lookup (the chain lift's) is reported, at 0, and not required
+    if min(launches[k] for k in MAIN_PATH_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the main path was never launched: {launches}")
     if (res2.neval, res2.ranks, digits2, steady_launches) != (res.neval, res.ranks, digits, launches):
         raise AssertionError("the repeated headline run took another path")
@@ -482,6 +617,9 @@ def main() -> int:
         {"name": "small_table_lookup", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "ttcross_tpu/ops/pallas_kernels.py:151",
          **summary(b_rows[0], launches["small_table_lookup"], 0.0)},
+        {"name": "ising_integrand_fused", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "ttcross_tpu/ops/pallas_kernels.py:151",
+         **summary(i_rows[0], launches["ising_integrand_fused"], i_err)},
     ]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

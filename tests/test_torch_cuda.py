@@ -125,6 +125,87 @@ def test_lookup_kernel_matches_plain(B, d, n, gen, cuda_device):
     assert torch.equal(got, K.small_table_lookup_plain(tables, ind))
 
 
+def _integrand_rtol(kind, d, on_card=False):
+    """Fused kernel vs plain, per value.  The row path (d <= 8) takes the
+    order of the plain version on the CPU (prefix products left to right):
+    a few ulps.  The plain version on the card forms its prefix products as
+    a tree (torch's CUDA cumprod), and the a-term's ratios of nearby
+    prefix products, (P_j - P_i) / (P_j + P_i) with P_j / P_i up to
+    1 - 3e-4 at n = 65, magnify its one-ulp differences ~3000-fold: D and E
+    against it to 1e-11.  The warp path scans and reduces as trees: C's
+    sums of up to d prefix products to 1e-12; D's and E's products of
+    ~d^2/2 such ratios to 1e-10."""
+    if d <= 8:
+        return 1e-11 if on_card and kind != "C" else 1e-14
+    return 1e-12 if kind == "C" else 1e-10
+
+
+# values in the subnormal range carry an absolute error of a few of its units
+_SUBNORMAL_ATOL = 4 * 2.0 ** -1074
+
+
+def _integrand_args(kind, B, d, dev, gen, n=33):
+    """Tables from make_ising (m = d + 1) and indices in range, but for two
+    out of it (their rows are 0)."""
+    from ttcross_tpu_torch.apps import make_ising
+
+    p = make_ising(kind, d + 1, n, device=dev)
+    ind = gen.integers(0, p.n, size=(B, d)).astype(np.int32)
+    if B:
+        ind[0, 0] = -1
+        ind[-1, -1] = p.n
+    return p.tables, torch.as_tensor(ind).to(dev)
+
+
+@pytest.mark.parametrize("B", [0, 1, 1950, 4097])
+@pytest.mark.parametrize("d", [1, 5, 31, 32, 33, 97, 255])
+@pytest.mark.parametrize("kind", ["C", "D", "E"])
+def test_integrand_kernel_matches_plain(kind, d, B, gen, cuda_device):
+    tables, ind = _integrand_args(kind, B, d, cuda_device, gen)
+    n0 = K.ising_integrand_fused.launches
+    got = K.ising_integrand_fused(tables, ind, kind)
+    want = K.ising_integrand_plain(tables, ind, kind)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B,)
+    assert K.ising_integrand_fused.launches == n0 + (B > 0)
+    g = got.cpu().numpy()
+    for w, on_card in ((want.cpu().numpy(), True),
+                       (K.ising_integrand_plain(tables.cpu(), ind.cpu(), kind).numpy(), False)):
+        rtol = _integrand_rtol(kind, d, on_card)
+        assert np.all(np.abs(g - w) <= rtol * np.abs(w) + _SUBNORMAL_ATOL), on_card
+        if B > 1:
+            assert g[0] == w[0] == 0.0 and g[-1] == w[-1] == 0.0
+
+
+@pytest.mark.parametrize("kind,d", [("C", 5), ("D", 5), ("E", 5), ("C", 255), ("D", 97)])
+def test_integrand_kernel_is_one_kernel_per_call(kind, d, gen, cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    tables, ind = _integrand_args(kind, 1950, d, cuda_device, gen)
+    K.ising_integrand_fused(tables, ind, kind)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            K.ising_integrand_fused(tables, ind, kind)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    assert [e.key for e in kern] and all("integrand" in e.key for e in kern)
+    assert 0 < sum(e.count for e in kern) <= 10
+
+
+def test_integrand_wrapper_raises_on_what_the_kernel_does_not_take(gen, cuda_device):
+    tables, ind = _integrand_args("C", 64, 5, cuda_device, gen)
+    with pytest.raises(TypeError):
+        K.ising_integrand_fused(tables, ind.long(), "C")
+    with pytest.raises(ValueError):
+        K.ising_integrand_fused(tables, ind.T, "C")                 # not contiguous
+    with pytest.raises(ValueError):
+        K.ising_integrand_fused(tables.cpu(), ind, "C")             # the table elsewhere
+    with pytest.raises(ValueError):
+        K.ising_integrand_fused(tables, torch.zeros((4, 1025), dtype=torch.int32,
+                                                    device=cuda_device), "C")   # d too large
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     tables = torch.zeros((2, 9), dtype=torch.float64, device=cuda_device)
     with pytest.raises(TypeError):
@@ -154,7 +235,7 @@ def test_small_cross_on_the_card_matches_the_cpu(pivoting, cuda_device):
                                  return_state=True, device=where)
     counts = K.launch_counts()
     c, g = runs["cpu"], runs[str(cuda_device)]
-    assert counts["small_table_lookup"] > 0
+    assert counts["ising_integrand_fused"] > 0 and counts["small_table_lookup"] == 0
     assert (counts["score_residual_argmax"] > 0) == (pivoting != 0)   # piv 0 scores no fiber
     assert all(t.device.type == "cuda" for t in g.state)
     assert (g.ranks, g.neval, g.sweeps) == (c.ranks, c.neval, c.sweeps)

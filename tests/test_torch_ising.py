@@ -11,6 +11,7 @@ from ttcross_tpu.apps import ising as jising
 from ttcross_tpu.apps.truths import ising_truth as jtruth
 from ttcross_tpu_torch.apps import ising_integrand, ising_truth, make_ising
 from ttcross_tpu_torch.interop import ising_from_numpy
+from ttcross_tpu_torch.ops import kernels as K
 
 # the products and sums run in another order (XLA vs torch reductions), so
 # values agree to a few ulps per operation
@@ -22,8 +23,9 @@ RTOL = 1e-13
 RTOL_ATERM_LONG = 2e-12
 
 
-@pytest.mark.parametrize("kind", ["C", "D", "E"])
-@pytest.mark.parametrize("B,d", [(257, 5), (64, 40), (16, 100)])
+@pytest.mark.parametrize("B,d,kind", [
+    (B, d, kind) for B, d in [(257, 5), (64, 40), (16, 100)] for kind in "CDE"]
+    + [(8, 255, "C"), (16, 97, "D"), (16, 97, "E")])   # both sides of the a-term's d = 96 switch
 def test_integrand_matches_jax(kind, B, d, rng):
     jp = jising.make_ising(kind, m=d + 1, n=33)
     ind = rng.integers(0, jp.n, size=(B, d)).astype(np.int32)
@@ -37,6 +39,20 @@ def test_integrand_matches_jax(kind, B, d, rng):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=0)
     np.testing.assert_allclose(tp.fun(torch.from_numpy(ind)).numpy(), want,
                                rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["C", "D", "E"])
+@pytest.mark.parametrize("d", [5, 100])
+def test_fused_integrand_on_the_cpu_is_the_plain_version(kind, d, rng):
+    """On a CPU tensor the fused wrapper runs the plain version, bit for
+    bit (out-of-range indices included), and launches nothing."""
+    p = make_ising(kind, m=d + 1, n=33, device="cpu")
+    ind = rng.integers(-1, p.n + 1, size=(40, d)).astype(np.int32)
+    K.reset_launch_counts()
+    got = K.ising_integrand_fused(p.tables, torch.from_numpy(ind), kind)
+    want = K.ising_integrand_plain(p.tables, torch.from_numpy(ind), kind)
+    assert torch.equal(got, want) and torch.equal(p.fun(torch.from_numpy(ind)), want)
+    assert K.ising_integrand_fused.launches == 0
 
 
 @pytest.mark.parametrize("kind,m,n", [("C", 6, 64), ("C", 5, 17), ("D", 12, 33),

@@ -1,5 +1,5 @@
-"""The port's two kernels (ttcross_tpu_torch/ops/kernels.py) against the
-JAX package's Pallas kernels and references.
+"""The port's kernels (ttcross_tpu_torch/ops/kernels.py) against the JAX
+package's Pallas kernels and references, and their launch plans.
 
 On the CPU the wrappers run their plain PyTorch versions; the kernels
 themselves are held against those on the card by tests/test_torch_cuda.py."""
@@ -130,7 +130,10 @@ def test_cpu_wrappers_take_the_plain_path(rng):
     out = K.small_table_lookup(torch.from_numpy(table), torch.from_numpy(ind))
     assert out.shape == (2,) + ind.shape
     K.score_residual_argmax(*[torch.as_tensor(a) for a in _score_case("random", rng)])
-    assert K.launch_counts() == {"score_residual_argmax": 0, "small_table_lookup": 0}
+    vals = K.ising_integrand_fused(torch.from_numpy(np.abs(table)), torch.from_numpy(ind), "D")
+    assert vals.shape == (ind.shape[0],)
+    assert K.launch_counts() == {"score_residual_argmax": 0, "small_table_lookup": 0,
+                                 "ising_integrand_fused": 0}
 
 
 _SMS = 132    # an H100 SXM; the plan takes the count of the card it runs on
@@ -183,3 +186,28 @@ def test_plan_refuses_what_no_block_holds():
         K._plan(1950, 1, 2000, _SMS)       # 32 rows of colf exceed shared memory
     with pytest.raises(ValueError):
         K._plan(0, 5, 3, _SMS)
+
+
+@pytest.mark.parametrize("B,d,n", [
+    (1950, 5, 65), (190, 5, 65), (520, 5, 65), (325, 5, 65), (1, 1, 65), (129, 8, 17),
+    (1950, 9, 65), (4097, 31, 33), (100584, 255, 33), (7, 1023, 17), (3, 1024, 2000),
+    (0, 5, 65)])
+def test_integrand_plan_covers_each_row_once_within_shared_memory(B, d, n):
+    plan = K._integrand_plan(B, d, n)
+    assert plan.path == (K.ROWS if d <= K._ROWS_D_MAX else K.WARPS)
+    assert (plan.blocks - 1) * plan.rows < B <= plan.blocks * plan.rows or B == plan.blocks == 0
+    assert plan.threads == (plan.rows if plan.path == K.ROWS else 32 * plan.rows)
+    assert plan.threads % 32 == 0 and plan.threads <= 256
+    static = K._ROWS_STATIC_SMEM if plan.path == K.ROWS else 0
+    assert 16 * n <= plan.smem and plan.smem + static <= 48 * 1024
+    if plan.path == K.WARPS:   # each warp: its row's indices at any offset, and P_0..P_d
+        per_warp = (plan.smem - 16 * n) // plan.rows
+        assert per_warp >= 4 * (d + 3) + 8 * (d + 1) and per_warp % 16 == 0
+    if (B, d) == (1950, 5):
+        assert (plan.blocks, plan.threads) == (16, 128)   # the rook fiber: 16 blocks
+
+
+@pytest.mark.parametrize("B,d,n", [(5, 0, 65), (5, 1025, 33), (5, 5, 3000), (5, 700, 2800)])
+def test_integrand_plan_refuses_what_the_kernel_does_not_take(B, d, n):
+    with pytest.raises(ValueError):
+        K._integrand_plan(B, d, n)

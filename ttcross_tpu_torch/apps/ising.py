@@ -16,51 +16,20 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..ops.dense import table_lookup
+from ..ops.kernels import ISING_KINDS, ising_integrand_fused
 from ..ops.quadrature import lgwt
 
 __all__ = ["IsingProblem", "make_ising", "ising_integrand"]
-
-_KIND_ID = {"C": 1, "D": 2, "E": 3}
 
 
 def ising_integrand(ind, tables, kind: str):
     """Batched Ising integrand: ind (B, d) int32 -> (B,) values.
 
-    tables (2, n): the nodes and the rescaled weights, looked up together
-    with one small-table lookup (kernel B on CUDA).  kind 'C' -> 2b,
-    'D' -> 2ab, 'E' -> 2a, each times the product of weights."""
-    kid = _KIND_ID[kind.upper()]
-    x, w = table_lookup(tables, ind)                  # (B, d) each
-    B, d = x.shape
-    f = torch.full((B,), 2.0, dtype=x.dtype, device=x.device)
-    if kid in (2, 3):  # a-term
-        one = torch.ones((B, 1), dtype=x.dtype, device=x.device)
-        P = torch.cat([one, torch.cumprod(x, dim=1)], dim=1)    # (B, d+1)
-        if d <= 96:
-            num = P[:, None, :] - P[:, :, None]   # P_j - P_i at [b, i, j]
-            den = P[:, None, :] + P[:, :, None]
-            ratio = torch.where(den == 0, 0.0, num / den) ** 2
-            iu = torch.triu(torch.ones((d + 1, d + 1), dtype=torch.bool,
-                                       device=x.device), diagonal=1)
-            a = torch.where(iu, ratio, 1.0).reshape(B, -1).prod(dim=1)
-        else:
-            # large d: a loop over j keeps memory at O(B d), not O(B d^2)
-            jdx = torch.arange(d + 1, device=x.device)
-            a = torch.ones((B,), dtype=x.dtype, device=x.device)
-            for j in range(d + 1):
-                col = P[:, j:j + 1]
-                r = torch.where((jdx[None, :] < j) & (col + P != 0),
-                                (col - P) / (col + P), 1.0)
-                a = a * (r * r).prod(dim=1)
-        f = f * a
-    if kid in (1, 2):  # b-term
-        pre = torch.cumprod(x, dim=1)              # prefix products
-        suf = torch.cumprod(x.flip(1), dim=1)      # suffix products
-        v = 1.0 + suf.sum(dim=1)
-        wv = 1.0 + pre.sum(dim=1)
-        f = f / (v * wv)
-    return f * w.prod(dim=1)
+    tables (2, n): the nodes and the rescaled weights.  kind 'C' -> 2b,
+    'D' -> 2ab, 'E' -> 2a, each times the product of weights.  On CUDA one
+    fused kernel does the lookup and the whole chain (ops/kernels.py::
+    ising_integrand_fused); on the CPU its plain version runs."""
+    return ising_integrand_fused(tables, ind, kind)
 
 
 @dataclass(frozen=True)
@@ -101,7 +70,7 @@ def make_ising(kind: str = "C", m: int = 6, n: int = 65,
     from .truths import ising_truth
 
     kind = kind.upper()
-    if kind not in _KIND_ID:
+    if kind not in ISING_KINDS:
         raise ValueError(f"unknown Ising integral kind: {kind}")
     if n % 2 == 0:
         n += 1  # the reference adjusts even n (test_crs_ising.f90:40)

@@ -10,7 +10,7 @@
 // ops/kernels.py::_plan and passed in; the kernels derive their walk over
 // the matrix from gridDim and blockDim.
 //
-// Both kernels compute in float64: the H100 has native FP64, so the f32
+// Every kernel computes in float64: the H100 has native FP64, so the f32
 // scoring and the f32 limb split of the TPU kernels (Mosaic has no f64)
 // are not carried over.
 
@@ -27,6 +27,13 @@ namespace {
 
 constexpr int kThreads = 256;  // threads per block of kernel B
 constexpr int kReduceThreads = 1024;
+
+// The fused Ising integrand: a row per thread up to kRowsDMax variables
+// (blocks of kRowsThreads rows), else a row per warp up to kWarpDMax.
+constexpr int kRowsThreads = 128;
+constexpr int kRowsDMax = 8;
+constexpr int kWarpDMax = 1024;
+constexpr int kWarpThreadsMax = 256;
 
 constexpr int kFiberThreadsMax = 512;  // block size bound of the fiber kernels
 
@@ -580,8 +587,8 @@ cudaError_t launch_fiber(const double* vals, const double* colf, const double* r
 // Replaces ttcross_tpu/ops/pallas_kernels.py::small_table_lookup_limbs (the
 // Pallas body _lookup_kernel at :127-148, pl.pallas_call at :191):
 //     out[l, e] = tables[l, ind[e]]   (0 where ind[e] is outside [0, n))
-// for L small f64 tables at once (the Ising integrand looks up its nodes
-// and weights with one launch).  The TPU kernel selected three f32 limbs by
+// for L small f64 tables at once.  The Ising integrand no longer calls it:
+// its lookup runs inside the fused integrand kernel below.  The TPU kernel selected three f32 limbs by
 // an unrolled compare-select loop; here the tables sit in shared memory and
 // each thread gathers its element directly, so the result is the f64 table
 // entry itself, bit for bit.
@@ -607,6 +614,278 @@ lookup_kernel(const double* __restrict__ tables, int L, int n,
     for (int l = 0; l < L; ++l) {
       out[(long long)l * E + e] = ok ? tab_s[l * n + i] : 0.0;
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The Ising integrand, fused: kernel B's redesign for Hopper.
+//
+// Replaces, on the integrand's path, ttcross_tpu/ops/pallas_kernels.py::
+// small_table_lookup_limbs (the Pallas body _lookup_kernel at :127-148,
+// pl.pallas_call at :191) together with the elementwise chain of
+// ttcross_tpu/apps/ising.py::ising_integrand (:50-90) that consumed its
+// output.  For ind (B, d) int32 and the (2, n) table of nodes and weights,
+// row b has x_k = nodes[ind[b, k]] and w_k = weights[ind[b, k]] (both 0
+// where the index is outside [0, n)), P_0 = 1 and P_k = P_{k-1} x_k, and
+//     S = sum_k P_k,   Q = sum_k x_k x_{k+1} ... x_d,
+//     a = prod_{i<j} ((P_j - P_i) / (P_j + P_i))^2   (den0 where P_j + P_i = 0),
+//     out[b] = 2 a / ((1 + Q)(1 + S)) prod_k w_k
+// with the a-term for kinds D and E only and the b-term 1/((1+Q)(1+S)) for
+// C and D only (C: 2b, D: 2ab, E: 2a).  den0 is the plain version's: 0 at
+// d <= 96, where it masks a (d+1) x (d+1) ratio table, 1 above, where it
+// loops over columns.
+//
+// What bounds it: at the headline's (1950, 5), the launch.  The kernel reads
+// 39 KB of indices and 1 KB of tables and writes 15.6 KB (0.017 us at
+// 3.35 TB/s) and takes one launch's ~1.8 us on an H100.  At C_256's
+// (100584, 255) the index reads, 103 MB, bound it at ~31 us.  The TPU
+// kernel kept its (B, d, n) one-hot out of HBM; this one keeps the
+// looked-up nodes and weights out of it as well: they never leave
+// registers, and one launch writes one f64 per row, where kernel B wrote
+// (2, B, d) f64 and ~12 eager launches read it back.
+//
+// Design.  The table sits in shared memory as (node, weight) pairs, one
+// 16-byte load per lookup, copied with cp.async in the same batch as the
+// indices, so a block waits for one memory round trip.
+// * d <= kRowsDMax (the headline's d = 5): a row per thread, blocks of
+//   kRowsThreads rows.  The block's rows are one contiguous range of
+//   indices, copied as the 16-byte chunks that cover it (a d = 5 row read
+//   by each thread from device memory would stride 20 bytes across the
+//   warp); a thread reads its row from shared memory (stride d words:
+//   conflict-free for odd d) and keeps x and P in registers, the loops
+//   unrolled to kRowsDMax.  Every product and sum runs in the plain
+//   version's order: prefix products left to right, suffix products right
+//   to left, sums in index order, the pairs (i, j) row by row.
+// * d > kRowsDMax (long chains, to kWarpDMax: C_1024 has d = 1023): a row
+//   per warp.  The warp copies its row's indices with 16-byte cp.async;
+//   each lane then walks a contiguous segment of them, left to right for
+//   its prefix products and their sum, right to left for its suffix
+//   products and theirs, and one multiplicative warp scan each way (shfl)
+//   gives the product of the segments before (after) it, which scales its
+//   sums.  A first version scanned every chunk of 32 variables instead,
+//   ~100 f64 shuffles per row at d = 255 against ~30 now: 150 against
+//   92 us at C_256's shape on an H100 (700 W).  A grid-stride variant that
+//   copied each warp's next row while it evaluated the current one was no
+//   faster (91 us), so what is left is not memory latency but the
+//   instructions per row (two shared-memory lookups per variable, the
+//   shuffles).  For D and E the warp keeps P in shared memory and splits
+//   the O(d^2) pairs over its lanes by column j (each lane: the product
+//   over i < j, as the plain version's column loop), reduced as a product.
+//   The scans and reductions round in another order than the plain
+//   version: within ~1e-14 for C at d = 255, ~1e-12 for D and E at
+//   d ~ 100 (products of ~d^2/2 ratios of nearby prefix products).
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kKindC = 1, kKindD = 2, kKindE = 3;
+
+// Copies the n (node, weight) pairs of tables (2, n) into tab, one 8-byte
+// cp.async per value, spread over the block.
+__device__ __forceinline__ void stage_pairs(double2* tab, const double* tables, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    cp_async8(&tab[i].x, tables + i);
+    cp_async8(&tab[i].y, tables + n + i);
+  }
+}
+
+// Copies the ints [src, src + count) to dst (16-byte aligned) as the
+// 16-byte chunks that cover them, thread t of T taking chunks t, t + T, ...
+// (each chunk holds at least one of the range's bytes, so it lies in the
+// same allocation).  Returns the offset of src's first int in dst.
+__device__ __forceinline__ int copy_ints(int32_t* dst, const int32_t* src, long long count,
+                                         int t, int T) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t base = a & ~uintptr_t(15);
+  const int off = (int)((a - base) >> 2);
+  const long long chunks = (off + count + 3) >> 2;
+  for (long long j = t; j < chunks; j += T) {
+    cp_async16(dst + 4 * j, reinterpret_cast<const void*>(base + 16 * j));
+  }
+  return off;
+}
+
+__device__ __forceinline__ double2 lookup_pair(const double2* tab, int n, int i) {
+  return (i >= 0 && i < n) ? tab[i] : make_double2(0.0, 0.0);
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+__device__ __forceinline__ double warp_prod(double v) {
+  for (int o = 16; o > 0; o >>= 1) v *= __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// The product of v over the lanes before this one (UP) or after it (else),
+// 1 for the first (last) lane: an inclusive Hillis-Steele scan, shifted.
+template <bool UP>
+__device__ __forceinline__ double scan_exclusive_prod(double v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double y = UP ? __shfl_up_sync(kFullMask, v, o) : __shfl_down_sync(kFullMask, v, o);
+    if (UP ? lane >= o : lane + o < 32) v = UP ? y * v : v * y;
+  }
+  const double e = UP ? __shfl_up_sync(kFullMask, v, 1) : __shfl_down_sync(kFullMask, v, 1);
+  return (UP ? lane == 0 : lane == 31) ? 1.0 : e;
+}
+
+// The plain version's last steps: f = 2; f *= a; f /= (v * wv); f * prod w.
+template <int KIND>
+__device__ __forceinline__ double integrand_value(double a, double q, double s, double wp) {
+  double f = 2.0;
+  if (KIND != kKindC) f = f * a;
+  if (KIND != kKindE) f = f / ((1.0 + q) * (1.0 + s));
+  return f * wp;
+}
+
+// A row per thread, d <= kRowsDMax.  Dynamic shared memory: n pairs.
+template <int KIND>
+__global__ void __launch_bounds__(kRowsThreads)
+integrand_rows_kernel(const double* __restrict__ tables, int n,
+                      const int32_t* __restrict__ ind, long long B, int d, double den0,
+                      double* __restrict__ out) {
+  extern __shared__ __align__(16) double2 ising_s[];
+  __shared__ __align__(16) int32_t rows_s[kRowsThreads * kRowsDMax + 4];
+  const int t = threadIdx.x;
+  const long long b0 = (long long)blockIdx.x * kRowsThreads;
+  const int rows = (int)min((long long)kRowsThreads, B - b0);
+  stage_pairs(ising_s, tables, n);
+  const int off = copy_ints(rows_s, ind + b0 * d, (long long)rows * d, t, kRowsThreads);
+  cp_async_commit();
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  if (t >= rows) return;
+  const int32_t* r = rows_s + off + t * d;
+
+  double x[kRowsDMax], P[kRowsDMax + 1];
+  double s = 0.0, wp = 1.0;
+  P[0] = 1.0;
+#pragma unroll
+  for (int k = 0; k < kRowsDMax; ++k) {
+    x[k] = 1.0;
+    P[k + 1] = P[k];
+    if (k < d) {
+      const double2 e = lookup_pair(ising_s, n, r[k]);
+      x[k] = e.x;
+      P[k + 1] = P[k] * e.x;
+      s += P[k + 1];
+      wp *= e.y;
+    }
+  }
+  double q = 0.0;
+  if (KIND != kKindE) {
+    double c = 1.0;
+#pragma unroll
+    for (int k = kRowsDMax - 1; k >= 0; --k) {
+      if (k < d) {
+        c *= x[k];
+        q += c;
+      }
+    }
+  }
+  double a = 1.0;
+  if (KIND != kKindC) {
+#pragma unroll
+    for (int i = 0; i < kRowsDMax; ++i) {
+#pragma unroll
+      for (int j = i + 1; j <= kRowsDMax; ++j) {
+        if (j <= d) {
+          const double num = P[j] - P[i], den = P[j] + P[i];
+          const double ratio = den == 0.0 ? den0 : num / den;
+          a *= ratio * ratio;
+        }
+      }
+    }
+  }
+  out[b0 + t] = integrand_value<KIND>(a, q, s, wp);
+}
+
+// A row per warp, kRowsDMax < d <= kWarpDMax.  Dynamic shared memory: n
+// pairs, then per warp the row's indices (ipitch ints) and P (ppitch
+// doubles); ops/kernels.py::_integrand_plan sizes it with the same pitches.
+template <int KIND>
+__global__ void __launch_bounds__(kWarpThreadsMax)
+integrand_warps_kernel(const double* __restrict__ tables, int n,
+                       const int32_t* __restrict__ ind, long long B, int d, double den0,
+                       double* __restrict__ out) {
+  extern __shared__ __align__(16) double2 ising_s[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ipitch = 4 * ((d + 6) / 4);  // room for the row at any offset in its first chunk
+  const int ppitch = 2 * ((d + 2) / 2);  // P_0..P_d, a 16-byte multiple
+  int32_t* ibuf = reinterpret_cast<int32_t*>(ising_s + n) + warp * (ipitch + 2 * ppitch);
+  double* Pw = reinterpret_cast<double*>(ibuf + ipitch);
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  stage_pairs(ising_s, tables, n);
+  int off = 0;
+  if (row < B) off = copy_ints(ibuf, ind + row * d, d, lane, 32);
+  cp_async_commit();
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  if (row >= B) return;
+  const int32_t* r = ibuf + off;
+  // lane l takes the segment [k0, k1) of seg variables; seg is odd, so the
+  // lanes' index reads (stride seg words) fall in distinct banks
+  const int seg = ((d + 31) / 32) | 1;
+  const int k0 = min(d, lane * seg), k1 = min(d, k0 + seg);
+
+  // prefix products: the segment's own, left to right, then times the
+  // product of the segments before it (an exclusive warp scan)
+  double lp = 1.0, ls = 0.0, wp = 1.0;
+  for (int k = k0; k < k1; ++k) {
+    const double2 e = lookup_pair(ising_s, n, r[k]);
+    lp *= e.x;
+    ls += lp;
+    wp *= e.y;
+    if (KIND != kKindC) Pw[k + 1] = lp;
+  }
+  double carry = scan_exclusive_prod<true>(lp, lane);
+  const double s = warp_sum(carry * ls);
+  if (KIND != kKindC) {
+    for (int k = k0; k < k1; ++k) Pw[k + 1] *= carry;
+    if (lane == 0) Pw[0] = 1.0;
+  }
+  // suffix products: the segment's own, right to left, then times the
+  // product of the segments after it
+  double q = 0.0;
+  if (KIND != kKindE) {
+    double rp = 1.0, rs = 0.0;
+    for (int k = k1 - 1; k >= k0; --k) {
+      rp *= lookup_pair(ising_s, n, r[k]).x;
+      rs += rp;
+    }
+    carry = scan_exclusive_prod<false>(rp, lane);
+    q = warp_sum(carry * rs);
+  }
+  double a = 1.0;
+  if (KIND != kKindC) {
+    __syncwarp();  // every lane's P_k is in shared memory
+    for (int j = 1 + lane; j <= d; j += 32) {
+      const double pj = Pw[j];
+      double col = 1.0;
+      for (int i = 0; i < j; ++i) {
+        const double pi = Pw[i];
+        const double num = pj - pi, den = pj + pi;
+        const double ratio = den == 0.0 ? den0 : num / den;
+        col *= ratio * ratio;
+      }
+      a *= col;
+    }
+    a = warp_prod(a);
+  }
+  wp = warp_prod(wp);
+  if (lane == 0) out[row] = integrand_value<KIND>(a, q, s, wp);
+}
+
+template <int KIND>
+void launch_integrand(int path, int blocks, int threads, int smem, cudaStream_t s,
+                      const double* tables, int n, const int32_t* ind, long long B, int d,
+                      double den0, double* out) {
+  if (path == 0) {
+    integrand_rows_kernel<KIND><<<blocks, threads, smem, s>>>(tables, n, ind, B, d, den0, out);
+  } else {
+    integrand_warps_kernel<KIND><<<blocks, threads, smem, s>>>(tables, n, ind, B, d, den0, out);
   }
 }
 
@@ -692,10 +971,46 @@ int ttc_small_table_lookup(const double* tables, int L, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// tables (2, n) f64, ind (B, d) int32, out B f64; kind 1/2/3 for C/D/E.
+// path 0: integrand_rows_kernel (d <= kRowsDMax, threads = kRowsThreads),
+// 1: integrand_warps_kernel (d <= kWarpDMax, threads a multiple of 32, at
+// most kWarpThreadsMax); `smem` bytes of dynamic shared memory, as
+// ops/kernels.py::_integrand_plan gives them.  den0 is the ratio taken
+// where P_j + P_i = 0.
+int ttc_ising_integrand(const double* tables, int n, const int32_t* ind, long long B,
+                        int d, int kind, int path, int blocks, int threads, int smem,
+                        double den0, double* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || (path == 0 ? d > kRowsDMax || threads != kRowsThreads
+                          : d > kWarpDMax || threads % 32 != 0 || threads > kWarpThreadsMax)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (kind) {
+    case kKindC:
+      launch_integrand<kKindC>(path, blocks, threads, smem, s, tables, n, ind, B, d, den0, out);
+      break;
+    case kKindD:
+      launch_integrand<kKindD>(path, blocks, threads, smem, s, tables, n, ind, B, d, den0, out);
+      break;
+    case kKindE:
+      launch_integrand<kKindE>(path, blocks, threads, smem, s, tables, n, ind, B, d, den0, out);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 int ttc_threads_per_block(void) { return kThreads; }
 
 int ttc_tile_threads(void) { return kTileThreads; }
 
 int ttc_tile_smem(void) { return kTileSmem; }
+
+int ttc_integrand_rows_threads(void) { return kRowsThreads; }
+
+int ttc_integrand_rows_d_max(void) { return kRowsDMax; }
+
+int ttc_integrand_warp_d_max(void) { return kWarpDMax; }
 
 }  // extern "C"

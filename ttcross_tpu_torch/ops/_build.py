@@ -30,14 +30,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     "ttc_configure": ([_I], _I),
     "ttc_score_residual_argmax": (
         [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P], _I),
     "ttc_small_table_lookup": ([_P, _I, _I, _P, _LL, _P, _I, _P], _I),
+    "ttc_ising_integrand": ([_P, _I, _P, _LL, _I, _I, _I, _I, _I, _I, _D, _P, _P], _I),
     "ttc_threads_per_block": ([], _I),
     "ttc_tile_threads": ([], _I),
     "ttc_tile_smem": ([], _I),
+    "ttc_integrand_rows_threads": ([], _I),
+    "ttc_integrand_rows_d_max": ([], _I),
+    "ttc_integrand_warp_d_max": ([], _I),
 }
 
 

@@ -3,7 +3,8 @@
 Counterpart of the parts of ttcross_tpu/ops/dense.py that the sequential
 f64 engine uses (:110-163, :335-380).  The one-hot split-f32 lookups and
 power-of-2 range rescales that the TPU needed are not ported: the lookups
-here are plain f64 gathers, and the small-table one runs on kernel B.
+here are plain f64 gathers, and the small-table one runs on kernel B (the
+Ising integrand does its own lookup inside its fused kernel).
 """
 
 from __future__ import annotations

@@ -1,5 +1,7 @@
-"""The port's two hand-written CUDA kernels, their plain PyTorch versions
-and their launch counters.
+"""The port's hand-written CUDA kernels, their plain PyTorch versions and
+their launch counters: kernel A (the masked residual argmax), kernel B
+(the small-table lookup) and kernel B's redesign, the fused Ising
+integrand.
 
 Counterpart of ttcross_tpu/ops/pallas_kernels.py.  The CUDA sources are in
 ``csrc/kernels.cu`` (built by ``ops/_build.py``).  Each wrapper routes a
@@ -19,6 +21,7 @@ from . import _build
 
 __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
            "small_table_lookup", "small_table_lookup_plain",
+           "ising_integrand_fused", "ising_integrand_plain",
            "launch_counts", "reset_launch_counts"]
 
 _THREADS = 256             # kThreads: a block of kernel B
@@ -35,6 +38,13 @@ _TILE_KC = 32              # kKC: R is walked in chunks of 32
 _TILE_SMEM = 3 * ((64 * 36 + 32 * 68 + 64 * 68) * 8 + 64 * 80)
 _LOOKUP_SMEM = 48 * 1024   # static limit of dynamic shared memory per block
 _LOOKUP_BLOCKS_PER_SM = 8
+_ROWS_THREADS = 128        # kRowsThreads: rows of a block of the integrand's row path
+_ROWS_D_MAX = 8            # kRowsDMax: the row path takes d up to this
+_WARP_D_MAX = 1024         # kWarpDMax: the warp path takes d up to this
+_WARPS = 8                 # warps of a block of the warp path, fewer if shared memory asks
+_ROWS_STATIC_SMEM = 4 * (_ROWS_THREADS * _ROWS_D_MAX + 4)   # the row path's index tile
+_ATERM_LOOP_D = 96         # above this d the plain a-term loops over columns
+ISING_KINDS = {"C": 1, "D": 2, "E": 3}   # test_crs_ising.f90:206-212
 _F64 = (torch.float64,)
 _MASK = (torch.bool, torch.uint8)
 _I32 = (torch.int32,)
@@ -56,10 +66,11 @@ def _check_cuda(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load()
-    if ((lib.ttc_threads_per_block(), lib.ttc_tile_threads(), lib.ttc_tile_smem())
-            != (_THREADS, _TILE_THREADS, _TILE_SMEM)):
-        raise RuntimeError("kThreads/kTileThreads/kTileSmem in csrc/kernels.cu "
-                           "disagree with ops/kernels.py")
+    if ((lib.ttc_threads_per_block(), lib.ttc_tile_threads(), lib.ttc_tile_smem(),
+         lib.ttc_integrand_rows_threads(), lib.ttc_integrand_rows_d_max(),
+         lib.ttc_integrand_warp_d_max())
+            != (_THREADS, _TILE_THREADS, _TILE_SMEM, _ROWS_THREADS, _ROWS_D_MAX, _WARP_D_MAX)):
+        raise RuntimeError("the constants of csrc/kernels.cu disagree with ops/kernels.py")
     return lib
 
 
@@ -234,12 +245,124 @@ def small_table_lookup(tables, ind):
 small_table_lookup.launches = 0
 
 
+# ------------------------------------------------- the fused Ising integrand
+ROWS, WARPS = 0, 1          # the integrand kernel's paths (`path` of csrc's entry point)
+
+
+class IntegrandPlan(NamedTuple):
+    """The fused integrand's launch for one shape (see csrc/kernels.cu)."""
+    path: int               # ROWS (a row per thread) or WARPS (a row per warp)
+    blocks: int             # grid size
+    threads: int            # block size
+    smem: int               # dynamic shared memory per block, bytes
+    rows: int               # rows one block evaluates (a thread's or a warp's each)
+
+
+@functools.lru_cache(maxsize=1024)
+def _integrand_plan(B: int, d: int, n: int) -> IntegrandPlan:
+    """Launch geometry of the fused integrand for ind (B, d) and an n-point
+    table.  Up to _ROWS_D_MAX variables a thread takes a row, else a warp
+    does; a block's shared memory holds the n (node, weight) pairs and, on
+    the warp path, each warp's row of indices and its prefix products with
+    the pitches csrc computes, within the 48 KB a block gets without
+    opting in."""
+    if B < 0 or not 1 <= d <= _WARP_D_MAX or n < 1:
+        raise ValueError(f"no fused-integrand launch for ({B}, {d}) with n = {n}: "
+                         f"the kernel takes 1 <= d <= {_WARP_D_MAX}")
+    table = 16 * n
+    if d <= _ROWS_D_MAX:
+        if table + _ROWS_STATIC_SMEM > _LOOKUP_SMEM:
+            raise ValueError(f"a table of {n} points exceeds the kernel's shared memory")
+        return IntegrandPlan(ROWS, -(-B // _ROWS_THREADS), _ROWS_THREADS, table,
+                             _ROWS_THREADS)
+    per_warp = 4 * (4 * ((d + 6) // 4)) + 8 * (2 * ((d + 2) // 2))   # ipitch ints, ppitch doubles
+    warps = min(_WARPS, (_LOOKUP_SMEM - table) // per_warp)
+    if warps < 1:
+        raise ValueError(f"a table of {n} points and rows of {d} exceed the kernel's "
+                         "shared memory")
+    return IntegrandPlan(WARPS, -(-B // warps), 32 * warps, table + warps * per_warp, warps)
+
+
+def ising_integrand_plain(tables, ind, kind: str):
+    """Batched Ising integrand: ind (B, d) int32 -> (B,) values.
+
+    tables (2, n): the nodes and the rescaled weights, looked up with
+    small_table_lookup_plain (0 outside [0, n)).  kind 'C' -> 2b,
+    'D' -> 2ab, 'E' -> 2a, each times the product of weights."""
+    kid = ISING_KINDS[kind.upper()]
+    x, w = small_table_lookup_plain(tables, ind)       # (B, d) each
+    B, d = x.shape
+    f = torch.full((B,), 2.0, dtype=x.dtype, device=x.device)
+    if kid in (2, 3):  # a-term
+        one = torch.ones((B, 1), dtype=x.dtype, device=x.device)
+        P = torch.cat([one, torch.cumprod(x, dim=1)], dim=1)    # (B, d+1)
+        if d <= _ATERM_LOOP_D:
+            num = P[:, None, :] - P[:, :, None]   # P_j - P_i at [b, i, j]
+            den = P[:, None, :] + P[:, :, None]
+            ratio = torch.where(den == 0, 0.0, num / den) ** 2
+            iu = torch.triu(torch.ones((d + 1, d + 1), dtype=torch.bool,
+                                       device=x.device), diagonal=1)
+            a = torch.where(iu, ratio, 1.0).reshape(B, (d + 1) ** 2).prod(dim=1)
+        else:
+            # large d: a loop over j keeps memory at O(B d), not O(B d^2)
+            jdx = torch.arange(d + 1, device=x.device)
+            a = torch.ones((B,), dtype=x.dtype, device=x.device)
+            for j in range(d + 1):
+                col = P[:, j:j + 1]
+                r = torch.where((jdx[None, :] < j) & (col + P != 0),
+                                (col - P) / (col + P), 1.0)
+                a = a * (r * r).prod(dim=1)
+        f = f * a
+    if kid in (1, 2):  # b-term
+        pre = torch.cumprod(x, dim=1)              # prefix products
+        suf = torch.cumprod(x.flip(1), dim=1)      # suffix products
+        v = 1.0 + suf.sum(dim=1)
+        wv = 1.0 + pre.sum(dim=1)
+        f = f / (v * wv)
+    return f * w.prod(dim=1)
+
+
+def ising_integrand_fused(tables, ind, kind: str):
+    """The Ising integrand in one launch, (B,) float64.
+
+    Kernel B's redesign: replaces ttcross_tpu/ops/pallas_kernels.py::
+    small_table_lookup_limbs (:151-197) on the integrand's path, with the
+    chain of ttcross_tpu/apps/ising.py::ising_integrand (:50-90) fused in.
+    On a CPU tensor this is ising_integrand_plain; on a CUDA tensor it
+    launches the fused kernel of csrc/kernels.cu as _integrand_plan lays it
+    out and adds one to ``ising_integrand_fused.launches``."""
+    if ind.device.type == "cpu":
+        return ising_integrand_plain(tables, ind, kind)
+    kid = ISING_KINDS[kind.upper()]
+    dev = ind.device
+    _check_cuda("ind", ind, _I32, 2, dev)
+    _check_cuda("tables", tables, _F64, 2, dev)
+    if tables.shape[0] != 2:
+        raise ValueError(f"tables must be (2, n): nodes and weights, got {tuple(tables.shape)}")
+    B, d = ind.shape
+    n = tables.shape[1]
+    plan = _integrand_plan(B, d, n)
+    out = torch.empty((B,), dtype=torch.float64, device=dev)
+    if B == 0:
+        return out
+    den0 = 0.0 if d <= _ATERM_LOOP_D else 1.0   # the plain a-term's ratio where P_j + P_i = 0
+    rc = _call(dev, _lib().ttc_ising_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d,
+               kid, plan.path, plan.blocks, plan.threads, plan.smem, den0, out.data_ptr())
+    _raise_on(rc, "ising_integrand_fused launch")
+    ising_integrand_fused.launches += 1
+    return out
+
+
+ising_integrand_fused.launches = 0
+
+_WRAPPERS = (score_residual_argmax, small_table_lookup, ising_integrand_fused)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {"score_residual_argmax": score_residual_argmax.launches,
-            "small_table_lookup": small_table_lookup.launches}
+    return {f.__name__: f.launches for f in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    score_residual_argmax.launches = 0
-    small_table_lookup.launches = 0
+    for f in _WRAPPERS:
+        f.launches = 0
