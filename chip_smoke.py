@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # the check: build, kernels, main path
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
-                                     # one steady headline run
+                                     # one steady headline run, of the
+                                     # steady long-chain runs and of the
+                                     # long chain's parts per call
     python3 chip_smoke.py --parent DIR   # also times the kernels and the
                                      # integrand of another checkout (e.g.
                                      # the parent commit, unpacked with git
@@ -22,18 +24,33 @@ Phases, each printing its result as it goes:
      pass's kernel-A call must be one kernel; then the wrappers' host time
      per call; the fused Ising integrand (kernel B's redesign) against its
      plain version at the headline's batch shapes (C, D and E at d = 5)
-     and at C_256's (100584, 255), one kernel per call;
+     and at the long chain's (C_256 without the chain: fibers (43180, 255)
+     and lottery (13716, 255); the init batches of C_256 and C_1024), one
+     kernel per call; kernel B at every shape the chain's lift gives it
+     (C_256 and C_1024); kernel A batched
+     over bonds at the long chain's shapes (254 and 1022 bonds, fibers of
+     170, R = 10; half of the bonds fully masked) against its plain version
+     and, bit for bit, against one single-fiber launch per bond;
   4. the main path: the f64 cross on the Ising C_6 integrand at rank 24
      with oversample=6 (bench.py's headline configuration) on the card,
      twice with key 0 (first and steady time; the kernels' launch counts
      of the first run: kernel A and the fused integrand must have
-     launched; the standalone lookup, off this path, is reported), then
-     keys 1-7; the digits against the analytic
+     launched, at shapes that phase 3 held; the standalone lookup, off this
+     path, is reported), then keys 1-7; the digits against the analytic
      C_6; the rounding of each key's rank-30 train on the card against
      the same rounding on the host; and a small C_5 cross on the card
      against the same cross on the CPU, with rook and with full pivoting
      (kernel A's 2-D path);
-  5. the greedy (no oversample) C_6 cross, holding its state on the card.
+  5. the greedy (no oversample) C_6 cross, holding its state on the card;
+  6. the long chain: the Ising C_256 cross at rank 10, n = 17, with
+     sweep_mode="jacobi-rb" and chain=p.chain (bench.py's long-chain
+     configuration, d = 255), first and steady call and keys 0-7, its
+     state and carried chain states on the card, the batched kernel A and
+     kernel B (the chain's lift) launched; then jacobi-rb without the
+     chain (the fused integrand on (43180, 255) batches), jacobi with it,
+     and C_1024 (d = 1023), each over keys 0-7 against its own digit
+     floors; every run's launches by
+     shape, each a shape that phase 3 held against the plain version.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 It imports nothing of JAX.
@@ -49,6 +66,28 @@ import time
 
 KERNEL_SOURCE = "ttcross_tpu_torch/csrc/kernels.cu"
 MAIN_PATH_KERNELS = ("score_residual_argmax", "ising_integrand_fused")
+LONG_CHAIN_KERNELS = ("score_residual_argmax_batched", "small_table_lookup")
+LONG_CHAIN = dict(n=17, max_rank=10, accuracy=500 * 2.2e-16, pivoting=1)
+# The long chain's digits over the lottery key, from CPU runs of both
+# packages over keys 0-7 at each configuration (C_m, n = 17, rank 10;
+# PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_jacobi.py m mode
+# chain|plain prints them).  Port / JAX package, whose hunt ranks residuals
+# in f32, as minimum, median, maximum:
+#   C_256  jacobi-rb + chain  11.37 12.02 12.57 / 9.81 10.58 11.08
+#   C_256  jacobi-rb, plain   11.37 12.01 12.57 / 9.81 10.58 11.08
+#   C_256  jacobi + chain     10.62 11.61 12.51 / 9.35 10.04 11.17
+#   C_1024 jacobi-rb + chain  11.25 12.01 13.27 / 10.03 10.66 11.14
+# The card draws the port's uniforms, so every configuration is run over
+# keys 0-7 and held near the port's CPU runs: the median at most 0.7 below
+# the port's CPU median, and each key above the JAX package's median.
+LC_FLOORS = {  # (m, mode, chain): (median of keys 0-7, each key)
+    (256, "jacobi-rb", True): (11.3, 10.5),
+    (256, "jacobi-rb", False): (11.3, 10.5),
+    (256, "jacobi", True): (10.9, 10.0),
+    (1024, "jacobi-rb", True): (11.3, 10.6),
+}
+LC_EVALS_MAX = 215_323      # the C++ twin's evals at C_256 (baseline/measured.json)
+BATCHED_RTOL = 1e-14        # batched kernel A vs its plain version, of the largest residual
 HEADLINE = dict(m=6, n=64, max_rank=24, accuracy=500 * 2.2e-16, pivoting=1)
 # The digits are a random variable over the lottery key.  Keys 0-47 of the
 # JAX package on the CPU give 12.71-15.35 oversampled (3 of 48 below 13.0;
@@ -120,6 +159,11 @@ def _score_bound(M, K, R):
     return _bound_us(8 * (M * K + M * R + R * K) + M * K + 24, 2 * M * K * R)
 
 
+def _batched_bound(P, M, K, R):
+    # per bond: vals, colf, rowf and the mask read once, three 8-byte results written
+    return _bound_us(P * (8 * (M * K + M * R + R * K) + M * K + 24), 2 * P * M * K * R)
+
+
 def _lookup_bound(L, E, n):
     # the tables and the int32 indices read once, L f64 outputs per index
     return _bound_us(8 * L * n + 4 * E + 8 * L * E, 0)
@@ -156,6 +200,21 @@ def _rel_errs(got, want, rtol):
     nz = want != 0
     rel = float((diff[nz] / want[nz].abs()).max()) if bool(nz.any()) else 0.0
     return float(diff.max()), rel, bool((diff <= rtol * want.abs()).all())
+
+
+def _by_shape(shapes) -> dict:
+    """launch_shapes() with strings for keys, for a JSON line."""
+    return {name: {str(list(sh)): c for sh, c in sorted(by.items())}
+            for name, by in shapes.items()}
+
+
+def _require_held(label, shapes, held) -> None:
+    """Every shape at which a run launched a kernel must be one that phase 3
+    held against the plain version."""
+    missing = {name: sorted(set(by) - held[name]) for name, by in shapes.items()
+               if set(by) - held[name]}
+    if missing:
+        raise AssertionError(f"{label}: launched at shapes that no kernel check held: {missing}")
 
 
 def _device_us(evt) -> float:
@@ -217,7 +276,15 @@ def kernel_cases(dev, gen):
     b = []
     for name, Bb, d, n in [("rook_fiber", B, 5, N), ("lottery", 190, 5, N),
                            ("init_diag", 520, 5, N), ("init_fibers", 325, 5, N),
-                           ("long_chain", 100584, 255, 33)]:
+                           ("large", 100584, 255, 33),
+                           # the chain's lift at C_256 (254 bonds) and C_1024 (1022):
+                           # the lottery's candidates, the states' rows, a fiber's
+                           # fixed index and its free one, the accepted pivots
+                           ("lift_cand", 254, 54, 17), ("lift_states", 254, 10, 17),
+                           ("lift_fixed", 254, 1, 17), ("lift_free", 1, 17, 17),
+                           ("lift_accept", 1, 254, 17),
+                           ("lift_cand_c1024", 1022, 54, 17), ("lift_states_c1024", 1022, 10, 17),
+                           ("lift_fixed_c1024", 1022, 1, 17), ("lift_accept_c1024", 1, 1022, 17)]:
         tables = torch.randn((2, n), generator=gen, dtype=torch.float64).to(dev)
         ind = torch.randint(-2, n + 2, (Bb, d), generator=gen, dtype=torch.int32).to(dev)
         b.append((name, (tables, ind)))
@@ -226,8 +293,11 @@ def kernel_cases(dev, gen):
 
 def integrand_cases(dev, gen):
     """The fused integrand's inputs: the headline's four batch shapes (C_6,
-    n = 65), the rook fiber's at D_6 and E_6, and C_256's long chain at
-    n = 33; tables from make_ising, indices in range but for two rows."""
+    n = 65), the rook fiber's at D_6 and E_6, and the long chain's at n = 17:
+    the fibers and the lottery of a C_256 sweep without the chain (254 bonds
+    x 170 and x 54) and the init batches of C_256 and C_1024 (with the chain
+    they are the only integrand calls); tables from make_ising, indices in
+    range but for two rows."""
     import torch
 
     from ttcross_tpu_torch.apps import make_ising
@@ -237,7 +307,12 @@ def integrand_cases(dev, gen):
                                 ("init_diag", "C", 6, 64, 520), ("init_fibers", "C", 6, 64, 325),
                                 ("rook_fiber_D", "D", 6, 64, 1950),
                                 ("rook_fiber_E", "E", 6, 64, 1950),
-                                ("long_chain", "C", 256, 33, 100584)]:
+                                ("lc_fibers", "C", 256, 17, 43180),
+                                ("lc_lottery", "C", 256, 17, 13716),
+                                ("lc_init_diag", "C", 256, 17, 136),
+                                ("lc_init_fibers", "C", 256, 17, 4335),
+                                ("lc_init_diag_c1024", "C", 1024, 17, 136),
+                                ("lc_init_fibers_c1024", "C", 1024, 17, 17391)]:
         p = make_ising(kind, m, n, device=dev)
         ind = torch.randint(0, p.n, (B, p.d), generator=gen, dtype=torch.int32)
         ind[0, 0] = -1                 # out of range: the row's value is 0
@@ -373,6 +448,62 @@ def check_kernels(dev, a_cases, b_cases):
     return a_rows, a_err, b_rows
 
 
+def check_batched(dev, gen):
+    """Phase 3, kernel A batched over bonds at the long chain's shapes, half
+    of the bonds fully masked (a red-black phase's dead parity): the plain
+    version's indices, scores and residuals within BATCHED_RTOL of the
+    largest residual, and the bits of one single-fiber launch per bond; one
+    kernel per call; times, bound and share.  No single PyTorch call
+    computes it, so it has no library yardstick."""
+    import torch
+
+    from ttcross_tpu_torch.ops import kernels as K
+
+    rows, worst = [], 0.0
+    for name, P, M, Kc, R in [("col_pass_c256", 254, 170, 1, 10), ("row_pass_c256", 254, 1, 170, 10),
+                              ("col_pass_c1024", 1022, 170, 1, 10),
+                              ("row_pass_c1024", 1022, 1, 170, 10),
+                              ("col_one_bond", 1, 170, 1, 10), ("row_one_bond", 1, 1, 170, 10)]:
+        vals, colf, rowf = (torch.randn(sh, generator=gen, dtype=torch.float64).to(dev)
+                            for sh in ((P, M, Kc), (P, M, R), (P, R, Kc)))
+        mask = (torch.rand((P, M, Kc), generator=gen) > 0.2).to(dev)
+        mask[1::2] = False
+        args = (vals, colf, rowf, mask)
+        got = K.score_residual_argmax_batched(*args)
+        want = K.score_residual_argmax_batched_plain(*args)
+        single = [K.score_residual_argmax(*(a[p] for a in args)) for p in range(P)]
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"batched kernel A {name}: indices differ from the plain version's")
+        scale = float(want[2].abs().max())
+        err = max(float((g - w).abs().max()) for g, w in zip(got[1:], want[1:]))
+        if err > BATCHED_RTOL * scale:
+            raise AssertionError(f"batched kernel A {name}: {err} from the plain version")
+        if not all(torch.equal(got[i], torch.stack([x[i] for x in single])) for i in range(3)):
+            raise AssertionError(f"batched kernel A {name}: not the bits of {P} single-fiber launches")
+        if P > 1 and not (bool((got[0][1::2] == 0).all()) and bool((got[1][1::2] == -1.0).all())):
+            raise AssertionError(f"batched kernel A {name}: a fully masked bond is not (0, -1)")
+        fn = lambda: K.score_residual_argmax_batched(*args)  # noqa: E731
+        plain = lambda: K.score_residual_argmax_batched_plain(*args)  # noqa: E731
+        dev_k, dev_p = device_per_call(fn), device_per_call(plain)
+        if not 0 < dev_k["kernels_per_call"] <= 1:
+            raise AssertionError(f"batched kernel A {name}: {dev_k['kernels_per_call']} kernels "
+                                 "per call (one is the design)")
+        bound, by = _batched_bound(P, M, Kc, R)
+        row = {"kernel": "score_residual_argmax_batched", "shape": [P, M, Kc, R], "case": name,
+               "max_abs_err": err, "bit_equal_to_single_launches": True,
+               "ms": _time_ms(fn), "plain_ms": _time_ms(plain), "library_ms": None,
+               "device_us": dev_k["device_us"], "kernels_per_call": dev_k["kernels_per_call"],
+               "plain_device_us": dev_p["device_us"],
+               "plain_kernels_per_call": dev_p["kernels_per_call"],
+               "host_us_per_call": host_us_per_call(fn),
+               "bound_us": bound, "bound_by": by, "share_of_bound": bound / dev_k["device_us"]}
+        _emit(row)
+        rows.append(row)
+        worst = max(worst, err)
+    return rows, worst
+
+
 def _package_of(root: str):
     """The name of the ttcross_tpu_torch package of the checkout at `root`,
     imported under another name so that it sits beside this checkout's."""
@@ -393,7 +524,7 @@ def compare_with(root: str, a_cases, b_cases, i_cases) -> dict:
     """Device-only and host time per call of the kernels of the checkout at
     `root` and of this one, on the same inputs, in turns: other, this,
     this, other.  The integrand is each checkout's apps.ising.
-    ising_integrand at the rook fiber's shape and at C_256's (e.g. the
+    ising_integrand at the rook fiber's shape and at C_256's fibers (e.g. the
     parent's kernel B and eager chain against this one's fused kernel)."""
     import importlib
 
@@ -408,7 +539,8 @@ def compare_with(root: str, a_cases, b_cases, i_cases) -> dict:
     cases += [(f"small_table_lookup {c}", other_k.small_table_lookup,
                K.small_table_lookup, args) for c, args in b_cases[:1]]
     cases += [(f"ising_integrand {c}", other_i.ising_integrand, ising.ising_integrand,
-               (ind, tables, kind)) for c, kind, tables, ind in (i_cases[0], i_cases[-1])]
+               (ind, tables, kind)) for c, kind, tables, ind in i_cases
+              if c in ("rook_fiber", "lc_fibers")]
     out = {}
     for label, f_other, f_this, args in cases:
         reads = {"other": [], "this": []}
@@ -444,6 +576,143 @@ def run_headline(dev, oversample, return_state=False, key=0):
             and res.tt.device.type == "cuda" and max(res.ranks) <= h["max_rank"]):
         raise AssertionError(f"malformed result: ranks {res.ranks}, values {vals}")
     return res, wall, float(-np.log10(res.errors[-1]))
+
+
+def run_long_chain(dev, m=256, mode="jacobi-rb", chain=True, key=0):
+    """One long-chain cross on the card through the public entry points;
+    (result, wall seconds, digits, launches per kernel of this run, the
+    same by the shape of the call)."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising
+    from ttcross_tpu_torch.cross import cross
+    from ttcross_tpu_torch.ops import kernels as K
+
+    h = LONG_CHAIN
+    prob = make_ising("C", m, h["n"])          # on the card by default
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cross(prob.fun, [prob.n] * prob.d, max_rank=h["max_rank"], accuracy=h["accuracy"],
+                pivoting=h["pivoting"], quad=[prob.quad_weights] * prob.d, truth=prob.truth,
+                sweep_mode=mode, chain=prob.chain if chain else None, key=key,
+                return_state=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, shapes = K.launch_counts(), K.launch_shapes()
+    vals = np.asarray(res.values)
+    state = list(res.state) + list(res.chain_states or ())
+    if not (np.all(np.isfinite(vals)) and res.tt.ready() and res.tt.device.type == "cuda"
+            and max(res.ranks) <= h["max_rank"] and len(res.ranks) == m
+            and all(t.device.type == "cuda" for t in state)
+            and (res.chain_states is not None) == chain):
+        raise AssertionError(f"malformed long-chain result: ranks {res.ranks}, values {vals}")
+    return res, wall, float(-np.log10(res.errors[-1])), counts, shapes
+
+
+def _long_chain_row(res, wall, digits, counts, shapes) -> dict:
+    return {"digits": digits, "n_evals": res.neval, "padded_evals": res.padded_evals,
+            "max_rank": max(res.ranks), "sweeps": res.sweeps, "wall_s": wall, "launches": counts,
+            "launches_per_sweep": {k: v / res.sweeps for k, v in counts.items()},
+            "launches_by_shape": _by_shape(shapes)}
+
+
+def check_long_chain(dev, held):
+    """Phase 6: C_256 jacobi-rb + chain, first and steady call and keys 0-7,
+    then jacobi-rb without the chain, jacobi with it, and C_1024, each
+    over keys 0-7 too; every run's kernel launches at shapes in `held`.  Returns the launch counts
+    of the first C_256 run, in all and by shape."""
+    res, first, digits, launches, shapes = run_long_chain(dev)
+    res2, steady, digits2, launches2, _ = run_long_chain(dev)
+    by_key = [digits] + [run_long_chain(dev, key=k)[2] for k in KEYS[1:]]
+    median = statistics.median(by_key)
+    floor_median, floor_key = LC_FLOORS[256, "jacobi-rb", True]
+    _emit({"phase": "long_chain", "config": "C_256 n=17 rank 10 jacobi-rb chain pivoting=1",
+           **_long_chain_row(res, first, digits, launches, shapes), "ranks": list(res.ranks),
+           "steady_s": steady, "state_on_card": True, "digits_by_key": by_key,
+           "median_digits": median})
+    if median < floor_median or min(by_key) < floor_key or res.neval > LC_EVALS_MAX:
+        raise AssertionError(f"long-chain digits over keys {by_key}: median {median} < "
+                             f"{floor_median}, a key < {floor_key}, or {res.neval} "
+                             f"evals > {LC_EVALS_MAX}")
+    if min(launches[k] for k in LONG_CHAIN_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the long-chain path was never launched: {launches}")
+    _require_held("C_256 jacobi-rb + chain", shapes, held)
+    if (res2.neval, res2.ranks, digits2, launches2) != (res.neval, res.ranks, digits, launches):
+        raise AssertionError("the repeated long-chain run took another path")
+    for label, m, mode, chain, need in [
+            ("C_256 jacobi-rb, black-box integrand", 256, "jacobi-rb", False,
+             ("score_residual_argmax_batched", "ising_integrand_fused")),
+            ("C_256 jacobi + chain", 256, "jacobi", True, LONG_CHAIN_KERNELS),
+            ("C_1024 jacobi-rb + chain", 1024, "jacobi-rb", True, LONG_CHAIN_KERNELS)]:
+        run_long_chain(dev, m, mode, chain)              # first call at this shape
+        *run, shapes_v = run_long_chain(dev, m, mode, chain)
+        row = _long_chain_row(*run, shapes_v)
+        by_key = [row["digits"]] + [run_long_chain(dev, m, mode, chain, key=k)[2]
+                                    for k in KEYS[1:]]
+        median = statistics.median(by_key)
+        floor_median, floor_key = LC_FLOORS[m, mode, chain]
+        _emit({"phase": "long_chain_variant", "config": label, **row, "digits_by_key": by_key,
+               "median_digits": median})
+        if median < floor_median or min(by_key) < floor_key:
+            raise AssertionError(f"{label}: digits over keys {by_key}: median {median} < "
+                                 f"{floor_median} or a key < {floor_key}")
+        if min(row["launches"][k] for k in need) <= 0:
+            raise AssertionError(f"{label}: a kernel of its path was not launched: {row['launches']}")
+        _require_held(label, shapes_v, held)
+    return launches, shapes
+
+
+def profile_long_chain_parts(dev) -> None:
+    """Kernels and device-only time per call of the long chain's parts at
+    C_256's shapes (254 bonds, R = 10, N = 17, NLOT = 54) on the state
+    after init: the three chain evaluators and the states' scan and update
+    (what one fused kernel each would replace), one whole hunt of all
+    bonds and one apply."""
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising
+    from ttcross_tpu_torch.config import precision_thresholds
+    from ttcross_tpu_torch.cross.engine import CrossConfig, make_engine
+
+    h = LONG_CHAIN
+    p = make_ising("C", 256, h["n"])
+    R, N, nb = h["max_rank"], p.n, p.d - 1
+    se, sp = precision_thresholds(torch.float64)
+    cfg = CrossConfig(d=p.d, n=(N,) * p.d, N=N, R=R, piv=h["pivoting"], small_element=se,
+                      small_pivot=sp, jacobi=True, rb=True)
+    kit = make_engine(p.fun, cfg, dev, chain=p.chain)
+    ev, st = kit.chain_ev, kit.init_fn()
+    Ls, Rs = ev.states_from_vip(st.vip)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    NLOT = 2 * (R + N)
+    U = torch.rand((nb, 2, NLOT), generator=gen, dtype=torch.float64).to(dev)
+    ps, iN = torch.arange(nb, device=dev), torch.arange(N, device=dev)
+    zr = torch.zeros((nb, NLOT), dtype=torch.long, device=dev)     # rank 1: link 0
+    jk = torch.randint(0, N, (2, nb, NLOT), generator=gen).to(dev)
+    live = torch.ones((nb,), dtype=torch.bool, device=dev)
+    w = torch.ones((p.d, N), dtype=torch.float64, device=dev)
+    hunt, amax, neval, padded = kit.jacobi_hunt(st, U, True, 0, nb, live, cs=(Ls, Rs))
+    st2 = st._replace(amax=amax, neval=neval, padded=padded)
+    parts = {
+        "eval_cand (254, 54)": lambda: ev.eval_cand(Ls, Rs, ps, zr, jk[0], jk[1], zr),
+        "eval_col (254, 10, 17)": lambda: ev.eval_col(Ls, Rs, ps, jk[0, :, 0], zr[:, 0], iN),
+        "eval_row (254, 17, 10)": lambda: ev.eval_row(Ls, Rs, ps, zr[:, 0], jk[1, :, 0], iN),
+        "states_from_vip": lambda: ev.states_from_vip(st.vip),
+        "value_fn (per sweep)": lambda: kit.value_fn(st, w),
+        "update_states": lambda: ev.update_states(Ls.clone(), Rs.clone(), zr[:, 0], jk[0, :, 0],
+                                                  jk[1, :, 0], zr[:, 0], ~live, zr[:, 0]),
+        "jacobi_hunt, all bonds": lambda: kit.jacobi_hunt(st, U, True, 0, nb, live, cs=(Ls, Rs)),
+        # nothing is accepted (live all false), so the state stays as it is
+        "jacobi_apply, no accept": lambda: kit.jacobi_apply(st2, hunt, live=~live,
+                                                            skip_corners=True),
+    }
+    rows = {}
+    for name, fn in parts.items():
+        got = device_per_call(fn, calls=20)
+        rows[name] = {"kernels_per_call": got["kernels_per_call"], "device_us": got["device_us"],
+                      "host_us_per_call": host_us_per_call(fn, calls=50)}
+    _emit({"phase": "profile", "run": "C_256 long-chain parts, per call", **rows})
 
 
 def check_rounding(dev, final_values) -> dict:
@@ -500,27 +769,45 @@ def check_small_against_cpu(dev) -> dict:
             raise AssertionError(f"C_5 pivoting={piv}: the card differs from the CPU by {rel}")
         rows[f"pivoting={piv}"] = {"ranks": list(g.ranks), "n_evals": g.neval,
                                    "max_rel_value_diff": rel}
+    # the long chain's path at C_32 (n = 17, rank 6): all-bonds red-black
+    # sweeps, candidates from the chain's interface states
+    out = {}
+    for where in ("cpu", dev):
+        p = make_ising("C", 32, 17, device=where)
+        out[str(where)] = cross(p.fun, [p.n] * p.d, max_rank=6, accuracy=LONG_CHAIN["accuracy"],
+                                pivoting=1, quad=[p.quad_weights] * p.d, truth=p.truth,
+                                sweep_mode="jacobi-rb", chain=p.chain, device=where)
+    c, g = out["cpu"], out[str(dev)]
+    if (c.ranks, c.neval, c.sweeps) != (g.ranks, g.neval, g.sweeps):
+        raise AssertionError(f"C_32 jacobi-rb + chain on the card {g.ranks} {g.neval} != CPU "
+                             f"{c.ranks} {c.neval}")
+    rel = float(np.max(np.abs(np.subtract(g.values, c.values)) / np.abs(c.values)))
+    if rel > 1e-9:          # rank-6 values carry ~1e-7 of error; batched sums in another order
+        raise AssertionError(f"C_32 jacobi-rb + chain: the card differs from the CPU by {rel}")
+    rows["C_32 jacobi-rb chain"] = {"max_rank": max(g.ranks), "n_evals": g.neval,
+                                    "sweeps": g.sweeps, "max_rel_value_diff": rel}
     return {"phase": "small_vs_cpu", **rows}
 
 
-def profile_headline(dev) -> None:
-    """torch.profiler over one steady headline run: kernel time by name and
-    the device's busy share of the run's wall time."""
-    import torch
+def profile_run(label: str, run) -> None:
+    """torch.profiler over one steady run (run() returns a tuple that
+    starts with the result): kernel time by name, the device's busy share
+    of the run's wall time, and the kernel launches per sweep."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_headline(dev, oversample=6)
+        res = run()[0]
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
     print(avgs.table(sort_by="self_cuda_time_total", row_limit=30), flush=True)
     # device kernels only: an aten op's self device time repeats its kernels'
     kernels = [e for e in avgs if "CUDA" in str(getattr(e, "device_type", ""))]
     busy_us = sum(_device_us(e) for e in kernels)
-    _emit({"phase": "profile", "wall_s": wall, "device_busy_s": busy_us * 1e-6,
+    _emit({"phase": "profile", "run": label, "wall_s": wall, "device_busy_s": busy_us * 1e-6,
            "device_busy_share": busy_us * 1e-6 / wall,
-           "kernel_launches": sum(e.count for e in kernels),
+           "kernel_launches": sum(e.count for e in kernels), "sweeps": res.sweeps,
+           "kernel_launches_per_sweep": sum(e.count for e in kernels) / res.sweeps,
            "top": [[e.key[:80], e.count, _device_us(e)] for e in
                    sorted(kernels, key=_device_us, reverse=True)[:15]]})
 
@@ -558,6 +845,11 @@ def main() -> int:
     i_cases = integrand_cases(dev, gen)
     a_rows, a_err, b_rows = check_kernels(dev, a_cases, b_cases)
     i_rows, i_err = check_integrand(i_cases)
+    ab_rows, ab_err = check_batched(dev, gen)
+    held = {"score_residual_argmax": {tuple(r["shape"]) for r in a_rows},
+            "score_residual_argmax_batched": {tuple(r["shape"]) for r in ab_rows},
+            "small_table_lookup": {tuple(r["shape"]) for r in b_rows},
+            "ising_integrand_fused": {tuple(r["shape"]) for r in i_rows}}
     args = sys.argv[1:]
     if "--parent" in args:
         _emit(compare_with(args[args.index("--parent") + 1], a_cases, b_cases, i_cases))
@@ -565,7 +857,7 @@ def main() -> int:
 
     K.reset_launch_counts()
     res, first, digits = run_headline(dev, oversample=6)
-    launches = K.launch_counts()
+    launches, shapes = K.launch_counts(), K.launch_shapes()
     K.reset_launch_counts()
     res2, steady, digits2 = run_headline(dev, oversample=6)
     steady_launches = K.launch_counts()
@@ -576,17 +868,19 @@ def main() -> int:
            "digits": digits, "n_evals": res.neval, "padded_evals": res.padded_evals,
            "ranks": list(res.ranks), "sweeps": res.sweeps, "first_s": first,
            "steady_s": steady, "steady_digits": digits2, "launches": launches,
+           "launches_by_shape": _by_shape(shapes),
            "steady_launches": steady_launches, "digits_by_key": by_key,
            "median_digits": median})
     if "--profile" in args:
-        profile_headline(dev)
+        profile_run("C_6 headline", lambda: run_headline(dev, oversample=6))
     if median < DIGITS_MEDIAN or min(by_key) < DIGITS_FLOOR:
         raise AssertionError(f"headline digits over keys {by_key}: median {median} < "
                              f"{DIGITS_MEDIAN} or a key < {DIGITS_FLOOR}")
-    # the headline's integrand runs on the fused kernel, so the standalone
-    # lookup (the chain lift's) is reported, at 0, and not required
+    # the headline's integrand runs on the fused kernel; the standalone
+    # lookup (the chain lift's) is held on the long chain's run below
     if min(launches[k] for k in MAIN_PATH_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+    _require_held("C_6 headline", shapes, held)
     if (res2.neval, res2.ranks, digits2, steady_launches) != (res.neval, res.ranks, digits, launches):
         raise AssertionError("the repeated headline run took another path")
     _emit(check_rounding(dev, [r.values[-1] for r, _ in runs]))
@@ -602,24 +896,42 @@ def main() -> int:
     if not on_card:
         raise AssertionError("the cross state left the card")
 
-    def summary(row, launched, err):
-        return {"launches": launched, "max_abs_err": err, "ms": row["ms"],
+    lc_launches, lc_shapes = check_long_chain(dev, held)
+    if "--profile" in args:
+        profile_run("C_256 jacobi-rb chain", lambda: run_long_chain(dev))
+        profile_run("C_256 jacobi-rb, black-box integrand",
+                    lambda: run_long_chain(dev, chain=False))
+        profile_run("C_1024 jacobi-rb chain", lambda: run_long_chain(dev, m=1024))
+        profile_long_chain_parts(dev)
+
+    def summary(row, launched, by_shape, err):
+        # launches: all of the kernel's on its path's run; the times and the
+        # bound are those of one shape, launched launches_at_shape times
+        return {"launches": launched, "launches_at_shape": by_shape.get(tuple(row["shape"]), 0),
+                "max_abs_err": err, "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "device_ms": row["device_us"] * 1e-3,
                 "bound_ms": row["bound_us"] * 1e-3, "bound_us": row["bound_us"],
                 "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
                 "shape": row["shape"]}
 
+    # each kernel's launches are those of the run of its own path, counted
+    # from 0: the C_6 headline's first run, or the C_256 long chain's
+    lift_row = next(r for r in b_rows if r["case"] == "lift_cand")
+    A, AB, B, FUSED = MAIN_PATH_KERNELS[0], *LONG_CHAIN_KERNELS, MAIN_PATH_KERNELS[1]
     print(smi, flush=True)
     _emit({"kernels": [
         {"name": "score_residual_argmax", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "ttcross_tpu/ops/pallas_kernels.py:62",
-         **summary(a_rows[0], launches["score_residual_argmax"], a_err)},
+         "replaces": "ttcross_tpu/ops/pallas_kernels.py:62", "path": "C_6 headline",
+         **summary(a_rows[0], launches[A], shapes[A], a_err)},
+        {"name": "score_residual_argmax_batched", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "ttcross_tpu/ops/pallas_kernels.py:62", "path": "C_256 long chain",
+         **summary(ab_rows[0], lc_launches[AB], lc_shapes[AB], ab_err)},
         {"name": "small_table_lookup", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "ttcross_tpu/ops/pallas_kernels.py:151",
-         **summary(b_rows[0], launches["small_table_lookup"], 0.0)},
+         "replaces": "ttcross_tpu/ops/pallas_kernels.py:151", "path": "C_256 long chain",
+         **summary(lift_row, lc_launches[B], lc_shapes[B], 0.0)},
         {"name": "ising_integrand_fused", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "ttcross_tpu/ops/pallas_kernels.py:151",
-         **summary(i_rows[0], launches["ising_integrand_fused"], i_err)},
+         "replaces": "ttcross_tpu/ops/pallas_kernels.py:151", "path": "C_6 headline",
+         **summary(i_rows[0], launches[FUSED], shapes[FUSED], i_err)},
     ]})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

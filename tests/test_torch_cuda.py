@@ -117,6 +117,78 @@ def test_score_kernel_fiber_is_one_kernel(shape, gen, cuda_device):
     assert 0 < sum(e.count for e in kern) <= 10
 
 
+@pytest.mark.parametrize("P,M,Kc,R", [(254, 170, 1, 10), (254, 1, 170, 10), (1022, 170, 1, 10),
+                                      (1022, 1, 170, 10), (1, 170, 1, 10), (1, 1, 170, 10),
+                                      (7, 1300, 1, 30), (7, 1, 1300, 30), (5, 3, 1, 2),
+                                      (33, 171, 1, 9), (33, 1, 171, 9)])
+def test_score_batched_kernel_matches_plain_and_the_single_kernel(P, M, Kc, R, gen, cuda_device):
+    """One launch for all bonds, half of them fully masked: the plain
+    version's indices and its residuals to 1e-14 relative of the largest
+    (f64 sums in another order), and the bits of P single-fiber launches."""
+    vals, colf, rowf = (torch.as_tensor(gen.standard_normal(sh)).to(cuda_device)
+                        for sh in ((P, M, Kc), (P, M, R), (P, R, Kc)))
+    mask = torch.as_tensor(gen.random((P, M, Kc)) > 0.2).to(cuda_device)
+    mask[::2] = False
+    n0, n1 = K.score_residual_argmax_batched.launches, K.score_residual_argmax.launches
+    got = K.score_residual_argmax_batched(vals, colf, rowf, mask)
+    want = K.score_residual_argmax_batched_plain(vals, colf, rowf, mask)
+    torch.cuda.synchronize()
+    assert K.score_residual_argmax_batched.launches == n0 + 1
+    assert K.score_residual_argmax.launches == n1
+    assert torch.equal(got[0], want[0])
+    assert got[0][::2].abs().sum() == 0 and bool((got[1][::2] == -1.0).all())
+    scale = float(want[2].abs().max())
+    for g, w in zip(got[1:], want[1:]):
+        assert float((g - w).abs().max()) <= 1e-14 * scale
+    single = [K.score_residual_argmax(vals[p], colf[p], rowf[p], mask[p]) for p in range(P)]
+    for i in range(3):
+        assert torch.equal(got[i], torch.stack([x[i] for x in single]))
+
+
+def test_score_batched_kernel_first_maximum_nan_and_what_it_does_not_take(cuda_device):
+    f64 = dict(dtype=torch.float64, device=cuda_device)
+    P, M, R = 3, 400, 3
+    vals = torch.zeros((P, M, 1), **f64)
+    vals[0, 300, 0] = vals[0, 37, 0] = 4.0          # ties in different warps: the first
+    vals[1, 399, 0] = float("nan")
+    vals[1, 5, 0] = 9.0
+    mask = torch.ones((P, M, 1), dtype=torch.bool, device=cuda_device)
+    mask[2] = False
+    colf, rowf = torch.zeros((P, M, R), **f64), torch.zeros((P, R, 1), **f64)
+    got = K.score_residual_argmax_batched(vals, colf, rowf, mask)
+    want = K.score_residual_argmax_batched_plain(vals, colf, rowf, mask)
+    assert got[0].tolist() == want[0].tolist() == [37, 399, 0]
+    assert float(got[1][0]) == 4.0 and torch.isnan(got[1][1]) and float(got[1][2]) == -1.0
+    with pytest.raises(ValueError, match="fibers"):
+        K.score_residual_argmax_batched(torch.zeros((2, 4, 5), **f64), torch.zeros((2, 4, 3), **f64),
+                                        torch.zeros((2, 3, 5), **f64),
+                                        torch.ones((2, 4, 5), dtype=torch.bool, device=cuda_device))
+    with pytest.raises(ValueError):
+        K.score_residual_argmax_batched(vals, colf, rowf.cpu(), mask)
+    with pytest.raises(ValueError):
+        K.score_residual_argmax_batched(vals, colf.transpose(0, 1).contiguous().transpose(0, 1),
+                                        rowf, mask)            # not contiguous
+
+
+@pytest.mark.parametrize("shape", [(254, 170, 1, 10), (1022, 1, 170, 10)])
+def test_score_batched_kernel_is_one_kernel(shape, gen, cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    P, M, Kc, R = shape
+    args = [torch.as_tensor(a).to(cuda_device) for a in
+            (gen.standard_normal((P, M, Kc)), gen.standard_normal((P, M, R)),
+             gen.standard_normal((P, R, Kc)), gen.random((P, M, Kc)) > 0.2)]
+    K.score_residual_argmax_batched(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            K.score_residual_argmax_batched(*args)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    assert [e.key for e in kern] and all("score_fiber_batched_kernel" in e.key for e in kern)
+    assert 0 < sum(e.count for e in kern) <= 10
+
+
 @pytest.mark.parametrize("B,d,n", [(1950, 5, 65), (190, 5, 65), (4097, 17, 33), (0, 5, 65)])
 def test_lookup_kernel_matches_plain(B, d, n, gen, cuda_device):
     tables = torch.as_tensor(gen.standard_normal((2, n))).to(cuda_device)
@@ -242,6 +314,40 @@ def test_small_cross_on_the_card_matches_the_cpu(pivoting, cuda_device):
     np.testing.assert_allclose(g.values, c.values, rtol=1e-11)
 
 
+@pytest.mark.parametrize("mode,chain", [("jacobi-rb", True), ("jacobi-rb", False),
+                                        ("jacobi", True), ("jacobi", False)])
+def test_small_long_chain_cross_on_the_card_matches_the_cpu(mode, chain, cuda_device):
+    """C_32 (n = 17, rank 6) on the all-bonds sweeps: the card against the
+    CPU run with the same uniforms; the batched kernel A and, by the path,
+    kernel B (the chain's lift) or the fused integrand launched."""
+    from ttcross_tpu_torch.apps import make_ising
+    from ttcross_tpu_torch.cross import cross
+
+    runs = {}
+    K.reset_launch_counts()
+    for where in ("cpu", cuda_device):
+        p = make_ising("C", 32, 17, device=where)
+        runs[str(where)] = cross(p.fun, [p.n] * p.d, max_rank=6, accuracy=500 * 2.2e-16,
+                                 pivoting=1, quad=[p.quad_weights] * p.d, truth=p.truth,
+                                 sweep_mode=mode, chain=p.chain if chain else None,
+                                 return_state=True, device=where)
+    counts, shapes = K.launch_counts(), K.launch_shapes()
+    c, g = runs["cpu"], runs[str(cuda_device)]
+    # the launches by shape add up to the counts; both fiber passes at all bonds
+    assert {k: sum(v.values()) for k, v in shapes.items()} == counts
+    P, RN = p.d - 1, 6 * p.n
+    assert set(shapes["score_residual_argmax_batched"]) == {(P, RN, 1, 6), (P, 1, RN, 6)}
+    assert counts["score_residual_argmax_batched"] > 0 and counts["score_residual_argmax"] == 0
+    assert (counts["small_table_lookup"] > 0) == chain
+    assert counts["ising_integrand_fused"] > (0 if chain else 10)
+    assert all(t.device.type == "cuda" for t in g.state)
+    assert (g.chain_states is not None) == chain
+    if chain:
+        assert all(t.device.type == "cuda" for t in g.chain_states)
+    assert (g.ranks, g.neval, g.sweeps) == (c.ranks, c.neval, c.sweeps)
+    np.testing.assert_allclose(g.values, c.values, rtol=1e-9)
+
+
 def test_rounding_on_the_card_matches_the_host(cuda_device):
     """svd_round of the C_6 headline's rank-30 train on the card gives the
     same quadrature value as on the host (LAPACK) to 1e-14: cuSOLVER's
@@ -286,3 +392,37 @@ def test_a_sweep_makes_no_host_sync(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert int(st.rk[1:-1].min()) >= 2
+
+
+@pytest.mark.parametrize("mode,chain", [("jacobi-rb", True), ("jacobi-rb", False),
+                                        ("jacobi", True), ("jacobi", False)])
+def test_an_all_bonds_sweep_makes_no_host_sync(mode, chain, cuda_device):
+    """Hunt, apply and the chain states' update of the long-chain sweeps
+    stay on the card: two sweeps at C_64 under torch's sync debug mode set
+    to raise."""
+    from ttcross_tpu_torch.apps import make_ising
+    from ttcross_tpu_torch.config import precision_thresholds
+    from ttcross_tpu_torch.cross.engine import CrossConfig, make_engine
+
+    p = make_ising("C", 64, 17, device=cuda_device)
+    se, sp = precision_thresholds(torch.float64)
+    cfg = CrossConfig(d=p.d, n=(p.n,) * p.d, N=p.n, R=8, piv=1, small_element=se,
+                      small_pivot=sp, jacobi=True, rb=mode == "jacobi-rb")
+    kit = make_engine(p.fun, cfg, cuda_device, chain=p.chain if chain else None)
+    st = kit.init_fn()
+    neval0 = int(st.neval)
+    cs = kit.chain_ev.states_from_vip(st.vip) if chain else None
+    U = torch.rand((2, p.d - 1, 2, 2 * (8 + p.n)), dtype=torch.float64, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for it in (1, 2):
+            out = kit.sweep_fn(st, it, U[it - 1], cs)
+            st, cs = out if chain else (out, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the end bonds accept in both sweeps (mid-chain entries of C_64 lie under
+    # the small-element threshold until the ranks reach them), and each sweep
+    # examines thousands of entries
+    assert int(st.rk.max()) == 3 and int(st.rk[1]) == 3 and int(st.rk[-2]) == 3
+    assert int(st.neval) > neval0 + 10_000

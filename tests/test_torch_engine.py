@@ -161,8 +161,8 @@ def test_public_cross_runs_and_rejects_unported(problems):
     assert res.tt.ready() and res.tt.r == res.ranks and max(res.ranks) <= 6
     assert res.state.cores.device.type == "cpu"
     assert -np.log10(res.errors[-1]) > 4.0
-    for kw in (dict(host_reeval=True), dict(rank_chunks="auto"), dict(chain=object()),
-               dict(sweep_mode="jacobi-rb"), dict(refine_sweeps=1), dict(adaptive=True)):
+    for kw in (dict(host_reeval=True), dict(rank_chunks="auto"), dict(refine_sweeps=1),
+               dict(adaptive=True), dict(weighted_lottery=True), dict(rank_caps=[4, 4, 4])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cross(tp.fun, [tp.n] * tp.d, max_rank=4, device="cpu", **kw)
 

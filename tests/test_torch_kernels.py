@@ -88,6 +88,53 @@ def test_score_nan_ranks_first():
     assert np.isnan(float(score))
 
 
+@pytest.mark.parametrize("P,M,Kc,R", [(9, 34, 1, 4), (9, 1, 34, 4), (254, 170, 1, 10),
+                                      (254, 1, 170, 10), (1, 170, 1, 10), (3, 6, 5, 2)])
+def test_score_batched_plain_matches_a_loop_of_the_single_plain(P, M, Kc, R, rng):
+    """Per bond the batched plain version is the single one: the same index
+    and, from the same batched product, scores to a few ulps; bonds with an
+    all-false mask (a red-black phase's dead parity) among them."""
+    vals, colf, rowf = (torch.as_tensor(rng.standard_normal(sh))
+                        for sh in ((P, M, Kc), (P, M, R), (P, R, Kc)))
+    mask = torch.as_tensor(rng.random((P, M, Kc)) > 0.3)
+    mask[::2] = False
+    flat, score, resid = K.score_residual_argmax_batched(vals, colf, rowf, mask)
+    assert flat.shape == score.shape == resid.shape == (P,) and flat.dtype == torch.int64
+    for p in range(P):
+        f1, s1, r1 = K.score_residual_argmax_plain(vals[p], colf[p], rowf[p], mask[p])
+        assert int(flat[p]) == int(f1)
+        np.testing.assert_allclose(float(score[p]), float(s1), rtol=SCORE_RTOL)
+        np.testing.assert_allclose(float(resid[p]), float(r1), rtol=SCORE_RTOL, atol=1e-15)
+        if p % 2 == 0:
+            assert int(flat[p]) == 0 and float(score[p]) == -1.0
+
+
+def test_score_batched_first_maximum_all_masked_and_nan():
+    """Per bond: the first of tied maxima wins, an all-false mask gives flat
+    0 and score -1 (torch.argmax of all -1) with the residual at 0, and NaN
+    ranks above every number."""
+    P, M, R = 4, 12, 2
+    vals = np.zeros((P, M, 1))
+    vals[0, [3, 7, 9], 0] = (5.0, -5.0, 5.0)           # ties: the first wins
+    vals[1, :, 0] = np.arange(M) + 1.0                 # all masked below
+    vals[2, [4, 8], 0] = np.nan                        # NaN first
+    vals[2, 2, 0] = 9.0
+    vals[3, 11, 0] = -2.0                              # the only one unmasked
+    mask = np.ones((P, M, 1), bool)
+    mask[1] = False
+    mask[3, :11] = False
+    args = [torch.as_tensor(a) for a in (vals, np.zeros((P, M, R)), np.zeros((P, R, 1)), mask)]
+    flat, score, resid = K.score_residual_argmax_batched_plain(*args)
+    assert flat.tolist() == [3, 0, 4, 11]
+    assert score[:2].tolist() == [5.0, -1.0] and float(score[3]) == 2.0
+    assert resid[:2].tolist() == [5.0, 1.0] and float(resid[3]) == -2.0
+    assert torch.isnan(score[2]) and torch.isnan(resid[2])
+    # the same through a row fiber's layout
+    rargs = [args[0].reshape(P, 1, M), torch.zeros((P, 1, R), dtype=torch.float64),
+             torch.zeros((P, R, M), dtype=torch.float64), args[3].reshape(P, 1, M)]
+    assert K.score_residual_argmax_batched_plain(*rargs)[0].tolist() == [3, 0, 4, 11]
+
+
 def _lookup_case(rng, n=7, B=13, d=5):
     table = rng.standard_normal((2, n)) * 1e3
     ind = rng.integers(-2, n + 3, size=(B, d)).astype(np.int32)
@@ -132,8 +179,10 @@ def test_cpu_wrappers_take_the_plain_path(rng):
     K.score_residual_argmax(*[torch.as_tensor(a) for a in _score_case("random", rng)])
     vals = K.ising_integrand_fused(torch.from_numpy(np.abs(table)), torch.from_numpy(ind), "D")
     assert vals.shape == (ind.shape[0],)
-    assert K.launch_counts() == {"score_residual_argmax": 0, "small_table_lookup": 0,
-                                 "ising_integrand_fused": 0}
+    K.score_residual_argmax_batched(*[torch.as_tensor(a)[None] for a in _score_case("col_fiber", rng)])
+    assert K.launch_counts() == {"score_residual_argmax": 0, "score_residual_argmax_batched": 0,
+                                 "small_table_lookup": 0, "ising_integrand_fused": 0}
+    assert K.launch_shapes() == {name: {} for name in K.launch_counts()}
 
 
 _SMS = 132    # an H100 SXM; the plan takes the count of the card it runs on
@@ -181,11 +230,36 @@ def test_plan_covers_each_element_once_within_the_card(M, Kc, R):
         assert (plan.blocks, plan.threads) == (16, 128)  # the rook passes: 16 blocks
 
 
+@pytest.mark.parametrize("P,M,Kc,R", [(254, 170, 1, 10), (254, 1, 170, 10), (1022, 170, 1, 10),
+                                      (1022, 1, 170, 10), (1, 170, 1, 10), (30, 102, 1, 6),
+                                      (7, 1, 1300, 30), (5, 3, 1, 2), (254, 170, 1, 500)])
+def test_plan_batched_is_one_block_per_bond_over_whole_tiles(P, M, Kc, R):
+    """The batched path: a block per bond and no cluster, the bond's fiber
+    walked in tiles of `threads` elements that shared memory holds; the
+    all-bonds sweeps' fiber of 170 is one tile of 192 threads."""
+    plan = K._plan(M, Kc, R, _SMS, bonds=P)
+    length = max(M, Kc)
+    assert plan.path == (K.BATCH_COL if Kc == 1 else K.BATCH_ROW)
+    assert (plan.blocks, plan.cluster, plan.nparts) == (P, 1, 0)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512
+    assert plan.tile == ((plan.threads, 1) if Kc == 1 else (1, plan.threads))
+    assert plan.smem == 8 * R + 16 + 8 * plan.threads * R <= K.SMEM_OPTIN - 1024
+    tiles = -(-length // plan.threads)
+    assert (tiles - 1) * plan.threads < length <= tiles * plan.threads
+    if length == 170 and R == 10:
+        assert plan.threads == 192 and tiles == 1
+    assert K._plan(M, Kc, R, _SMS) != plan          # the single-fiber plan stays its own
+
+
 def test_plan_refuses_what_no_block_holds():
     with pytest.raises(ValueError):
         K._plan(1950, 1, 2000, _SMS)       # 32 rows of colf exceed shared memory
     with pytest.raises(ValueError):
         K._plan(0, 5, 3, _SMS)
+    with pytest.raises(ValueError, match="fibers"):
+        K._plan(6, 5, 3, _SMS, bonds=4)    # the batched path takes fibers only
+    with pytest.raises(ValueError):
+        K._plan(170, 1, 2000, _SMS, bonds=4)
 
 
 @pytest.mark.parametrize("B,d,n", [

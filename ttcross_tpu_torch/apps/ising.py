@@ -1,6 +1,6 @@
 """Ising susceptibility integrands C_m / D_m / E_m.
 
-Counterpart of ttcross_tpu/apps/ising.py (:50-90, :395-466), itself the
+Counterpart of ttcross_tpu/apps/ising.py (:50-138, :395-466), itself the
 batched form of dfunc_ising_discr (test_crs_ising.f90:176-218).  With node
 values x_1..x_d and prefix products P_0..P_d (P_0 = 1), the a-term
 prod_{i<j} ((P_j - P_i)/(P_j + P_i))^2 is a masked pairwise reduction and
@@ -11,15 +11,17 @@ tensor carries the rescaling factor 1/val (test_crs_ising.f90:134-144).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from ..ops.kernels import ISING_KINDS, ising_integrand_fused
+from ..cross.chain_eval import ChainSpec
+from ..ops.kernels import ISING_KINDS, ising_integrand_fused, small_table_lookup
 from ..ops.quadrature import lgwt
 
-__all__ = ["IsingProblem", "make_ising", "ising_integrand"]
+__all__ = ["IsingProblem", "make_ising", "ising_integrand", "ising_c_chain"]
 
 
 def ising_integrand(ind, tables, kind: str):
@@ -30,6 +32,46 @@ def ising_integrand(ind, tables, kind: str):
     fused kernel does the lookup and the whole chain (ops/kernels.py::
     ising_integrand_fused); on the CPU its plain version runs."""
     return ising_integrand_fused(tables, ind, kind)
+
+
+def ising_c_chain(tables) -> ChainSpec:
+    """ChainSpec (cross/chain_eval.py) of the C-kind integrand: the value
+    2/(v w) prod W (the b-term only) factors through the monoid
+
+        (P, A, Q, W):  P = prod x_i             (block node product)
+                       A = sum_k prod_{i<=k} x_i   (prefix-product sums)
+                       Q = sum_k prod_{i>=k} x_i   (suffix-product sums)
+                       W = prod W_i             (block weight product)
+
+    with merge (L, R) -> (P_L P_R, A_L + P_L A_R, Q_R + P_R Q_L, W_L W_R)
+    and finalize 2W / ((1 + A)(1 + Q)).  Nodes lie in [0, 1] and the
+    max-normalized weights are <= 1, so every partial is bounded by 1.  The
+    a-term of D and E needs all prefix values, not an O(1) state, so only
+    kind C has a spec.
+
+    tables (2, n): the nodes and the weights on the problem's device.  lift
+    looks both up with ONE small-table lookup (kernel B on the card) on
+    the index reshaped to two dimensions, a view where it is contiguous."""
+    def identity():
+        return dict(P=1.0, A=0.0, Q=0.0, W=1.0)
+
+    def lift(dims, idx):
+        del dims  # the mode tables are uniform on the Ising grid
+        ind = idx.to(torch.int32).contiguous()      # both free for a contiguous int32 index
+        ind = ind.reshape(1, -1) if ind.dim() < 2 else ind.reshape(-1, ind.shape[-1])
+        x, w = small_table_lookup(tables, ind).reshape((2,) + idx.shape)
+        return dict(P=x, A=x, Q=x, W=w)
+
+    def merge(a, b):
+        return dict(P=a["P"] * b["P"],
+                    A=a["A"] + a["P"] * b["A"],
+                    Q=b["Q"] + b["P"] * a["Q"],
+                    W=a["W"] * b["W"])
+
+    def finalize(s):
+        return 2.0 * s["W"] / ((1.0 + s["A"]) * (1.0 + s["Q"]))
+
+    return ChainSpec(identity, lift, merge, finalize)
 
 
 @dataclass(frozen=True)
@@ -53,6 +95,14 @@ class IsingProblem:
 
     def fun(self, ind):
         return ising_integrand(ind, self.tables, self.kind)
+
+    @functools.cached_property
+    def chain(self):
+        """ChainSpec for O(1) hunt-candidate evaluation, kind C only (None
+        otherwise); pass it as cross(..., chain=prob.chain)."""
+        if self.kind.upper() != "C":
+            return None
+        return ising_c_chain(self.tables)
 
 
 def _tables(nodes, weights, device) -> torch.Tensor:

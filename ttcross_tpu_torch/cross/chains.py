@@ -7,7 +7,10 @@ The left (right) table of a bond holds, for every link value, the mode
 indices of the row (column) chain it enters; candidates then gather from
 the tables.  vip[b, s] = (i, j, k, q) of pivot s of bond b.  Tables and
 assembled indices are int32 like vip; index arguments may be any integer
-dtype.  The bond p is a Python int: the engine loops over bonds in Python.
+dtype.  The sequential engine loops over bonds in Python and passes the
+bond p as an int; the all-bonds-batched sweeps pass a tensor of bonds to
+assemble_indices and take every bond's tables from all_left_tables /
+all_right_tables, which loop over log2(d) levels, not over bonds.
 """
 
 from __future__ import annotations
@@ -60,28 +63,67 @@ def advance_right(rtab, vip_p1, p: int) -> torch.Tensor:
     return nt
 
 
+def _scan_tables(vip, d: int, left: bool) -> torch.Tensor:
+    """The inclusive compositions of the per-bond table operators, as
+    their (d-1, R, d) overlays, by pointer doubling.
+
+    Bond p acts on a table as A_p(tab) = tab[g_p] with column c_p
+    overwritten by v_p: for the left tables (g, v, c) = (vip[p, :, 0],
+    vip[p, :, 1], p), for the right ones (vip[p, :, 3], vip[p, :, 2],
+    p + 1).  A run of bonds is again such an operator (g, w), w holding the
+    columns the run writes and 0 elsewhere; distinct bonds write distinct
+    columns, so "u, then v" is (g_u[g_v], w_v + w_u[g_v]).  Level s of the
+    scan composes every run with the run s bonds before it (left: the
+    earlier bonds act first) or after it (right: the later bonds act
+    first); the values are integers, so any order of composition is exact
+    (JAX: lax.associative_scan of the same operators)."""
+    nb, R = d - 1, vip.shape[1]
+    ps = torch.arange(nb, device=vip.device)
+    g = vip[:, :, 0 if left else 3].long()                           # (nb, R)
+    w = torch.zeros((nb, R, d), dtype=vip.dtype, device=vip.device)
+    w[ps, :, ps + (0 if left else 1)] = vip[:, :, 1 if left else 2]
+    shift = 1
+    while shift < nb:
+        first = slice(0, nb - shift) if left else slice(shift, nb)   # acts first
+        second = slice(shift, nb) if left else slice(0, nb - shift)
+        gs = g[second]
+        w_new, g_new = w.clone(), g.clone()
+        w_new[second] += w[first].gather(1, gs[:, :, None].expand(-1, -1, d))
+        g_new[second] = g[first].gather(1, gs)
+        w, g = w_new, g_new
+        shift *= 2
+    return w
+
+
 def all_left_tables(vip, d: int) -> torch.Tensor:
-    """LT (d-1, R, d): the left table of every bond, by the advance_left
-    recurrence (JAX builds it with an associative scan; the values are
-    integers, so both are exact)."""
-    R = vip.shape[1]
-    tabs = [torch.zeros((R, d), dtype=vip.dtype, device=vip.device)]
-    for p in range(d - 2):
-        tabs.append(advance_left(tabs[-1], vip[p], p))
-    return torch.stack(tabs)
+    """LT (d-1, R, d): the left table of every bond; LT[p] is what bonds
+    0..p-1 write into an empty table, in log2(d) levels."""
+    W = _scan_tables(vip, d, left=True)
+    return torch.cat([torch.zeros_like(W[:1]), W[:-1]])
 
 
 def all_right_tables(vip, d: int) -> torch.Tensor:
-    """RT (d-1, R, d): the right table of every bond (RT[d-2] = 0)."""
-    R = vip.shape[1]
-    tabs = [torch.zeros((R, d), dtype=vip.dtype, device=vip.device)]
-    for p in range(d - 3, -1, -1):
-        tabs.append(advance_right(tabs[-1], vip[p + 1], p))
-    return torch.stack(tabs[::-1])
+    """RT (d-1, R, d): the right table of every bond (RT[d-2] = 0); RT[p]
+    is what bonds d-2..p+1 write into an empty table."""
+    W = _scan_tables(vip, d, left=False)
+    return torch.cat([W[1:], torch.zeros_like(W[:1])])
 
 
-def assemble_indices(ltab, rtab, p: int, i, j, k, q, d: int) -> torch.Tensor:
-    """Full (B, d) int32 multi-index for candidates (i, j, k, q) at bond p."""
+def assemble_indices(ltab, rtab, p, i, j, k, q, d: int) -> torch.Tensor:
+    """Full int32 multi-index for candidates (i, j, k, q) at bond p.
+
+    p an int: ltab, rtab (R, d) and candidates (B,) give (B, d).  p a
+    tensor (P,) of bonds: ltab, rtab (P, R, d) and candidates (P, B) give
+    (P, B, d), each bond's candidates from its own tables."""
+    if isinstance(p, torch.Tensor):
+        P, B = i.shape
+        col = torch.arange(d, device=ltab.device)
+        pb = p.view(P, 1, 1)
+        left = ltab.gather(1, i.long()[:, :, None].expand(P, B, d))
+        right = rtab.gather(1, q.long()[:, :, None].expand(P, B, d))
+        ind = torch.where(col < pb, left, right)
+        ind = torch.where(col == pb, j[:, :, None].to(ind.dtype), ind)
+        return torch.where(col == pb + 1, k[:, :, None].to(ind.dtype), ind)
     B = i.shape[0]
     ind = torch.empty((B, d), dtype=torch.int32, device=ltab.device)
     ind[:, :p] = ltab[i.long(), :p]

@@ -1,17 +1,21 @@
-"""Sequential DMRG-greedy TT-cross engine, run eagerly on one device.
+"""DMRG-greedy TT-cross engine, run eagerly on one device.
 
-Counterpart of ttcross_tpu/cross/engine.py for sweep_mode="sequential"
-(dtt_dmrgg, dmrgg.f90:11-1050): the same padded state, the same
-rook/lottery/full pivot hunts, the same two-threshold acceptance and the
-same strike-based stop.  A Python loop runs over sweeps and bonds, and
-every decision inside a sweep stays on the device as a branch-free masked
-update (the accept flag ``upd`` and the rook ``done`` flags are tensors),
-so a sweep makes no host round trip; the one host sync per sweep is the
-stopping rule.  The large state arrays are updated in place.
+Counterpart of ttcross_tpu/cross/engine.py (dtt_dmrgg, dmrgg.f90:11-1050):
+the same padded state, the same rook/lottery/full pivot hunts, the same
+two-threshold acceptance and the same strike-based stop.  The sequential
+sweep is a Python loop over bonds; the all-bonds-batched sweeps
+(sweep_mode "jacobi" / "jacobi-rb", cross/engine_jacobi.py) hunt every bond
+at once.  Every decision inside a sweep stays on the device as a
+branch-free masked update (the accept flag ``upd`` and the rook ``done``
+flags are tensors), so a sweep makes no host round trip; the one host sync
+per sweep is the stopping rule.  The large state arrays are updated in
+place.
 
-Kernels on this path (ops/kernels.py): every integrand call of the Ising
-problem is one small-table lookup (kernel B); every rook pass and the
-full-pivoting hunt score their residual with the masked argmax (kernel A).
+Kernels on these paths (ops/kernels.py): every integrand call of the Ising
+problem is one fused launch; every rook pass and the full-pivoting hunt
+score their residual with the masked argmax (kernel A, batched over bonds
+on the all-bonds sweeps); the chain evaluator's lift is the small-table
+lookup (kernel B).
 """
 
 from __future__ import annotations
@@ -25,14 +29,16 @@ import torch
 
 from ..config import precision_thresholds
 from ..ops import lu as lulib
-from ..ops.dense import balanced_matmul_chain, exact_pow2, row_lookup
+from ..ops.dense import balanced_matmul_chain, row_lookup, scale_pow2
 from ..ops.kernels import score_residual_argmax
 from ..tt.ops import contract
 from ..tt.ortho import svd_round
 from ..tt.types import TT
 from ..utils.metrics import SweepRecord, history_from_run
+from .chain_eval import ChainEvaluator
 from .chains import (advance_left, advance_right, all_left_tables,
                      all_right_tables, assemble_indices)
+from .engine_jacobi import build_jacobi
 from .state import CrossState, empty_state
 
 __all__ = ["CrossConfig", "CrossResult", "cross", "make_engine",
@@ -49,6 +55,8 @@ class CrossConfig:
     small_element: float
     small_pivot: float
     snum: int = 8        # shifted diagonals in the initial search (dmrgg.f90:29)
+    jacobi: bool = False  # all-bonds-batched sweeps (sweep_mode "jacobi", "jacobi-rb")
+    rb: bool = False      # red-black phases: even bonds accept, then odd bonds
 
 
 @dataclass
@@ -64,14 +72,18 @@ class CrossResult:
     history: list | None = None   # SweepRecords (utils/metrics.py)
     state: CrossState | None = None   # final state when return_state=True
     padded_evals: int | None = None   # integrand calls incl. padding
+    chain_states: tuple | None = None   # carried packed (Ls, Rs) when return_state=True
 
 
 class EngineKit(NamedTuple):
     cfg: CrossConfig
     init_fn: Callable       # () -> CrossState
-    sweep_fn: Callable      # (st, it, U (d-1, 2, NLOT)) -> CrossState
+    sweep_fn: Callable      # (st, it, U (d-1, 2, NLOT), cs=None) -> CrossState, or (st, cs')
     value_fn: Callable      # (st, w (d, N)) -> 0-d tensor
     finalize_fn: Callable   # (st) -> (d, R, N, R) solved cores
+    jacobi_hunt: Callable   # cross/engine_jacobi.py, window-wise for the distributed engine
+    jacobi_apply: Callable
+    chain_ev: ChainEvaluator | None   # the chain evaluator when chain= was given
 
 
 def round_and_revalue(res: CrossResult, max_rank: int, quad, truth) -> CrossResult:
@@ -119,9 +131,11 @@ def _masked_write(buf, dim: int, slot, new, upd) -> None:
 
 
 def make_engine(fun: Callable, cfg: CrossConfig, device,
-                dtype: torch.dtype = torch.float64) -> EngineKit:
+                dtype: torch.dtype = torch.float64, chain=None) -> EngineKit:
     """Build the engine phases for integrand fun: ind (B, d) int32 tensor on
-    `device` -> (B,) values."""
+    `device` -> (B,) values.  chain: optional chain_eval.ChainSpec of a
+    chain-structured integrand, for O(1) hunt evaluation from interface
+    states on the all-bonds-batched sweeps."""
     d, N, R = cfg.d, cfg.N, cfg.R
     n = cfg.n
     NLOT = 2 * (R + N)
@@ -419,11 +433,21 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
                & (st.rk[p + 1] < R))
         return _accept(st, p, piv_idx, pivot, acol, arow, upd)
 
-    def sweep_fn(st: CrossState, it: int, U) -> CrossState:
+    chain_ev = None if chain is None else ChainEvaluator(chain, d)
+    make_sweep_jacobi, jacobi_hunt, jacobi_apply = build_jacobi(
+        cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=chain_ev)
+    if cfg.jacobi:
+        sweep_jac = {True: make_sweep_jacobi(True), False: make_sweep_jacobi(False)}
+
+    def sweep_fn(st: CrossState, it: int, U, cs=None):
         """One sweep over all bonds: '>>' on odd it, '<<' on even
-        (dmrgg.f90:314-323).  The chain tables of the direction swept away
-        from are built once; those swept into advance per bond."""
+        (dmrgg.f90:314-323).  Sequential: the chain tables of the direction
+        swept away from are built once; those swept into advance per bond.
+        All-bonds-batched (cfg.jacobi): cs, the carried packed interface
+        states of the chain path, makes the return (st, cs')."""
         fwd = it % 2 == 1
+        if cfg.jacobi:
+            return sweep_jac[fwd](st, U, cs)
         neg = torch.full((), -1.0, dtype=dtype, device=dev)
         st = st._replace(pivotmax=neg, pivotmin=neg)
         AT = all_right_tables(st.vip, d) if fwd else all_left_tables(st.vip, d)
@@ -445,7 +469,7 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         mats[1:] = st.itl @ mats[1:]
         mats[:-1] = mats[:-1] @ st.itt
         P, ex = balanced_matmul_chain(mats)
-        return P[0, 0] * exact_pow2(ex)
+        return scale_pow2(P[0, 0], ex)
 
     def finalize_fn(st: CrossState) -> torch.Tensor:
         """Apply the LU inverses to all raw cores (dtt_lua,
@@ -456,7 +480,9 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         return g
 
     return EngineKit(cfg=cfg, init_fn=init_fn, sweep_fn=sweep_fn,
-                     value_fn=value_fn, finalize_fn=finalize_fn)
+                     value_fn=value_fn, finalize_fn=finalize_fn,
+                     jacobi_hunt=jacobi_hunt, jacobi_apply=jacobi_apply,
+                     chain_ev=chain_ev)
 
 
 def finalize(st: CrossState, kit: EngineKit) -> TT:
@@ -473,7 +499,6 @@ def finalize(st: CrossState, kit: EngineKit) -> TT:
 _NOT_PORTED = {
     "host_reeval": 7, "return_pivots": 7, "rank_chunks": 7, "rank_caps": 7,
     "adaptive": 7, "weighted_lottery": 7, "refine_sweeps": 7, "init_state": 7,
-    "chain": 5,
 }
 
 
@@ -521,29 +546,39 @@ def cross(
     oversample: cross at max_rank + oversample, then TT-SVD-round to
     max_rank.  key: seed of the CPU torch.Generator that draws the lottery
     uniforms, so CPU and CUDA runs see the same draws.
+    sweep_mode: 'sequential' (one bond after the other), or the
+    all-bonds-batched sweeps for long chains (cross/engine_jacobi.py):
+    'jacobi' (every bond hunts at once against the start-of-sweep factors)
+    and 'jacobi-rb' (the even bonds hunt and accept, then the odd bonds);
+    both need pivoting >= 0 (ValueError otherwise).
+    chain: optional cross/chain_eval.py::ChainSpec of a chain-structured
+    integrand (apps.ising: ``prob.chain``, kind C); the all-bonds sweeps
+    then evaluate their hunt candidates in O(1) from carried interface
+    states instead of O(d) integrand calls.  The sequential sweep ignores
+    it.  With return_state the result carries them as ``chain_states``.
     use_pallas: accepted for API parity and changes nothing: on a CUDA
     state the hand-written kernels always run, on a CPU state their plain
-    versions.  Not ported yet (NotImplementedError): host_reeval,
-    return_pivots, rank_chunks, rank_caps, adaptive, weighted_lottery,
-    refine_sweeps, init_state, chain, and sweep_mode 'jacobi'/'jacobi-rb'."""
+    versions.  Not ported yet (NotImplementedError, ROADMAP queue 1
+    item 7): host_reeval, return_pivots, rank_chunks, rank_caps, adaptive,
+    weighted_lottery, refine_sweeps, init_state."""
     return _cross(fun, n, max_rank=max_rank, accuracy=accuracy,
                   pivoting=pivoting, quad=quad, truth=truth, key=key,
                   dtype=dtype, verbose=verbose, return_state=return_state,
                   max_sweeps=max_sweeps, small_element=small_element,
                   small_pivot=small_pivot, oversample=oversample,
-                  sweep_mode=sweep_mode, device=device,
+                  sweep_mode=sweep_mode, device=device, chain=chain,
                   not_ported=dict(host_reeval=host_reeval,
                                   return_pivots=return_pivots,
                                   rank_chunks=rank_chunks, rank_caps=rank_caps,
                                   adaptive=adaptive,
                                   weighted_lottery=weighted_lottery,
                                   refine_sweeps=refine_sweeps,
-                                  init_state=init_state, chain=chain))
+                                  init_state=init_state))
 
 
 def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
            verbose, return_state, max_sweeps, small_element, small_pivot,
-           oversample, sweep_mode, device, not_ported=None, uniforms=None):
+           oversample, sweep_mode, device, chain=None, not_ported=None, uniforms=None):
     """cross() with one more input: uniforms, (max_sweeps, d-1, 2, NLOT)
     lottery uniforms of the (possibly oversampled) run in place of the
     key's draws; the tests feed the JAX engine's draws through it."""
@@ -552,12 +587,12 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
             raise NotImplementedError(
                 f"cross({name}=...) is not ported to ttcross_tpu_torch yet "
                 f"(ROADMAP queue 1 item {_NOT_PORTED[name]})")
-    if sweep_mode in ("jacobi", "jacobi-rb"):
-        raise NotImplementedError(
-            f"sweep_mode={sweep_mode!r} is not ported to ttcross_tpu_torch "
-            "yet (ROADMAP queue 1 item 5)")
-    if sweep_mode != "sequential":
+    if sweep_mode not in ("sequential", "jacobi", "jacobi-rb"):
         raise ValueError(f"unknown sweep_mode {sweep_mode!r}")
+    jacobi = sweep_mode != "sequential"
+    if jacobi and int(pivoting) < 0:
+        # the batched hunt has no full-pivoting branch
+        raise ValueError("sweep_mode='jacobi' requires pivoting >= 0")
     if dtype != torch.float64:
         raise NotImplementedError("only dtype=torch.float64 is ported "
                                   "(ROADMAP queue 1 item 7)")
@@ -576,7 +611,7 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
                      return_state=False, max_sweeps=max_sweeps,
                      small_element=small_element, small_pivot=small_pivot,
                      oversample=0, sweep_mode=sweep_mode, device=device,
-                     uniforms=uniforms)
+                     chain=chain, uniforms=uniforms)
         return round_and_revalue(res, max_rank, quad, truth)
 
     se, sp = precision_thresholds(dtype)
@@ -585,9 +620,10 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
     if small_pivot is not None:
         sp = float(small_pivot)
     cfg = CrossConfig(d=d, n=n, N=max(n), R=max_rank, piv=int(pivoting),
-                      small_element=se, small_pivot=sp)
+                      small_element=se, small_pivot=sp, jacobi=jacobi,
+                      rb=sweep_mode == "jacobi-rb")
     dev = torch.device(device)
-    kit = make_engine(fun, cfg, dev, dtype)
+    kit = make_engine(fun, cfg, dev, dtype, chain=chain)
     if max_sweeps is None:
         max_sweeps = max_rank - 1
     NLOT = 2 * (cfg.R + cfg.N)
@@ -602,10 +638,11 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
 
     t0 = time.perf_counter()
     with_quad = quad is not None
-    w = torch.zeros((d, cfg.N), dtype=dtype, device=dev)
+    w_host = np.zeros((d, cfg.N))     # filled on the host: one copy to the device, not d
     if with_quad:
         for c in range(d):
-            w[c, : n[c]] = torch.as_tensor(np.asarray(quad[c]), dtype=dtype)
+            w_host[c, : n[c]] = np.asarray(quad[c])
+    w = torch.from_numpy(w_host).to(dev, dtype)
 
     st = kit.init_fn()
     vals = torch.zeros(max_sweeps + 1, dtype=dtype, device=dev)
@@ -613,9 +650,16 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
     nev = torch.zeros(max_sweeps + 1, dtype=torch.int64, device=dev)
     if with_quad:
         vals[0] = kit.value_fn(st, w)
+    # chain + all-bonds sweeps: the packed interface states are built once
+    # and carried through the run, kept up to date after every apply (vip is
+    # append-only, so existing rows never go stale)
+    cs = kit.chain_ev.states_from_vip(st.vip) if jacobi and chain is not None else None
     last_it, strike = 0, 0
     for it in range(1, max_sweeps + 1):
-        st = kit.sweep_fn(st, it, uniforms[it - 1])
+        if cs is None:
+            st = kit.sweep_fn(st, it, uniforms[it - 1])
+        else:
+            st, cs = kit.sweep_fn(st, it, uniforms[it - 1], cs)
         if with_quad:
             vals[it] = kit.value_fn(st, w)
         pmax[it] = st.pivotmax
@@ -648,5 +692,5 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
         converged=accuracy is not None and last_it < max_sweeps,
         history=history, padded_evals=int(st.padded))
     if return_state:
-        res.state = st
+        res.state, res.chain_states = st, cs
     return res

@@ -191,29 +191,23 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Fibers.  COL: K = 1, the fiber runs down colf's rows; else M = 1, along
-// rowf's columns.  L is the fiber's length.  The grid is one cluster of at
-// most 16 blocks; its blocks take tiles of blockDim.x elements in turn
-// (rank, rank + C, ...).  Dynamic shared memory: the tile's factor, then
-// the R-vector that every element shares (rowf for COL, colf otherwise).
-// The factor is, for COL, blockDim.x rows of colf as they lie in memory
-// (pitch R, from a 16-byte boundary), else R rows of blockDim.x columns of
-// rowf.  Every copy of a tile is issued at once with cp.async (no register
-// round trip), so the tile waits for one memory latency, not R of them.
-// The scratch buffer holds one partial per warp of the cluster.
+// rowf's columns.  L is the fiber's length.  score_fiber_tiles is the walk
+// that the single-fiber kernel and the kernel batched over bonds share: the
+// calling block takes the fiber's tiles of blockDim.x elements first,
+// first + step, ... and each thread returns the best of its elements.
+// Dynamic shared memory: the tile's factor, then the R-vector that every
+// element shares (rowf for COL, colf otherwise).  The factor is, for COL,
+// blockDim.x rows of colf as they lie in memory (pitch R, from a 16-byte
+// boundary), else R rows of blockDim.x columns of rowf.  Every copy of a
+// tile is issued at once with cp.async (no register round trip), so the
+// tile waits for one memory latency, not R of them.
 template <bool COL>
-__global__ void __launch_bounds__(kFiberThreadsMax)
-score_fiber_kernel(const double* __restrict__ vals,
-                   const double* __restrict__ colf,
-                   const double* __restrict__ rowf,
-                   const uint8_t* __restrict__ mask, long long L, int R,
-                   double* __restrict__ part_score, long long* __restrict__ part_idx,
-                   double* __restrict__ part_resid, long long* __restrict__ out_idx,
-                   double* __restrict__ out_score,
-                   double* __restrict__ out_resid) {
-  extern __shared__ __align__(16) double fiber_s[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const unsigned C = cluster.num_blocks();
-  const unsigned rank = cluster.block_rank();
+__device__ __forceinline__ Best score_fiber_tiles(const double* __restrict__ vals,
+                                                  const double* __restrict__ colf,
+                                                  const double* __restrict__ rowf,
+                                                  const uint8_t* __restrict__ mask,
+                                                  long long L, int R, long long first,
+                                                  long long step, double* fiber_s) {
   const int t = threadIdx.x;
   const int T = blockDim.x;
   double* tile_f = fiber_s;
@@ -223,11 +217,11 @@ score_fiber_kernel(const double* __restrict__ vals,
 
   const long long ntiles = (L + T - 1) / T;
   Best b{-INFINITY, LLONG_MAX, 0.0};
-  for (long long tile = rank; tile < ntiles; tile += C) {
+  for (long long tile = first; tile < ntiles; tile += step) {
     const long long e0 = tile * T;
     const int n = (int)min((long long)T, L - e0);
     const long long f = e0 + t;
-    if (tile != rank) __syncthreads();  // the previous tile has been consumed
+    if (tile != first) __syncthreads();  // the previous tile has been consumed
     int off = 0;  // COL: doubles between the tile's first 16-byte chunk and its first row
     if (COL) {
       // n rows of colf are one contiguous range, copied raw (pitch R) as the
@@ -273,6 +267,29 @@ score_fiber_kernel(const double* __restrict__ vals,
       keep(b, on ? fabs(res) : -1.0, f, res);
     }
   }
+  return b;
+}
+
+// One fiber.  The grid is one cluster of at most 16 blocks; its blocks take
+// the tiles in turn (rank, rank + C, ...).  The scratch buffer holds one
+// partial per warp of the cluster.
+template <bool COL>
+__global__ void __launch_bounds__(kFiberThreadsMax)
+score_fiber_kernel(const double* __restrict__ vals,
+                   const double* __restrict__ colf,
+                   const double* __restrict__ rowf,
+                   const uint8_t* __restrict__ mask, long long L, int R,
+                   double* __restrict__ part_score, long long* __restrict__ part_idx,
+                   double* __restrict__ part_resid, long long* __restrict__ out_idx,
+                   double* __restrict__ out_score,
+                   double* __restrict__ out_resid) {
+  extern __shared__ __align__(16) double fiber_s[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned C = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const int t = threadIdx.x;
+  const int T = blockDim.x;
+  Best b = score_fiber_tiles<COL>(vals, colf, rowf, mask, L, R, rank, C, fiber_s);
   const unsigned nparts = C * (T >> 5);
   b = warp_reduce(b);
   if ((t & 31) == 0) {
@@ -294,6 +311,40 @@ score_fiber_kernel(const double* __restrict__ vals,
     *out_idx = q.idx;
     *out_score = q.score;
     *out_resid = q.resid;
+  }
+}
+
+// P fibers in one launch, the all-bonds (jacobi) sweeps' shape: 254 or 1022
+// bonds, each a fiber of R * N = 170 elements at R = 10.  JAX computes it
+// per bond with XLA ops in f32 and recomputes the chosen pivot in f64
+// (ttcross_tpu/cross/engine_jacobi.py:237-251, 269-282); here it is kernel
+// A's fiber walk, so the residual returned is the f64 pivot.  What bounds
+// it: bytes, 15.2 KB per bond read once (3.9 MB at 254 bonds, ~1.2 us at
+// 3.35 TB/s), under a launch's own floor.  A fiber this short wants no
+// cluster: one block per bond walks the bond's tiles with score_fiber_tiles
+// (the single-fiber kernel's staging and FMA order, so the two agree bit
+// for bit) and reduces them alone.  Bond p reads vals and mask at p * L,
+// its L x R (COL) or 1 x R factor of colf and its R x 1 or R x L (row
+// fiber) factor of rowf, and writes out_idx[p], out_score[p], out_resid[p].
+template <bool COL>
+__global__ void __launch_bounds__(kFiberThreadsMax)
+score_fiber_batched_kernel(const double* __restrict__ vals,
+                           const double* __restrict__ colf,
+                           const double* __restrict__ rowf,
+                           const uint8_t* __restrict__ mask, long long L, int R,
+                           long long* __restrict__ out_idx,
+                           double* __restrict__ out_score,
+                           double* __restrict__ out_resid) {
+  extern __shared__ __align__(16) double fiber_s[];
+  const long long p = blockIdx.x;
+  Best b = score_fiber_tiles<COL>(vals + p * L, colf + p * (COL ? L * R : (long long)R),
+                                  rowf + p * (COL ? (long long)R : R * L), mask + p * L, L,
+                                  R, 0, 1, fiber_s);
+  b = block_reduce(b);
+  if (threadIdx.x == 0) {
+    out_idx[p] = b.idx;
+    out_score[p] = b.score;
+    out_resid[p] = b.resid;
   }
 }
 
@@ -913,6 +964,14 @@ int ttc_configure(int fiber_smem) {
     }
   }
   if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_fiber_batched_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_fiber_batched_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
+  }
+  if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(score_dmma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
   }
@@ -957,6 +1016,32 @@ int ttc_score_residual_argmax(const double* vals, const double* colf,
       blocks >= kReduceThreads ? kReduceThreads : (blocks + 31) / 32 * 32;
   score_final_kernel<<<1, rthreads, 0, s>>>(part_score, part_idx, part_resid, blocks,
                                             out_idx, out_score, out_resid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel A for P fibers of length L at once: vals and mask (P, L), colf
+// (P, L, R) and rowf (P, R) for column fibers (col != 0), colf (P, R) and
+// rowf (P, R, L) for row fibers.  One block of `threads` threads per bond
+// with `smem` bytes of dynamic shared memory; out holds 8-byte words, the
+// P indices, then the P scores, then the P residuals.
+int ttc_score_residual_argmax_batched(const double* vals, const double* colf,
+                                      const double* rowf, const uint8_t* mask,
+                                      long long P, long long L, int R, int col,
+                                      int threads, int smem, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P < 1 || P > INT_MAX || threads % 32 != 0 || threads < 32 || threads > kFiberThreadsMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long* out_idx = static_cast<long long*>(out);
+  double* out_score = static_cast<double*>(out) + P;
+  double* out_resid = static_cast<double*>(out) + 2 * P;
+  if (col) {
+    score_fiber_batched_kernel<true><<<(unsigned)P, threads, smem, s>>>(
+        vals, colf, rowf, mask, L, R, out_idx, out_score, out_resid);
+  } else {
+    score_fiber_batched_kernel<false><<<(unsigned)P, threads, smem, s>>>(
+        vals, colf, rowf, mask, L, R, out_idx, out_score, out_resid);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

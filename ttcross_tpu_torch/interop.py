@@ -16,7 +16,8 @@ from .apps.ising import IsingProblem, _tables
 from .cross.state import CrossState
 from .tt.types import TT
 
-__all__ = ["state_from_numpy", "tt_from_numpy", "ising_from_numpy"]
+__all__ = ["state_from_numpy", "chain_states_from_numpy", "tt_from_numpy",
+           "ising_from_numpy"]
 
 _INT_FIELDS = {"rk": torch.int32, "vip": torch.int32,
                "neval": torch.int64, "padded": torch.int64}
@@ -31,6 +32,15 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device,
         t = torch.from_numpy(np.array(arrays[name], order="C")).to(_INT_FIELDS.get(name, dtype))
         fields[name] = t.to(device)
     return CrossState(**fields)
+
+
+def chain_states_from_numpy(Ls: np.ndarray, Rs: np.ndarray, device,
+                            dtype: torch.dtype = torch.float64):
+    """The carried packed interface states (Ls, Rs), each (d-1, R, K), of
+    the JAX ChainEvaluator as the port's: the leaves lie in the same order
+    (the sorted keys of the state dict) on the trailing axis."""
+    return tuple(torch.from_numpy(np.array(a, order="C")).to(dtype).to(device)
+                 for a in (Ls, Rs))
 
 
 def tt_from_numpy(cores: Sequence[np.ndarray], device,

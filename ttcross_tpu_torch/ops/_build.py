@@ -35,6 +35,8 @@ _SIGNATURES = {
     "ttc_configure": ([_I], _I),
     "ttc_score_residual_argmax": (
         [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P], _I),
+    "ttc_score_residual_argmax_batched": (
+        [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P], _I),
     "ttc_small_table_lookup": ([_P, _I, _I, _P, _LL, _P, _I, _P], _I),
     "ttc_ising_integrand": ([_P, _I, _P, _LL, _I, _I, _I, _I, _I, _I, _D, _P, _P], _I),
     "ttc_threads_per_block": ([], _I),

@@ -1,7 +1,7 @@
 """Dense helpers on the main path.
 
-Counterpart of the parts of ttcross_tpu/ops/dense.py that the sequential
-f64 engine uses (:110-163, :335-380).  The one-hot split-f32 lookups and
+Counterpart of the parts of ttcross_tpu/ops/dense.py that the f64 engines
+use (:110-178, :335-380).  The one-hot split-f32 lookups and
 power-of-2 range rescales that the TPU needed are not ported: the lookups
 here are plain f64 gathers, and the small-table one runs on kernel B (the
 Ising integrand does its own lookup inside its fused kernel).
@@ -13,8 +13,9 @@ import torch
 
 from .kernels import small_table_lookup
 
-__all__ = ["table_lookup", "row_lookup", "pow2_balance_mats",
-           "balanced_matmul_chain", "exact_pow2"]
+__all__ = ["table_lookup", "row_lookup", "batched_row_lookup",
+           "masked_slot_write", "pow2_balance_mats", "balanced_matmul_chain",
+           "scale_pow2"]
 
 
 def table_lookup(table, ind):
@@ -35,20 +36,67 @@ def row_lookup(mat, lin, axis: int = 0):
     return mat[:, lin].T
 
 
-def exact_pow2(e):
-    """2**e for an integer-valued float tensor e (torch.ldexp)."""
-    return torch.ldexp(torch.ones_like(e), e)
+def batched_row_lookup(tabs, lin):
+    """Rows of a stack of matrices: out[b, l, :] = tabs[b, lin[b, l], :]
+    for tabs (B, M, K) and lin (B, L); lin (B,) gives (B, K)."""
+    single = lin.dim() == 1
+    if single:
+        lin = lin[:, None]
+    B, L = lin.shape
+    out = tabs.gather(1, lin.long()[:, :, None].expand(B, L, tabs.shape[2]))
+    return out[:, 0] if single else out
+
+
+def masked_slot_write(buf, dim: int, slot, new, upd) -> None:
+    """In place, for every p: buf[p]'s slot slot[p] along dim becomes new[p]
+    where upd[p] and stays as it was elsewhere.
+
+    buf (P, ...) with dim >= 1; slot (P,) int64 in range; new has buf's
+    shape without dim; upd (P,) bool.  One slot per p, so no index repeats,
+    and nothing here waits for the device (JAX: a one-hot where)."""
+    shape = list(buf.shape)
+    shape[dim] = 1
+    lead = (-1,) + (1,) * (buf.dim() - 1)
+    idx = slot.view(lead).expand(shape)
+    old = buf.gather(dim, idx)
+    buf.scatter_(dim, idx, torch.where(upd.view(lead), new.unsqueeze(dim), old))
+
+
+def _scale_by_halves(x, biased):
+    """x * 2**(biased - 2046) for an int64 tensor biased in [2, 4090]: two
+    normal f64 factors made from exponent bits (exact on every device), of
+    exponents floor and ceiling of half the shift, one after the other.  Both
+    scale the same way, so no intermediate leaves the range between x and the
+    result."""
+    lo = biased >> 1
+    x = x * (lo << 52).view(torch.float64)
+    return x * ((biased - lo) << 52).view(torch.float64)
+
+
+def scale_pow2(x, e):
+    """x * 2**e for an integer-valued tensor e (int64, or a float holding
+    integers; broadcast against x), exact wherever the result is
+    representable.
+
+    2**e itself leaves the f64 range beyond |e| = 1023, while the value
+    chain of a long train balances matrices whose largest entry may be
+    subnormal (e down to -1074) and ends on an exponent of either sign.  So
+    the shift is applied as two in-range factors (_scale_by_halves).  Beyond
+    |e| = 2044 the result of any normal x overflows or vanishes, as it does
+    here."""
+    return _scale_by_halves(x, e.to(torch.int64).clamp(-2044, 2044) + 2046)
 
 
 def pow2_balance_mats(x):
     """Per-matrix exact power-of-2 rescale of a (K, R, R) stack: returns
-    (x * 2^-e, e) with max|x * 2^-e| near 1 (zero or non-finite matrices
-    pass through with e = 0)."""
+    (x * 2^-e, e) with max|x * 2^-e| in [1, 2) and e int64 (zero or
+    non-finite matrices pass through with e = 0).  The exponent is read
+    from the bits (frexp), so it is the true floor(log2 max|x|), subnormal
+    maxima included."""
     m = x.abs().amax(dim=(-2, -1))
-    ok = (m > 0) & torch.isfinite(m)
-    e = torch.floor(torch.log2(torch.where(ok, m, torch.ones_like(m))))
-    e = torch.where(torch.isfinite(e), e, torch.zeros_like(e))
-    return x * exact_pow2(-e)[..., None, None], e
+    ok = (m > 0) & (m < float("inf"))                  # false for NaN too
+    ex = torch.where(ok, torch.frexp(m).exponent.long(), 1)    # m = mantissa in [0.5, 1) * 2^ex
+    return _scale_by_halves(x, (2047 - ex)[..., None, None]), ex - 1
 
 
 def balanced_matmul_chain(mats):

@@ -7,11 +7,13 @@ Counterpart of ttcross_tpu/ops/pallas_kernels.py.  The CUDA sources are in
 ``csrc/kernels.cu`` (built by ``ops/_build.py``).  Each wrapper routes a
 tensor that lies on the CPU to the plain version and a CUDA tensor to the
 kernel; on a CUDA tensor it launches the kernel or raises, never falling
-back.  ``<wrapper>.launches`` counts the kernel launches of that wrapper.
+back.  ``<wrapper>.launches`` counts the kernel launches of that wrapper,
+and ``launch_shapes()`` breaks them down by the shape of the call.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple
 
@@ -20,9 +22,10 @@ import torch
 from . import _build
 
 __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
+           "score_residual_argmax_batched", "score_residual_argmax_batched_plain",
            "small_table_lookup", "small_table_lookup_plain",
            "ising_integrand_fused", "ising_integrand_plain",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "launch_shapes", "reset_launch_counts"]
 
 _THREADS = 256             # kThreads: a block of kernel B
 _TILE_THREADS = 512        # kTileThreads: a block of the 2-D kernel
@@ -49,7 +52,10 @@ _F64 = (torch.float64,)
 _MASK = (torch.bool, torch.uint8)
 _I32 = (torch.int32,)
 
+_SHAPES = collections.Counter()   # launches by (wrapper name, shape of the call)
+
 COL, ROW, TWO_D = 0, 1, 2  # kernel A's paths (`path` of csrc's entry point)
+BATCH_COL, BATCH_ROW = 3, 4  # ... and of its entry point batched over bonds
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
@@ -101,7 +107,7 @@ def _call(dev: torch.device, fn, *args) -> int:
 # ------------------------------------------------------------ kernel A
 class Plan(NamedTuple):
     """Kernel A's launch for one shape (see csrc/kernels.cu)."""
-    path: int               # COL (K = 1), ROW (M = 1) or TWO_D
+    path: int               # COL (K = 1), ROW (M = 1), TWO_D, or BATCH_COL / BATCH_ROW
     blocks: int             # grid size
     threads: int            # block size
     cluster: int            # blocks per cluster: the whole grid of a fiber, else 1
@@ -111,9 +117,10 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan(M: int, K: int, R: int, sms: int) -> Plan:
+def _plan(M: int, K: int, R: int, sms: int, bonds: int = 0) -> Plan:
     """Launch geometry of kernel A for vals (M, K) and rank R on a card
-    with `sms` streaming multiprocessors.
+    with `sms` streaming multiprocessors; with bonds > 0, for `bonds` such
+    fibers in one launch.
 
     A fiber (K = 1 or M = 1) is one cluster of up to _CLUSTER_MAX blocks
     with one partial per warp; block b scores tiles b, b + blocks, ... of
@@ -121,9 +128,26 @@ def _plan(M: int, K: int, R: int, sms: int) -> Plan:
     in shared memory (`threads` rows of colf, or R rows of `threads`
     columns of rowf), so a large R gets fewer threads.  The 2-D path is a
     persistent grid of at most one block per SM; block b scores tiles b,
-    b + blocks, ... of the row-major grid of TILE tiles."""
-    if M < 1 or K < 1 or R < 0:
+    b + blocks, ... of the row-major grid of TILE tiles.
+
+    Batched over bonds (the all-bonds sweeps: 254 or 1022 fibers of 170
+    elements): one block per bond and no cluster; the block walks its
+    bond's fiber in tiles of `threads` elements, staged as a fiber block
+    stages them, and reduces it alone (no scratch partials)."""
+    if M < 1 or K < 1 or R < 0 or bonds < 0:
         raise ValueError(f"no kernel-A launch for ({M}, {K}) at rank {R}")
+    if bonds:
+        if M != 1 and K != 1:
+            raise ValueError(f"the batched kernel A takes fibers (K = 1 or M = 1), not ({M}, {K})")
+        col = K == 1
+        length = M if col else K
+        fit = (_FIBER_SMEM - 8 * R - 16) // max(8 * R, 1) // 32 * 32
+        threads = min(-(-length // 32) * 32, _FIBER_THREADS_MAX, fit)
+        if threads < 32:
+            raise ValueError(f"rank {R} exceeds the fiber kernel's shared memory")
+        return Plan(BATCH_COL if col else BATCH_ROW, bonds, threads, 1,
+                    8 * R + 16 + 8 * threads * R,
+                    (threads, 1) if col else (1, threads), 0)
     if M == 1 or K == 1:
         col = K == 1
         length = M if col else K
@@ -193,11 +217,73 @@ def score_residual_argmax(vals, colf, rowf, mask):
                plan.path, plan.blocks, plan.threads, plan.smem, buf.data_ptr())
     _raise_on(rc, "score_residual_argmax launch")
     score_residual_argmax.launches += 1
+    _SHAPES["score_residual_argmax", (M, K, R)] += 1
     f64 = buf[:3].view(torch.float64)
     return buf[0], f64[1], f64[2]
 
 
 score_residual_argmax.launches = 0
+
+
+def score_residual_argmax_batched_plain(vals, colf, rowf, mask):
+    """score_residual_argmax_plain for every bond of a stack.
+
+    vals (P, M, K), colf (P, M, R), rowf (P, R, K) float64; mask (P, M, K)
+    bool or uint8.  Returns three (P,) tensors (flat int64 in each bond's
+    row-major (M, K), score, signed residual at flat): per bond, masked
+    entries score -1, the first maximum wins, NaN ranks above every
+    number, and a bond whose mask is all false gives flat 0 and score -1."""
+    P = vals.shape[0]
+    resid = (vals - colf @ rowf).reshape(P, -1)
+    score = torch.where(mask.reshape(P, -1).bool(), resid.abs(), -1.0)
+    flat = torch.argmax(score, dim=1)
+    sel = flat[:, None]
+    return flat, score.gather(1, sel)[:, 0], resid.gather(1, sel)[:, 0]
+
+
+def score_residual_argmax_batched(vals, colf, rowf, mask):
+    """Masked |residual| argmax of P fibers at once, three (P,) tensors
+    (flat int64, score, residual): kernel A batched over bonds, for the
+    all-bonds sweeps (ttcross_tpu/cross/engine_jacobi.py:237-242, 269-274
+    compute it per bond with XLA ops in f32 and recompute the pivot in f64).
+
+    Only fibers: vals (P, M, 1) with colf (P, M, R), rowf (P, R, 1), or
+    vals (P, 1, K) with colf (P, 1, R), rowf (P, R, K).  On a CPU tensor
+    this is score_residual_argmax_batched_plain; on a CUDA tensor it is ONE
+    launch of csrc/kernels.cu's batched fiber kernel as _plan lays it out
+    (a block per bond), and adds one to
+    ``score_residual_argmax_batched.launches``.  Each element's sum runs
+    in the single-fiber kernel's order, so the result equals P calls of
+    score_residual_argmax bit for bit.  The results are views of one
+    buffer allocated per call."""
+    if vals.device.type == "cpu":
+        return score_residual_argmax_batched_plain(vals, colf, rowf, mask)
+    dev = vals.device
+    _check_cuda("vals", vals, _F64, 3, dev)
+    _check_cuda("colf", colf, _F64, 3, dev)
+    _check_cuda("rowf", rowf, _F64, 3, dev)
+    _check_cuda("mask", mask, _MASK, 3, dev)
+    P, M, K = vals.shape
+    R = colf.shape[2]
+    if colf.shape != (P, M, R) or rowf.shape != (P, R, K) or mask.shape != (P, M, K):
+        raise ValueError(f"shape mismatch: vals {tuple(vals.shape)}, colf "
+                         f"{tuple(colf.shape)}, rowf {tuple(rowf.shape)}, "
+                         f"mask {tuple(mask.shape)}")
+    if P * M * K == 0:
+        raise ValueError("score_residual_argmax_batched of an empty stack")
+    plan = _plan(M, K, R, _sms(dev.index), bonds=P)
+    buf = torch.empty(3 * P, dtype=torch.int64, device=dev)   # [indices, scores, residuals]
+    rc = _call(dev, _lib().ttc_score_residual_argmax_batched, vals.data_ptr(),
+               colf.data_ptr(), rowf.data_ptr(), mask.data_ptr(), P, M * K, R,
+               int(plan.path == BATCH_COL), plan.threads, plan.smem, buf.data_ptr())
+    _raise_on(rc, "score_residual_argmax_batched launch")
+    score_residual_argmax_batched.launches += 1
+    _SHAPES["score_residual_argmax_batched", (P, M, K, R)] += 1
+    f64 = buf.view(torch.float64)
+    return buf[:P], f64[P:2 * P], f64[2 * P:]
+
+
+score_residual_argmax_batched.launches = 0
 
 
 # ------------------------------------------------------------ kernel B
@@ -239,6 +325,7 @@ def small_table_lookup(tables, ind):
                ind.data_ptr(), E, out.data_ptr(), blocks)
     _raise_on(rc, "small_table_lookup launch")
     small_table_lookup.launches += 1
+    _SHAPES["small_table_lookup", (L, B, d, n)] += 1
     return out
 
 
@@ -350,12 +437,14 @@ def ising_integrand_fused(tables, ind, kind: str):
                kid, plan.path, plan.blocks, plan.threads, plan.smem, den0, out.data_ptr())
     _raise_on(rc, "ising_integrand_fused launch")
     ising_integrand_fused.launches += 1
+    _SHAPES["ising_integrand_fused", (B, d, n)] += 1
     return out
 
 
 ising_integrand_fused.launches = 0
 
-_WRAPPERS = (score_residual_argmax, small_table_lookup, ising_integrand_fused)
+_WRAPPERS = (score_residual_argmax, score_residual_argmax_batched, small_table_lookup,
+             ising_integrand_fused)
 
 
 def launch_counts() -> dict[str, int]:
@@ -363,6 +452,17 @@ def launch_counts() -> dict[str, int]:
     return {f.__name__: f.launches for f in _WRAPPERS}
 
 
+def launch_shapes() -> dict[str, dict[tuple, int]]:
+    """The launches since the last reset by the shape of the call, per
+    wrapper: kernel A (M, K, R), batched (P, M, K, R), the lookup
+    (L, B, d, n), the fused integrand (B, d, n)."""
+    out = {f.__name__: {} for f in _WRAPPERS}
+    for (name, shape), count in _SHAPES.items():
+        out[name][shape] = count
+    return out
+
+
 def reset_launch_counts() -> None:
     for f in _WRAPPERS:
         f.launches = 0
+    _SHAPES.clear()
