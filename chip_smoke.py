@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # the check: build, kernels, main path
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
                                      # one steady headline run, of the
-                                     # steady long-chain runs and of the
-                                     # long chain's parts per call
+                                     # steady long-chain runs, of the long
+                                     # chain's parts per call, of the MVN
+                                     # runs and of a maxvol sweep's parts
     python3 chip_smoke.py --parent DIR   # also times the kernels and the
                                      # integrand of another checkout (e.g.
                                      # the parent commit, unpacked with git
@@ -30,7 +31,10 @@ Phases, each printing its result as it goes:
      (C_256 and C_1024); kernel A batched
      over bonds at the long chain's shapes (254 and 1022 bonds, fibers of
      170, R = 10; half of the bonds fully masked) against its plain version
-     and, bit for bit, against one single-fiber launch per bond;
+     and, bit for bit, against one single-fiber launch per bond; kernel A
+     and kernel B at every shape the MVN / COS path gives them (mvn_shapes:
+     the rook fibers at ranks 20, 26 and 8, the lottery and init batches,
+     the maxvol fiber crosses (26000, 6) and (43940, 6));
   4. the main path: the f64 cross on the Ising C_6 integrand at rank 24
      with oversample=6 (bench.py's headline configuration) on the card,
      twice with key 0 (first and steady time; the kernels' launch counts
@@ -50,8 +54,21 @@ Phases, each printing its result as it goes:
      chain (the fused integrand on (43180, 255) batches), jacobi with it,
      and C_1024 (d = 1023), each over keys 0-7 against its own digit
      floors; every run's launches by
-     shape, each a shape that phase 3 held against the plain version.
-The line before the last is the kernels' JSON summary; the last line is
+     shape, each a shape that phase 3 held against the plain version;
+  7. the MVN / COS option-pricing path at the sizes of the reference's
+     test programs: the MVN pdf at d = 6, n = 65, rank 20, greedy, with oversample=6 and
+     with refine_sweeps=2 (alternating maxvol), each over keys 0-7 against
+     its digit floors, and with the weighted lottery; the rank-20 train
+     contracted against complex128 weights; the basket's characteristic
+     function against the rho = 0.5 goldens and its COS density; the COS
+     coefficient tensor with accchk over 2^14 samples; stdnorm at d = 10;
+     a serialization round trip through the reference's 'TT' stream; and a
+     small MVN cross on the card against the CPU.  Kernel B (the node
+     lookup) and kernel A must have launched, at shapes that phase 3 held.
+The line before the last is the kernels' JSON summary, one entry for every
+(kernel, shape) that the C_6 headline, the C_256 long chain and each
+configuration of phase 7 launched at, with that run's launches at the shape
+beside phase 3's error, times and bound there; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 It imports nothing of JAX.
 """
@@ -103,6 +120,41 @@ DIGITS_GREEDY = 11.5
 ROUND_RTOL = 1e-14          # card vs host rounding of one train: SVDs of
                             # the same matrices in other orders
 KEYS = range(8)
+# The MVN / COS path (bench.py's configurations mvn_d6, mvn_d6_refined,
+# coscoeff_d6, stdnorm_d10, mvn_complex_d6).  Its digits over the lottery
+# key, from CPU runs of both packages over keys 0-7
+# (PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_apps_mvn.py prints
+# them; PERF.md section 2 has the table).  Port / JAX package as minimum,
+# median, maximum:
+#   mvn_d6 greedy            5.33 5.88 6.37 / 5.54 5.98 7.57
+#   mvn_d6 oversample=6      7.43 7.53 7.58 / 7.37 7.50 7.59
+#   mvn_d6 refine_sweeps=2   6.75 6.85 7.01 / 6.59 6.81 7.21
+#   mvn_d6 weighted lottery  5.63 5.98 7.04 / 5.59 6.20 7.24
+#   stdnorm_d10              3.43 (the 33-point rule's own error, every key)
+#   coscoeff_d6, -log10 of accchk's einf / ainf  5.08 5.47 5.97 / 5.38 5.90 6.13
+# Far from machine precision: rank 20 carries the MVN pdf to ~1e-6, and the
+# floors are held accordingly: the median of keys 0-7 at most 0.5 below the
+# port's CPU median, each key above a floor under both packages' minima.
+MVN = dict(d=6, n=65, max_rank=20, accuracy=500 * 2.2e-16, pivoting=1)
+MVN_FLOORS = {  # variant: (median of keys 0-7, each key)
+    "greedy": (5.4, 4.9),
+    "oversample6": (7.0, 6.8),
+    "refined2": (6.35, 6.0),
+}
+MVN_VARIANTS = {"greedy": {}, "oversample6": {"oversample": 6}, "refined2": {"refine_sweeps": 2}}
+MVN_WEIGHTED_FLOOR = 5.2    # key 0 with the weighted lottery
+MVN_COMPOSED_FLOOR = 7.2    # key 0 with oversample=6 and refine_sweeps=2 (CPU keys 0-3: 7.56-7.57)
+STDNORM = dict(d=10, n=32, max_rank=8, accuracy=5 * 2.2e-16, pivoting=1)
+STDNORM_DIGITS = 3.3
+COS_ACCCHK_REL = 1e-4       # coscoeff_d6 at rank 20: accchk's einf / ainf over 2^14 samples
+COMPLEX_RTOL = 1e-13        # complex contraction vs the real one, and its imaginary part
+MVN_KERNELS = ("score_residual_argmax", "small_table_lookup")
+KERNEL_REPLACES = {   # the TPU kernel each CUDA kernel stands for
+    "score_residual_argmax": "ttcross_tpu/ops/pallas_kernels.py:62",
+    "score_residual_argmax_batched": "ttcross_tpu/ops/pallas_kernels.py:62",
+    "small_table_lookup": "ttcross_tpu/ops/pallas_kernels.py:151",
+    "ising_integrand_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
+}
 SCORE_RTOL = 1e-12          # kernel A vs cuBLAS: f64 sums in another order
                             # (the 2-D path's DMMA tiles in yet another)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
@@ -263,16 +315,53 @@ def host_us_per_call(fn, calls: int = 1000) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
+def mvn_shapes(d: int, N: int, R: int, maxvol: bool = False):
+    """The kernel launches of a sequential rook cross of an integrand that
+    looks its nodes up in one n = N table (apps/mvn.py, apps/stdnorm.py) at
+    padded rank R: kernel A's (M, K, R) and kernel B's (B, d).  A rook fiber
+    is R*N long; the lottery draws 2(R+N) candidates; the init evaluates 8
+    shifted diagonals of N entries, then d fibers of N; a maxvol bond visit
+    evaluates the (R*N*R, d) fiber cross and the first core (N*R, d)."""
+    a = [(R * N, 1, R), (1, N * R, R)]
+    b = [(R * N, d), (2 * (R + N), d), (8 * N, d), (d * N, d)]
+    if maxvol:
+        b += [(R * N * R, d)]
+    return a, b
+
+
+def mvn_path_shapes():
+    """Every shape the MVN / COS phase launches at: mvn_d6 at ranks 20 (the
+    greedy and the refined run, whose maxvol pads to the largest rank, 20)
+    and 26 (oversample=6, alone and with refine_sweeps=2), stdnorm_d10 at
+    rank 8 on its 33-point rule, and the small run against the CPU (d = 4,
+    n = 17, ranks 6 and 8)."""
+    a, b = [], []
+    for d, N, R, n, mv in [(6, 65, 20, 65, True), (6, 65, 26, 65, True), (10, 33, 8, 33, False),
+                           (4, 17, 6, 17, True), (4, 17, 8, 17, False)]:
+        sa, sb = mvn_shapes(d, N, R, mv)
+        for shape in sa:
+            if shape not in a:
+                a.append(shape)
+        for shape in sb:
+            if (*shape, n) not in b:
+                b.append((*shape, n))
+    return a, b
+
+
 def kernel_cases(dev, gen):
     """Kernel A's and kernel B's inputs: the main path's shapes (the rook
-    passes, the integrand's batches) and the larger ones of full pivoting
-    and long chains."""
+    passes, the integrand's batches), the larger ones of full pivoting and
+    long chains, and the MVN / COS path's (mvn_path_shapes; kernel B there
+    reads one table, the nodes)."""
     import torch
 
     R, N, B = 30, 65, 1950            # the headline's padded rank and mode size
     a = [(name, _score_inputs(gen, M, Kc, Rr, dev)) for name, M, Kc, Rr in
          [("col_pass", B, 1, R), ("row_pass", 1, B, R), ("superblock", B, B, R),
           ("random", 8192, 8192, 32), ("long_col", 100000, 1, R), ("long_row", 1, 70001, R)]]
+    mvn_a, mvn_b = mvn_path_shapes()
+    a += [(f"mvn_{'col' if Kc == 1 else 'row'}_r{Rr}_{M * Kc}", _score_inputs(gen, M, Kc, Rr, dev))
+          for M, Kc, Rr in mvn_a]
     b = []
     for name, Bb, d, n in [("rook_fiber", B, 5, N), ("lottery", 190, 5, N),
                            ("init_diag", 520, 5, N), ("init_fibers", 325, 5, N),
@@ -288,6 +377,10 @@ def kernel_cases(dev, gen):
         tables = torch.randn((2, n), generator=gen, dtype=torch.float64).to(dev)
         ind = torch.randint(-2, n + 2, (Bb, d), generator=gen, dtype=torch.int32).to(dev)
         b.append((name, (tables, ind)))
+    for Bb, d, n in mvn_b:
+        tables = torch.randn((1, n), generator=gen, dtype=torch.float64).to(dev)
+        ind = torch.randint(-2, n + 2, (Bb, d), generator=gen, dtype=torch.int32).to(dev)
+        b.append((f"mvn_nodes_{Bb}x{d}_n{n}", (tables, ind)))
     return a, b
 
 
@@ -331,7 +424,7 @@ def check_integrand(cases):
 
     from ttcross_tpu_torch.ops import kernels as K
 
-    rows, abs_err = [], 0.0
+    rows = []
     for name, kind, tables, ind in cases:
         B, d = ind.shape
         n = tables.shape[1]
@@ -370,8 +463,7 @@ def check_integrand(cases):
             row["host_us_per_call"] = host_us_per_call(fn)
         _emit(row)
         rows.append(row)
-        abs_err = max(abs_err, row["max_abs_err"])
-    return rows, abs_err
+    return rows
 
 
 def check_kernels(dev, a_cases, b_cases):
@@ -380,7 +472,7 @@ def check_kernels(dev, a_cases, b_cases):
 
     from ttcross_tpu_torch.ops import kernels as K
 
-    a_err, a_rows = 0.0, []
+    a_rows = []
     for name, args in a_cases:
         vals, colf, rowf, mask = args
         M, Kc = vals.shape
@@ -395,7 +487,6 @@ def check_kernels(dev, a_cases, b_cases):
         err = max(abs(gs - ws), abs(gr - wr))
         if err > SCORE_RTOL * abs(ws):
             raise AssertionError(f"kernel A {name}: score {gs} vs plain {ws}")
-        a_err = max(a_err, err)
         dev_k = device_per_call(lambda: K.score_residual_argmax(*args))
         dev_p = device_per_call(lambda: K.score_residual_argmax_plain(*args))
         bound, by = _score_bound(M, Kc, Rr)
@@ -423,8 +514,10 @@ def check_kernels(dev, a_cases, b_cases):
         got = K.small_table_lookup(tables, ind)
         want = K.small_table_lookup_plain(tables, ind)
         torch.cuda.synchronize()
+        err = float((got - want).abs().max()) if got.numel() else 0.0
         if not torch.equal(got, want):
-            raise AssertionError(f"kernel B {name}: not bitwise equal to the plain version")
+            raise AssertionError(f"kernel B {name}: not bitwise equal to the plain version "
+                                 f"(max difference {err})")
         inside = ind.clamp(0, n - 1)   # the library gather takes in-range indices only
         flat = inside.view(-1)
         if not torch.equal(K.small_table_lookup(tables, inside).view(L, -1),
@@ -434,7 +527,7 @@ def check_kernels(dev, a_cases, b_cases):
         dev_l = device_per_call(lambda: torch.index_select(tables, 1, flat))
         bound, by = _lookup_bound(L, ind.numel(), n)
         row = {"kernel": "small_table_lookup", "shape": [L, *ind.shape, n], "case": name,
-               "max_abs_err": 0.0,
+               "max_abs_err": err,
                "ms": _time_ms(lambda: K.small_table_lookup(tables, ind)),
                "plain_ms": _time_ms(lambda: K.small_table_lookup_plain(tables, ind)),
                "library_ms": _time_ms(lambda: torch.index_select(tables, 1, flat)),
@@ -445,7 +538,7 @@ def check_kernels(dev, a_cases, b_cases):
             row["host_us_per_call"] = host_us_per_call(lambda: K.small_table_lookup(tables, ind))
         _emit(row)
         b_rows.append(row)
-    return a_rows, a_err, b_rows
+    return a_rows, b_rows
 
 
 def check_batched(dev, gen):
@@ -459,7 +552,7 @@ def check_batched(dev, gen):
 
     from ttcross_tpu_torch.ops import kernels as K
 
-    rows, worst = [], 0.0
+    rows = []
     for name, P, M, Kc, R in [("col_pass_c256", 254, 170, 1, 10), ("row_pass_c256", 254, 1, 170, 10),
                               ("col_pass_c1024", 1022, 170, 1, 10),
                               ("row_pass_c1024", 1022, 1, 170, 10),
@@ -500,8 +593,7 @@ def check_batched(dev, gen):
                "bound_us": bound, "bound_by": by, "share_of_bound": bound / dev_k["device_us"]}
         _emit(row)
         rows.append(row)
-        worst = max(worst, err)
-    return rows, worst
+    return rows
 
 
 def _package_of(root: str):
@@ -789,6 +881,271 @@ def check_small_against_cpu(dev) -> dict:
     return {"phase": "small_vs_cpu", **rows}
 
 
+def run_mvn(dev, key=0, **extra):
+    """One MVN d = 6, n = 65, rank 20 cross on the card through the public
+    entry points; (result, wall seconds, digits, launches per kernel of this
+    run, the same by the shape of the call, the problem)."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_mvn
+    from ttcross_tpu_torch.cross import cross
+    from ttcross_tpu_torch.ops import kernels as K
+
+    h = MVN
+    prob = make_mvn(d=h["d"], n=h["n"])        # on the card by default
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cross(prob.fun, [prob.n] * prob.d, max_rank=h["max_rank"], accuracy=h["accuracy"],
+                pivoting=h["pivoting"], quad=[prob.quad_weights] * prob.d, truth=prob.truth,
+                key=key, **extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, shapes = K.launch_counts(), K.launch_shapes()
+    vals = np.asarray(res.values)
+    if not (np.all(np.isfinite(vals)) and res.tt.ready() and res.tt.device.type == "cuda"
+            and max(res.ranks) <= h["max_rank"] and len(res.ranks) == h["d"] + 1
+            and prob.table.device.type == "cuda" and prob.density.inv_cov_t.device.type == "cuda"):
+        raise AssertionError(f"malformed MVN result: ranks {res.ranks}, values {vals}")
+    return res, wall, float(-np.log10(res.errors[-1])), counts, shapes, prob
+
+
+def _mvn_row(res, wall, digits, counts, shapes) -> dict:
+    return {"digits": digits, "n_evals": res.neval, "padded_evals": res.padded_evals,
+            "ranks": list(res.ranks), "sweeps": res.sweeps, "first_s": wall, "launches": counts,
+            "launches_by_shape": _by_shape(shapes)}
+
+
+def check_mvn_path(dev, held):
+    """Phase 7: the MVN / COS option-pricing path at the sizes of the
+    reference's test programs.  Returns (label, launches by shape) of every
+    run of the phase that launches a kernel, the first run of each."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import (CHF_RHO05, basket_chf, basket_pdf, make_cos_coefficients,
+                                        make_mvn_density, make_stdnorm)
+    from ttcross_tpu_torch.cross import accchk, cross
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.tt import contract, load_ttbin_ref, save_ttbin_ref
+
+    first, runs = {}, []
+    for variant, extra in MVN_VARIANTS.items():
+        res, wall, digits, launches, shapes, prob = run_mvn(dev, **extra)
+        res2, steady, digits2, launches2, _, _ = run_mvn(dev, **extra)
+        by_key = [digits] + [run_mvn(dev, key=k, **extra)[2] for k in KEYS[1:]]
+        median = statistics.median(by_key)
+        floor_median, floor_key = MVN_FLOORS[variant]
+        _emit({"phase": "mvn", "config": f"mvn_d6 n=65 rank 20 pivoting=1 {variant}",
+               **_mvn_row(res, wall, digits, launches, shapes), "steady_s": steady,
+               "digits_by_key": by_key, "median_digits": median})
+        if median < floor_median or min(by_key) < floor_key:
+            raise AssertionError(f"mvn_d6 {variant}: digits over keys {by_key}: median {median} < "
+                                 f"{floor_median} or a key < {floor_key}")
+        if min(launches[k] for k in MVN_KERNELS) <= 0:
+            raise AssertionError(f"mvn_d6 {variant}: a kernel of its path was not launched: {launches}")
+        _require_held(f"mvn_d6 {variant}", shapes, held)
+        if (res2.neval, res2.ranks, digits2, launches2) != (res.neval, res.ranks, digits, launches):
+            raise AssertionError(f"the repeated mvn_d6 {variant} run took another path")
+        first[variant] = res
+        runs.append((f"mvn_d6 {variant}", shapes))
+    res = first["greedy"]
+    err = res.errors[-1]
+
+    # the weighted lottery, key 0
+    *run, shapes_w, _ = run_mvn(dev, weighted_lottery=True)
+    _emit({"phase": "mvn", "config": "mvn_d6 n=65 rank 20 pivoting=1 weighted_lottery",
+           **_mvn_row(*run, shapes_w)})
+    if run[2] < MVN_WEIGHTED_FLOOR:
+        raise AssertionError(f"mvn_d6 weighted lottery: {run[2]} digits < {MVN_WEIGHTED_FLOOR}")
+    _require_held("mvn_d6 weighted lottery", shapes_w, held)
+    runs.append(("mvn_d6 weighted_lottery", shapes_w))
+
+    # the composition: cross at rank 26, refine the pivots there, round to 20
+    *run, shapes_c, _ = run_mvn(dev, oversample=6, refine_sweeps=2)
+    _emit({"phase": "mvn", "config": "mvn_d6 n=65 rank 20 pivoting=1 oversample=6 refine_sweeps=2",
+           **_mvn_row(*run, shapes_c)})
+    if run[2] < MVN_COMPOSED_FLOOR:
+        raise AssertionError(f"mvn_d6 oversample=6 refine_sweeps=2: {run[2]} digits < "
+                             f"{MVN_COMPOSED_FLOOR}")
+    _require_held("mvn_d6 oversample=6 refine_sweeps=2", shapes_c, held)
+    runs.append(("mvn_d6 oversample=6 refine_sweeps=2", shapes_c))
+
+    # mvn_complex_d6: the rank-20 train against complex128 weights, on the card
+    real = contract(res.tt, [prob.quad_weights] * prob.d)
+    cplx = contract(res.tt, [prob.quad_weights.astype(np.complex128)] * prob.d)
+    if cplx.device.type != "cuda" or cplx.dtype != torch.complex128 or cplx.dim() != 0:
+        raise AssertionError(f"the complex contraction is {cplx.dtype} on {cplx.device}")
+    real, cplx = float(real), complex(cplx)
+    _emit({"phase": "mvn", "config": "mvn_complex_d6", "real": real, "complex_re": cplx.real,
+           "complex_im": cplx.imag, "complex_digits": float(-np.log10(abs(1 - cplx / prob.truth)))})
+    if abs(cplx.real - real) > COMPLEX_RTOL * abs(real) or abs(cplx.imag) > COMPLEX_RTOL:
+        raise AssertionError(f"complex contraction {cplx} against the real one {real}")
+
+    # chf / pdf: 32 terms of the basket's characteristic function against
+    # the rho = 0.5 goldens (the train's own error bounds both), then the COS
+    # density on 100 points: non-negative to 1e-6 and of mass 1 within the
+    # train's error (its cosine series integrates exactly by the trapezoid
+    # rule on this grid)
+    phis = basket_chf(res.tt, prob.nodes, prob.quad_weights, 32)
+    chf_dev = float((phis.cpu() - torch.tensor(CHF_RHO05, dtype=torch.complex128)).abs().max())
+    xs = np.linspace(0.0, 300.0, 100)
+    pdf = basket_pdf(res.tt, prob.nodes, prob.quad_weights, xs, 32)
+    mass = float(torch.trapezoid(pdf, torch.from_numpy(xs).to(pdf.device)))
+    _emit({"phase": "mvn", "config": "chf / pdf of the greedy mvn_d6 train, 32 terms",
+           "train_err": err, "chf_max_dev_from_goldens": chf_dev, "pdf_min": float(pdf.min()),
+           "pdf_mass": mass, "on_card": phis.device.type == "cuda" and pdf.device.type == "cuda"})
+    if not (phis.device.type == "cuda" and phis.dtype == torch.complex128
+            and chf_dev <= 4 * err + 1e-8 and float(pdf.min()) >= -1e-6
+            and abs(mass - 1.0) <= 2 * err + 1e-8 and bool(torch.isfinite(pdf).all())):
+        raise AssertionError(f"chf / pdf: deviation {chf_dev}, pdf min {float(pdf.min())}, mass "
+                             f"{mass} at a train error of {err}")
+
+    # coscoeff_d6 + accchk
+    dens = make_mvn_density(6, corr=0.5)
+    cc = make_cos_coefficients(6, dens.mu, dens.cov, 0.52517, 8.52517)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    cres = cross(cc.fun, [65] * 6, max_rank=20, accuracy=MVN["accuracy"], pivoting=1)
+    chk = accchk(cres.tt, cc.fun, nlot=2**14)
+    wall = time.perf_counter() - t0
+    counts, shapes_k = K.launch_counts(), K.launch_shapes()
+    rel = chk["einf"] / max(chk["ainf"], 1e-300)
+    _emit({"phase": "mvn", "config": "coscoeff_d6 n=65 rank 20 + accchk 2^14", "n_evals": cres.neval,
+           "padded_evals": cres.padded_evals, "ranks": list(cres.ranks), "sweeps": cres.sweeps,
+           "wall_s": wall, "launches": counts, "launches_by_shape": _by_shape(shapes_k),
+           "accchk": chk, "accchk_rel": rel})
+    if not (rel <= COS_ACCCHK_REL and chk["ainf"] > 0 and cres.tt.device.type == "cuda"):
+        raise AssertionError(f"coscoeff_d6: accchk {chk}")
+    if counts["score_residual_argmax"] <= 0:     # its integrand looks no table up: no kernel B
+        raise AssertionError(f"coscoeff_d6: kernel A was not launched: {counts}")
+    _require_held("coscoeff_d6", shapes_k, held)
+    runs.append(("coscoeff_d6", shapes_k))
+
+    # stdnorm_d10 (n = 32 -> 33, rank 8): kernel B on the 33-point table
+    h = STDNORM
+    sp = make_stdnorm(d=h["d"], n=h["n"])
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    sres = cross(sp.fun, [sp.n] * sp.d, max_rank=h["max_rank"], accuracy=h["accuracy"],
+                 pivoting=h["pivoting"], quad=[sp.quad_weights] * sp.d, truth=sp.truth)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, shapes_s = K.launch_counts(), K.launch_shapes()
+    sdigits = float(-np.log10(sres.errors[-1]))
+    _emit({"phase": "mvn", "config": "stdnorm_d10 n=33 rank 8 pivoting=1",
+           **_mvn_row(sres, wall, sdigits, counts, shapes_s)})
+    if sdigits < STDNORM_DIGITS or min(counts[k] for k in MVN_KERNELS) <= 0:
+        raise AssertionError(f"stdnorm_d10: {sdigits} digits, launches {counts}")
+    _require_held("stdnorm_d10", shapes_s, held)
+    runs.append(("stdnorm_d10", shapes_s))
+
+    # serialization: the reference's 'TT' stream, from the card and back onto it
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_ttbin_ref(res.tt, tmp + "/mvn.tt")
+        back = load_ttbin_ref(tmp + "/mvn.tt")
+    same = back.device.type == "cuda" and all(torch.equal(a, b)
+                                              for a, b in zip(back.cores, res.tt.cores))
+    _emit({"phase": "mvn", "config": "save_ttbin_ref -> load_ttbin_ref on the card",
+           "cores_bit_equal": same, "entries": res.tt.mem()})
+    if not same:
+        raise AssertionError("the serialization round trip changed the train")
+
+    _emit(check_small_mvn_against_cpu(dev, held))
+    return runs
+
+
+SMALL_MVN_VARIANTS = {"greedy": {}, "refine_sweeps=1": {"refine_sweeps": 1},
+                      "oversample=2": {"oversample": 2},
+                      "weighted_lottery": {"weighted_lottery": True}}
+
+
+def small_mvn_against_cpu(dev, extra):
+    """One small MVN cross (d = 4, n = 17, rank 6) on the card against the
+    same cross (same uniforms) on the CPU, where every kernel is its plain
+    version: ranks, evals, padded evals and sweeps equal, values to 1e-12
+    (1e-11 where oversampling rounds the train: SVDs on two devices).  The
+    density has a perturbed mean and covariance: the default one is symmetric
+    under permutations of its modes, which leaves mirrored pivots to the last
+    bit.  Returns (row, launch counts, launches by shape) of the card's run."""
+    import numpy as np
+
+    from ttcross_tpu_torch.apps import make_mvn
+    from ttcross_tpu_torch.cross import cross
+    from ttcross_tpu_torch.interop import mvn_from_numpy
+    from ttcross_tpu_torch.ops import kernels as K
+
+    base = make_mvn(d=4, n=17, device="cpu")
+    rng = np.random.default_rng(5)
+    A = rng.normal(size=(4, 4)) * 0.1
+    cov, mu = base.density.cov + A @ A.T, base.density.mu + rng.normal(size=4) * 0.1
+    out = {}
+    K.reset_launch_counts()
+    for where in ("cpu", dev):
+        p = mvn_from_numpy(base.nodes, base.quad_weights, mu, cov, np.linalg.inv(cov),
+                           float(np.linalg.det(cov)), where)
+        out[str(where)] = cross(p.fun, [p.n] * p.d, max_rank=6, pivoting=1,
+                                quad=[p.quad_weights] * p.d, truth=1.0, device=where, **extra)
+    counts, shapes = K.launch_counts(), K.launch_shapes()
+    c, g = out["cpu"], out[str(dev)]
+    if g.tt.device.type != "cuda" or min(counts[k] for k in MVN_KERNELS) <= 0:
+        raise AssertionError(f"small MVN {extra}: train on {g.tt.device}, launches {counts}")
+    if (c.ranks, c.neval, c.padded_evals, c.sweeps) != (g.ranks, g.neval, g.padded_evals, g.sweeps):
+        raise AssertionError(f"small MVN {extra} on the card {g.ranks} {g.neval} != CPU "
+                             f"{c.ranks} {c.neval}")
+    rel = float(np.max(np.abs(np.subtract(g.values, c.values)) / np.abs(c.values)))
+    if rel > (1e-11 if extra.get("oversample") else 1e-12):
+        raise AssertionError(f"small MVN {extra}: the card differs from the CPU by {rel}")
+    return ({"ranks": list(g.ranks), "n_evals": g.neval, "max_rel_value_diff": rel},
+            counts, shapes)
+
+
+def check_small_mvn_against_cpu(dev, held) -> dict:
+    """small_mvn_against_cpu for the greedy, refined, oversampled and
+    weighted cross, each launching at shapes in `held` only."""
+    rows = {}
+    for name, extra in SMALL_MVN_VARIANTS.items():
+        rows[name], _, shapes = small_mvn_against_cpu(dev, extra)
+        _require_held(f"small MVN {name}", shapes, held)
+    return {"phase": "mvn_small_vs_cpu", **rows}
+
+
+def profile_maxvol_parts(dev) -> None:
+    """Kernels, device-only time and host time per call of the maxvol
+    refinement's parts at mvn_d6's shapes (R = 20, N = 65, d = 6) from the
+    greedy cross's pivot sets: one L->R and one R->L visit of a middle bond,
+    the selection alone on the (1300, 20) fiber cross, and the integrand's
+    (26000, 6) batch alone."""
+    import torch
+
+    from ttcross_tpu_torch.cross.chains import pivot_index_sets
+    from ttcross_tpu_torch.cross.maxvol import _pad_sets, _refine_engine, maxvol_select
+
+    res, _, _, _, _, prob = run_mvn(dev, return_state=True)
+    R, N, d = MVN["max_rank"], prob.n, prob.d
+    LI, RJ, rr = (torch.from_numpy(a).to(dev) for a in
+                  _pad_sets(*pivot_index_sets(res.state.vip, res.state.rk), d, R))
+    kit = _refine_engine(prob.fun, (N,) * d, R, 8, 1.01, dev)
+    z = torch.zeros((), dtype=torch.int64, device=dev)
+    M = torch.randn((R * N, R), dtype=torch.float64, device=dev)
+    rowm = torch.ones(R * N, dtype=torch.bool, device=dev)
+    ind = torch.randint(0, N, (R * N * R, d), dtype=torch.int32, device=dev)
+    parts = {
+        "visit_lr, bond 2": lambda: kit.visit_lr(2, LI.clone(), RJ, rr, z, z),
+        "visit_rl, bond 2": lambda: kit.visit_rl(2, LI, RJ.clone(), rr, z, z),
+        "maxvol_select (1300, 20)": lambda: maxvol_select(M, rowm, rr[2]),
+        "integrand (26000, 6)": lambda: prob.fun(ind),
+    }
+    rows = {}
+    for name, fn in parts.items():
+        got = device_per_call(fn, calls=10)
+        rows[name] = {"kernels_per_call": got["kernels_per_call"], "device_us": got["device_us"],
+                      "host_ms_per_call": host_us_per_call(fn, calls=20) * 1e-3}
+    _emit({"phase": "profile", "run": "mvn_d6 maxvol sweep parts, per call", **rows})
+
+
 def profile_run(label: str, run) -> None:
     """torch.profiler over one steady run (run() returns a tuple that
     starts with the result): kernel time by name, the device's busy share
@@ -843,13 +1200,15 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1234)
     a_cases, b_cases = kernel_cases(dev, gen)
     i_cases = integrand_cases(dev, gen)
-    a_rows, a_err, b_rows = check_kernels(dev, a_cases, b_cases)
-    i_rows, i_err = check_integrand(i_cases)
-    ab_rows, ab_err = check_batched(dev, gen)
-    held = {"score_residual_argmax": {tuple(r["shape"]) for r in a_rows},
-            "score_residual_argmax_batched": {tuple(r["shape"]) for r in ab_rows},
-            "small_table_lookup": {tuple(r["shape"]) for r in b_rows},
-            "ising_integrand_fused": {tuple(r["shape"]) for r in i_rows}}
+    a_rows, b_rows = check_kernels(dev, a_cases, b_cases)
+    i_rows = check_integrand(i_cases)
+    ab_rows = check_batched(dev, gen)
+    # phase 3's row of every (kernel, shape) it held against the plain version
+    # (the first at a shape: the integrand's kind C, which every driven run uses)
+    checked = {name: {tuple(r["shape"]): r for r in reversed(rows)} for name, rows in
+               [("score_residual_argmax", a_rows), ("score_residual_argmax_batched", ab_rows),
+                ("small_table_lookup", b_rows), ("ising_integrand_fused", i_rows)]}
+    held = {name: set(by) for name, by in checked.items()}
     args = sys.argv[1:]
     if "--parent" in args:
         _emit(compare_with(args[args.index("--parent") + 1], a_cases, b_cases, i_cases))
@@ -896,7 +1255,7 @@ def main() -> int:
     if not on_card:
         raise AssertionError("the cross state left the card")
 
-    lc_launches, lc_shapes = check_long_chain(dev, held)
+    _, lc_shapes = check_long_chain(dev, held)
     if "--profile" in args:
         profile_run("C_256 jacobi-rb chain", lambda: run_long_chain(dev))
         profile_run("C_256 jacobi-rb, black-box integrand",
@@ -904,35 +1263,38 @@ def main() -> int:
         profile_run("C_1024 jacobi-rb chain", lambda: run_long_chain(dev, m=1024))
         profile_long_chain_parts(dev)
 
-    def summary(row, launched, by_shape, err):
-        # launches: all of the kernel's on its path's run; the times and the
-        # bound are those of one shape, launched launches_at_shape times
-        return {"launches": launched, "launches_at_shape": by_shape.get(tuple(row["shape"]), 0),
-                "max_abs_err": err, "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "device_ms": row["device_us"] * 1e-3,
-                "bound_ms": row["bound_us"] * 1e-3, "bound_us": row["bound_us"],
-                "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
-                "shape": row["shape"]}
+    mvn_runs = check_mvn_path(dev, held)
+    if "--profile" in args:
+        profile_run("mvn_d6 greedy", lambda: run_mvn(dev))
+        profile_run("mvn_d6 refine_sweeps=2", lambda: run_mvn(dev, refine_sweeps=2))
+        profile_maxvol_parts(dev)
 
-    # each kernel's launches are those of the run of its own path, counted
-    # from 0: the C_6 headline's first run, or the C_256 long chain's
-    lift_row = next(r for r in b_rows if r["case"] == "lift_cand")
-    A, AB, B, FUSED = MAIN_PATH_KERNELS[0], *LONG_CHAIN_KERNELS, MAIN_PATH_KERNELS[1]
+    # one entry for every (kernel, shape) that a path's run launched at: the
+    # launches are those of that run, counted from 0 (the C_6 headline's
+    # first run, the C_256 long chain's, the first run of each configuration
+    # of the MVN / COS phase); the error, the times and the bound are those of
+    # phase 3's check of the kernel at that shape
+    entries = []
+    for path, by_kernel in [("C_6 headline", shapes), ("C_256 long chain", lc_shapes)] + mvn_runs:
+        for name, by in sorted(by_kernel.items()):
+            for shape, count in sorted(by.items()):
+                row = checked[name][shape]
+                entries.append({
+                    "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                    "replaces": KERNEL_REPLACES[name], "path": path, "shape": row["shape"],
+                    "launches": count, "launches_of_kernel_on_path": sum(by.values()),
+                    "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+                    "device_ms": row["device_us"] * 1e-3, "bound_ms": row["bound_us"] * 1e-3,
+                    "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
+    missing = {(k, path) for path, need in [("C_6 headline", MAIN_PATH_KERNELS),
+                                            ("C_256 long chain", LONG_CHAIN_KERNELS),
+                                            ("mvn_d6 greedy", MVN_KERNELS)]
+               for k in need if not any(e["name"] == k and e["path"] == path and e["launches"] > 0
+                                        for e in entries)}
+    if missing:
+        raise AssertionError(f"kernels missing from their path's launches: {sorted(missing)}")
     print(smi, flush=True)
-    _emit({"kernels": [
-        {"name": "score_residual_argmax", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "ttcross_tpu/ops/pallas_kernels.py:62", "path": "C_6 headline",
-         **summary(a_rows[0], launches[A], shapes[A], a_err)},
-        {"name": "score_residual_argmax_batched", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "ttcross_tpu/ops/pallas_kernels.py:62", "path": "C_256 long chain",
-         **summary(ab_rows[0], lc_launches[AB], lc_shapes[AB], ab_err)},
-        {"name": "small_table_lookup", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "ttcross_tpu/ops/pallas_kernels.py:151", "path": "C_256 long chain",
-         **summary(lift_row, lc_launches[B], lc_shapes[B], 0.0)},
-        {"name": "ising_integrand_fused", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "ttcross_tpu/ops/pallas_kernels.py:151", "path": "C_6 headline",
-         **summary(i_rows[0], launches[FUSED], shapes[FUSED], i_err)},
-    ]})
+    _emit({"kernels": entries})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})
     return 0

@@ -426,3 +426,74 @@ def test_an_all_bonds_sweep_makes_no_host_sync(mode, chain, cuda_device):
     # examines thousands of entries
     assert int(st.rk.max()) == 3 and int(st.rk[1]) == 3 and int(st.rk[-2]) == 3
     assert int(st.neval) > neval0 + 10_000
+
+
+@pytest.mark.parametrize("extra", [dict(), dict(refine_sweeps=1), dict(oversample=2),
+                                   dict(weighted_lottery=True)],
+                         ids=["greedy", "refine", "oversample", "weighted"])
+def test_small_mvn_cross_on_the_card_matches_the_cpu(extra, cuda_device):
+    """MVN d = 4, n = 17, rank 6 on the card against the CPU: the check is
+    chip_smoke.py's own (ranks, n_evals and padded evals equal, values to
+    1e-12, both kernels launched), run here one variant at a time."""
+    import chip_smoke
+
+    row, counts, _ = chip_smoke.small_mvn_against_cpu(cuda_device, extra)
+    assert row["max_rel_value_diff"] <= 1e-11 and row["n_evals"] > 0
+    assert counts["small_table_lookup"] > 0 and counts["score_residual_argmax"] > 0
+
+
+def test_mvn_sweep_and_maxvol_visit_make_no_host_sync(cuda_device):
+    """Two weighted-lottery sweeps of the MVN engine, and one L->R and one
+    R->L bond visit of the maxvol refinement (a fixed-trip selection on a
+    (R N, R) fiber cross), under torch's sync debug mode set to raise."""
+    from ttcross_tpu_torch.apps import make_mvn
+    from ttcross_tpu_torch.config import precision_thresholds
+    from ttcross_tpu_torch.cross.engine import CrossConfig, make_engine
+    from ttcross_tpu_torch.cross.maxvol import _refine_engine
+
+    p = make_mvn(d=6, n=33, device=cuda_device)
+    se, sp = precision_thresholds(torch.float64)
+    R = 8
+    cfg = CrossConfig(d=p.d, n=(p.n,) * p.d, N=p.n, R=R, piv=1, small_element=se,
+                      small_pivot=sp, wlot=True)
+    kit = make_engine(p.fun, cfg, cuda_device)
+    st = kit.init_fn()
+    U = torch.rand((2, p.d - 1, 2, 2 * (R + p.n)), dtype=torch.float64, device=cuda_device)
+    w = torch.from_numpy(np.tile(p.quad_weights, (p.d, 1))).to(cuda_device)
+    lw = w / w.amax(dim=1, keepdim=True)
+    mv = _refine_engine(p.fun, (p.n,) * p.d, R, 8, 1.01, cuda_device)
+    LI = torch.randint(0, p.n, (p.d - 1, R, p.d), dtype=torch.int32, device=cuda_device)
+    RJ = torch.randint(0, p.n, (p.d - 1, R, p.d), dtype=torch.int32, device=cuda_device)
+    rr = torch.full((p.d - 1,), R, dtype=torch.int32, device=cuda_device)
+    z = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for it in (1, 2):
+            st = kit.sweep_fn(st, it, U[it - 1], lw=lw)
+        LI, B, nev, _ = mv.visit_lr(2, LI, RJ, rr, z, z)
+        RJ, core, nev, _ = mv.visit_rl(2, LI, RJ, rr, nev, z)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(st.rk[1:-1].min()) >= 2
+    assert int(nev) == 2 * R * p.n * R and bool(torch.isfinite(core).all())
+
+
+def test_complex_chain_and_serialization_on_the_card(cuda_device, tmp_path):
+    """basket_chf in complex128 on the card equals the CPU's to 1e-13, and a
+    train saved from the card loads back onto it bit-equal."""
+    from ttcross_tpu_torch.apps import basket_chf, make_mvn
+    from ttcross_tpu_torch.cross import cross
+    from ttcross_tpu_torch.tt import load_ttbin_ref, save_ttbin_ref
+
+    p = make_mvn(d=4, n=17, device=cuda_device)
+    res = cross(p.fun, [p.n] * p.d, max_rank=6, pivoting=1, device=cuda_device)
+    phis = basket_chf(res.tt, p.nodes, p.quad_weights, 32)
+    assert phis.device.type == "cuda" and phis.dtype == torch.complex128
+    host = basket_chf(res.tt.to("cpu"), p.nodes, p.quad_weights, 32)
+    np.testing.assert_allclose(phis.cpu().numpy(), host.numpy(), rtol=0, atol=1e-13)
+    path = str(tmp_path / "t.tt")
+    save_ttbin_ref(res.tt, path)
+    back = load_ttbin_ref(path)                    # the card is the default
+    assert back.device.type == "cuda"
+    assert all(torch.equal(a, b) for a, b in zip(back.cores, res.tt.cores))

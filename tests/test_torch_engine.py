@@ -6,6 +6,7 @@ JAX engine's lottery uniforms, recomputed here from the same key chain
 sweep).  With the same uniforms the pivot choices, ranks and evaluation
 counts agree exactly; floating-point values agree to rounding."""
 
+import importlib
 import inspect
 import os
 import pkgutil
@@ -74,6 +75,9 @@ def test_per_sweep_parity(piv, problems):
             init = pkit.init_fn()
             js = _np_state(jst)
             for f in init._fields:
+                if f not in js:          # the port's sweep count, which the JAX state lacks
+                    assert f == "sweeps" and int(init.sweeps) == 0
+                    continue
                 np.testing.assert_allclose(getattr(init, f).numpy(), js[f], rtol=1e-14,
                                            atol=1e-15 * js["amax"], err_msg=f)
         for it in range(1, R):
@@ -161,14 +165,27 @@ def test_public_cross_runs_and_rejects_unported(problems):
     assert res.tt.ready() and res.tt.r == res.ranks and max(res.ranks) <= 6
     assert res.state.cores.device.type == "cpu"
     assert -np.log10(res.errors[-1]) > 4.0
-    for kw in (dict(host_reeval=True), dict(rank_chunks="auto"), dict(refine_sweeps=1),
-               dict(adaptive=True), dict(weighted_lottery=True), dict(rank_caps=[4, 4, 4])):
+    for kw in (dict(host_reeval=True), dict(rank_chunks="auto"), dict(return_pivots=True),
+               dict(adaptive=True), dict(rank_caps=[4, 4, 4])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cross(tp.fun, [tp.n] * tp.d, max_rank=4, device="cpu", **kw)
+    # ported since: the maxvol post-pass, the weighted lottery and the resume
+    kw = dict(max_rank=4, quad=[tp.quad_weights] * tp.d, truth=tp.truth, device="cpu")
+    ref = cross(tp.fun, [tp.n] * tp.d, refine_sweeps=1, **kw)
+    assert ref.history[-1].direction == "mv" and ref.tt.ready()
+    assert cross(tp.fun, [tp.n] * tp.d, weighted_lottery=True, **kw).tt.ready()
+    again = cross(tp.fun, [tp.n] * tp.d, init_state=res.state, max_sweeps=1, **{**kw, "max_rank": 6})
+    assert again.sweeps == 1 and again.neval > res.neval
 
 
-@pytest.mark.parametrize("entry", [cross, make_ising])
+@pytest.mark.parametrize("entry", [
+    "cross.cross", "apps.make_ising", "apps.make_mvn", "apps.make_mvn_density",
+    "apps.make_mvn_family", "apps.make_stdnorm", "apps.make_cos_coefficients",
+    "cross.maxvol_refine", "cross.cross_maxvol", "cross.accchk", "tt.load_ttbin",
+    "tt.load_ttbin_ref", "tt.load_npz", "tt.load_hdf5", "tt.load_state"])
 def test_entry_points_default_to_the_card(entry):
+    module, name = entry.split(".")
+    entry = getattr(importlib.import_module("ttcross_tpu_torch." + module), name)
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
@@ -192,6 +209,9 @@ def test_port_imports_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(ttcross_tpu_torch.__path__,
                                                         "ttcross_tpu_torch."))
     assert "ttcross_tpu_torch.ops.kernels" in mods and len(mods) > 15
+    for new in ("apps.mvn", "apps.stdnorm", "apps.cos", "apps.chf", "cross.maxvol", "cross.accchk",
+                "ops.sampling", "tt.serialize", "utils.indexing", "utils.guards", "utils.printing"):
+        assert "ttcross_tpu_torch." + new in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"

@@ -324,8 +324,15 @@ def test_public_cross_runs_the_long_chain_path_and_rejects_full_pivoting(problem
     with pytest.raises(ValueError, match="unknown sweep_mode"):
         cross(tp.fun, [tp.n] * tp.d, max_rank=4, sweep_mode="gauss-seidel", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cross(tp.fun, [tp.n] * tp.d, max_rank=4, sweep_mode="jacobi", adaptive=True,
+              device="cpu")
+    # the weighted lottery runs on the all-bonds hunt too, and needs the weights
+    with pytest.raises(ValueError, match="quad"):
         cross(tp.fun, [tp.n] * tp.d, max_rank=4, sweep_mode="jacobi", weighted_lottery=True,
               device="cpu")
+    res = cross(tp.fun, [tp.n] * tp.d, max_rank=4, quad=[tp.quad_weights] * tp.d,
+                truth=tp.truth, sweep_mode="jacobi", weighted_lottery=True, device="cpu")
+    assert res.tt.ready() and -np.log10(res.errors[-1]) > 3.0
 
 
 def long_chain_digits_over_keys(m=256, mode="jacobi-rb", chain=True, keys=range(8),

@@ -15,10 +15,12 @@ all_right_tables, which loop over log2(d) levels, not over bonds.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["left_table", "right_table", "advance_left", "advance_right",
-           "all_left_tables", "all_right_tables", "assemble_indices"]
+           "all_left_tables", "all_right_tables", "pivot_index_sets",
+           "assemble_indices"]
 
 
 def left_table(vip, p: int, d: int) -> torch.Tensor:
@@ -107,6 +109,38 @@ def all_right_tables(vip, d: int) -> torch.Tensor:
     is what bonds d-2..p+1 write into an empty table."""
     W = _scan_tables(vip, d, left=False)
     return torch.cat([W[1:], torch.zeros_like(W[:1])])
+
+
+def pivot_index_sets(vip, rk):
+    """Host-side decode of the pivot chains into explicit index sets:
+    I[b] = list of left prefix tuples (modes 0..b), J[b] = right suffix
+    tuples (modes b+1..d-1) for every bond b.  vip and rk are read from
+    their device once."""
+    vip = vip.cpu().numpy() if torch.is_tensor(vip) else np.asarray(vip)
+    rk = rk.cpu().numpy() if torch.is_tensor(rk) else np.asarray(rk)
+    nb = vip.shape[0]
+    d = nb + 1
+    I, J = [], []
+    for b in range(nb):
+        Is, Js = [], []
+        for s in range(rk[b + 1]):
+            pre = [0] * (b + 1)
+            pre[b] = int(vip[b, s, 1])
+            t = int(vip[b, s, 0])
+            for sb in range(b - 1, -1, -1):
+                pre[sb] = int(vip[sb, t, 1])
+                t = int(vip[sb, t, 0])
+            Is.append(tuple(pre))
+            suf = [0] * (d - b - 1)
+            suf[0] = int(vip[b, s, 2])
+            t = int(vip[b, s, 3])
+            for sb in range(b + 1, d - 1):
+                suf[sb - b] = int(vip[sb, t, 2])
+                t = int(vip[sb, t, 3])
+            Js.append(tuple(suf))
+        I.append(Is)
+        J.append(Js)
+    return I, J
 
 
 def assemble_indices(ltab, rtab, p, i, j, k, q, d: int) -> torch.Tensor:

@@ -14,8 +14,8 @@ place.
 Kernels on these paths (ops/kernels.py): every integrand call of the Ising
 problem is one fused launch; every rook pass and the full-pivoting hunt
 score their residual with the masked argmax (kernel A, batched over bonds
-on the all-bonds sweeps); the chain evaluator's lift is the small-table
-lookup (kernel B).
+on the all-bonds sweeps); the chain evaluator's lift and the node lookup of
+the MVN and stdnorm integrands are the small-table lookup (kernel B).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from ..tt.types import TT
 from ..utils.metrics import SweepRecord, history_from_run
 from .chain_eval import ChainEvaluator
 from .chains import (advance_left, advance_right, all_left_tables,
-                     all_right_tables, assemble_indices)
+                     all_right_tables, assemble_indices, pivot_index_sets)
 from .engine_jacobi import build_jacobi
 from .state import CrossState, empty_state
 
@@ -55,6 +55,7 @@ class CrossConfig:
     small_element: float
     small_pivot: float
     snum: int = 8        # shifted diagonals in the initial search (dmrgg.f90:29)
+    wlot: bool = False   # lottery weighted by the quad weights (weighted_lottery)
     jacobi: bool = False  # all-bonds-batched sweeps (sweep_mode "jacobi", "jacobi-rb")
     rb: bool = False      # red-black phases: even bonds accept, then odd bonds
 
@@ -78,7 +79,7 @@ class CrossResult:
 class EngineKit(NamedTuple):
     cfg: CrossConfig
     init_fn: Callable       # () -> CrossState
-    sweep_fn: Callable      # (st, it, U (d-1, 2, NLOT), cs=None) -> CrossState, or (st, cs')
+    sweep_fn: Callable      # (st, it, U (d-1, 2, NLOT), cs=None, lw=None) -> CrossState, or (st, cs')
     value_fn: Callable      # (st, w (d, N)) -> 0-d tensor
     finalize_fn: Callable   # (st) -> (d, R, N, R) solved cores
     jacobi_hunt: Callable   # cross/engine_jacobi.py, window-wise for the distributed engine
@@ -235,10 +236,16 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
             _row_mask(st, p).reshape(1, N * R))
         return flat // R, flat % R, resid
 
-    def _hunt_lottery(st, p, ltab, rtab, u2):
-        """Uniform lottery over the unused candidate columns (i, j) and rows
-        (q, k) (lottery2, rnd.f90:105-144; dmrgg.f90:410-487), residual
-        scoring, seed pivot.  u2 (2, NLOT) f64 uniforms in [0, 1).
+    def _hunt_lottery(st, p, ltab, rtab, u2, lw=None):
+        """Lottery over the unused candidate columns (i, j) and rows (q, k)
+        (lottery2, rnd.f90:105-144; dmrgg.f90:410-487), residual scoring,
+        seed pivot.  u2 (2, NLOT) f64 uniforms in [0, 1).  lw (d, N): the
+        per-mode lottery weights, each mode's scaled to a maximum of 1
+        (cross(weighted_lottery=True)): column (i, j) then draws with
+        probability ~ lw[p, j], row (q, k) with ~ lw[p+1, k], as the f64
+        cumsum of the allowed weights taken to f32 (the JAX engine sums the
+        unscaled |w| in f32, which underflows for small weights; the picks
+        agree but at f32 ties of the CDF).
 
         The draw rounds exactly as the JAX engine's: the 0/1 CDF is an
         integer cumsum held in f32 (JAX's triangular-ones f32 matmul gives
@@ -255,8 +262,12 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
             0, vb[:, 0] * N + vb[:, 1], smask, "amax")
         used_row = torch.zeros(N * R, dtype=torch.int32, device=dev).scatter_reduce_(
             0, vb[:, 3] * N + vb[:, 2], smask, "amax")
-        cdf_c = torch.cumsum((colmask & (used_col == 0)).to(torch.int32), 0).to(torch.float32)
-        cdf_r = torch.cumsum((rowmask & (used_row == 0)).to(torch.int32), 0).to(torch.float32)
+        if lw is None:
+            cdf_c = torch.cumsum((colmask & (used_col == 0)).to(torch.int32), 0).to(torch.float32)
+            cdf_r = torch.cumsum((rowmask & (used_row == 0)).to(torch.int32), 0).to(torch.float32)
+        else:
+            cdf_c = torch.cumsum((colmask & (used_col == 0)) * lw[p].repeat(R), 0).to(torch.float32)
+            cdf_r = torch.cumsum((rowmask & (used_row == 0)) * lw[p + 1].repeat(R), 0).to(torch.float32)
         below = 1.0 - 2.0 ** -20          # exact in f32
         tot_c, tot_r = cdf_c[-1], cdf_r[-1]
         t_c = torch.minimum(u2[0].to(torch.float32) * torch.where(tot_c > 0, tot_c, 1.0),
@@ -418,12 +429,13 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         st.rk[p + 1:p + 2] += upd.to(torch.int32)     # in place
         return st._replace(pivotmax=pivotmax, pivotmin=pivotmin)
 
-    def visit_bond(st: CrossState, p: int, fwd: bool, ltab, rtab, u2) -> CrossState:
-        """Hunt + (maybe) accept at bond p; u2 (2, NLOT) lottery uniforms."""
+    def visit_bond(st: CrossState, p: int, fwd: bool, ltab, rtab, u2, lw=None) -> CrossState:
+        """Hunt + (maybe) accept at bond p; u2 (2, NLOT) lottery uniforms,
+        lw the lottery weights of a weighted draw."""
         if cfg.piv == -1:
             st, piv_idx, pivot, acol, arow = _hunt_full(st, p, ltab, rtab)
         else:
-            st, seed, pivot0 = _hunt_lottery(st, p, ltab, rtab, u2)
+            st, seed, pivot0 = _hunt_lottery(st, p, ltab, rtab, u2, lw)
             if cfg.piv == 0:
                 st, piv_idx, pivot, acol, arow = _hunt_piv0(st, p, ltab, rtab, seed, pivot0)
             else:
@@ -439,15 +451,16 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
     if cfg.jacobi:
         sweep_jac = {True: make_sweep_jacobi(True), False: make_sweep_jacobi(False)}
 
-    def sweep_fn(st: CrossState, it: int, U, cs=None):
+    def sweep_fn(st: CrossState, it: int, U, cs=None, lw=None):
         """One sweep over all bonds: '>>' on odd it, '<<' on even
         (dmrgg.f90:314-323).  Sequential: the chain tables of the direction
         swept away from are built once; those swept into advance per bond.
         All-bonds-batched (cfg.jacobi): cs, the carried packed interface
-        states of the chain path, makes the return (st, cs')."""
+        states of the chain path, makes the return (st, cs').  lw (d, N):
+        the scaled lottery weights of a weighted draw."""
         fwd = it % 2 == 1
         if cfg.jacobi:
-            return sweep_jac[fwd](st, U, cs)
+            return sweep_jac[fwd](st, U, cs, lw)
         neg = torch.full((), -1.0, dtype=dtype, device=dev)
         st = st._replace(pivotmax=neg, pivotmin=neg)
         AT = all_right_tables(st.vip, d) if fwd else all_left_tables(st.vip, d)
@@ -456,7 +469,7 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
             p = idx if fwd else d - 2 - idx
             ltab = tab if fwd else AT[p]
             rtab = AT[p] if fwd else tab
-            st = visit_bond(st, p, fwd, ltab, rtab, U[p])
+            st = visit_bond(st, p, fwd, ltab, rtab, U[p], lw)
             tab = (advance_left(tab, st.vip[p], p) if fwd
                    else advance_right(tab, st.vip[p], p - 1))
         return st._replace(pivotmax_prev=st.pivotmax)
@@ -494,11 +507,43 @@ def finalize(st: CrossState, kit: EngineKit) -> TT:
                     for c in range(cfg.d)))
 
 
+def _apply_refine(res: CrossResult, fun, n, refine_sweeps: int, quad, truth,
+                  state: CrossState, device) -> CrossResult:
+    """Maxvol pivot-replacement post-pass (cross(refine_sweeps=k)): seed
+    the alternating-maxvol refinement (cross/maxvol.py) with the greedy
+    pivot sets of `state` and swap in the refined interpolant.  One 'mv'
+    history record per call; neval and padded_evals accumulate."""
+    from .maxvol import maxvol_refine
+
+    I, J = pivot_index_sets(state.vip, state.rk)
+    mv = maxvol_refine(fun, n, init_sets=(I, J), sweeps=int(refine_sweeps),
+                       quad=quad, truth=truth, device=device)
+    res.tt = mv.tt
+    res.ranks = mv.ranks
+    res.neval += mv.neval
+    res.padded_evals += mv.padded_evals
+    if quad is not None and mv.values:
+        res.values.append(mv.values[-1])
+        if truth is not None:
+            res.errors.append(mv.errors[-1])
+        else:
+            prev = res.values[-2]
+            res.errors.append(abs(1.0 - mv.values[-1] / prev) if prev != 0 else float("nan"))
+        if res.history is not None:
+            res.history.append(SweepRecord(
+                it=res.sweeps + 1, direction="mv", n_evals=res.neval,
+                pivotmax=float(res.history[-1].pivotmax) if res.history else 0.0,
+                value=mv.values[-1],
+                err=res.errors[-1] if truth is not None else None,
+                cnv=None if truth is not None else res.errors[-1]))
+    return res
+
+
 # kwargs of ttcross_tpu's cross() that the port does not run yet, with the
 # ROADMAP queue 1 item that ports them
 _NOT_PORTED = {
-    "host_reeval": 7, "return_pivots": 7, "rank_chunks": 7, "rank_caps": 7,
-    "adaptive": 7, "weighted_lottery": 7, "refine_sweeps": 7, "init_state": 7,
+    "host_reeval": "7b", "return_pivots": "7b", "rank_chunks": "7b", "rank_caps": "7b",
+    "adaptive": "7b",
 }
 
 
@@ -545,7 +590,19 @@ def cross(
     quad: per-mode weight vectors -> per-sweep value and error.
     oversample: cross at max_rank + oversample, then TT-SVD-round to
     max_rank.  key: seed of the CPU torch.Generator that draws the lottery
-    uniforms, so CPU and CUDA runs see the same draws.
+    uniforms, one block per sweep, so CPU and CUDA runs see the same draws.
+    weighted_lottery: draw the lottery's candidates with probabilities
+    proportional to |quad| per mode (needs quad) instead of uniformly; on
+    the sequential sweep and on the all-bonds hunts.
+    refine_sweeps: after the greedy cross, k alternating-maxvol sweeps
+    (cross/maxvol.py) that replace the pivots at the same ranks; composes
+    with oversample (cross at max_rank + oversample, refine there, round).
+    init_state: resume from the state of an earlier run (return_state=True;
+    tt/serialize.py saves and loads it).  The state counts its sweeps, so
+    the resumed run goes on in the key's stream of uniforms and in the
+    alternation of directions where the first one stopped: with the same
+    key it repeats the uninterrupted run bit for bit.  The state is copied,
+    not changed.
     sweep_mode: 'sequential' (one bond after the other), or the
     all-bonds-batched sweeps for long chains (cross/engine_jacobi.py):
     'jacobi' (every bond hunts at once against the start-of-sweep factors)
@@ -559,26 +616,26 @@ def cross(
     use_pallas: accepted for API parity and changes nothing: on a CUDA
     state the hand-written kernels always run, on a CPU state their plain
     versions.  Not ported yet (NotImplementedError, ROADMAP queue 1
-    item 7): host_reeval, return_pivots, rank_chunks, rank_caps, adaptive,
-    weighted_lottery, refine_sweeps, init_state."""
+    item 7b): host_reeval, return_pivots, rank_chunks, rank_caps, adaptive,
+    dtype=float32."""
     return _cross(fun, n, max_rank=max_rank, accuracy=accuracy,
                   pivoting=pivoting, quad=quad, truth=truth, key=key,
                   dtype=dtype, verbose=verbose, return_state=return_state,
                   max_sweeps=max_sweeps, small_element=small_element,
                   small_pivot=small_pivot, oversample=oversample,
                   sweep_mode=sweep_mode, device=device, chain=chain,
+                  weighted_lottery=weighted_lottery, refine_sweeps=refine_sweeps,
+                  init_state=init_state,
                   not_ported=dict(host_reeval=host_reeval,
                                   return_pivots=return_pivots,
                                   rank_chunks=rank_chunks, rank_caps=rank_caps,
-                                  adaptive=adaptive,
-                                  weighted_lottery=weighted_lottery,
-                                  refine_sweeps=refine_sweeps,
-                                  init_state=init_state))
+                                  adaptive=adaptive))
 
 
 def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
            verbose, return_state, max_sweeps, small_element, small_pivot,
-           oversample, sweep_mode, device, chain=None, not_ported=None, uniforms=None):
+           oversample, sweep_mode, device, chain=None, weighted_lottery=False,
+           refine_sweeps=0, init_state=None, not_ported=None, uniforms=None):
     """cross() with one more input: uniforms, (max_sweeps, d-1, 2, NLOT)
     lottery uniforms of the (possibly oversampled) run in place of the
     key's draws; the tests feed the JAX engine's draws through it."""
@@ -595,7 +652,7 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
         raise ValueError("sweep_mode='jacobi' requires pivoting >= 0")
     if dtype != torch.float64:
         raise NotImplementedError("only dtype=torch.float64 is ported "
-                                  "(ROADMAP queue 1 item 7)")
+                                  "(ROADMAP queue 1 item 7b)")
     n = tuple(int(x) for x in n)
     d = len(n)
     if d < 2:
@@ -603,16 +660,21 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
     if max_rank < 2:
         raise ValueError("max_rank must be >= 2")
     if oversample:
-        if return_state:
+        if return_state or init_state is not None:
             raise ValueError("oversample is incompatible with state passing")
+        # refine_sweeps composes: cross at the inflated rank, replace the
+        # pivots there, then round back to max_rank
         res = _cross(fun, n, max_rank=max_rank + int(oversample),
                      accuracy=accuracy, pivoting=pivoting, quad=quad,
                      truth=truth, key=key, dtype=dtype, verbose=verbose,
                      return_state=False, max_sweeps=max_sweeps,
                      small_element=small_element, small_pivot=small_pivot,
                      oversample=0, sweep_mode=sweep_mode, device=device,
-                     chain=chain, uniforms=uniforms)
+                     chain=chain, weighted_lottery=weighted_lottery,
+                     refine_sweeps=refine_sweeps, uniforms=uniforms)
         return round_and_revalue(res, max_rank, quad, truth)
+    if weighted_lottery and quad is None:
+        raise ValueError("weighted_lottery requires quad weights")
 
     se, sp = precision_thresholds(dtype)
     if small_element is not None:
@@ -620,17 +682,26 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
     if small_pivot is not None:
         sp = float(small_pivot)
     cfg = CrossConfig(d=d, n=n, N=max(n), R=max_rank, piv=int(pivoting),
-                      small_element=se, small_pivot=sp, jacobi=jacobi,
-                      rb=sweep_mode == "jacobi-rb")
+                      small_element=se, small_pivot=sp, wlot=bool(weighted_lottery),
+                      jacobi=jacobi, rb=sweep_mode == "jacobi-rb")
     dev = torch.device(device)
     kit = make_engine(fun, cfg, dev, dtype, chain=chain)
     if max_sweeps is None:
         max_sweeps = max_rank - 1
     NLOT = 2 * (cfg.R + cfg.N)
+    it0 = 0
+    if init_state is not None:
+        if tuple(init_state.cores.shape) != (d, cfg.R, cfg.N, cfg.R):
+            raise ValueError(f"init_state is padded as {tuple(init_state.cores.shape)}, this "
+                             f"run as {(d, cfg.R, cfg.N, cfg.R)} (cross/state.py::pad_state "
+                             "re-embeds a state at a larger rank)")
+        it0 = int(init_state.sweeps)
     if uniforms is None:
+        # one draw for the whole stream: a run of s sweeps sees the first s
+        # blocks, so a resumed run skips the it0 blocks already used
         gen = torch.Generator(device="cpu").manual_seed(int(key))
-        uniforms = torch.rand((max(max_sweeps, 1), d - 1, 2, NLOT), generator=gen,
-                              dtype=torch.float64)
+        uniforms = torch.rand((max(it0 + max_sweeps, 1), d - 1, 2, NLOT), generator=gen,
+                              dtype=torch.float64)[it0:]
     uniforms = torch.as_tensor(uniforms, dtype=torch.float64).to(dev)
     if uniforms.shape[0] < max_sweeps or uniforms.shape[1:] != (d - 1, 2, NLOT):
         raise ValueError(f"uniforms must be ({max_sweeps}, {d - 1}, 2, {NLOT}), "
@@ -643,8 +714,14 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
         for c in range(d):
             w_host[c, : n[c]] = np.asarray(quad[c])
     w = torch.from_numpy(w_host).to(dev, dtype)
+    # weighted lottery: |w| per mode, scaled to a maximum of 1 so that the
+    # f32 CDF of small weights does not underflow
+    lw = w.abs() / w.abs().amax(dim=1, keepdim=True) if cfg.wlot else None
 
-    st = kit.init_fn()
+    if init_state is None:
+        st = kit.init_fn()
+    else:
+        st = CrossState(*(t.clone().to(dev) for t in init_state))
     vals = torch.zeros(max_sweeps + 1, dtype=dtype, device=dev)
     pmax = torch.zeros(max_sweeps + 1, dtype=dtype, device=dev)
     nev = torch.zeros(max_sweeps + 1, dtype=torch.int64, device=dev)
@@ -657,9 +734,10 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
     last_it, strike = 0, 0
     for it in range(1, max_sweeps + 1):
         if cs is None:
-            st = kit.sweep_fn(st, it, uniforms[it - 1])
+            st = kit.sweep_fn(st, it0 + it, uniforms[it - 1], lw=lw)
         else:
-            st, cs = kit.sweep_fn(st, it, uniforms[it - 1], cs)
+            st, cs = kit.sweep_fn(st, it0 + it, uniforms[it - 1], cs, lw=lw)
+        st = st._replace(sweeps=st.sweeps + 1)
         if with_quad:
             vals[it] = kit.value_fn(st, w)
         pmax[it] = st.pivotmax
@@ -675,7 +753,7 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
 
     vals_h, pmax_h, nev_h = vals.cpu().numpy(), pmax.cpu().numpy(), nev.cpu().numpy()
     values, errors = _values_errors(vals_h, last_it, truth, with_quad)
-    history = history_from_run(last_it, vals_h, pmax_h, nev_h, truth, with_quad)
+    history = history_from_run(last_it, vals_h, pmax_h, nev_h, truth, with_quad, it0=it0)
     if verbose:
         for rec in history:
             line = (f"{rec.it:3d}{rec.direction} n_evals: {rec.n_evals:10d} "
@@ -691,6 +769,9 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
         time=time.perf_counter() - t0,
         converged=accuracy is not None and last_it < max_sweeps,
         history=history, padded_evals=int(st.padded))
+    if refine_sweeps:
+        res = _apply_refine(res, fun, n, refine_sweeps, quad, truth, st, dev)
+        res.time = time.perf_counter() - t0
     if return_state:
         res.state, res.chain_states = st, cs
     return res

@@ -64,8 +64,8 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=None):
         rejects full pivoting (cfg.piv < 0) for these sweeps: the batched
         hunt has no such branch."""
 
-        def sweep(st, U, cs=None):
-            return _sweep_jacobi_body(st, fwd, U, cs)
+        def sweep(st, U, cs=None, lw=None):
+            return _sweep_jacobi_body(st, fwd, U, cs, lw)
 
         return sweep
 
@@ -78,9 +78,9 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=None):
         its outputs are garbage that the caller masks.  The one-device
         sweep takes the full window (base = 0, mc = d-1).  cs: the carried
         packed interface states (chain path), else they are rebuilt from
-        vip.  Returns (hunt dict, amax', neval', padded')."""
-        if lw is not None:
-            raise NotImplementedError("weighted_lottery is not ported (ROADMAP queue 1 item 7)")
+        vip.  lw (d, N): the per-mode lottery weights, each mode's scaled to
+        a maximum of 1 (cross(weighted_lottery=True)).  Returns (hunt dict,
+        amax', neval', padded')."""
 
         def win(a, off=0):
             return a[base + off:base + off + mc]
@@ -149,8 +149,15 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=None):
         # weights is an integer cumsum held in f32 (exact below 2^24), the
         # target f32(u) * total clamped to total * f32(1 - 2^-20), the pick
         # searchsorted(right)
-        cdf_c = torch.cumsum(wcol.to(torch.int32), 1).to(torch.float32)
-        cdf_r = torch.cumsum(wrow.to(torch.int32), 1).to(torch.float32)
+        if lw is None:
+            cdf_c = torch.cumsum(wcol.to(torch.int32), 1).to(torch.float32)
+            cdf_r = torch.cumsum(wrow.to(torch.int32), 1).to(torch.float32)
+        else:
+            # weighted: the f64 cumsum of the scaled weights, then f32 (the
+            # JAX engine sums the unscaled |w| in f32, which underflows for
+            # small weights; the picks agree but at f32 ties of the CDF)
+            cdf_c = torch.cumsum(wcol * win(lw).repeat(1, R), 1).to(torch.float32)
+            cdf_r = torch.cumsum(wrow * win(lw, 1).repeat(1, R), 1).to(torch.float32)
         below = 1.0 - 2.0 ** -20          # exact in f32
         tot_c, tot_r = cdf_c[:, -1:], cdf_r[:, -1:]
         t_c = torch.minimum(U[:, 0, :].to(torch.float32) * torch.where(tot_c > 0, tot_c, 1.0),
@@ -356,16 +363,16 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=None):
         set_row(st.rowf, arow - approx2, upd)
         return st._replace(pivotmax_prev=st.pivotmax)
 
-    def _sweep_jacobi_body(st: CrossState, dir_fwd: bool, U, cs=None):
+    def _sweep_jacobi_body(st: CrossState, dir_fwd: bool, U, cs=None, lw=None):
         """One jacobi sweep with the lottery uniforms U (d-1, 2, NLOT).
         cs: the carried packed interface states (chain path only); when
         given, the return is (st, cs') with the states kept up to date by
         update_states instead of rebuilt inside every hunt."""
         nb = d - 1
         if cfg.rb:
-            return _rb_phases(st, U, dir_fwd, cs)
+            return _rb_phases(st, U, dir_fwd, cs, lw)
         hunt, amax, neval, padded = jacobi_hunt(
-            st, U, dir_fwd, 0, nb, torch.ones((nb,), dtype=torch.bool, device=dev), cs=cs)
+            st, U, dir_fwd, 0, nb, torch.ones((nb,), dtype=torch.bool, device=dev), lw=lw, cs=cs)
         st = st._replace(amax=amax, neval=neval, padded=padded)
         if cs is None:
             return jacobi_apply(st, hunt)
@@ -373,7 +380,7 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=None):
         return st, ce.update_states(cs[0], cs[1], hunt["ii"], hunt["jj"], hunt["kk"],
                                     hunt["qq"], upd, slots)
 
-    def _rb_phases(st: CrossState, U, dir_fwd: bool, cs=None):
+    def _rb_phases(st: CrossState, U, dir_fwd: bool, cs=None, lw=None):
         """Red-black (two-phase Gauss-Seidel) sweep: the even bonds hunt and
         accept batched, then the odd bonds against the post-even factors.
 
@@ -390,7 +397,7 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=None):
         for par in (0, 1):
             live = (ps % 2) == par
             st = st._replace(pivotmax_prev=pm_prev)
-            hunt, amax, neval, padded = jacobi_hunt(st, U, dir_fwd, 0, nb, live, cs=cs)
+            hunt, amax, neval, padded = jacobi_hunt(st, U, dir_fwd, 0, nb, live, lw=lw, cs=cs)
             st = st._replace(amax=amax, neval=neval, padded=padded)
             if cs is None:
                 st = jacobi_apply(st, hunt, live=live, skip_corners=True)

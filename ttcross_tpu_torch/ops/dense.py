@@ -1,21 +1,27 @@
-"""Dense helpers on the main path.
+"""Dense helpers: the lookups and balanced chains of the main path, and the
+small matrix toolbox.
 
-Counterpart of the parts of ttcross_tpu/ops/dense.py that the f64 engines
-use (:110-178, :335-380).  The one-hot split-f32 lookups and
-power-of-2 range rescales that the TPU needed are not ported: the lookups
-here are plain f64 gathers, and the small-table one runs on kernel B (the
-Ising integrand does its own lookup inside its fused kernel).
+Counterpart of ttcross_tpu/ops/dense.py (:110-380; mat.f90, ort.f90,
+lr.f90, trans.f90).  The one-hot split-f32 lookups and power-of-2 range
+rescales that the TPU needed are not ported: the lookups here are plain
+f64 gathers, and the small-table one runs on kernel B (the Ising integrand
+does its own lookup inside its fused kernel).  The matrix helpers take
+tensors (or numpy arrays, which go to ``device``) and work on the tensor's
+device with torch.linalg.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .kernels import small_table_lookup
 
-__all__ = ["table_lookup", "row_lookup", "batched_row_lookup",
+__all__ = ["as_tensor", "table_lookup", "row_lookup", "batched_row_lookup",
            "masked_slot_write", "pow2_balance_mats", "balanced_matmul_chain",
-           "scale_pow2"]
+           "scale_pow2", "svd_chopped", "matinv", "eye", "laplace", "norm2p",
+           "qr_ort", "gram_schmidt", "orto_block", "aca", "greedy_cur",
+           "transpose2d", "transpose3d"]
 
 
 def table_lookup(table, ind):
@@ -115,3 +121,169 @@ def balanced_matmul_chain(mats):
         prod, e = pow2_balance_mats(mats[0::2] @ mats[1::2])
         mats, ex = prod, ex[0::2] + ex[1::2] + e
     return mats[0], ex[0]
+
+
+def as_tensor(a, device=None, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The package's one conversion of a caller's array.  A tensor stays
+    where it lies unless ``device`` is given; anything else (a numpy array,
+    a list) is copied and goes to the card unless ``device`` says
+    otherwise.  ``dtype=None`` keeps the dtype."""
+    if not torch.is_tensor(a):
+        a = torch.from_numpy(np.array(a))
+        device = "cuda" if device is None else device
+    return a.to(device=device, dtype=dtype)
+
+
+def svd_chopped(a, tol: float | None = None, rmax: int | None = None, device=None):
+    """SVD with rank truncation: (u, s, vh, err) with the chopped rank of
+    the reference's tail-energy rule (svd + chop, mat.f90:340-458).  The
+    factorization is tt/ortho.py's: gesvd on the card, LAPACK on the CPU."""
+    from ..tt.ortho import _svd, chop_rank
+
+    u, s, vh = _svd(as_tensor(a, device))
+    r = chop_rank(s.cpu().numpy(), tol=tol, rmax=rmax)
+    err = float(torch.linalg.norm(s[r:]))
+    return u[:, :r], s[:r], vh[:r], err
+
+
+def matinv(a, method: str = "svd", tol: float = 0.0, device=None):
+    """Matrix (pseudo-)inverse via SVD with a small-singular-value cutoff,
+    or a plain LU inverse (matinv, mat.f90:23-236)."""
+    from ..tt.ortho import _svd
+
+    a = as_tensor(a, device)
+    if method == "lu":
+        return torch.linalg.inv(a)
+    u, s, vh = _svd(a)
+    cutoff = (tol * s.max()).clamp(min=0.0)
+    sinv = torch.where(s > cutoff, 1.0 / torch.where(s > cutoff, s, 1.0), 0.0)
+    return (vh.mH * sinv) @ u.mH
+
+
+def eye(m: int, n: int | None = None, dtype: torch.dtype = torch.float64, device="cuda"):
+    """Rectangular identity (eye, mat.f90:239-258)."""
+    return torch.eye(m, n or m, dtype=dtype, device=device)
+
+
+def laplace(n: int, dtype: torch.dtype = torch.float64, device="cuda"):
+    """1-D Laplacian stencil matrix tridiag(-1, 2, -1) (laplace, mat.f90)."""
+    one = torch.ones(n - 1, dtype=dtype, device=device)
+    return (2.0 * torch.eye(n, dtype=dtype, device=device)
+            - torch.diag(one, 1) - torch.diag(one, -1))
+
+
+def norm2p(a, iters: int = 32, key: int = 0, device=None):
+    """Spectral norm by power iteration on A^H A (norm2p_d,
+    mat.f90:474-507), from a start vector drawn by a CPU generator seeded
+    with key; a 0-d tensor."""
+    a = as_tensor(a, device)
+    gen = torch.Generator(device="cpu").manual_seed(int(key))
+    real = a.real.dtype if a.is_complex() else a.dtype
+    v = torch.randn(a.shape[1], generator=gen, dtype=real).to(a.device, a.dtype)
+    v = v / torch.linalg.norm(v)
+    for _ in range(iters):
+        w = a.mH @ (a @ v)
+        v = w / torch.linalg.norm(w).clamp(min=1e-300)
+    return torch.linalg.norm(a @ v)
+
+
+def qr_ort(a, device=None):
+    """Orthonormalize columns: (Q, R) with economy shapes (ort0,
+    ort.f90:17-149)."""
+    return torch.linalg.qr(as_tensor(a, device), mode="reduced")
+
+
+def gram_schmidt(basis, v, passes: int = 3, tol: float = 0.5, device=None):
+    """Orthogonalize v against the orthonormal columns of `basis` with up
+    to `passes` passes, going on while the norm collapses by more than tol
+    (ort1, ort.f90:152-228).  Returns (v_ortho, coeffs).
+
+    The JAX package loops while a condition on the data holds; here all
+    `passes` passes are laid out and a pass after the condition failed is
+    masked out, so nothing waits for the device."""
+    basis, v = as_tensor(basis, device), as_tensor(v, device)
+    prev = torch.linalg.norm(v)
+    coeffs = basis.mH @ v
+    v = v - basis @ coeffs
+    live = torch.ones((), dtype=torch.bool, device=v.device)
+    for _ in range(1, passes):
+        live = live & (torch.linalg.norm(v) < tol * prev)
+        c = basis.mH @ v
+        v2 = v - basis @ c
+        prev = torch.where(live, torch.linalg.norm(v2), prev)
+        v = torch.where(live, v2, v)
+        coeffs = torch.where(live, coeffs + c, coeffs)
+    return v, coeffs
+
+
+def orto_block(basis, block, device=None):
+    """Orthogonalize the columns of `block` against `basis`, then among
+    themselves (orto, ort.f90:231-361)."""
+    basis, block = as_tensor(basis, device), as_tensor(block, device)
+    block = block - basis @ (basis.mH @ block)
+    block = block - basis @ (basis.mH @ block)    # one re-orthogonalization
+    return torch.linalg.qr(block, mode="reduced")[0]
+
+
+def aca(a, tol: float = 1e-12, rmax: int | None = None, device=None):
+    """Adaptive cross approximation of a dense matrix to tolerance:
+    (u, v, err) with a ~= u @ v (lr_d2, lr.f90:11-70; greedy column-max
+    pivoting with rank-1 deflation).  The stop depends on the residual's
+    norm, so every step reads it on the host."""
+    a = as_tensor(a, device)
+    m, n = a.shape
+    rmax = min(rmax or min(m, n), min(m, n))
+    z = a.clone()
+    nrm = float(torch.linalg.norm(a))
+    us, vs = [], []
+    err = nrm
+    while len(us) < rmax and err > tol * max(nrm, 1e-300):
+        j = torch.argmax(z.abs().amax(dim=0))
+        i = torch.argmax(z[:, j].abs())
+        piv = z[i, j]
+        if float(piv) == 0:
+            break
+        u = z[:, j].clone()
+        v = z[i, :] / piv
+        z -= torch.outer(u, v)
+        us.append(u)
+        vs.append(v)
+        err = float(torch.linalg.norm(z))
+    u = torch.stack(us, dim=1) if us else a.new_zeros((m, 0))
+    v = torch.stack(vs, dim=0) if vs else a.new_zeros((0, n))
+    return u, v, err / max(nrm, 1e-300)
+
+
+def greedy_cur(a, r: int, device=None):
+    """Greedy rank-r CUR by the global residual maximum: (u, v, rows, cols)
+    with a ~= u @ v (d2_lrg, lr.f90:73-96); rows and cols are lists of
+    ints, read from the device once at the end."""
+    a = as_tensor(a, device)
+    m, n = a.shape
+    e = a.clone()
+    u, v = a.new_zeros((m, r)), a.new_zeros((r, n))
+    picks = []
+    for p in range(r):
+        flat = torch.argmax(e.abs()).view(1)
+        picks.append(flat)
+        col = e.index_select(1, flat % n)[:, 0]
+        row = e.index_select(0, flat // n)[0]
+        u[:, p] = col
+        v[p, :] = row / row.index_select(0, flat % n)
+        e -= torch.outer(u[:, p], v[p, :])
+    flat = torch.cat(picks).tolist()
+    return u, v, [f // n for f in flat], [f % n for f in flat]
+
+
+def transpose2d(a):
+    """2-D transpose (trans.f90:19-70)."""
+    return as_tensor(a).T
+
+
+_PRM3 = {1: (0, 1, 2), 2: (0, 2, 1), 3: (1, 0, 2), 4: (2, 1, 0), 5: (1, 2, 0), 6: (2, 0, 1)}
+
+
+def transpose3d(p: int, a):
+    """The six 3-D permutations keyed like the reference's prm3 table
+    (d3_trans + prm3, trans.f90:72-240)."""
+    return as_tensor(a).permute(_PRM3[p])

@@ -1,14 +1,15 @@
 """Gauss-Legendre rule generation (host numpy, set-up time).
 
-A copy of ttcross_tpu/ops/quadrature.py::lgwt (lgwt, quad.f90:97-131), kept
-here so that the port imports nothing of the JAX package.
+A copy of ttcross_tpu/ops/quadrature.py's lgwt (lgwt, quad.f90:97-131) and
+map_to_interval, kept here so that the port imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["lgwt"]
+__all__ = ["lgwt", "gauss_legendre", "map_to_interval"]
 
 _TWO_PI = 6.283185307179586476925286766559005768394338798750211641949889184615632812572418
 
@@ -41,3 +42,11 @@ def lgwt(n: int) -> tuple[np.ndarray, np.ndarray]:
     w[:m] = 2.0 / ((1 - z * z) * pp * pp)
     w[n - m:] = w[:m][::-1]
     return x, w
+
+
+gauss_legendre = lgwt
+
+
+def map_to_interval(x: np.ndarray, w: np.ndarray, a: float, b: float) -> tuple[np.ndarray, np.ndarray]:
+    """Affine map of a [-1, 1] rule to [a, b] (test_crs_stdnorm.f90:92-95)."""
+    return 0.5 * ((b - a) * x + (a + b)), 0.5 * (b - a) * w

@@ -20,11 +20,12 @@ class SweepRecord:
     cnv: float | None = None      # |1 - val/val_prev| otherwise
 
 
-def history_from_run(last_it, vals, pmax, nev, truth=None, with_quad=False):
-    """SweepRecords from the run's per-sweep host arrays (index 0 = init)."""
+def history_from_run(last_it, vals, pmax, nev, truth=None, with_quad=False, it0: int = 0):
+    """SweepRecords from the run's per-sweep host arrays (index 0 = init);
+    it0: the sweeps made before this run (a resumed run)."""
     recs = []
     for i in range(1, int(last_it) + 1):
-        rec = SweepRecord(it=i, direction=">>" if i % 2 == 1 else "<<",
+        rec = SweepRecord(it=it0 + i, direction=">>" if (it0 + i) % 2 == 1 else "<<",
                           n_evals=int(nev[i]), pivotmax=float(pmax[i]))
         if with_quad:
             rec.value = float(vals[i])
