@@ -64,10 +64,26 @@ Phases, each printing its result as it goes:
      coefficient tensor with accchk over 2^14 samples; stdnorm at d = 10;
      a serialization round trip through the reference's 'TT' stream; and a
      small MVN cross on the card against the CPU.  Kernel B (the node
-     lookup) and kernel A must have launched, at shapes that phase 3 held.
+     lookup) and kernel A must have launched, at shapes that phase 3 held;
+  8. the headline exactly as bench.py runs it, cross(..., oversample=6,
+     host_reeval=True), keys 0-7 against the headline's floors, beside the
+     device-only train of each key from phase 4: its n_evals are the device
+     run's plus the skeleton's samples, evaluated by one fused-integrand
+     launch at the skeleton's batch (held like phase 3's shapes once the
+     run has shown it);
+  9. the 4-lane mvn_d6 family of bench.py's mvn_family_batch (cross_batch,
+     rank 20, corr 0.2-0.6), first and steady, then each lane's single
+     cross() with its lane_key: lanes equal to their single runs, the worst
+     lane above its floor, kernel B once per lane-batched integrand step and
+     kernel A batched over the lanes, launches of the batch against a single
+     run's;
+ 10. the Greeks of drivers/crs_greeks.py (d = 6, n = 65, rank 14): a cross at
+     rho0, its frozen skeleton, torch.func.grad of the skeleton value against
+     a central difference, and the torch.func.vmap rho sweep of values and
+     Greeks against the pointwise ones.
 The line before the last is the kernels' JSON summary, one entry for every
-(kernel, shape) that the C_6 headline, the C_256 long chain and each
-configuration of phase 7 launched at, with that run's launches at the shape
+(kernel, shape) that the C_6 headline, the C_256 long chain, each
+configuration of phase 7 and phases 8-10 launched at, with that run's launches at the shape
 beside phase 3's error, times and bound there; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 It imports nothing of JAX.
@@ -149,6 +165,27 @@ STDNORM_DIGITS = 3.3
 COS_ACCCHK_REL = 1e-4       # coscoeff_d6 at rank 20: accchk's einf / ainf over 2^14 samples
 COMPLEX_RTOL = 1e-13        # complex contraction vs the real one, and its imaginary part
 MVN_KERNELS = ("score_residual_argmax", "small_table_lookup")
+# The family (bench.py:707-741's mvn_family_batch): mvn_d6 at rank 20 over
+# four correlations in one cross_batch, every lane against its single run.
+FAMILY_LANES = 4
+FAMILY_KERNELS = ("score_residual_argmax_batched", "small_table_lookup")
+FAMILY_RTOL = 1e-13         # a lane's values against its single run's
+# Worst-lane digits of the family over keys 0-3, from CPU runs of both
+# packages (PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_batch.py;
+# the worst lane is always corr 0.6, the others reach 6.4-12.8):
+#   port 3.93 4.33 5.34 4.56 / JAX package 3.74 6.36 4.19 4.81
+# Key 0 is held under both packages' minimum.
+FAMILY_WORST_FLOOR = 3.5
+# The Greeks (drivers/crs_greeks.py at its defaults): d = 6, n = 65, rank
+# 14, rho0 = 0.5, 5 rho points in [0.3, 0.7]; crs_greeks.py's own sanity check
+# holds torch.func.grad of the skeleton value to its central difference.
+GREEKS = dict(d=6, n=65, max_rank=14, rho0=0.5, nrho=5, key=5)
+GREEK_FD_RTOL = 1e-5        # grad against the central difference (h = 1e-5)
+GREEK_VALUE_RTOL = 1e-10    # the skeleton value at rho0 against the cross's
+GREEK_SWEEP_RTOL = 1e-10    # the vmapped rho sweep of values against the pointwise ones: the
+                            # batched solves round otherwise, and the late pivot submatrices of
+                            # the rank-14 skeleton are near-singular (CPU: 2.3e-11); its Greeks
+                            # are held as the gradient is, to GREEK_FD_RTOL * max(1, |greek|)
 KERNEL_REPLACES = {   # the TPU kernel each CUDA kernel stands for
     "score_residual_argmax": "ttcross_tpu/ops/pallas_kernels.py:62",
     "score_residual_argmax_batched": "ttcross_tpu/ops/pallas_kernels.py:62",
@@ -333,11 +370,12 @@ def mvn_path_shapes():
     """Every shape the MVN / COS phase launches at: mvn_d6 at ranks 20 (the
     greedy and the refined run, whose maxvol pads to the largest rank, 20)
     and 26 (oversample=6, alone and with refine_sweeps=2), stdnorm_d10 at
-    rank 8 on its 33-point rule, and the small run against the CPU (d = 4,
-    n = 17, ranks 6 and 8)."""
+    rank 8 on its 33-point rule, the small run against the CPU (d = 4,
+    n = 17, ranks 6 and 8), the Greeks' nominal cross at rank 14, and the
+    4-lane family at rank 20: every lane's batch in one kernel-B launch."""
     a, b = [], []
     for d, N, R, n, mv in [(6, 65, 20, 65, True), (6, 65, 26, 65, True), (10, 33, 8, 33, False),
-                           (4, 17, 6, 17, True), (4, 17, 8, 17, False)]:
+                           (4, 17, 6, 17, True), (4, 17, 8, 17, False), (6, 65, 14, 65, False)]:
         sa, sb = mvn_shapes(d, N, R, mv)
         for shape in sa:
             if shape not in a:
@@ -345,6 +383,8 @@ def mvn_path_shapes():
         for shape in sb:
             if (*shape, n) not in b:
                 b.append((*shape, n))
+    sa, sb = mvn_shapes(6, 65, 20)
+    b += [(FAMILY_LANES * B, d, 65) for B, d in sb]
     return a, b
 
 
@@ -556,7 +596,10 @@ def check_batched(dev, gen):
     for name, P, M, Kc, R in [("col_pass_c256", 254, 170, 1, 10), ("row_pass_c256", 254, 1, 170, 10),
                               ("col_pass_c1024", 1022, 170, 1, 10),
                               ("row_pass_c1024", 1022, 1, 170, 10),
-                              ("col_one_bond", 1, 170, 1, 10), ("row_one_bond", 1, 1, 170, 10)]:
+                              ("col_one_bond", 1, 170, 1, 10), ("row_one_bond", 1, 1, 170, 10),
+                              # the 4-lane mvn_d6 family: one launch scores every lane's fiber
+                              ("col_pass_family", FAMILY_LANES, 1300, 1, 20),
+                              ("row_pass_family", FAMILY_LANES, 1, 1300, 20)]:
         vals, colf, rowf = (torch.randn(sh, generator=gen, dtype=torch.float64).to(dev)
                             for sh in ((P, M, Kc), (P, M, R), (P, R, Kc)))
         mask = (torch.rand((P, M, Kc), generator=gen) > 0.2).to(dev)
@@ -1146,6 +1189,306 @@ def profile_maxvol_parts(dev) -> None:
     _emit({"phase": "profile", "run": "mvn_d6 maxvol sweep parts, per call", **rows})
 
 
+def hold_new_shapes(dev, gen, shapes, held, checked) -> None:
+    """Hold the shapes that a run's data decide (a skeleton's batch is its
+    number of samples) the way phase 3 holds the fixed ones: kernel B and
+    the fused integrand at every such shape the run launched them at, with
+    phase 3's checks, times and bound; the rows join `checked` and `held`."""
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising
+
+    b_cases, i_cases = [], []
+    for L, B, d, n in sorted(set(shapes["small_table_lookup"]) - held["small_table_lookup"]):
+        tables = torch.randn((L, n), generator=gen, dtype=torch.float64).to(dev)
+        ind = torch.randint(-2, n + 2, (B, d), generator=gen, dtype=torch.int32).to(dev)
+        b_cases.append((f"skeleton_{B}x{d}_n{n}", (tables, ind)))
+    for B, d, n in sorted(set(shapes["ising_integrand_fused"]) - held["ising_integrand_fused"]):
+        p = make_ising("C", d + 1, n - 1, device=dev)
+        ind = torch.randint(0, p.n, (B, d), generator=gen, dtype=torch.int32)
+        ind[0, 0], ind[1, d - 1] = -1, p.n
+        i_cases.append((f"skeleton_{B}x{d}", "C", p.tables, ind.to(dev)))
+    for name, rows in [("small_table_lookup", check_kernels(dev, [], b_cases)[1]),
+                       ("ising_integrand_fused", check_integrand(i_cases))]:
+        for r in rows:
+            checked[name][tuple(r["shape"])] = r
+            held[name].add(tuple(r["shape"]))
+
+
+def _merge_shapes(runs) -> dict:
+    """launch_shapes() of several runs, summed."""
+    out = {name: {} for shapes in runs for name in shapes}
+    for shapes in runs:
+        for name, by in shapes.items():
+            for sh, c in by.items():
+                out[name][sh] = out[name].get(sh, 0) + c
+    return out
+
+
+def check_headline_host_reeval(dev, gen, held, checked, device_only):
+    """Phase 8: the headline exactly as bench.py runs it (bench.py:220-224),
+    cross(..., oversample=6, host_reeval=True): the rank-30 cross on the
+    card, its skeleton re-evaluated by the integrand on the card (one
+    fused-integrand launch at the skeleton's batch), rebuilt, rounded and
+    valued on the host.  Keys 0-7 against the headline's floors, each beside
+    phase 4's device-only train of the same key (`device_only`: (result,
+    digits) per key); n_evals is the device run's plus the skeleton's
+    samples.  Returns the launches by shape of key 0's first run."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising
+    from ttcross_tpu_torch.cross import cross, extract_skeleton
+    from ttcross_tpu_torch.ops import kernels as K
+
+    h = HEADLINE
+    prob = make_ising("C", h["m"], h["n"], device=dev)
+    kw = dict(accuracy=h["accuracy"], pivoting=h["pivoting"], quad=[prob.quad_weights] * prob.d,
+              truth=prob.truth, device=dev)
+
+    def run(key):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cross(prob.fun, [prob.n] * prob.d, max_rank=h["max_rank"], oversample=6,
+                    host_reeval=True, key=key, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not (res.tt.device.type == torch.device(dev).type and max(res.ranks) <= h["max_rank"]
+                and res.history[-1].direction == "hr" and np.isfinite(res.values[-1])):
+            raise AssertionError(f"malformed host_reeval result: ranks {res.ranks}")
+        return res, wall, float(-np.log10(res.errors[-1])), K.launch_counts(), K.launch_shapes()
+
+    first = run(0)
+    steady = run(0)
+    pivots = cross(prob.fun, [prob.n] * prob.d, max_rank=h["max_rank"] + 6, key=0,
+                   return_pivots=True, **kw)
+    skel = extract_skeleton(pivots, [prob.n] * prob.d, device=dev)
+    runs = [first] + [run(k) for k in KEYS[1:]]
+    rows = []
+    for key, (res, wall, digits, counts, shapes) in zip(KEYS, runs):
+        dres, ddigits = device_only[key]
+        samples = res.neval - dres.neval
+        at = (samples, prob.d, prob.n)
+        rows.append({"key": key, "digits": digits, "n_evals": res.neval, "wall_s": wall,
+                     "device_only_digits": ddigits, "device_only_n_evals": dres.neval,
+                     "skeleton_samples": samples,
+                     "skeleton_launches": shapes["ising_integrand_fused"].get(at, 0)})
+        launched = shapes["ising_integrand_fused"].get(at, 0) == 1 or torch.device(dev).type == "cpu"
+        if not launched or res.padded_evals - dres.padded_evals != samples:
+            raise AssertionError(f"host_reeval key {key}: n_evals {res.neval} is the device run's "
+                                 f"{dres.neval} plus {samples}, but the integrand launched "
+                                 f"{shapes['ising_integrand_fused']} (one launch at {at} expected)")
+    if runs[0][0].neval != device_only[0][0].neval + skel.n_samples:
+        raise AssertionError(f"host_reeval key 0: {runs[0][0].neval} evals != device-only "
+                             f"{device_only[0][0].neval} + {skel.n_samples} skeleton samples")
+    by_key = [r["digits"] for r in rows]
+    median = statistics.median(by_key)
+    all_shapes = _merge_shapes([r[4] for r in runs])
+    hold_new_shapes(dev, gen, all_shapes, held, checked)
+    _emit({"phase": "headline_host_reeval",
+           "config": "C_6 n=65 rank 24 oversample=6 host_reeval=True pivoting=1 (bench.py:220-224)",
+           "first_s": first[1], "steady_s": steady[1], "skeleton_samples_key0": skel.n_samples,
+           "launches": first[3], "launches_by_shape": _by_shape(first[4]), "by_key": rows,
+           "digits_by_key": by_key, "median_digits": median,
+           "device_only_median_digits": statistics.median(dg for _, dg in device_only)})
+    if median < DIGITS_MEDIAN or min(by_key) < DIGITS_FLOOR:
+        raise AssertionError(f"host_reeval headline digits over keys {by_key}: median {median} < "
+                             f"{DIGITS_MEDIAN} or a key < {DIGITS_FLOOR}")
+    if (steady[0].neval, steady[0].ranks, steady[2]) != (first[0].neval, first[0].ranks, first[2]):
+        raise AssertionError("the repeated host_reeval headline took another path")
+    if min(first[3][k] for k in MAIN_PATH_KERNELS) <= 0 and torch.device(dev).type == "cuda":
+        raise AssertionError(f"host_reeval headline: a kernel of its path was not launched: {first[3]}")
+    for key, r in zip(KEYS, runs):
+        _require_held(f"C_6 headline host_reeval key {key}", r[4], held)
+    return first[4]
+
+
+def device_launches(fn) -> int:
+    """Kernel launches on the card during one call of fn (torch.profiler's
+    device events), every eager op's, not only the hand kernels'."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(e.count for e in prof.key_averages()
+                   if "CUDA" in str(getattr(e, "device_type", ""))))
+
+
+def check_family(dev, held):
+    """Phase 9: the mvn_d6 family of bench.py:707-741, four correlations in
+    one cross_batch (rank 20, greedy), first and steady call; then each
+    lane's single cross() with its lane_key, first and steady.  Every lane
+    equals its single run (ranks, sweeps, n_evals, vip; values to
+    FAMILY_RTOL), the worst lane holds FAMILY_WORST_FLOOR, kernel B launches
+    once per lane-batched integrand step (a single run's count, not L
+    times) and kernel A once per pass for all lanes (batched).  Returns
+    the batch's launches by shape."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_mvn_family
+    from ttcross_tpu_torch.cross import cross, cross_batch, lane_key
+    from ttcross_tpu_torch.ops import kernels as K
+
+    fam = make_mvn_family(d=MVN["d"], n=MVN["n"], corrs=np.linspace(0.2, 0.6, FAMILY_LANES),
+                          device=dev)
+    kw = dict(max_rank=MVN["max_rank"], accuracy=MVN["accuracy"], pivoting=MVN["pivoting"],
+              quad=[fam.quad_weights] * fam.d, truth=1.0, device=dev)
+
+    def timed(fn):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, K.launch_counts(), K.launch_shapes()
+
+    def batch():
+        return cross_batch(fam.fun, [fam.n] * fam.d, fam.params, **kw)
+
+    res, first, launches, shapes = timed(batch)
+    res2, steady, launches2, _ = timed(batch)
+    singles = []
+    for lane in range(FAMILY_LANES):
+        fun = (lambda par: lambda ind: fam.fun(ind, par))(fam.lane(lane))
+
+        def one(fun=fun, lane=lane):
+            return cross(fun, [fam.n] * fam.d, key=lane_key(0, lane), return_pivots=True, **kw)
+
+        s1, w1, c1, _ = timed(one)
+        singles.append((s1, w1, timed(one)[1], c1, one))
+    rows, rels = [], []
+    for lane, (r, (s, w1, w2, c, _)) in enumerate(zip(res, singles)):
+        rel = float(np.max(np.abs(np.subtract(r.values, s.values)) / np.abs(s.values)))
+        rels.append(rel)
+        same = (r.ranks == s.ranks and r.sweeps == s.sweeps and r.neval == s.neval
+                and np.array_equal(r.state.vip, s.state.vip))
+        rows.append({"lane": lane, "corr": fam.corrs[lane], "digits": float(-np.log10(r.errors[-1])),
+                     "n_evals": r.neval, "ranks": list(r.ranks), "sweeps": r.sweeps,
+                     "single_first_s": w1, "single_steady_s": w2, "single_launches": c,
+                     "equals_single_run": same, "max_rel_value_diff": rel})
+    worst = min(row["digits"] for row in rows)
+    busy = {"batch": device_launches(batch), "single_lane_0": device_launches(singles[0][4])}
+    steps = max(c["small_table_lookup"] for *_, c, _ in singles)
+    _emit({"phase": "family", "config": "mvn_d6 n=65 rank 20 pivoting=1, 4 lanes corr 0.2-0.6 "
+           "(bench.py:707-741)", "first_s": first, "steady_s": steady, "n_evals": res.neval,
+           "sweeps": res.sweeps, "worst_lane_digits": worst, "lanes": rows,
+           "singles_first_s": sum(x[1] for x in singles), "singles_steady_s": sum(x[2] for x in singles),
+           "launches": launches, "launches_by_shape": _by_shape(shapes),
+           "device_launches_per_run": busy,
+           "device_launches_singles_estimate": busy["single_lane_0"] * FAMILY_LANES})
+    for row, (r, (s, *_)) in zip(rows, zip(res, singles)):
+        if not row["equals_single_run"] or row["max_rel_value_diff"] > FAMILY_RTOL:
+            raise AssertionError(f"family lane {row['lane']}: ranks {r.ranks} / {s.ranks}, evals "
+                                 f"{r.neval} / {s.neval}, vip equal {row['equals_single_run']}, "
+                                 f"values {row['max_rel_value_diff']} apart")
+    if worst < FAMILY_WORST_FLOOR:
+        raise AssertionError(f"family worst lane {worst} digits < {FAMILY_WORST_FLOOR}")
+    if launches["small_table_lookup"] != steps or launches["score_residual_argmax"] != 0 or \
+            launches["score_residual_argmax_batched"] != max(c["score_residual_argmax"]
+                                                             for *_, c, _ in singles):
+        raise AssertionError(f"family: launches {launches}, a single run's {singles[0][3]}: kernel B "
+                             "once per integrand step and kernel A batched once per pass expected")
+    if (res2.neval, [r.ranks for r in res2], launches2) != (res.neval, [r.ranks for r in res], launches):
+        raise AssertionError("the repeated family run took another path")
+    _require_held("mvn_d6 family", shapes, held)
+    return shapes
+
+
+def mvn_rho_fun(nodes, d, sigma=0.4, T=1.0):
+    """drivers/crs_greeks.py::mvn_rho_fun on the port: the MVN pdf with the
+    equicorrelation rho a differentiable parameter (closed-form
+    Sherman-Morrison inverse of cov = s2 ((1 - rho) I + rho 11^T)).  The
+    node lookup is kernel B: its inputs, the indices and the nodes, are free
+    of rho, so it runs under torch.func.grad and once under torch.func.vmap
+    over rho."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.ops.dense import table_lookup
+
+    s2 = sigma * sigma * T
+    mu = float(np.log(100.0) - 0.5 * sigma * sigma * T)
+
+    def fun(ind, rho):
+        diff = table_lookup(nodes, ind) - mu
+        denom = 1.0 + (d - 1.0) * rho
+        q = ((diff * diff).sum(dim=1) - rho / denom * diff.sum(dim=1) ** 2) / (s2 * (1.0 - rho))
+        det = (s2 ** d) * ((1.0 - rho) ** (d - 1)) * denom
+        return torch.exp(-0.5 * q) / torch.sqrt((2.0 * np.pi) ** d * det)
+
+    return fun
+
+
+def check_greeks(dev, gen, held, checked):
+    """Phase 10: drivers/crs_greeks.py's problem at its defaults on the card:
+    a cross at rho0 (return_state), its frozen skeleton, the skeleton value,
+    its torch.func.grad against a central difference of the skeleton value
+    (crs_greeks.py's sanity check), and the vmapped rho sweep of values and
+    Greeks against the same sweep point by point.  Returns the launches by
+    shape of the cross and of the skeleton's evaluations."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps.mvn import MVN_BOX
+    from ttcross_tpu_torch.cross import cross, extract_skeleton, skeleton_value_fn
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.ops.quadrature import lgwt, map_to_interval
+
+    g = GREEKS
+    d, n = g["d"], g["n"]
+    x, w = map_to_interval(*lgwt(n), *MVN_BOX)
+    fun = mvn_rho_fun(torch.from_numpy(x).to(dev), d)
+    rho0 = torch.tensor(g["rho0"], dtype=torch.float64, device=dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cross(lambda i: fun(i, rho0), [n] * d, max_rank=g["max_rank"], accuracy=MVN["accuracy"],
+                pivoting=1, quad=[w] * d, truth=1.0, key=g["key"], return_state=True, device=dev)
+    torch.cuda.synchronize()
+    cross_s = time.perf_counter() - t0
+    cross_shapes = K.launch_shapes()
+    skel = extract_skeleton(res, [n] * d, device=dev)
+    vfn = skeleton_value_fn(fun, skel, weights=[w] * d)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    v0 = float(vfn(rho0))
+    grad = float(torch.func.grad(vfn)(rho0))
+    h = 1e-5
+    fd = (float(vfn(rho0 + h)) - float(vfn(rho0 - h))) / (2 * h)
+    greek_s = time.perf_counter() - t0
+    skel_shapes = K.launch_shapes()
+    rhos = torch.linspace(0.3, 0.7, g["nrho"], dtype=torch.float64, device=dev)
+    K.reset_launch_counts()
+    sweep = torch.func.vmap(vfn)(rhos)
+    sweep_launches = K.launch_counts()["small_table_lookup"]
+    greeks = torch.func.vmap(torch.func.grad(vfn))(rhos)
+    pointwise = torch.stack([vfn(r) for r in rhos])
+    pointwise_g = torch.stack([torch.func.grad(vfn)(r) for r in rhos])
+    sweep_rel = float(((sweep - pointwise).abs() / pointwise.abs()).max())
+    greek_abs = float(((greeks - pointwise_g).abs() / pointwise_g.abs().clamp(min=1.0)).max())
+    _emit({"phase": "greeks", "config": "drivers/crs_greeks.py defaults: d=6 n=65 rank 14 rho0=0.5",
+           "cross_s": cross_s, "n_evals": res.neval, "ranks": list(res.ranks),
+           "skeleton_samples": skel.n_samples, "mass_rho0": v0, "cross_value": res.values[-1],
+           "dmass_drho": grad, "central_difference": fd, "grad_vs_fd_rel": abs(grad - fd) / abs(grad),
+           "value_grad_fd_s": greek_s, "rhos": rhos.tolist(), "masses": sweep.tolist(),
+           "greeks": greeks.tolist(), "sweep_vs_pointwise_rel": sweep_rel,
+           "greeks_vs_pointwise": greek_abs, "kernel_b_launches_per_vmapped_sweep": sweep_launches,
+           "cross_launches_by_shape": _by_shape(cross_shapes),
+           "skeleton_launches_by_shape": _by_shape(skel_shapes)})
+    if abs(v0 / res.values[-1] - 1) > GREEK_VALUE_RTOL or abs(grad - fd) > GREEK_FD_RTOL * max(1.0, abs(grad)):
+        raise AssertionError(f"Greeks: skeleton value {v0} vs the cross's {res.values[-1]}, grad "
+                             f"{grad} vs central difference {fd}")
+    on_card = rhos.device.type == "cuda"
+    if sweep_rel > GREEK_SWEEP_RTOL or greek_abs > GREEK_FD_RTOL or sweep_launches != on_card:
+        raise AssertionError(f"Greeks: vmapped sweep {sweep_rel} / {greek_abs} from the pointwise "
+                             f"values, {sweep_launches} kernel-B launches for the vmapped sweep")
+    hold_new_shapes(dev, gen, skel_shapes, held, checked)
+    _require_held("Greeks cross", cross_shapes, held)
+    _require_held("Greeks skeleton", skel_shapes, held)
+    return _merge_shapes([cross_shapes, skel_shapes])
+
+
 def profile_run(label: str, run) -> None:
     """torch.profiler over one steady run (run() returns a tuple that
     starts with the result): kernel time by name, the device's busy share
@@ -1221,7 +1564,7 @@ def main() -> int:
     res2, steady, digits2 = run_headline(dev, oversample=6)
     steady_launches = K.launch_counts()
     runs = [(res, digits)] + [run_headline(dev, oversample=6, key=k)[::2] for k in KEYS[1:]]
-    by_key = [dg for _, dg in runs]
+    runs_res, by_key = [r for r, _ in runs], [dg for _, dg in runs]
     median = statistics.median(by_key)
     _emit({"phase": "headline", "config": "C_6 n=65 rank 24 oversample=6 pivoting=1",
            "digits": digits, "n_evals": res.neval, "padded_evals": res.padded_evals,
@@ -1269,13 +1612,18 @@ def main() -> int:
         profile_run("mvn_d6 refine_sweeps=2", lambda: run_mvn(dev, refine_sweeps=2))
         profile_maxvol_parts(dev)
 
+    new_runs = [("C_6 headline host_reeval",
+                 check_headline_host_reeval(dev, gen, held, checked, list(zip(runs_res, by_key)))),
+                ("mvn_d6 family", check_family(dev, held)),
+                ("Greeks", check_greeks(dev, gen, held, checked))]
+
     # one entry for every (kernel, shape) that a path's run launched at: the
     # launches are those of that run, counted from 0 (the C_6 headline's
     # first run, the C_256 long chain's, the first run of each configuration
     # of the MVN / COS phase); the error, the times and the bound are those of
     # phase 3's check of the kernel at that shape
     entries = []
-    for path, by_kernel in [("C_6 headline", shapes), ("C_256 long chain", lc_shapes)] + mvn_runs:
+    for path, by_kernel in [("C_6 headline", shapes), ("C_256 long chain", lc_shapes)] + mvn_runs + new_runs:
         for name, by in sorted(by_kernel.items()):
             for shape, count in sorted(by.items()):
                 row = checked[name][shape]
@@ -1288,7 +1636,10 @@ def main() -> int:
                     "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
     missing = {(k, path) for path, need in [("C_6 headline", MAIN_PATH_KERNELS),
                                             ("C_256 long chain", LONG_CHAIN_KERNELS),
-                                            ("mvn_d6 greedy", MVN_KERNELS)]
+                                            ("mvn_d6 greedy", MVN_KERNELS),
+                                            ("C_6 headline host_reeval", MAIN_PATH_KERNELS),
+                                            ("mvn_d6 family", FAMILY_KERNELS),
+                                            ("Greeks", MVN_KERNELS)]
                for k in need if not any(e["name"] == k and e["path"] == path and e["launches"] > 0
                                         for e in entries)}
     if missing:

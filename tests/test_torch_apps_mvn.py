@@ -318,8 +318,8 @@ def test_init_state_resume_is_the_uninterrupted_run(mode, split, tmp_path):
 
 def test_kwargs_still_not_ported_name_their_item():
     pp = make_stdnorm(d=3, n=9, device="cpu")
-    for kw in (dict(host_reeval=True), dict(return_pivots=True), dict(rank_chunks="auto"),
-               dict(rank_caps=[2, 2]), dict(adaptive=True), dict(dtype=torch.float32)):
+    for kw in (dict(rank_chunks="auto"), dict(rank_caps=[2, 2]), dict(adaptive=True),
+               dict(dtype=torch.float32)):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7b"):
             cross(pp.fun, [pp.n] * pp.d, max_rank=4, device="cpu", **kw)
     with pytest.raises(ValueError, match="quad"):

@@ -256,11 +256,16 @@ def test_integrand_kernel_is_one_kernel_per_call(kind, d, gen, cuda_device):
     tables, ind = _integrand_args(kind, 1950, d, cuda_device, gen)
     K.ising_integrand_fused(tables, ind, kind)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            K.ising_integrand_fused(tables, ind, kind)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    # the profiler now and then records no device event for a window
+    # (chip_smoke.py::device_per_call): such a window is profiled again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                K.ising_integrand_fused(tables, ind, kind)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+        if kern:
+            break
     assert [e.key for e in kern] and all("integrand" in e.key for e in kern)
     assert 0 < sum(e.count for e in kern) <= 10
 

@@ -335,7 +335,9 @@ def test_every_ported_name_resolves():
                 "make_cos_coefficients", "s_vectors", "basket_chf", "basket_pdf",
                 "CHF_REFERENCE", "CHF_RHO05", "ising_truth"],
         pcross: ["CrossResult", "cross", "make_engine", "CrossState", "empty_state",
-                 "cross_maxvol", "maxvol_refine", "accchk"],
+                 "cross_maxvol", "maxvol_refine", "accchk", "cross_batch", "BatchCrossResult",
+                 "Skeleton", "extract_skeleton", "skeleton_value_fn", "skeleton_tt_fn",
+                 "reevaluate_host"],
         ptt: ["TT", "from_cores", "ones", "rank1", "zeros", "add", "contract", "dot", "full",
               "gather", "group", "hadamard", "norm", "scale", "sumall", "value", "chop_rank",
               "orthogonalize", "svd_round", "save_ttbin", "load_ttbin", "save_ttbin_ref",
@@ -365,3 +367,16 @@ def test_every_ported_name_resolves():
     from ttcross_tpu_torch.cross.state import pad_state
 
     assert callable(pivot_index_sets) and callable(pad_state)
+    # names the JAX package keeps in a module's __all__ only
+    import ttcross_tpu.apps.ising as jising
+    import ttcross_tpu.cross.skeleton as jskeleton
+    import ttcross_tpu.tt.ortho as jortho
+    import ttcross_tpu_torch.apps.ising as pising
+    import ttcross_tpu_torch.cross.skeleton as pskeleton
+    import ttcross_tpu_torch.tt.ortho as portho
+
+    for jmod, pmod, name in [(jskeleton, pskeleton, "derive_host_fun"),
+                             (jortho, portho, "svd_round_host"),
+                             (jising, pising, "ising_integrand_np")]:
+        assert name in pmod.__all__ and callable(getattr(pmod, name)) and hasattr(jmod, name)
+    assert callable(pising.IsingProblem.fun_np)

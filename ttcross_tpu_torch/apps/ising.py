@@ -21,7 +21,7 @@ from ..cross.chain_eval import ChainSpec
 from ..ops.kernels import ISING_KINDS, ising_integrand_fused, small_table_lookup
 from ..ops.quadrature import lgwt
 
-__all__ = ["IsingProblem", "make_ising", "ising_integrand", "ising_c_chain"]
+__all__ = ["IsingProblem", "make_ising", "ising_integrand", "ising_integrand_np", "ising_c_chain"]
 
 
 def ising_integrand(ind, tables, kind: str):
@@ -32,6 +32,32 @@ def ising_integrand(ind, tables, kind: str):
     fused kernel does the lookup and the whole chain (ops/kernels.py::
     ising_integrand_fused); on the CPU its plain version runs."""
     return ising_integrand_fused(tables, ind, kind)
+
+
+def ising_integrand_np(ind, nodes, weights, kind: str) -> np.ndarray:
+    """Host-numpy twin of ising_integrand: ind (B, d) int -> (B,) f64, the
+    JAX package's ising_integrand_np (ttcross_tpu/apps/ising.py:141).  A
+    correctly rounded host integrand for cross(host_reeval=prob.fun_np) and
+    cross/skeleton.py::reevaluate_host."""
+    kid = ISING_KINDS[kind.upper()]
+    ind = np.asarray(ind)
+    x = np.asarray(nodes)[ind]       # (B, d)
+    w = np.asarray(weights)[ind]
+    B, d = x.shape
+    f = np.full(B, 2.0)
+    if kid in (2, 3):  # a-term: prod_{i<j} ((P_j - P_i)/(P_j + P_i))^2
+        P = np.concatenate([np.ones((B, 1)), np.cumprod(x, axis=1)], axis=1)
+        num = P[:, None, :] - P[:, :, None]
+        den = P[:, None, :] + P[:, :, None]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ratio = np.where(den == 0, 0.0, num / den) ** 2
+        iu = np.triu(np.ones((d + 1, d + 1), dtype=bool), k=1)
+        f = f * np.prod(np.where(iu[None], ratio, 1.0), axis=(1, 2))
+    if kid in (1, 2):  # b-term: 1 / ((1 + sum suffix prods)(1 + sum prefix prods))
+        v = 1.0 + np.cumprod(x[:, ::-1], axis=1).sum(axis=1)
+        wv = 1.0 + np.cumprod(x, axis=1).sum(axis=1)
+        f = f / (v * wv)
+    return f * np.prod(w, axis=1)
 
 
 def ising_c_chain(tables) -> ChainSpec:
@@ -95,6 +121,10 @@ class IsingProblem:
 
     def fun(self, ind):
         return ising_integrand(ind, self.tables, self.kind)
+
+    def fun_np(self, ind):
+        """The host-numpy twin of fun: ind (B, d) int numpy -> (B,) f64."""
+        return ising_integrand_np(ind, self.nodes, self.weights, self.kind)
 
     @functools.cached_property
     def chain(self):

@@ -21,7 +21,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.dense import table_lookup
+from ..cross.batch import lane_batched
+from ..ops.dense import matmul_by_sums, table_lookup
 from ..ops.quadrature import lgwt, map_to_interval
 
 __all__ = ["MvnDensity", "make_mvn_density", "MvnProblem", "make_mvn",
@@ -117,7 +118,8 @@ class MvnFamily:
     (mu, inv_cov, norm) tensors with a leading lane axis; ``fun(ind, par)``
     is the parameterized integrand for one lane's slice of params (the
     vectorized form of the reference's `par` callback argument,
-    dmrgg.f90:18)."""
+    dmrgg.f90:18), and for every lane at once with the whole params
+    (cross/batch.py::cross_batch)."""
 
     d: int
     n: int
@@ -128,9 +130,20 @@ class MvnFamily:
     table: torch.Tensor
     truth: float = 1.0       # each lane integrates its pdf mass
 
+    @lane_batched
     def fun(self, ind, par):
-        x = table_lookup(self.table, ind)
-        return torch.exp(-0.5 * _quad_form(x - par["mu"], par["inv_cov"])) / par["norm"]
+        """ind (L, B, d) int32 with the whole params -> (L, B): every lane's
+        nodes in one lookup (one kernel-B launch at (L*B, d)) and the
+        quadratic forms of every lane with inv_cov (L, d, d) at once
+        (cross/batch.py::lane_batched).  ind (B, d) with one lane's par ->
+        (B,) runs the same as a family of one, so a lane's single run does
+        the lane's arithmetic."""
+        if ind.dim() == 2:
+            return self.fun(ind[None], {k: v[None] for k, v in par.items()})[0]
+        x = table_lookup(self.table, ind.reshape(-1, ind.shape[-1])).reshape(ind.shape)
+        diff = x - par["mu"][:, None, :]
+        q = (matmul_by_sums(diff, par["inv_cov"]) * diff).sum(dim=-1)
+        return torch.exp(-0.5 * q) / par["norm"][:, None]
 
     def lane(self, i: int) -> dict:
         """The parameters of lane i."""

@@ -51,17 +51,19 @@ def right_table(vip, p: int, d: int) -> torch.Tensor:
 
 def advance_left(ltab, vip_p, p: int) -> torch.Tensor:
     """Left table of bond p+1 from bond p's: ltab[vip_p[t, 0]] with column
-    p set to vip_p[t, 1]."""
-    nt = ltab[vip_p[:, 0].long()]
-    nt[:, p] = vip_p[:, 1]
+    p set to vip_p[t, 1].  ltab (..., R, d) and vip_p (..., R, 4): a
+    leading lane axis advances every lane's table."""
+    nt = torch.take_along_dim(ltab, vip_p[..., 0:1].long(), dim=-2)
+    nt[..., p] = vip_p[..., 1]
     return nt
 
 
 def advance_right(rtab, vip_p1, p: int) -> torch.Tensor:
     """Right table of bond p from bond p+1's: rtab[vip_p1[t, 3]] with
-    column p+2 set to vip_p1[t, 2] (p+2 < d; p = -1 writes column 1)."""
-    nt = rtab[vip_p1[:, 3].long()]
-    nt[:, p + 2] = vip_p1[:, 2]
+    column p+2 set to vip_p1[t, 2] (p+2 < d; p = -1 writes column 1);
+    lane axes as advance_left."""
+    nt = torch.take_along_dim(rtab, vip_p1[..., 3:4].long(), dim=-2)
+    nt[..., p + 2] = vip_p1[..., 2]
     return nt
 
 
@@ -78,20 +80,21 @@ def _scan_tables(vip, d: int, left: bool) -> torch.Tensor:
     scan composes every run with the run s bonds before it (left: the
     earlier bonds act first) or after it (right: the later bonds act
     first); the values are integers, so any order of composition is exact
-    (JAX: lax.associative_scan of the same operators)."""
-    nb, R = d - 1, vip.shape[1]
+    (JAX: lax.associative_scan of the same operators).  vip (d-1, ..., R,
+    4): lane axes after the bond axis scan every lane at once."""
+    nb = d - 1
     ps = torch.arange(nb, device=vip.device)
-    g = vip[:, :, 0 if left else 3].long()                           # (nb, R)
-    w = torch.zeros((nb, R, d), dtype=vip.dtype, device=vip.device)
-    w[ps, :, ps + (0 if left else 1)] = vip[:, :, 1 if left else 2]
+    g = vip[..., 0 if left else 3].long()                            # (nb, ..., R)
+    w = torch.zeros(g.shape + (d,), dtype=vip.dtype, device=vip.device)
+    w[ps, ..., ps + (0 if left else 1)] = vip[..., 1 if left else 2]
     shift = 1
     while shift < nb:
         first = slice(0, nb - shift) if left else slice(shift, nb)   # acts first
         second = slice(shift, nb) if left else slice(0, nb - shift)
         gs = g[second]
         w_new, g_new = w.clone(), g.clone()
-        w_new[second] += w[first].gather(1, gs[:, :, None].expand(-1, -1, d))
-        g_new[second] = g[first].gather(1, gs)
+        w_new[second] += w[first].gather(-2, gs[..., None].expand(*gs.shape, d))
+        g_new[second] = g[first].gather(-1, gs)
         w, g = w_new, g_new
         shift *= 2
     return w
@@ -99,7 +102,8 @@ def _scan_tables(vip, d: int, left: bool) -> torch.Tensor:
 
 def all_left_tables(vip, d: int) -> torch.Tensor:
     """LT (d-1, R, d): the left table of every bond; LT[p] is what bonds
-    0..p-1 write into an empty table, in log2(d) levels."""
+    0..p-1 write into an empty table, in log2(d) levels.  A lane state's
+    vip (d-1, L, R, 4) gives (d-1, L, R, d)."""
     W = _scan_tables(vip, d, left=True)
     return torch.cat([torch.zeros_like(W[:1]), W[:-1]])
 
@@ -146,9 +150,11 @@ def pivot_index_sets(vip, rk):
 def assemble_indices(ltab, rtab, p, i, j, k, q, d: int) -> torch.Tensor:
     """Full int32 multi-index for candidates (i, j, k, q) at bond p.
 
-    p an int: ltab, rtab (R, d) and candidates (B,) give (B, d).  p a
-    tensor (P,) of bonds: ltab, rtab (P, R, d) and candidates (P, B) give
-    (P, B, d), each bond's candidates from its own tables."""
+    p an int: ltab, rtab (R, d) and candidates (B,) give (B, d); lane
+    tables (L, R, d) and candidates (L, B) give (L, B, d), each lane's
+    candidates from its own tables.  p a tensor (P,) of bonds: ltab, rtab
+    (P, R, d) and candidates (P, B) give (P, B, d), each bond's candidates
+    from its own tables."""
     if isinstance(p, torch.Tensor):
         P, B = i.shape
         col = torch.arange(d, device=ltab.device)
@@ -158,10 +164,13 @@ def assemble_indices(ltab, rtab, p, i, j, k, q, d: int) -> torch.Tensor:
         ind = torch.where(col < pb, left, right)
         ind = torch.where(col == pb, j[:, :, None].to(ind.dtype), ind)
         return torch.where(col == pb + 1, k[:, :, None].to(ind.dtype), ind)
-    B = i.shape[0]
-    ind = torch.empty((B, d), dtype=torch.int32, device=ltab.device)
-    ind[:, :p] = ltab[i.long(), :p]
-    ind[:, p] = j
-    ind[:, p + 1] = k
-    ind[:, p + 2:] = rtab[q.long(), p + 2:]
+    ind = torch.empty(i.shape + (d,), dtype=torch.int32, device=ltab.device)
+    if ltab.dim() == 3:
+        ind[..., :p] = torch.take_along_dim(ltab[..., :p], i.long()[..., None], dim=-2)
+        ind[..., p + 2:] = torch.take_along_dim(rtab[..., p + 2:], q.long()[..., None], dim=-2)
+    else:
+        ind[:, :p] = ltab[i.long(), :p]
+        ind[:, p + 2:] = rtab[q.long(), p + 2:]
+    ind[..., p] = j
+    ind[..., p + 1] = k
     return ind

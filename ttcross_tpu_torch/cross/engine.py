@@ -3,9 +3,11 @@
 Counterpart of ttcross_tpu/cross/engine.py (dtt_dmrgg, dmrgg.f90:11-1050):
 the same padded state, the same rook/lottery/full pivot hunts, the same
 two-threshold acceptance and the same strike-based stop.  The sequential
-sweep is a Python loop over bonds; the all-bonds-batched sweeps
-(sweep_mode "jacobi" / "jacobi-rb", cross/engine_jacobi.py) hunt every bond
-at once.  Every decision inside a sweep stays on the device as a
+sweep is a Python loop over bonds whose every step carries a lane axis: one
+run is its one-lane case, a parameter family (cross/batch.py::cross_batch)
+runs all its lanes through the same ops, kernel A batched over the lanes.
+The all-bonds-batched sweeps (sweep_mode "jacobi" / "jacobi-rb",
+cross/engine_jacobi.py) hunt every bond of one run at once.  Every decision inside a sweep stays on the device as a
 branch-free masked update (the accept flag ``upd`` and the rook ``done``
 flags are tensors), so a sweep makes no host round trip; the one host sync
 per sweep is the stopping rule.  The large state arrays are updated in
@@ -22,15 +24,16 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from ..config import precision_thresholds
-from ..ops import lu as lulib
-from ..ops.dense import balanced_matmul_chain, row_lookup, scale_pow2
-from ..ops.kernels import score_residual_argmax
+from ..ops.dense import (balanced_matmul_chain, batched_row_lookup, masked_slot_write,
+                         matmul_by_sums, scale_pow2)
+from ..ops.kernels import score_residual_argmax, score_residual_argmax_batched
 from ..tt.ops import contract
 from ..tt.ortho import svd_round
 from ..tt.types import TT
@@ -39,7 +42,7 @@ from .chain_eval import ChainEvaluator
 from .chains import (advance_left, advance_right, all_left_tables,
                      all_right_tables, assemble_indices, pivot_index_sets)
 from .engine_jacobi import build_jacobi
-from .state import CrossState, empty_state
+from .state import CrossState, as_lanes, empty_state, lane
 
 __all__ = ["CrossConfig", "CrossResult", "cross", "make_engine",
            "round_and_revalue"]
@@ -79,12 +82,13 @@ class CrossResult:
 class EngineKit(NamedTuple):
     cfg: CrossConfig
     init_fn: Callable       # () -> CrossState
-    sweep_fn: Callable      # (st, it, U (d-1, 2, NLOT), cs=None, lw=None) -> CrossState, or (st, cs')
-    value_fn: Callable      # (st, w (d, N)) -> 0-d tensor
-    finalize_fn: Callable   # (st) -> (d, R, N, R) solved cores
+    sweep_fn: Callable      # (st, it, U, cs=None, lw=None, live=None) -> CrossState, or (st, cs')
+    value_fn: Callable      # (st, w (d, N)) -> 0-d tensor, (L,) on a lane state
+    finalize_fn: Callable   # (st) -> (d, R, N, R) solved cores, (d, L, R, N, R) on a lane state
     jacobi_hunt: Callable   # cross/engine_jacobi.py, window-wise for the distributed engine
     jacobi_apply: Callable
     chain_ev: ChainEvaluator | None   # the chain evaluator when chain= was given
+    lanes: int = 0          # 0: one run's states; L >= 1: lane states of L runs
 
 
 def round_and_revalue(res: CrossResult, max_rank: int, quad, truth) -> CrossResult:
@@ -124,122 +128,155 @@ def _values_errors(vals, last_it: int, truth, with_quad: bool):
     return values, errors
 
 
-def _masked_write(buf, dim: int, slot, new, upd) -> None:
-    """In place: buf's slot `slot` (1-element long tensor) along dim
-    becomes where(upd, new, old) (JAX: dynamic_update_slice)."""
-    old = buf.index_select(dim, slot)
-    buf.index_copy_(dim, slot, torch.where(upd, new, old))
+_SCALARS = ("amax", "pivotmax", "pivotmin", "pivotmax_prev", "neval", "padded")
+
+
+def _mv(a, x):
+    """a (L, M, K) @ x (L, K) -> (L, M), each lane as alone (matmul_by_sums)."""
+    return matmul_by_sums(a, x[:, :, None])[:, :, 0]
 
 
 def make_engine(fun: Callable, cfg: CrossConfig, device,
-                dtype: torch.dtype = torch.float64, chain=None) -> EngineKit:
-    """Build the engine phases for integrand fun: ind (B, d) int32 tensor on
-    `device` -> (B,) values.  chain: optional chain_eval.ChainSpec of a
-    chain-structured integrand, for O(1) hunt evaluation from interface
-    states on the all-bonds-batched sweeps."""
+                dtype: torch.dtype = torch.float64, chain=None, lanes: int = 0) -> EngineKit:
+    """Build the engine phases.
+
+    lanes = 0: fun(ind (B, d) int32 tensor on `device`) -> (B,) values,
+    and the phases take and return one run's CrossState.  lanes = L >= 1:
+    fun(ind (L, B, d)) -> (L, B) evaluates every lane in one call, and the
+    phases take and return a lane state of L runs (cross/state.py), every
+    lane with its own pivots, ranks and counters; the sweep's lottery
+    uniforms are then (L, d-1, 2, NLOT) and its ``live`` (L,) bool freezes
+    the lanes that are not live.  There is one engine: lanes = 0 runs it
+    as one lane on views of the state.  chain: optional
+    chain_eval.ChainSpec of a chain-structured integrand, for O(1) hunt
+    evaluation from interface states on the all-bonds-batched sweeps
+    (which take lanes = 0 only)."""
+    if lanes and cfg.jacobi:
+        raise NotImplementedError("the all-bonds sweeps take one run, not lanes "
+                                  "(ROADMAP queue 1 item 7b.7)")
     d, N, R = cfg.d, cfg.N, cfg.R
     n = cfg.n
+    L = max(lanes, 1)
+    RN = R * N
     NLOT = 2 * (R + N)
     dev = torch.device(device)
+    fun_l = fun if lanes else (lambda ind: fun(ind[0])[None])
     iR = torch.arange(R, device=dev)
     iN = torch.arange(N, device=dev)
     n_t = torch.tensor(n, device=dev)
     # candidate enumerations: column fibers vary (i, j) over (R, N), row
     # fibers (k, q) over (N, R), lottery slots over NLOT
-    ci_g, cj_g = iR.repeat_interleave(N), iN.repeat(R)
-    rk_g, rq_g = iN.repeat_interleave(R), iR.repeat(N)
+    ci_g, cj_g = iR.repeat_interleave(N).expand(L, RN), iN.repeat(R).expand(L, RN)
+    rk_g, rq_g = iN.repeat_interleave(R).expand(L, RN), iR.repeat(N).expand(L, RN)
     lot = torch.arange(NLOT, device=dev)
+
+    def per_lane(x):
+        """A lane scalar (L,) against a candidate axis: (L, RN)."""
+        return x[:, None].expand(L, RN)
 
     # ---------------------------------------------------------------- init
     def init_fn() -> CrossState:
         """Initial pivot search over shifted diagonals + rank-1 cross
-        (dmrgg.f90:151-248)."""
-        st = empty_state(d, N, R, dtype, dev)
+        (dmrgg.f90:151-248), every lane at once."""
+        st = empty_state(d, N, R, dtype, dev, lanes=L)
         nn = int(min(n))
         ks = torch.arange(nn, device=dev)[None, :, None]
         ss = torch.arange(cfg.snum, device=dev)[:, None, None]
         ps = torch.arange(d, device=dev)[None, None, :]
         cand = ((ks + ss * ps) % n_t[None, None, :]).reshape(-1, d).to(torch.int32)
-        vals = fun(cand)
-        best = torch.argmax(vals.abs()).view(1)
-        amax = vals.abs().max()
-        ind0 = cand.index_select(0, best)[0]               # (d,)
+        vals = fun_l(cand.expand(L, -1, -1)).abs()                  # (L, B)
+        best = torch.argmax(vals, dim=1)
+        amax = vals.amax(dim=1)
+        ind0 = cand[best]                                           # (L, d)
         # in place: initial vip (0, ind0[b], ind0[b+1], 0) per bond
-        st.vip[:, 0, 1] = ind0[:-1]
-        st.vip[:, 0, 2] = ind0[1:]
+        st.vip[:, :, 0, 1] = ind0[:, :-1].T
+        st.vip[:, :, 0, 2] = ind0[:, 1:].T
 
         # rank-1 fibers: for each core c vary mode c over its grid
         mode_pos = torch.arange(d, device=dev).repeat_interleave(N)
         mode_val = iN.repeat(d)
         col = torch.arange(d, device=dev)
-        fib_ind = torch.where(col[None, :] == mode_pos[:, None],
-                              torch.minimum(mode_val, n_t[mode_pos] - 1)[:, None],
-                              ind0[None, :].long())
-        fvals = fun(fib_ind.to(torch.int32)).reshape(d, N)
-        fvals = torch.where(iN[None, :] < n_t[:, None], fvals, 0.0)
-        amax = torch.maximum(amax, fvals.abs().max())
+        fib_ind = torch.where(col[None, None, :] == mode_pos[None, :, None],
+                              torch.minimum(mode_val, n_t[mode_pos] - 1)[None, :, None],
+                              ind0[:, None, :].long())              # (L, d*N, d)
+        fvals = fun_l(fib_ind.to(torch.int32)).reshape(L, d, N)
+        fvals = torch.where(iN[None, None, :] < n_t[None, :, None], fvals, 0.0)
+        amax = torch.maximum(amax, fvals.abs().amax(dim=(1, 2)))
 
-        delta = fvals[0].index_select(0, ind0[:1].long())[0]   # = A(ind0)
-        st.cores[:, 0, :, 0] = fvals
-        st.lu_d[:, 0] = delta
-        st.itt[:, 0, 0] = 1.0 / delta
-        st.colf[:, 0, :, 0] = fvals / delta
-        st.rowf[:, 0, :, 0] = fvals
-        neval = torch.tensor(cfg.snum * nn + sum(n), dtype=torch.int64, device=dev)
-        padded = torch.tensor(cfg.snum * nn + d * N, dtype=torch.int64, device=dev)
-        return st._replace(amax=amax, pivotmax_prev=amax, neval=neval,
-                           padded=padded)
+        delta = fvals[:, 0].gather(1, ind0[:, :1].long())[:, 0]     # = A(ind0), (L,)
+        fv = fvals.transpose(0, 1)                                  # (d, L, N)
+        st.cores[:, :, 0, :, 0] = fv
+        st.lu_d[:, :, 0] = delta
+        st.itt[:, :, 0, 0] = 1.0 / delta
+        st.colf[:, :, 0, :, 0] = fv / delta[:, None]
+        st.rowf[:, :, 0, :, 0] = fv
+        neval = torch.full((L,), cfg.snum * nn + sum(n), dtype=torch.int64, device=dev)
+        padded = torch.full((L,), cfg.snum * nn + d * N, dtype=torch.int64, device=dev)
+        return st._replace(amax=amax, pivotmax_prev=amax, neval=neval, padded=padded)
 
     # ----------------------------------------------------------- bond visit
+    # Every tensor below carries the lane axis first: bond p's slices of
+    # the state (st.colf[p] (L, R, N, R), st.rk[p] (L,)), the pivot indices
+    # (L,), the fibers (L, R, N) and (L, N, R).
     def _col_mask(st, p):
-        return (iR[:, None] < st.rk[p]) & (iN[None, :] < n[p])          # (R, N)
+        return ((iR[None, :, None] < st.rk[p][:, None, None])
+                & (iN[None, None, :] < n[p]))                              # (L, R, N)
 
     def _row_mask(st, p):
-        return (iN[:, None] < n[p + 1]) & (iR[None, :] < st.rk[p + 2])  # (N, R)
+        return ((iN[None, :, None] < n[p + 1])
+                & (iR[None, None, :] < st.rk[p + 2][:, None, None]))       # (L, N, R)
+
+    def _rank_mask(st, p):
+        return (iR[None, :] < st.rk[p + 1][:, None]).to(dtype)             # (L, R)
 
     def _col_fiber(st, p, ltab, rtab, kk, qq):
-        """Raw column fiber (R, N) at fixed (kk, qq), masked to the active
-        (rk[p], n_p) block, and its count of active evaluations."""
-        ind = assemble_indices(ltab, rtab, p, ci_g, cj_g,
-                               kk.expand(R * N), qq.expand(R * N), d)
-        vals = torch.where(_col_mask(st, p), fun(ind).reshape(R, N), 0.0)
+        """Raw column fibers (L, R, N) at fixed (kk, qq), masked to the
+        active (rk[p], n_p) block, and their counts of active evaluations."""
+        ind = assemble_indices(ltab, rtab, p, ci_g, cj_g, per_lane(kk), per_lane(qq), d)
+        vals = torch.where(_col_mask(st, p), fun_l(ind).reshape(L, R, N), 0.0)
         return vals, (st.rk[p] * n[p]).long()
 
     def _row_fiber(st, p, ltab, rtab, ii, jj):
-        """Raw row fiber (N, R) at fixed (ii, jj), masked to
-        (n_{p+1}, rk[p+2]), and its count of active evaluations."""
-        ind = assemble_indices(ltab, rtab, p, ii.expand(N * R), jj.expand(N * R),
-                               rk_g, rq_g, d)
-        vals = torch.where(_row_mask(st, p), fun(ind).reshape(N, R), 0.0)
+        """Raw row fibers (L, N, R) at fixed (ii, jj), masked to
+        (n_{p+1}, rk[p+2]), and their counts of active evaluations."""
+        ind = assemble_indices(ltab, rtab, p, per_lane(ii), per_lane(jj), rk_g, rq_g, d)
+        vals = torch.where(_row_mask(st, p), fun_l(ind).reshape(L, N, R), 0.0)
         return vals, (n[p + 1] * st.rk[p + 2]).long()
 
-    def _rank_mask(st, p):
-        return (iR < st.rk[p + 1]).to(dtype)
+    def _argmax(vals, colf, rowf, mask):
+        """Kernel A on each lane's fiber: (L,) flat index, score, residual.
+        One run keeps the single-fiber launch; lanes take the launch
+        batched over them (bit-equal to one single launch per lane)."""
+        if L == 1:
+            return tuple(x.view(1) for x in
+                         score_residual_argmax(vals[0], colf[0], rowf[0], mask[0]))
+        return score_residual_argmax_batched(vals, colf, rowf, mask)
 
     def _col_residual_argmax(st, p, acol, kk, qq):
         """argmax of |acol - colf[p] @ rowf[p+1][:, kk, qq]| over the
         active block (dmrgg.f90:537-539): kernel A at (R*N, 1)."""
-        u = (st.rowf[p + 1].reshape(R, N * R).index_select(1, (kk * R + qq).view(1))
-             * _rank_mask(st, p)[:, None])                              # (R, 1)
-        flat, _, resid = score_residual_argmax(
-            acol.reshape(R * N, 1), st.colf[p].reshape(R * N, R), u,
-            _col_mask(st, p).reshape(R * N, 1))
+        u = (st.rowf[p + 1].reshape(L, R, N * R).gather(
+            2, (kk * R + qq).view(L, 1, 1).expand(L, R, 1))
+            * _rank_mask(st, p)[:, :, None])                                # (L, R, 1)
+        flat, _, resid = _argmax(acol.reshape(L, RN, 1), st.colf[p].reshape(L, RN, R), u,
+                                 _col_mask(st, p).reshape(L, RN, 1))
         return flat // N, flat % N, resid
 
     def _row_residual_argmax(st, p, arow, ii, jj):
         """argmax of |arow - colf[p][ii, jj, :] @ rowf[p+1]| over the
         active block (dmrgg.f90:570-572): kernel A at (1, N*R)."""
-        c = (st.colf[p].reshape(R * N, R).index_select(0, (ii * N + jj).view(1))
-             * _rank_mask(st, p)[None, :])                              # (1, R)
-        flat, _, resid = score_residual_argmax(
-            arow.reshape(1, N * R), c, st.rowf[p + 1].reshape(R, N * R),
-            _row_mask(st, p).reshape(1, N * R))
+        c = (st.colf[p].reshape(L, RN, R).gather(
+            1, (ii * N + jj).view(L, 1, 1).expand(L, 1, R))
+            * _rank_mask(st, p)[:, None, :])                                # (L, 1, R)
+        flat, _, resid = _argmax(arow.reshape(L, 1, N * R), c,
+                                 st.rowf[p + 1].reshape(L, R, N * R),
+                                 _row_mask(st, p).reshape(L, 1, N * R))
         return flat // R, flat % R, resid
 
     def _hunt_lottery(st, p, ltab, rtab, u2, lw=None):
         """Lottery over the unused candidate columns (i, j) and rows (q, k)
         (lottery2, rnd.f90:105-144; dmrgg.f90:410-487), residual scoring,
-        seed pivot.  u2 (2, NLOT) f64 uniforms in [0, 1).  lw (d, N): the
+        seed pivot.  u2 (L, 2, NLOT) f64 uniforms in [0, 1).  lw (d, N): the
         per-mode lottery weights, each mode's scaled to a maximum of 1
         (cross(weighted_lottery=True)): column (i, j) then draws with
         probability ~ lw[p, j], row (q, k) with ~ lw[p+1, k], as the f64
@@ -252,60 +289,62 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         the same exact counts), the target is f32(u) * f32(total) clamped
         to total * f32(1 - 2^-20), and the pick is searchsorted(right)."""
         # layouts: columns (i, j) flattened i*N + j; rows (q, k) q*N + k
-        colmask = ((iR[:, None] < st.rk[p]) & (iN[None, :] < n[p])).reshape(-1)
-        rowmask = ((iR[:, None] < st.rk[p + 2]) & (iN[None, :] < n[p + 1])).reshape(-1)
+        colmask = _col_mask(st, p).reshape(L, RN)
+        rowmask = ((iR[None, :, None] < st.rk[p + 2][:, None, None])
+                   & (iN[None, None, :] < n[p + 1])).reshape(L, RN)
         # zero weight on already-used pivots (dmrgg.f90:432-439); padding
         # rows of vip repeat index 0, so the scatter takes the max
-        vb = st.vip[p].long()                                 # (R, 4)
-        smask = (iR < st.rk[p + 1]).to(torch.int32)
-        used_col = torch.zeros(R * N, dtype=torch.int32, device=dev).scatter_reduce_(
-            0, vb[:, 0] * N + vb[:, 1], smask, "amax")
-        used_row = torch.zeros(N * R, dtype=torch.int32, device=dev).scatter_reduce_(
-            0, vb[:, 3] * N + vb[:, 2], smask, "amax")
+        vb = st.vip[p].long()                                 # (L, R, 4)
+        smask = (iR[None, :] < st.rk[p + 1][:, None]).to(torch.int32)
+        used_col = torch.zeros((L, RN), dtype=torch.int32, device=dev).scatter_reduce_(
+            1, vb[..., 0] * N + vb[..., 1], smask, "amax")
+        used_row = torch.zeros((L, RN), dtype=torch.int32, device=dev).scatter_reduce_(
+            1, vb[..., 3] * N + vb[..., 2], smask, "amax")
         if lw is None:
-            cdf_c = torch.cumsum((colmask & (used_col == 0)).to(torch.int32), 0).to(torch.float32)
-            cdf_r = torch.cumsum((rowmask & (used_row == 0)).to(torch.int32), 0).to(torch.float32)
+            cdf_c = torch.cumsum((colmask & (used_col == 0)).to(torch.int32), 1).to(torch.float32)
+            cdf_r = torch.cumsum((rowmask & (used_row == 0)).to(torch.int32), 1).to(torch.float32)
         else:
-            cdf_c = torch.cumsum((colmask & (used_col == 0)) * lw[p].repeat(R), 0).to(torch.float32)
-            cdf_r = torch.cumsum((rowmask & (used_row == 0)) * lw[p + 1].repeat(R), 0).to(torch.float32)
+            cdf_c = torch.cumsum((colmask & (used_col == 0)) * lw[p].repeat(R), 1).to(torch.float32)
+            cdf_r = torch.cumsum((rowmask & (used_row == 0)) * lw[p + 1].repeat(R), 1).to(torch.float32)
         below = 1.0 - 2.0 ** -20          # exact in f32
-        tot_c, tot_r = cdf_c[-1], cdf_r[-1]
-        t_c = torch.minimum(u2[0].to(torch.float32) * torch.where(tot_c > 0, tot_c, 1.0),
+        tot_c, tot_r = cdf_c[:, -1:], cdf_r[:, -1:]
+        t_c = torch.minimum(u2[:, 0].to(torch.float32) * torch.where(tot_c > 0, tot_c, 1.0),
                             tot_c * below)
-        t_r = torch.minimum(u2[1].to(torch.float32) * torch.where(tot_r > 0, tot_r, 1.0),
+        t_r = torch.minimum(u2[:, 1].to(torch.float32) * torch.where(tot_r > 0, tot_r, 1.0),
                             tot_r * below)
-        lin_c = torch.searchsorted(cdf_c, t_c, right=True).clamp(max=R * N - 1)
-        lin_r = torch.searchsorted(cdf_r, t_r, right=True).clamp(max=N * R - 1)
+        lin_c = torch.searchsorted(cdf_c, t_c.contiguous(), right=True).clamp(max=RN - 1)
+        lin_r = torch.searchsorted(cdf_r, t_r.contiguous(), right=True).clamp(max=RN - 1)
         i_c, j_c = lin_c // N, lin_c % N
         q_c, k_c = lin_r // N, lin_r % N
 
-        nlot_act = st.rk[p] + n[p] + n[p + 1] + st.rk[p + 2]
-        candmask = lot < nlot_act
-        b = fun(assemble_indices(ltab, rtab, p, i_c, j_c, k_c, q_c, d))
-        amax = torch.maximum(st.amax, torch.where(candmask, b.abs(), 0.0).max())
+        nlot_act = st.rk[p] + n[p] + n[p + 1] + st.rk[p + 2]              # (L,)
+        candmask = lot[None, :] < nlot_act[:, None]
+        b = fun_l(assemble_indices(ltab, rtab, p, i_c, j_c, k_c, q_c, d))  # (L, NLOT)
+        amax = torch.maximum(st.amax, torch.where(candmask, b.abs(), 0.0).amax(dim=1))
         neval = st.neval + nlot_act.long()
 
         # residual b - colf[p][i,j,:] . rowf[p+1][:,k,q]  (dmrgg.f90:469-476)
-        cf = row_lookup(st.colf[p].reshape(R * N, R), lin_c)                 # (NLOT, R)
-        rf = row_lookup(st.rowf[p + 1].reshape(R, N * R), k_c * R + q_c, axis=1)
-        resid = b - (cf * rf * _rank_mask(st, p)[None, :]).sum(dim=1)
-        best = torch.argmax(torch.where(candmask, resid.abs(), -1.0)).view(1)
-        seed = tuple(x.index_select(0, best)[0] for x in (i_c, j_c, k_c, q_c))
+        cf = batched_row_lookup(st.colf[p].reshape(L, RN, R), lin_c)       # (L, NLOT, R)
+        rf = batched_row_lookup(st.rowf[p + 1].reshape(L, R, N * R).mT, k_c * R + q_c)
+        resid = b - (cf * rf * _rank_mask(st, p)[:, None, :]).sum(dim=2)
+        best = torch.argmax(torch.where(candmask, resid.abs(), -1.0), dim=1)[:, None]
+        seed = tuple(x.gather(1, best)[:, 0] for x in (i_c, j_c, k_c, q_c))
         st = st._replace(amax=amax, neval=neval, padded=st.padded + NLOT)
-        return st, seed, resid.index_select(0, best)[0]
+        return st, seed, resid.gather(1, best)[:, 0]
 
     def _rook(st, p, ltab, rtab, seed, pivot0, fwd: bool):
         """Rook pivoting (dmrgg.f90:515-582): alternate column/row
         maximization until stationary or 2*piv passes, as exactly 2*piv
         masked passes ('>>' sweeps start with a column pass, '<<' with a
-        row pass; skipcol, dmrgg.f90:517).  A pass after the tensor flag
-        `done` is set changes nothing; whether the budget ends a pass is
-        known on the host (it depends only on the pass number)."""
+        row pass; skipcol, dmrgg.f90:517).  A pass after a lane's tensor
+        flag `done` is set changes nothing of that lane; whether the budget
+        ends a pass is known on the host (it depends only on the pass
+        number)."""
         ii, jj, kk, qq = seed
         pivot = pivot0
-        acol = torch.zeros((R, N), dtype=dtype, device=dev)
-        arow = torch.zeros((N, R), dtype=dtype, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
+        acol = torch.zeros((L, R, N), dtype=dtype, device=dev)
+        arow = torch.zeros((L, N, R), dtype=dtype, device=dev)
+        done = torch.zeros((L,), dtype=torch.bool, device=dev)
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         amax, neval = st.amax, st.neval
         havecol = haverow = False
@@ -317,7 +356,7 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
                 budget = haverow and t + 1 >= 2 * cfg.piv
                 stat = ((a2 == ii) & (b2 == jj)) if haverow else torch.zeros_like(done)
                 havecol = True
-                acol = torch.where(live, new, acol)
+                acol = torch.where(live[:, None, None], new, acol)
                 if not budget:
                     ii = torch.where(live, a2, ii)
                     jj = torch.where(live, b2, jj)
@@ -327,13 +366,13 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
                 budget = havecol and t + 1 >= 2 * cfg.piv
                 stat = ((a2 == kk) & (b2 == qq)) if havecol else torch.zeros_like(done)
                 haverow = True
-                arow = torch.where(live, new, arow)
+                arow = torch.where(live[:, None, None], new, arow)
                 if not budget:
                     kk = torch.where(live, a2, kk)
                     qq = torch.where(live, b2, qq)
             if not budget:
                 pivot = torch.where(live, resid, pivot)
-            amax = torch.where(live, torch.maximum(amax, new.abs().max()), amax)
+            amax = torch.where(live, torch.maximum(amax, new.abs().amax(dim=(1, 2))), amax)
             neval = neval + torch.where(live, dnev, zero)
             done = done | budget | stat
         # padded work: every pass calls fun on a full (R, N) batch
@@ -347,77 +386,80 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         ii, jj, kk, qq = seed
         acol, dn_c = _col_fiber(st, p, ltab, rtab, kk, qq)
         arow, dn_r = _row_fiber(st, p, ltab, rtab, ii, jj)
-        amax = torch.maximum(torch.maximum(st.amax, acol.abs().max()), arow.abs().max())
+        amax = torch.maximum(torch.maximum(st.amax, acol.abs().amax(dim=(1, 2))),
+                             arow.abs().amax(dim=(1, 2)))
         st = st._replace(amax=amax, neval=st.neval + dn_c + dn_r,
                          padded=st.padded + 2 * R * N)
         return st, seed, pivot0, acol, arow
 
     def _hunt_full(st, p, ltab, rtab):
         """piv = -1: full superblock residual pivoting (dmrgg.f90:341-408),
-        scored by kernel A at (R*N, N*R)."""
-        gr = torch.arange(R * N * N * R, device=dev)
+        scored by kernel A's 2-D path at (R*N, N*R), one launch per lane."""
+        gr = torch.arange(RN * N * R, device=dev)
         qg, kg = gr % R, (gr // R) % N
         jg, ig = (gr // (R * N)) % N, gr // (R * N * N)
-        vals = fun(assemble_indices(ltab, rtab, p, ig, jg, kg, qg, d))
-        mask = (_col_mask(st, p).reshape(R * N, 1)
-                & _row_mask(st, p).reshape(1, N * R))                   # (RN, NR)
-        vals = torch.where(mask, vals.reshape(R * N, N * R), 0.0)
-        amax = torch.maximum(st.amax, vals.abs().max())
+        vals = fun_l(assemble_indices(ltab, rtab, p, *(x.expand(L, -1) for x in (ig, jg, kg, qg)), d))
+        mask = (_col_mask(st, p).reshape(L, RN, 1)
+                & _row_mask(st, p).reshape(L, 1, N * R))                   # (L, RN, NR)
+        vals = torch.where(mask, vals.reshape(L, RN, N * R), 0.0)
+        amax = torch.maximum(st.amax, vals.abs().amax(dim=(1, 2)))
         neval = st.neval + (st.rk[p] * n[p] * n[p + 1] * st.rk[p + 2]).long()
-        st = st._replace(amax=amax, neval=neval, padded=st.padded + R * N * N * R)
+        st = st._replace(amax=amax, neval=neval, padded=st.padded + RN * N * R)
 
-        colf_m = st.colf[p].reshape(R * N, R) * _rank_mask(st, p)[None, :]
-        flat, _, pivot = score_residual_argmax(
-            vals, colf_m, st.rowf[p + 1].reshape(R, N * R), mask)
-        row, colx = (flat // (N * R)).view(1), (flat % (N * R)).view(1)
-        ii, jj = row[0] // N, row[0] % N
-        kk, qq = colx[0] // R, colx[0] % R
-        acol = vals.index_select(1, colx).reshape(R, N)
-        arow = vals.index_select(0, row).reshape(N, R)
-        return st, (ii, jj, kk, qq), pivot, acol, arow
+        colf_m = st.colf[p].reshape(L, RN, R) * _rank_mask(st, p)[:, None, :]
+        rowf = st.rowf[p + 1].reshape(L, R, N * R)
+        picks = [score_residual_argmax(vals[i], colf_m[i], rowf[i], mask[i]) for i in range(L)]
+        flat, pivot = torch.stack([x[0] for x in picks]), torch.stack([x[2] for x in picks])
+        row, colx = flat // (N * R), flat % (N * R)
+        acol = vals.gather(2, colx.view(L, 1, 1).expand(L, RN, 1)).reshape(L, R, N)
+        arow = vals.gather(1, row.view(L, 1, 1).expand(L, 1, N * R)).reshape(L, N, R)
+        return st, (row // N, row % N, colx // R, colx % R), pivot, acol, arow
 
     def _accept(st, p, piv_idx, pivot, acol, arow, upd) -> CrossState:
-        """Append the accepted pivot: extend vip / LU / cores / factors
-        (dmrgg.f90:602-757), all IN PLACE at slot s = rk[p+1] and masked by
-        the tensor flag upd, so a rejected pivot leaves the state as it was
-        (JAX: dynamic_update_slice of where(upd, new, old))."""
+        """Append the accepted pivots: extend vip / LU / cores / factors
+        (dmrgg.f90:602-757), all IN PLACE at each lane's slot s = rk[p+1]
+        and masked by the tensor flags upd, so a rejected pivot leaves its
+        lane's state as it was (JAX: dynamic_update_slice of where(upd,
+        new, old))."""
         ii, jj, kk, qq = piv_idx
         s = st.rk[p + 1].long()
-        slot = s.clamp(max=R - 1).view(1)   # a saturated bond never accepts
-        rmask = (iR < s).to(dtype)
-
-        c_new = st.colf[p].reshape(R * N, R).index_select(0, (ii * N + jj).view(1))[0] * rmask
-        u_new = st.rowf[p + 1].reshape(R, N * R).index_select(1, (kk * R + qq).view(1))[:, 0] * rmask
+        slot = s.clamp(max=R - 1)   # a saturated bond never accepts
+        rmask = (iR[None, :] < s[:, None]).to(dtype)                       # (L, R)
+        colf = st.colf[p].reshape(L, RN, R)
+        rowf = st.rowf[p + 1].reshape(L, R, N * R)
+        c_new = colf.gather(1, (ii * N + jj).view(L, 1, 1).expand(L, 1, R))[:, 0] * rmask
+        u_new = rowf.gather(2, (kk * R + qq).view(L, 1, 1).expand(L, R, 1))[:, :, 0] * rmask
         # maintained triangular inverses (bordered-inverse recurrences):
         # L_{s+1}^-1 = [[L^-1, 0], [-c L^-1, 1]],
         # T_{s+1}^-1 = [[T^-1, -T^-1 u / delta], [0, 1/delta]]
-        new_row = torch.where(iR == s, 1.0, -(c_new @ st.itl[p]))
-        new_col = torch.where(iR == s, 1.0 / pivot, -(st.itt[p] @ u_new) / pivot)
+        at_slot = iR[None, :] == s[:, None]
+        new_row = torch.where(at_slot, 1.0, -_mv(st.itl[p].mT, c_new))
+        new_col = torch.where(at_slot, 1.0 / pivot[:, None], -_mv(st.itt[p], u_new) / pivot[:, None])
         # incremental factor updates (dmrgg.f90:687-713), from the factors
-        # as they were before this accept
-        new_colf = lulib.apply_new_col(st.colf[p], u_new, pivot, acol, s)
-        new_rowf = lulib.apply_new_row(st.rowf[p + 1], c_new, arow, s)
+        # as they were before this accept: the new col-factor column
+        # (acol - Cf @ u) / delta and row-factor row arow - c @ Rf
+        new_colf = (acol - _mv(colf, u_new * rmask).reshape(L, R, N)) / pivot[:, None, None]
+        new_rowf = arow - _mv(rowf.mT, c_new * rmask).reshape(L, N, R)
 
-        _masked_write(st.vip[p], 0, slot,
-                      torch.stack([ii, jj, kk, qq]).to(torch.int32)[None], upd)
-        _masked_write(st.lu_c[p], 0, slot, c_new[None], upd)
-        _masked_write(st.lu_u[p], 0, slot, u_new[None], upd)
-        _masked_write(st.lu_d[p], 0, slot, pivot.view(1), upd)
-        _masked_write(st.itl[p], 0, slot, new_row[None], upd)
-        _masked_write(st.itt[p], 1, slot, new_col[:, None], upd)
+        masked_slot_write(st.vip[p], 1, slot, torch.stack([ii, jj, kk, qq], 1).to(torch.int32), upd)
+        masked_slot_write(st.lu_c[p], 1, slot, c_new, upd)
+        masked_slot_write(st.lu_u[p], 1, slot, u_new, upd)
+        masked_slot_write(st.lu_d[p], 1, slot, pivot, upd)
+        masked_slot_write(st.itl[p], 1, slot, new_row, upd)
+        masked_slot_write(st.itt[p], 2, slot, new_col, upd)
         # raw fibers into cores (dmrgg.f90:662-685)
-        _masked_write(st.cores[p], 2, slot, acol[:, :, None], upd)
-        _masked_write(st.cores[p + 1], 0, slot, arow[None], upd)
-        _masked_write(st.colf[p], 2, slot, new_colf[:, :, None], upd)
-        _masked_write(st.rowf[p + 1], 0, slot, new_rowf[None], upd)
+        masked_slot_write(st.cores[p], 3, slot, acol, upd)
+        masked_slot_write(st.cores[p + 1], 1, slot, arow, upd)
+        masked_slot_write(st.colf[p], 3, slot, new_colf, upd)
+        masked_slot_write(st.rowf[p + 1], 1, slot, new_rowf, upd)
         if p > 0:
             # row factor of bond p-1 on core p gains the new column with the
             # bond p-1 L-solve applied (dmrgg.f90:715-728)
-            _masked_write(st.rowf[p], 2, slot, (st.itl[p - 1] @ acol)[:, :, None], upd)
+            masked_slot_write(st.rowf[p], 3, slot, matmul_by_sums(st.itl[p - 1], acol), upd)
         if p < d - 2:
             # col factor of bond p+1 on core p+1 gains the new row with the
             # bond p+1 T-solve applied (dmrgg.f90:730-749)
-            _masked_write(st.colf[p + 1], 0, slot, (arow @ st.itt[p + 1])[None], upd)
+            masked_slot_write(st.colf[p + 1], 1, slot, matmul_by_sums(arow, st.itt[p + 1]), upd)
 
         apiv = pivot.abs()
         pivotmax = torch.where(upd & (st.pivotmax < 0), apiv,
@@ -426,12 +468,14 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         pivotmin = torch.where(upd & (st.pivotmin < 0), apiv,
                                torch.where(upd, torch.minimum(st.pivotmin, apiv),
                                            st.pivotmin))
-        st.rk[p + 1:p + 2] += upd.to(torch.int32)     # in place
+        st.rk[p + 1] += upd.to(torch.int32)     # in place
         return st._replace(pivotmax=pivotmax, pivotmin=pivotmin)
 
-    def visit_bond(st: CrossState, p: int, fwd: bool, ltab, rtab, u2, lw=None) -> CrossState:
-        """Hunt + (maybe) accept at bond p; u2 (2, NLOT) lottery uniforms,
-        lw the lottery weights of a weighted draw."""
+    def visit_bond(st: CrossState, p: int, fwd: bool, ltab, rtab, u2, lw=None,
+                   live=None) -> CrossState:
+        """Hunt + (maybe) accept at bond p in every lane; u2 (L, 2, NLOT)
+        lottery uniforms, lw the lottery weights of a weighted draw, live
+        (L,) the lanes that may accept (None: all)."""
         if cfg.piv == -1:
             st, piv_idx, pivot, acol, arow = _hunt_full(st, p, ltab, rtab)
         else:
@@ -443,7 +487,35 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         upd = ((pivot.abs() > cfg.small_element * st.amax)
                & (pivot.abs() > cfg.small_pivot * st.pivotmax_prev)
                & (st.rk[p + 1] < R))
+        if live is not None:
+            upd = upd & live
         return _accept(st, p, piv_idx, pivot, acol, arow, upd)
+
+    def sweep_lanes(st: CrossState, it: int, U, lw=None, live=None) -> CrossState:
+        """One sequential sweep of every lane: '>>' on odd it, '<<' on even
+        (dmrgg.f90:314-323).  U (L, d-1, 2, NLOT).  The chain tables of
+        the direction swept away from are built once; those swept into
+        advance per bond.  live (L,) bool: a lane that is not live keeps
+        its state (JAX: vmap of the while loop selects a finished lane's
+        old carry); None: every lane is live."""
+        fwd = it % 2 == 1
+        old = st
+        neg = torch.full((L,), -1.0, dtype=dtype, device=dev)
+        st = st._replace(pivotmax=neg, pivotmin=neg)
+        AT = all_right_tables(st.vip, d) if fwd else all_left_tables(st.vip, d)
+        tab = torch.zeros((L, R, d), dtype=st.vip.dtype, device=dev)
+        for idx in range(d - 1):
+            p = idx if fwd else d - 2 - idx
+            ltab = tab if fwd else AT[p]
+            rtab = AT[p] if fwd else tab
+            st = visit_bond(st, p, fwd, ltab, rtab, U[:, p], lw, live)
+            tab = (advance_left(tab, st.vip[p], p) if fwd
+                   else advance_right(tab, st.vip[p], p - 1))
+        st = st._replace(pivotmax_prev=st.pivotmax)
+        if live is None:
+            return st
+        return st._replace(**{f: torch.where(live, getattr(st, f), getattr(old, f))
+                              for f in _SCALARS})
 
     chain_ev = None if chain is None else ChainEvaluator(chain, d)
     make_sweep_jacobi, jacobi_hunt, jacobi_apply = build_jacobi(
@@ -451,51 +523,47 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
     if cfg.jacobi:
         sweep_jac = {True: make_sweep_jacobi(True), False: make_sweep_jacobi(False)}
 
-    def sweep_fn(st: CrossState, it: int, U, cs=None, lw=None):
-        """One sweep over all bonds: '>>' on odd it, '<<' on even
-        (dmrgg.f90:314-323).  Sequential: the chain tables of the direction
-        swept away from are built once; those swept into advance per bond.
-        All-bonds-batched (cfg.jacobi): cs, the carried packed interface
-        states of the chain path, makes the return (st, cs').  lw (d, N):
-        the scaled lottery weights of a weighted draw."""
-        fwd = it % 2 == 1
-        if cfg.jacobi:
-            return sweep_jac[fwd](st, U, cs, lw)
-        neg = torch.full((), -1.0, dtype=dtype, device=dev)
-        st = st._replace(pivotmax=neg, pivotmin=neg)
-        AT = all_right_tables(st.vip, d) if fwd else all_left_tables(st.vip, d)
-        tab = torch.zeros((R, d), dtype=st.vip.dtype, device=dev)
-        for idx in range(d - 1):
-            p = idx if fwd else d - 2 - idx
-            ltab = tab if fwd else AT[p]
-            rtab = AT[p] if fwd else tab
-            st = visit_bond(st, p, fwd, ltab, rtab, U[p], lw)
-            tab = (advance_left(tab, st.vip[p], p) if fwd
-                   else advance_right(tab, st.vip[p], p - 1))
-        return st._replace(pivotmax_prev=st.pivotmax)
-
-    def value_fn(st: CrossState, w) -> torch.Tensor:
-        """Quadrature value of the current cross against per-mode weights
-        w (d, N), with the growing-LU inverses applied (ttqq + dtt_lua +
-        dtt_quad, dmrgg.f90:975-1006), as a norm-balanced product chain."""
-        mats = torch.einsum("cinj,cn->cij", st.cores, w)       # (d, R, R)
-        mats[1:] = st.itl @ mats[1:]
-        mats[:-1] = mats[:-1] @ st.itt
+    def value_lanes(st: CrossState, w) -> torch.Tensor:
+        """Quadrature value of each lane's current cross against per-mode
+        weights w (d, N), with the growing-LU inverses applied (ttqq +
+        dtt_lua + dtt_quad, dmrgg.f90:975-1006), as a norm-balanced
+        product chain; (L,)."""
+        # products summed as in matmul_by_sums, so a lane's value is its
+        # single run's
+        mats = (st.cores * w[:, None, None, :, None]).sum(dim=3)    # (d, L, R, R)
+        mats[1:] = matmul_by_sums(st.itl, mats[1:])
+        mats[:-1] = matmul_by_sums(mats[:-1], st.itt)
         P, ex = balanced_matmul_chain(mats)
-        return scale_pow2(P[0, 0], ex)
+        return scale_pow2(P[..., 0, 0], ex)
 
-    def finalize_fn(st: CrossState) -> torch.Tensor:
+    def finalize_lanes(st: CrossState) -> torch.Tensor:
         """Apply the LU inverses to all raw cores (dtt_lua,
-        dmrgg.f90:1169-1258): (d, R, N, R) solved cores."""
+        dmrgg.f90:1169-1258): (d, L, R, N, R) solved cores."""
         g = st.cores.clone()
-        g[1:] = torch.einsum("cab,cbnj->canj", st.itl, st.cores[1:])
-        g[:-1] = torch.einsum("canb,cbj->canj", g[:-1], st.itt)
+        g[1:] = torch.einsum("clab,clbnj->clanj", st.itl, st.cores[1:])
+        g[:-1] = torch.einsum("clanb,clbj->clanj", g[:-1], st.itt)
         return g
 
-    return EngineKit(cfg=cfg, init_fn=init_fn, sweep_fn=sweep_fn,
-                     value_fn=value_fn, finalize_fn=finalize_fn,
-                     jacobi_hunt=jacobi_hunt, jacobi_apply=jacobi_apply,
-                     chain_ev=chain_ev)
+    if lanes:
+        return EngineKit(cfg=cfg, init_fn=init_fn, sweep_fn=sweep_lanes, value_fn=value_lanes,
+                         finalize_fn=finalize_lanes, jacobi_hunt=jacobi_hunt,
+                         jacobi_apply=jacobi_apply, chain_ev=chain_ev, lanes=lanes)
+
+    def sweep_fn(st: CrossState, it: int, U, cs=None, lw=None, live=None):
+        """One sweep over all bonds of one run: '>>' on odd it, '<<' on
+        even.  U (d-1, 2, NLOT).  All-bonds-batched (cfg.jacobi): cs, the
+        carried packed interface states of the chain path, makes the
+        return (st, cs').  lw (d, N): the scaled lottery weights of a
+        weighted draw.  live is accepted for the run loop's sake: one run
+        is live in every sweep it makes."""
+        if cfg.jacobi:
+            return sweep_jac[it % 2 == 1](st, U, cs, lw)
+        return lane(sweep_lanes(as_lanes(st), it, U[None], lw), 0)
+
+    return EngineKit(cfg=cfg, init_fn=lambda: lane(init_fn(), 0), sweep_fn=sweep_fn,
+                     value_fn=lambda st, w: value_lanes(as_lanes(st), w)[0],
+                     finalize_fn=lambda st: finalize_lanes(as_lanes(st))[:, 0],
+                     jacobi_hunt=jacobi_hunt, jacobi_apply=jacobi_apply, chain_ev=chain_ev)
 
 
 def finalize(st: CrossState, kit: EngineKit) -> TT:
@@ -539,12 +607,98 @@ def _apply_refine(res: CrossResult, fun, n, refine_sweeps: int, quad, truth,
     return res
 
 
+def _apply_host_reeval(res: CrossResult, fun_np, n, rmax, quad, truth) -> CrossResult:
+    """Host re-evaluation post-pass (cross(host_reeval=fun_np)): rebuild
+    the train from fun_np's data at the run's frozen pivot skeleton,
+    TT-SVD-round it on the host to rmax when given, and value it on the host
+    (ttcross_tpu/cross/engine.py:169-211).  neval and padded_evals grow by
+    the skeleton's samples (real integrand calls); the value is appended
+    with a direction-'hr' history record.  res.state must hold the pivots
+    (return_pivots' shim or a CrossState)."""
+    from ..tt.ortho import svd_round_host
+    from .skeleton import extract_skeleton, reevaluate_host
+
+    dev = res.tt.device
+    skel = extract_skeleton(res, n, device=dev)
+    cores = reevaluate_host(fun_np, skel)
+    if rmax is not None:
+        cores = svd_round_host(cores, tol=0.0, rmax=rmax)
+    res.tt = TT(tuple(torch.from_numpy(c).to(dev) for c in cores))
+    res.ranks = tuple(res.tt.r)
+    res.neval += skel.n_samples
+    if res.padded_evals is not None:
+        res.padded_evals += skel.n_samples
+    if quad is not None:
+        v = np.ones((1, 1))
+        for c, g in enumerate(cores):
+            v = v @ np.einsum("inj,n->ij", g, np.asarray(quad[c], np.float64))
+        val = float(v[0, 0])
+        res.values.append(val)
+        if truth is not None:
+            res.errors.append(abs(1.0 - val / truth))
+        else:
+            prev = res.values[-2]
+            res.errors.append(abs(1.0 - val / prev) if prev != 0 else float("nan"))
+        if res.history is not None:
+            res.history.append(SweepRecord(
+                it=res.sweeps + 1, direction="hr", n_evals=res.neval,
+                pivotmax=float(res.history[-1].pivotmax) if res.history else 0.0,
+                value=val,
+                err=res.errors[-1] if truth is not None else None,
+                cnv=None if truth is not None else res.errors[-1]))
+    return res
+
+
+def _pivot_shim(st: CrossState) -> SimpleNamespace:
+    """cross(return_pivots=True)'s light state: vip and rk as host numpy,
+    what cross/skeleton.py::extract_skeleton reads."""
+    return SimpleNamespace(vip=st.vip.cpu().numpy(), rk=st.rk.cpu().numpy())
+
+
+def run_sweeps(kit: EngineKit, st: CrossState, uniforms, w=None, *, accuracy=None,
+               max_sweeps: int, it0: int = 0, cs=None, lw=None):
+    """Sweeps it0+1 .. it0+max_sweeps of one run (kit.lanes = 0) or of
+    every lane of a lane state, with the strike-based stop
+    (dmrgg.f90:1010-1019) per run: after 3 quiet sweeps in a row a run
+    stops; in a lane state it is frozen while the other lanes go on.
+    uniforms[it - 1]: sweep it's lottery uniforms; w (d, N): the quadrature
+    weights of the per-sweep values (None: no values).  The one host sync
+    per sweep is the stop.  Returns (st, cs, sweeps made, values, pivotmax
+    and n_evals per sweep) as numpy, the first with the state's lane
+    shape, the others (max_sweeps + 1, ...)."""
+    shape, dev = st.amax.shape, st.amax.device
+    vals = torch.zeros((max_sweeps + 1,) + shape, dtype=st.amax.dtype, device=dev)
+    pmax = torch.zeros_like(vals)
+    nev = torch.zeros((max_sweeps + 1,) + shape, dtype=torch.int64, device=dev)
+    if w is not None:
+        vals[0] = kit.value_fn(st, w)
+    live = torch.ones(shape, dtype=torch.bool, device=dev)
+    strike = torch.zeros(shape, dtype=torch.int64, device=dev)
+    last = torch.zeros(shape, dtype=torch.int64, device=dev)
+    for it in range(1, max_sweeps + 1):
+        if cs is None:
+            st = kit.sweep_fn(st, it0 + it, uniforms[it - 1], lw=lw,
+                              live=live if kit.lanes else None)
+        else:
+            st, cs = kit.sweep_fn(st, it0 + it, uniforms[it - 1], cs, lw=lw)
+        st = st._replace(sweeps=st.sweeps + live)
+        if w is not None:
+            vals[it] = kit.value_fn(st, w)
+        pmax[it] = st.pivotmax
+        nev[it] = st.neval
+        last = torch.where(live, it, last)
+        if accuracy is not None:
+            strike = torch.where(st.pivotmax <= accuracy * st.amax, strike + 1, 0)
+            live = live & (strike < 3)
+            if not bool(live.any()):
+                break
+    return (st, cs, last.cpu().numpy(), vals.cpu().numpy(), pmax.cpu().numpy(),
+            nev.cpu().numpy())
+
+
 # kwargs of ttcross_tpu's cross() that the port does not run yet, with the
 # ROADMAP queue 1 item that ports them
-_NOT_PORTED = {
-    "host_reeval": "7b", "return_pivots": "7b", "rank_chunks": "7b", "rank_caps": "7b",
-    "adaptive": "7b",
-}
+_NOT_PORTED = {"rank_chunks": "7b", "rank_caps": "7b", "adaptive": "7b"}
 
 
 def cross(
@@ -603,6 +757,19 @@ def cross(
     alternation of directions where the first one stopped: with the same
     key it repeats the uninterrupted run bit for bit.  The state is copied,
     not changed.
+    return_pivots: res.state becomes a light shim of the pivots (vip and
+    rk as host numpy), enough for cross/skeleton.py::extract_skeleton; the
+    plain run only (ValueError with oversample, refine_sweeps or
+    init_state).
+    host_reeval: re-evaluate the frozen pivot skeleton with a host
+    integrand ``fun_np(ind (B, d) int numpy) -> (B,) f64 numpy`` (e.g.
+    ``IsingProblem.fun_np``) and rebuild, round (to max_rank after an
+    oversampled cross) and value the train on the host, as the JAX package
+    does; n_evals counts the skeleton's samples.  True derives fun_np from
+    fun (cross/skeleton.py::derive_host_fun): fun evaluated on the run's
+    device, for the Ising problem on the card one fused-integrand launch.
+    Plain or oversampled runs only (ValueError with refine_sweeps or
+    init_state).
     sweep_mode: 'sequential' (one bond after the other), or the
     all-bonds-batched sweeps for long chains (cross/engine_jacobi.py):
     'jacobi' (every bond hunts at once against the start-of-sweep factors)
@@ -616,8 +783,7 @@ def cross(
     use_pallas: accepted for API parity and changes nothing: on a CUDA
     state the hand-written kernels always run, on a CPU state their plain
     versions.  Not ported yet (NotImplementedError, ROADMAP queue 1
-    item 7b): host_reeval, return_pivots, rank_chunks, rank_caps, adaptive,
-    dtype=float32."""
+    item 7b): rank_chunks, rank_caps, adaptive, dtype=float32."""
     return _cross(fun, n, max_rank=max_rank, accuracy=accuracy,
                   pivoting=pivoting, quad=quad, truth=truth, key=key,
                   dtype=dtype, verbose=verbose, return_state=return_state,
@@ -625,21 +791,36 @@ def cross(
                   small_pivot=small_pivot, oversample=oversample,
                   sweep_mode=sweep_mode, device=device, chain=chain,
                   weighted_lottery=weighted_lottery, refine_sweeps=refine_sweeps,
-                  init_state=init_state,
-                  not_ported=dict(host_reeval=host_reeval,
-                                  return_pivots=return_pivots,
-                                  rank_chunks=rank_chunks, rank_caps=rank_caps,
+                  init_state=init_state, return_pivots=return_pivots,
+                  host_reeval=host_reeval,
+                  not_ported=dict(rank_chunks=rank_chunks, rank_caps=rank_caps,
                                   adaptive=adaptive))
 
 
 def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
            verbose, return_state, max_sweeps, small_element, small_pivot,
            oversample, sweep_mode, device, chain=None, weighted_lottery=False,
-           refine_sweeps=0, init_state=None, not_ported=None, uniforms=None):
+           refine_sweeps=0, init_state=None, return_pivots=False, host_reeval=None,
+           not_ported=None, uniforms=None):
     """cross() with one more input: uniforms, (max_sweeps, d-1, 2, NLOT)
     lottery uniforms of the (possibly oversampled) run in place of the
     key's draws; the tests feed the JAX engine's draws through it."""
-    for name, val in (not_ported or {}).items():
+    if host_reeval is True:
+        from .skeleton import derive_host_fun
+
+        host_reeval = derive_host_fun(fun, device)
+    elif host_reeval is False:
+        host_reeval = None
+    not_ported = not_ported or {}
+    if host_reeval is not None and (not_ported.get("rank_chunks") is not None
+                                    or refine_sweeps or init_state is not None):
+        # the JAX package rebuilds from its fused path's packed pivots
+        raise ValueError("host_reeval supports plain or oversampled single-chunk runs only")
+    if return_pivots and (oversample or not_ported.get("rank_chunks") is not None
+                          or refine_sweeps or init_state is not None):
+        raise ValueError("return_pivots supports the plain single-chunk run only; "
+                         "use return_state=True otherwise")
+    for name, val in not_ported.items():
         if val is not None and val is not False and val != 0:
             raise NotImplementedError(
                 f"cross({name}=...) is not ported to ttcross_tpu_torch yet "
@@ -663,7 +844,8 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
         if return_state or init_state is not None:
             raise ValueError("oversample is incompatible with state passing")
         # refine_sweeps composes: cross at the inflated rank, replace the
-        # pivots there, then round back to max_rank
+        # pivots there, then round back to max_rank; host_reeval rebuilds
+        # the inflated run's train on the host and rounds it there
         res = _cross(fun, n, max_rank=max_rank + int(oversample),
                      accuracy=accuracy, pivoting=pivoting, quad=quad,
                      truth=truth, key=key, dtype=dtype, verbose=verbose,
@@ -671,8 +853,13 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
                      small_element=small_element, small_pivot=small_pivot,
                      oversample=0, sweep_mode=sweep_mode, device=device,
                      chain=chain, weighted_lottery=weighted_lottery,
-                     refine_sweeps=refine_sweeps, uniforms=uniforms)
-        return round_and_revalue(res, max_rank, quad, truth)
+                     refine_sweeps=refine_sweeps, uniforms=uniforms,
+                     return_pivots=host_reeval is not None)
+        if host_reeval is None:
+            return round_and_revalue(res, max_rank, quad, truth)
+        res = _apply_host_reeval(res, host_reeval, n, max_rank, quad, truth)
+        res.state = None
+        return res
     if weighted_lottery and quad is None:
         raise ValueError("weighted_lottery requires quad weights")
 
@@ -697,11 +884,7 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
                              "re-embeds a state at a larger rank)")
         it0 = int(init_state.sweeps)
     if uniforms is None:
-        # one draw for the whole stream: a run of s sweeps sees the first s
-        # blocks, so a resumed run skips the it0 blocks already used
-        gen = torch.Generator(device="cpu").manual_seed(int(key))
-        uniforms = torch.rand((max(it0 + max_sweeps, 1), d - 1, 2, NLOT), generator=gen,
-                              dtype=torch.float64)[it0:]
+        uniforms = draw_uniforms(key, it0 + max_sweeps, d, NLOT)[it0:]
     uniforms = torch.as_tensor(uniforms, dtype=torch.float64).to(dev)
     if uniforms.shape[0] < max_sweeps or uniforms.shape[1:] != (d - 1, 2, NLOT):
         raise ValueError(f"uniforms must be ({max_sweeps}, {d - 1}, 2, {NLOT}), "
@@ -709,11 +892,7 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
 
     t0 = time.perf_counter()
     with_quad = quad is not None
-    w_host = np.zeros((d, cfg.N))     # filled on the host: one copy to the device, not d
-    if with_quad:
-        for c in range(d):
-            w_host[c, : n[c]] = np.asarray(quad[c])
-    w = torch.from_numpy(w_host).to(dev, dtype)
+    w = quad_matrix(quad, n, cfg.N, dev, dtype) if with_quad else None
     # weighted lottery: |w| per mode, scaled to a maximum of 1 so that the
     # f32 CDF of small weights does not underflow
     lw = w.abs() / w.abs().amax(dim=1, keepdim=True) if cfg.wlot else None
@@ -722,47 +901,17 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
         st = kit.init_fn()
     else:
         st = CrossState(*(t.clone().to(dev) for t in init_state))
-    vals = torch.zeros(max_sweeps + 1, dtype=dtype, device=dev)
-    pmax = torch.zeros(max_sweeps + 1, dtype=dtype, device=dev)
-    nev = torch.zeros(max_sweeps + 1, dtype=torch.int64, device=dev)
-    if with_quad:
-        vals[0] = kit.value_fn(st, w)
     # chain + all-bonds sweeps: the packed interface states are built once
     # and carried through the run, kept up to date after every apply (vip is
     # append-only, so existing rows never go stale)
     cs = kit.chain_ev.states_from_vip(st.vip) if jacobi and chain is not None else None
-    last_it, strike = 0, 0
-    for it in range(1, max_sweeps + 1):
-        if cs is None:
-            st = kit.sweep_fn(st, it0 + it, uniforms[it - 1], lw=lw)
-        else:
-            st, cs = kit.sweep_fn(st, it0 + it, uniforms[it - 1], cs, lw=lw)
-        st = st._replace(sweeps=st.sweeps + 1)
-        if with_quad:
-            vals[it] = kit.value_fn(st, w)
-        pmax[it] = st.pivotmax
-        nev[it] = st.neval
-        last_it = it
-        if accuracy is not None:
-            # the one host sync per sweep: the strike-based stop
-            # (dmrgg.f90:1010-1019)
-            quiet = bool(st.pivotmax <= accuracy * st.amax)
-            strike = strike + 1 if quiet else 0
-            if strike >= 3:
-                break
-
-    vals_h, pmax_h, nev_h = vals.cpu().numpy(), pmax.cpu().numpy(), nev.cpu().numpy()
+    st, cs, last, vals_h, pmax_h, nev_h = run_sweeps(
+        kit, st, uniforms, w, accuracy=accuracy, max_sweeps=max_sweeps, it0=it0, cs=cs, lw=lw)
+    last_it = int(last)
     values, errors = _values_errors(vals_h, last_it, truth, with_quad)
     history = history_from_run(last_it, vals_h, pmax_h, nev_h, truth, with_quad, it0=it0)
     if verbose:
-        for rec in history:
-            line = (f"{rec.it:3d}{rec.direction} n_evals: {rec.n_evals:10d} "
-                    f"pivotmax {rec.pivotmax:9.3e}")
-            if rec.err is not None:
-                line += f" err {rec.err:9.3e} val {rec.value:.14e}"
-            elif rec.cnv is not None:
-                line += f" cnv {rec.cnv:9.3e} val {rec.value:.14e}"
-            print(line)
+        _print_history(history)
     res = CrossResult(
         tt=finalize(st, kit), neval=int(st.neval), sweeps=last_it,
         ranks=tuple(st.rk.tolist()), values=values, errors=errors,
@@ -774,4 +923,39 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
         res.time = time.perf_counter() - t0
     if return_state:
         res.state, res.chain_states = st, cs
+    elif return_pivots or host_reeval is not None:
+        res.state = _pivot_shim(st)
+    if host_reeval is not None:
+        res = _apply_host_reeval(res, host_reeval, n, None, quad, truth)
+        if not (return_state or return_pivots):
+            res.state = None
     return res
+
+
+def draw_uniforms(key: int, sweeps: int, d: int, nlot: int) -> torch.Tensor:
+    """The lottery uniforms of a run with this key: one draw of (sweeps,
+    d-1, 2, nlot) f64 on the CPU from torch.Generator().manual_seed(key),
+    so that CPU and CUDA runs see the same stream and a run of s sweeps
+    sees its first s blocks (a resumed run skips the blocks already used)."""
+    gen = torch.Generator(device="cpu").manual_seed(int(key))
+    return torch.rand((max(sweeps, 1), d - 1, 2, nlot), generator=gen, dtype=torch.float64)
+
+
+def quad_matrix(quad, n, N: int, device, dtype) -> torch.Tensor:
+    """Per-mode quadrature weights as one (d, N) tensor, zero-padded and
+    filled on the host: one copy to the device, not d."""
+    w = np.zeros((len(n), N))
+    for c in range(len(n)):
+        w[c, : n[c]] = np.asarray(quad[c])
+    return torch.from_numpy(w).to(device, dtype)
+
+
+def _print_history(history) -> None:
+    for rec in history:
+        line = (f"{rec.it:3d}{rec.direction} n_evals: {rec.n_evals:10d} "
+                f"pivotmax {rec.pivotmax:9.3e}")
+        if rec.err is not None:
+            line += f" err {rec.err:9.3e} val {rec.value:.14e}"
+        elif rec.cnv is not None:
+            line += f" cnv {rec.cnv:9.3e} val {rec.value:.14e}"
+        print(line)

@@ -9,6 +9,13 @@ sweep's uniforms come from outside (cross/engine.py), drawn from the run's
 key one block per sweep; ``sweeps`` counts the sweeps made, so that a
 resumed run (cross(init_state=...)) goes on in that stream where the first
 run stopped.
+
+A lane state holds L runs of one configuration (cross/batch.py): every
+array field gains a lane axis right after its core or bond axis (cores
+(d, L, R, N, R), rk (d+1, L), vip (d-1, L, R, 4), lu_d (d-1, L, R), ...),
+so that one bond's slice of every lane is contiguous, and the 0-d fields
+become (L,).  as_lanes and lane convert by views, so the engine's in-place
+writes reach both forms.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["CrossState", "empty_state", "pad_state"]
+__all__ = ["CrossState", "empty_state", "pad_state", "as_lanes", "lane"]
 
 
 class CrossState(NamedTuple):
@@ -74,22 +81,36 @@ def pad_state(st: CrossState, R_new: int) -> CrossState:
         itl=pad_sq(st.itl) + eye_tail, itt=pad_sq(st.itt) + eye_tail)
 
 
-def empty_state(d: int, N: int, R: int, dtype: torch.dtype, device) -> CrossState:
+def empty_state(d: int, N: int, R: int, dtype: torch.dtype, device, lanes: int = 0) -> CrossState:
+    """The state before the initial cross; lanes = L >= 1 gives a lane
+    state of L runs."""
+    ln = (lanes,) if lanes else ()
+
     def z(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    eye = torch.eye(R, dtype=dtype, device=device).expand(d - 1, R, R)
+    def full(shape, value, dt=dtype):
+        return torch.full(shape, value, dtype=dt, device=device)
+
+    eye = torch.eye(R, dtype=dtype, device=device).expand(d - 1, *ln, R, R)
     return CrossState(
-        cores=z(d, R, N, R), colf=z(d, R, N, R), rowf=z(d, R, N, R),
-        rk=torch.ones(d + 1, dtype=torch.int32, device=device),
-        vip=torch.zeros((d - 1, R, 4), dtype=torch.int32, device=device),
-        lu_c=z(d - 1, R, R), lu_u=z(d - 1, R, R),
-        lu_d=torch.ones((d - 1, R), dtype=dtype, device=device),
+        cores=z(d, *ln, R, N, R), colf=z(d, *ln, R, N, R), rowf=z(d, *ln, R, N, R),
+        rk=full((d + 1, *ln), 1, torch.int32),
+        vip=full((d - 1, *ln, R, 4), 0, torch.int32),
+        lu_c=z(d - 1, *ln, R, R), lu_u=z(d - 1, *ln, R, R),
+        lu_d=full((d - 1, *ln, R), 1.0),
         itl=eye.clone(), itt=eye.clone(),
-        amax=z(), pivotmax=torch.full((), -1.0, dtype=dtype, device=device),
-        pivotmin=torch.full((), -1.0, dtype=dtype, device=device),
-        pivotmax_prev=z(),
-        neval=torch.zeros((), dtype=torch.int64, device=device),
-        padded=torch.zeros((), dtype=torch.int64, device=device),
-        sweeps=torch.zeros((), dtype=torch.int64, device=device),
+        amax=z(*ln), pivotmax=full(ln, -1.0), pivotmin=full(ln, -1.0), pivotmax_prev=z(*ln),
+        neval=full(ln, 0, torch.int64), padded=full(ln, 0, torch.int64),
+        sweeps=full(ln, 0, torch.int64),
     )
+
+
+def as_lanes(st: CrossState) -> CrossState:
+    """One run's state as a lane state of one lane, by views."""
+    return CrossState(*(t.unsqueeze(0) if t.dim() == 0 else t.unsqueeze(1) for t in st))
+
+
+def lane(st: CrossState, i: int) -> CrossState:
+    """Lane i of a lane state as one run's state, by views."""
+    return CrossState(*(t[i] if t.dim() == 1 else t[:, i] for t in st))

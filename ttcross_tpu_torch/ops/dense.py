@@ -18,7 +18,7 @@ import torch
 from .kernels import small_table_lookup
 
 __all__ = ["as_tensor", "table_lookup", "row_lookup", "batched_row_lookup",
-           "masked_slot_write", "pow2_balance_mats", "balanced_matmul_chain",
+           "masked_slot_write", "matmul_by_sums", "pow2_balance_mats", "balanced_matmul_chain",
            "scale_pow2", "svd_chopped", "matinv", "eye", "laplace", "norm2p",
            "qr_ort", "gram_schmidt", "orto_block", "aca", "greedy_cur",
            "transpose2d", "transpose3d"]
@@ -105,20 +105,34 @@ def pow2_balance_mats(x):
     return _scale_by_halves(x, (2047 - ex)[..., None, None]), ex - 1
 
 
+def matmul_by_sums(a, b):
+    """a (..., M, K) @ b (..., K, Q) as elementwise products summed over a
+    contiguous last axis.  Each matrix of a batch is then computed the same
+    way whatever the batch's size: torch takes cuBLAS's single gemm for a
+    batch of one matrix and its batched gemm for more (on the CPU a gemv
+    against a batched path), which round otherwise, while a short sum over
+    the last axis does not depend on the number of sums.  So a lane of a
+    family (cross/batch.py) repeats its single run bit for bit.  For the
+    engine's small products (K, Q <= a few dozen)."""
+    return (a[..., :, None, :] * b.mT.contiguous()[..., None, :, :]).sum(dim=-1)
+
+
 def balanced_matmul_chain(mats):
     """Ordered product of a (K, R, R) stack as a log2(K)-depth pairwise
     tree with an exact power-of-2 rebalance per level.  Returns (P, e) with
     mats[0] @ ... @ mats[K-1] = P * 2^e and max|P| ~ 1, so long chains
-    whose partial products leave the f64 range stay representable."""
+    whose partial products leave the f64 range stay representable.  A
+    (K, L, R, R) stack chains each of its L lanes: P (L, R, R), e (L,), each
+    lane's product the same as alone (matmul_by_sums)."""
     K, R = mats.shape[0], mats.shape[-1]
     mats, ex = pow2_balance_mats(mats)
     P = 1 << max(K - 1, 1).bit_length()        # next power of two >= K
     if P > K:
         eye = torch.eye(R, dtype=mats.dtype, device=mats.device)
-        mats = torch.cat([mats, eye.expand(P - K, R, R)], dim=0)
-        ex = torch.cat([ex, ex.new_zeros(P - K)])
+        mats = torch.cat([mats, eye.expand(P - K, *mats.shape[1:])], dim=0)
+        ex = torch.cat([ex, ex.new_zeros((P - K,) + ex.shape[1:])])
     while mats.shape[0] > 1:
-        prod, e = pow2_balance_mats(mats[0::2] @ mats[1::2])
+        prod, e = pow2_balance_mats(matmul_by_sums(mats[0::2], mats[1::2]))
         mats, ex = prod, ex[0::2] + ex[1::2] + e
     return mats[0], ex[0]
 

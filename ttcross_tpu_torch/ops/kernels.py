@@ -58,6 +58,28 @@ COL, ROW, TWO_D = 0, 1, 2  # kernel A's paths (`path` of csrc's entry point)
 BATCH_COL, BATCH_ROW = 3, 4  # ... and of its entry point batched over bonds
 
 
+def _launchable(*tensors):
+    """The tensors a kernel launches on.  Under torch.func.grad every tensor
+    an op makes is wrapped, also a constant of the differentiated function
+    (no gradient flows through it): such a wrapper is taken off, and the
+    wrapper's launch then runs outside the transforms
+    (torch._C._DisableFuncTorch), so that its output is a plain tensor the
+    transform takes as a constant.  A tensor that torch.func.vmap batches,
+    or that carries a gradient, raises a TypeError: the kernel computes
+    neither a batch rule nor a derivative."""
+    out = []
+    for t in tensors:
+        while torch._C._functorch.is_functorch_wrapped_tensor(t):
+            if torch._C._functorch.is_batchedtensor(t) or t.requires_grad:
+                raise TypeError("a hand kernel cannot run on a tensor that torch.func.vmap "
+                                "batches or that carries a gradient; give the integrand a "
+                                "lane-batched form (cross/batch.py::lane_batched) and keep "
+                                "the kernel's inputs free of the differentiated parameters")
+            t = torch._C._functorch.get_unwrapped(t)
+        out.append(t)
+    return out
+
+
 def _check_cuda(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} must lie on {device}, got {t.device}")
@@ -196,30 +218,32 @@ def score_residual_argmax(vals, colf, rowf, mask):
     buffer allocated per call."""
     if vals.device.type == "cpu":
         return score_residual_argmax_plain(vals, colf, rowf, mask)
-    dev = vals.device
-    _check_cuda("vals", vals, _F64, 2, dev)
-    _check_cuda("colf", colf, _F64, 2, dev)
-    _check_cuda("rowf", rowf, _F64, 2, dev)
-    _check_cuda("mask", mask, _MASK, 2, dev)
-    M, K = vals.shape
-    R = colf.shape[1]
-    if colf.shape[0] != M or rowf.shape != (R, K) or mask.shape != (M, K):
-        raise ValueError(f"shape mismatch: vals {tuple(vals.shape)}, colf "
-                         f"{tuple(colf.shape)}, rowf {tuple(rowf.shape)}, "
-                         f"mask {tuple(mask.shape)}")
-    if M * K == 0:
-        raise ValueError("score_residual_argmax of an empty matrix")
-    plan = _plan(M, K, R, _sms(dev.index))
-    # 8-byte words: [index, score, residual, nparts scores, indices, residuals]
-    buf = torch.empty(3 + 3 * plan.nparts, dtype=torch.int64, device=dev)
-    rc = _call(dev, _lib().ttc_score_residual_argmax, vals.data_ptr(),
-               colf.data_ptr(), rowf.data_ptr(), mask.data_ptr(), M, K, R,
-               plan.path, plan.blocks, plan.threads, plan.smem, buf.data_ptr())
-    _raise_on(rc, "score_residual_argmax launch")
-    score_residual_argmax.launches += 1
-    _SHAPES["score_residual_argmax", (M, K, R)] += 1
-    f64 = buf[:3].view(torch.float64)
-    return buf[0], f64[1], f64[2]
+    vals, colf, rowf, mask = _launchable(vals, colf, rowf, mask)
+    with torch._C._DisableFuncTorch():     # plain tensors from here on
+        dev = vals.device
+        _check_cuda("vals", vals, _F64, 2, dev)
+        _check_cuda("colf", colf, _F64, 2, dev)
+        _check_cuda("rowf", rowf, _F64, 2, dev)
+        _check_cuda("mask", mask, _MASK, 2, dev)
+        M, K = vals.shape
+        R = colf.shape[1]
+        if colf.shape[0] != M or rowf.shape != (R, K) or mask.shape != (M, K):
+            raise ValueError(f"shape mismatch: vals {tuple(vals.shape)}, colf "
+                             f"{tuple(colf.shape)}, rowf {tuple(rowf.shape)}, "
+                             f"mask {tuple(mask.shape)}")
+        if M * K == 0:
+            raise ValueError("score_residual_argmax of an empty matrix")
+        plan = _plan(M, K, R, _sms(dev.index))
+        # 8-byte words: [index, score, residual, nparts scores, indices, residuals]
+        buf = torch.empty(3 + 3 * plan.nparts, dtype=torch.int64, device=dev)
+        rc = _call(dev, _lib().ttc_score_residual_argmax, vals.data_ptr(),
+                   colf.data_ptr(), rowf.data_ptr(), mask.data_ptr(), M, K, R,
+                   plan.path, plan.blocks, plan.threads, plan.smem, buf.data_ptr())
+        _raise_on(rc, "score_residual_argmax launch")
+        score_residual_argmax.launches += 1
+        _SHAPES["score_residual_argmax", (M, K, R)] += 1
+        f64 = buf[:3].view(torch.float64)
+        return buf[0], f64[1], f64[2]
 
 
 score_residual_argmax.launches = 0
@@ -258,29 +282,31 @@ def score_residual_argmax_batched(vals, colf, rowf, mask):
     buffer allocated per call."""
     if vals.device.type == "cpu":
         return score_residual_argmax_batched_plain(vals, colf, rowf, mask)
-    dev = vals.device
-    _check_cuda("vals", vals, _F64, 3, dev)
-    _check_cuda("colf", colf, _F64, 3, dev)
-    _check_cuda("rowf", rowf, _F64, 3, dev)
-    _check_cuda("mask", mask, _MASK, 3, dev)
-    P, M, K = vals.shape
-    R = colf.shape[2]
-    if colf.shape != (P, M, R) or rowf.shape != (P, R, K) or mask.shape != (P, M, K):
-        raise ValueError(f"shape mismatch: vals {tuple(vals.shape)}, colf "
-                         f"{tuple(colf.shape)}, rowf {tuple(rowf.shape)}, "
-                         f"mask {tuple(mask.shape)}")
-    if P * M * K == 0:
-        raise ValueError("score_residual_argmax_batched of an empty stack")
-    plan = _plan(M, K, R, _sms(dev.index), bonds=P)
-    buf = torch.empty(3 * P, dtype=torch.int64, device=dev)   # [indices, scores, residuals]
-    rc = _call(dev, _lib().ttc_score_residual_argmax_batched, vals.data_ptr(),
-               colf.data_ptr(), rowf.data_ptr(), mask.data_ptr(), P, M * K, R,
-               int(plan.path == BATCH_COL), plan.threads, plan.smem, buf.data_ptr())
-    _raise_on(rc, "score_residual_argmax_batched launch")
-    score_residual_argmax_batched.launches += 1
-    _SHAPES["score_residual_argmax_batched", (P, M, K, R)] += 1
-    f64 = buf.view(torch.float64)
-    return buf[:P], f64[P:2 * P], f64[2 * P:]
+    vals, colf, rowf, mask = _launchable(vals, colf, rowf, mask)
+    with torch._C._DisableFuncTorch():     # plain tensors from here on
+        dev = vals.device
+        _check_cuda("vals", vals, _F64, 3, dev)
+        _check_cuda("colf", colf, _F64, 3, dev)
+        _check_cuda("rowf", rowf, _F64, 3, dev)
+        _check_cuda("mask", mask, _MASK, 3, dev)
+        P, M, K = vals.shape
+        R = colf.shape[2]
+        if colf.shape != (P, M, R) or rowf.shape != (P, R, K) or mask.shape != (P, M, K):
+            raise ValueError(f"shape mismatch: vals {tuple(vals.shape)}, colf "
+                             f"{tuple(colf.shape)}, rowf {tuple(rowf.shape)}, "
+                             f"mask {tuple(mask.shape)}")
+        if P * M * K == 0:
+            raise ValueError("score_residual_argmax_batched of an empty stack")
+        plan = _plan(M, K, R, _sms(dev.index), bonds=P)
+        buf = torch.empty(3 * P, dtype=torch.int64, device=dev)   # [indices, scores, residuals]
+        rc = _call(dev, _lib().ttc_score_residual_argmax_batched, vals.data_ptr(),
+                   colf.data_ptr(), rowf.data_ptr(), mask.data_ptr(), P, M * K, R,
+                   int(plan.path == BATCH_COL), plan.threads, plan.smem, buf.data_ptr())
+        _raise_on(rc, "score_residual_argmax_batched launch")
+        score_residual_argmax_batched.launches += 1
+        _SHAPES["score_residual_argmax_batched", (P, M, K, R)] += 1
+        f64 = buf.view(torch.float64)
+        return buf[:P], f64[P:2 * P], f64[2 * P:]
 
 
 score_residual_argmax_batched.launches = 0
@@ -308,25 +334,27 @@ def small_table_lookup(tables, ind):
     ``small_table_lookup.launches``."""
     if tables.device.type == "cpu":
         return small_table_lookup_plain(tables, ind)
-    dev = tables.device
-    _check_cuda("tables", tables, _F64, 2, dev)
-    _check_cuda("ind", ind, _I32, 2, dev)
-    L, n = tables.shape
-    if L * n * 8 > _LOOKUP_SMEM:
-        raise ValueError(f"tables ({L}, {n}) exceed the kernel's "
-                         f"{_LOOKUP_SMEM}-byte shared-memory budget")
-    B, d = ind.shape
-    E = B * d
-    out = torch.empty((L, B, d), dtype=torch.float64, device=dev)
-    if E == 0:
+    tables, ind = _launchable(tables, ind)
+    with torch._C._DisableFuncTorch():     # plain tensors from here on
+        dev = tables.device
+        _check_cuda("tables", tables, _F64, 2, dev)
+        _check_cuda("ind", ind, _I32, 2, dev)
+        L, n = tables.shape
+        if L * n * 8 > _LOOKUP_SMEM:
+            raise ValueError(f"tables ({L}, {n}) exceed the kernel's "
+                             f"{_LOOKUP_SMEM}-byte shared-memory budget")
+        B, d = ind.shape
+        E = B * d
+        out = torch.empty((L, B, d), dtype=torch.float64, device=dev)
+        if E == 0:
+            return out
+        blocks = min(-(-E // _THREADS), _LOOKUP_BLOCKS_PER_SM * _sms(dev.index))
+        rc = _call(dev, _lib().ttc_small_table_lookup, tables.data_ptr(), L, n,
+                   ind.data_ptr(), E, out.data_ptr(), blocks)
+        _raise_on(rc, "small_table_lookup launch")
+        small_table_lookup.launches += 1
+        _SHAPES["small_table_lookup", (L, B, d, n)] += 1
         return out
-    blocks = min(-(-E // _THREADS), _LOOKUP_BLOCKS_PER_SM * _sms(dev.index))
-    rc = _call(dev, _lib().ttc_small_table_lookup, tables.data_ptr(), L, n,
-               ind.data_ptr(), E, out.data_ptr(), blocks)
-    _raise_on(rc, "small_table_lookup launch")
-    small_table_lookup.launches += 1
-    _SHAPES["small_table_lookup", (L, B, d, n)] += 1
-    return out
 
 
 small_table_lookup.launches = 0
@@ -420,25 +448,27 @@ def ising_integrand_fused(tables, ind, kind: str):
     out and adds one to ``ising_integrand_fused.launches``."""
     if ind.device.type == "cpu":
         return ising_integrand_plain(tables, ind, kind)
-    kid = ISING_KINDS[kind.upper()]
-    dev = ind.device
-    _check_cuda("ind", ind, _I32, 2, dev)
-    _check_cuda("tables", tables, _F64, 2, dev)
-    if tables.shape[0] != 2:
-        raise ValueError(f"tables must be (2, n): nodes and weights, got {tuple(tables.shape)}")
-    B, d = ind.shape
-    n = tables.shape[1]
-    plan = _integrand_plan(B, d, n)
-    out = torch.empty((B,), dtype=torch.float64, device=dev)
-    if B == 0:
+    tables, ind = _launchable(tables, ind)
+    with torch._C._DisableFuncTorch():     # plain tensors from here on
+        kid = ISING_KINDS[kind.upper()]
+        dev = ind.device
+        _check_cuda("ind", ind, _I32, 2, dev)
+        _check_cuda("tables", tables, _F64, 2, dev)
+        if tables.shape[0] != 2:
+            raise ValueError(f"tables must be (2, n): nodes and weights, got {tuple(tables.shape)}")
+        B, d = ind.shape
+        n = tables.shape[1]
+        plan = _integrand_plan(B, d, n)
+        out = torch.empty((B,), dtype=torch.float64, device=dev)
+        if B == 0:
+            return out
+        den0 = 0.0 if d <= _ATERM_LOOP_D else 1.0   # the plain a-term's ratio where P_j + P_i = 0
+        rc = _call(dev, _lib().ttc_ising_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d,
+                   kid, plan.path, plan.blocks, plan.threads, plan.smem, den0, out.data_ptr())
+        _raise_on(rc, "ising_integrand_fused launch")
+        ising_integrand_fused.launches += 1
+        _SHAPES["ising_integrand_fused", (B, d, n)] += 1
         return out
-    den0 = 0.0 if d <= _ATERM_LOOP_D else 1.0   # the plain a-term's ratio where P_j + P_i = 0
-    rc = _call(dev, _lib().ttc_ising_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d,
-               kid, plan.path, plan.blocks, plan.threads, plan.smem, den0, out.data_ptr())
-    _raise_on(rc, "ising_integrand_fused launch")
-    ising_integrand_fused.launches += 1
-    _SHAPES["ising_integrand_fused", (B, d, n)] += 1
-    return out
 
 
 ising_integrand_fused.launches = 0

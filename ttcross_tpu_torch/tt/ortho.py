@@ -1,10 +1,12 @@
 """TT orthogonalization and TT-SVD rounding.
 
-Counterpart of ttcross_tpu/tt/ortho.py (:24-101): dtt_ort (tt.f90:130-198),
+Counterpart of ttcross_tpu/tt/ortho.py (:24-154): dtt_ort (tt.f90:130-198),
 dtt_svd (tt.f90:307-368) and the rank-chopping rule chop (mat.f90:433-458).
 The QR and SVD factorizations run with torch.linalg on the train's device
 (cuSOLVER in f64 on CUDA); only the singular values and norms come to the
-host, for the rank choice and the scalar norm bookkeeping.
+host, for the rank choice and the scalar norm bookkeeping.  svd_round_host
+is the same truncation in numpy on the host, for cores rebuilt there
+(cross/skeleton.py::reevaluate_host).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from .types import TT
 
-__all__ = ["chop_rank", "orthogonalize", "svd_round"]
+__all__ = ["chop_rank", "orthogonalize", "svd_round", "svd_round_host"]
 
 
 def chop_rank(s, tol: float | None = None, rmax: int | None = None) -> int:
@@ -97,3 +99,25 @@ def svd_round(t: TT, tol: float = 1e-14, rmax: int | None = None) -> TT:
         lognrm += math.log(nrm)
     common = math.exp(lognrm / d)
     return TT(tuple(c * common for c in cores))
+
+
+def svd_round_host(cores: list, tol: float = 0.0, rmax: int | None = None) -> list:
+    """TT-SVD truncation of plain numpy cores in numpy on the host, with
+    the chop rule of svd_round: a left-to-right QR sweep, then a
+    right-to-left SVD chop.  Returns numpy cores.  cross(host_reeval=...)
+    rounds the train it rebuilt on the host with it, as the JAX package
+    does."""
+    cs = [np.asarray(c, np.float64) for c in cores]
+    d = len(cs)
+    for k in range(d - 1):
+        rl, nc, rr = cs[k].shape
+        q, r = np.linalg.qr(cs[k].reshape(rl * nc, rr))
+        cs[k] = q.reshape(rl, nc, q.shape[1])
+        cs[k + 1] = np.einsum("ij,jnk->ink", r, cs[k + 1])
+    for k in range(d - 1, 0, -1):
+        rc, nc, rn = cs[k].shape
+        u, s, vh = np.linalg.svd(cs[k].reshape(rc, nc * rn), full_matrices=False)
+        rr = chop_rank(s, tol=tol, rmax=rmax)
+        cs[k] = vh[:rr].reshape(rr, nc, rn)
+        cs[k - 1] = np.einsum("inj,jk->ink", cs[k - 1], u[:, :rr] * s[:rr])
+    return cs
