@@ -6,7 +6,8 @@
                                      # one steady headline run, of the
                                      # steady long-chain runs, of the long
                                      # chain's parts per call, of the MVN
-                                     # runs and of a maxvol sweep's parts
+                                     # runs, of a maxvol sweep's parts and
+                                     # of the capped and the f32 C_6 runs
     python3 chip_smoke.py --parent DIR   # also times the kernels and the
                                      # integrand of another checkout (e.g.
                                      # the parent commit, unpacked with git
@@ -34,7 +35,10 @@ Phases, each printing its result as it goes:
      and, bit for bit, against one single-fiber launch per bond; kernel A
      and kernel B at every shape the MVN / COS path gives them (mvn_shapes:
      the rook fibers at ranks 20, 26 and 8, the lottery and init batches,
-     the maxvol fiber crosses (26000, 6) and (43940, 6));
+     the maxvol fiber crosses (26000, 6) and (43940, 6)); and the f32
+     instantiation of every kernel (f32_cases) at the shapes the f32 runs
+     of phase 14 give it, and kernel A's 2-D path (the SIMT kernel), the
+     batched kernel A and the integrand's warp path at the f64 phase's;
   4. the main path: the f64 cross on the Ising C_6 integrand at rank 24
      with oversample=6 (bench.py's headline configuration) on the card,
      twice with key 0 (first and steady time; the kernels' launch counts
@@ -80,11 +84,23 @@ Phases, each printing its result as it goes:
  10. the Greeks of drivers/crs_greeks.py (d = 6, n = 65, rank 14): a cross at
      rho0, its frozen skeleton, torch.func.grad of the skeleton value against
      a central difference, and the torch.func.vmap rho sweep of values and
-     Greeks against the pointwise ones.
+     Greeks against the pointwise ones;
+ 11. the capped and chunked C_6 (rank 24, rank_chunks=[4, ..., 24],
+     rank_caps=[16, 24, 24, 16]) over keys 0-7, each key's padded ratio and
+     digits held; rank_chunks="auto" and the uncapped run at key 0 beside it;
+     the per-bond, per-chunk shapes held as phase 3 holds its own;
+ 12. stdnorm_d10 with and without adaptive=True: n_evals, digits, walls,
+     and adaptive sweeps under torch's sync debug mode set to raise;
+ 13. quantics: exp(x) sin(6 pi x) on 2^20 points, greedy (the plateau) and
+     with refine_sweeps=1 (< 1e-12 at x = i/64), exp's Riemann sum, a 2-D
+     Gaussian;
+ 14. the f32 tier: C_6 (rank 24) in float32 over keys 0-7 and mvn_d6 greedy
+     in float32, through the kernels' f32 instantiations only.
 The line before the last is the kernels' JSON summary, one entry for every
 (kernel, shape) that the C_6 headline, the C_256 long chain, each
-configuration of phase 7 and phases 8-10 launched at, with that run's launches at the shape
-beside phase 3's error, times and bound there; the last line is
+configuration of phase 7 and phases 8-14 launched at (an f32 launch's entry
+named <kernel>_f32), with that run's launches at the shape beside phase 3's
+error, times and bound there; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 It imports nothing of JAX.
 """
@@ -92,6 +108,7 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -186,6 +203,29 @@ GREEK_SWEEP_RTOL = 1e-10    # the vmapped rho sweep of values against the pointw
                             # batched solves round otherwise, and the late pivot submatrices of
                             # the rank-14 skeleton are near-singular (CPU: 2.3e-11); its Greeks
                             # are held as the gradient is, to GREEK_FD_RTOL * max(1, |greek|)
+# The capped and chunked C_6 (tests/test_engine.py:284-297, the JAX package's
+# slow test, and bench.py:630-636's padded-ratio line): every key's padded
+# evaluations within 1.25x of its active ones and >= 11 digits.
+CAPPED = dict(m=6, n=64, max_rank=24, accuracy=500 * 2.2e-16, pivoting=1,
+              rank_chunks=[4, 8, 12, 16, 20, 24], rank_caps=[16, 24, 24, 16])
+CAPPED_PADDED_RATIO = 1.25
+CAPPED_DIGITS = 11.0
+# Quantics (tests/test_quantics.py:104-125): exp(x) sin(6 pi x) on 2^20
+# points; the greedy train plateaus above 1e-9 point error, one maxvol sweep
+# brings it under 1e-12.
+QUANTICS = dict(K=20, max_rank=10, pivoting=2, accuracy=1e-13)
+QUANTICS_PLATEAU = 1e-9
+QUANTICS_REFINED = 1e-12
+# The f32 tier: C_6 (n = 65, rank 24) and mvn_d6 (n = 65, rank 20) in
+# float32, rook, accuracy 1e-6.  Digits over keys 0-7 on the CPU, port /
+# JAX package (TTCROSS_NO_X64=1), as minimum, median, maximum
+# (PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_f32.py prints them):
+#   C_6    6.69 6.95 7.15 / 6.32 6.82 7.68
+#   mvn_d6 3.38 4.37 4.83 / 3.85 4.30 5.07   (key 0: 4.49 / 4.73)
+# C_6 is held at its median of keys 0-7 and each key under both minima;
+# mvn_d6 at key 0 under both minima.
+F32_ACCURACY = 1e-6
+F32_FLOORS = {"C_6": (6.5, 6.2), "mvn_d6": 3.3}
 KERNEL_REPLACES = {   # the TPU kernel each CUDA kernel stands for
     "score_residual_argmax": "ttcross_tpu/ops/pallas_kernels.py:62",
     "score_residual_argmax_batched": "ttcross_tpu/ops/pallas_kernels.py:62",
@@ -194,8 +234,13 @@ KERNEL_REPLACES = {   # the TPU kernel each CUDA kernel stands for
 }
 SCORE_RTOL = 1e-12          # kernel A vs cuBLAS: f64 sums in another order
                             # (the 2-D path's DMMA tiles in yet another)
+F32_RTOL = 1e-5             # an f32 kernel vs its plain version in f32 (cuBLAS sgemm without
+                            # TF32, torch's cumprod): sums in another order, a few f32 ulps of
+                            # the largest term; the fused integrand's D / E a-terms magnify an
+                            # ulp of nearby prefix products (_integrand_rtol)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 F64_FLOPS = 67e12           # ... f64 on the tensor cores, the card's f64 peak
+F32_FLOPS = 67e12           # ... f32 outside the tensor cores (the f32 kernels run on the FMA pipe)
 
 
 def _emit(obj) -> None:
@@ -220,55 +265,67 @@ def _time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def _score_inputs(gen, M, K, R, dev):
+def _score_inputs(gen, M, K, R, dev, dtype=None):
     """Random kernel-A inputs whose best score is clear of the second best
-    by more than rounding (so the index is well defined)."""
+    by more than rounding (so the index is well defined): f64, or f32
+    (dtype=torch.float32, clear by more than f32 rounding)."""
     import torch
 
+    f32 = dtype == torch.float32
     while True:
-        vals = torch.randn((M, K), generator=gen, dtype=torch.float64).to(dev)
-        colf = torch.randn((M, R), generator=gen, dtype=torch.float64).to(dev)
-        rowf = torch.randn((R, K), generator=gen, dtype=torch.float64).to(dev)
-        mask = (torch.rand((M, K), generator=gen) > 0.2).to(dev)
+        vals, colf, rowf = (torch.randn(s, generator=gen, dtype=torch.float64)
+                            for s in ((M, K), (M, R), (R, K)))
+        if f32:
+            vals, colf, rowf = (x.float().double() for x in (vals, colf, rowf))
+        mask = torch.rand((M, K), generator=gen) > 0.2
         resid = (vals - colf @ rowf).abs()
         top = torch.topk(torch.where(mask, resid, -1.0).reshape(-1), 2).values
-        if float(top[0] - top[1]) > 1e-9 * float(top[0]):
-            return vals, colf, rowf, mask
+        if float(top[0] - top[1]) > (1e-4 if f32 else 1e-9) * float(top[0]):
+            dt = torch.float32 if f32 else torch.float64
+            return tuple(x.to(dev, dt) for x in (vals, colf, rowf)) + (mask.to(dev),)
 
 
-def _bound_us(nbytes: int, flops: int):
+def _tag(t) -> list:
+    """What an f32 launch's shape carries in launch_shapes() (ops/kernels.py)."""
+    import torch
+
+    return ["f32"] if t.dtype == torch.float32 else []
+
+
+def _bound_us(nbytes: int, flops: int, esz: int = 8):
     """The least time the card could take: bytes over the memory rate or
-    flops over the f64 peak, whichever is larger, and which one it is."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F64_FLOPS
+    flops over the peak of the element type (esz bytes: f64 on the tensor
+    cores, f32 outside them), whichever is larger, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / (F64_FLOPS if esz == 8 else F32_FLOPS)
     return max(t_bytes, t_ops) * 1e6, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _score_bound(M, K, R):
-    # vals, colf, rowf and the mask read once; three 8-byte results written
-    return _bound_us(8 * (M * K + M * R + R * K) + M * K + 24, 2 * M * K * R)
+def _score_bound(M, K, R, esz=8):
+    # vals, colf, rowf and the mask read once; three 8-byte result words written
+    return _bound_us(esz * (M * K + M * R + R * K) + M * K + 24, 2 * M * K * R, esz)
 
 
-def _batched_bound(P, M, K, R):
-    # per bond: vals, colf, rowf and the mask read once, three 8-byte results written
-    return _bound_us(P * (8 * (M * K + M * R + R * K) + M * K + 24), 2 * P * M * K * R)
+def _batched_bound(P, M, K, R, esz=8):
+    # per bond: vals, colf, rowf and the mask read once, three 8-byte result words written
+    return _bound_us(P * (esz * (M * K + M * R + R * K) + M * K + 24), 2 * P * M * K * R, esz)
 
 
-def _lookup_bound(L, E, n):
-    # the tables and the int32 indices read once, L f64 outputs per index
-    return _bound_us(8 * L * n + 4 * E + 8 * L * E, 0)
+def _lookup_bound(L, E, n, esz=8):
+    # the tables and the int32 indices read once, L outputs per index
+    return _bound_us(esz * L * n + 4 * E + esz * L * E, 0, esz)
 
 
-def _integrand_bound(kind, B, d, n):
-    # the int32 indices and the (2, n) table read once, one f64 per row
+def _integrand_bound(kind, B, d, n, esz=8):
+    # the int32 indices and the (2, n) table read once, one value per row
     # written; per variable a prefix product and a weight product, for C
     # and D also the prefix sum and the suffix product and sum; for D and
     # E five operations per pair i < j (difference, sum, ratio, square,
     # product); four per row to combine
     per_row = 2 * d + (3 * d if kind in "CD" else 0) + (5 * d * (d + 1) // 2 if kind in "DE" else 0)
-    return _bound_us(4 * B * d + 16 * n + 8 * B, B * (per_row + 4))
+    return _bound_us(4 * B * d + 2 * esz * n + esz * B, B * (per_row + 4), esz)
 
 
-def _integrand_rtol(kind, d, on_card):
+def _integrand_rtol(kind, d, on_card, f32=False):
     """Fused kernel vs plain, per value.  The row path (d <= 8) keeps the
     order of the plain version on the CPU: a few ulps.  The plain version on
     the card forms its prefix products as a tree (torch's CUDA cumprod),
@@ -276,19 +333,24 @@ def _integrand_rtol(kind, d, on_card):
     1 - 3e-4 at n = 65) magnify its one-ulp differences ~3000-fold, so D
     and E are held to it at 1e-11.  The warp path's tree scans give C's
     sums of prefix products to 1e-12 and D's and E's products of ~d^2/2
-    ratios to 1e-10."""
+    ratios to 1e-10.  In f32: F32_RTOL for C, 1e-3 for D and E (the same
+    magnification of an f32 ulp: the plain f32 version is up to 1.8e-4
+    off the f64 one on the CPU at d = 5 and 8, n = 33)."""
+    if f32:
+        return F32_RTOL if kind == "C" else 1e-3
     if d <= 8:
         return 1e-11 if on_card and kind != "C" else 1e-14
     return 1e-12 if kind == "C" else 1e-10
 
 
-def _rel_errs(got, want, rtol):
+def _rel_errs(got, want, rtol, atol=0.0):
     """(max |got - want|, max relative error over want != 0, within rtol per
-    value); a zero of want must be a zero of got."""
+    value, or within atol where the values are subnormal); a zero of want
+    must be a zero of got unless atol allows it."""
     diff = (got - want).abs()
     nz = want != 0
     rel = float((diff[nz] / want[nz].abs()).max()) if bool(nz.any()) else 0.0
-    return float(diff.max()), rel, bool((diff <= rtol * want.abs()).all())
+    return float(diff.max()), rel, bool((diff <= rtol * want.abs() + atol).all())
 
 
 def _by_shape(shapes) -> dict:
@@ -313,13 +375,14 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def device_per_call(fn, calls: int = 50, tries: int = 3) -> dict:
+def device_per_call(fn, calls: int = 50, tries: int = 10) -> dict:
     """Device-only time and kernels per call of fn (torch.profiler over
     `calls` back-to-back calls after one warm-up): the CUDA-event times
     include the host's launch overhead, which these leave out.  The
     profiler now and then records no device event at all for such a
-    window (seen once in some 200 windows on an H100), so an empty window is
-    profiled again, up to `tries` times."""
+    window (seen once in some 200 windows on an H100, and three windows in
+    a row once in a run of ~250), so an empty window is profiled again, up
+    to `tries` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -468,13 +531,15 @@ def check_integrand(cases):
     for name, kind, tables, ind in cases:
         B, d = ind.shape
         n = tables.shape[1]
+        f32 = tables.dtype == torch.float32
+        atol = 1e-37 if f32 else 0.0      # f32 prefix products of long chains reach subnormals
         got = K.ising_integrand_fused(tables, ind, kind)
         want = K.ising_integrand_plain(tables, ind, kind)
         torch.cuda.synchronize()
         err = {}
         for where, w in (("card", want), ("cpu", K.ising_integrand_plain(tables.cpu(), ind.cpu(), kind))):
-            rtol = _integrand_rtol(kind, d, where == "card")
-            err[where] = _rel_errs(got.cpu(), w.cpu(), rtol)
+            rtol = _integrand_rtol(kind, d, where == "card", f32)
+            err[where] = _rel_errs(got.cpu(), w.cpu(), rtol, atol)
             if not err[where][2] or not bool((got[:2] == 0).all()):
                 raise AssertionError(f"fused integrand {name}: max |got - plain on the {where}| "
                                      f"{err[where][0]} exceeds {rtol} relative")
@@ -486,13 +551,13 @@ def check_integrand(cases):
             raise AssertionError(f"fused integrand {name}: {dev_k['by_kernel_us']} at "
                                  f"{dev_k['kernels_per_call']} kernels per call (one is the design)")
         dev_p = device_per_call(plain)
-        bound, by = _integrand_bound(kind, B, d, n)
-        row = {"kernel": "ising_integrand_fused", "kind": kind, "shape": [B, d, n],
+        bound, by = _integrand_bound(kind, B, d, n, tables.element_size())
+        row = {"kernel": "ising_integrand_fused", "kind": kind, "shape": [B, d, n] + _tag(tables),
                "case": name, "max_abs_err": err["card"][0],
                "max_rel_err_vs_card_plain": err["card"][1],
                "max_rel_err_vs_cpu_plain": err["cpu"][1],
-               "rtol_card": _integrand_rtol(kind, d, True),
-               "rtol_cpu": _integrand_rtol(kind, d, False),
+               "rtol_card": _integrand_rtol(kind, d, True, f32),
+               "rtol_cpu": _integrand_rtol(kind, d, False, f32),
                "ms": _time_ms(fn), "plain_ms": _time_ms(plain),
                "library_ms": None, "device_us": dev_k["device_us"],
                "kernels_per_call": dev_k["kernels_per_call"],
@@ -517,24 +582,27 @@ def check_kernels(dev, a_cases, b_cases):
         vals, colf, rowf, mask = args
         M, Kc = vals.shape
         Rr = colf.shape[1]
+        f32 = vals.dtype == torch.float32
         got = K.score_residual_argmax(*args)
         want = K.score_residual_argmax_plain(*args)
         torch.cuda.synchronize()
+        if got[1].dtype != vals.dtype:
+            raise AssertionError(f"kernel A {name}: a {got[1].dtype} score for {vals.dtype} inputs")
         gi, gs, gr = (float(x) for x in got)
         wi, ws, wr = (float(x) for x in want)
         if int(gi) != int(wi):
             raise AssertionError(f"kernel A {name}: index {int(gi)} != plain {int(wi)}")
         err = max(abs(gs - ws), abs(gr - wr))
-        if err > SCORE_RTOL * abs(ws):
+        if err > (F32_RTOL if f32 else SCORE_RTOL) * abs(ws):
             raise AssertionError(f"kernel A {name}: score {gs} vs plain {ws}")
         dev_k = device_per_call(lambda: K.score_residual_argmax(*args))
         dev_p = device_per_call(lambda: K.score_residual_argmax_plain(*args))
-        bound, by = _score_bound(M, Kc, Rr)
+        bound, by = _score_bound(M, Kc, Rr, vals.element_size())
         fiber = M == 1 or Kc == 1
         if fiber and not 0 < dev_k["kernels_per_call"] <= 1:
             raise AssertionError(f"kernel A {name}: {dev_k['kernels_per_call']} kernels "
                                  "per fiber call (one is the design)")
-        row = {"kernel": "score_residual_argmax", "shape": [M, Kc, Rr],
+        row = {"kernel": "score_residual_argmax", "shape": [M, Kc, Rr] + _tag(vals),
                "case": name, "index": int(gi), "max_abs_err": err,
                "ms": _time_ms(lambda: K.score_residual_argmax(*args)),
                "plain_ms": _time_ms(lambda: K.score_residual_argmax_plain(*args)),
@@ -542,7 +610,8 @@ def check_kernels(dev, a_cases, b_cases):
                "by_kernel_us": dev_k["by_kernel_us"],
                "plain_device_us": dev_p["device_us"], "bound_us": bound, "bound_by": by,
                "share_of_bound": bound / dev_k["device_us"],
-               "l2": "warm: back-to-back calls" if 8 * M * Kc < 40e6 else "exceeds L2"}
+               "l2": "warm: back-to-back calls" if vals.element_size() * M * Kc < 40e6
+               else "exceeds L2"}
         if fiber:
             row["host_us_per_call"] = host_us_per_call(lambda: K.score_residual_argmax(*args))
         _emit(row)
@@ -565,8 +634,9 @@ def check_kernels(dev, a_cases, b_cases):
             raise AssertionError(f"kernel B {name}: index_select disagrees")
         dev_k = device_per_call(lambda: K.small_table_lookup(tables, ind))
         dev_l = device_per_call(lambda: torch.index_select(tables, 1, flat))
-        bound, by = _lookup_bound(L, ind.numel(), n)
-        row = {"kernel": "small_table_lookup", "shape": [L, *ind.shape, n], "case": name,
+        bound, by = _lookup_bound(L, ind.numel(), n, tables.element_size())
+        row = {"kernel": "small_table_lookup", "shape": [L, *ind.shape, n] + _tag(tables),
+               "case": name,
                "max_abs_err": err,
                "ms": _time_ms(lambda: K.small_table_lookup(tables, ind)),
                "plain_ms": _time_ms(lambda: K.small_table_lookup_plain(tables, ind)),
@@ -581,39 +651,50 @@ def check_kernels(dev, a_cases, b_cases):
     return a_rows, b_rows
 
 
-def check_batched(dev, gen):
+BATCHED_CASES = [("col_pass_c256", 254, 170, 1, 10), ("row_pass_c256", 254, 1, 170, 10),
+                 ("col_pass_c1024", 1022, 170, 1, 10), ("row_pass_c1024", 1022, 1, 170, 10),
+                 ("col_one_bond", 1, 170, 1, 10), ("row_one_bond", 1, 1, 170, 10),
+                 # the 4-lane mvn_d6 family: one launch scores every lane's fiber
+                 ("col_pass_family", FAMILY_LANES, 1300, 1, 20),
+                 ("row_pass_family", FAMILY_LANES, 1, 1300, 20)]
+
+
+def check_batched(dev, gen, cases=BATCHED_CASES, dtype=None):
     """Phase 3, kernel A batched over bonds at the long chain's shapes, half
     of the bonds fully masked (a red-black phase's dead parity): the plain
     version's indices, scores and residuals within BATCHED_RTOL of the
     largest residual, and the bits of one single-fiber launch per bond; one
-    kernel per call; times, bound and share.  No single PyTorch call
-    computes it, so it has no library yardstick."""
+    kernel per call; times, bound and share.  dtype=torch.float32: the f32
+    instantiation, its indices held to the plain version's where the best
+    score is clear of the second by more than f32 rounding (tie-free inputs
+    as _score_inputs makes them), its values to F32_RTOL.  No single
+    PyTorch call computes it, so it has no library yardstick."""
     import torch
 
     from ttcross_tpu_torch.ops import kernels as K
 
+    dtype = dtype or torch.float64
+    f32 = dtype == torch.float32
     rows = []
-    for name, P, M, Kc, R in [("col_pass_c256", 254, 170, 1, 10), ("row_pass_c256", 254, 1, 170, 10),
-                              ("col_pass_c1024", 1022, 170, 1, 10),
-                              ("row_pass_c1024", 1022, 1, 170, 10),
-                              ("col_one_bond", 1, 170, 1, 10), ("row_one_bond", 1, 1, 170, 10),
-                              # the 4-lane mvn_d6 family: one launch scores every lane's fiber
-                              ("col_pass_family", FAMILY_LANES, 1300, 1, 20),
-                              ("row_pass_family", FAMILY_LANES, 1, 1300, 20)]:
-        vals, colf, rowf = (torch.randn(sh, generator=gen, dtype=torch.float64).to(dev)
-                            for sh in ((P, M, Kc), (P, M, R), (P, R, Kc)))
-        mask = (torch.rand((P, M, Kc), generator=gen) > 0.2).to(dev)
+    for name, P, M, Kc, R in cases:
+        if f32:
+            stacks = [_score_inputs(gen, M, Kc, R, dev, dtype) for _ in range(P)]
+            vals, colf, rowf, mask = (torch.stack([s[i] for s in stacks]) for i in range(4))
+        else:
+            vals, colf, rowf = (torch.randn(sh, generator=gen, dtype=torch.float64).to(dev)
+                                for sh in ((P, M, Kc), (P, M, R), (P, R, Kc)))
+            mask = (torch.rand((P, M, Kc), generator=gen) > 0.2).to(dev)
         mask[1::2] = False
         args = (vals, colf, rowf, mask)
         got = K.score_residual_argmax_batched(*args)
         want = K.score_residual_argmax_batched_plain(*args)
         single = [K.score_residual_argmax(*(a[p] for a in args)) for p in range(P)]
         torch.cuda.synchronize()
-        if not torch.equal(got[0], want[0]):
+        if not torch.equal(got[0], want[0]) or got[1].dtype != dtype:
             raise AssertionError(f"batched kernel A {name}: indices differ from the plain version's")
         scale = float(want[2].abs().max())
         err = max(float((g - w).abs().max()) for g, w in zip(got[1:], want[1:]))
-        if err > BATCHED_RTOL * scale:
+        if err > (F32_RTOL if f32 else BATCHED_RTOL) * scale:
             raise AssertionError(f"batched kernel A {name}: {err} from the plain version")
         if not all(torch.equal(got[i], torch.stack([x[i] for x in single])) for i in range(3)):
             raise AssertionError(f"batched kernel A {name}: not the bits of {P} single-fiber launches")
@@ -625,8 +706,9 @@ def check_batched(dev, gen):
         if not 0 < dev_k["kernels_per_call"] <= 1:
             raise AssertionError(f"batched kernel A {name}: {dev_k['kernels_per_call']} kernels "
                                  "per call (one is the design)")
-        bound, by = _batched_bound(P, M, Kc, R)
-        row = {"kernel": "score_residual_argmax_batched", "shape": [P, M, Kc, R], "case": name,
+        bound, by = _batched_bound(P, M, Kc, R, vals.element_size())
+        row = {"kernel": "score_residual_argmax_batched", "shape": [P, M, Kc, R] + _tag(vals),
+               "case": name,
                "max_abs_err": err, "bit_equal_to_single_launches": True,
                "ms": _time_ms(fn), "plain_ms": _time_ms(plain), "library_ms": None,
                "device_us": dev_k["device_us"], "kernels_per_call": dev_k["kernels_per_call"],
@@ -1189,27 +1271,41 @@ def profile_maxvol_parts(dev) -> None:
     _emit({"phase": "profile", "run": "mvn_d6 maxvol sweep parts, per call", **rows})
 
 
-def hold_new_shapes(dev, gen, shapes, held, checked) -> None:
-    """Hold the shapes that a run's data decide (a skeleton's batch is its
-    number of samples) the way phase 3 holds the fixed ones: kernel B and
-    the fused integrand at every such shape the run launched them at, with
-    phase 3's checks, times and bound; the rows join `checked` and `held`."""
+def hold_new_shapes(dev, gen, shapes, held, checked, label="skeleton") -> None:
+    """Hold the shapes that a run's data or options decide (a skeleton's
+    batch is its number of samples; a capped or chunked sweep launches at
+    per-bond, per-chunk shapes) the way phase 3 holds the fixed ones: every
+    kernel at every such shape the run launched it at, in the launch's
+    dtype, with phase 3's checks, times and bound; the rows join `checked`
+    and `held`."""
     import torch
 
     from ttcross_tpu_torch.apps import make_ising
 
-    b_cases, i_cases = [], []
-    for L, B, d, n in sorted(set(shapes["small_table_lookup"]) - held["small_table_lookup"]):
-        tables = torch.randn((L, n), generator=gen, dtype=torch.float64).to(dev)
+    def new(name):
+        for sh in sorted(set(shapes.get(name, {})) - held[name], key=str):
+            f32 = sh[-1] == "f32"
+            yield (sh[:-1] if f32 else sh), (torch.float32 if f32 else torch.float64)
+
+    a_cases, b_cases, i_cases, p_cases = [], [], [], []
+    for (M, Kc, R), dt in new("score_residual_argmax"):
+        a_cases.append((f"{label}_{M}x{Kc}_r{R}", _score_inputs(gen, M, Kc, R, dev, dt)))
+    for (L, B, d, n), dt in new("small_table_lookup"):
+        tables = torch.randn((L, n), generator=gen, dtype=torch.float64).to(dev, dt)
         ind = torch.randint(-2, n + 2, (B, d), generator=gen, dtype=torch.int32).to(dev)
-        b_cases.append((f"skeleton_{B}x{d}_n{n}", (tables, ind)))
-    for B, d, n in sorted(set(shapes["ising_integrand_fused"]) - held["ising_integrand_fused"]):
-        p = make_ising("C", d + 1, n - 1, device=dev)
+        b_cases.append((f"{label}_{B}x{d}_n{n}", (tables, ind)))
+    for (B, d, n), dt in new("ising_integrand_fused"):
+        p = make_ising("C", d + 1, n - 1, device=dev, dtype=dt)
         ind = torch.randint(0, p.n, (B, d), generator=gen, dtype=torch.int32)
-        ind[0, 0], ind[1, d - 1] = -1, p.n
-        i_cases.append((f"skeleton_{B}x{d}", "C", p.tables, ind.to(dev)))
-    for name, rows in [("small_table_lookup", check_kernels(dev, [], b_cases)[1]),
-                       ("ising_integrand_fused", check_integrand(i_cases))]:
+        ind[0, 0], ind[min(1, B - 1), d - 1] = -1, p.n
+        i_cases.append((f"{label}_{B}x{d}", "C", p.tables, ind.to(dev)))
+    for (P, M, Kc, R), dt in new("score_residual_argmax_batched"):
+        p_cases.append(((f"{label}_{P}x{M}x{Kc}", P, M, Kc, R), dt))
+    a_rows, b_rows = check_kernels(dev, a_cases, b_cases)
+    p_rows = [r for case, dt in p_cases for r in check_batched(dev, gen, [case], dt)]
+    for name, rows in [("score_residual_argmax", a_rows), ("small_table_lookup", b_rows),
+                       ("ising_integrand_fused", check_integrand(i_cases)),
+                       ("score_residual_argmax_batched", p_rows)]:
         for r in rows:
             checked[name][tuple(r["shape"])] = r
             held[name].add(tuple(r["shape"]))
@@ -1301,6 +1397,326 @@ def check_headline_host_reeval(dev, gen, held, checked, device_only):
     for key, r in zip(KEYS, runs):
         _require_held(f"C_6 headline host_reeval key {key}", r[4], held)
     return first[4]
+
+
+def f32_cases(dev, gen):
+    """Phase 3's f32 instantiations, at the shapes the f32 runs of phase 14
+    launch them (C_6 n = 65 at rank 24: rook fibers of 1560, lottery 178,
+    init 520 / 325; mvn_d6 at rank 20, mvn_shapes) and, for the paths no
+    f32 run drives, at the f64 phase's shapes: kernel A's 2-D path (the
+    SIMT kernel) and a long fiber, the batched kernel A at C_256's, the
+    fused integrand's D / E rows and its warp path at C_256's fibers."""
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising
+
+    f32 = torch.float32
+    a = [(f"f32_{nm}", _score_inputs(gen, M, Kc, R, dev, f32)) for nm, M, Kc, R in
+         [("col_c6_r24", 1560, 1, 24), ("row_c6_r24", 1, 1560, 24), ("col_mvn_r20", 1300, 1, 20),
+          ("row_mvn_r20", 1, 1300, 20), ("superblock", 1950, 1950, 30),
+          ("long_col", 100000, 1, 30)]]
+    b = []
+    for Bb, d in mvn_shapes(6, 65, 20)[1]:
+        tables = torch.randn((1, 65), generator=gen, dtype=torch.float64).to(dev, f32)
+        ind = torch.randint(-2, 67, (Bb, d), generator=gen, dtype=torch.int32).to(dev)
+        b.append((f"f32_mvn_nodes_{Bb}x{d}", (tables, ind)))
+    i = []
+    for name, kind, m, n, B in [("f32_rook_fiber", "C", 6, 64, 1560), ("f32_lottery", "C", 6, 64, 178),
+                                ("f32_init_diag", "C", 6, 64, 520),
+                                ("f32_init_fibers", "C", 6, 64, 325),
+                                ("f32_rook_fiber_D", "D", 6, 64, 1560),
+                                ("f32_rook_fiber_E", "E", 6, 64, 1560),
+                                ("f32_lc_fibers", "C", 256, 17, 43180)]:
+        p = make_ising(kind, m, n, device=dev, dtype=f32)
+        ind = torch.randint(0, p.n, (B, p.d), generator=gen, dtype=torch.int32)
+        ind[0, 0], ind[1, p.d - 1] = -1, p.n
+        i.append((name, kind, p.tables, ind.to(dev)))
+    batched = [("f32_col_pass_c256", 254, 170, 1, 10), ("f32_row_pass_c256", 254, 1, 170, 10)]
+    return a, b, i, batched
+
+
+def run_capped(dev, key=0, chunks=CAPPED["rank_chunks"], caps=CAPPED["rank_caps"]):
+    """One C_6 cross at rank 24 with rank chunks and per-bond caps (the JAX
+    package's padded-ratio configuration, tests/test_engine.py:284-297 and
+    bench.py:630-636) on the card; (result, wall, digits, launches, by
+    shape)."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising
+    from ttcross_tpu_torch.cross import cross
+    from ttcross_tpu_torch.ops import kernels as K
+
+    h = CAPPED
+    prob = make_ising("C", h["m"], h["n"], device=dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cross(prob.fun, [prob.n] * prob.d, max_rank=h["max_rank"], accuracy=h["accuracy"],
+                pivoting=h["pivoting"], quad=[prob.quad_weights] * prob.d, truth=prob.truth,
+                key=key, rank_chunks=chunks, rank_caps=caps, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vals = np.asarray(res.values)
+    if not (np.all(np.isfinite(vals)) and res.tt.ready()
+            and res.tt.device.type == torch.device(dev).type and max(res.ranks) <= h["max_rank"]
+            and all(r <= c for r, c in zip(res.ranks[1:-1], caps or [h["max_rank"]] * 4))):
+        raise AssertionError(f"malformed capped result: ranks {res.ranks}, values {vals}")
+    return res, wall, float(-np.log10(res.errors[-1])), K.launch_counts(), K.launch_shapes()
+
+
+def _capped_row(res, wall, digits, counts, shapes) -> dict:
+    return {"digits": digits, "n_evals": res.neval, "padded_evals": res.padded_evals,
+            "padded_ratio": res.padded_evals / res.neval, "ranks": list(res.ranks),
+            "sweeps": res.sweeps, "wall_s": wall, "launches": counts,
+            "launches_by_shape": _by_shape(shapes)}
+
+
+def check_capped(dev, gen, held, checked):
+    """Phase 11: C_6 rank 24 with rank_chunks=[4, ..., 24] and
+    rank_caps=[16, 24, 24, 16] over keys 0-7 (each key's padded ratio <=
+    CAPPED_PADDED_RATIO and digits >= CAPPED_DIGITS, the JAX package's slow
+    test), first and steady; rank_chunks="auto" and the uncapped greedy
+    C_6 at key 0 beside it.  The per-bond, per-chunk shapes are held after
+    the first run (hold_new_shapes).  Returns the launches by shape of
+    key 0's first run."""
+    first = run_capped(dev)
+    hold_new_shapes(dev, gen, first[4], held, checked, "capped")
+    steady = run_capped(dev)
+    runs = [first] + [run_capped(dev, key=k) for k in KEYS[1:]]
+    for r in runs[1:]:
+        hold_new_shapes(dev, gen, r[4], held, checked, "capped")
+    auto = run_capped(dev, chunks="auto", caps=None)
+    hold_new_shapes(dev, gen, auto[4], held, checked, "chunked")
+    plain = run_capped(dev, chunks=None, caps=None)
+    rows = [{"key": k, **{f: v for f, v in _capped_row(*r).items() if f != "launches_by_shape"}}
+            for k, r in zip(KEYS, runs)]
+    _emit({"phase": "capped", "config": "C_6 n=65 rank 24 pivoting=1 rank_chunks=[4,8,12,16,20,24] "
+           "rank_caps=[16,24,24,16] (tests/test_engine.py:284-297, bench.py:630-636)",
+           **_capped_row(*first), "steady_s": steady[1], "by_key": rows,
+           "auto_chunks_key0": _capped_row(*auto), "uncapped_key0": _capped_row(*plain)})
+    for k, r in zip(KEYS, runs):
+        ratio = r[0].padded_evals / r[0].neval
+        if ratio > CAPPED_PADDED_RATIO or r[2] < CAPPED_DIGITS:
+            raise AssertionError(f"capped C_6 key {k}: padded ratio {ratio} > {CAPPED_PADDED_RATIO} "
+                                 f"or {r[2]} digits < {CAPPED_DIGITS}")
+        _require_held(f"capped C_6 key {k}", r[4], held)
+    for label, r in (("chunks auto", auto), ("uncapped", plain)):
+        if r[2] < CAPPED_DIGITS:
+            raise AssertionError(f"C_6 {label}: {r[2]} digits < {CAPPED_DIGITS}")
+        _require_held(f"C_6 {label}", r[4], held)
+    if (steady[0].neval, steady[0].ranks, steady[2]) != (first[0].neval, first[0].ranks, first[2]):
+        raise AssertionError("the repeated capped C_6 run took another path")
+    if min(first[3][k] for k in MAIN_PATH_KERNELS) <= 0:
+        raise AssertionError(f"capped C_6: a kernel of its path was not launched: {first[3]}")
+    return first[4]
+
+
+def check_adaptive(dev, held):
+    """Phase 12: stdnorm_d10 (n = 33, rank 8, accuracy 5 eps) with and
+    without adaptive=True (bench.py:462-476), key 0, first and steady each:
+    n_evals, digits and walls side by side (bench.py's note claims 28 %
+    fewer integrand calls at identical digits); then two adaptive sweeps
+    under torch's sync debug mode set to raise.  Returns the adaptive run's
+    launches by shape."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_stdnorm
+    from ttcross_tpu_torch.config import precision_thresholds
+    from ttcross_tpu_torch.cross import cross
+    from ttcross_tpu_torch.cross.engine import CrossConfig, make_engine
+    from ttcross_tpu_torch.ops import kernels as K
+
+    h = STDNORM
+    sp = make_stdnorm(d=h["d"], n=h["n"], device=dev)
+
+    def run(adaptive):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cross(sp.fun, [sp.n] * sp.d, max_rank=h["max_rank"], accuracy=h["accuracy"],
+                    pivoting=h["pivoting"], quad=[sp.quad_weights] * sp.d, truth=sp.truth,
+                    adaptive=adaptive, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return res, wall, float(-np.log10(res.errors[-1])), K.launch_counts(), K.launch_shapes()
+
+    out, runs = {}, {}
+    for label, ad in (("plain", 0.0), ("adaptive", True)):
+        a, b = run(ad), run(ad)
+        runs[label] = a
+        out[label] = {**_mvn_row(*a), "steady_s": b[1]}
+        _require_held(f"stdnorm_d10 {label}", a[4], held)
+        if (b[0].neval, b[2]) != (a[0].neval, a[2]):
+            raise AssertionError(f"the repeated stdnorm_d10 {label} run took another path")
+    se, spv = precision_thresholds(torch.float64)
+    cfg = CrossConfig(d=sp.d, n=(sp.n,) * sp.d, N=sp.n, R=h["max_rank"], piv=h["pivoting"],
+                      small_element=se, small_pivot=spv, adaptive=4096.0)
+    kit = make_engine(sp.fun, cfg, dev)
+    st = kit.init_fn()
+    U = torch.rand((2, sp.d - 1, 2, 2 * (h["max_rank"] + sp.n)), dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for it in (1, 2):
+            st = kit.sweep_fn(st, it, U[it - 1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    p, a = runs["plain"][0], runs["adaptive"][0]
+    _emit({"phase": "adaptive", "config": "stdnorm_d10 n=33 rank 8 pivoting=1 accuracy=5 eps, "
+           "adaptive=True (margin 4096) vs off (bench.py:462-476)", **out,
+           "n_evals_saved_share": 1 - a.neval / p.neval,
+           "digits_difference": runs["adaptive"][2] - runs["plain"][2],
+           "sync_free_adaptive_sweeps": 2})
+    if runs["adaptive"][2] < STDNORM_DIGITS or a.neval >= p.neval:
+        raise AssertionError(f"adaptive stdnorm_d10: {runs['adaptive'][2]} digits, {a.neval} "
+                             f"evals against {p.neval} without the gate")
+    return runs["adaptive"][4]
+
+
+def check_quantics(dev, gen, held, checked):
+    """Phase 13: quantics (tests/test_quantics.py:104-125): exp(x) sin(6 pi
+    x) on the 2^20 grid at rank 10, pivoting 2: the greedy train's point
+    error at x = i/64 above QUANTICS_PLATEAU (the conditioning plateau is
+    real), with refine_sweeps=1 below QUANTICS_REFINED; exp at rank 4 and
+    its left Riemann sum (-> e - 1); the 2-D Gaussian on [-3, 3)^2 at
+    K = 10 bits per coordinate, held as tests/test_quantics.py holds it
+    (left Riemann sum within 2e-2 of the mass, the train within 1e-8 at
+    grid points).  Kernel A on every rook pass (the
+    integrands are plain torch).  Returns the launches by shape of the
+    greedy run."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_quantics, quantics_cross
+    from ttcross_tpu_torch.cross import cross
+    from ttcross_tpu_torch.ops import kernels as K
+
+    q = QUANTICS
+    xs = np.arange(64) / 64.0
+    tru = np.exp(xs) * np.sin(6 * np.pi * xs)
+
+    def f(x):
+        return torch.exp(x) * torch.sin(6 * np.pi * x)
+
+    def run(**kw):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        prob, res = quantics_cross(f, q["K"], max_rank=q["max_rank"], pivoting=q["pivoting"],
+                                   accuracy=q["accuracy"], device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        err = float(np.abs(prob.value(res.tt, xs[:, None]).cpu().numpy() - tru).max())
+        return res, wall, err, K.launch_counts(), K.launch_shapes()
+
+    greedy, refined = run(), run(refine_sweeps=1)
+    h = 2.0 ** -q["K"]
+    prob, eres = quantics_cross(torch.exp, q["K"], max_rank=4, pivoting=1, accuracy=1e-13,
+                                device=dev)
+    riemann = h * (np.e - 1.0) / (np.exp(h) - 1.0)
+    p2 = make_quantics(lambda x: torch.exp(-(x[:, 0] ** 2 + x[:, 1] ** 2)), 10, dd=2,
+                       domain=(-3.0, 3.0), device=dev)
+    K.reset_launch_counts()
+    r2 = cross(p2.fun, [p2.n] * p2.d, max_rank=8, pivoting=1, accuracy=1e-12, small_pivot=1e-14,
+               quad=p2.quad_weights, device=dev)
+    shapes2 = K.launch_shapes()
+    xy = np.stack([np.linspace(-2.9, 2.9, 16), np.linspace(2.9, -2.9, 16)], axis=1)
+    cell = 6.0 / 2 ** 10
+    grid = -3.0 + cell * np.floor((xy + 3.0) / cell)
+    err2 = float(np.abs(p2.value(r2.tt, xy).cpu().numpy() - np.exp(-(grid ** 2).sum(1))).max())
+    for r in (greedy, refined):
+        hold_new_shapes(dev, gen, r[4], held, checked, "quantics")
+    hold_new_shapes(dev, gen, shapes2, held, checked, "quantics_2d")
+    row = {"phase": "quantics", "config": "exp(x) sin(6 pi x), K = 20, rank 10, pivoting 2, "
+           "accuracy 1e-13 (tests/test_quantics.py:104-125)"}
+    for label, r in (("greedy", greedy), ("refine_sweeps=1", refined)):
+        row[label] = {"point_error": r[2], "n_evals": r[0].neval, "ranks": list(r[0].ranks),
+                      "sweeps": r[0].sweeps, "wall_s": r[1], "launches": r[3],
+                      "launches_by_shape": _by_shape(r[4])}
+    row["exp_rank4"] = {"value": eres.values[-1], "riemann_sum": riemann,
+                        "rel_vs_riemann": abs(1 - eres.values[-1] / riemann),
+                        "rel_vs_e_minus_1": abs(1 - eres.values[-1] / (np.e - 1)),
+                        "ranks": list(eres.ranks)}
+    mass = (np.sqrt(np.pi) * math.erf(3.0)) ** 2      # (int_-3^3 e^{-x^2} dx)^2
+    row["gauss_2d"] = {"K": 10, "value": r2.values[-1], "mass": mass,
+                       "rel_vs_mass": abs(1 - r2.values[-1] / mass),
+                       "point_error": err2, "ranks": list(r2.ranks), "n_evals": r2.neval}
+    _emit(row)
+    if not (greedy[2] > QUANTICS_PLATEAU and refined[2] < QUANTICS_REFINED):
+        raise AssertionError(f"quantics: greedy point error {greedy[2]} (> {QUANTICS_PLATEAU} "
+                             f"expected), refined {refined[2]} (< {QUANTICS_REFINED} required)")
+    if abs(1 - eres.values[-1] / riemann) > 1e-10 or max(eres.ranks) > 2:
+        raise AssertionError(f"quantics exp: {eres.values[-1]} vs the Riemann sum {riemann}")
+    if abs(1 - r2.values[-1] / mass) > 2e-2 or err2 > 1e-8:     # as tests/test_quantics.py
+        raise AssertionError(f"quantics 2-D: mass {r2.values[-1]}, point error {err2}")
+    for label, r in (("greedy", greedy), ("refined", refined)):
+        if r[3]["score_residual_argmax"] <= 0:
+            raise AssertionError(f"quantics {label}: kernel A was not launched: {r[3]}")
+        _require_held(f"quantics {label}", r[4], held)
+    _require_held("quantics 2-D", shapes2, held)
+    return greedy[4]
+
+
+def run_f32(dev, which, key=0):
+    """One f32 cross on the card: the C_6 (rank 24) or the mvn_d6 (rank 20)
+    problem made in float32 and crossed with dtype=torch.float32, rook,
+    accuracy F32_ACCURACY; (result, wall, digits, launches, by shape)."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising, make_mvn
+    from ttcross_tpu_torch.cross import cross
+    from ttcross_tpu_torch.ops import kernels as K
+
+    f32 = torch.float32
+    if which == "C_6":
+        prob, R = make_ising("C", HEADLINE["m"], HEADLINE["n"], device=dev, dtype=f32), 24
+    else:
+        prob, R = make_mvn(d=MVN["d"], n=MVN["n"], device=dev, dtype=f32), MVN["max_rank"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cross(prob.fun, [prob.n] * prob.d, max_rank=R, accuracy=F32_ACCURACY, pivoting=1,
+                quad=[prob.quad_weights] * prob.d, truth=prob.truth, key=key, dtype=f32,
+                return_state=True, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vals = np.asarray(res.values)
+    if not (np.all(np.isfinite(vals)) and res.tt.dtype == f32
+            and res.tt.device.type == torch.device(dev).type
+            and res.state.cores.dtype == f32 and max(res.ranks) <= R):
+        raise AssertionError(f"malformed f32 result: ranks {res.ranks}, values {vals}")
+    return res, wall, float(-np.log10(res.errors[-1])), K.launch_counts(), K.launch_shapes()
+
+
+def check_f32(dev, gen, held, checked):
+    """Phase 14: the f32 tier.  C_6 (n = 65, rank 24, rook) in float32 over
+    keys 0-7 through kernel A's and the fused integrand's f32
+    instantiations, held to F32_FLOORS; mvn_d6 greedy (n = 65, rank 20) in
+    float32, key 0, through kernel B's and kernel A's.  Every launch of
+    these runs is an f32 one, at a shape phase 3 held in f32.  Returns the
+    launches by shape of key 0's C_6 run and of the mvn_d6 run."""
+    first = run_f32(dev, "C_6")
+    steady = run_f32(dev, "C_6")
+    runs = [first] + [run_f32(dev, "C_6", key=k) for k in KEYS[1:]]
+    mvn = run_f32(dev, "mvn_d6")
+    by_key = [r[2] for r in runs]
+    median = statistics.median(by_key)
+    _emit({"phase": "f32", "config": "C_6 n=65 rank 24 pivoting=1 accuracy=1e-6 float32",
+           **_capped_row(*first), "steady_s": steady[1], "digits_by_key": by_key,
+           "median_digits": median, "mvn_d6": _mvn_row(*mvn)})
+    (fm, fk), mvn_floor = F32_FLOORS["C_6"], F32_FLOORS["mvn_d6"]
+    if median < fm or min(by_key) < fk or mvn[2] < mvn_floor:
+        raise AssertionError(f"f32 digits: C_6 over keys {by_key} (median >= {fm}, each >= {fk}), "
+                             f"mvn_d6 {mvn[2]} (>= {mvn_floor})")
+    for label, r, need in (("C_6", first, MAIN_PATH_KERNELS), ("mvn_d6", mvn, MVN_KERNELS)):
+        f64 = {n: [sh for sh in by if sh[-1] != "f32"] for n, by in r[4].items()}
+        if any(f64.values()) or min(r[3][k] for k in need) <= 0:
+            raise AssertionError(f"f32 {label}: launches {r[4]} (f32 ones only, of {need})")
+    for k, r in zip(KEYS, runs):
+        _require_held(f"f32 C_6 key {k}", r[4], held)
+    _require_held("f32 mvn_d6", mvn[4], held)
+    if (steady[0].neval, steady[0].ranks, steady[2]) != (first[0].neval, first[0].ranks, first[2]):
+        raise AssertionError("the repeated f32 C_6 run took another path")
+    return first[4], mvn[4]
 
 
 def device_launches(fn) -> int:
@@ -1546,6 +1962,13 @@ def main() -> int:
     a_rows, b_rows = check_kernels(dev, a_cases, b_cases)
     i_rows = check_integrand(i_cases)
     ab_rows = check_batched(dev, gen)
+    # the f32 instantiations of every kernel
+    a32, b32, i32, p32 = f32_cases(dev, gen)
+    a32_rows, b32_rows = check_kernels(dev, a32, b32)
+    a_rows, b_rows = a_rows + a32_rows, b_rows + b32_rows
+    i_rows = i_rows + check_integrand(i32)
+    ab_rows = ab_rows + check_batched(dev, gen, p32, torch.float32)
+    del a32, b32, i32
     # phase 3's row of every (kernel, shape) it held against the plain version
     # (the first at a shape: the integrand's kind C, which every driven run uses)
     checked = {name: {tuple(r["shape"]): r for r in reversed(rows)} for name, rows in
@@ -1615,7 +2038,14 @@ def main() -> int:
     new_runs = [("C_6 headline host_reeval",
                  check_headline_host_reeval(dev, gen, held, checked, list(zip(runs_res, by_key)))),
                 ("mvn_d6 family", check_family(dev, held)),
-                ("Greeks", check_greeks(dev, gen, held, checked))]
+                ("Greeks", check_greeks(dev, gen, held, checked)),
+                ("C_6 capped + chunked", check_capped(dev, gen, held, checked)),
+                ("stdnorm_d10 adaptive", check_adaptive(dev, held)),
+                ("quantics", check_quantics(dev, gen, held, checked))]
+    new_runs += list(zip(("C_6 f32", "mvn_d6 f32"), check_f32(dev, gen, held, checked)))
+    if "--profile" in args:
+        profile_run("C_6 capped + chunked", lambda: run_capped(dev))
+        profile_run("C_6 f32", lambda: run_f32(dev, "C_6"))
 
     # one entry for every (kernel, shape) that a path's run launched at: the
     # launches are those of that run, counted from 0 (the C_6 headline's
@@ -1627,8 +2057,10 @@ def main() -> int:
         for name, by in sorted(by_kernel.items()):
             for shape, count in sorted(by.items()):
                 row = checked[name][shape]
+                f32 = shape[-1] == "f32"
                 entries.append({
-                    "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                    "name": name + ("_f32" if f32 else ""), "route": "cuda",
+                    "source": KERNEL_SOURCE, "dtype": "float32" if f32 else "float64",
                     "replaces": KERNEL_REPLACES[name], "path": path, "shape": row["shape"],
                     "launches": count, "launches_of_kernel_on_path": sum(by.values()),
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -1639,11 +2071,20 @@ def main() -> int:
                                             ("mvn_d6 greedy", MVN_KERNELS),
                                             ("C_6 headline host_reeval", MAIN_PATH_KERNELS),
                                             ("mvn_d6 family", FAMILY_KERNELS),
-                                            ("Greeks", MVN_KERNELS)]
+                                            ("Greeks", MVN_KERNELS),
+                                            ("C_6 capped + chunked", MAIN_PATH_KERNELS),
+                                            ("stdnorm_d10 adaptive", MVN_KERNELS),
+                                            ("quantics", ("score_residual_argmax",)),
+                                            ("C_6 f32", [k + "_f32" for k in MAIN_PATH_KERNELS]),
+                                            ("mvn_d6 f32", [k + "_f32" for k in MVN_KERNELS])]
                for k in need if not any(e["name"] == k and e["path"] == path and e["launches"] > 0
                                         for e in entries)}
     if missing:
         raise AssertionError(f"kernels missing from their path's launches: {sorted(missing)}")
+    unheld32 = {k + "_f32" for k in KERNEL_REPLACES
+                if not any(sh[-1] == "f32" for sh in checked[k])}
+    if unheld32:
+        raise AssertionError(f"f32 instantiations that phase 3 did not hold: {sorted(unheld32)}")
     print(smi, flush=True)
     _emit({"kernels": entries})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

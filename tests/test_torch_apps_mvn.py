@@ -318,10 +318,11 @@ def test_init_state_resume_is_the_uninterrupted_run(mode, split, tmp_path):
 
 def test_kwargs_still_not_ported_name_their_item():
     pp = make_stdnorm(d=3, n=9, device="cpu")
-    for kw in (dict(rank_chunks="auto"), dict(rank_caps=[2, 2]), dict(adaptive=True),
-               dict(dtype=torch.float32)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7b"):
-            cross(pp.fun, [pp.n] * pp.d, max_rank=4, device="cpu", **kw)
+    for kw in (dict(rank_chunks="auto"), dict(rank_caps=[2, 2]), dict(adaptive=True)):
+        assert max(cross(pp.fun, [pp.n] * pp.d, max_rank=4, device="cpu", **kw).ranks) <= 4
+    p32 = make_stdnorm(d=3, n=9, device="cpu", dtype=torch.float32)
+    assert cross(p32.fun, [p32.n] * p32.d, max_rank=4, dtype=torch.float32,
+                 device="cpu").tt.dtype == torch.float32
     with pytest.raises(ValueError, match="quad"):
         cross(pp.fun, [pp.n] * pp.d, max_rank=4, weighted_lottery=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):

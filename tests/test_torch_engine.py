@@ -165,12 +165,12 @@ def test_public_cross_runs_and_rejects_unported(problems):
     assert res.tt.ready() and res.tt.r == res.ranks and max(res.ranks) <= 6
     assert res.state.cores.device.type == "cpu"
     assert -np.log10(res.errors[-1]) > 4.0
-    for kw in (dict(rank_chunks="auto"), dict(adaptive=True), dict(rank_caps=[4, 4, 4])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cross(tp.fun, [tp.n] * tp.d, max_rank=4, device="cpu", **kw)
     # ported since: the maxvol post-pass, the weighted lottery, the resume,
-    # the host re-evaluation and the pivot shim
+    # the host re-evaluation, the pivot shim, and the rank chunks, the caps
+    # and the adaptive gate (tests/test_torch_caps.py holds them to JAX)
     kw = dict(max_rank=4, quad=[tp.quad_weights] * tp.d, truth=tp.truth, device="cpu")
+    for extra in (dict(rank_chunks=[2, 4]), dict(adaptive=True), dict(rank_caps=[4, 4, 4])):
+        assert max(cross(tp.fun, [tp.n] * tp.d, **kw, **extra).ranks) <= 4
     assert cross(tp.fun, [tp.n] * tp.d, host_reeval=True, **kw).history[-1].direction == "hr"
     assert cross(tp.fun, [tp.n] * tp.d, return_pivots=True, **kw).state.vip.shape == (3, 4, 4)
     ref = cross(tp.fun, [tp.n] * tp.d, refine_sweeps=1, **kw)
@@ -185,7 +185,8 @@ def test_public_cross_runs_and_rejects_unported(problems):
     "apps.make_mvn_family", "apps.make_stdnorm", "apps.make_cos_coefficients",
     "cross.maxvol_refine", "cross.cross_maxvol", "cross.accchk", "tt.load_ttbin",
     "tt.load_ttbin_ref", "tt.load_npz", "tt.load_hdf5", "tt.load_state", "cross.cross_batch",
-    "cross.extract_skeleton", "cross.derive_host_fun"])
+    "cross.extract_skeleton", "cross.derive_host_fun", "apps.make_quantics",
+    "apps.quantics_cross"])
 def test_entry_points_default_to_the_card(entry):
     module, name = entry.split(".")
     entry = getattr(importlib.import_module("ttcross_tpu_torch." + module), name)
@@ -214,7 +215,7 @@ def test_port_imports_no_jax():
     assert "ttcross_tpu_torch.ops.kernels" in mods and len(mods) > 15
     for new in ("apps.mvn", "apps.stdnorm", "apps.cos", "apps.chf", "cross.maxvol", "cross.accchk",
                 "ops.sampling", "tt.serialize", "utils.indexing", "utils.guards", "utils.printing",
-                "cross.batch", "cross.skeleton"):
+                "cross.batch", "cross.skeleton", "apps.quantics", "utils.cli"):
         assert "ttcross_tpu_torch." + new in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"

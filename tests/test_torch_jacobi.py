@@ -323,7 +323,7 @@ def test_public_cross_runs_the_long_chain_path_and_rejects_full_pivoting(problem
             cross(tp.fun, [tp.n] * tp.d, max_rank=4, pivoting=-1, sweep_mode=mode, device="cpu")
     with pytest.raises(ValueError, match="unknown sweep_mode"):
         cross(tp.fun, [tp.n] * tp.d, max_rank=4, sweep_mode="gauss-seidel", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="sequential sweeps"):
         cross(tp.fun, [tp.n] * tp.d, max_rank=4, sweep_mode="jacobi", adaptive=True,
               device="cpu")
     # the weighted lottery runs on the all-bonds hunt too, and needs the weights

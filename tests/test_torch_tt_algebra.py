@@ -145,6 +145,7 @@ NUMPY_ENTRIES = {
     "utils.lin_to_multi": lambda a, **kw: putils.lin_to_multi(a.astype(np.int64), (2, 2), **kw),
     "utils.multi_to_lin": lambda a, **kw: putils.multi_to_lin(a.astype(np.int64)[None, :2], (2, 2), **kw),
     "utils.assert_finite": lambda a, **kw: putils.assert_finite(a, **kw),
+    "tt.from_dense": lambda a, **kw: ptt.from_dense(a.reshape(2, 2), **kw).cores[0],
 }
 
 
@@ -166,7 +167,8 @@ def test_numpy_input_goes_to_the_card_by_default(entry):
 
 
 @pytest.mark.parametrize("entry", ["tt.from_cores", "tt.rank1", "ops.dense.as_tensor",
-                                   "ops.dense.qr_ort", "ops.dense.transpose2d", "utils.assert_finite"])
+                                   "ops.dense.qr_ort", "ops.dense.transpose2d", "utils.assert_finite",
+                                   "tt.from_dense"])
 def test_tensor_input_stays_where_it_lies(entry):
     out = NUMPY_ENTRIES[entry](torch.tensor([0.0, 1.0, 1.0, 0.0], dtype=torch.float64))
     assert out.device.type == "cpu"
@@ -333,7 +335,8 @@ def test_every_ported_name_resolves():
                 "make_mvn", "make_mvn_density", "make_mvn_family", "StdnormProblem",
                 "make_stdnorm", "CosCoefficients", "cos_approximate", "gaussian_chf",
                 "make_cos_coefficients", "s_vectors", "basket_chf", "basket_pdf",
-                "CHF_REFERENCE", "CHF_RHO05", "ising_truth"],
+                "CHF_REFERENCE", "CHF_RHO05", "ising_truth", "QuanticsProblem",
+                "make_quantics", "quantics_cross"],
         pcross: ["CrossResult", "cross", "make_engine", "CrossState", "empty_state",
                  "cross_maxvol", "maxvol_refine", "accchk", "cross_batch", "BatchCrossResult",
                  "Skeleton", "extract_skeleton", "skeleton_value_fn", "skeleton_tt_fn",
@@ -342,10 +345,10 @@ def test_every_ported_name_resolves():
               "gather", "group", "hadamard", "norm", "scale", "sumall", "value", "chop_rank",
               "orthogonalize", "svd_round", "save_ttbin", "load_ttbin", "save_ttbin_ref",
               "load_ttbin_ref", "save_npz", "load_npz", "save_hdf5", "load_hdf5", "save_state",
-              "load_state"],
+              "load_state", "from_dense"],
         putils: ["assert_finite", "has_nan", "tt_check", "lex_compare", "lex_find", "lex_push",
                  "lex_sort", "lin_to_multi", "multi_to_lin", "SweepRecord", "say", "say_tt",
-                 "saynnz"],
+                 "saynnz", "Timer", "write_jsonl", "profile_trace"],
         pdense: ["table_lookup", "row_lookup", "batched_row_lookup", "svd_chopped", "matinv",
                  "eye", "laplace", "norm2p", "qr_ort", "gram_schmidt", "orto_block", "aca",
                  "greedy_cur", "transpose2d", "transpose3d", "pow2_balance_mats",
@@ -375,8 +378,23 @@ def test_every_ported_name_resolves():
     import ttcross_tpu_torch.cross.skeleton as pskeleton
     import ttcross_tpu_torch.tt.ortho as portho
 
+    import ttcross_tpu.config as jconfig
+    import ttcross_tpu.cross.engine as jengine
+    import ttcross_tpu.ops.quadrature as jquad
+    import ttcross_tpu.utils.cli as jcli
+    import ttcross_tpu_torch.config as pconfig
+    import ttcross_tpu_torch.cross.engine as pengine
+    import ttcross_tpu_torch.ops.quadrature as pquad
+    import ttcross_tpu_torch.utils.cli as pcli
+
     for jmod, pmod, name in [(jskeleton, pskeleton, "derive_host_fun"),
                              (jortho, portho, "svd_round_host"),
-                             (jising, pising, "ising_integrand_np")]:
+                             (jising, pising, "ising_integrand_np"),
+                             (jconfig, pconfig, "default_dtype"),
+                             (jconfig, pconfig, "default_complex_dtype"),
+                             (jquad, pquad, "quad_rinv"), (jquad, pquad, "quad_rinv_error"),
+                             (jcli, pcli, "readarg"), (jcli, pcli, "print_config"),
+                             (jcli, pcli, "maybe_accchk")]:
         assert name in pmod.__all__ and callable(getattr(pmod, name)) and hasattr(jmod, name)
+    assert callable(pengine.auto_chunks) and callable(jengine.auto_chunks)
     assert callable(pising.IsingProblem.fun_np)

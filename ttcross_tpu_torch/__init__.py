@@ -6,10 +6,13 @@ Hopper (sm_90a).  The JAX package ``ttcross_tpu`` is the reference this
 package is tested against; this package imports neither it nor jax.
 
 Entry points: the problem makers of ``ttcross_tpu_torch.apps``
-(``make_ising``, ``make_mvn``, ``make_stdnorm``, ``make_cos_coefficients``),
-``ttcross_tpu_torch.cross`` (``cross``, ``maxvol_refine``, ``cross_maxvol``,
+(``make_ising``, ``make_mvn``, ``make_stdnorm``, ``make_cos_coefficients``,
+``make_quantics``, ``quantics_cross``), ``ttcross_tpu_torch.cross``
+(``cross``, ``cross_batch``, ``maxvol_refine``, ``cross_maxvol``,
 ``accchk``) and the loaders of ``ttcross_tpu_torch.tt``; all run on the
-card (``device="cuda"``) unless the caller passes ``device="cpu"``.
+card (``device="cuda"``) unless the caller passes ``device="cpu"``.  The
+f64 tier is the default; ``dtype=torch.float32`` (cross, cross_batch and
+the makers) runs the f32 tier.
 """
 
 from .tt.types import TT, from_cores, ones, rank1, zeros  # noqa: F401

@@ -105,8 +105,9 @@ class IsingProblem:
     """Problem bundle: batched integrand, rank-1 quad weights, truth.
 
     nodes/weights/quad_weights stay host numpy (they are the problem's
-    definition); ``tables`` is the (2, n) float64 tensor of nodes and
-    weights on the problem's device, which the integrand reads."""
+    definition); ``tables`` is the (2, n) tensor of nodes and weights on
+    the problem's device (float64, or float32 for the f32 tier), which the
+    integrand reads."""
 
     kind: str
     m: int                    # integral index (C_m / D_m / E_m)
@@ -135,18 +136,22 @@ class IsingProblem:
         return ising_c_chain(self.tables)
 
 
-def _tables(nodes, weights, device) -> torch.Tensor:
+def _tables(nodes, weights, device, dtype=torch.float64) -> torch.Tensor:
     return torch.from_numpy(np.stack([np.asarray(nodes, np.float64),
-                                      np.asarray(weights, np.float64)])).to(device)
+                                      np.asarray(weights, np.float64)])).to(device, dtype)
 
 
 def make_ising(kind: str = "C", m: int = 6, n: int = 65,
-               device: str | torch.device = "cuda") -> IsingProblem:
+               device: str | torch.device = "cuda",
+               dtype: torch.dtype = torch.float64) -> IsingProblem:
     """Build the discretized Ising problem exactly as the reference's test
     program does (test_crs_ising.f90:102-144): Gauss-Legendre on [0, 1] with the
     measure normalization, underflow rescaling for D/E with m >= 10, and
     max-weight normalization for m >= 32.  ``device`` places the tables:
-    the card unless the caller asks for ``device="cpu"`` (no fallback)."""
+    the card unless the caller asks for ``device="cpu"`` (no fallback).
+    ``dtype``: the tables', so the integrand's values' (torch.float32 for
+    cross(dtype=torch.float32): the fused kernel's f32 instantiation; the
+    JAX package takes its f32 tier from TTCROSS_NO_X64)."""
     from .truths import ising_truth
 
     kind = kind.upper()
@@ -173,5 +178,5 @@ def make_ising(kind: str = "C", m: int = 6, n: int = 65,
         truth = None
     return IsingProblem(kind=kind, m=m, d=d, n=n, nodes=x, weights=weights,
                         quad_weights=quad_weights,
-                        tables=_tables(x, weights, device), truth=truth,
+                        tables=_tables(x, weights, device, dtype), truth=truth,
                         rescale=rescale)

@@ -60,21 +60,25 @@ class MvnDensity:
         return torch.exp(-0.5 * expo) / norm
 
 
-def density_from_numpy(mu, cov, inv_cov, det_cov: float, device) -> MvnDensity:
+def density_from_numpy(mu, cov, inv_cov, det_cov: float, device,
+                       dtype: torch.dtype = torch.float64) -> MvnDensity:
     mu, cov, inv_cov = (np.asarray(a, np.float64) for a in (mu, cov, inv_cov))
     return MvnDensity(mu=mu, cov=cov, inv_cov=inv_cov, det_cov=float(det_cov),
-                      mu_t=torch.from_numpy(mu).to(device),
-                      inv_cov_t=torch.from_numpy(inv_cov).to(device))
+                      mu_t=torch.from_numpy(mu).to(device, dtype),
+                      inv_cov_t=torch.from_numpy(inv_cov).to(device, dtype))
 
 
 def make_mvn_density(d: int, r: float = 0.0, T: float = 1.0, sigma: float = 0.4,
-                     corr: float = 0.5, device: str | torch.device = "cuda") -> MvnDensity:
-    """Equicorrelated lognormal-model density (mvn_init, mvn_pdf.f90:15-60)."""
+                     corr: float = 0.5, device: str | torch.device = "cuda",
+                     dtype: torch.dtype = torch.float64) -> MvnDensity:
+    """Equicorrelated lognormal-model density (mvn_init, mvn_pdf.f90:15-60);
+    its tensors in ``dtype`` (torch.float32: the f32 tier)."""
     X0 = np.log(100.0)
     mu = np.full(d, X0 + (r - 0.5 * sigma**2) * T)
     cov = np.full((d, d), sigma * corr * sigma * T)
     np.fill_diagonal(cov, sigma * sigma * T)
-    return density_from_numpy(mu, cov, np.linalg.inv(cov), float(np.linalg.det(cov)), device)
+    return density_from_numpy(mu, cov, np.linalg.inv(cov), float(np.linalg.det(cov)), device,
+                              dtype)
 
 
 @dataclass(frozen=True)
@@ -103,13 +107,17 @@ def _rule(n: int):
 
 
 def make_mvn(d: int = 6, n: int = 65, r: float = 0.0, T: float = 1.0, sigma: float = 0.4,
-             corr: float = 0.5, device: str | torch.device = "cuda") -> MvnProblem:
+             corr: float = 0.5, device: str | torch.device = "cuda",
+             dtype: torch.dtype = torch.float64) -> MvnProblem:
     """``device`` places the node table and the density's parameters: the
-    card unless the caller asks for ``device="cpu"`` (no fallback)."""
+    card unless the caller asks for ``device="cpu"`` (no fallback).
+    ``dtype``: of the table and the parameters, so of the integrand's
+    values (torch.float32 for cross(dtype=torch.float32); the JAX package
+    takes its f32 tier from a global switch, TTCROSS_NO_X64)."""
     n, x, w = _rule(n)
     return MvnProblem(d=d, n=n, nodes=x, quad_weights=w,
-                      density=make_mvn_density(d, r, T, sigma, corr, device=device),
-                      truth=1.0, table=torch.from_numpy(x).to(device))
+                      density=make_mvn_density(d, r, T, sigma, corr, device=device, dtype=dtype),
+                      truth=1.0, table=torch.from_numpy(x).to(device, dtype))
 
 
 @dataclass(frozen=True)

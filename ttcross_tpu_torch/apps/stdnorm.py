@@ -22,7 +22,7 @@ __all__ = ["StdnormProblem", "make_stdnorm"]
 @dataclass(frozen=True)
 class StdnormProblem:
     """nodes / quad_weights stay host numpy (the problem's definition);
-    ``table`` is the (n,) float64 tensor of nodes on the problem's device,
+    ``table`` is the (n,) tensor of nodes on the problem's device,
     which the integrand reads."""
 
     d: int
@@ -39,13 +39,15 @@ class StdnormProblem:
 
 
 def make_stdnorm(d: int = 6, n: int = 65, a: float = -10.0, b: float = 10.0,
-                 device: str | torch.device = "cuda") -> StdnormProblem:
+                 device: str | torch.device = "cuda",
+                 dtype: torch.dtype = torch.float64) -> StdnormProblem:
     """``device`` places the node table: the card unless the caller asks
-    for ``device="cpu"`` (no fallback)."""
+    for ``device="cpu"`` (no fallback); ``dtype``: the table's, so the
+    integrand's values' (torch.float32 for the f32 tier)."""
     if n % 2 == 0:
         n += 1
     x, w = lgwt(n)
     x, w = map_to_interval(x, w, a, b)
     return StdnormProblem(d=d, n=n, nodes=x, quad_weights=w,
                           truth=float(np.pi) ** (d / 2),
-                          table=torch.from_numpy(x).to(device))
+                          table=torch.from_numpy(x).to(device, dtype))

@@ -172,8 +172,8 @@ def _cross_batch(fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, k
     if sweep_mode == "jacobi":
         raise NotImplementedError("cross_batch(sweep_mode='jacobi') is not ported to "
                                   "ttcross_tpu_torch yet (ROADMAP queue 1 item 7b.7)")
-    if dtype != torch.float64:
-        raise NotImplementedError("only dtype=torch.float64 is ported (ROADMAP queue 1 item 7b)")
+    if dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"dtype must be torch.float64 or torch.float32, got {dtype}")
     if truth is None:
         truths = [None] * L
     elif np.ndim(truth) == 0:
@@ -207,7 +207,7 @@ def _cross_batch(fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, k
     t0 = time.perf_counter()
     with_quad = quad is not None
     w = quad_matrix(quad, n, cfg.N, dev, dtype) if with_quad else None
-    st, _, last, vals, pmax, nev = run_sweeps(kit, kit.init_fn(), uniforms, w,
+    st, _, last, vals, pmax, nev, _ = run_sweeps(kit, kit.init_fn(), uniforms, w,
                                               accuracy=accuracy, max_sweeps=max_sweeps)
     solved = kit.finalize_fn(st)
     rk, vip, neval, padded = (t.cpu().numpy() for t in (st.rk, st.vip, st.neval, st.padded))

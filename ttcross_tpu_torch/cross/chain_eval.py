@@ -126,11 +126,13 @@ class ChainEvaluator:
     States are packed, the K leaves on a trailing axis, (d-1, R, K), so a
     link gather is one gather; they carry a leading bond axis that callers
     slice to their window.  What states() and states_from_vip() return is
-    valid only as input to this evaluator's methods."""
+    valid only as input to this evaluator's methods.  dtype: the dtype of
+    the packed states, the engine's."""
 
-    def __init__(self, spec: ChainSpec, d: int):
+    def __init__(self, spec: ChainSpec, d: int, dtype: torch.dtype = torch.float64):
         self.spec = spec
         self.d = d
+        self.dtype = dtype
         self.fun = chain_fun(spec, d)
         ident = spec.identity()
         self._keys = sorted(ident)
@@ -167,7 +169,7 @@ class ChainEvaluator:
         ps = torch.arange(nb, device=dev)
         # the identity's leaves, filled on the device: a tensor made from the
         # Python floats would be a host-to-device copy, which waits
-        identE = torch.stack([torch.full((), v, dtype=torch.float64, device=dev)
+        identE = torch.stack([torch.full((), v, dtype=self.dtype, device=dev)
                               for v in self._ident])
         iR = torch.arange(R, device=dev)
 
@@ -190,7 +192,7 @@ class ChainEvaluator:
             return e
 
         def payload(dims, idx):
-            return self._pack(sp.lift(dims, idx)).to(torch.float64).expand(nb, R, K)
+            return self._pack(sp.lift(dims, idx)).to(self.dtype).expand(nb, R, K)
 
         identRow = identE.expand(1, R, K)
         eP = hs_scan(vip[:, :, 0].long(), payload(ps[:, None], vip[:, :, 1]), False)

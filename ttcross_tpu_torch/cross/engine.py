@@ -22,13 +22,15 @@ the MVN and stdnorm integrands are the small-table lookup (kernel B).
 
 from __future__ import annotations
 
+import functools
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from types import SimpleNamespace
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import precision_thresholds
 from ..ops.dense import (balanced_matmul_chain, batched_row_lookup, masked_slot_write,
@@ -42,7 +44,7 @@ from .chain_eval import ChainEvaluator
 from .chains import (advance_left, advance_right, all_left_tables,
                      all_right_tables, assemble_indices, pivot_index_sets)
 from .engine_jacobi import build_jacobi
-from .state import CrossState, as_lanes, empty_state, lane
+from .state import CrossState, as_lanes, empty_state, lane, pad_state
 
 __all__ = ["CrossConfig", "CrossResult", "cross", "make_engine",
            "round_and_revalue"]
@@ -61,6 +63,8 @@ class CrossConfig:
     wlot: bool = False   # lottery weighted by the quad weights (weighted_lottery)
     jacobi: bool = False  # all-bonds-batched sweeps (sweep_mode "jacobi", "jacobi-rb")
     rb: bool = False      # red-black phases: even bonds accept, then odd bonds
+    caps: tuple | None = None   # per-bond rank caps (d-1,): capped fiber batches (rank_caps)
+    adaptive: float = 0.0  # > 0: gate a bond's fiber hunt by its lottery residual (adaptive)
 
 
 @dataclass
@@ -118,13 +122,14 @@ def round_and_revalue(res: CrossResult, max_rank: int, quad, truth) -> CrossResu
 def _values_errors(vals, last_it: int, truth, with_quad: bool):
     values, errors = [], []
     if with_quad:
+        # Python floats: an f32 run's values are compared in f64
         values = [float(v) for v in vals[: last_it + 1]]
         for i in range(1, last_it + 1):
             if truth is not None:
-                errors.append(abs(1.0 - vals[i] / truth))
+                errors.append(abs(1.0 - values[i] / truth))
             else:
-                prev = vals[i - 1]
-                errors.append(abs(1.0 - vals[i] / prev) if prev != 0 else float("nan"))
+                prev = values[i - 1]
+                errors.append(abs(1.0 - values[i] / prev) if prev != 0 else float("nan"))
     return values, errors
 
 
@@ -164,15 +169,24 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
     iR = torch.arange(R, device=dev)
     iN = torch.arange(N, device=dev)
     n_t = torch.tensor(n, device=dev)
-    # candidate enumerations: column fibers vary (i, j) over (R, N), row
-    # fibers (k, q) over (N, R), lottery slots over NLOT
-    ci_g, cj_g = iR.repeat_interleave(N).expand(L, RN), iN.repeat(R).expand(L, RN)
-    rk_g, rq_g = iN.repeat_interleave(R).expand(L, RN), iR.repeat(N).expand(L, RN)
+    # candidate enumerations: column fibers vary (i, j) over (Rl, N), row
+    # fibers (k, q) over (N, Rr), lottery slots over NLOT; Rl = Rr = R but
+    # on a capped sweep (rank_caps), whose bonds evaluate smaller batches
     lot = torch.arange(NLOT, device=dev)
 
-    def per_lane(x):
-        """A lane scalar (L,) against a candidate axis: (L, RN)."""
-        return x[:, None].expand(L, RN)
+    @functools.lru_cache(maxsize=None)
+    def _col_grid(Rl: int):
+        return (iR[:Rl].repeat_interleave(N).expand(L, Rl * N),
+                iN.repeat(Rl).expand(L, Rl * N))
+
+    @functools.lru_cache(maxsize=None)
+    def _row_grid(Rr: int):
+        return (iN.repeat_interleave(Rr).expand(L, N * Rr),
+                iR[:Rr].repeat(N).expand(L, N * Rr))
+
+    def per_lane(x, width):
+        """A lane scalar (L,) against a candidate axis: (L, width)."""
+        return x[:, None].expand(L, width)
 
     # ---------------------------------------------------------------- init
     def init_fn() -> CrossState:
@@ -217,30 +231,42 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
     # ----------------------------------------------------------- bond visit
     # Every tensor below carries the lane axis first: bond p's slices of
     # the state (st.colf[p] (L, R, N, R), st.rk[p] (L,)), the pivot indices
-    # (L,), the fibers (L, R, N) and (L, N, R).
-    def _col_mask(st, p):
-        return ((iR[None, :, None] < st.rk[p][:, None, None])
-                & (iN[None, None, :] < n[p]))                              # (L, R, N)
+    # (L,), the fibers (L, Rl, N) and (L, N, Rr).  Rl and Rr are the padded
+    # ranks of the bond's left and right candidates: R, or on a capped sweep
+    # the caps of the neighbouring bonds (the LU and factor machinery keeps
+    # its full R; a capped fiber is zero-embedded before the accept).
+    def _col_mask(st, p, Rl=R):
+        return ((iR[None, :Rl, None] < st.rk[p][:, None, None])
+                & (iN[None, None, :] < n[p]))                              # (L, Rl, N)
 
-    def _row_mask(st, p):
+    def _row_mask(st, p, Rr=R):
         return ((iN[None, :, None] < n[p + 1])
-                & (iR[None, None, :] < st.rk[p + 2][:, None, None]))       # (L, N, R)
+                & (iR[None, None, :Rr] < st.rk[p + 2][:, None, None]))     # (L, N, Rr)
 
     def _rank_mask(st, p):
         return (iR[None, :] < st.rk[p + 1][:, None]).to(dtype)             # (L, R)
 
-    def _col_fiber(st, p, ltab, rtab, kk, qq):
-        """Raw column fibers (L, R, N) at fixed (kk, qq), masked to the
+    def _rowf_r(st, p, Rr):
+        """Bond p's row factor st.rowf[p+1] (L, R, N, Rr): its first Rr
+        columns, copied contiguous when Rr < R."""
+        return st.rowf[p + 1] if Rr == R else st.rowf[p + 1][..., :Rr].contiguous()
+
+    def _col_fiber(st, p, ltab, rtab, kk, qq, Rl=R):
+        """Raw column fibers (L, Rl, N) at fixed (kk, qq), masked to the
         active (rk[p], n_p) block, and their counts of active evaluations."""
-        ind = assemble_indices(ltab, rtab, p, ci_g, cj_g, per_lane(kk), per_lane(qq), d)
-        vals = torch.where(_col_mask(st, p), fun_l(ind).reshape(L, R, N), 0.0)
+        ci, cj = _col_grid(Rl)
+        ind = assemble_indices(ltab, rtab, p, ci, cj, per_lane(kk, Rl * N),
+                               per_lane(qq, Rl * N), d)
+        vals = torch.where(_col_mask(st, p, Rl), fun_l(ind).reshape(L, Rl, N), 0.0)
         return vals, (st.rk[p] * n[p]).long()
 
-    def _row_fiber(st, p, ltab, rtab, ii, jj):
-        """Raw row fibers (L, N, R) at fixed (ii, jj), masked to
+    def _row_fiber(st, p, ltab, rtab, ii, jj, Rr=R):
+        """Raw row fibers (L, N, Rr) at fixed (ii, jj), masked to
         (n_{p+1}, rk[p+2]), and their counts of active evaluations."""
-        ind = assemble_indices(ltab, rtab, p, per_lane(ii), per_lane(jj), rk_g, rq_g, d)
-        vals = torch.where(_row_mask(st, p), fun_l(ind).reshape(L, N, R), 0.0)
+        rk_, rq_ = _row_grid(Rr)
+        ind = assemble_indices(ltab, rtab, p, per_lane(ii, N * Rr), per_lane(jj, N * Rr),
+                               rk_, rq_, d)
+        vals = torch.where(_row_mask(st, p, Rr), fun_l(ind).reshape(L, N, Rr), 0.0)
         return vals, (n[p + 1] * st.rk[p + 2]).long()
 
     def _argmax(vals, colf, rowf, mask):
@@ -252,31 +278,33 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
                          score_residual_argmax(vals[0], colf[0], rowf[0], mask[0]))
         return score_residual_argmax_batched(vals, colf, rowf, mask)
 
-    def _col_residual_argmax(st, p, acol, kk, qq):
+    def _col_residual_argmax(st, p, acol, kk, qq, Rl=R):
         """argmax of |acol - colf[p] @ rowf[p+1][:, kk, qq]| over the
-        active block (dmrgg.f90:537-539): kernel A at (R*N, 1)."""
+        active block (dmrgg.f90:537-539): kernel A at (Rl*N, 1)."""
         u = (st.rowf[p + 1].reshape(L, R, N * R).gather(
             2, (kk * R + qq).view(L, 1, 1).expand(L, R, 1))
             * _rank_mask(st, p)[:, :, None])                                # (L, R, 1)
-        flat, _, resid = _argmax(acol.reshape(L, RN, 1), st.colf[p].reshape(L, RN, R), u,
-                                 _col_mask(st, p).reshape(L, RN, 1))
+        flat, _, resid = _argmax(acol.reshape(L, Rl * N, 1),
+                                 st.colf[p][:, :Rl].reshape(L, Rl * N, R), u,
+                                 _col_mask(st, p, Rl).reshape(L, Rl * N, 1))
         return flat // N, flat % N, resid
 
-    def _row_residual_argmax(st, p, arow, ii, jj):
+    def _row_residual_argmax(st, p, arow, ii, jj, Rr=R):
         """argmax of |arow - colf[p][ii, jj, :] @ rowf[p+1]| over the
-        active block (dmrgg.f90:570-572): kernel A at (1, N*R)."""
+        active block (dmrgg.f90:570-572): kernel A at (1, N*Rr)."""
         c = (st.colf[p].reshape(L, RN, R).gather(
             1, (ii * N + jj).view(L, 1, 1).expand(L, 1, R))
             * _rank_mask(st, p)[:, None, :])                                # (L, 1, R)
-        flat, _, resid = _argmax(arow.reshape(L, 1, N * R), c,
-                                 st.rowf[p + 1].reshape(L, R, N * R),
-                                 _row_mask(st, p).reshape(L, 1, N * R))
-        return flat // R, flat % R, resid
+        flat, _, resid = _argmax(arow.reshape(L, 1, N * Rr), c,
+                                 _rowf_r(st, p, Rr).reshape(L, R, N * Rr),
+                                 _row_mask(st, p, Rr).reshape(L, 1, N * Rr))
+        return flat // Rr, flat % Rr, resid
 
-    def _hunt_lottery(st, p, ltab, rtab, u2, lw=None):
+    def _hunt_lottery(st, p, ltab, rtab, u2, lw=None, Rl=R, Rr=R):
         """Lottery over the unused candidate columns (i, j) and rows (q, k)
         (lottery2, rnd.f90:105-144; dmrgg.f90:410-487), residual scoring,
-        seed pivot.  u2 (L, 2, NLOT) f64 uniforms in [0, 1).  lw (d, N): the
+        seed pivot.  u2 (L, 2, NLOT) f64 uniforms in [0, 1), of which a
+        capped bond draws the first Rl + 2N + Rr.  lw (d, N): the
         per-mode lottery weights, each mode's scaled to a maximum of 1
         (cross(weighted_lottery=True)): column (i, j) then draws with
         probability ~ lw[p, j], row (q, k) with ~ lw[p+1, k], as the f64
@@ -289,61 +317,66 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         the same exact counts), the target is f32(u) * f32(total) clamped
         to total * f32(1 - 2^-20), and the pick is searchsorted(right)."""
         # layouts: columns (i, j) flattened i*N + j; rows (q, k) q*N + k
-        colmask = _col_mask(st, p).reshape(L, RN)
-        rowmask = ((iR[None, :, None] < st.rk[p + 2][:, None, None])
-                   & (iN[None, None, :] < n[p + 1])).reshape(L, RN)
+        nlp = Rl + N + N + Rr
+        colmask = _col_mask(st, p, Rl).reshape(L, Rl * N)
+        rowmask = ((iR[None, :Rr, None] < st.rk[p + 2][:, None, None])
+                   & (iN[None, None, :] < n[p + 1])).reshape(L, Rr * N)
         # zero weight on already-used pivots (dmrgg.f90:432-439); padding
-        # rows of vip repeat index 0, so the scatter takes the max
+        # rows of vip repeat index 0, so the scatter takes the max; a capped
+        # side clamps the chain index into its grid as the JAX engine does
         vb = st.vip[p].long()                                 # (L, R, 4)
+        vi = vb[..., 0] if Rl == R else vb[..., 0].clamp(max=Rl - 1)
+        vq = vb[..., 3] if Rr == R else vb[..., 3].clamp(max=Rr - 1)
         smask = (iR[None, :] < st.rk[p + 1][:, None]).to(torch.int32)
-        used_col = torch.zeros((L, RN), dtype=torch.int32, device=dev).scatter_reduce_(
-            1, vb[..., 0] * N + vb[..., 1], smask, "amax")
-        used_row = torch.zeros((L, RN), dtype=torch.int32, device=dev).scatter_reduce_(
-            1, vb[..., 3] * N + vb[..., 2], smask, "amax")
+        used_col = torch.zeros((L, Rl * N), dtype=torch.int32, device=dev).scatter_reduce_(
+            1, vi * N + vb[..., 1], smask, "amax")
+        used_row = torch.zeros((L, Rr * N), dtype=torch.int32, device=dev).scatter_reduce_(
+            1, vq * N + vb[..., 2], smask, "amax")
         if lw is None:
             cdf_c = torch.cumsum((colmask & (used_col == 0)).to(torch.int32), 1).to(torch.float32)
             cdf_r = torch.cumsum((rowmask & (used_row == 0)).to(torch.int32), 1).to(torch.float32)
         else:
-            cdf_c = torch.cumsum((colmask & (used_col == 0)) * lw[p].repeat(R), 1).to(torch.float32)
-            cdf_r = torch.cumsum((rowmask & (used_row == 0)) * lw[p + 1].repeat(R), 1).to(torch.float32)
+            cdf_c = torch.cumsum((colmask & (used_col == 0)) * lw[p].repeat(Rl), 1).to(torch.float32)
+            cdf_r = torch.cumsum((rowmask & (used_row == 0)) * lw[p + 1].repeat(Rr), 1).to(torch.float32)
         below = 1.0 - 2.0 ** -20          # exact in f32
         tot_c, tot_r = cdf_c[:, -1:], cdf_r[:, -1:]
-        t_c = torch.minimum(u2[:, 0].to(torch.float32) * torch.where(tot_c > 0, tot_c, 1.0),
+        t_c = torch.minimum(u2[:, 0, :nlp].to(torch.float32) * torch.where(tot_c > 0, tot_c, 1.0),
                             tot_c * below)
-        t_r = torch.minimum(u2[:, 1].to(torch.float32) * torch.where(tot_r > 0, tot_r, 1.0),
+        t_r = torch.minimum(u2[:, 1, :nlp].to(torch.float32) * torch.where(tot_r > 0, tot_r, 1.0),
                             tot_r * below)
-        lin_c = torch.searchsorted(cdf_c, t_c.contiguous(), right=True).clamp(max=RN - 1)
-        lin_r = torch.searchsorted(cdf_r, t_r.contiguous(), right=True).clamp(max=RN - 1)
+        lin_c = torch.searchsorted(cdf_c, t_c.contiguous(), right=True).clamp(max=Rl * N - 1)
+        lin_r = torch.searchsorted(cdf_r, t_r.contiguous(), right=True).clamp(max=Rr * N - 1)
         i_c, j_c = lin_c // N, lin_c % N
         q_c, k_c = lin_r // N, lin_r % N
 
         nlot_act = st.rk[p] + n[p] + n[p + 1] + st.rk[p + 2]              # (L,)
-        candmask = lot[None, :] < nlot_act[:, None]
-        b = fun_l(assemble_indices(ltab, rtab, p, i_c, j_c, k_c, q_c, d))  # (L, NLOT)
+        candmask = lot[None, :nlp] < nlot_act[:, None]
+        b = fun_l(assemble_indices(ltab, rtab, p, i_c, j_c, k_c, q_c, d))  # (L, nlp)
         amax = torch.maximum(st.amax, torch.where(candmask, b.abs(), 0.0).amax(dim=1))
         neval = st.neval + nlot_act.long()
 
         # residual b - colf[p][i,j,:] . rowf[p+1][:,k,q]  (dmrgg.f90:469-476)
-        cf = batched_row_lookup(st.colf[p].reshape(L, RN, R), lin_c)       # (L, NLOT, R)
-        rf = batched_row_lookup(st.rowf[p + 1].reshape(L, R, N * R).mT, k_c * R + q_c)
+        cf = batched_row_lookup(st.colf[p][:, :Rl].reshape(L, Rl * N, R), lin_c)  # (L, nlp, R)
+        rf = batched_row_lookup(_rowf_r(st, p, Rr).reshape(L, R, N * Rr).mT, k_c * Rr + q_c)
         resid = b - (cf * rf * _rank_mask(st, p)[:, None, :]).sum(dim=2)
         best = torch.argmax(torch.where(candmask, resid.abs(), -1.0), dim=1)[:, None]
         seed = tuple(x.gather(1, best)[:, 0] for x in (i_c, j_c, k_c, q_c))
-        st = st._replace(amax=amax, neval=neval, padded=st.padded + NLOT)
+        st = st._replace(amax=amax, neval=neval, padded=st.padded + nlp)
         return st, seed, resid.gather(1, best)[:, 0]
 
-    def _rook(st, p, ltab, rtab, seed, pivot0, fwd: bool):
+    def _rook(st, p, ltab, rtab, seed, pivot0, fwd: bool, Rl=R, Rr=R):
         """Rook pivoting (dmrgg.f90:515-582): alternate column/row
         maximization until stationary or 2*piv passes, as exactly 2*piv
         masked passes ('>>' sweeps start with a column pass, '<<' with a
-        row pass; skipcol, dmrgg.f90:517).  A pass after a lane's tensor
+        row pass; skipcol, dmrgg.f90:517; a capped sweep always starts with
+        a column pass, as the JAX engine's).  A pass after a lane's tensor
         flag `done` is set changes nothing of that lane; whether the budget
         ends a pass is known on the host (it depends only on the pass
         number)."""
         ii, jj, kk, qq = seed
         pivot = pivot0
-        acol = torch.zeros((L, R, N), dtype=dtype, device=dev)
-        arow = torch.zeros((L, N, R), dtype=dtype, device=dev)
+        acol = torch.zeros((L, Rl, N), dtype=dtype, device=dev)
+        arow = torch.zeros((L, N, Rr), dtype=dtype, device=dev)
         done = torch.zeros((L,), dtype=torch.bool, device=dev)
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         amax, neval = st.amax, st.neval
@@ -351,8 +384,8 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         for t in range(2 * cfg.piv):
             live = ~done
             if fwd == (t % 2 == 0):      # column pass
-                new, dnev = _col_fiber(st, p, ltab, rtab, kk, qq)
-                a2, b2, resid = _col_residual_argmax(st, p, new, kk, qq)
+                new, dnev = _col_fiber(st, p, ltab, rtab, kk, qq, Rl)
+                a2, b2, resid = _col_residual_argmax(st, p, new, kk, qq, Rl)
                 budget = haverow and t + 1 >= 2 * cfg.piv
                 stat = ((a2 == ii) & (b2 == jj)) if haverow else torch.zeros_like(done)
                 havecol = True
@@ -361,8 +394,8 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
                     ii = torch.where(live, a2, ii)
                     jj = torch.where(live, b2, jj)
             else:                        # row pass
-                new, dnev = _row_fiber(st, p, ltab, rtab, ii, jj)
-                a2, b2, resid = _row_residual_argmax(st, p, new, ii, jj)
+                new, dnev = _row_fiber(st, p, ltab, rtab, ii, jj, Rr)
+                a2, b2, resid = _row_residual_argmax(st, p, new, ii, jj, Rr)
                 budget = havecol and t + 1 >= 2 * cfg.piv
                 stat = ((a2 == kk) & (b2 == qq)) if havecol else torch.zeros_like(done)
                 haverow = True
@@ -375,21 +408,21 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
             amax = torch.where(live, torch.maximum(amax, new.abs().amax(dim=(1, 2))), amax)
             neval = neval + torch.where(live, dnev, zero)
             done = done | budget | stat
-        # padded work: every pass calls fun on a full (R, N) batch
+        # padded work: every pass calls fun on a full (Rl, N) or (N, Rr) batch
         st = st._replace(amax=amax, neval=neval,
-                         padded=st.padded + 2 * cfg.piv * R * N)
+                         padded=st.padded + cfg.piv * (Rl + Rr) * N)
         return st, (ii, jj, kk, qq), pivot, acol, arow
 
-    def _hunt_piv0(st, p, ltab, rtab, seed, pivot0):
+    def _hunt_piv0(st, p, ltab, rtab, seed, pivot0, Rl=R, Rr=R):
         """piv = 0: evaluate the seed's full column and row once
         (dmrgg.f90:492-513)."""
         ii, jj, kk, qq = seed
-        acol, dn_c = _col_fiber(st, p, ltab, rtab, kk, qq)
-        arow, dn_r = _row_fiber(st, p, ltab, rtab, ii, jj)
+        acol, dn_c = _col_fiber(st, p, ltab, rtab, kk, qq, Rl)
+        arow, dn_r = _row_fiber(st, p, ltab, rtab, ii, jj, Rr)
         amax = torch.maximum(torch.maximum(st.amax, acol.abs().amax(dim=(1, 2))),
                              arow.abs().amax(dim=(1, 2)))
         st = st._replace(amax=amax, neval=st.neval + dn_c + dn_r,
-                         padded=st.padded + 2 * R * N)
+                         padded=st.padded + (Rl + Rr) * N)
         return st, seed, pivot0, acol, arow
 
     def _hunt_full(st, p, ltab, rtab):
@@ -471,22 +504,61 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         st.rk[p + 1] += upd.to(torch.int32)     # in place
         return st._replace(pivotmax=pivotmax, pivotmin=pivotmin)
 
+    def _caps(p: int):
+        """Bond p's padded candidate ranks (Rl, Rr) and its rank bound Rb:
+        (R, R, R), or on a capped sweep min(R, cap) of the neighbouring
+        bonds and of the bond itself (1 beyond the ends of the train)."""
+        if cfg.caps is None:
+            return R, R, R
+        Rl = 1 if p == 0 else min(R, int(cfg.caps[p - 1]))
+        Rr = 1 if p == d - 2 else min(R, int(cfg.caps[p + 1]))
+        return Rl, Rr, min(R, int(cfg.caps[p]))
+
     def visit_bond(st: CrossState, p: int, fwd: bool, ltab, rtab, u2, lw=None,
                    live=None) -> CrossState:
         """Hunt + (maybe) accept at bond p in every lane; u2 (L, 2, NLOT)
         lottery uniforms, lw the lottery weights of a weighted draw, live
-        (L,) the lanes that may accept (None: all)."""
+        (L,) the lanes that may accept (None: all).
+
+        Capped (cfg.caps, rank_caps; ttcross_tpu/cross/engine.py:835-1002):
+        the lottery and the rook fibers are evaluated at (Rl, N) / (N, Rr),
+        the rook passes run col, row, ... whatever the direction, and the
+        bond accepts while its rank is below its cap.  Adaptive
+        (cfg.adaptive, :748-771): the hunt's fibers count only where the
+        lottery residual, amplified by cfg.adaptive, clears both accept
+        thresholds at a bond below rank R; elsewhere the hunt's results are
+        dropped by torch.where, as jax.vmap of lax.cond selects (its
+        integrand calls still run: the saving is in counted evaluations,
+        and no host sync decides the gate)."""
+        Rl, Rr, Rb = _caps(p)
         if cfg.piv == -1:
             st, piv_idx, pivot, acol, arow = _hunt_full(st, p, ltab, rtab)
         else:
-            st, seed, pivot0 = _hunt_lottery(st, p, ltab, rtab, u2, lw)
+            st0, seed, pivot0 = _hunt_lottery(st, p, ltab, rtab, u2, lw, Rl, Rr)
             if cfg.piv == 0:
-                st, piv_idx, pivot, acol, arow = _hunt_piv0(st, p, ltab, rtab, seed, pivot0)
+                st, piv_idx, pivot, acol, arow = _hunt_piv0(st0, p, ltab, rtab, seed, pivot0,
+                                                            Rl, Rr)
             else:
-                st, piv_idx, pivot, acol, arow = _rook(st, p, ltab, rtab, seed, pivot0, fwd)
+                st, piv_idx, pivot, acol, arow = _rook(st0, p, ltab, rtab, seed, pivot0,
+                                                       fwd or cfg.caps is not None, Rl, Rr)
+            if cfg.adaptive > 0:
+                probe = pivot0.abs() * cfg.adaptive
+                gate = ((probe > cfg.small_element * st0.amax)
+                        & (probe > cfg.small_pivot * st0.pivotmax_prev)
+                        & (st0.rk[p + 1] < R))
+                st = st._replace(**{f: torch.where(gate, getattr(st, f), getattr(st0, f))
+                                    for f in ("amax", "neval", "padded")})
+                piv_idx = tuple(torch.where(gate, a, s) for a, s in zip(piv_idx, seed))
+                pivot = torch.where(gate, pivot, 0.0)
+                acol = torch.where(gate[:, None, None], acol, 0.0)
+                arow = torch.where(gate[:, None, None], arow, 0.0)
+            if Rl < R:
+                acol = F.pad(acol, (0, 0, 0, R - Rl))
+            if Rr < R:
+                arow = F.pad(arow, (0, R - Rr))
         upd = ((pivot.abs() > cfg.small_element * st.amax)
                & (pivot.abs() > cfg.small_pivot * st.pivotmax_prev)
-               & (st.rk[p + 1] < R))
+               & (st.rk[p + 1] < Rb))
         if live is not None:
             upd = upd & live
         return _accept(st, p, piv_idx, pivot, acol, arow, upd)
@@ -517,9 +589,9 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         return st._replace(**{f: torch.where(live, getattr(st, f), getattr(old, f))
                               for f in _SCALARS})
 
-    chain_ev = None if chain is None else ChainEvaluator(chain, d)
+    chain_ev = None if chain is None else ChainEvaluator(chain, d, dtype)
     make_sweep_jacobi, jacobi_hunt, jacobi_apply = build_jacobi(
-        cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=chain_ev)
+        cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=chain_ev, dtype=dtype)
     if cfg.jacobi:
         sweep_jac = {True: make_sweep_jacobi(True), False: make_sweep_jacobi(False)}
 
@@ -585,7 +657,7 @@ def _apply_refine(res: CrossResult, fun, n, refine_sweeps: int, quad, truth,
 
     I, J = pivot_index_sets(state.vip, state.rk)
     mv = maxvol_refine(fun, n, init_sets=(I, J), sweeps=int(refine_sweeps),
-                       quad=quad, truth=truth, device=device)
+                       quad=quad, truth=truth, device=device, dtype=state.cores.dtype)
     res.tt = mv.tt
     res.ranks = mv.ranks
     res.neval += mv.neval
@@ -656,24 +728,26 @@ def _pivot_shim(st: CrossState) -> SimpleNamespace:
 
 
 def run_sweeps(kit: EngineKit, st: CrossState, uniforms, w=None, *, accuracy=None,
-               max_sweeps: int, it0: int = 0, cs=None, lw=None):
+               max_sweeps: int, it0: int = 0, cs=None, lw=None, strike=None):
     """Sweeps it0+1 .. it0+max_sweeps of one run (kit.lanes = 0) or of
     every lane of a lane state, with the strike-based stop
     (dmrgg.f90:1010-1019) per run: after 3 quiet sweeps in a row a run
     stops; in a lane state it is frozen while the other lanes go on.
     uniforms[it - 1]: sweep it's lottery uniforms; w (d, N): the quadrature
-    weights of the per-sweep values (None: no values).  The one host sync
-    per sweep is the stop.  Returns (st, cs, sweeps made, values, pivotmax
-    and n_evals per sweep) as numpy, the first with the state's lane
-    shape, the others (max_sweeps + 1, ...)."""
+    weights of the per-sweep values (None: no values); strike: one run's
+    quiet sweeps counted before this call (a chunked run carries them from
+    one chunk to the next; None: 0).  The one host sync per sweep is the stop.
+    Returns (st, cs, sweeps made, values, pivotmax and n_evals per sweep,
+    strike) as numpy, the first and the last with the state's lane shape,
+    the others (max_sweeps + 1, ...)."""
     shape, dev = st.amax.shape, st.amax.device
     vals = torch.zeros((max_sweeps + 1,) + shape, dtype=st.amax.dtype, device=dev)
     pmax = torch.zeros_like(vals)
     nev = torch.zeros((max_sweeps + 1,) + shape, dtype=torch.int64, device=dev)
     if w is not None:
         vals[0] = kit.value_fn(st, w)
-    live = torch.ones(shape, dtype=torch.bool, device=dev)
-    strike = torch.zeros(shape, dtype=torch.int64, device=dev)
+    strike = torch.full(shape, int(strike or 0), dtype=torch.int64, device=dev)
+    live = strike < 3
     last = torch.zeros(shape, dtype=torch.int64, device=dev)
     for it in range(1, max_sweeps + 1):
         if cs is None:
@@ -688,17 +762,46 @@ def run_sweeps(kit: EngineKit, st: CrossState, uniforms, w=None, *, accuracy=Non
         nev[it] = st.neval
         last = torch.where(live, it, last)
         if accuracy is not None:
-            strike = torch.where(st.pivotmax <= accuracy * st.amax, strike + 1, 0)
+            strike = torch.where(live, torch.where(st.pivotmax <= accuracy * st.amax,
+                                                   strike + 1, 0), strike)
             live = live & (strike < 3)
             if not bool(live.any()):
                 break
     return (st, cs, last.cpu().numpy(), vals.cpu().numpy(), pmax.cpu().numpy(),
-            nev.cpu().numpy())
+            nev.cpu().numpy(), strike.cpu().numpy())
 
 
-# kwargs of ttcross_tpu's cross() that the port does not run yet, with the
-# ROADMAP queue 1 item that ports them
-_NOT_PORTED = {"rank_chunks": "7b", "rank_caps": "7b", "adaptive": "7b"}
+def auto_chunks(max_rank: int, n_chunks: int = 4) -> list[int]:
+    """The default rank-chunk schedule (cross(rank_chunks="auto")): evenly
+    spaced padding levels ending at max_rank (ttcross_tpu/cross/engine.py:
+    124-132).  With k chunks the padded fiber work is ~(k+1)/(2k) R^2
+    against the exact ~R^2/2: 1.25x at k = 4."""
+    if max_rank <= 6:
+        return [max_rank]
+    nch = n_chunks if max_rank >= 4 * n_chunks else 2
+    ch = sorted({max(4, -(-max_rank * k // nch)) for k in range(1, nch + 1)})
+    return [c for c in ch if c <= max_rank] if ch[-1] == max_rank else ch + [max_rank]
+
+
+def chunk_plan(chunks, max_sweeps: int) -> list[tuple[int, int]]:
+    """(padded rank, sweeps) per chunk of a chunked run
+    (ttcross_tpu/cross/engine.py:1748-1763): a rank grows at most 1 per
+    sweep, so chunk c covers the sweeps while the rank is <= chunks[c]; the
+    schedule is cut to the sweep budget, and sweeps beyond it extend the
+    last chunk."""
+    lens = [chunks[0] - 1] + [b - a for a, b in zip(chunks[:-1], chunks[1:])]
+    total = sum(lens)
+    if max_sweeps < total:
+        plan, used = [], 0
+        for Rc, lc in zip(chunks, lens):
+            lc = min(lc, max_sweeps - used)
+            if lc <= 0:
+                break
+            plan.append((Rc, lc))
+            used += lc
+        return plan
+    lens[-1] += max_sweeps - total
+    return list(zip(chunks, lens))
 
 
 def cross(
@@ -742,6 +845,11 @@ def cross(
     when max accepted pivot <= accuracy * amax for 3 consecutive sweeps.
     pivoting: -1 full / 0 lottery / k>=1 rook with up to 2k passes.
     quad: per-mode weight vectors -> per-sweep value and error.
+    dtype: torch.float64 (the reference's double tier) or torch.float32
+    (its real*4 tier: the state, the integrand's values and the kernels in
+    f32, the thresholds of config.precision_thresholds(torch.float32));
+    the integrand must return values of that dtype (the makers take
+    ``dtype=``).
     oversample: cross at max_rank + oversample, then TT-SVD-round to
     max_rank.  key: seed of the CPU torch.Generator that draws the lottery
     uniforms, one block per sweep, so CPU and CUDA runs see the same draws.
@@ -759,8 +867,8 @@ def cross(
     not changed.
     return_pivots: res.state becomes a light shim of the pivots (vip and
     rk as host numpy), enough for cross/skeleton.py::extract_skeleton; the
-    plain run only (ValueError with oversample, refine_sweeps or
-    init_state).
+    plain run only (ValueError with oversample, rank_chunks, refine_sweeps
+    or init_state).
     host_reeval: re-evaluate the frozen pivot skeleton with a host
     integrand ``fun_np(ind (B, d) int numpy) -> (B,) f64 numpy`` (e.g.
     ``IsingProblem.fun_np``) and rebuild, round (to max_rank after an
@@ -768,8 +876,30 @@ def cross(
     does; n_evals counts the skeleton's samples.  True derives fun_np from
     fun (cross/skeleton.py::derive_host_fun): fun evaluated on the run's
     device, for the Ising problem on the card one fused-integrand launch.
-    Plain or oversampled runs only (ValueError with refine_sweeps or
-    init_state).
+    Plain or oversampled single-chunk runs only (ValueError with
+    rank_chunks, refine_sweeps or init_state).
+    rank_chunks: a rank-padding growth schedule (increasing, >= 2, ending
+    at max_rank), or "auto" (auto_chunks): the first sweeps run at a
+    small padded rank, so that the evaluated batches track the active
+    ranks (~1.25x at 4 levels instead of ~R/rank); the state is re-embedded
+    between chunks (cross/state.py::pad_state), the sweep counter and the
+    quiet-sweep strike carry over, and each chunk draws its lottery at its
+    own padded rank (the first 2(R_c + N) uniforms of each sweep's block).
+    rank_caps: per-bond rank caps (d-1,), e.g. the rank profile of an
+    earlier run: every bond's lottery and rook fibers are evaluated at the
+    capped sizes (Rl, N) / (N, Rr), Rl / Rr = min(R, cap of the
+    neighbouring bond), so a rank-heterogeneous train pays no padded work
+    for one global rank; a capped sweep's rook passes run col, row, ...
+    whatever the direction.  Sequential sweeps with pivoting >= 0 and no
+    adaptive gating (ValueError otherwise).  With rank_chunks the C_6
+    headline's padded ratio is ~1.15.
+    adaptive: adaptive hunt gating (True = margin 4096, or a margin float):
+    a bond's rook / piv0 fibers count only where `adaptive` times its
+    lottery residual clears both accept thresholds at a bond below rank R;
+    elsewhere the bond costs its lottery, in n_evals and padded_evals.  The
+    hunt still runs and is dropped (no host sync decides it), so the saving
+    is in counted evaluations, not in launches.  Sequential sweeps with
+    pivoting >= 0 (ValueError otherwise).
     sweep_mode: 'sequential' (one bond after the other), or the
     all-bonds-batched sweeps for long chains (cross/engine_jacobi.py):
     'jacobi' (every bond hunts at once against the start-of-sweep factors)
@@ -782,8 +912,7 @@ def cross(
     it.  With return_state the result carries them as ``chain_states``.
     use_pallas: accepted for API parity and changes nothing: on a CUDA
     state the hand-written kernels always run, on a CPU state their plain
-    versions.  Not ported yet (NotImplementedError, ROADMAP queue 1
-    item 7b): rank_chunks, rank_caps, adaptive, dtype=float32."""
+    versions."""
     return _cross(fun, n, max_rank=max_rank, accuracy=accuracy,
                   pivoting=pivoting, quad=quad, truth=truth, key=key,
                   dtype=dtype, verbose=verbose, return_state=return_state,
@@ -792,61 +921,57 @@ def cross(
                   sweep_mode=sweep_mode, device=device, chain=chain,
                   weighted_lottery=weighted_lottery, refine_sweeps=refine_sweeps,
                   init_state=init_state, return_pivots=return_pivots,
-                  host_reeval=host_reeval,
-                  not_ported=dict(rank_chunks=rank_chunks, rank_caps=rank_caps,
-                                  adaptive=adaptive))
+                  host_reeval=host_reeval, rank_chunks=rank_chunks,
+                  rank_caps=rank_caps, adaptive=adaptive)
 
 
 def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
            verbose, return_state, max_sweeps, small_element, small_pivot,
            oversample, sweep_mode, device, chain=None, weighted_lottery=False,
            refine_sweeps=0, init_state=None, return_pivots=False, host_reeval=None,
-           not_ported=None, uniforms=None):
+           rank_chunks=None, rank_caps=None, adaptive=0.0, uniforms=None):
     """cross() with one more input: uniforms, (max_sweeps, d-1, 2, NLOT)
     lottery uniforms of the (possibly oversampled) run in place of the
-    key's draws; the tests feed the JAX engine's draws through it."""
-    if host_reeval is True:
-        from .skeleton import derive_host_fun
-
-        host_reeval = derive_host_fun(fun, device)
-    elif host_reeval is False:
-        host_reeval = None
-    not_ported = not_ported or {}
-    if host_reeval is not None and (not_ported.get("rank_chunks") is not None
-                                    or refine_sweeps or init_state is not None):
-        # the JAX package rebuilds from its fused path's packed pivots
-        raise ValueError("host_reeval supports plain or oversampled single-chunk runs only")
-    if return_pivots and (oversample or not_ported.get("rank_chunks") is not None
-                          or refine_sweeps or init_state is not None):
-        raise ValueError("return_pivots supports the plain single-chunk run only; "
-                         "use return_state=True otherwise")
-    for name, val in not_ported.items():
-        if val is not None and val is not False and val != 0:
-            raise NotImplementedError(
-                f"cross({name}=...) is not ported to ttcross_tpu_torch yet "
-                f"(ROADMAP queue 1 item {_NOT_PORTED[name]})")
-    if sweep_mode not in ("sequential", "jacobi", "jacobi-rb"):
-        raise ValueError(f"unknown sweep_mode {sweep_mode!r}")
-    jacobi = sweep_mode != "sequential"
-    if jacobi and int(pivoting) < 0:
-        # the batched hunt has no full-pivoting branch
-        raise ValueError("sweep_mode='jacobi' requires pivoting >= 0")
-    if dtype != torch.float64:
-        raise NotImplementedError("only dtype=torch.float64 is ported "
-                                  "(ROADMAP queue 1 item 7b)")
+    key's draws, and for a chunked run a sequence of one such block per
+    chunk, (sweeps of the chunk, d-1, 2, 2(R_c + N)); the tests feed the
+    JAX engine's draws through it.  The argument checks are the JAX
+    package's (ttcross_tpu/cross/engine.py:1389-1550), in its order."""
     n = tuple(int(x) for x in n)
     d = len(n)
     if d < 2:
         raise ValueError("cross requires d >= 2")
     if max_rank < 2:
         raise ValueError("max_rank must be >= 2")
+    if dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"dtype must be torch.float64 or torch.float32, got {dtype}")
+    if host_reeval is True:
+        from .skeleton import derive_host_fun
+
+        host_reeval = derive_host_fun(fun, device)
+    elif host_reeval is False:
+        host_reeval = None
+    if host_reeval is not None and (rank_chunks is not None or refine_sweeps
+                                    or init_state is not None):
+        # the JAX package rebuilds from its fused path's packed pivots
+        raise ValueError("host_reeval supports plain or oversampled single-chunk runs only")
+    if return_pivots and (oversample or rank_chunks is not None
+                          or refine_sweeps or init_state is not None):
+        raise ValueError("return_pivots supports the plain single-chunk run only; "
+                         "use return_state=True otherwise")
     if oversample:
         if return_state or init_state is not None:
             raise ValueError("oversample is incompatible with state passing")
         # refine_sweeps composes: cross at the inflated rank, replace the
         # pivots there, then round back to max_rank; host_reeval rebuilds
-        # the inflated run's train on the host and rounds it there
-        res = _cross(fun, n, max_rank=max_rank + int(oversample),
+        # the inflated run's train on the host and rounds it there.  An
+        # explicit chunk schedule is extended to the inflated rank, and the
+        # caps get the same headroom
+        r_over = max_rank + int(oversample)
+        chunks_over = rank_chunks
+        if rank_chunks is not None and rank_chunks != "auto":
+            chunks_over = [int(x) for x in rank_chunks if int(x) < r_over] + [r_over]
+        caps_over = None if rank_caps is None else [int(x) + int(oversample) for x in rank_caps]
+        res = _cross(fun, n, max_rank=r_over,
                      accuracy=accuracy, pivoting=pivoting, quad=quad,
                      truth=truth, key=key, dtype=dtype, verbose=verbose,
                      return_state=False, max_sweeps=max_sweeps,
@@ -854,28 +979,65 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
                      oversample=0, sweep_mode=sweep_mode, device=device,
                      chain=chain, weighted_lottery=weighted_lottery,
                      refine_sweeps=refine_sweeps, uniforms=uniforms,
-                     return_pivots=host_reeval is not None)
+                     return_pivots=host_reeval is not None, rank_chunks=chunks_over,
+                     rank_caps=caps_over, adaptive=adaptive)
         if host_reeval is None:
             return round_and_revalue(res, max_rank, quad, truth)
         res = _apply_host_reeval(res, host_reeval, n, max_rank, quad, truth)
         res.state = None
         return res
-    if weighted_lottery and quad is None:
-        raise ValueError("weighted_lottery requires quad weights")
-
     se, sp = precision_thresholds(dtype)
     if small_element is not None:
         se = float(small_element)
     if small_pivot is not None:
         sp = float(small_pivot)
+    if weighted_lottery and quad is None:
+        raise ValueError("weighted_lottery requires quad weights")
+    if sweep_mode not in ("sequential", "jacobi", "jacobi-rb"):
+        raise ValueError(f"unknown sweep_mode {sweep_mode!r}")
+    jacobi = sweep_mode != "sequential"
+    if jacobi and int(pivoting) < 0:
+        # the batched hunt has no full-pivoting branch
+        raise ValueError("sweep_mode='jacobi' requires pivoting >= 0")
+    adaptive = 4096.0 if adaptive is True else float(adaptive)
+    if adaptive > 0:
+        if int(pivoting) < 0:
+            raise ValueError("adaptive gating requires pivoting >= 0 "
+                             "(full pivoting has no lottery probe)")
+        if jacobi:
+            raise ValueError("adaptive gating applies to sequential sweeps")
+    caps = None
+    if rank_caps is not None:
+        caps = tuple(int(x) for x in rank_caps)
+        if len(caps) != d - 1 or min(caps) < 1:
+            raise ValueError(f"rank_caps must be d-1 = {d - 1} positive "
+                             f"per-bond caps; got {caps}")
+        if jacobi:
+            raise ValueError("rank_caps is not supported with jacobi sweeps")
+        if int(pivoting) < 0:
+            raise ValueError("rank_caps requires pivoting >= 0")
+        if adaptive > 0:
+            raise ValueError("adaptive gating is not supported with rank_caps (the capped "
+                             "sweep shrinks batches statically instead)")
     cfg = CrossConfig(d=d, n=n, N=max(n), R=max_rank, piv=int(pivoting),
                       small_element=se, small_pivot=sp, wlot=bool(weighted_lottery),
-                      jacobi=jacobi, rb=sweep_mode == "jacobi-rb")
-    dev = torch.device(device)
-    kit = make_engine(fun, cfg, dev, dtype, chain=chain)
+                      jacobi=jacobi, rb=sweep_mode == "jacobi-rb", caps=caps,
+                      adaptive=adaptive)
     if max_sweeps is None:
         max_sweeps = max_rank - 1
-    NLOT = 2 * (cfg.R + cfg.N)
+    chunks = None
+    if rank_chunks is not None:
+        chunks = auto_chunks(max_rank) if rank_chunks == "auto" else [int(x) for x in rank_chunks]
+        if len(chunks) > 1 and max_sweeps >= 1:
+            if init_state is not None:
+                raise ValueError("rank_chunks cannot resume from init_state")
+            if chunks != sorted(set(chunks)) or chunks[-1] != max_rank or chunks[0] < 2:
+                raise ValueError(f"rank_chunks must be increasing, >= 2, ending at "
+                                 f"max_rank={max_rank}; got {chunks}")
+        else:
+            chunks = None
+    dev = torch.device(device)
+    plan = chunk_plan(chunks, max_sweeps) if chunks else [(max_rank, max_sweeps)]
     it0 = 0
     if init_state is not None:
         if tuple(init_state.cores.shape) != (d, cfg.R, cfg.N, cfg.R):
@@ -884,39 +1046,74 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
                              "re-embeds a state at a larger rank)")
         it0 = int(init_state.sweeps)
     if uniforms is None:
-        uniforms = draw_uniforms(key, it0 + max_sweeps, d, NLOT)[it0:]
-    uniforms = torch.as_tensor(uniforms, dtype=torch.float64).to(dev)
-    if uniforms.shape[0] < max_sweeps or uniforms.shape[1:] != (d - 1, 2, NLOT):
-        raise ValueError(f"uniforms must be ({max_sweeps}, {d - 1}, 2, {NLOT}), "
-                         f"got {tuple(uniforms.shape)}")
+        # one block per sweep at the largest padding; a chunk draws the
+        # first 2(R_c + N) uniforms of each of its sweeps' blocks
+        drawn = draw_uniforms(key, it0 + max_sweeps, d, 2 * (cfg.R + cfg.N))[it0:]
+        uniforms, s0 = [], 0
+        for Rc, len_c in plan:
+            uniforms.append(drawn[s0:s0 + len_c, :, :, :2 * (Rc + cfg.N)])
+            s0 += len_c
+    elif chunks is None:
+        uniforms = [uniforms]
+    if len(uniforms) != len(plan):
+        raise ValueError(f"uniforms must hold one block per chunk of {plan}")
+    for i, (Rc, len_c) in enumerate(plan):
+        U = torch.as_tensor(uniforms[i], dtype=torch.float64).to(dev)
+        nlot = 2 * (Rc + cfg.N)
+        if U.shape[0] < len_c or U.shape[1:] != (d - 1, 2, nlot):
+            raise ValueError(f"uniforms must be ({len_c}, {d - 1}, 2, {nlot}), "
+                             f"got {tuple(U.shape)}")
+        uniforms[i] = U
 
     t0 = time.perf_counter()
     with_quad = quad is not None
     w = quad_matrix(quad, n, cfg.N, dev, dtype) if with_quad else None
-    # weighted lottery: |w| per mode, scaled to a maximum of 1 so that the
-    # f32 CDF of small weights does not underflow
-    lw = w.abs() / w.abs().amax(dim=1, keepdim=True) if cfg.wlot else None
+    # weighted lottery: |w| per mode in f64, scaled to a maximum of 1 so
+    # that the f32 CDF of small weights does not underflow
+    lw = None
+    if cfg.wlot:
+        wa = quad_matrix(quad, n, cfg.N, dev, torch.float64).abs()
+        lw = wa / wa.amax(dim=1, keepdim=True)
 
-    if init_state is None:
-        st = kit.init_fn()
-    else:
-        st = CrossState(*(t.clone().to(dev) for t in init_state))
-    # chain + all-bonds sweeps: the packed interface states are built once
-    # and carried through the run, kept up to date after every apply (vip is
-    # append-only, so existing rows never go stale)
-    cs = kit.chain_ev.states_from_vip(st.vip) if jacobi and chain is not None else None
-    st, cs, last, vals_h, pmax_h, nev_h = run_sweeps(
-        kit, st, uniforms, w, accuracy=accuracy, max_sweeps=max_sweeps, it0=it0, cs=cs, lw=lw)
-    last_it = int(last)
+    st, cs, strike = None, None, 0
+    vals_h, pmax_h, nev_h = [], [], []
+    done = 0
+    for i, (Rc, len_c) in enumerate(plan):
+        kit = make_engine(fun, replace(cfg, R=Rc), dev, dtype, chain=chain)
+        if i == 0:
+            st = kit.init_fn() if init_state is None else CrossState(
+                *(t.clone().to(dev) for t in init_state))
+        else:
+            st = pad_state(st, Rc)
+        # chain + all-bonds sweeps: the packed interface states are built
+        # once per chunk and carried through it, kept up to date after every
+        # apply (vip is append-only, so existing rows never go stale)
+        cs = kit.chain_ev.states_from_vip(st.vip) if jacobi and chain is not None else None
+        st, cs, last, vals, pmax, nev, strike = run_sweeps(
+            kit, st, uniforms[i], w, accuracy=accuracy, max_sweeps=len_c, it0=it0 + done,
+            cs=cs, lw=lw, strike=strike)
+        last = int(last)
+        if i == 0:
+            vals_h.append(vals[:1])
+        vals_h.append(vals[1:last + 1])
+        pmax_h.append(pmax[1:last + 1])
+        nev_h.append(nev[1:last + 1])
+        done += last
+        if last < len_c or (accuracy is not None and int(strike) >= 3):
+            break
+    last_it = done
+    vals_h = np.concatenate(vals_h)
+    pmax_h = np.concatenate([[0.0]] + pmax_h)
+    nev_h = np.concatenate([[0]] + nev_h)
     values, errors = _values_errors(vals_h, last_it, truth, with_quad)
     history = history_from_run(last_it, vals_h, pmax_h, nev_h, truth, with_quad, it0=it0)
     if verbose:
         _print_history(history)
+    converged = accuracy is not None and (int(strike) >= 3 if chunks else last_it < max_sweeps)
     res = CrossResult(
         tt=finalize(st, kit), neval=int(st.neval), sweeps=last_it,
         ranks=tuple(st.rk.tolist()), values=values, errors=errors,
-        time=time.perf_counter() - t0,
-        converged=accuracy is not None and last_it < max_sweeps,
+        time=time.perf_counter() - t0, converged=converged,
         history=history, padded_evals=int(st.padded))
     if refine_sweeps:
         res = _apply_refine(res, fun, n, refine_sweeps, quad, truth, st, dev)

@@ -34,10 +34,12 @@ from .state import CrossState
 __all__ = ["build_jacobi"]
 
 
-def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=None):
+def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=None,
+                 dtype: torch.dtype = torch.float64):
     """Build (make_sweep_jacobi, jacobi_hunt, jacobi_apply) bound to the
     engine context: cfg and fun, the static geometry (d, N, R, NLOT) and
-    the index vectors iR, iN and per-mode sizes n_t on the engine's device.
+    the index vectors iR, iN and per-mode sizes n_t on the engine's device,
+    and the state's dtype.
 
     chain_ev: optional cross/chain_eval.py::ChainEvaluator of a
     chain-structured integrand; hunt candidates are then evaluated in O(1)
@@ -45,7 +47,7 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=None):
     O(d) integrand call on assembled (B, d) indices.  n_evals counts the
     same tensor entries either way."""
     ce = chain_ev
-    dev, dtype = iR.device, torch.float64
+    dev = iR.device
     RN = R * N
     lot = torch.arange(NLOT, device=dev)
     # candidate enumerations: column fibers vary (i, j) over (R, N), row

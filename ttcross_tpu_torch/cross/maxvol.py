@@ -126,7 +126,7 @@ class MaxvolKit(NamedTuple):
 
 
 def _refine_engine(fun: Callable, n: tuple, R: int, n_exchange: int, tol: float,
-                   device) -> MaxvolKit:
+                   device, dtype: torch.dtype = torch.float64) -> MaxvolKit:
     """Build the multi-sweep refinement run: (LI, RJ, rr, n_sweeps) ->
     (cores, LI, RJ, neval, padded).  LI / RJ (d-1, R, d) int32 are the left
     / right pivot multi-index tables (LI[b, t, :b+1] and RJ[b, t, b+1:]
@@ -222,7 +222,7 @@ def _refine_engine(fun: Callable, n: tuple, R: int, n_exchange: int, tol: float,
     def run(LI, RJ, rr, n_sweeps: int):
         neval = torch.zeros((), dtype=torch.int64, device=dev)
         padded = torch.zeros((), dtype=torch.int64, device=dev)
-        cores = torch.zeros((d, R, N, R), dtype=torch.float64, device=dev)
+        cores = torch.zeros((d, R, N, R), dtype=dtype, device=dev)
         LI, RJ = LI.clone(), RJ.clone()
         for _ in range(n_sweeps):
             for b in range(d - 1):
@@ -300,7 +300,8 @@ def _prepare_refine_sets(init_sets, ranks, n, d: int, max_rank, key):
 
 def maxvol_refine(fun, n: Sequence[int], ranks=None, init_sets=None, sweeps: int = 2,
                   quad=None, truth=None, key=0, n_exchange: int = 8, tol: float = 1.01,
-                  max_rank: int | None = None, device: str | torch.device = "cuda"):
+                  max_rank: int | None = None, device: str | torch.device = "cuda",
+                  dtype: torch.dtype = torch.float64):
     """Refine (or build from scratch) a TT-cross of `fun` at fixed per-bond
     `ranks` by alternating maxvol sweeps on ``device`` (the card unless the
     caller asks for ``device="cpu"``; fun must take int32 index tensors
@@ -310,6 +311,7 @@ def maxvol_refine(fun, n: Sequence[int], ranks=None, init_sets=None, sweeps: int
     layout, e.g. a greedy cross's pivots (cross(..., refine_sweeps=k) wires
     this); ranks are then taken from the sets.  When None, the column sets
     start from a random draw seeded by key and `ranks` is required.
+    dtype: the dtype of the cores, the integrand's (cross passes its own).
     Returns a CrossResult whose tt is the refined interpolant; padded_evals
     counts the full padded batches."""
     from ..tt.ops import contract
@@ -326,7 +328,7 @@ def maxvol_refine(fun, n: Sequence[int], ranks=None, init_sets=None, sweeps: int
     t0 = time.perf_counter()
     LI, RJ, rr, R = _prepare_refine_sets(init_sets, ranks, n, d, max_rank, key)
     dev = torch.device(device)
-    run = _refine_engine(fun, n, R, n_exchange, tol, dev).run
+    run = _refine_engine(fun, n, R, n_exchange, tol, dev, dtype).run
     cores, _, _, neval, padded = run(torch.from_numpy(LI).to(dev), torch.from_numpy(RJ).to(dev),
                                          torch.from_numpy(rr).to(dev), int(sweeps))
     rk = [1, *rr.tolist(), 1]

@@ -10,9 +10,12 @@
 // ops/kernels.py::_plan and passed in; the kernels derive their walk over
 // the matrix from gridDim and blockDim.
 //
-// Every kernel computes in float64: the H100 has native FP64, so the f32
-// scoring and the f32 limb split of the TPU kernels (Mosaic has no f64)
-// are not carried over.
+// Every kernel is a template on its scalar type S and is built for float64
+// and float32 (the cross's f32 tier), each with its own entry point (the
+// f32 ones end in _f32).  An instantiation computes in S throughout: the
+// H100 has native FP64, so the f32 scoring and the f32 limb split of the
+// TPU kernels (Mosaic has no f64) are not carried over to the f64 ones, and
+// the f32 ones round as the JAX package's f32 tier does.
 
 #include <climits>
 #include <cmath>
@@ -36,6 +39,15 @@ constexpr int kWarpDMax = 1024;
 constexpr int kWarpThreadsMax = 256;
 
 constexpr int kFiberThreadsMax = 512;  // block size bound of the fiber kernels
+
+// The f32 2-D path: a SIMT tile kernel (FFMA; Hopper's f32 tensor-core path
+// is TF32, which rounds the inputs).  kSimtThreads threads as 16 x 16, each
+// scoring a 4 x 4 micro-tile of a kSBM x kSBN tile, R walked in chunks of
+// kSKC staged in shared memory.
+constexpr int kSimtThreads = 256;
+constexpr int kSBM = 64;
+constexpr int kSBN = 64;
+constexpr int kSKC = 16;
 
 // 2-D path tiles: a block step scores a kBM x kBN tile of (M, K); R is
 // walked in chunks of kKC (zero-padded to the MMA depth of 8).  The +4
@@ -108,24 +120,31 @@ constexpr int kTileSmem =
 //   1e-12.
 // ---------------------------------------------------------------------------
 
+template <typename S>
 struct Best {
-  double score;
+  S score;
   long long idx;
-  double resid;
+  S resid;
 };
 
-__device__ __forceinline__ bool better(double as, long long ai, double bs,
-                                       long long bi) {
+__device__ __forceinline__ double fma_s(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float fma_s(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double abs_s(double x) { return fabs(x); }
+__device__ __forceinline__ float abs_s(float x) { return fabsf(x); }
+
+template <typename S>
+__device__ __forceinline__ bool better(S as, long long ai, S bs, long long bi) {
   const bool an = isnan(as), bn = isnan(bs);
   if (an || bn) return an && (!bn || ai < bi);
   return as > bs || (as == bs && ai < bi);
 }
 
-__device__ __forceinline__ Best warp_reduce(Best b) {
+template <typename S>
+__device__ __forceinline__ Best<S> warp_reduce(Best<S> b) {
   for (int off = 16; off > 0; off >>= 1) {
-    const double os = __shfl_down_sync(0xffffffffu, b.score, off);
+    const S os = __shfl_down_sync(0xffffffffu, b.score, off);
     const long long oi = __shfl_down_sync(0xffffffffu, b.idx, off);
-    const double orr = __shfl_down_sync(0xffffffffu, b.resid, off);
+    const S orr = __shfl_down_sync(0xffffffffu, b.resid, off);
     if (better(os, oi, b.score, b.idx)) {
       b.score = os;
       b.idx = oi;
@@ -137,10 +156,11 @@ __device__ __forceinline__ Best warp_reduce(Best b) {
 
 // Reduces over the block; the result is valid in thread 0.  blockDim.x is
 // a multiple of 32 and at most 1024.
-__device__ Best block_reduce(Best b) {
-  __shared__ double s_score[32];
+template <typename S>
+__device__ Best<S> block_reduce(Best<S> b) {
+  __shared__ S s_score[32];
   __shared__ long long s_idx[32];
-  __shared__ double s_resid[32];
+  __shared__ S s_resid[32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   b = warp_reduce(b);
@@ -153,21 +173,27 @@ __device__ Best block_reduce(Best b) {
   if (warp == 0) {
     const int nwarps = blockDim.x >> 5;
     if (lane < nwarps) {
-      b = Best{s_score[lane], s_idx[lane], s_resid[lane]};
+      b = Best<S>{s_score[lane], s_idx[lane], s_resid[lane]};
     } else {
-      b = Best{-INFINITY, LLONG_MAX, 0.0};
+      b = Best<S>{-INFINITY, LLONG_MAX, S(0)};
     }
     b = warp_reduce(b);
   }
   return b;
 }
 
-__device__ __forceinline__ void keep(Best& b, double sc, long long f, double res) {
-  if (better(sc, f, b.score, b.idx)) b = Best{sc, f, res};
+template <typename S>
+__device__ __forceinline__ void keep(Best<S>& b, S sc, long long f, S res) {
+  if (better(sc, f, b.score, b.idx)) b = Best<S>{sc, f, res};
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
 }
 
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
@@ -183,6 +209,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+
+// One element of S: an 8-byte or a 4-byte copy.
+__device__ __forceinline__ void cp_async_s(double* dst, const double* src) { cp_async8(dst, src); }
+__device__ __forceinline__ void cp_async_s(float* dst, const float* src) { cp_async4(dst, src); }
 
 // Waits until at most N of this thread's copy groups are in flight.
 template <int N>
@@ -200,45 +230,49 @@ __device__ __forceinline__ void cp_async_wait() {
 // blockDim.x rows of colf as they lie in memory (pitch R, from a 16-byte
 // boundary), else R rows of blockDim.x columns of rowf.  Every copy of a
 // tile is issued at once with cp.async (no register round trip), so the
-// tile waits for one memory latency, not R of them.
-template <bool COL>
-__device__ __forceinline__ Best score_fiber_tiles(const double* __restrict__ vals,
-                                                  const double* __restrict__ colf,
-                                                  const double* __restrict__ rowf,
-                                                  const uint8_t* __restrict__ mask,
-                                                  long long L, int R, long long first,
-                                                  long long step, double* fiber_s) {
+// tile waits for one memory latency, not R of them.  kPer16 elements
+// fill a 16-byte chunk; a COL tile's copy may start up to kPer16 - 1
+// elements before its first row and end as many after its last, which the
+// vector's offset leaves room for.
+template <bool COL, typename S>
+__device__ __forceinline__ Best<S> score_fiber_tiles(const S* __restrict__ vals,
+                                                     const S* __restrict__ colf,
+                                                     const S* __restrict__ rowf,
+                                                     const uint8_t* __restrict__ mask,
+                                                     long long L, int R, long long first,
+                                                     long long step, S* fiber_s) {
+  constexpr int kPer16 = 16 / (int)sizeof(S);
   const int t = threadIdx.x;
   const int T = blockDim.x;
-  double* tile_f = fiber_s;
-  double* vec = fiber_s + (COL ? T * R + 2 : T * R);
-  const double* vsrc = COL ? rowf : colf;
-  for (int r = t; r < R; r += T) cp_async8(vec + r, vsrc + r);
+  S* tile_f = fiber_s;
+  S* vec = fiber_s + (COL ? T * R + 2 * kPer16 - 2 : T * R);
+  const S* vsrc = COL ? rowf : colf;
+  for (int r = t; r < R; r += T) cp_async_s(vec + r, vsrc + r);
 
   const long long ntiles = (L + T - 1) / T;
-  Best b{-INFINITY, LLONG_MAX, 0.0};
+  Best<S> b{-INFINITY, LLONG_MAX, S(0)};
   for (long long tile = first; tile < ntiles; tile += step) {
     const long long e0 = tile * T;
     const int n = (int)min((long long)T, L - e0);
     const long long f = e0 + t;
     if (tile != first) __syncthreads();  // the previous tile has been consumed
-    int off = 0;  // COL: doubles between the tile's first 16-byte chunk and its first row
+    int off = 0;  // COL: elements between the tile's first 16-byte chunk and its first row
     if (COL) {
       // n rows of colf are one contiguous range, copied raw (pitch R) as the
       // 16-byte chunks that cover it: neighbouring threads on neighbouring
       // chunks, each chunk holding at least one byte of the range
       const uintptr_t src = reinterpret_cast<uintptr_t>(colf + e0 * R);
       const uintptr_t base = src & ~uintptr_t(15);
-      off = (int)((src - base) >> 3);
-      const int chunks = (off + n * R + 1) / 2;
+      off = (int)((src - base) / sizeof(S));
+      const int chunks = (off + n * R + kPer16 - 1) / kPer16;
       for (int j = t; j < chunks; j += T) {
-        cp_async16(tile_f + 2 * j, reinterpret_cast<const void*>(base + 16 * j));
+        cp_async16(tile_f + kPer16 * j, reinterpret_cast<const void*>(base + 16 * j));
       }
     } else if (t < n) {
-      for (int r = 0; r < R; ++r) cp_async8(tile_f + r * T + t, rowf + (long long)r * L + f);
+      for (int r = 0; r < R; ++r) cp_async_s(tile_f + r * T + t, rowf + (long long)r * L + f);
     }
     cp_async_commit();
-    double v = 0.0;
+    S v = S(0);
     bool on = false;
     if (t < n) {  // in flight with the copies
       v = vals[f];
@@ -247,24 +281,24 @@ __device__ __forceinline__ Best score_fiber_tiles(const double* __restrict__ val
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
     if (t < n) {
-      double acc = 0.0;
+      S acc = S(0);
       if (COL && R <= 32) {
         // the main path's rank: unrolled in full, so every shared load can
         // be issued ahead of the chain (the row pass reads faster without)
-        const double* a = tile_f + off + t * R;
+        const S* a = tile_f + off + t * R;
 #pragma unroll
         for (int r = 0; r < 32; ++r)
-          if (r < R) acc = fma(a[r], vec[r], acc);
+          if (r < R) acc = fma_s(a[r], vec[r], acc);
       } else if (COL) {
-        const double* a = tile_f + off + t * R;
+        const S* a = tile_f + off + t * R;
 #pragma unroll 6
-        for (int r = 0; r < R; ++r) acc = fma(a[r], vec[r], acc);
+        for (int r = 0; r < R; ++r) acc = fma_s(a[r], vec[r], acc);
       } else {
 #pragma unroll 6
-        for (int r = 0; r < R; ++r) acc = fma(vec[r], tile_f[r * T + t], acc);
+        for (int r = 0; r < R; ++r) acc = fma_s(vec[r], tile_f[r * T + t], acc);
       }
-      const double res = v - acc;
-      keep(b, on ? fabs(res) : -1.0, f, res);
+      const S res = v - acc;
+      keep(b, on ? abs_s(res) : S(-1), f, res);
     }
   }
   return b;
@@ -273,23 +307,24 @@ __device__ __forceinline__ Best score_fiber_tiles(const double* __restrict__ val
 // One fiber.  The grid is one cluster of at most 16 blocks; its blocks take
 // the tiles in turn (rank, rank + C, ...).  The scratch buffer holds one
 // partial per warp of the cluster.
-template <bool COL>
+template <bool COL, typename S>
 __global__ void __launch_bounds__(kFiberThreadsMax)
-score_fiber_kernel(const double* __restrict__ vals,
-                   const double* __restrict__ colf,
-                   const double* __restrict__ rowf,
+score_fiber_kernel(const S* __restrict__ vals,
+                   const S* __restrict__ colf,
+                   const S* __restrict__ rowf,
                    const uint8_t* __restrict__ mask, long long L, int R,
-                   double* __restrict__ part_score, long long* __restrict__ part_idx,
-                   double* __restrict__ part_resid, long long* __restrict__ out_idx,
-                   double* __restrict__ out_score,
-                   double* __restrict__ out_resid) {
-  extern __shared__ __align__(16) double fiber_s[];
+                   S* __restrict__ part_score, long long* __restrict__ part_idx,
+                   S* __restrict__ part_resid, long long* __restrict__ out_idx,
+                   S* __restrict__ out_score,
+                   S* __restrict__ out_resid) {
+  extern __shared__ __align__(16) unsigned char fiber_raw[];
+  S* fiber_s = reinterpret_cast<S*>(fiber_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned C = cluster.num_blocks();
   const unsigned rank = cluster.block_rank();
   const int t = threadIdx.x;
   const int T = blockDim.x;
-  Best b = score_fiber_tiles<COL>(vals, colf, rowf, mask, L, R, rank, C, fiber_s);
+  Best<S> b = score_fiber_tiles<COL, S>(vals, colf, rowf, mask, L, R, rank, C, fiber_s);
   const unsigned nparts = C * (T >> 5);
   b = warp_reduce(b);
   if ((t & 31) == 0) {
@@ -302,7 +337,7 @@ score_fiber_kernel(const double* __restrict__ vals,
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
   if (rank != 0 || t >= 32) return;
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-  Best q{-INFINITY, LLONG_MAX, 0.0};
+  Best<S> q{-INFINITY, LLONG_MAX, S(0)};
   for (unsigned i = t; i < nparts; i += 32) {
     keep(q, __ldcg(part_score + i), __ldcg(part_idx + i), __ldcg(part_resid + i));
   }
@@ -318,28 +353,30 @@ score_fiber_kernel(const double* __restrict__ vals,
 // bonds, each a fiber of R * N = 170 elements at R = 10.  JAX computes it
 // per bond with XLA ops in f32 and recomputes the chosen pivot in f64
 // (ttcross_tpu/cross/engine_jacobi.py:237-251, 269-282); here it is kernel
-// A's fiber walk, so the residual returned is the f64 pivot.  What bounds
-// it: bytes, 15.2 KB per bond read once (3.9 MB at 254 bonds, ~1.2 us at
-// 3.35 TB/s), under a launch's own floor.  A fiber this short wants no
-// cluster: one block per bond walks the bond's tiles with score_fiber_tiles
-// (the single-fiber kernel's staging and FMA order, so the two agree bit
-// for bit) and reduces them alone.  Bond p reads vals and mask at p * L,
-// its L x R (COL) or 1 x R factor of colf and its R x 1 or R x L (row
-// fiber) factor of rowf, and writes out_idx[p], out_score[p], out_resid[p].
-template <bool COL>
+// A's fiber walk, so the residual returned is the pivot in S.  What bounds
+// it: bytes, 15.2 KB per bond read once at f64 (3.9 MB at 254 bonds, ~1.2
+// us at 3.35 TB/s), under a launch's own floor.  A fiber this short wants
+// no cluster: one block per bond walks the bond's tiles with
+// score_fiber_tiles (the single-fiber kernel's staging and FMA order, so
+// the two agree bit for bit) and reduces them alone.  Bond p reads vals
+// and mask at p * L, its L x R (COL) or 1 x R factor of colf and its R x 1
+// or R x L (row fiber) factor of rowf, and writes out_idx[p],
+// out_score[p], out_resid[p].
+template <bool COL, typename S>
 __global__ void __launch_bounds__(kFiberThreadsMax)
-score_fiber_batched_kernel(const double* __restrict__ vals,
-                           const double* __restrict__ colf,
-                           const double* __restrict__ rowf,
+score_fiber_batched_kernel(const S* __restrict__ vals,
+                           const S* __restrict__ colf,
+                           const S* __restrict__ rowf,
                            const uint8_t* __restrict__ mask, long long L, int R,
                            long long* __restrict__ out_idx,
-                           double* __restrict__ out_score,
-                           double* __restrict__ out_resid) {
-  extern __shared__ __align__(16) double fiber_s[];
+                           S* __restrict__ out_score,
+                           S* __restrict__ out_resid) {
+  extern __shared__ __align__(16) unsigned char fiber_raw[];
+  S* fiber_s = reinterpret_cast<S*>(fiber_raw);
   const long long p = blockIdx.x;
-  Best b = score_fiber_tiles<COL>(vals + p * L, colf + p * (COL ? L * R : (long long)R),
-                                  rowf + p * (COL ? (long long)R : R * L), mask + p * L, L,
-                                  R, 0, 1, fiber_s);
+  Best<S> b = score_fiber_tiles<COL, S>(vals + p * L, colf + p * (COL ? L * R : (long long)R),
+                                        rowf + p * (COL ? (long long)R : R * L), mask + p * L,
+                                        L, R, 0, 1, fiber_s);
   b = block_reduce(b);
   if (threadIdx.x == 0) {
     out_idx[p] = b.idx;
@@ -580,8 +617,8 @@ score_dmma_kernel(const double* __restrict__ vals,
     }
     ring_next(tl, kc, slot, vslot, nk);
   }
-  Best b{-INFINITY, LLONG_MAX, 0.0};
-  if (bidx != LLONG_MAX) b = Best{bkey ? fabs(bres) : -1.0, bidx, bres};
+  Best<double> b{-INFINITY, LLONG_MAX, 0.0};
+  if (bidx != LLONG_MAX) b = Best<double>{bkey ? fabs(bres) : -1.0, bidx, bres};
   b = block_reduce(b);
   if (t == 0) {
     part_score[blockIdx.x] = b.score;
@@ -590,14 +627,15 @@ score_dmma_kernel(const double* __restrict__ vals,
   }
 }
 
+template <typename S>
 __global__ void __launch_bounds__(kReduceThreads)
-score_final_kernel(const double* __restrict__ part_score,
+score_final_kernel(const S* __restrict__ part_score,
                    const long long* __restrict__ part_idx,
-                   const double* __restrict__ part_resid, long long nparts,
+                   const S* __restrict__ part_resid, long long nparts,
                    long long* __restrict__ out_idx,
-                   double* __restrict__ out_score,
-                   double* __restrict__ out_resid) {
-  Best b{-INFINITY, LLONG_MAX, 0.0};
+                   S* __restrict__ out_score,
+                   S* __restrict__ out_resid) {
+  Best<S> b{-INFINITY, LLONG_MAX, S(0)};
   for (long long i = threadIdx.x; i < nparts; i += blockDim.x) {
     keep(b, part_score[i], part_idx[i], part_resid[i]);
   }
@@ -609,12 +647,87 @@ score_final_kernel(const double* __restrict__ part_score,
   }
 }
 
-template <bool COL>
-cudaError_t launch_fiber(const double* vals, const double* colf, const double* rowf,
+// The 2-D path in f32 (full pivoting on the f32 tier).  No DMMA for f32 and
+// no TF32 (it rounds the inputs), so colf @ rowf runs on the FMA pipe: a
+// persistent grid, block b taking tiles b, b + gridDim.x, ... of the
+// row-major grid of kSBM x kSBN tiles; 16 x 16 threads, each a 4 x 4
+// micro-tile of rows ty + 16 i and columns tx + 16 j (neighbouring threads
+// on neighbouring columns, so the epilogue's vals and mask reads coalesce).
+// R is staged kSKC at a time in shared memory (colf transposed).  Each
+// element's sum is acc = fmaf(colf[m, r], rowf[r, k], acc) for r = 0..R-1
+// from 0, the fiber path's order, so the two paths give the same bits.  A
+// correct, simple kernel: the f32 tier's main path runs rook fibers.  The
+// per-block partials go to score_final_kernel, as the DMMA path's do.
+__global__ void __launch_bounds__(kSimtThreads)
+score_simt_kernel(const float* __restrict__ vals, const float* __restrict__ colf,
+                  const float* __restrict__ rowf, const uint8_t* __restrict__ mask,
+                  long long M, long long K, int R, float* __restrict__ part_score,
+                  long long* __restrict__ part_idx, float* __restrict__ part_resid) {
+  __shared__ float As[kSKC][kSBM + 4];  // colf chunk, transposed: As[r][m]
+  __shared__ float Bs[kSKC][kSBN + 4];  // rowf chunk: Bs[r][k]
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const long long ntk = (K + kSBN - 1) / kSBN;
+  const long long ntiles = ((M + kSBM - 1) / kSBM) * ntk;
+  Best<float> b{-INFINITY, LLONG_MAX, 0.f};
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long m0 = (tile / ntk) * kSBM, k0 = (tile % ntk) * kSBN;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int r0 = 0; r0 < R; r0 += kSKC) {
+      const int kc = min(kSKC, R - r0);
+      __syncthreads();  // the previous chunk has been consumed
+      for (int e = t; e < kSBM * kSKC; e += kSimtThreads) {
+        const int m = e / kSKC, r = e % kSKC;
+        As[r][m] = (m0 + m < M && r < kc) ? colf[(m0 + m) * R + r0 + r] : 0.f;
+      }
+      for (int e = t; e < kSKC * kSBN; e += kSimtThreads) {
+        const int r = e / kSBN, k = e % kSBN;
+        Bs[r][k] = (k0 + k < K && r < kc) ? rowf[(long long)(r0 + r) * K + k0 + k] : 0.f;
+      }
+      __syncthreads();
+      for (int r = 0; r < kc; ++r) {
+        float a[4], bb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = As[r][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bb[j] = Bs[r][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long m = m0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long k = k0 + tx + 16 * j;
+        if (m < M && k < K) {
+          const long long f = m * K + k;
+          const float res = vals[f] - acc[i][j];
+          keep(b, mask[f] ? fabsf(res) : -1.f, f, res);
+        }
+      }
+    }
+  }
+  b = block_reduce(b);
+  if (t == 0) {
+    part_score[blockIdx.x] = b.score;
+    part_idx[blockIdx.x] = b.idx;
+    part_resid[blockIdx.x] = b.resid;
+  }
+}
+
+template <bool COL, typename S>
+cudaError_t launch_fiber(const S* vals, const S* colf, const S* rowf,
                          const uint8_t* mask, long long L, int R, int blocks,
-                         int threads, int smem, double* part_score, long long* part_idx,
-                         double* part_resid, long long* out_idx, double* out_score,
-                         double* out_resid, cudaStream_t s) {
+                         int threads, int smem, S* part_score, long long* part_idx,
+                         S* part_resid, long long* out_idx, S* out_score,
+                         S* out_resid, cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(threads);
@@ -627,7 +740,7 @@ cudaError_t launch_fiber(const double* vals, const double* colf, const double* r
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, score_fiber_kernel<COL>, vals, colf, rowf, mask, L,
+  return cudaLaunchKernelEx(&cfg, score_fiber_kernel<COL, S>, vals, colf, rowf, mask, L,
                             R, part_score, part_idx, part_resid, out_idx, out_score,
                             out_resid);
 }
@@ -638,23 +751,25 @@ cudaError_t launch_fiber(const double* vals, const double* colf, const double* r
 // Replaces ttcross_tpu/ops/pallas_kernels.py::small_table_lookup_limbs (the
 // Pallas body _lookup_kernel at :127-148, pl.pallas_call at :191):
 //     out[l, e] = tables[l, ind[e]]   (0 where ind[e] is outside [0, n))
-// for L small f64 tables at once.  The Ising integrand no longer calls it:
-// its lookup runs inside the fused integrand kernel below.  The TPU kernel selected three f32 limbs by
-// an unrolled compare-select loop; here the tables sit in shared memory and
-// each thread gathers its element directly, so the result is the f64 table
-// entry itself, bit for bit.
+// for L small tables at once, f64 or f32.  The Ising integrand no longer
+// calls it: its lookup runs inside the fused integrand kernel below.  The
+// TPU kernel selected three f32 limbs by an unrolled compare-select loop;
+// here the tables sit in shared memory and each thread gathers its element
+// directly, so the result is the table entry itself, bit for bit.
 //
 // What bounds it: memory.  Each element reads a 4-byte index and writes
-// 8*L bytes; the table reads hit shared memory.  A grid-stride loop keeps
-// the block count bounded so that the table is staged a bounded number of
-// times.
+// sizeof(S)*L bytes; the table reads hit shared memory.  A grid-stride loop
+// keeps the block count bounded so that the table is staged a bounded
+// number of times.
 // ---------------------------------------------------------------------------
 
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-lookup_kernel(const double* __restrict__ tables, int L, int n,
+lookup_kernel(const S* __restrict__ tables, int L, int n,
               const int32_t* __restrict__ ind, long long E,
-              double* __restrict__ out) {
-  extern __shared__ double tab_s[];
+              S* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char tab_raw[];
+  S* tab_s = reinterpret_cast<S*>(tab_raw);
   for (int e = threadIdx.x; e < L * n; e += blockDim.x) tab_s[e] = tables[e];
   __syncthreads();
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -663,7 +778,7 @@ lookup_kernel(const double* __restrict__ tables, int L, int n,
     const int i = ind[e];
     const bool ok = i >= 0 && i < n;
     for (int l = 0; l < L; ++l) {
-      out[(long long)l * E + e] = ok ? tab_s[l * n + i] : 0.0;
+      out[(long long)l * E + e] = ok ? tab_s[l * n + i] : S(0);
     }
   }
 }
@@ -730,12 +845,35 @@ lookup_kernel(const double* __restrict__ tables, int L, int n,
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kKindC = 1, kKindD = 2, kKindE = 3;
 
-// Copies the n (node, weight) pairs of tables (2, n) into tab, one 8-byte
+// The (node, weight) pair of S: double2, or float2 for the f32 tier (an
+// 8-byte load per lookup).
+template <typename S>
+struct PairOf;
+template <>
+struct PairOf<double> {
+  using type = double2;
+};
+template <>
+struct PairOf<float> {
+  using type = float2;
+};
+template <typename S>
+using Pair = typename PairOf<S>::type;
+
+// Bytes of the table's n pairs in shared memory, rounded up to 16 so that
+// what follows it starts on a 16-byte boundary.
+template <typename S>
+__host__ __device__ constexpr int table_bytes(int n) {
+  return (n * (int)sizeof(Pair<S>) + 15) / 16 * 16;
+}
+
+// Copies the n (node, weight) pairs of tables (2, n) into tab, one
 // cp.async per value, spread over the block.
-__device__ __forceinline__ void stage_pairs(double2* tab, const double* tables, int n) {
+template <typename S>
+__device__ __forceinline__ void stage_pairs(Pair<S>* tab, const S* tables, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    cp_async8(&tab[i].x, tables + i);
-    cp_async8(&tab[i].y, tables + n + i);
+    cp_async_s(&tab[i].x, tables + i);
+    cp_async_s(&tab[i].y, tables + n + i);
   }
 }
 
@@ -755,54 +893,62 @@ __device__ __forceinline__ int copy_ints(int32_t* dst, const int32_t* src, long 
   return off;
 }
 
-__device__ __forceinline__ double2 lookup_pair(const double2* tab, int n, int i) {
-  return (i >= 0 && i < n) ? tab[i] : make_double2(0.0, 0.0);
+template <typename S>
+__device__ __forceinline__ Pair<S> lookup_pair(const Pair<S>* tab, int n, int i) {
+  if (i >= 0 && i < n) return tab[i];
+  Pair<S> z;
+  z.x = S(0);
+  z.y = S(0);
+  return z;
 }
 
-__device__ __forceinline__ double warp_sum(double v) {
+template <typename S>
+__device__ __forceinline__ S warp_sum(S v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
   return v;
 }
 
-__device__ __forceinline__ double warp_prod(double v) {
+template <typename S>
+__device__ __forceinline__ S warp_prod(S v) {
   for (int o = 16; o > 0; o >>= 1) v *= __shfl_xor_sync(kFullMask, v, o);
   return v;
 }
 
 // The product of v over the lanes before this one (UP) or after it (else),
 // 1 for the first (last) lane: an inclusive Hillis-Steele scan, shifted.
-template <bool UP>
-__device__ __forceinline__ double scan_exclusive_prod(double v, int lane) {
+template <bool UP, typename S>
+__device__ __forceinline__ S scan_exclusive_prod(S v, int lane) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const double y = UP ? __shfl_up_sync(kFullMask, v, o) : __shfl_down_sync(kFullMask, v, o);
+    const S y = UP ? __shfl_up_sync(kFullMask, v, o) : __shfl_down_sync(kFullMask, v, o);
     if (UP ? lane >= o : lane + o < 32) v = UP ? y * v : v * y;
   }
-  const double e = UP ? __shfl_up_sync(kFullMask, v, 1) : __shfl_down_sync(kFullMask, v, 1);
-  return (UP ? lane == 0 : lane == 31) ? 1.0 : e;
+  const S e = UP ? __shfl_up_sync(kFullMask, v, 1) : __shfl_down_sync(kFullMask, v, 1);
+  return (UP ? lane == 0 : lane == 31) ? S(1) : e;
 }
 
 // The plain version's last steps: f = 2; f *= a; f /= (v * wv); f * prod w.
-template <int KIND>
-__device__ __forceinline__ double integrand_value(double a, double q, double s, double wp) {
-  double f = 2.0;
+template <int KIND, typename S>
+__device__ __forceinline__ S integrand_value(S a, S q, S s, S wp) {
+  S f = S(2);
   if (KIND != kKindC) f = f * a;
-  if (KIND != kKindE) f = f / ((1.0 + q) * (1.0 + s));
+  if (KIND != kKindE) f = f / ((S(1) + q) * (S(1) + s));
   return f * wp;
 }
 
 // A row per thread, d <= kRowsDMax.  Dynamic shared memory: n pairs.
-template <int KIND>
+template <int KIND, typename S>
 __global__ void __launch_bounds__(kRowsThreads)
-integrand_rows_kernel(const double* __restrict__ tables, int n,
-                      const int32_t* __restrict__ ind, long long B, int d, double den0,
-                      double* __restrict__ out) {
-  extern __shared__ __align__(16) double2 ising_s[];
+integrand_rows_kernel(const S* __restrict__ tables, int n,
+                      const int32_t* __restrict__ ind, long long B, int d, S den0,
+                      S* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char ising_raw[];
+  Pair<S>* ising_s = reinterpret_cast<Pair<S>*>(ising_raw);
   __shared__ __align__(16) int32_t rows_s[kRowsThreads * kRowsDMax + 4];
   const int t = threadIdx.x;
   const long long b0 = (long long)blockIdx.x * kRowsThreads;
   const int rows = (int)min((long long)kRowsThreads, B - b0);
-  stage_pairs(ising_s, tables, n);
+  stage_pairs<S>(ising_s, tables, n);
   const int off = copy_ints(rows_s, ind + b0 * d, (long long)rows * d, t, kRowsThreads);
   cp_async_commit();
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -810,24 +956,24 @@ integrand_rows_kernel(const double* __restrict__ tables, int n,
   if (t >= rows) return;
   const int32_t* r = rows_s + off + t * d;
 
-  double x[kRowsDMax], P[kRowsDMax + 1];
-  double s = 0.0, wp = 1.0;
-  P[0] = 1.0;
+  S x[kRowsDMax], P[kRowsDMax + 1];
+  S s = S(0), wp = S(1);
+  P[0] = S(1);
 #pragma unroll
   for (int k = 0; k < kRowsDMax; ++k) {
-    x[k] = 1.0;
+    x[k] = S(1);
     P[k + 1] = P[k];
     if (k < d) {
-      const double2 e = lookup_pair(ising_s, n, r[k]);
+      const Pair<S> e = lookup_pair<S>(ising_s, n, r[k]);
       x[k] = e.x;
       P[k + 1] = P[k] * e.x;
       s += P[k + 1];
       wp *= e.y;
     }
   }
-  double q = 0.0;
+  S q = S(0);
   if (KIND != kKindE) {
-    double c = 1.0;
+    S c = S(1);
 #pragma unroll
     for (int k = kRowsDMax - 1; k >= 0; --k) {
       if (k < d) {
@@ -836,39 +982,43 @@ integrand_rows_kernel(const double* __restrict__ tables, int n,
       }
     }
   }
-  double a = 1.0;
+  S a = S(1);
   if (KIND != kKindC) {
 #pragma unroll
     for (int i = 0; i < kRowsDMax; ++i) {
 #pragma unroll
       for (int j = i + 1; j <= kRowsDMax; ++j) {
         if (j <= d) {
-          const double num = P[j] - P[i], den = P[j] + P[i];
-          const double ratio = den == 0.0 ? den0 : num / den;
+          const S num = P[j] - P[i], den = P[j] + P[i];
+          const S ratio = den == S(0) ? den0 : num / den;
           a *= ratio * ratio;
         }
       }
     }
   }
-  out[b0 + t] = integrand_value<KIND>(a, q, s, wp);
+  out[b0 + t] = integrand_value<KIND, S>(a, q, s, wp);
 }
 
-// A row per warp, kRowsDMax < d <= kWarpDMax.  Dynamic shared memory: n
-// pairs, then per warp the row's indices (ipitch ints) and P (ppitch
-// doubles); ops/kernels.py::_integrand_plan sizes it with the same pitches.
-template <int KIND>
+// A row per warp, kRowsDMax < d <= kWarpDMax.  Dynamic shared memory: the n
+// pairs (table_bytes), then per warp the row's indices (ipitch ints) and
+// P (ppitch elements of S, a 16-byte multiple);
+// ops/kernels.py::_integrand_plan sizes it with the same pitches.
+template <int KIND, typename S>
 __global__ void __launch_bounds__(kWarpThreadsMax)
-integrand_warps_kernel(const double* __restrict__ tables, int n,
-                       const int32_t* __restrict__ ind, long long B, int d, double den0,
-                       double* __restrict__ out) {
-  extern __shared__ __align__(16) double2 ising_s[];
+integrand_warps_kernel(const S* __restrict__ tables, int n,
+                       const int32_t* __restrict__ ind, long long B, int d, S den0,
+                       S* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char ising_raw[];
+  Pair<S>* ising_s = reinterpret_cast<Pair<S>*>(ising_raw);
+  constexpr int kPer16 = 16 / (int)sizeof(S);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ipitch = 4 * ((d + 6) / 4);  // room for the row at any offset in its first chunk
-  const int ppitch = 2 * ((d + 2) / 2);  // P_0..P_d, a 16-byte multiple
-  int32_t* ibuf = reinterpret_cast<int32_t*>(ising_s + n) + warp * (ipitch + 2 * ppitch);
-  double* Pw = reinterpret_cast<double*>(ibuf + ipitch);
+  const int ipitch = 4 * ((d + 6) / 4);                   // room for the row at any offset in its first chunk
+  const int ppitch = kPer16 * ((d + kPer16) / kPer16);    // P_0..P_d, a 16-byte multiple
+  int32_t* ibuf = reinterpret_cast<int32_t*>(ising_raw + table_bytes<S>(n)) +
+                  warp * (ipitch + ppitch * (int)sizeof(S) / 4);
+  S* Pw = reinterpret_cast<S*>(ibuf + ipitch);
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  stage_pairs(ising_s, tables, n);
+  stage_pairs<S>(ising_s, tables, n);
   int off = 0;
   if (row < B) off = copy_ints(ibuf, ind + row * d, d, lane, 32);
   cp_async_commit();
@@ -883,42 +1033,42 @@ integrand_warps_kernel(const double* __restrict__ tables, int n,
 
   // prefix products: the segment's own, left to right, then times the
   // product of the segments before it (an exclusive warp scan)
-  double lp = 1.0, ls = 0.0, wp = 1.0;
+  S lp = S(1), ls = S(0), wp = S(1);
   for (int k = k0; k < k1; ++k) {
-    const double2 e = lookup_pair(ising_s, n, r[k]);
+    const Pair<S> e = lookup_pair<S>(ising_s, n, r[k]);
     lp *= e.x;
     ls += lp;
     wp *= e.y;
     if (KIND != kKindC) Pw[k + 1] = lp;
   }
-  double carry = scan_exclusive_prod<true>(lp, lane);
-  const double s = warp_sum(carry * ls);
+  S carry = scan_exclusive_prod<true>(lp, lane);
+  const S s = warp_sum(carry * ls);
   if (KIND != kKindC) {
     for (int k = k0; k < k1; ++k) Pw[k + 1] *= carry;
-    if (lane == 0) Pw[0] = 1.0;
+    if (lane == 0) Pw[0] = S(1);
   }
   // suffix products: the segment's own, right to left, then times the
   // product of the segments after it
-  double q = 0.0;
+  S q = S(0);
   if (KIND != kKindE) {
-    double rp = 1.0, rs = 0.0;
+    S rp = S(1), rs = S(0);
     for (int k = k1 - 1; k >= k0; --k) {
-      rp *= lookup_pair(ising_s, n, r[k]).x;
+      rp *= lookup_pair<S>(ising_s, n, r[k]).x;
       rs += rp;
     }
     carry = scan_exclusive_prod<false>(rp, lane);
     q = warp_sum(carry * rs);
   }
-  double a = 1.0;
+  S a = S(1);
   if (KIND != kKindC) {
     __syncwarp();  // every lane's P_k is in shared memory
     for (int j = 1 + lane; j <= d; j += 32) {
-      const double pj = Pw[j];
-      double col = 1.0;
+      const S pj = Pw[j];
+      S col = S(1);
       for (int i = 0; i < j; ++i) {
-        const double pi = Pw[i];
-        const double num = pj - pi, den = pj + pi;
-        const double ratio = den == 0.0 ? den0 : num / den;
+        const S pi = Pw[i];
+        const S num = pj - pi, den = pj + pi;
+        const S ratio = den == S(0) ? den0 : num / den;
         col *= ratio * ratio;
       }
       a *= col;
@@ -926,18 +1076,147 @@ integrand_warps_kernel(const double* __restrict__ tables, int n,
     a = warp_prod(a);
   }
   wp = warp_prod(wp);
-  if (lane == 0) out[row] = integrand_value<KIND>(a, q, s, wp);
+  if (lane == 0) out[row] = integrand_value<KIND, S>(a, q, s, wp);
 }
 
-template <int KIND>
+template <int KIND, typename S>
 void launch_integrand(int path, int blocks, int threads, int smem, cudaStream_t s,
-                      const double* tables, int n, const int32_t* ind, long long B, int d,
-                      double den0, double* out) {
+                      const S* tables, int n, const int32_t* ind, long long B, int d,
+                      S den0, S* out) {
   if (path == 0) {
-    integrand_rows_kernel<KIND><<<blocks, threads, smem, s>>>(tables, n, ind, B, d, den0, out);
+    integrand_rows_kernel<KIND, S><<<blocks, threads, smem, s>>>(tables, n, ind, B, d, den0, out);
   } else {
-    integrand_warps_kernel<KIND><<<blocks, threads, smem, s>>>(tables, n, ind, B, d, den0, out);
+    integrand_warps_kernel<KIND, S><<<blocks, threads, smem, s>>>(tables, n, ind, B, d, den0, out);
   }
+}
+
+// The entry points' bodies, one per scalar type (extern "C" below).
+template <typename S>
+cudaError_t configure(int fiber_smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      score_fiber_kernel<true, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_fiber_kernel<false, S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
+  }
+  if (err == cudaSuccess) {  // clusters of up to 16 blocks
+    err = cudaFuncSetAttribute(score_fiber_kernel<true, S>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_fiber_kernel<false, S>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_fiber_batched_kernel<true, S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_fiber_batched_kernel<false, S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
+  }
+  return err;
+}
+
+template <typename S>
+int score_residual_argmax(const S* vals, const S* colf, const S* rowf, const uint8_t* mask,
+                          long long M, long long K, int R, int path, int blocks, int threads,
+                          int smem, void* scratch, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 8-byte words: [index, score, residual, partials]; a score or a residual
+  // of S sits at the start of its word
+  long long* words = static_cast<long long*>(scratch);
+  long long* out_idx = words;
+  S* out_score = reinterpret_cast<S*>(words + 1);
+  S* out_resid = reinterpret_cast<S*>(words + 2);
+  const long long nparts = path == 2 ? blocks : (long long)blocks * (threads / 32);
+  S* part_score = reinterpret_cast<S*>(words + 3);
+  long long* part_idx = words + 3 + nparts;
+  S* part_resid = reinterpret_cast<S*>(words + 3 + 2 * nparts);
+  if (path == 0 || path == 1) {
+    const cudaError_t err =
+        path == 0 ? launch_fiber<true, S>(vals, colf, rowf, mask, M, R, blocks, threads, smem,
+                                          part_score, part_idx, part_resid, out_idx,
+                                          out_score, out_resid, s)
+                  : launch_fiber<false, S>(vals, colf, rowf, mask, K, R, blocks, threads, smem,
+                                           part_score, part_idx, part_resid, out_idx,
+                                           out_score, out_resid, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if constexpr (sizeof(S) == 8) {
+    score_dmma_kernel<<<blocks, threads, smem, s>>>(vals, colf, rowf, mask, M, K, R,
+                                                    part_score, part_idx, part_resid);
+  } else {
+    score_simt_kernel<<<blocks, threads, 0, s>>>(vals, colf, rowf, mask, M, K, R,
+                                                 part_score, part_idx, part_resid);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rthreads =
+      blocks >= kReduceThreads ? kReduceThreads : (blocks + 31) / 32 * 32;
+  score_final_kernel<S><<<1, rthreads, 0, s>>>(part_score, part_idx, part_resid, blocks,
+                                               out_idx, out_score, out_resid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int score_residual_argmax_batched(const S* vals, const S* colf, const S* rowf,
+                                  const uint8_t* mask, long long P, long long L, int R, int col,
+                                  int threads, int smem, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P < 1 || P > INT_MAX || threads % 32 != 0 || threads < 32 || threads > kFiberThreadsMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // 8-byte words: the P indices, then the P scores, then the P residuals
+  // (of S, packed from the start of their block of P words)
+  long long* words = static_cast<long long*>(out);
+  long long* out_idx = words;
+  S* out_score = reinterpret_cast<S*>(words + P);
+  S* out_resid = reinterpret_cast<S*>(words + 2 * P);
+  if (col) {
+    score_fiber_batched_kernel<true, S><<<(unsigned)P, threads, smem, s>>>(
+        vals, colf, rowf, mask, L, R, out_idx, out_score, out_resid);
+  } else {
+    score_fiber_batched_kernel<false, S><<<(unsigned)P, threads, smem, s>>>(
+        vals, colf, rowf, mask, L, R, out_idx, out_score, out_resid);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int small_table_lookup(const S* tables, int L, int n, const int32_t* ind, long long E, S* out,
+                       int blocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(S) * (size_t)L * (size_t)n;
+  lookup_kernel<S><<<blocks, kThreads, smem, s>>>(tables, L, n, ind, E, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int ising_integrand(const S* tables, int n, const int32_t* ind, long long B, int d, int kind,
+                    int path, int blocks, int threads, int smem, double den0, S* out,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || (path == 0 ? d > kRowsDMax || threads != kRowsThreads
+                          : d > kWarpDMax || threads % 32 != 0 || threads > kWarpThreadsMax)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const S z = static_cast<S>(den0);
+  switch (kind) {
+    case kKindC:
+      launch_integrand<kKindC, S>(path, blocks, threads, smem, s, tables, n, ind, B, d, z, out);
+      break;
+    case kKindD:
+      launch_integrand<kKindD, S>(path, blocks, threads, smem, s, tables, n, ind, B, d, z, out);
+      break;
+    case kKindE:
+      launch_integrand<kKindE, S>(path, blocks, threads, smem, s, tables, n, ind, B, d, z, out);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -945,32 +1224,13 @@ void launch_integrand(int path, int blocks, int threads, int smem, cudaStream_t 
 extern "C" {
 
 // Allows the kernels of the current device their largest shared memory
-// (fiber_smem bytes for the fiber kernels, the most _plan asks for, and
-// kTileSmem for the 2-D kernel) and the fiber kernels clusters of up to 16
-// blocks.  Call once per device before launching.
+// (fiber_smem bytes for the fiber kernels of both scalar types, the most
+// _plan asks for, and kTileSmem for the 2-D DMMA kernel) and the fiber
+// kernels clusters of up to 16 blocks.  Call once per device before
+// launching.
 int ttc_configure(int fiber_smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      score_fiber_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(score_fiber_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
-  }
-  if (err == cudaSuccess) {  // clusters of up to 16 blocks
-    err = cudaFuncSetAttribute(score_fiber_kernel<true>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(score_fiber_kernel<false>,
-                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    }
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(score_fiber_batched_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(score_fiber_batched_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
-  }
+  cudaError_t err = configure<double>(fiber_smem);
+  if (err == cudaSuccess) err = configure<float>(fiber_smem);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(score_dmma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
@@ -989,34 +1249,20 @@ int ttc_score_residual_argmax(const double* vals, const double* colf,
                               long long M, long long K, int R, int path,
                               int blocks, int threads, int smem, void* scratch,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  long long* out_idx = static_cast<long long*>(scratch);
-  double* out_score = static_cast<double*>(scratch) + 1;
-  double* out_resid = static_cast<double*>(scratch) + 2;
-  const long long nparts = path == 2 ? blocks : (long long)blocks * (threads / 32);
-  double* part_score = static_cast<double*>(scratch) + 3;
-  long long* part_idx = static_cast<long long*>(scratch) + 3 + nparts;
-  double* part_resid = static_cast<double*>(scratch) + 3 + 2 * nparts;
-  if (path == 0 || path == 1) {
-    const cudaError_t err =
-        path == 0 ? launch_fiber<true>(vals, colf, rowf, mask, M, R, blocks, threads, smem,
-                                       part_score, part_idx, part_resid, out_idx,
-                                       out_score, out_resid, s)
-                  : launch_fiber<false>(vals, colf, rowf, mask, K, R, blocks, threads, smem,
-                                        part_score, part_idx, part_resid, out_idx,
-                                        out_score, out_resid, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
-  }
-  score_dmma_kernel<<<blocks, threads, smem, s>>>(vals, colf, rowf, mask, M, K, R,
-                                                  part_score, part_idx, part_resid);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rthreads =
-      blocks >= kReduceThreads ? kReduceThreads : (blocks + 31) / 32 * 32;
-  score_final_kernel<<<1, rthreads, 0, s>>>(part_score, part_idx, part_resid, blocks,
-                                            out_idx, out_score, out_resid);
-  return static_cast<int>(cudaGetLastError());
+  return score_residual_argmax<double>(vals, colf, rowf, mask, M, K, R, path, blocks, threads,
+                                       smem, scratch, stream);
+}
+
+// The same in f32: the 2-D path is score_simt_kernel (kSimtThreads threads,
+// no dynamic shared memory); a score and a residual are f32 at the start of
+// their 8-byte words.
+int ttc_score_residual_argmax_f32(const float* vals, const float* colf,
+                                  const float* rowf, const uint8_t* mask,
+                                  long long M, long long K, int R, int path,
+                                  int blocks, int threads, int smem, void* scratch,
+                                  void* stream) {
+  return score_residual_argmax<float>(vals, colf, rowf, mask, M, K, R, path, blocks, threads,
+                                      smem, scratch, stream);
 }
 
 // Kernel A for P fibers of length L at once: vals and mask (P, L), colf
@@ -1028,21 +1274,19 @@ int ttc_score_residual_argmax_batched(const double* vals, const double* colf,
                                       const double* rowf, const uint8_t* mask,
                                       long long P, long long L, int R, int col,
                                       int threads, int smem, void* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (P < 1 || P > INT_MAX || threads % 32 != 0 || threads < 32 || threads > kFiberThreadsMax) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  long long* out_idx = static_cast<long long*>(out);
-  double* out_score = static_cast<double*>(out) + P;
-  double* out_resid = static_cast<double*>(out) + 2 * P;
-  if (col) {
-    score_fiber_batched_kernel<true><<<(unsigned)P, threads, smem, s>>>(
-        vals, colf, rowf, mask, L, R, out_idx, out_score, out_resid);
-  } else {
-    score_fiber_batched_kernel<false><<<(unsigned)P, threads, smem, s>>>(
-        vals, colf, rowf, mask, L, R, out_idx, out_score, out_resid);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return score_residual_argmax_batched<double>(vals, colf, rowf, mask, P, L, R, col, threads,
+                                               smem, out, stream);
+}
+
+// The same in f32: the P scores are f32 packed from the start of the P
+// words that follow the indices, the P residuals from the start of the
+// next P.
+int ttc_score_residual_argmax_batched_f32(const float* vals, const float* colf,
+                                          const float* rowf, const uint8_t* mask,
+                                          long long P, long long L, int R, int col,
+                                          int threads, int smem, void* out, void* stream) {
+  return score_residual_argmax_batched<float>(vals, colf, rowf, mask, P, L, R, col, threads,
+                                              smem, out, stream);
 }
 
 // tables (L, n) f64, ind E int32 elements, out (L, E) f64; blocks of
@@ -1050,10 +1294,14 @@ int ttc_score_residual_argmax_batched(const double* vals, const double* colf,
 int ttc_small_table_lookup(const double* tables, int L, int n,
                            const int32_t* ind, long long E, double* out,
                            int blocks, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(double) * (size_t)L * (size_t)n;
-  lookup_kernel<<<blocks, kThreads, smem, s>>>(tables, L, n, ind, E, out);
-  return static_cast<int>(cudaGetLastError());
+  return small_table_lookup<double>(tables, L, n, ind, E, out, blocks, stream);
+}
+
+// The same in f32: L*n*4 bytes of dynamic shared memory.
+int ttc_small_table_lookup_f32(const float* tables, int L, int n,
+                               const int32_t* ind, long long E, float* out,
+                               int blocks, void* stream) {
+  return small_table_lookup<float>(tables, L, n, ind, E, out, blocks, stream);
 }
 
 // tables (2, n) f64, ind (B, d) int32, out B f64; kind 1/2/3 for C/D/E.
@@ -1065,25 +1313,16 @@ int ttc_small_table_lookup(const double* tables, int L, int n,
 int ttc_ising_integrand(const double* tables, int n, const int32_t* ind, long long B,
                         int d, int kind, int path, int blocks, int threads, int smem,
                         double den0, double* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d < 1 || (path == 0 ? d > kRowsDMax || threads != kRowsThreads
-                          : d > kWarpDMax || threads % 32 != 0 || threads > kWarpThreadsMax)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  switch (kind) {
-    case kKindC:
-      launch_integrand<kKindC>(path, blocks, threads, smem, s, tables, n, ind, B, d, den0, out);
-      break;
-    case kKindD:
-      launch_integrand<kKindD>(path, blocks, threads, smem, s, tables, n, ind, B, d, den0, out);
-      break;
-    case kKindE:
-      launch_integrand<kKindE>(path, blocks, threads, smem, s, tables, n, ind, B, d, den0, out);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return ising_integrand<double>(tables, n, ind, B, d, kind, path, blocks, threads, smem, den0,
+                                 out, stream);
+}
+
+// The same in f32: tables (2, n) f32, out B f32, the whole chain in f32.
+int ttc_ising_integrand_f32(const float* tables, int n, const int32_t* ind, long long B,
+                            int d, int kind, int path, int blocks, int threads, int smem,
+                            double den0, float* out, void* stream) {
+  return ising_integrand<float>(tables, n, ind, B, d, kind, path, blocks, threads, smem, den0,
+                                out, stream);
 }
 
 int ttc_threads_per_block(void) { return kThreads; }
@@ -1091,6 +1330,8 @@ int ttc_threads_per_block(void) { return kThreads; }
 int ttc_tile_threads(void) { return kTileThreads; }
 
 int ttc_tile_smem(void) { return kTileSmem; }
+
+int ttc_simt_threads(void) { return kSimtThreads; }
 
 int ttc_integrand_rows_threads(void) { return kRowsThreads; }
 

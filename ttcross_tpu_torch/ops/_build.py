@@ -42,10 +42,15 @@ _SIGNATURES = {
     "ttc_threads_per_block": ([], _I),
     "ttc_tile_threads": ([], _I),
     "ttc_tile_smem": ([], _I),
+    "ttc_simt_threads": ([], _I),
     "ttc_integrand_rows_threads": ([], _I),
     "ttc_integrand_rows_d_max": ([], _I),
     "ttc_integrand_warp_d_max": ([], _I),
 }
+
+
+_F32_ENTRIES = ("ttc_score_residual_argmax", "ttc_score_residual_argmax_batched",
+                "ttc_small_table_lookup", "ttc_ising_integrand")
 
 
 def _nvcc() -> str:
@@ -91,11 +96,13 @@ def build() -> tuple[Path, float, str]:
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build if needed, then load the library once per process with every
-    entry point's argtypes/restype declared."""
+    entry point's argtypes/restype declared; each kernel's f32 entry point
+    (name + "_f32") takes the arguments of its f64 one."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
+        for suffix in (("", "_f32") if name in _F32_ENTRIES else ("",)):
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = argtypes
+            fn.restype = restype
     return lib

@@ -73,10 +73,11 @@ def _scale_by_halves(x, biased):
     normal f64 factors made from exponent bits (exact on every device), of
     exponents floor and ceiling of half the shift, one after the other.  Both
     scale the same way, so no intermediate leaves the range between x and the
-    result."""
+    result.  An f32 x takes the factors rounded to f32: exact while half the
+    shift is within f32's exponent range."""
     lo = biased >> 1
-    x = x * (lo << 52).view(torch.float64)
-    return x * ((biased - lo) << 52).view(torch.float64)
+    x = x * (lo << 52).view(torch.float64).to(x.dtype)
+    return x * ((biased - lo) << 52).view(torch.float64).to(x.dtype)
 
 
 def scale_pow2(x, e):

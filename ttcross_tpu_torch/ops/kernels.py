@@ -7,8 +7,12 @@ Counterpart of ttcross_tpu/ops/pallas_kernels.py.  The CUDA sources are in
 ``csrc/kernels.cu`` (built by ``ops/_build.py``).  Each wrapper routes a
 tensor that lies on the CPU to the plain version and a CUDA tensor to the
 kernel; on a CUDA tensor it launches the kernel or raises, never falling
-back.  ``<wrapper>.launches`` counts the kernel launches of that wrapper,
-and ``launch_shapes()`` breaks them down by the shape of the call.
+back.  Every kernel has a float64 and a float32 instantiation (the f32
+tier): a wrapper launches the one of its inputs' dtype, which must be one
+of the two and the same for every floating input (TypeError otherwise; no
+input is converted).  ``<wrapper>.launches`` counts the kernel launches of
+that wrapper, and ``launch_shapes()`` breaks them down by the shape of the
+call, an f32 launch's shape ending in "f32".
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ _TILE_KC = 32              # kKC: R is walked in chunks of 32
 # kTileSmem: three stages of colf (64 x 36), rowf (32 x 68) and vals
 # (64 x 68) doubles and of the mask (64 x 80 bytes)
 _TILE_SMEM = 3 * ((64 * 36 + 32 * 68 + 64 * 68) * 8 + 64 * 80)
+_SIMT_THREADS = 256        # kSimtThreads: a block of the f32 2-D kernel (static shared memory)
+_SIMT_BLOCKS_PER_SM = 4
 _LOOKUP_SMEM = 48 * 1024   # static limit of dynamic shared memory per block
 _LOOKUP_BLOCKS_PER_SM = 8
 _ROWS_THREADS = 128        # kRowsThreads: rows of a block of the integrand's row path
@@ -48,7 +54,7 @@ _WARPS = 8                 # warps of a block of the warp path, fewer if shared 
 _ROWS_STATIC_SMEM = 4 * (_ROWS_THREADS * _ROWS_D_MAX + 4)   # the row path's index tile
 _ATERM_LOOP_D = 96         # above this d the plain a-term loops over columns
 ISING_KINDS = {"C": 1, "D": 2, "E": 3}   # test_crs_ising.f90:206-212
-_F64 = (torch.float64,)
+_REAL = (torch.float64, torch.float32)
 _MASK = (torch.bool, torch.uint8)
 _I32 = (torch.int32,)
 
@@ -80,6 +86,16 @@ def _launchable(*tensors):
     return out
 
 
+def _tag(dtype) -> tuple:
+    """What an f32 launch appends to its shape in launch_shapes()."""
+    return ("f32",) if dtype == torch.float32 else ()
+
+
+def _entry(name: str, dtype):
+    """The library's entry point `name` for this scalar type."""
+    return getattr(_lib(), name + ("_f32" if dtype == torch.float32 else ""))
+
+
 def _check_cuda(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} must lie on {device}, got {t.device}")
@@ -95,9 +111,10 @@ def _check_cuda(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
 def _lib():
     lib = _build.load()
     if ((lib.ttc_threads_per_block(), lib.ttc_tile_threads(), lib.ttc_tile_smem(),
-         lib.ttc_integrand_rows_threads(), lib.ttc_integrand_rows_d_max(),
+         lib.ttc_simt_threads(), lib.ttc_integrand_rows_threads(), lib.ttc_integrand_rows_d_max(),
          lib.ttc_integrand_warp_d_max())
-            != (_THREADS, _TILE_THREADS, _TILE_SMEM, _ROWS_THREADS, _ROWS_D_MAX, _WARP_D_MAX)):
+            != (_THREADS, _TILE_THREADS, _TILE_SMEM, _SIMT_THREADS, _ROWS_THREADS, _ROWS_D_MAX,
+                _WARP_D_MAX)):
         raise RuntimeError("the constants of csrc/kernels.cu disagree with ops/kernels.py")
     return lib
 
@@ -139,10 +156,10 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan(M: int, K: int, R: int, sms: int, bonds: int = 0) -> Plan:
+def _plan(M: int, K: int, R: int, sms: int, bonds: int = 0, esz: int = 8) -> Plan:
     """Launch geometry of kernel A for vals (M, K) and rank R on a card
     with `sms` streaming multiprocessors; with bonds > 0, for `bonds` such
-    fibers in one launch.
+    fibers in one launch; esz: the bytes of an element (8: f64, 4: f32).
 
     A fiber (K = 1 or M = 1) is one cluster of up to _CLUSTER_MAX blocks
     with one partial per warp; block b scores tiles b, b + blocks, ... of
@@ -155,7 +172,15 @@ def _plan(M: int, K: int, R: int, sms: int, bonds: int = 0) -> Plan:
     Batched over bonds (the all-bonds sweeps: 254 or 1022 fibers of 170
     elements): one block per bond and no cluster; the block walks its
     bond's fiber in tiles of `threads` elements, staged as a fiber block
-    stages them, and reduces it alone (no scratch partials)."""
+    stages them, and reduces it alone (no scratch partials).  A fiber
+    block's shared memory is its tile's factor (`threads` x R elements),
+    the R-vector and the slack of a COL tile's 16-byte copies (2 * 16 - 2 *
+    esz bytes).  The f32 2-D path is the SIMT kernel: a persistent grid of
+    up to _SIMT_BLOCKS_PER_SM blocks per SM over the same tiles, its
+    shared memory static."""
+    if esz not in (4, 8):
+        raise ValueError(f"no kernel-A instantiation for {esz}-byte elements")
+    slack = 2 * 16 - 2 * esz
     if M < 1 or K < 1 or R < 0 or bonds < 0:
         raise ValueError(f"no kernel-A launch for ({M}, {K}) at rank {R}")
     if bonds:
@@ -163,29 +188,32 @@ def _plan(M: int, K: int, R: int, sms: int, bonds: int = 0) -> Plan:
             raise ValueError(f"the batched kernel A takes fibers (K = 1 or M = 1), not ({M}, {K})")
         col = K == 1
         length = M if col else K
-        fit = (_FIBER_SMEM - 8 * R - 16) // max(8 * R, 1) // 32 * 32
+        fit = (_FIBER_SMEM - esz * R - slack) // max(esz * R, 1) // 32 * 32
         threads = min(-(-length // 32) * 32, _FIBER_THREADS_MAX, fit)
         if threads < 32:
             raise ValueError(f"rank {R} exceeds the fiber kernel's shared memory")
         return Plan(BATCH_COL if col else BATCH_ROW, bonds, threads, 1,
-                    8 * R + 16 + 8 * threads * R,
+                    esz * R + slack + esz * threads * R,
                     (threads, 1) if col else (1, threads), 0)
     if M == 1 or K == 1:
         col = K == 1
         length = M if col else K
         # enough threads that one cluster covers the fiber in a pass, at
         # least _FIBER_THREADS, at most what shared memory holds: the tile's
-        # R doubles per element, the R-vector and 16 bytes of alignment slack
+        # R elements per element, the R-vector and the alignment slack
         want = max(_FIBER_THREADS, -(-length // (32 * _CLUSTER_MAX)) * 32)
-        fit = (_FIBER_SMEM - 8 * R - 16) // max(8 * R, 1) // 32 * 32
+        fit = (_FIBER_SMEM - esz * R - slack) // max(esz * R, 1) // 32 * 32
         threads = min(want, _FIBER_THREADS_MAX, fit)
-        smem = 8 * R + 16 + 8 * threads * R
+        smem = esz * R + slack + esz * threads * R
         if threads < 32:
             raise ValueError(f"rank {R} exceeds the fiber kernel's shared memory")
         blocks = min(_CLUSTER_MAX, -(-length // threads))
         return Plan(COL if col else ROW, blocks, threads, blocks, smem,
                     (threads, 1) if col else (1, threads), blocks * threads // 32)
     tiles = -(-M // TILE[0]) * -(-K // TILE[1])
+    if esz == 4:
+        blocks = min(tiles, _SIMT_BLOCKS_PER_SM * sms)
+        return Plan(TWO_D, blocks, _SIMT_THREADS, 1, 0, TILE, blocks)
     if tiles * max(1, -(-R // _TILE_KC)) >= 2 ** 31:
         raise ValueError(f"matrix {M} x {K} at rank {R} exceeds the 2-D kernel's 32-bit walk")
     blocks = min(tiles, sms)
@@ -195,9 +223,9 @@ def _plan(M: int, K: int, R: int, sms: int, bonds: int = 0) -> Plan:
 def score_residual_argmax_plain(vals, colf, rowf, mask):
     """Flat argmax of the masked |vals - colf @ rowf|.
 
-    vals (M, K), colf (M, R), rowf (R, K) float64; mask (M, K) bool or
-    uint8.  Returns 0-d tensors (flat int64, score, signed residual at
-    flat); masked entries score -1, the first maximum wins and NaN ranks
+    vals (M, K), colf (M, R), rowf (R, K) float64 or float32; mask (M, K)
+    bool or uint8.  Returns 0-d tensors (flat int64, score, signed residual
+    at flat); masked entries score -1, the first maximum wins and NaN ranks
     above every number (torch.argmax semantics)."""
     resid = (vals - colf @ rowf).reshape(-1)
     score = torch.where(mask.reshape(-1).bool(), resid.abs(), -1.0)
@@ -213,17 +241,19 @@ def score_residual_argmax(vals, colf, rowf, mask):
     (:62-120; Pallas body :39-59).  On a CPU tensor this is
     score_residual_argmax_plain; on a CUDA tensor it launches kernel A of
     csrc/kernels.cu as _plan lays it out (a fiber: one cluster launch; a
-    2-D shape: the DMMA kernel and its one-block reduction) and adds one to
-    ``score_residual_argmax.launches``.  The results are views of one
-    buffer allocated per call."""
+    2-D shape: the DMMA kernel in f64, the SIMT kernel in f32, then a
+    one-block reduction) and adds one to ``score_residual_argmax.launches``.
+    The results are views of one buffer allocated per call, the score and
+    the residual of the inputs' dtype."""
     if vals.device.type == "cpu":
         return score_residual_argmax_plain(vals, colf, rowf, mask)
     vals, colf, rowf, mask = _launchable(vals, colf, rowf, mask)
     with torch._C._DisableFuncTorch():     # plain tensors from here on
         dev = vals.device
-        _check_cuda("vals", vals, _F64, 2, dev)
-        _check_cuda("colf", colf, _F64, 2, dev)
-        _check_cuda("rowf", rowf, _F64, 2, dev)
+        dt = vals.dtype
+        _check_cuda("vals", vals, _REAL, 2, dev)
+        _check_cuda("colf", colf, (dt,), 2, dev)
+        _check_cuda("rowf", rowf, (dt,), 2, dev)
         _check_cuda("mask", mask, _MASK, 2, dev)
         M, K = vals.shape
         R = colf.shape[1]
@@ -233,17 +263,19 @@ def score_residual_argmax(vals, colf, rowf, mask):
                              f"mask {tuple(mask.shape)}")
         if M * K == 0:
             raise ValueError("score_residual_argmax of an empty matrix")
-        plan = _plan(M, K, R, _sms(dev.index))
-        # 8-byte words: [index, score, residual, nparts scores, indices, residuals]
+        plan = _plan(M, K, R, _sms(dev.index), esz=vals.element_size())
+        # 8-byte words: [index, score, residual, nparts scores, indices,
+        # residuals]; an f32 score or residual at the start of its word
         buf = torch.empty(3 + 3 * plan.nparts, dtype=torch.int64, device=dev)
-        rc = _call(dev, _lib().ttc_score_residual_argmax, vals.data_ptr(),
+        rc = _call(dev, _entry("ttc_score_residual_argmax", dt), vals.data_ptr(),
                    colf.data_ptr(), rowf.data_ptr(), mask.data_ptr(), M, K, R,
                    plan.path, plan.blocks, plan.threads, plan.smem, buf.data_ptr())
         _raise_on(rc, "score_residual_argmax launch")
         score_residual_argmax.launches += 1
-        _SHAPES["score_residual_argmax", (M, K, R)] += 1
-        f64 = buf[:3].view(torch.float64)
-        return buf[0], f64[1], f64[2]
+        _SHAPES["score_residual_argmax", (M, K, R) + _tag(dt)] += 1
+        per = 8 // vals.element_size()     # elements of the dtype per word
+        v = buf[:3].view(dt)
+        return buf[0], v[per], v[2 * per]
 
 
 score_residual_argmax.launches = 0
@@ -252,8 +284,8 @@ score_residual_argmax.launches = 0
 def score_residual_argmax_batched_plain(vals, colf, rowf, mask):
     """score_residual_argmax_plain for every bond of a stack.
 
-    vals (P, M, K), colf (P, M, R), rowf (P, R, K) float64; mask (P, M, K)
-    bool or uint8.  Returns three (P,) tensors (flat int64 in each bond's
+    vals (P, M, K), colf (P, M, R), rowf (P, R, K) float64 or float32;
+    mask (P, M, K) bool or uint8.  Returns three (P,) tensors (flat int64 in each bond's
     row-major (M, K), score, signed residual at flat): per bond, masked
     entries score -1, the first maximum wins, NaN ranks above every
     number, and a bond whose mask is all false gives flat 0 and score -1."""
@@ -285,9 +317,10 @@ def score_residual_argmax_batched(vals, colf, rowf, mask):
     vals, colf, rowf, mask = _launchable(vals, colf, rowf, mask)
     with torch._C._DisableFuncTorch():     # plain tensors from here on
         dev = vals.device
-        _check_cuda("vals", vals, _F64, 3, dev)
-        _check_cuda("colf", colf, _F64, 3, dev)
-        _check_cuda("rowf", rowf, _F64, 3, dev)
+        dt = vals.dtype
+        _check_cuda("vals", vals, _REAL, 3, dev)
+        _check_cuda("colf", colf, (dt,), 3, dev)
+        _check_cuda("rowf", rowf, (dt,), 3, dev)
         _check_cuda("mask", mask, _MASK, 3, dev)
         P, M, K = vals.shape
         R = colf.shape[2]
@@ -297,16 +330,19 @@ def score_residual_argmax_batched(vals, colf, rowf, mask):
                              f"mask {tuple(mask.shape)}")
         if P * M * K == 0:
             raise ValueError("score_residual_argmax_batched of an empty stack")
-        plan = _plan(M, K, R, _sms(dev.index), bonds=P)
-        buf = torch.empty(3 * P, dtype=torch.int64, device=dev)   # [indices, scores, residuals]
-        rc = _call(dev, _lib().ttc_score_residual_argmax_batched, vals.data_ptr(),
+        plan = _plan(M, K, R, _sms(dev.index), bonds=P, esz=vals.element_size())
+        # 8-byte words: [P indices, P scores, P residuals]; f32 scores and
+        # residuals packed from the start of their P words
+        buf = torch.empty(3 * P, dtype=torch.int64, device=dev)
+        rc = _call(dev, _entry("ttc_score_residual_argmax_batched", dt), vals.data_ptr(),
                    colf.data_ptr(), rowf.data_ptr(), mask.data_ptr(), P, M * K, R,
                    int(plan.path == BATCH_COL), plan.threads, plan.smem, buf.data_ptr())
         _raise_on(rc, "score_residual_argmax_batched launch")
         score_residual_argmax_batched.launches += 1
-        _SHAPES["score_residual_argmax_batched", (P, M, K, R)] += 1
-        f64 = buf.view(torch.float64)
-        return buf[:P], f64[P:2 * P], f64[2 * P:]
+        _SHAPES["score_residual_argmax_batched", (P, M, K, R) + _tag(dt)] += 1
+        per = 8 // vals.element_size()
+        v = buf.view(dt)
+        return buf[:P], v[per * P:per * P + P], v[2 * per * P:2 * per * P + P]
 
 
 score_residual_argmax_batched.launches = 0
@@ -316,7 +352,8 @@ score_residual_argmax_batched.launches = 0
 def small_table_lookup_plain(tables, ind):
     """out[l, b, j] = tables[l, ind[b, j]], 0 where ind is outside [0, n).
 
-    tables (L, n) float64, ind (B, d) int32 -> (L, B, d) float64."""
+    tables (L, n) float64 or float32, ind (B, d) int32 -> (L, B, d) of the
+    tables' dtype."""
     n = tables.shape[1]
     ok = (ind >= 0) & (ind < n)
     vals = tables[:, ind.clamp(0, n - 1).long()]
@@ -325,7 +362,8 @@ def small_table_lookup_plain(tables, ind):
 
 
 def small_table_lookup(tables, ind):
-    """Gather from L small f64 tables with one launch, (L, B, d) float64.
+    """Gather from L small tables with one launch, (L, B, d) of the tables'
+    dtype (float64 or float32).
 
     Replaces ttcross_tpu/ops/pallas_kernels.py::small_table_lookup_limbs
     (:151-197; Pallas body :127-148).  On a CPU tensor this is
@@ -337,23 +375,24 @@ def small_table_lookup(tables, ind):
     tables, ind = _launchable(tables, ind)
     with torch._C._DisableFuncTorch():     # plain tensors from here on
         dev = tables.device
-        _check_cuda("tables", tables, _F64, 2, dev)
+        dt = tables.dtype
+        _check_cuda("tables", tables, _REAL, 2, dev)
         _check_cuda("ind", ind, _I32, 2, dev)
         L, n = tables.shape
-        if L * n * 8 > _LOOKUP_SMEM:
+        if L * n * tables.element_size() > _LOOKUP_SMEM:
             raise ValueError(f"tables ({L}, {n}) exceed the kernel's "
                              f"{_LOOKUP_SMEM}-byte shared-memory budget")
         B, d = ind.shape
         E = B * d
-        out = torch.empty((L, B, d), dtype=torch.float64, device=dev)
+        out = torch.empty((L, B, d), dtype=dt, device=dev)
         if E == 0:
             return out
         blocks = min(-(-E // _THREADS), _LOOKUP_BLOCKS_PER_SM * _sms(dev.index))
-        rc = _call(dev, _lib().ttc_small_table_lookup, tables.data_ptr(), L, n,
+        rc = _call(dev, _entry("ttc_small_table_lookup", dt), tables.data_ptr(), L, n,
                    ind.data_ptr(), E, out.data_ptr(), blocks)
         _raise_on(rc, "small_table_lookup launch")
         small_table_lookup.launches += 1
-        _SHAPES["small_table_lookup", (L, B, d, n)] += 1
+        _SHAPES["small_table_lookup", (L, B, d, n) + _tag(dt)] += 1
         return out
 
 
@@ -374,23 +413,25 @@ class IntegrandPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def _integrand_plan(B: int, d: int, n: int) -> IntegrandPlan:
+def _integrand_plan(B: int, d: int, n: int, esz: int = 8) -> IntegrandPlan:
     """Launch geometry of the fused integrand for ind (B, d) and an n-point
-    table.  Up to _ROWS_D_MAX variables a thread takes a row, else a warp
-    does; a block's shared memory holds the n (node, weight) pairs and, on
-    the warp path, each warp's row of indices and its prefix products with
-    the pitches csrc computes, within the 48 KB a block gets without
+    table of esz-byte elements (8: f64, 4: f32).  Up to _ROWS_D_MAX
+    variables a thread takes a row, else a warp does; a block's shared
+    memory holds the n (node, weight) pairs (rounded up to 16 bytes) and,
+    on the warp path, each warp's row of indices and its prefix products
+    with the pitches csrc computes, within the 48 KB a block gets without
     opting in."""
-    if B < 0 or not 1 <= d <= _WARP_D_MAX or n < 1:
-        raise ValueError(f"no fused-integrand launch for ({B}, {d}) with n = {n}: "
-                         f"the kernel takes 1 <= d <= {_WARP_D_MAX}")
-    table = 16 * n
+    if B < 0 or not 1 <= d <= _WARP_D_MAX or n < 1 or esz not in (4, 8):
+        raise ValueError(f"no fused-integrand launch for ({B}, {d}) with n = {n} of "
+                         f"{esz}-byte elements: the kernel takes 1 <= d <= {_WARP_D_MAX}")
+    table = -(-2 * esz * n // 16) * 16
     if d <= _ROWS_D_MAX:
         if table + _ROWS_STATIC_SMEM > _LOOKUP_SMEM:
             raise ValueError(f"a table of {n} points exceeds the kernel's shared memory")
         return IntegrandPlan(ROWS, -(-B // _ROWS_THREADS), _ROWS_THREADS, table,
                              _ROWS_THREADS)
-    per_warp = 4 * (4 * ((d + 6) // 4)) + 8 * (2 * ((d + 2) // 2))   # ipitch ints, ppitch doubles
+    k = 16 // esz                                     # elements per 16 bytes
+    per_warp = 4 * (4 * ((d + 6) // 4)) + esz * (k * ((d + k) // k))   # ipitch ints, ppitch elements
     warps = min(_WARPS, (_LOOKUP_SMEM - table) // per_warp)
     if warps < 1:
         raise ValueError(f"a table of {n} points and rows of {d} exceed the kernel's "
@@ -401,9 +442,10 @@ def _integrand_plan(B: int, d: int, n: int) -> IntegrandPlan:
 def ising_integrand_plain(tables, ind, kind: str):
     """Batched Ising integrand: ind (B, d) int32 -> (B,) values.
 
-    tables (2, n): the nodes and the rescaled weights, looked up with
-    small_table_lookup_plain (0 outside [0, n)).  kind 'C' -> 2b,
-    'D' -> 2ab, 'E' -> 2a, each times the product of weights."""
+    tables (2, n): the nodes and the rescaled weights, float64 or float32
+    (the values' dtype), looked up with small_table_lookup_plain (0 outside
+    [0, n)).  kind 'C' -> 2b, 'D' -> 2ab, 'E' -> 2a, each times the product
+    of weights."""
     kid = ISING_KINDS[kind.upper()]
     x, w = small_table_lookup_plain(tables, ind)       # (B, d) each
     B, d = x.shape
@@ -438,7 +480,8 @@ def ising_integrand_plain(tables, ind, kind: str):
 
 
 def ising_integrand_fused(tables, ind, kind: str):
-    """The Ising integrand in one launch, (B,) float64.
+    """The Ising integrand in one launch, (B,) of the tables' dtype
+    (float64, or float32: the whole chain in f32).
 
     Kernel B's redesign: replaces ttcross_tpu/ops/pallas_kernels.py::
     small_table_lookup_limbs (:151-197) on the integrand's path, with the
@@ -452,22 +495,24 @@ def ising_integrand_fused(tables, ind, kind: str):
     with torch._C._DisableFuncTorch():     # plain tensors from here on
         kid = ISING_KINDS[kind.upper()]
         dev = ind.device
+        dt = tables.dtype
         _check_cuda("ind", ind, _I32, 2, dev)
-        _check_cuda("tables", tables, _F64, 2, dev)
+        _check_cuda("tables", tables, _REAL, 2, dev)
         if tables.shape[0] != 2:
             raise ValueError(f"tables must be (2, n): nodes and weights, got {tuple(tables.shape)}")
         B, d = ind.shape
         n = tables.shape[1]
-        plan = _integrand_plan(B, d, n)
-        out = torch.empty((B,), dtype=torch.float64, device=dev)
+        plan = _integrand_plan(B, d, n, tables.element_size())
+        out = torch.empty((B,), dtype=dt, device=dev)
         if B == 0:
             return out
         den0 = 0.0 if d <= _ATERM_LOOP_D else 1.0   # the plain a-term's ratio where P_j + P_i = 0
-        rc = _call(dev, _lib().ttc_ising_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d,
-                   kid, plan.path, plan.blocks, plan.threads, plan.smem, den0, out.data_ptr())
+        rc = _call(dev, _entry("ttc_ising_integrand", dt), tables.data_ptr(), n, ind.data_ptr(),
+                   B, d, kid, plan.path, plan.blocks, plan.threads, plan.smem, den0,
+                   out.data_ptr())
         _raise_on(rc, "ising_integrand_fused launch")
         ising_integrand_fused.launches += 1
-        _SHAPES["ising_integrand_fused", (B, d, n)] += 1
+        _SHAPES["ising_integrand_fused", (B, d, n) + _tag(dt)] += 1
         return out
 
 
@@ -485,7 +530,8 @@ def launch_counts() -> dict[str, int]:
 def launch_shapes() -> dict[str, dict[tuple, int]]:
     """The launches since the last reset by the shape of the call, per
     wrapper: kernel A (M, K, R), batched (P, M, K, R), the lookup
-    (L, B, d, n), the fused integrand (B, d, n)."""
+    (L, B, d, n), the fused integrand (B, d, n); an f32 launch's shape
+    ends in "f32"."""
     out = {f.__name__: {} for f in _WRAPPERS}
     for (name, shape), count in _SHAPES.items():
         out[name][shape] = count

@@ -1,15 +1,15 @@
 """Gauss-Legendre rule generation (host numpy, set-up time).
 
-A copy of ttcross_tpu/ops/quadrature.py's lgwt (lgwt, quad.f90:97-131) and
-map_to_interval, kept here so that the port imports nothing of the JAX
-package.
+A copy of ttcross_tpu/ops/quadrature.py's lgwt (lgwt, quad.f90:97-131),
+map_to_interval and the 1/t rule quad_rinv / quad_rinv_error (quad.f90:
+8-95), kept here so that the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["lgwt", "gauss_legendre", "map_to_interval"]
+__all__ = ["lgwt", "gauss_legendre", "map_to_interval", "quad_rinv", "quad_rinv_error"]
 
 _TWO_PI = 6.283185307179586476925286766559005768394338798750211641949889184615632812572418
 
@@ -50,3 +50,34 @@ gauss_legendre = lgwt
 def map_to_interval(x: np.ndarray, w: np.ndarray, a: float, b: float) -> tuple[np.ndarray, np.ndarray]:
     """Affine map of a [-1, 1] rule to [a, b] (test_crs_stdnorm.f90:92-95)."""
     return 0.5 * ((b - a) * x + (a + b)), 0.5 * (b - a) * w
+
+
+def quad_rinv(n: int) -> np.ndarray:
+    """Exp-sinh quadrature approximating 1/t ~= sum_i w_i exp(-a_i t^2)
+    (quad_rinv1, quad.f90:8-46).  Returns q of shape (2, m): the weights in
+    row 0, the exponents in row 1."""
+    nq = (n - 3) // 2
+    h = np.log(_TWO_PI * nq) / nq
+    log_huge = np.log(np.finfo(np.float64).max)
+    rows = [(0.0, 0.0)]
+    for i in range(-nq, nq + 1):
+        t = i * h
+        sinh_t, cosh_t = np.sinh(t), np.cosh(t)
+        if abs(sinh_t) > log_huge:
+            continue
+        exp_sinh = np.exp(-sinh_t)
+        weight = 2.0 * cosh_t * h / (np.sqrt(_TWO_PI / 2.0) * (1.0 + exp_sinh))
+        alpha = np.log(1.0 + 1.0 / exp_sinh) ** 2
+        rows.append((weight, alpha))
+    return np.asarray(rows, dtype=np.float64).T
+
+
+def quad_rinv_error(q: np.ndarray, a: float, b: float, n: int) -> float:
+    """Largest relative error of the 1/t rule q on n log-spaced points of
+    [a, b] (testquad_rinv, quad.f90:48-95; its file output dropped, the
+    value returned)."""
+    if a <= 0 or b <= 0:
+        raise ValueError(f"illegal interval: {a}, {b}")
+    ts = np.exp(np.linspace(np.log(min(a, b)), np.log(max(a, b)), n))
+    approx = (q[0][None, :] * np.exp(-q[1][None, :] * ts[:, None] ** 2)).sum(axis=1)
+    return float(np.max(ts * np.abs(1.0 / ts - approx)))

@@ -6,19 +6,23 @@ The QR and SVD factorizations run with torch.linalg on the train's device
 (cuSOLVER in f64 on CUDA); only the singular values and norms come to the
 host, for the rank choice and the scalar norm bookkeeping.  svd_round_host
 is the same truncation in numpy on the host, for cores rebuilt there
-(cross/skeleton.py::reevaluate_host).
+(cross/skeleton.py::reevaluate_host), and from_dense the TT-SVD of a dense
+tensor (dtt_svd0, tt.f90:434-479), in numpy on the host as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import numpy as np
 import torch
 
+from ..ops.dense import as_tensor
 from .types import TT
 
-__all__ = ["chop_rank", "orthogonalize", "svd_round", "svd_round_host"]
+__all__ = ["chop_rank", "orthogonalize", "svd_round", "svd_round_host", "from_dense"]
 
 
 def chop_rank(s, tol: float | None = None, rmax: int | None = None) -> int:
@@ -121,3 +125,32 @@ def svd_round_host(cores: list, tol: float = 0.0, rmax: int | None = None) -> li
         cs[k] = vh[:rr].reshape(rr, nc, rn)
         cs[k - 1] = np.einsum("inj,jk->ink", cs[k - 1], u[:, :rr] * s[:rr])
     return cs
+
+
+def from_dense(a, n: Sequence[int] | None = None, tol: float = 1e-14,
+               rmax: int | None = None, device=None) -> TT:
+    """Compress a dense tensor into TT form by successive SVDs from the
+    right (dtt_svd0, tt.f90:434-479), in numpy on the host with the chop
+    rule of svd_round.  a: a numpy array or a tensor, reshaped to n (its
+    own shape by default).  The cores go where ops/dense.py::as_tensor
+    sends a caller's array: a tensor's device, numpy to the card, unless
+    ``device`` says otherwise."""
+    if torch.is_tensor(a):
+        device = a.device if device is None else device
+        a = a.detach().cpu().numpy()
+    a = np.asarray(a)
+    n = tuple(int(x) for x in (a.shape if n is None else n))
+    d = len(n)
+    cores: list = [None] * d
+    r_right = 1
+    # unfold progressively: B_k has shape (n_0 ... n_{k-1}, n_k r_right)
+    mat = a.reshape(n).reshape(int(np.prod(n[:-1])), n[-1])
+    for k in range(d - 1, 0, -1):
+        mat = mat.reshape(int(np.prod(n[:k])), n[k] * r_right)
+        u, s, vh = np.linalg.svd(mat, full_matrices=False)
+        rr = chop_rank(s, tol=tol, rmax=rmax)
+        cores[k] = vh[:rr].reshape(rr, n[k], r_right)
+        mat = u[:, :rr] * s[:rr]
+        r_right = rr
+    cores[0] = mat.reshape(1, n[0], r_right)
+    return TT(tuple(as_tensor(c, device) for c in cores))

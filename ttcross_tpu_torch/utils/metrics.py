@@ -1,12 +1,16 @@
-"""Per-sweep records of a cross run (counterpart of
-ttcross_tpu/utils/metrics.py: the reference's per-iteration report,
-dmrgg.f90:969-1008, as structured records)."""
+"""Per-sweep records of a cross run, a JSONL writer, a profiler hook and a
+timer (counterpart of ttcross_tpu/utils/metrics.py: the reference's
+per-iteration report, dmrgg.f90:969-1008, as structured records)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import contextlib
+import json
+import os
+import time
+from dataclasses import asdict, dataclass
 
-__all__ = ["SweepRecord", "history_from_run"]
+__all__ = ["SweepRecord", "history_from_run", "write_jsonl", "profile_trace", "Timer"]
 
 
 @dataclass
@@ -35,3 +39,41 @@ def history_from_run(last_it, vals, pmax, nev, truth=None, with_quad=False, it0:
                 rec.cnv = abs(1.0 - rec.value / float(vals[i - 1]))
         recs.append(rec)
     return recs
+
+
+def write_jsonl(records, path: str) -> None:
+    """One JSON object per record (its fields that are not None), one per
+    line."""
+    with open(path, "w") as f:
+        for r in records:
+            f.write(json.dumps({k: v for k, v in asdict(r).items() if v is not None}) + "\n")
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str):
+    """torch.profiler around a phase (CPU and, when there is a card, CUDA
+    activity), its Chrome trace written to logdir/trace.json at the end:
+    the counterpart of the JAX package's XLA profiler hook.  Yields the
+    profiler, whose key_averages() tabulate the phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+class Timer:
+    """Wall-clock timer (timef analogue, timef.f90:25): calling it gives the
+    seconds since it was made."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def __call__(self) -> float:
+        return time.perf_counter() - self.t0
