@@ -95,7 +95,18 @@ Phases, each printing its result as it goes:
      with refine_sweeps=1 (< 1e-12 at x = i/64), exp's Riemann sum, a 2-D
      Gaussian;
  14. the f32 tier: C_6 (rank 24) in float32 over keys 0-7 and mvn_d6 greedy
-     in float32, through the kernels' f32 instantiations only.
+     in float32, through the kernels' f32 instantiations only;
+ 15. the dd tier (csrc/dd_kernels.cu's kernels D1-D4): cross_dd on Ising C_4
+     exactly as bench.py's ising_c4_dd_tier (n = 33, rank 16; keys 0-7,
+     first and steady), C_4 at n = 65, rank 32 (the dd arithmetic limit),
+     C_6 at n = 65, rank 48, the defect-corrected C_6 (ranks 32, 48) and
+     stdnorm_d4 (rank 6), each against its digit floor (DD_FLOORS); a small
+     cross_dd (C_4, n = 17, rank 8) on the card equal to the same run on the
+     CPU, values, pivots and ranks; two dd sweeps and a defect-integrand call
+     under torch's sync debug mode set to raise; every dd kernel held bit for
+     bit against its plain version at every shape these runs launched it
+     at, with device time, kernels per call, bound (f64 vector flops) and
+     host time per call.
 The line before the last is the kernels' JSON summary, one entry for every
 (kernel, shape) that the C_6 headline, the C_256 long chain, each
 configuration of phase 7 and phases 8-14 launched at (an f32 launch's entry
@@ -115,6 +126,7 @@ import sys
 import time
 
 KERNEL_SOURCE = "ttcross_tpu_torch/csrc/kernels.cu"
+DD_KERNEL_SOURCE = "ttcross_tpu_torch/csrc/dd_kernels.cu"
 MAIN_PATH_KERNELS = ("score_residual_argmax", "ising_integrand_fused")
 LONG_CHAIN_KERNELS = ("score_residual_argmax_batched", "small_table_lookup")
 LONG_CHAIN = dict(n=17, max_rank=10, accuracy=500 * 2.2e-16, pivoting=1)
@@ -231,7 +243,46 @@ KERNEL_REPLACES = {   # the TPU kernel each CUDA kernel stands for
     "score_residual_argmax_batched": "ttcross_tpu/ops/pallas_kernels.py:62",
     "small_table_lookup": "ttcross_tpu/ops/pallas_kernels.py:151",
     "ising_integrand_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
+    # the dd tier's variants (csrc/dd_kernels.cu): D1 and D4 of kernel A's
+    # residual and its dd products, D2 and D3 of the lookup kernel's gathers
+    "dd_score_residual_argmax": "ttcross_tpu/ops/pallas_kernels.py:62",
+    "dd_dot": "ttcross_tpu/ops/pallas_kernels.py:62",
+    "ising_c_integrand_dd_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
+    "dd_gather_tt_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
 }
+F32_KERNELS = ("score_residual_argmax", "score_residual_argmax_batched", "small_table_lookup",
+               "ising_integrand_fused")   # the kernels with an f32 instantiation
+DD_KERNELS = ("dd_score_residual_argmax", "dd_dot", "ising_c_integrand_dd_fused",
+              "dd_gather_tt_fused")
+# The dd tier (phase 15).  Digits of each configuration over its keys, from
+# CPU runs of both packages (PYTHONPATH=. JAX_PLATFORMS=cpu python
+# tests/test_torch_engine_dd.py prints them), port / JAX package as minimum,
+# median, maximum.  The floors are the JAX package's own test bounds
+# (tests/test_engine_dd.py:25-47, tests/test_defect.py:53-61,
+# tests/test_dd.py:168-190), under both packages' CPU minima; every key run
+# on the card is held to its floor.
+#   ising_c4_dd_tier   keys 0-7  17.69 18.62 18.98 / 18.05 18.78 19.64
+#   c4_n65_r32         keys 0-7  31.35 31.64 32.72 / 30.87 30.97 31.13
+#   c6_n65_r48         key 0     17.31 / 18.35
+#   defect_c6          key 0     16.42 / 16.24
+#   defect_stdnorm_d4  keys 0-7  15.92 every key / 15.92 every key
+DD_RUNS = {   # name: (problem, m or d, n, "dd" | "defect", ranks, keys)
+    "ising_c4_dd_tier": ("ising", 4, 33, "dd", (16,), range(8)),
+    "c4_n65_r32": ("ising", 4, 65, "dd", (32,), range(8)),
+    "c6_n65_r48": ("ising", 6, 65, "dd", (48,), range(1)),
+    "defect_c6": ("ising", 6, 65, "defect", (32, 48), range(1)),
+    "defect_stdnorm_d4": ("stdnorm", 4, 65, "defect", (6, 6), range(8)),
+}
+DD_FLOORS = {"ising_c4_dd_tier": 16.0, "c4_n65_r32": 28.0, "c6_n65_r48": 17.0,
+             "defect_c6": 15.5, "defect_stdnorm_d4": 14.5}
+DD_PATH_KERNELS = {"dd": ("dd_score_residual_argmax", "dd_dot", "ising_c_integrand_dd_fused"),
+                   "defect": ("score_residual_argmax", "ising_integrand_fused",
+                              "ising_c_integrand_dd_fused", "dd_gather_tt_fused", "dd_dot"),
+                   "defect_stdnorm": ("score_residual_argmax", "small_table_lookup",
+                                      "dd_gather_tt_fused", "dd_dot")}
+DD_MUL_FLOPS, DD_ADD_FLOPS = 24, 11   # ops/dd.py: two_prod 17 + cross terms 4 + quick_two_sum 3;
+                                      # two_sum 6 + 2 adds + quick_two_sum 3
+F64_VECTOR_FLOPS = 33.5e12  # H100 SXM f64 outside the tensor cores (dd cannot use them)
 SCORE_RTOL = 1e-12          # kernel A vs cuBLAS: f64 sums in another order
                             # (the 2-D path's DMMA tiles in yet another)
 F32_RTOL = 1e-5             # an f32 kernel vs its plain version in f32 (cuBLAS sgemm without
@@ -1905,6 +1956,330 @@ def check_greeks(dev, gen, held, checked):
     return _merge_shapes([cross_shapes, skel_shapes])
 
 
+# ------------------------------------------------------------ phase 15: the dd tier
+def _dd_bound(name, shape):
+    """The least time of a dd kernel's call: f64 flops (DD_MUL_FLOPS per dd
+    multiply, DD_ADD_FLOPS per dd add) over the f64 vector rate, or bytes
+    (each input read once: hi and lo of every operand as the lottery's
+    gathered layout holds them, each output written once) over the memory
+    rate, whichever is larger."""
+    madd = DD_MUL_FLOPS + DD_ADD_FLOPS
+    if name == "dd_score_residual_argmax":
+        B, T = shape
+        nbytes, flops = 16 * (2 * B * T + B) + B + 16 * B + 32, B * T * madd + B * DD_ADD_FLOPS
+    elif name == "dd_dot":
+        M, N, T = shape
+        nbytes, flops = 16 * (M * T + T * N + M * N), M * N * T * madd
+    elif name == "dd_gather_tt_fused":     # (B, N) + the train's ranks
+        B, N, ranks = shape[0], shape[1], shape[2:]
+        d = len(ranks) - 1
+        pairs = sum(ranks[c] * ranks[c + 1] for c in range(d))
+        nbytes, flops = 8 * N * pairs + 4 * B * d + 16 * B, B * pairs * madd
+    else:   # ising_c_integrand_dd_fused: 2d scan steps, the product, dd_div, d weights, one more
+        B, d, n = shape
+        div = 3 + 2 * DD_MUL_FLOPS + 2 * DD_ADD_FLOPS + 6
+        nbytes = 4 * B * d + 32 * n + 16 * B
+        flops = B * (2 * d * madd + DD_MUL_FLOPS + div + d * DD_MUL_FLOPS + DD_MUL_FLOPS)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F64_VECTOR_FLOPS
+    return max(t_bytes, t_ops) * 1e6, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _dd_pair(gen, shape, dev):
+    """A normalized dd pair of random values on the card."""
+    import torch
+
+    from ttcross_tpu_torch.ops.dd import DD
+
+    hi = torch.randn(shape, generator=gen, dtype=torch.float64)
+    lo = hi * torch.randn(shape, generator=gen, dtype=torch.float64) * 2.0 ** -54
+    return DD((hi + lo).to(dev), (lo - ((hi + lo) - hi)).to(dev))
+
+
+def _dd_cases(dev, gen, name, shape):
+    """(label, fn, plain) per layout that the dd engine gives the kernel at
+    this shape: D1 as the lottery (both operands gathered, the rank mask on
+    x), a column pass (y a broadcast vector, mask on y) and a row pass (x a
+    broadcast vector, y a transposed view); D4 as a GEMM and as the
+    contraction of a core against a weight vector; D3 on a random train of
+    the run's ranks and modes of N; D2 on the dd C_m tables."""
+    import torch
+
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.ops.dd import DD
+
+    def m(f, x):
+        return DD(f(x.hi), f(x.lo))
+
+    out = []
+    if name == "dd_score_residual_argmax":
+        B, T = shape
+        vals = _dd_pair(gen, (B,), dev)
+        mask = (torch.rand(B, generator=gen) > 0.3).to(dev)
+        rank = torch.tensor([max(T - 1, 0)], dtype=torch.int32, device=dev)
+        x, y = _dd_pair(gen, (B, T), dev), _dd_pair(gen, (B, T), dev)
+        vec = _dd_pair(gen, (T,), dev)
+        yt = m(lambda t: t.T, _dd_pair(gen, (T, B), dev))
+        for label, args in (("lottery", (vals, x, y, rank, mask, K.MASK_X)),
+                            ("col", (vals, x, m(lambda t: t.expand(B, T), vec), rank, mask,
+                                     K.MASK_Y)),
+                            ("row", (vals, m(lambda t: t.expand(B, T), vec), yt, rank, mask,
+                                     K.MASK_X))):
+            out.append((label, (lambda a=args: K.dd_score_residual_argmax(*a)),
+                        (lambda a=args: K.dd_score_residual_argmax_plain(*a))))
+    elif name == "dd_dot":
+        M, N, T = shape
+        a, b = _dd_pair(gen, (M, T), dev), _dd_pair(gen, (T, N), dev)
+        x, y = m(lambda t: t[:, None, :].expand(M, N, T), a), m(lambda t: t.T[None].expand(M, N, T), b)
+        g, w = _dd_pair(gen, (M, T, N), dev), _dd_pair(gen, (T,), dev)
+        xg, yw = m(lambda t: t.permute(0, 2, 1), g), m(lambda t: t[None, None].expand(M, N, T), w)
+        for label, args in (("gemm", (x, y)), ("core_weights", (xg, yw))):
+            out.append((label, (lambda a=args: K.dd_dot(*a)), (lambda a=args: K.dd_dot_plain(*a))))
+    elif name == "dd_gather_tt_fused":
+        from ttcross_tpu_torch.tt.types import TT
+
+        B, N, ranks = shape[0], shape[1], shape[2:]
+        d = len(ranks) - 1
+        t = TT(tuple(torch.randn((ranks[c], N, ranks[c + 1]), generator=gen,
+                                 dtype=torch.float64).to(dev) for c in range(d)))
+        packed = K.pack_tt(t)
+        ind = torch.randint(0, N, (B, d), generator=gen, dtype=torch.int32).to(dev)
+        out.append(("train", (lambda: K.dd_gather_tt_fused(packed, ind)),
+                    (lambda: K.dd_gather_tt_plain(packed, ind))))
+    else:
+        from ttcross_tpu_torch.apps import make_ising_dd
+
+        B, d, n = shape
+        tables = make_ising_dd(m=d + 1, n=n - 1 if n % 2 == 0 else n, device=dev)[1].tables
+        ind = torch.randint(0, n, (B, d), generator=gen, dtype=torch.int32).to(dev)
+        out.append(("rows", (lambda: K.ising_c_integrand_dd_fused(tables, ind)),
+                    (lambda: K.ising_c_integrand_dd_plain(tables, ind))))
+    return out
+
+
+def hold_dd_shapes(dev, gen, shapes, held, checked) -> None:
+    """Phase 15's kernel check: every dd kernel at every shape a dd run
+    launched it at, in each layout the engine gives it there (_dd_cases),
+    bit for bit against its plain version on the card (hi, lo, and D1's
+    index and r at it), max_abs_err the largest |kernel - plain| over
+    them; the first layout's device time, kernels per call
+    (one is the design), bound, share, CUDA-event time of kernel and plain,
+    and host time per call.  The rows join `checked` and `held`."""
+    import torch
+
+    from ttcross_tpu_torch.ops.dd import DD
+
+    def parts(r):
+        if isinstance(r, DD):
+            return [r.hi, r.lo]
+        return [p for x in r for p in (parts(x) if isinstance(x, (tuple, DD)) else [x])]
+
+    for name in DD_KERNELS:
+        for shape in sorted(set(shapes.get(name, {})) - held[name]):
+            cases = _dd_cases(dev, gen, name, shape)
+            err = 0.0
+            for label, fn, plain in cases:
+                got, want = parts(fn()), parts(plain())
+                torch.cuda.synchronize()
+                if not all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(got, want)):
+                    raise AssertionError(f"{name} {shape} ({label}): not bit-equal to its plain "
+                                         "version")
+                err = max([err] + [float((a.double() - b.double()).abs().max())
+                                   for a, b in zip(got, want)])
+            _, fn, plain = cases[0]
+            dev_k = device_per_call(fn)
+            if not 0 < dev_k["kernels_per_call"] <= 1:
+                raise AssertionError(f"{name} {shape}: {dev_k['kernels_per_call']} kernels per "
+                                     "call (one is the design)")
+            # the plain versions launch ~35 ops per dd multiply-add: fewer calls
+            dev_p = device_per_call(plain, calls=5)
+            bound, by = _dd_bound(name, shape)
+            row = {"kernel": name, "shape": list(shape), "layouts": [c[0] for c in cases],
+                   "max_abs_err": err, "ms": _time_ms(fn), "plain_ms": _time_ms(plain, reps=5),
+                   "library_ms": None, "device_us": dev_k["device_us"],
+                   "kernels_per_call": dev_k["kernels_per_call"],
+                   "plain_device_us": dev_p["device_us"],
+                   "plain_kernels_per_call": dev_p["kernels_per_call"],
+                   "bound_us": bound, "bound_by": by,
+                   "share_of_bound": bound / dev_k["device_us"],
+                   "host_us_per_call": host_us_per_call(fn, calls=200)}
+            _emit(row)
+            checked[name][tuple(shape)] = row
+            held[name].add(tuple(shape))
+
+
+def _dd_digits(value, truth: str) -> float:
+    from decimal import Decimal, localcontext
+
+    with localcontext() as ctx:
+        ctx.prec = 60
+        rel = abs(1 - (Decimal(value[0]) + Decimal(value[1])) / Decimal(truth))
+        return float(-rel.log10()) if rel != 0 else 60.0
+
+
+def run_dd(dev, name, key=0):
+    """One run of DD_RUNS[name] on `dev`: (result or (hi, lo, info), wall,
+    digits, launches, by shape, summary row)."""
+    from decimal import Decimal
+
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import ISING_C_STR, TPI_STR, make_ising_dd, make_stdnorm_dd
+    from ttcross_tpu_torch.cross import cross_dd, cross_defect_corrected
+    from ttcross_tpu_torch.ops import kernels as K
+
+    problem, m, n, kind, ranks, _ = DD_RUNS[name]
+    if problem == "ising":
+        prob, fun_dd, wh, wl = make_ising_dd(m=m, n=n, device=dev)
+        truth = ISING_C_STR[m]
+    else:
+        prob, fun_dd, wh, wl = make_stdnorm_dd(d=m, n=n, device=dev)
+        truth = str((Decimal(TPI_STR) / 2) ** (m // 2))
+    nn = [prob.n] * prob.d
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    if kind == "dd":
+        res = cross_dd(fun_dd, nn, wh, wl, max_rank=ranks[0], pivoting=1, key=key, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        value, row = res.value, {"n_evals": res.neval, "sweeps": res.sweeps,
+                                 "ranks": list(res.ranks)}
+        if not (all(np.isfinite(c).all() for c in res.cores_hi) and max(res.ranks) <= ranks[0]):
+            raise AssertionError(f"dd {name}: malformed result, ranks {res.ranks}")
+    else:
+        acc = 5 * 2.2e-16 if problem == "stdnorm" else 1e-13
+        res = cross_defect_corrected(prob.fun, fun_dd, nn, wh, wl, max_rank=ranks[0],
+                                     max_rank2=ranks[1], accuracy=acc, pivoting=1, key=key,
+                                     device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        value, info = res[:2], res[2]
+        row = {"n_evals": info["nevals"], "ranks": [list(r) for r in info["ranks"]],
+               "q1": list(info["q1"]), "q2": list(info["q2"])}
+    if not all(math.isfinite(v) for v in value):
+        raise AssertionError(f"dd {name}: value {value}")
+    digits = _dd_digits(value, truth)
+    evals = sum(row["n_evals"]) if isinstance(row["n_evals"], list) else row["n_evals"]
+    row.update(value=list(value), digits=digits, wall_s=wall, evals_per_s=evals / wall)
+    return res, wall, digits, K.launch_counts(), K.launch_shapes(), row
+
+
+def check_small_dd_against_cpu(dev) -> dict:
+    """cross_dd at C_4, n = 17, rank 8 on the card and on the CPU with the
+    same key: the same draws, eager dd operations rounded once and kernels
+    equal to their plain versions bit for bit, so the values, the pivots
+    (vip), the ranks, the evaluations and the dd cores are equal."""
+    import numpy as np
+
+    from ttcross_tpu_torch.apps import make_ising_dd
+    from ttcross_tpu_torch.cross import cross_dd
+
+    out = {}
+    for where in (dev, "cpu"):
+        prob, fun_dd, wh, wl = make_ising_dd(m=4, n=17, device=where)
+        out[str(where)] = cross_dd(fun_dd, [prob.n] * prob.d, wh, wl, max_rank=8, pivoting=1,
+                                   key=0, device=where)
+    card, cpu = out[str(dev)], out["cpu"]
+    same = (card.value == cpu.value and card.ranks == cpu.ranks and card.neval == cpu.neval
+            and np.array_equal(card.vip, cpu.vip)
+            and all(np.array_equal(a, b) for a, b in zip(card.cores_hi + card.cores_lo,
+                                                         cpu.cores_hi + cpu.cores_lo)))
+    row = {"phase": "dd_small_vs_cpu", "config": "cross_dd C_4 n=17 rank 8 key 0",
+           "card": list(card.value), "cpu": list(cpu.value), "ranks": list(card.ranks),
+           "n_evals": card.neval, "bit_equal": same}
+    if not same:
+        raise AssertionError(f"the card's cross_dd differs from the CPU's: {row}")
+    return row
+
+
+def dd_sweeps_without_sync(dev) -> dict:
+    """Two cross_dd sweeps of ising_c4_dd_tier's problem (C_4, n = 33, rank
+    16) and a call of the defect's integrand (D2 + D3 + dd operations),
+    with torch's sync debug mode set to raise: nothing inside a sweep
+    waits for the card (the stop rule's read between sweeps does)."""
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising_dd
+    from ttcross_tpu_torch.cross.defect import _Defect
+    from ttcross_tpu_torch.cross.engine_dd import DDConfig, get_dd_engine, key_draws
+    from ttcross_tpu_torch.tt.types import TT
+
+    prob, fun_dd, _, _ = make_ising_dd(m=4, n=33, device=dev)
+    d, N, R = prob.d, prob.n, 16
+    kit = get_dd_engine(fun_dd, DDConfig(d=d, n=(N,) * d, N=N, R=R, piv=1, small_element=1e-30,
+                                         small_pivot=1e-12), dev)
+    draw_of = key_draws(0, 2, d, 2 * (R + N), dev)
+    st = kit.init_fn()
+    gen = torch.Generator().manual_seed(5)
+    train = TT(tuple(torch.randn((r1, N, r2), generator=gen, dtype=torch.float64).to(dev)
+                     for r1, r2 in ((1, 8), (8, 8), (8, 1))))
+    defect = _Defect(fun_dd, [train])
+    ind = torch.randint(0, N, (528, d), generator=gen, dtype=torch.int32).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for it in (1, 2):
+            st = kit.sweep_fn(st, it, draw_of(it))
+        defect(ind)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return {"phase": "dd_sync_free", "config": "cross_dd C_4 n=33 rank 16, sweeps 1-2; the "
+            "defect integrand at (528, 3)", "sync_free_sweeps": 2, "ranks": st.rk.tolist()}
+
+
+def stdnorm_dd_launches(dev, d, n, rank) -> int:
+    """Kernels on the card per call of make_stdnorm_dd's fun_dd (plain dd
+    operations) at the defect's rook-fiber batch (n rank, d)."""
+    import torch
+
+    from ttcross_tpu_torch.apps import make_stdnorm_dd
+
+    fun_dd = make_stdnorm_dd(d=d, n=n, device=dev)[1]
+    ind = torch.randint(0, n, (n * rank, d), dtype=torch.int32).to(dev)
+    fun_dd(ind)
+    return device_launches(lambda: fun_dd(ind))
+
+
+def check_dd(dev, gen, held, checked):
+    """Phase 15: the dd tier.  Each DD_RUNS configuration over its keys on
+    the card, each key held to DD_FLOORS; ising_c4_dd_tier's key 0 twice
+    (first and steady wall, the same path); the small card-vs-CPU run; every
+    dd kernel held at every shape the runs launched it at (hold_dd_shapes),
+    the f64 kernels of the defect's crosses at theirs (hold_new_shapes).
+    Returns [(path label, launches by shape, the kernels the path must
+    launch)] of each configuration's first run."""
+    paths = []
+    for name, (problem, m, n, kind, ranks, keys) in DD_RUNS.items():
+        first = run_dd(dev, name)
+        runs = [first] + [run_dd(dev, name, key=k) for k in keys[1:]]
+        row = {"phase": "dd", "config": name, **first[5], "launches": first[3],
+               "launches_by_shape": _by_shape(first[4]),
+               "digits_by_key": [r[2] for r in runs], "floor": DD_FLOORS[name]}
+        if problem == "stdnorm":     # its dd integrand is plain dd operations, no hand kernel
+            row["fun_dd_launches_per_call"] = stdnorm_dd_launches(dev, m, n, ranks[0])
+        if name == "ising_c4_dd_tier":
+            steady = run_dd(dev, name)
+            row["steady_s"] = steady[1]
+            if (steady[0].neval, steady[0].ranks, steady[0].value) != (
+                    first[0].neval, first[0].ranks, first[0].value):
+                raise AssertionError("the repeated ising_c4_dd_tier run took another path")
+        _emit(row)
+        if min(row["digits_by_key"]) < DD_FLOORS[name]:
+            raise AssertionError(f"dd {name}: digits {row['digits_by_key']} < "
+                                 f"{DD_FLOORS[name]}")
+        need = DD_PATH_KERNELS["defect_stdnorm" if problem == "stdnorm" else kind]
+        if min(first[3][k] for k in need) <= 0:
+            raise AssertionError(f"dd {name}: a kernel of its path never launched: {first[3]}")
+        for r in runs:
+            hold_dd_shapes(dev, gen, r[4], held, checked)
+            hold_new_shapes(dev, gen, r[4], held, checked, label=f"dd_{name}")
+            _require_held(f"dd {name}", r[4], held)
+        paths.append((f"dd {name}", first[4], need))
+    _emit(check_small_dd_against_cpu(dev))
+    _emit(dd_sweeps_without_sync(dev))
+    return paths
+
+
 def profile_run(label: str, run) -> None:
     """torch.profiler over one steady run (run() returns a tuple that
     starts with the result): kernel time by name, the device's busy share
@@ -1948,7 +2323,7 @@ def main() -> int:
     from ttcross_tpu_torch.ops import kernels as K
 
     t0 = time.perf_counter()
-    lib_path, nvcc_s, report = _build.build()
+    lib_path, nvcc_s, report = _build.build()      # one nvcc per source, all at once
     _build.load()
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": nvcc_s,
            "library": str(lib_path.relative_to(_build.BUILD_ROOT.parent.parent))})
@@ -1974,6 +2349,7 @@ def main() -> int:
     checked = {name: {tuple(r["shape"]): r for r in reversed(rows)} for name, rows in
                [("score_residual_argmax", a_rows), ("score_residual_argmax_batched", ab_rows),
                 ("small_table_lookup", b_rows), ("ising_integrand_fused", i_rows)]}
+    checked.update({name: {} for name in DD_KERNELS})   # held by phase 15 at its runs' shapes
     held = {name: set(by) for name, by in checked.items()}
     args = sys.argv[1:]
     if "--parent" in args:
@@ -2046,6 +2422,11 @@ def main() -> int:
     if "--profile" in args:
         profile_run("C_6 capped + chunked", lambda: run_capped(dev))
         profile_run("C_6 f32", lambda: run_f32(dev, "C_6"))
+    dd_paths = check_dd(dev, gen, held, checked)
+    new_runs += [(path, shapes) for path, shapes, _ in dd_paths]
+    if "--profile" in args:
+        for name in ("c4_n65_r32", "c6_n65_r48"):
+            profile_run(f"dd {name}", lambda name=name: run_dd(dev, name))
 
     # one entry for every (kernel, shape) that a path's run launched at: the
     # launches are those of that run, counted from 0 (the C_6 headline's
@@ -2060,7 +2441,8 @@ def main() -> int:
                 f32 = shape[-1] == "f32"
                 entries.append({
                     "name": name + ("_f32" if f32 else ""), "route": "cuda",
-                    "source": KERNEL_SOURCE, "dtype": "float32" if f32 else "float64",
+                    "source": DD_KERNEL_SOURCE if name in DD_KERNELS else KERNEL_SOURCE,
+                    "dtype": "float32" if f32 else "float64",
                     "replaces": KERNEL_REPLACES[name], "path": path, "shape": row["shape"],
                     "launches": count, "launches_of_kernel_on_path": sum(by.values()),
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -2077,11 +2459,12 @@ def main() -> int:
                                             ("quantics", ("score_residual_argmax",)),
                                             ("C_6 f32", [k + "_f32" for k in MAIN_PATH_KERNELS]),
                                             ("mvn_d6 f32", [k + "_f32" for k in MVN_KERNELS])]
+                                           + [(path, need) for path, _, need in dd_paths]
                for k in need if not any(e["name"] == k and e["path"] == path and e["launches"] > 0
                                         for e in entries)}
     if missing:
         raise AssertionError(f"kernels missing from their path's launches: {sorted(missing)}")
-    unheld32 = {k + "_f32" for k in KERNEL_REPLACES
+    unheld32 = {k + "_f32" for k in F32_KERNELS
                 if not any(sh[-1] == "f32" for sh in checked[k])}
     if unheld32:
         raise AssertionError(f"f32 instantiations that phase 3 did not hold: {sorted(unheld32)}")

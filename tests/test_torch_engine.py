@@ -186,7 +186,8 @@ def test_public_cross_runs_and_rejects_unported(problems):
     "cross.maxvol_refine", "cross.cross_maxvol", "cross.accchk", "tt.load_ttbin",
     "tt.load_ttbin_ref", "tt.load_npz", "tt.load_hdf5", "tt.load_state", "cross.cross_batch",
     "cross.extract_skeleton", "cross.derive_host_fun", "apps.make_quantics",
-    "apps.quantics_cross"])
+    "apps.quantics_cross", "cross.cross_dd", "cross.cross_defect_corrected",
+    "apps.make_ising_dd", "apps.make_stdnorm_dd"])
 def test_entry_points_default_to_the_card(entry):
     module, name = entry.split(".")
     entry = getattr(importlib.import_module("ttcross_tpu_torch." + module), name)
@@ -215,7 +216,8 @@ def test_port_imports_no_jax():
     assert "ttcross_tpu_torch.ops.kernels" in mods and len(mods) > 15
     for new in ("apps.mvn", "apps.stdnorm", "apps.cos", "apps.chf", "cross.maxvol", "cross.accchk",
                 "ops.sampling", "tt.serialize", "utils.indexing", "utils.guards", "utils.printing",
-                "cross.batch", "cross.skeleton", "apps.quantics", "utils.cli"):
+                "cross.batch", "cross.skeleton", "apps.quantics", "utils.cli", "ops.dd",
+                "cross.engine_dd", "cross.defect"):
         assert "ttcross_tpu_torch." + new in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -180,8 +180,22 @@ def test_cpu_wrappers_take_the_plain_path(rng):
     vals = K.ising_integrand_fused(torch.from_numpy(np.abs(table)), torch.from_numpy(ind), "D")
     assert vals.shape == (ind.shape[0],)
     K.score_residual_argmax_batched(*[torch.as_tensor(a)[None] for a in _score_case("col_fiber", rng)])
+    # the dd kernels' wrappers (csrc/dd_kernels.cu) too
+    from ttcross_tpu_torch.ops.dd import DD
+    from ttcross_tpu_torch.tt.types import TT
+
+    x = DD(torch.from_numpy(rng.normal(size=(6, 4))), torch.zeros(6, 4, dtype=torch.float64))
+    r, flat, _ = K.dd_score_residual_argmax(None, x, x, None, torch.ones(6, dtype=torch.bool))
+    assert r.hi.shape == (6,) and 0 <= int(flat) < 6
+    assert K.dd_dot(DD(x.hi[None], x.lo[None]), DD(x.hi[None], x.lo[None])).hi.shape == (1, 6)
+    t = TT(tuple(torch.from_numpy(rng.normal(size=s)) for s in ((1, 5, 3), (3, 5, 1))))
+    assert K.dd_gather_tt_fused(K.pack_tt(t), torch.zeros((4, 2), dtype=torch.int32)).hi.shape == (4,)
+    tables = torch.from_numpy(np.abs(rng.normal(size=(4, 5))))
+    assert K.ising_c_integrand_dd_fused(tables, torch.from_numpy(ind[:, :3])).hi.shape == (len(ind),)
     assert K.launch_counts() == {"score_residual_argmax": 0, "score_residual_argmax_batched": 0,
-                                 "small_table_lookup": 0, "ising_integrand_fused": 0}
+                                 "small_table_lookup": 0, "ising_integrand_fused": 0,
+                                 "dd_score_residual_argmax": 0, "dd_dot": 0,
+                                 "dd_gather_tt_fused": 0, "ising_c_integrand_dd_fused": 0}
     assert K.launch_shapes() == {name: {} for name in K.launch_counts()}
 
 

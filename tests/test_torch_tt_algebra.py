@@ -398,3 +398,35 @@ def test_every_ported_name_resolves():
         assert name in pmod.__all__ and callable(getattr(pmod, name)) and hasattr(jmod, name)
     assert callable(pengine.auto_chunks) and callable(jengine.auto_chunks)
     assert callable(pising.IsingProblem.fun_np)
+    # the device dd tier: ops/dd.py's names, the dd engine, the defect
+    # pipeline and the dd makers and integrands
+    import ttcross_tpu.apps.stdnorm as jstdnorm
+    import ttcross_tpu.cross.defect as jdefect
+    import ttcross_tpu.cross.engine_dd as jengine_dd
+    import ttcross_tpu.ops.dd as jdd
+    import ttcross_tpu_torch.apps.stdnorm as pstdnorm
+    import ttcross_tpu_torch.cross.defect as pdefect
+    import ttcross_tpu_torch.cross.engine_dd as pengine_dd
+    import ttcross_tpu_torch.ops.dd as pdd
+
+    dd_names = ["DD", "dd", "two_sum", "_quick_two_sum", "_split", "two_prod", "dd_add", "dd_neg",
+                "dd_sub", "dd_abs", "dd_mul", "dd_div", "dd_sum", "dd_dot", "dd_matvec",
+                "dd_matmul", "_dd_const", "dd_exp", "dd_log", "dd_to_float", "dd_from_string",
+                "dd_to_string", "dd_gather_tt", "dd_contract"]
+    for jmod, pmod, names in [
+            (jdd, pdd, dd_names),
+            (jengine_dd, pengine_dd, ["DDConfig", "DDState", "DDCrossResult", "DDKit",
+                                      "get_dd_engine", "dd_quad_cores", "cross_dd"]),
+            (jdefect, pdefect, ["cross_defect_corrected"]),
+            (jising, pising, ["ising_c_integrand_dd", "make_ising_dd"]),
+            (jstdnorm, pstdnorm, ["stdnorm_integrand_dd", "make_stdnorm_dd"])]:
+        for name in names:
+            assert getattr(pmod, name) is not None and hasattr(jmod, name), (pmod.__name__, name)
+            assert name.startswith("_") or name in pmod.__all__, (pmod.__name__, name)
+    for name in ("cross_dd", "cross_defect_corrected"):
+        assert getattr(pcross, name) is getattr(pengine_dd if name == "cross_dd" else pdefect, name)
+    for name in ("make_ising_dd", "make_stdnorm_dd", "ising_c_integrand_dd",
+                 "stdnorm_integrand_dd"):
+        assert name in papps.__all__
+    for name in ("dd_pair_from_numpy", "dd_state_from_numpy"):
+        assert name in interop.__all__

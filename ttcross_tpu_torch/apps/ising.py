@@ -18,10 +18,13 @@ import numpy as np
 import torch
 
 from ..cross.chain_eval import ChainSpec
-from ..ops.kernels import ISING_KINDS, ising_integrand_fused, small_table_lookup
-from ..ops.quadrature import lgwt
+from ..ops.dd import DD, dd, dd_add, dd_mul
+from ..ops.kernels import (ISING_KINDS, ising_c_integrand_dd_fused, ising_integrand_fused,
+                           small_table_lookup)
+from ..ops.quadrature import gauss_legendre_dd, lgwt
 
-__all__ = ["IsingProblem", "make_ising", "ising_integrand", "ising_integrand_np", "ising_c_chain"]
+__all__ = ["IsingProblem", "make_ising", "ising_integrand", "ising_integrand_np", "ising_c_chain",
+           "IsingDD", "ising_c_integrand_dd", "ising_dd_problem", "make_ising_dd"]
 
 
 def ising_integrand(ind, tables, kind: str):
@@ -180,3 +183,71 @@ def make_ising(kind: str = "C", m: int = 6, n: int = 65,
                         quad_weights=quad_weights,
                         tables=_tables(x, weights, device, dtype), truth=truth,
                         rescale=rescale)
+
+
+# ------------------------------------------------------------- the dd tier
+def _dd_tables(nodes_dd, weights_dd, device) -> torch.Tensor:
+    """(4, n) f64 on `device`: node hi, node lo, weight hi, weight lo."""
+    return torch.stack([torch.as_tensor(a, dtype=torch.float64).cpu()
+                        for a in (nodes_dd[0], nodes_dd[1], weights_dd[0], weights_dd[1])]
+                       ).to(device)
+
+
+def ising_c_integrand_dd(ind, nodes_dd, weights_dd) -> DD:
+    """C-kind Ising integrand in double-double arithmetic on ind's device:
+    f = 2/(v w) prod_i W_i with the telescoping prefix / suffix product
+    sums computed as dd scans (ttcross_tpu/apps/ising.py:172-210).
+    nodes_dd, weights_dd: (hi, lo) pairs of (n,) arrays.  On the card one
+    launch of ops/kernels.py::ising_c_integrand_dd_fused (D2); on the CPU
+    its plain version.  Returns DD (B,)."""
+    return ising_c_integrand_dd_fused(_dd_tables(nodes_dd, weights_dd, ind.device), ind)
+
+
+class IsingDD:
+    """fun_dd of the C-kind Ising problem, ind (B, d) int32 -> DD (B,):
+    D2 on the card (its plain version on the CPU) over ``tables``, the
+    (4, n) dd nodes and weights on the problem's device."""
+
+    def __init__(self, nodes_dd, weights_dd, device):
+        self.tables = _dd_tables(nodes_dd, weights_dd, device)
+
+    def __call__(self, ind) -> DD:
+        return ising_c_integrand_dd_fused(self.tables, ind)
+
+
+def ising_dd_problem(nodes_dd, weights_dd, m: int, device):
+    """(prob_f64, fun_dd, weights_hi, weights_lo) of the C-kind Ising
+    problem on a given dd rule: nodes_dd (Xn) on [0, 1] and weights_dd
+    (Wn) already rescaled, (hi, lo) pairs of (n,) arrays.  The f64
+    problem's tables are the hi parts, so the f64 cross of the defect
+    pipeline approximates the same dd-sampled tensor to f64."""
+    from .truths import ising_truth
+
+    xh = np.asarray(torch.as_tensor(nodes_dd[0]).cpu(), np.float64)
+    wh = np.asarray(torch.as_tensor(weights_dd[0]).cpu(), np.float64)
+    n, d = xh.shape[0], m - 1
+    val = float(n // 2)
+    quad_weights = np.full(n, 1.0 / val)
+    try:
+        truth = ising_truth("C", m)
+    except KeyError:
+        truth = None
+    prob = IsingProblem(kind="C", m=m, d=d, n=n, nodes=xh, weights=wh,
+                        quad_weights=quad_weights, tables=_tables(xh, wh, device), truth=truth)
+    return prob, IsingDD(nodes_dd, weights_dd, device), [quad_weights] * d, [np.zeros(n)] * d
+
+
+def make_ising_dd(m: int = 6, n: int = 65, device: str | torch.device = "cuda"):
+    """Ising C_m problem with dd quadrature data: returns (prob_f64,
+    fun_dd, weights_hi, weights_lo) for cross_dd and the defect pipeline
+    (ttcross_tpu/apps/ising.py:213-243).  The rule is
+    ops/quadrature.py::gauss_legendre_dd, mapped to [0, 1] and rescaled in
+    dd on the host; ``device`` places the tables: the card unless the
+    caller asks for ``device="cpu"``."""
+    if n % 2 == 0:
+        n += 1
+    (xh, xl), (wh, wl) = gauss_legendre_dd(n)
+    half = dd(0.5)
+    Xn = dd_mul(dd_add(DD(torch.from_numpy(xh), torch.from_numpy(xl)), dd(1.0)), half)
+    Wn = dd_mul(DD(torch.from_numpy(wh), torch.from_numpy(wl)), dd(0.5 * float(n // 2)))
+    return ising_dd_problem(Xn, Wn, m, device)

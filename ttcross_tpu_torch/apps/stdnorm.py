@@ -13,10 +13,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.dd import DD, dd, dd_add, dd_exp, dd_mul, dd_neg, dd_sum
 from ..ops.dense import table_lookup
-from ..ops.quadrature import lgwt, map_to_interval
+from ..ops.quadrature import gauss_legendre_dd, lgwt, map_to_interval
 
-__all__ = ["StdnormProblem", "make_stdnorm"]
+__all__ = ["StdnormProblem", "make_stdnorm", "StdnormDD", "stdnorm_integrand_dd",
+           "stdnorm_dd_problem", "make_stdnorm_dd"]
 
 
 @dataclass(frozen=True)
@@ -51,3 +53,56 @@ def make_stdnorm(d: int = 6, n: int = 65, a: float = -10.0, b: float = 10.0,
     return StdnormProblem(d=d, n=n, nodes=x, quad_weights=w,
                           truth=float(np.pi) ** (d / 2),
                           table=torch.from_numpy(x).to(device, dtype))
+
+
+# ------------------------------------------------------------- the dd tier
+def stdnorm_integrand_dd(ind, nodes_dd) -> DD:
+    """exp(-sum x^2) in double-double arithmetic via the dd exponential
+    (ops/dd.py::dd_exp; ttcross_tpu/apps/stdnorm.py:45-54): plain torch dd
+    operations on ind's device, no hand kernel.  nodes_dd: a DD of (n,)
+    tensors on that device.  Returns DD (B,)."""
+    i = ind.long()
+    x = DD(nodes_dd.hi[i], nodes_dd.lo[i])     # (B, d)
+    return dd_exp(dd_neg(dd_sum(dd_mul(x, x), axis=1)))
+
+
+class StdnormDD:
+    """fun_dd of the product-Gaussian problem: ind (B, d) int32 -> DD (B,)
+    over ``nodes``, the dd nodes on the problem's device."""
+
+    def __init__(self, nodes_dd, device):
+        self.nodes = DD(*(torch.as_tensor(a, dtype=torch.float64).cpu().to(device)
+                          for a in nodes_dd))
+
+    def __call__(self, ind) -> DD:
+        return stdnorm_integrand_dd(ind, self.nodes)
+
+
+def stdnorm_dd_problem(nodes_dd, weights_dd, d: int, device):
+    """(prob_f64, fun_dd, weights_hi, weights_lo) on a given dd rule
+    (nodes_dd, weights_dd: (hi, lo) pairs of (n,) arrays on the box)."""
+    xh = np.asarray(torch.as_tensor(nodes_dd[0]).cpu(), np.float64)
+    wh = np.asarray(torch.as_tensor(weights_dd[0]).cpu(), np.float64)
+    wl = np.asarray(torch.as_tensor(weights_dd[1]).cpu(), np.float64)
+    prob = StdnormProblem(d=d, n=xh.shape[0], nodes=xh, quad_weights=wh,
+                          truth=float(np.pi) ** (d / 2), table=torch.from_numpy(xh).to(device))
+    return prob, StdnormDD(nodes_dd, device), [wh] * d, [wl] * d
+
+
+def make_stdnorm_dd(d: int = 6, n: int = 65, a: float = -10.0, b: float = 10.0,
+                    device: str | torch.device = "cuda"):
+    """stdnorm problem with dd quadrature data: returns (prob_f64, fun_dd,
+    weights_hi, weights_lo) for the defect pipeline, the beyond-f64 tier of
+    a transcendental integrand (ttcross_tpu/apps/stdnorm.py:57-83).  The
+    rule is ops/quadrature.py::gauss_legendre_dd, mapped to [a, b] in dd on
+    the host; ``device`` places the tables: the card unless the caller asks
+    for ``device="cpu"``."""
+    if n % 2 == 0:
+        n += 1
+    (xh, xl), (wh, wl) = gauss_legendre_dd(n)
+    half_len = dd(0.5 * (b - a))
+    mid = dd(0.5 * (b + a))
+    Xn = dd_add(dd_mul(DD(torch.from_numpy(xh), torch.from_numpy(xl)), half_len),
+                DD(mid.hi.expand(n), mid.lo.expand(n)))
+    Wn = dd_mul(DD(torch.from_numpy(wh), torch.from_numpy(wl)), half_len)
+    return stdnorm_dd_problem(Xn, Wn, d, device)

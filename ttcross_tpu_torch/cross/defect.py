@@ -1,0 +1,114 @@
+"""Defect-corrected high-precision cross integration.
+
+Counterpart of ttcross_tpu/cross/defect.py (:33-112): instead of running the
+whole greedy engine in double-double, exploit that pivot SELECTION only
+needs the resolution of the current residual scale:
+
+  1. cross the integrand A in the fast f64 engine         -> TT1 (err ~1e-14 |A|)
+  2. cross the DEFECT g = A_dd - TT1, where A is evaluated in dd arithmetic
+     and TT1 is chain-evaluated in dd (the dd gather, D3 on the card); g
+     fits f64 with full precision because it is ~1e-14 |A| in magnitude
+                                                          -> TT2 (err ~1e-14 |g|)
+  3. total = quad(TT1) + quad(TT2), each train contracted against the dd
+     quadrature weights in dd (ops/dd.py::dd_contract), summed in decimal.
+
+Every cross runs in the port's f64 engine (cross/engine.py), on the card
+unless the caller asks for the CPU; dd arithmetic appears only inside the
+defect integrand and the final contractions.  The JAX package contracts
+with __float128 on the host (its native.contract_q); dd_contract carries
+the same ~32 digits.
+"""
+
+from __future__ import annotations
+
+from decimal import Decimal, localcontext
+
+import torch
+
+from ..ops.dd import DD, dd_contract, dd_sub, dd_to_float
+from ..ops.kernels import dd_gather_tt_fused, pack_tt
+from .engine import _cross
+
+__all__ = ["cross_defect_corrected"]
+
+
+class _Defect:
+    """Residual integrand g = A_dd - sum of previous trains, evaluated in dd
+    and returned as f64: fun_dd(ind), then per train its dd gather (one
+    launch of D3 on the card), then hi + lo."""
+
+    def __init__(self, fun_dd, trains):
+        self.fun_dd = fun_dd
+        self.trains = tuple(pack_tt(t) for t in trains)
+
+    def __call__(self, ind):
+        acc = self.fun_dd(ind)
+        for t in self.trains:
+            acc = dd_sub(acc, DD(*dd_gather_tt_fused(t, ind)))
+        return dd_to_float(acc)
+
+
+def cross_defect_corrected(
+    fun, fun_dd, n, weights_hi, weights_lo,
+    max_rank: int = 24, max_rank2: int | None = None,
+    levels: int = 2,
+    accuracy: float = 1e-13, pivoting: int = 1, key: int = 0,
+    verbose: bool = False, mesh=None,
+    device: str | torch.device = "cuda",
+    uniforms=None,
+):
+    """Multi-level defect-corrected cross quadrature; the signature of
+    ttcross_tpu.cross.defect.cross_defect_corrected plus ``device`` (the
+    card unless the caller asks for ``device="cpu"``; fun and fun_dd take
+    int32 indices there) and the test-only ``uniforms``.
+
+    fun: f64 batched integrand (first cross).  fun_dd: the same integrand
+    in dd arithmetic (ind -> DD).  weights_*: per-mode dd quadrature
+    weights.  levels: number of crosses (2 = classic defect correction; 3
+    adds a second correction over A - TT1 - TT2, limited by the ~1e-31
+    absolute noise of dd evaluation).  Level l runs cross() with key
+    key + l.  mesh: the distributed engine is ROADMAP item 9
+    (NotImplementedError).  uniforms (test-only): [U_1, ..., U_L], each
+    level's lottery uniforms in place of its key's (cross/engine.py::_cross).
+    Returns (hi, lo, info)."""
+    if mesh is not None:
+        raise NotImplementedError("cross_defect_corrected(mesh=...) needs the distributed engine "
+                                  "(ROADMAP queue 1 item 9)")
+    n = [int(x) for x in n]
+    max_rank2 = max_rank2 or max_rank
+    if uniforms is not None and len(uniforms) != levels:
+        raise ValueError(f"uniforms must hold one block per level ({levels})")
+
+    trains = []
+    nevals, ranks = [], []
+    k = key
+    for lvl in range(levels):
+        f, r = (fun, max_rank) if lvl == 0 else (_Defect(fun_dd, trains), max_rank2)
+        res = _cross(f, n, max_rank=r, accuracy=accuracy, pivoting=pivoting, quad=None,
+                     truth=None, key=k, dtype=torch.float64, verbose=verbose,
+                     return_state=False, max_sweeps=None, small_element=None,
+                     small_pivot=None, oversample=0, sweep_mode="sequential", device=device,
+                     uniforms=None if uniforms is None else uniforms[lvl])
+        trains.append(res.tt)
+        nevals.append(res.neval)
+        ranks.append(res.ranks)
+        k = k + 1 if isinstance(k, int) else k
+
+    with localcontext() as ctx:
+        ctx.prec = 50
+        qs = []
+        total = Decimal(0)
+        for t in trains:
+            q = dd_contract(t, weights_hi, weights_lo)
+            h, lo = float(q.hi), float(q.lo)
+            qs.append((h, lo))
+            total += Decimal(h) + Decimal(lo)
+        hi = float(total)
+        lo = float(total - Decimal(hi))
+    info = {
+        "neval1": nevals[0], "neval2": sum(nevals[1:]),
+        "nevals": nevals, "ranks": ranks,
+        "ranks1": ranks[0], "ranks2": ranks[-1],
+        "q1": qs[0], "q2": qs[-1], "qs": qs,
+    }
+    return hi, lo, info

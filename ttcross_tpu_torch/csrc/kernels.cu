@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels of ttcross_tpu_torch.
 //
 // Built by ttcross_tpu_torch/ops/_build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
-// into a shared library with a plain C interface, loaded with ctypes by
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
+// and linked with csrc/dd_kernels.cu's object into one shared library with
+// a plain C interface, loaded with ctypes by
 // ttcross_tpu_torch/ops/kernels.py.  Every entry point launches on the
 // stream it is given, allocates nothing (the Python wrapper allocates
 // outputs and scratch with torch.empty) and returns cudaGetLastError().

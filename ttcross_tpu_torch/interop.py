@@ -16,12 +16,14 @@ from .apps.cos import CosCoefficients, make_cos_coefficients
 from .apps.ising import IsingProblem, _tables
 from .apps.mvn import MvnProblem, density_from_numpy
 from .apps.stdnorm import StdnormProblem
+from .cross.engine_dd import DDState
 from .cross.state import CrossState
+from .ops.dd import DD
 from .tt.types import TT
 
 __all__ = ["state_from_numpy", "chain_states_from_numpy", "tt_from_numpy",
            "ising_from_numpy", "mvn_from_numpy", "stdnorm_from_numpy",
-           "cos_from_numpy", "sets_from_numpy"]
+           "cos_from_numpy", "sets_from_numpy", "dd_pair_from_numpy", "dd_state_from_numpy"]
 
 _INT_FIELDS = {"rk": torch.int32, "vip": torch.int32,
                "neval": torch.int64, "padded": torch.int64, "sweeps": torch.int64}
@@ -98,3 +100,29 @@ def sets_from_numpy(LI: np.ndarray, RJ: np.ndarray, rr: np.ndarray, device):
     (d-1,) as int32 tensors on `device` (cross/maxvol.py's run takes them)."""
     return tuple(torch.from_numpy(np.array(a, dtype=np.int32, order="C")).to(device)
                  for a in (LI, RJ, rr))
+
+
+def dd_pair_from_numpy(hi, lo, device) -> DD:
+    """A port DD of float64 tensors on `device` from a (hi, lo) pair of
+    numpy arrays (e.g. the JAX makers' node and weight tables Xn, Wn)."""
+    return DD(*(torch.from_numpy(np.array(a, dtype=np.float64, order="C")).to(device)
+                for a in (hi, lo)))
+
+
+_DD_INT_FIELDS = {"rk": torch.int32, "vip": torch.int32, "neval": torch.int64}
+
+
+def dd_state_from_numpy(arrays: Mapping, device) -> DDState:
+    """A port DDState from the JAX DDState's fields as numpy: each dd field
+    (cores, colf, rowf, itl, itt) a (hi, lo) pair, the others arrays.  The
+    JAX PRNG key is dropped: the port's draws come from cross_dd's
+    generator or its ``draws`` hook."""
+    fields = {}
+    for name in DDState._fields:
+        arr = arrays[name]
+        if name in ("cores", "colf", "rowf", "itl", "itt"):
+            fields[name] = dd_pair_from_numpy(arr[0], arr[1], device)
+        else:
+            t = torch.from_numpy(np.array(arr, order="C"))
+            fields[name] = t.to(_DD_INT_FIELDS.get(name, torch.float64)).to(device)
+    return DDState(**fields)

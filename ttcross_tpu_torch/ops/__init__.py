@@ -1,1 +1,2 @@
-"""Dense operations, the growing LU and the hand-written CUDA kernels."""
+"""Dense operations, the growing LU, double-double arithmetic (ops/dd.py)
+and the hand-written CUDA kernels."""

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels (csrc/kernels.cu).
+"""Build and load the port's CUDA kernels (csrc/kernels.cu, csrc/dd_kernels.cu).
 
-The source is compiled with nvcc for sm_90a into a shared library with a
-plain C interface and loaded with ctypes, at first use: the build lands in
+The sources are compiled with nvcc for sm_90a, one nvcc per source, all
+started together, and their objects linked into one shared library with a
+plain C interface, loaded with ctypes, at first use: the build lands in
 ``build/ttcross_tpu_torch/<hash>/`` at the root of the checkout, keyed by a
-hash of the source and the flags, so a changed source is rebuilt and an
-unchanged one is reused within a checkout.  Nothing is built or loaded when
-the package is imported.
+hash of the sources and the flags, so a changed source is rebuilt and
+unchanged ones are reused within a checkout.  Nothing is built or loaded
+when the package is imported.
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCE", "NVCC_FLAGS", "build", "load"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "kernels.cu"
+SOURCES = (_PKG / "csrc" / "kernels.cu",      # kernels A and B, the fused integrand
+           _PKG / "csrc" / "dd_kernels.cu")   # the dd tier's kernels
 BUILD_ROOT = _PKG.parent / "build" / "ttcross_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -46,6 +48,15 @@ _SIGNATURES = {
     "ttc_integrand_rows_threads": ([], _I),
     "ttc_integrand_rows_d_max": ([], _I),
     "ttc_integrand_warp_d_max": ([], _I),
+    "ttd_score_residual_argmax": (
+        [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL, _LL, _LL, _P, _I, _P, _P, _P, _I, _I, _P],
+        _I),
+    "ttd_dot": ([_P, _P, _P, _P, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P], _I),
+    "ttd_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _P, _P, _I, _P], _I),
+    "ttd_ising_c_integrand": ([_P, _I, _P, _LL, _I, _P, _P, _P], _I),
+    "ttd_threads": ([], _I),
+    "ttd_cluster_max": ([], _I),
+    "ttd_gather_rmax": ([], _I),
 }
 
 
@@ -67,29 +78,54 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, float, str]:
-    """Compile csrc/kernels.cu unless this source's library exists.
+    """Compile the sources unless their library exists: one nvcc -c per
+    source, all started together, then one nvcc -shared that links the
+    objects.
 
-    Returns (library path, seconds spent compiling, nvcc's -Xptxas=-v
-    report); the seconds are 0.0 when the library was already built."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / tag
+    Returns (library path, seconds spent compiling and linking, nvcc's
+    -Xptxas=-v report of every source); the seconds are 0.0 when the
+    library was already built."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.read_bytes())
+    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
     lib = out_dir / "libttcross_kernels.so"
     log = out_dir / "nvcc.log"
     if lib.is_file():
         return lib, 0.0, log.read_text() if log.is_file() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libttcross_kernels.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
     t0 = time.perf_counter()
+    objs, running = [], []
+    for src in SOURCES:
+        obj = out_dir / f"{src.stem}.{os.getpid()}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        running.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                         text=True), cmd))
+        objs.append(obj)
+    reports = []
+    try:
+        for proc, cmd in running:
+            report = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{report}")
+            reports.append(report)
+    finally:
+        for proc, _ in running:   # after a failure, stop the other compiles
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = out_dir / f"libttcross_kernels.{os.getpid()}.tmp.so"
+    cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    report = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{report}")
+                           f"{proc.stdout}{proc.stderr}")
+    seconds = time.perf_counter() - t0
+    report = "".join(reports)
     log.write_text(report)
     os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    for obj in objs:
+        obj.unlink()
     return lib, seconds, report
 
 

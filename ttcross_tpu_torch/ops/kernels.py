@@ -1,10 +1,13 @@
 """The port's hand-written CUDA kernels, their plain PyTorch versions and
 their launch counters: kernel A (the masked residual argmax), kernel B
 (the small-table lookup) and kernel B's redesign, the fused Ising
-integrand.
+integrand; and the dd tier's kernels (csrc/dd_kernels.cu): D1 the dd
+residual argmax, D2 the dd Ising integrand, D3 the dd train gather, D4 the
+small dd GEMM.
 
-Counterpart of ttcross_tpu/ops/pallas_kernels.py.  The CUDA sources are in
-``csrc/kernels.cu`` (built by ``ops/_build.py``).  Each wrapper routes a
+Counterpart of ttcross_tpu/ops/pallas_kernels.py.  The CUDA sources are
+``csrc/kernels.cu`` and ``csrc/dd_kernels.cu`` (built into one library by
+``ops/_build.py``).  Each wrapper routes a
 tensor that lies on the CPU to the plain version and a CUDA tensor to the
 kernel; on a CUDA tensor it launches the kernel or raises, never falling
 back.  Every kernel has a float64 and a float32 instantiation (the f32
@@ -29,6 +32,9 @@ __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
            "score_residual_argmax_batched", "score_residual_argmax_batched_plain",
            "small_table_lookup", "small_table_lookup_plain",
            "ising_integrand_fused", "ising_integrand_plain",
+           "dd_score_residual_argmax", "dd_score_residual_argmax_plain", "dd_dot", "dd_dot_plain",
+           "dd_gather_tt_fused", "dd_gather_tt_plain", "PackedTT", "pack_tt",
+           "ising_c_integrand_dd_fused", "ising_c_integrand_dd_plain",
            "launch_counts", "launch_shapes", "reset_launch_counts"]
 
 _THREADS = 256             # kThreads: a block of kernel B
@@ -116,6 +122,9 @@ def _lib():
             != (_THREADS, _TILE_THREADS, _TILE_SMEM, _SIMT_THREADS, _ROWS_THREADS, _ROWS_D_MAX,
                 _WARP_D_MAX)):
         raise RuntimeError("the constants of csrc/kernels.cu disagree with ops/kernels.py")
+    if ((lib.ttd_threads(), lib.ttd_cluster_max(), lib.ttd_gather_rmax())
+            != (_DD_THREADS, _DD_CLUSTER_MAX, _DD_GATHER_RMAX)):
+        raise RuntimeError("the constants of csrc/dd_kernels.cu disagree with ops/kernels.py")
     return lib
 
 
@@ -518,8 +527,314 @@ def ising_integrand_fused(tables, ind, kind: str):
 
 ising_integrand_fused.launches = 0
 
+# ------------------------------------------------------------ the dd kernels
+# csrc/dd_kernels.cu, linked into the one library.  Each kernel computes in the
+# operation order of ops/dd.py with intrinsics nvcc does not contract, so
+# it is bit for bit its plain version (the plain versions below are
+# ops/dd.py's functions, which the CPU tests hold against the JAX
+# package's).
+_DD_THREADS = 256          # kThreads: a block of D1, D3, D4
+_DD_CLUSTER_MAX = 16       # kClusterMax: D1's cluster
+_DD_GATHER_RMAX = 64       # kGatherRMax: D3 takes ranks up to this
+_F64 = (torch.float64,)
+MASK_NONE, MASK_X, MASK_Y = 0, 1, 2   # the side of the dot that D1's rank mask multiplies
+
+
+def _check_pair(name: str, x, ndim: int, device) -> None:
+    """A dd operand on the card: hi and lo float64 of one shape and one
+    layout (strides may be anything, a broadcast's 0 too)."""
+    for part in x:
+        if part.device != device:
+            raise ValueError(f"{name} must lie on {device}, got {part.device}")
+        if part.dtype != torch.float64:
+            raise TypeError(f"{name} must be float64 (hi, lo), got {part.dtype}")
+        if part.dim() != ndim:
+            raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(part.shape)}")
+    if x[0].shape != x[1].shape or x[0].stride() != x[1].stride():
+        raise ValueError(f"{name}'s hi and lo must share shape and strides")
+
+
+def _dd_mod():
+    from . import dd as ddm        # ops/dd.py imports ops/dense.py, which imports this module
+    return ddm
+
+
+def _rank_masked(x, rank, T: int):
+    ddm = _dd_mod()
+    m = (torch.arange(T, device=x[0].device) < rank).to(torch.float64)
+    return ddm.DD(x[0] * m, x[1] * m)
+
+
+def dd_score_residual_argmax_plain(vals, x, y, rank=None, mask=None, mask_side: int = MASK_NONE):
+    """r = vals - sum_t x[:, t] y[:, t] in dd (r = the sum when vals is
+    None), over t in order from zero (ops/dd.py::dd_sum), the rank mask
+    (t < rank) multiplied into x (mask_side MASK_X) or y (MASK_Y); then the
+    first maximum of mask ? |r.hi| : -1 (torch.argmax; all -1 without a
+    mask).  vals DD (B,) or None, x and y DD (B, T) of any strides, rank an
+    int tensor, mask (B,) bool or None.  Returns (r DD (B,), flat int64 0-d,
+    DD of 0-d tensors r[flat])."""
+    ddm = _dd_mod()
+    T = x[0].shape[1]
+    if rank is not None and mask_side == MASK_X:
+        x = _rank_masked(x, rank, T)
+    elif rank is not None and mask_side == MASK_Y:
+        y = _rank_masked(y, rank, T)
+    r = ddm.dd_sum(ddm.dd_mul(ddm.DD(*x), ddm.DD(*y)), axis=1)
+    if vals is not None:
+        r = ddm.dd_sub(ddm.DD(*vals), r)
+    if mask is None:
+        score = torch.full_like(r.hi, -1.0)
+    else:
+        score = torch.where(mask.bool(), r.hi.abs(), -1.0)
+    flat = torch.argmax(score)
+    return r, flat, ddm.DD(r.hi[flat], r.lo[flat])
+
+
+def dd_score_residual_argmax(vals, x, y, rank=None, mask=None, mask_side: int = MASK_NONE):
+    """D1, the dd kernel A: dd_score_residual_argmax_plain in one launch.
+
+    The dd variant of ttcross_tpu/ops/pallas_kernels.py::
+    score_residual_argmax (:62-120), for the dd engine's lottery, rook
+    passes and accept (ttcross_tpu/cross/engine_dd.py:274-283, :306-334,
+    :378-394).  On a CPU tensor this is the plain version; on a CUDA tensor
+    it launches csrc/dd_kernels.cu's dd_score_kernel (a cluster of up to 16
+    blocks, a thread per row) and adds one to
+    ``dd_score_residual_argmax.launches``.  rank: a one-element int32 CUDA
+    tensor (it may be a slice of the state's ranks; read on the card).  r
+    is a view of one buffer allocated per call, flat and r[flat] of
+    another."""
+    ddm = _dd_mod()
+    if x[0].device.type == "cpu":
+        return dd_score_residual_argmax_plain(vals, x, y, rank, mask, mask_side)
+    dev = x[0].device
+    _check_pair("x", x, 2, dev)
+    _check_pair("y", y, 2, dev)
+    B, T = x[0].shape
+    if tuple(y[0].shape) != (B, T):
+        raise ValueError(f"shape mismatch: x {tuple(x[0].shape)}, y {tuple(y[0].shape)}")
+    if B == 0:
+        raise ValueError("dd_score_residual_argmax of an empty batch")
+    if vals is not None:
+        _check_pair("vals", vals, 1, dev)
+        if vals[0].shape[0] != B or not (vals[0].is_contiguous() and vals[1].is_contiguous()):
+            raise ValueError(f"vals must be ({B},) contiguous, got {tuple(vals[0].shape)}")
+    if mask is not None:
+        _check_cuda("mask", mask, _MASK, 1, dev)
+        if mask.shape[0] != B:
+            raise ValueError(f"mask must be ({B},), got {tuple(mask.shape)}")
+    if rank is not None:
+        _check_cuda("rank", rank.reshape(-1), _I32, 1, dev)
+        if rank.numel() != 1:
+            raise ValueError("rank must hold one int32")
+    if mask_side not in (MASK_NONE, MASK_X, MASK_Y):
+        raise ValueError(f"mask_side must be MASK_NONE, MASK_X or MASK_Y, got {mask_side}")
+    blocks = min(_DD_CLUSTER_MAX, -(-B // _DD_THREADS))
+    threads = _DD_THREADS if blocks > 1 else min(_DD_THREADS, -(-B // 32) * 32)
+    out = torch.empty((2, B), dtype=torch.float64, device=dev)
+    words = torch.empty(4 + 4 * blocks * (threads // 32), dtype=torch.int64, device=dev)
+    null = 0
+    rc = _call(dev, _lib().ttd_score_residual_argmax,
+               vals[0].data_ptr() if vals is not None else null,
+               vals[1].data_ptr() if vals is not None else null,
+               x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(), B, T,
+               x[0].stride(0), x[0].stride(1), y[0].stride(0), y[0].stride(1),
+               rank.data_ptr() if rank is not None else null, mask_side,
+               mask.data_ptr() if mask is not None else null, out.data_ptr(), words.data_ptr(),
+               blocks, threads)
+    _raise_on(rc, "dd_score_residual_argmax launch")
+    dd_score_residual_argmax.launches += 1
+    _SHAPES["dd_score_residual_argmax", (B, T)] += 1
+    best = words[:4].view(torch.float64)
+    return ddm.DD(out[0], out[1]), words[0], ddm.DD(best[2], best[3])
+
+
+dd_score_residual_argmax.launches = 0
+
+
+def dd_dot_plain(x, y):
+    """out[i, j] = sum_t x[i, j, t] y[i, j, t] in dd, over t in order from
+    zero: x and y DD (M, N, T) of any strides -> DD (M, N)."""
+    ddm = _dd_mod()
+    return ddm.dd_sum(ddm.dd_mul(ddm.DD(*x), ddm.DD(*y)), axis=2)
+
+
+def dd_dot(x, y):
+    """D4, the small dd GEMM: dd_dot_plain in one launch.
+
+    x and y DD (M, N, T) views of any strides (a stride 0 broadcasts), x
+    the left factor of every product: A @ B is dd_dot(A[:, None, :]
+    expanded over N, B.T[None] expanded over M).  It serves the dd engine's
+    _mm_left / _mm_right, value_mat and finalize (ttcross_tpu/cross/
+    engine_dd.py:135-147, :443-504) and its quadrature.  On a CPU tensor
+    this is the plain version; on a CUDA tensor it launches
+    csrc/dd_kernels.cu's dd_dot_kernel (a thread per output) and adds one
+    to ``dd_dot.launches``."""
+    ddm = _dd_mod()
+    if x[0].device.type == "cpu":
+        return dd_dot_plain(x, y)
+    dev = x[0].device
+    _check_pair("x", x, 3, dev)
+    _check_pair("y", y, 3, dev)
+    M, N, T = x[0].shape
+    if tuple(y[0].shape) != (M, N, T):
+        raise ValueError(f"shape mismatch: x {tuple(x[0].shape)}, y {tuple(y[0].shape)}")
+    if M * N == 0:
+        raise ValueError("dd_dot of an empty output")
+    out = torch.empty((2, M, N), dtype=torch.float64, device=dev)
+    rc = _call(dev, _lib().ttd_dot, x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(),
+               y[1].data_ptr(), M, N, T, *x[0].stride(), *y[0].stride(), out[0].data_ptr(),
+               out[1].data_ptr())
+    _raise_on(rc, "dd_dot launch")
+    dd_dot.launches += 1
+    _SHAPES["dd_dot", (M, N, T)] += 1
+    return ddm.DD(out[0], out[1])
+
+
+dd_dot.launches = 0
+
+
+class PackedTT(NamedTuple):
+    """An f64 train for D3: cores (d, R, N, R) zero-padded, R = the largest
+    rank, N = the largest mode; ranks (d + 1,) as host ints and as an int32
+    tensor beside the cores."""
+    cores: torch.Tensor
+    ranks: tuple
+    ranks_t: torch.Tensor
+    n: tuple
+
+
+def pack_tt(t) -> PackedTT:
+    """Pack a TT's cores (one copy to their device) for dd_gather_tt_fused."""
+    ranks, n = tuple(t.r), tuple(t.n)
+    R, N = max(ranks), max(n)
+    dev = t.device
+    cores = torch.zeros((t.d, R, N, R), dtype=torch.float64, device=dev)
+    for c, g in enumerate(t.cores):
+        cores[c, : ranks[c], : n[c], : ranks[c + 1]] = g
+    return PackedTT(cores, ranks, torch.tensor(ranks, dtype=torch.int32).to(dev), n)
+
+
+def dd_gather_tt_plain(tt: PackedTT, ind):
+    """ops/dd.py::dd_gather_tt of the packed train: each core's active block."""
+    ddm = _dd_mod()
+    from ..tt.types import TT
+
+    r = tt.ranks
+    cores = tuple(tt.cores[c, : r[c], : tt.n[c], : r[c + 1]] for c in range(len(tt.n)))
+    return ddm.dd_gather_tt(TT(cores), ind)
+
+
+def dd_gather_tt_fused(tt: PackedTT, ind):
+    """D3: the f64 train evaluated at (B, d) int32 indices with dd
+    accumulation, DD (B,), in one launch.
+
+    The defect integrand's whole cost (ttcross_tpu/cross/defect.py:33-49,
+    ops/dd.py:319-335).  On a CPU tensor this is dd_gather_tt_plain; on a
+    CUDA tensor it launches csrc/dd_kernels.cu's dd_gather_tt_kernel
+    (W = the ranks rounded up to 32 threads per row) and adds one to
+    ``dd_gather_tt_fused.launches``."""
+    ddm = _dd_mod()
+    if ind.device.type == "cpu":
+        return dd_gather_tt_plain(tt, ind)
+    dev = ind.device
+    _check_cuda("ind", ind, _I32, 2, dev)
+    _check_cuda("cores", tt.cores, _F64, 4, dev)
+    _check_cuda("ranks", tt.ranks_t, _I32, 1, dev)
+    d, R, N, _ = tt.cores.shape
+    B = ind.shape[0]
+    if ind.shape[1] != d:
+        raise ValueError(f"ind must be (B, {d}), got {tuple(ind.shape)}")
+    W = -(-R // 32) * 32
+    if W > _DD_GATHER_RMAX:
+        raise ValueError(f"rank {R} exceeds the dd gather kernel's {_DD_GATHER_RMAX}")
+    out = torch.empty((2, B), dtype=torch.float64, device=dev)
+    if B == 0:
+        return ddm.DD(out[0], out[1])
+    rc = _call(dev, _lib().ttd_gather_tt, tt.cores.data_ptr(), tt.ranks_t.data_ptr(), d, R, N,
+               ind.data_ptr(), B, out[0].data_ptr(), out[1].data_ptr(), W)
+    _raise_on(rc, "dd_gather_tt_fused launch")
+    dd_gather_tt_fused.launches += 1
+    _SHAPES["dd_gather_tt_fused", (B, N) + tt.ranks] += 1
+    return ddm.DD(out[0], out[1])
+
+
+dd_gather_tt_fused.launches = 0
+
+
+def ising_c_integrand_dd_plain(tables, ind):
+    """The C-kind Ising integrand in dd, DD (B,): tables (4, n) f64 (node
+    hi, node lo, weight hi, weight lo), ind (B, d) int32, clamped into
+    [0, n).  The order of ttcross_tpu/apps/ising.py:172-210: w = 1 + the
+    prefix-product sums from the left, v the same from the right, each a
+    scan of dd_mul / dd_add; b = dd_div(2, v w); then the weight product."""
+    ddm = _dd_mod()
+    i = ind.long().clamp(0, tables.shape[1] - 1)
+    xh, xl, gh, gl = (tables[k][i] for k in range(4))            # (B, d) each
+    B, d = i.shape
+
+    def one():
+        return ddm.DD(torch.ones(B, dtype=torch.float64, device=ind.device),
+                      torch.zeros(B, dtype=torch.float64, device=ind.device))
+
+    def cum_sum_of_prods(cols):
+        pk, s = one(), one()
+        for c in cols:
+            pk = ddm.dd_mul(pk, ddm.DD(xh[:, c], xl[:, c]))
+            s = ddm.dd_add(s, pk)
+        return s
+
+    w_sum = cum_sum_of_prods(range(d))
+    v_sum = cum_sum_of_prods(range(d - 1, -1, -1))
+    two = ddm.DD(torch.full((B,), 2.0, dtype=torch.float64, device=ind.device),
+                 torch.zeros(B, dtype=torch.float64, device=ind.device))
+    b = ddm.dd_div(two, ddm.dd_mul(v_sum, w_sum))
+    prodw = one()
+    for c in range(d):
+        prodw = ddm.dd_mul(prodw, ddm.DD(gh[:, c], gl[:, c]))
+    return ddm.dd_mul(b, prodw)
+
+
+def ising_c_integrand_dd_fused(tables, ind):
+    """D2: the dd Ising integrand with its table lookup, DD (B,), in one
+    launch.
+
+    The dd variant of ttcross_tpu/ops/pallas_kernels.py::
+    small_table_lookup_limbs (:151-197) on the dd integrand's path
+    (ttcross_tpu/apps/ising.py:172-210).  On a CPU tensor this is
+    ising_c_integrand_dd_plain; on a CUDA tensor it launches
+    csrc/dd_kernels.cu's ising_c_dd_kernel (a row per thread, any d) and
+    adds one to ``ising_c_integrand_dd_fused.launches``."""
+    ddm = _dd_mod()
+    if ind.device.type == "cpu":
+        return ising_c_integrand_dd_plain(tables, ind)
+    dev = ind.device
+    _check_cuda("ind", ind, _I32, 2, dev)
+    _check_cuda("tables", tables, _F64, 2, dev)
+    if tables.shape[0] != 4:
+        raise ValueError(f"tables must be (4, n): node hi, lo, weight hi, lo; got "
+                         f"{tuple(tables.shape)}")
+    B, d = ind.shape
+    n = tables.shape[1]
+    if d < 1:
+        raise ValueError(f"the dd integrand kernel takes d >= 1, got {d}")
+    if 4 * n * 8 > _LOOKUP_SMEM:
+        raise ValueError(f"a table of {n} points exceeds the kernel's shared memory")
+    out = torch.empty((2, B), dtype=torch.float64, device=dev)
+    if B == 0:
+        return ddm.DD(out[0], out[1])
+    rc = _call(dev, _lib().ttd_ising_c_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d,
+               out[0].data_ptr(), out[1].data_ptr())
+    _raise_on(rc, "ising_c_integrand_dd_fused launch")
+    ising_c_integrand_dd_fused.launches += 1
+    _SHAPES["ising_c_integrand_dd_fused", (B, d, n)] += 1
+    return ddm.DD(out[0], out[1])
+
+
+ising_c_integrand_dd_fused.launches = 0
+
 _WRAPPERS = (score_residual_argmax, score_residual_argmax_batched, small_table_lookup,
-             ising_integrand_fused)
+             ising_integrand_fused, dd_score_residual_argmax, dd_dot, dd_gather_tt_fused,
+             ising_c_integrand_dd_fused)
 
 
 def launch_counts() -> dict[str, int]:
@@ -531,7 +846,8 @@ def launch_shapes() -> dict[str, dict[tuple, int]]:
     """The launches since the last reset by the shape of the call, per
     wrapper: kernel A (M, K, R), batched (P, M, K, R), the lookup
     (L, B, d, n), the fused integrand (B, d, n); an f32 launch's shape
-    ends in "f32"."""
+    ends in "f32"; the dd kernels: D1 (B, T), D4 (M, N, T), D3 (B, N) + the
+    train's ranks (N its largest mode), D2 (B, d, n)."""
     out = {f.__name__: {} for f in _WRAPPERS}
     for (name, shape), count in _SHAPES.items():
         out[name][shape] = count

@@ -2,16 +2,25 @@
 
 A copy of ttcross_tpu/ops/quadrature.py's lgwt (lgwt, quad.f90:97-131),
 map_to_interval and the 1/t rule quad_rinv / quad_rinv_error (quad.f90:
-8-95), kept here so that the port imports nothing of the JAX package.
+8-95), kept here so that the port imports nothing of the JAX package; and
+gauss_legendre_dd, the dd tier's rule, which the JAX package takes from
+its native library (__float128 Newton, ttcross_tpu/native/src/
+ttcross_native.cpp:31-64) and the port computes with Python's decimal.
 """
 
 from __future__ import annotations
 
+import math
+from decimal import Decimal, localcontext
+
 import numpy as np
 
-__all__ = ["lgwt", "gauss_legendre", "map_to_interval", "quad_rinv", "quad_rinv_error"]
+__all__ = ["lgwt", "gauss_legendre", "gauss_legendre_dd", "map_to_interval", "quad_rinv",
+           "quad_rinv_error"]
 
 _TWO_PI = 6.283185307179586476925286766559005768394338798750211641949889184615632812572418
+_DD_DIGITS = 50                            # decimal digits of gauss_legendre_dd's Newton
+_DD_NEWTON_TOL = Decimal(10) ** -(_DD_DIGITS - 10)  # its last step is below this
 
 
 def lgwt(n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -45,6 +54,46 @@ def lgwt(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 gauss_legendre = lgwt
+
+
+def _dd_pair(v: Decimal) -> tuple[float, float]:
+    hi = float(v)
+    return hi, float(v - Decimal(hi))
+
+
+def gauss_legendre_dd(n: int):
+    """Gauss-Legendre nodes and weights on [-1, 1] as double-double pairs,
+    ((x_hi, x_lo), (w_hi, w_lo)), each (n,) f64 numpy, accurate to ~1e-34.
+
+    The JAX package's rule (native.gauss_legendre_dd): the Chebyshev seed
+    cos(pi (4i - 1) / (4n + 2)), Newton on the Legendre recurrence until
+    the step is below 1e-35, here in decimal at 50 digits until it is
+    below 1e-40 (the seed in binary64, which three Newton steps make
+    exact), then each value
+    rounded to hi = the nearest double and lo = the nearest double of the
+    rest.  Nodes ascend, the upper half mirrors the lower one, and an odd
+    n has the node 0 exactly."""
+    xh, xl, wh, wl = (np.zeros(n) for _ in range(4))
+    with localcontext() as ctx:
+        ctx.prec = _DD_DIGITS
+        one = Decimal(1)
+        for i in range(1, (n + 1) // 2 + 1):
+            z = Decimal(math.cos(math.pi * (4 * i - 1) / (4 * n + 2)))
+            for _ in range(100):
+                p1, p2 = one, Decimal(0)
+                for j in range(1, n + 1):
+                    p1, p2 = ((2 * j - 1) * z * p1 - (j - 1) * p2) / j, p1
+                pp = n * (z * p1 - p2) / (z * z - one)
+                dz = p1 / pp
+                z -= dz
+                if abs(dz) < _DD_NEWTON_TOL:
+                    break
+            w = 2 / ((one - z * z) * pp * pp)
+            (xh[i - 1], xl[i - 1]), (wh[i - 1], wl[i - 1]) = _dd_pair(-z), _dd_pair(w)
+            xh[n - i], xl[n - i], wh[n - i], wl[n - i] = -xh[i - 1], -xl[i - 1], wh[i - 1], wl[i - 1]
+        if n % 2 == 1:
+            xh[n // 2] = xl[n // 2] = 0.0
+    return (xh, xl), (wh, wl)
 
 
 def map_to_interval(x: np.ndarray, w: np.ndarray, a: float, b: float) -> tuple[np.ndarray, np.ndarray]:
