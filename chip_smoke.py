@@ -106,10 +106,22 @@ Phases, each printing its result as it goes:
      under torch's sync debug mode set to raise; every dd kernel held bit for
      bit against its plain version at every shape these runs launched it
      at, with device time, kernels per call, bound (f64 vector flops) and
-     host time per call.
+     host time per call;
+ 16. the distributed engines (ttcross_tpu_torch/parallel/), their ranks
+     spawned by this script (parallel/launch.py): one NCCL rank's
+     cross_parallel of bench.py's parallel line (C_32, n = 16, rank 8) and
+     of the long chain (C_256 jacobi-rb + chain) against cross() fed the
+     same uniforms; two gloo ranks on cuda:0 (NCCL refuses two ranks on one
+     card) for C_32 sequential and jacobi-rb and the long chain over keys
+     0-3, both ranks one result, key 0 equal to two ranks on the CPU;
+     cross_dd_parallel at ising_c4_dd_tier, pcontract of the chf family,
+     accchk(mesh=) and cross_batch(mesh=) of the 4-lane mvn_d6 family; and
+     cross_batch(sweep_mode="jacobi") of that family, each lane its single
+     jacobi run.  Every rank's launches are held as phase 3 holds its
+     shapes.
 The line before the last is the kernels' JSON summary, one entry for every
 (kernel, shape) that the C_6 headline, the C_256 long chain, each
-configuration of phase 7 and phases 8-14 launched at (an f32 launch's entry
+configuration of phase 7 and phases 8-16 launched at (an f32 launch's entry
 named <kernel>_f32), with that run's launches at the shape beside phase 3's
 error, times and bound there; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
@@ -2280,6 +2292,424 @@ def check_dd(dev, gen, held, checked):
     return paths
 
 
+# ------------------------------------------------------------ phase 16: the distributed engines
+# The distributed engines (ttcross_tpu_torch/parallel/) run one process per
+# rank; this phase spawns its ranks itself (parallel/launch.py::spawn_ranks:
+# the spawn start method, a file store in a temporary directory, a time
+# limit per rank, any rank's failure failing the phase).  NCCL refuses two
+# ranks on one card, so the multi-rank runs use gloo with both ranks on
+# cuda:0.  bench.py's parallel line (bench.py:861-863) and the long chain:
+PAR_C32 = dict(m=32, n=16, max_rank=8, accuracy=500 * 2.2e-16, pivoting=1)
+PAR_RUNS = {   # name: (m, n, max_rank, sweep_mode, chain)
+    "C_32 sequential": (32, 16, 8, "sequential", False),
+    "C_32 jacobi-rb": (32, 16, 8, "jacobi-rb", False),
+    "C_256 jacobi-rb + chain": (256, 17, 10, "jacobi-rb", True),
+}
+PAR_KEYS = range(4)
+# Digits of each configuration on two ranks of the CPU over keys 0-3, port /
+# JAX package (each rank draws its own stream: the port's rank_key, JAX's
+# fold_in; PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_parallel.py
+# prints them), as minimum, median, maximum:
+#   C_32 sequential          9.24 9.49 9.85 / 9.07 9.50 10.24
+#   C_32 jacobi-rb           9.47 9.71 10.87 / 8.02 8.47 9.78
+#   C_256 jacobi-rb + chain  11.30 11.49 12.06 / 10.39 10.57 10.65
+# Every key on the card is held under both packages' minima.
+PAR_FLOORS = {"C_32 sequential": 8.5, "C_32 jacobi-rb": 7.5, "C_256 jacobi-rb + chain": 10.0}
+PAR_ONE_RTOL = 1e-15        # one rank's values against cross() fed the same uniforms
+PAR_CPU_RTOL = 1e-13        # two ranks on the card against two ranks on the CPU
+PAR_DD_KEYS = range(4)      # cross_dd_parallel on ising_c4_dd_tier, held to DD_FLOORS
+PAR_TIMEOUT = 400           # seconds per spawned group
+PAR_PATH_KERNELS = {"sequential": MAIN_PATH_KERNELS, "jacobi-rb": ("score_residual_argmax_batched",
+                                                                    "ising_integrand_fused"),
+                    "chain": LONG_CHAIN_KERNELS}
+
+
+def _par_cross(fun, n, **kw):
+    """cross_parallel through its public entry point, with the final pivots
+    (vip, host numpy) read where the run finalizes its train."""
+    import ttcross_tpu_torch.parallel.engine as E
+
+    seen, orig = {}, E.finalize
+
+    def finalize(st, kit):
+        seen["vip"] = st.vip.cpu().numpy()
+        return orig(st, kit)
+
+    E.finalize = finalize
+    try:
+        return E.cross_parallel(fun, n, **kw), seen["vip"]
+    finally:
+        E.finalize = orig
+
+
+def _par_row(res, vip, wall, counts, shapes) -> dict:
+    import numpy as np
+
+    return {"values": [float(v) for v in res.values], "ranks": list(res.ranks),
+            "n_evals": res.neval, "padded_evals": res.padded_evals, "sweeps": res.sweeps,
+            "vip": vip.tolist(), "digits": float(-np.log10(res.errors[-1])), "wall_s": wall,
+            "launches": counts, "shapes": shapes, "tt_on": str(res.tt.device)}
+
+
+def _par_run(name, key, device, uniforms=None) -> dict:
+    """One cross_parallel run of PAR_RUNS[name] on this rank, its launches
+    counted from 0."""
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.parallel import bond_mesh
+
+    m, n, R, mode, chain = PAR_RUNS[name]
+    mesh = bond_mesh(device=device)
+    p = make_ising("C", m, n, device=mesh.device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, vip = _par_cross(p.fun, [p.n] * p.d, max_rank=R, accuracy=PAR_C32["accuracy"],
+                          pivoting=1, quad=[p.quad_weights] * p.d, truth=p.truth, key=key,
+                          sweep_mode=mode, chain=p.chain if chain else None, mesh=mesh,
+                          uniforms=uniforms)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+    return _par_row(res, vip, time.perf_counter() - t0, K.launch_counts(), K.launch_shapes())
+
+
+def _par_profiled(name, device) -> dict:
+    """One more steady run of PAR_RUNS[name] on this rank under
+    torch.profiler: its wall, this rank's kernel time on the card and
+    launches, per sweep."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        row = _par_run(name, 0, device)
+    kernels = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    busy_us = sum(_device_us(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
+    return {"wall_s": row["wall_s"], "device_busy_s": busy_us * 1e-6, "launches": launches,
+            "sweeps": row["sweeps"], "launches_per_sweep": launches / row["sweeps"]}
+
+
+def _par_one_rank(device=None):
+    """Phase 16.1, on one rank (NCCL on the card): each configuration's
+    cross_parallel (first and steady call) and cross() fed the same
+    uniforms."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising
+    from ttcross_tpu_torch.cross.engine import _cross
+    from ttcross_tpu_torch.parallel import bond_mesh
+    from ttcross_tpu_torch.parallel.engine import rank_uniforms
+
+    mesh = bond_mesh(device=device)
+    out = {"backend": mesh.backend, "device": str(mesh.device)}
+    for name in ("C_32 sequential", "C_256 jacobi-rb + chain"):
+        m, n, R, mode, chain = PAR_RUNS[name]
+        p = make_ising("C", m, n, device=mesh.device)
+        U = rank_uniforms(0, 0, R - 1, p.d - 1, 2 * (R + p.n))
+        first = _par_run(name, 0, device, U)
+        steady = _par_run(name, 0, device, U)
+        t0 = time.perf_counter()
+        ref = _cross(p.fun, [p.n] * p.d, max_rank=R, accuracy=PAR_C32["accuracy"], pivoting=1,
+                     quad=[p.quad_weights] * p.d, truth=p.truth, key=0, dtype=torch.float64,
+                     verbose=False, return_state=False, return_pivots=True, max_sweeps=None,
+                     small_element=None, small_pivot=None, oversample=0, sweep_mode=mode,
+                     device=mesh.device, chain=p.chain if chain else None, uniforms=U)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = {"first": first, "steady_s": steady["wall_s"],
+                     "cross_s": time.perf_counter() - t0,
+                     "cross": {"values": list(map(float, ref.values)), "ranks": list(ref.ranks),
+                               "n_evals": ref.neval, "vip": ref.state.vip.tolist()},
+                     "max_rel": float(np.max(np.abs(np.subtract(first["values"], ref.values))
+                                             / np.abs(ref.values)))}
+    if mesh.device.type == "cuda":
+        out["profile"] = {name: _par_profiled(name, device) for name in PAR_RUNS}
+    return out
+
+
+def _par_two_ranks(device, keys):
+    """Phase 16.2, on one of two gloo ranks: every PAR_RUNS configuration
+    over `keys` on `device`."""
+    out = {name: [_par_run(name, key, device) for key in keys] for name in PAR_RUNS}
+    if device != "cpu":
+        out["profile"] = {name: _par_profiled(name, device) for name in PAR_RUNS}
+    return out
+
+
+def _par_surface(device):
+    """Phases 16.3-16.5, on one of two gloo ranks on `device`: cross_dd_parallel
+    on ising_c4_dd_tier over PAR_DD_KEYS; pcontract of the chf driver's
+    32-weight family; accchk(mesh=) and cross_batch(mesh=) on the 4-lane
+    mvn_d6 family (2 lanes per rank)."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import ISING_C_STR, make_ising_dd, make_mvn, make_mvn_family
+    from ttcross_tpu_torch.cross import accchk, cross, cross_batch
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.parallel import bond_mesh, cross_dd_parallel, pcontract
+    from ttcross_tpu_torch.tt.ops import contract
+
+    mesh = bond_mesh(device=device)
+    dev = mesh.device
+    out = {"dd": []}
+    prob, fun_dd, wh, wl = make_ising_dd(m=4, n=33, device=dev)
+    for key in PAR_DD_KEYS:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = cross_dd_parallel(fun_dd, [prob.n] * prob.d, wh, wl, max_rank=16, pivoting=1,
+                              key=key, mesh=mesh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["dd"].append({"key": key, "value": list(r.value), "digits": _dd_digits(r.value,
+                                                                                   ISING_C_STR[4]),
+                          "ranks": list(r.ranks), "n_evals": r.neval, "sweeps": r.sweeps,
+                          "wall_s": time.perf_counter() - t0, "launches": K.launch_counts(),
+                          "shapes": K.launch_shapes()})
+    # the chf driver's family (drivers/crs_chf.py:39-51): 32 Fourier weight
+    # sets of the rank-6 MVN pdf train at d = 4, n = 17
+    p = make_mvn(d=4, n=17, device=dev)
+    t = cross(p.fun, [p.n] * 4, max_rank=6, accuracy=500 * 2.2e-16, pivoting=1, device=dev).tt
+    omega = np.arange(32) * np.pi / 300.0
+    w_k = p.quad_weights[None, :] * np.exp(1j * omega[:, None] * np.exp(p.nodes)[None, :] / 4)
+    got = pcontract(t, [w_k] * 4, mesh)
+    want = np.array([complex(contract(t, [w_k[k]] * 4)) for k in range(32)])
+    out["pcontract"] = {"max_rel": float(np.max(np.abs(got - want) / np.abs(want))),
+                        "shape": list(np.shape(got))}
+    fam = make_mvn_family(d=MVN["d"], n=MVN["n"], corrs=np.linspace(0.2, 0.6, FAMILY_LANES),
+                          device=dev)
+    kw = dict(max_rank=MVN["max_rank"], accuracy=MVN["accuracy"], pivoting=MVN["pivoting"],
+              quad=[fam.quad_weights] * fam.d, truth=1.0)
+    K.reset_launch_counts()
+    res = cross_batch(fam.fun, [fam.n] * fam.d, fam.params, mesh=mesh, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["batch"] = [{"ranks": list(r.ranks), "n_evals": r.neval, "sweeps": r.sweeps,
+                     "values": list(map(float, r.values)), "vip": r.state.vip.tolist()}
+                    for r in res]
+    out["batch_shapes"] = K.launch_shapes()
+    lane0 = (lambda par: lambda ind: fam.fun(ind, par))(fam.lane(0))
+    out["accchk"] = accchk(res[0].tt, lane0, nlot=2**14, key=3, mesh=mesh)
+    return out
+
+
+def _held_everywhere(dev, gen, held, checked, label, shapes) -> None:
+    hold_new_shapes(dev, gen, shapes, held, checked, label=label)
+    hold_dd_shapes(dev, gen, shapes, held, checked)
+    _require_held(label, shapes, held)
+
+
+def check_parallel(dev, gen, held, checked):
+    """Phase 16: the distributed engines (ttcross_tpu_torch/parallel/).
+      1. one NCCL rank: cross_parallel of bench.py's parallel line (C_32,
+         sequential) and of the long chain (C_256 jacobi-rb + chain) equals
+         cross() fed the same uniforms (ranks, vip, n_evals; values to
+         PAR_ONE_RTOL);
+      2. two gloo ranks on the card: C_32 sequential and jacobi-rb and C_256
+         jacobi-rb + chain over PAR_KEYS, both ranks the same result, every
+         key above its floor, key 0 equal to the same two ranks on the CPU
+         (ranks, n_evals, sweeps; values to PAR_CPU_RTOL; and vip at C_32:
+         the long chain's late pivots are f64-noise near-ties that the
+         card's kernel sums and the CPU's break apart, as the one-device
+         C_256 cross's do, reported beside it);
+      3-5. two gloo ranks on the card: cross_dd_parallel on
+         ising_c4_dd_tier against DD_FLOORS, pcontract of the chf family
+         against tt.contract, accchk(mesh=) against the one-device accchk
+         and cross_batch(mesh=) lanes against the one-process family;
+      6. cross_batch(sweep_mode="jacobi") of the family at full width (d = 6,
+         n = 65, rank 20): each lane equal to its single cross(sweep_mode=
+         "jacobi").
+    Every kernel launched at a shape held against its plain version.
+    Returns [(path label, launches by shape, the kernels it must launch)]."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_mvn_family
+    from ttcross_tpu_torch.cross import accchk, cross, cross_batch, lane_key
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.parallel import spawn_ranks
+
+    paths = []
+    t0 = time.perf_counter()
+    one = spawn_ranks(_par_one_rank, 1, backend="nccl", timeout=PAR_TIMEOUT, threads=0)[0]
+    spawn_one_s = time.perf_counter() - t0
+    for name in ("C_32 sequential", "C_256 jacobi-rb + chain"):
+        r = one[name]
+        first, ref = r["first"], r["cross"]
+        same = (first["ranks"] == ref["ranks"] and first["n_evals"] == ref["n_evals"]
+                and first["vip"] == ref["vip"])
+        _emit({"phase": "parallel_one_rank", "config": name, "backend": one["backend"],
+               "device": one["device"], "digits": first["digits"], "n_evals": first["n_evals"],
+               "sweeps": first["sweeps"], "first_s": first["wall_s"], "steady_s": r["steady_s"],
+               "cross_s": r["cross_s"], "equals_cross": same, "max_rel_value_diff": r["max_rel"],
+               "launches": first["launches"], "launches_by_shape": _by_shape(first["shapes"])})
+        if one["backend"] != "nccl" or not first["tt_on"].startswith("cuda"):
+            raise AssertionError(f"parallel one rank: {one['backend']} on {first['tt_on']}")
+        if not same or r["max_rel"] > PAR_ONE_RTOL:
+            raise AssertionError(f"{name}: one rank differs from cross() with its uniforms")
+        mode = "chain" if "chain" in name else "sequential"
+        _held_everywhere(dev, gen, held, checked, f"parallel 1 rank {name}", first["shapes"])
+        paths.append((f"parallel 1 rank {name}", first["shapes"], PAR_PATH_KERNELS[mode]))
+
+    t0 = time.perf_counter()
+    card = spawn_ranks(_par_two_ranks, 2, args=("cuda:0", list(PAR_KEYS)), timeout=PAR_TIMEOUT)
+    spawn_two_s = time.perf_counter() - t0
+    cpu = spawn_ranks(_par_two_ranks, 2, args=("cpu", [0]), timeout=PAR_TIMEOUT, threads=4)
+    for name in PAR_RUNS:
+        # walls, launches per sweep and the card's busy share: one rank, and
+        # two ranks sharing the card (their kernel time summed over the
+        # longer wall)
+        p1, p2 = one["profile"][name], [card[r]["profile"][name] for r in (0, 1)]
+        wall2 = max(p["wall_s"] for p in p2)
+        _emit({"phase": "parallel_profile", "config": name,
+               "one_rank": {**p1, "device_busy_share": p1["device_busy_s"] / p1["wall_s"]},
+               "two_ranks": {"wall_s": wall2, "per_rank": p2, "device_busy_share":
+                             sum(p["device_busy_s"] for p in p2) / wall2}})
+    for name, (m, n, R, mode, chain) in PAR_RUNS.items():
+        runs0, runs1 = card[0][name], card[1][name]
+        ref = cpu[0][name][0]
+        both = all(a["values"] == b["values"] and a["vip"] == b["vip"]
+                   and a["n_evals"] == b["n_evals"] for a, b in zip(runs0, runs1))
+        k0 = runs0[0]
+        same_cpu = (k0["ranks"] == ref["ranks"] and k0["n_evals"] == ref["n_evals"]
+                    and k0["sweeps"] == ref["sweeps"])
+        vip_diff = np.argwhere(np.asarray(k0["vip"]) != np.asarray(ref["vip"]))[:, :2]
+        rel = float(np.max(np.abs(np.subtract(k0["values"], ref["values"]))
+                           / np.abs(ref["values"])))
+        by_key = [r["digits"] for r in runs0]
+        shapes = _merge_shapes([runs0[0]["shapes"], runs1[0]["shapes"]])
+        _emit({"phase": "parallel_two_ranks", "config": name, "backend": "gloo, both on cuda:0",
+               "digits_by_key": by_key, "floor": PAR_FLOORS[name], "n_evals": k0["n_evals"],
+               "sweeps": k0["sweeps"], "walls_s": [r["wall_s"] for r in runs0],
+               "cpu_wall_s": ref["wall_s"], "ranks_agree": both, "equals_cpu": same_cpu,
+               "vip_equal_cpu": len(vip_diff) == 0,
+               "vip_differs_at_cpu": sorted({tuple(map(int, x)) for x in vip_diff}),
+               "max_rel_value_diff_cpu": rel, "launches": _merge_counts(
+                   [runs0[0]["launches"], runs1[0]["launches"]]),
+               "launches_by_shape": _by_shape(shapes)})
+        if not both:
+            raise AssertionError(f"{name}: the two ranks returned different results")
+        if not same_cpu or rel > PAR_CPU_RTOL or (len(vip_diff) and name != "C_256 jacobi-rb + chain"):
+            raise AssertionError(f"{name}: two ranks on the card differ from two on the CPU")
+        if min(by_key) < PAR_FLOORS[name]:
+            raise AssertionError(f"{name}: digits {by_key} < {PAR_FLOORS[name]}")
+        for r in runs0[1:] + runs1[1:]:
+            _held_everywhere(dev, gen, held, checked, f"parallel 2 ranks {name}", r["shapes"])
+        _held_everywhere(dev, gen, held, checked, f"parallel 2 ranks {name}", shapes)
+        need = PAR_PATH_KERNELS["chain" if chain else mode]
+        paths.append((f"parallel 2 ranks {name}", shapes, need))
+
+    _emit(_long_chain_card_vs_cpu())
+    surf = spawn_ranks(_par_surface, 2, args=("cuda:0",), timeout=PAR_TIMEOUT)
+    s0, s1 = surf
+    dd_digits = [r["digits"] for r in s0["dd"]]
+    dd_shapes = _merge_shapes([s0["dd"][0]["shapes"], s1["dd"][0]["shapes"]])
+    _emit({"phase": "parallel_dd", "config": "cross_dd_parallel ising_c4_dd_tier (C_4 n=33 "
+           "rank 16), 2 gloo ranks on cuda:0", "digits_by_key": dd_digits,
+           "floor": DD_FLOORS["ising_c4_dd_tier"], "n_evals": s0["dd"][0]["n_evals"],
+           "ranks": s0["dd"][0]["ranks"], "walls_s": [r["wall_s"] for r in s0["dd"]],
+           "ranks_agree": [r["value"] for r in s0["dd"]] == [r["value"] for r in s1["dd"]],
+           "launches_by_shape": _by_shape(dd_shapes)})
+    if min(dd_digits) < DD_FLOORS["ising_c4_dd_tier"] or \
+            [r["value"] for r in s0["dd"]] != [r["value"] for r in s1["dd"]]:
+        raise AssertionError(f"cross_dd_parallel: digits {dd_digits} or the ranks disagree")
+    for r in s0["dd"][1:] + s1["dd"][1:]:
+        _held_everywhere(dev, gen, held, checked, "parallel dd", r["shapes"])
+    _held_everywhere(dev, gen, held, checked, "parallel dd", dd_shapes)
+    paths.append(("parallel 2 ranks cross_dd ising_c4_dd_tier", dd_shapes, DD_PATH_KERNELS["dd"]))
+    _emit({"phase": "parallel_pcontract", "config": "the chf family: 32 weight sets of the "
+           "rank-6 MVN pdf at d=4, n=17, 2 gloo ranks", **s0["pcontract"]})
+    if s0["pcontract"]["max_rel"] > 1e-12 or s0["pcontract"] != s1["pcontract"]:
+        raise AssertionError(f"pcontract: {s0['pcontract']} / {s1['pcontract']}")
+
+    fam = make_mvn_family(d=MVN["d"], n=MVN["n"], corrs=np.linspace(0.2, 0.6, FAMILY_LANES),
+                          device=dev)
+    kw = dict(max_rank=MVN["max_rank"], accuracy=MVN["accuracy"], pivoting=MVN["pivoting"],
+              quad=[fam.quad_weights] * fam.d, truth=1.0, device=dev)
+    ref = cross_batch(fam.fun, [fam.n] * fam.d, fam.params, **kw)
+    lane0 = (lambda par: lambda ind: fam.fun(ind, par))(fam.lane(0))
+    acc_ref = accchk(ref[0].tt, lane0, nlot=2**14, key=3, device=dev)
+    lanes_same = all(got["ranks"] == list(want.ranks) and got["n_evals"] == want.neval
+                     and got["vip"] == want.state.vip.tolist() and got["values"] == want.values
+                     for s in surf for got, want in zip(s["batch"], ref))
+    acc_same = (s0["accchk"] == s1["accchk"] and all(
+        s0["accchk"][k] == acc_ref[k] for k in ("einf", "ainf", "worst_index"))
+        and all(abs(s0["accchk"][k] - acc_ref[k]) <= 1e-12 * acc_ref[k] for k in ("efro", "afro")))
+    batch_shapes = _merge_shapes([s0["batch_shapes"], s1["batch_shapes"]])
+    _emit({"phase": "parallel_family", "config": "cross_batch(mesh=) of the 4-lane mvn_d6 "
+           "family, 2 lanes per gloo rank; accchk(mesh=) 2^14 samples of lane 0",
+           "lanes_equal_one_process": lanes_same, "accchk": s0["accchk"],
+           "accchk_one_device": acc_ref, "accchk_equal": acc_same,
+           "launches_by_shape": _by_shape(batch_shapes)})
+    if not (lanes_same and acc_same):
+        raise AssertionError("cross_batch(mesh=) or accchk(mesh=) differs from one process")
+    _held_everywhere(dev, gen, held, checked, "parallel family", batch_shapes)
+    paths.append(("parallel 2 ranks mvn_d6 family", batch_shapes, FAMILY_KERNELS))
+
+    # 6. the lane-batched all-bonds sweep, in this process
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    jac = cross_batch(fam.fun, [fam.n] * fam.d, fam.params, sweep_mode="jacobi", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shapes = K.launch_shapes()
+    rows = []
+    for lane in range(FAMILY_LANES):
+        fun = (lambda par: lambda ind: fam.fun(ind, par))(fam.lane(lane))
+        s = cross(fun, [fam.n] * fam.d, key=lane_key(0, lane), return_pivots=True,
+                  sweep_mode="jacobi", **kw)
+        r = jac[lane]
+        rows.append({"lane": lane, "digits": float(-np.log10(r.errors[-1])), "n_evals": r.neval,
+                     "sweeps": r.sweeps, "equals_single_run": bool(
+                         r.ranks == s.ranks and r.neval == s.neval and r.sweeps == s.sweeps
+                         and np.array_equal(r.state.vip, s.state.vip)),
+                     "max_rel_value_diff": float(np.max(np.abs(np.subtract(r.values, s.values))
+                                                        / np.abs(s.values)))})
+    _emit({"phase": "family_jacobi", "config": "cross_batch(sweep_mode='jacobi') of the 4-lane "
+           "mvn_d6 family (n=65, rank 20)", "wall_s": wall, "n_evals": jac.neval,
+           "lanes": rows, "launches": K.launch_counts(), "launches_by_shape": _by_shape(shapes),
+           "spawn_one_rank_s": spawn_one_s, "spawn_two_ranks_s": spawn_two_s})
+    bad = [r for r in rows if not r["equals_single_run"] or r["max_rel_value_diff"] > FAMILY_RTOL]
+    if bad:
+        raise AssertionError(f"jacobi family lanes differ from their single runs: {bad}")
+    _held_everywhere(dev, gen, held, checked, "family jacobi", shapes)
+    paths.append(("mvn_d6 family jacobi", shapes, FAMILY_KERNELS))
+    return paths
+
+
+def _long_chain_card_vs_cpu() -> dict:
+    """The one-device C_256 jacobi-rb + chain cross of key 0 on the card and
+    on the CPU (the same draws): where their pivots part."""
+    import numpy as np
+
+    from ttcross_tpu_torch.apps import make_ising
+    from ttcross_tpu_torch.cross import cross
+
+    m, n, R, mode, _ = PAR_RUNS["C_256 jacobi-rb + chain"]
+    out = {}
+    for where in ("cuda", "cpu"):
+        p = make_ising("C", m, n, device=where)
+        out[where] = cross(p.fun, [p.n] * p.d, max_rank=R, accuracy=PAR_C32["accuracy"],
+                           pivoting=1, quad=[p.quad_weights] * p.d, truth=p.truth,
+                           sweep_mode=mode, chain=p.chain, return_pivots=True, device=where)
+    g, c = out["cuda"], out["cpu"]
+    diff = np.argwhere(g.state.vip != c.state.vip)[:, :2]
+    return {"phase": "long_chain_card_vs_cpu", "config": "C_256 jacobi-rb + chain key 0, one device",
+            "ranks_equal": g.ranks == c.ranks, "n_evals": [g.neval, c.neval],
+            "vip_differs_at": sorted({tuple(map(int, x)) for x in diff}),
+            "max_rel_value_diff": float(np.max(np.abs(np.subtract(g.values, c.values))
+                                               / np.abs(c.values)))}
+
+
+def _merge_counts(runs) -> dict:
+    out = {}
+    for counts in runs:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def profile_run(label: str, run) -> None:
     """torch.profiler over one steady run (run() returns a tuple that
     starts with the result): kernel time by name, the device's busy share
@@ -2424,6 +2854,8 @@ def main() -> int:
         profile_run("C_6 f32", lambda: run_f32(dev, "C_6"))
     dd_paths = check_dd(dev, gen, held, checked)
     new_runs += [(path, shapes) for path, shapes, _ in dd_paths]
+    par_paths = check_parallel(dev, gen, held, checked)
+    new_runs += [(path, shapes) for path, shapes, _ in par_paths]
     if "--profile" in args:
         for name in ("c4_n65_r32", "c6_n65_r48"):
             profile_run(f"dd {name}", lambda name=name: run_dd(dev, name))
@@ -2460,6 +2892,7 @@ def main() -> int:
                                             ("C_6 f32", [k + "_f32" for k in MAIN_PATH_KERNELS]),
                                             ("mvn_d6 f32", [k + "_f32" for k in MVN_KERNELS])]
                                            + [(path, need) for path, _, need in dd_paths]
+                                           + [(path, need) for path, _, need in par_paths]
                for k in need if not any(e["name"] == k and e["path"] == path and e["launches"] > 0
                                         for e in entries)}
     if missing:

@@ -45,6 +45,7 @@ from ttcross_tpu_torch.cross import accchk, cross
 from ttcross_tpu_torch.cross.engine import CrossConfig, _cross, make_engine
 from ttcross_tpu_torch.interop import (cos_from_numpy, mvn_from_numpy, state_from_numpy,
                                        stdnorm_from_numpy, tt_from_numpy)
+from ttcross_tpu_torch.parallel import BondMesh
 from ttcross_tpu_torch.tt import TT, contract, gather
 from ttcross_tpu_torch.tt.serialize import load_state
 
@@ -325,8 +326,11 @@ def test_kwargs_still_not_ported_name_their_item():
                  device="cpu").tt.dtype == torch.float32
     with pytest.raises(ValueError, match="quad"):
         cross(pp.fun, [pp.n] * pp.d, max_rank=4, weighted_lottery=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        accchk(TT((torch.ones(1, 9, 1),) * 3), pp.fun, mesh=object(), device="cpu")
+    # accchk(mesh=) samples on the mesh's device (its runs:
+    # tests/test_torch_parallel_misc.py)
+    on_card = BondMesh(group=None, rank=0, size=2, device=torch.device("cuda"), backend="nccl")
+    with pytest.raises(ValueError, match="lies on cpu"):
+        accchk(TT((torch.ones(1, 9, 1),) * 3), pp.fun, mesh=on_card, device="cpu")
 
 
 # ------------------------------------------------------------ post-processing

@@ -34,6 +34,7 @@ from ttcross_tpu.cross import cross as jcross, cross_batch as jcross_batch
 from ttcross_tpu_torch.apps import make_mvn_family
 from ttcross_tpu_torch.cross import cross, cross_batch, lane_batched, lane_key
 from ttcross_tpu_torch.cross.batch import _cross_batch
+from ttcross_tpu_torch.parallel import BondMesh
 from ttcross_tpu_torch.tt import TT, full
 
 L = 3
@@ -118,6 +119,53 @@ def test_mvn_family_lanes_match_the_jax_lanes():
     jres = jcross_batch(jf.fun, [jf.n] * 4, jf.params, max_rank=6, key=7, **kw)
     pres = _port_batch(pf.fun, (pf.n,) * 4, pf.params, 6, 7, **kw)
     _assert_is_jax(pres, jres, jf.fun, [jf.n] * 4, jf.params, 7, max_rank=6, **kw)
+
+
+def test_jacobi_lanes_match_the_jax_lanes():
+    """cross_batch(sweep_mode="jacobi"): every (bond, lane) row of the
+    perturbed MVN family (d = 4, n = 17, rank 6, 3 lanes) hunts in one
+    batch, kernel A batched over P = lanes x bonds fibers, fed the JAX lanes'
+    uniforms: each lane is the JAX lane of jax.vmap over its all-bonds
+    engine (ranks, sweeps, n_evals after every sweep, values), its pivots
+    those of the single JAX run with the lane's key, and its train within
+    1e-12 of the JAX lane's (the dense tensors: the all-bonds apply divides
+    the factors by the pivots in another order of sums).  (The JAX hunt
+    ranks its residuals in f32; on this family no pick meets an f32
+    near-tie.)"""
+    from ttcross_tpu.tt import full as jfull
+
+    jf, pf = _families()
+    kw = dict(pivoting=1, accuracy=500 * 2.2e-16, quad=[jf.quad_weights] * 4, truth=1.0,
+              sweep_mode="jacobi")
+    jres = jcross_batch(jf.fun, [jf.n] * 4, jf.params, max_rank=6, key=7, **kw)
+    pres = _port_batch(pf.fun, (pf.n,) * 4, pf.params, 6, 7, **kw)
+    assert len(pres) == len(jres) and pres.neval == jres.neval and pres.sweeps == jres.sweeps
+    for lane in range(L):
+        _assert_same_lane(pres[lane], jres[lane])
+        single = _jax_single(jf.fun, [jf.n] * 4, jf.params, lane, 7, L, max_rank=6, **kw)
+        _assert_same_lane(pres[lane], single)
+        assert np.array_equal(pres[lane].state.vip, np.asarray(single.state.vip))
+        want = np.asarray(jfull(jres[lane].tt))
+        np.testing.assert_allclose(full(pres[lane].tt).numpy(), want, rtol=0,
+                                   atol=1e-12 * np.abs(want).max())
+
+
+def test_jacobi_lanes_are_their_single_runs():
+    """Each lane of cross_batch(sweep_mode="jacobi") is the port's
+    cross(sweep_mode="jacobi") with the lane's parameters and key
+    lane_key(key, l): ranks, sweeps, n_evals and vip equal, values to 1e-12
+    (on the CPU the plain batched kernel A sums over another number of
+    rows); a lane that stops first is frozen while the others sweep on."""
+    _, pf = _families()
+    kw = dict(pivoting=1, accuracy=500 * 2.2e-16, quad=[pf.quad_weights] * 4, truth=1.0,
+              device="cpu", sweep_mode="jacobi")
+    res = cross_batch(pf.fun, [pf.n] * 4, pf.params, max_rank=6, key=5, **kw)
+    for lane in range(L):
+        par = pf.lane(lane)
+        single = cross(lambda i, p=par: pf.fun(i, p), [pf.n] * 4, max_rank=6,
+                       key=lane_key(5, lane), return_pivots=True, **kw)
+        _assert_same_lane(res[lane], single)
+        assert np.array_equal(res[lane].state.vip, single.state.vip)
 
 
 def test_lanes_are_their_single_runs():
@@ -226,8 +274,8 @@ def test_gaussian_width_family_matches_jax():
 
 
 def test_argument_checks_match_jax():
-    """The JAX package's ValueErrors as ValueErrors; what the port does not
-    run yet as NotImplementedError naming its ROADMAP item."""
+    """The JAX package's ValueErrors as ValueErrors, and the mesh's lane
+    count check."""
     jfun = lambda ind, par: jnp.zeros(ind.shape[0])  # noqa: E731
     pfun = lambda ind, par: torch.zeros(ind.shape[0], dtype=torch.float64)  # noqa: E731
     cases = [((lambda z: [z((2, 3)), z((3,))]), {}, "lane-axis"),
@@ -247,10 +295,11 @@ def test_argument_checks_match_jax():
         jcross_batch(jfun, [4], jnp.zeros((2,)))
     with pytest.raises(ValueError, match="d >= 2"):
         cross_batch(pfun, [4], torch.zeros(2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cross_batch(pfun, [4] * 3, torch.zeros(2), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="7b.7"):
-        cross_batch(pfun, [4] * 3, torch.zeros(2), sweep_mode="jacobi", device="cpu")
+    # the lanes of a mesh's run are sharded over its ranks
+    # (tests/test_torch_parallel_misc.py runs it)
+    mesh = BondMesh(group=None, rank=0, size=3, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="divisible"):
+        cross_batch(pfun, [4] * 3, torch.zeros(2), mesh=mesh)
     assert lane_batched(pfun) is pfun and pfun.lane_batched
 
 

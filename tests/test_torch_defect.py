@@ -24,6 +24,7 @@ from ttcross_tpu.cross.defect import cross_defect_corrected as jdefect
 from ttcross_tpu_torch.apps.ising import ising_dd_problem
 from ttcross_tpu_torch.cross import cross_defect_corrected
 from ttcross_tpu_torch.interop import dd_pair_from_numpy
+from ttcross_tpu_torch.parallel import BondMesh
 from test_torch_engine import _jax_uniforms
 from test_torch_engine_dd import _jax_tables
 
@@ -72,5 +73,9 @@ def test_defect_corrected_matches_jax():
 
 
 def test_defect_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cross_defect_corrected(None, None, [3, 3], [], [], mesh=object(), device="cpu")
+    """With a mesh every level runs on the distributed engine
+    (tests/test_torch_parallel_misc.py), whose ranks may not outnumber the
+    bonds."""
+    mesh = BondMesh(group=None, rank=0, size=2, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="more devices"):
+        cross_defect_corrected(None, None, [3, 3], [], [], mesh=mesh, device="cpu")

@@ -187,7 +187,8 @@ def test_public_cross_runs_and_rejects_unported(problems):
     "tt.load_ttbin_ref", "tt.load_npz", "tt.load_hdf5", "tt.load_state", "cross.cross_batch",
     "cross.extract_skeleton", "cross.derive_host_fun", "apps.make_quantics",
     "apps.quantics_cross", "cross.cross_dd", "cross.cross_defect_corrected",
-    "apps.make_ising_dd", "apps.make_stdnorm_dd"])
+    "apps.make_ising_dd", "apps.make_stdnorm_dd", "parallel.cross_parallel",
+    "parallel.cross_dd_parallel", "parallel.maxvol_refine_parallel"])
 def test_entry_points_default_to_the_card(entry):
     module, name = entry.split(".")
     entry = getattr(importlib.import_module("ttcross_tpu_torch." + module), name)
@@ -217,7 +218,8 @@ def test_port_imports_no_jax():
     for new in ("apps.mvn", "apps.stdnorm", "apps.cos", "apps.chf", "cross.maxvol", "cross.accchk",
                 "ops.sampling", "tt.serialize", "utils.indexing", "utils.guards", "utils.printing",
                 "cross.batch", "cross.skeleton", "apps.quantics", "utils.cli", "ops.dd",
-                "cross.engine_dd", "cross.defect"):
+                "cross.engine_dd", "cross.defect", "parallel", "parallel.mesh", "parallel.engine",
+                "parallel.engine_dd", "parallel.maxvol", "parallel.quad", "parallel.launch"):
         assert "ttcross_tpu_torch." + new in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"

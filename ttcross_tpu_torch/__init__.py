@@ -9,8 +9,12 @@ Entry points: the problem makers of ``ttcross_tpu_torch.apps``
 (``make_ising``, ``make_mvn``, ``make_stdnorm``, ``make_cos_coefficients``,
 ``make_quantics``, ``quantics_cross``), ``ttcross_tpu_torch.cross``
 (``cross``, ``cross_batch``, ``maxvol_refine``, ``cross_maxvol``,
-``accchk``) and the loaders of ``ttcross_tpu_torch.tt``; all run on the
-card (``device="cuda"``) unless the caller passes ``device="cpu"``.  The
+``accchk``, ``cross_dd``, ``cross_defect_corrected``), the loaders of
+``ttcross_tpu_torch.tt``, and the distributed engines of
+``ttcross_tpu_torch.parallel`` (``cross_parallel``, ``cross_dd_parallel``,
+``maxvol_refine_parallel``, ``pcontract``: one process per rank of a
+torch.distributed group); all run on the card (``device="cuda"``) unless
+the caller passes ``device="cpu"``.  The
 f64 tier is the default; ``dtype=torch.float32`` (cross, cross_batch and
 the makers) runs the f32 tier.
 """
@@ -20,4 +24,4 @@ from .tt.types import TT, from_cores, ones, rank1, zeros  # noqa: F401
 __version__ = "0.1.0"
 
 __all__ = ["TT", "from_cores", "ones", "rank1", "zeros",
-           "apps", "cross", "interop", "ops", "tt", "utils"]
+           "apps", "cross", "interop", "ops", "parallel", "tt", "utils"]

@@ -129,9 +129,15 @@ def cross_batch(
     scalar or one value per lane.  Other arguments as cross(), shared by
     the lanes.  The post-passes of single runs (oversample, refine_sweeps,
     state passing) are per-lane concepts: run cross() on a lane for them.
-    use_pallas is accepted for API parity.  mesh= (lanes sharded over
-    devices) raises NotImplementedError (ROADMAP queue 1 item 9), and so do
-    the all-bonds sweeps (sweep_mode="jacobi", item 7b.7)."""
+    use_pallas is accepted for API parity.  sweep_mode: "sequential", or
+    "jacobi", every (bond, lane) pair hunting at once in one batch
+    (cross/engine_jacobi.py); a lane is its single cross(sweep_mode=
+    "jacobi") run either way.  mesh: a bond mesh (parallel/mesh.py::
+    bond_mesh) whose every rank calls with the same arguments: the lanes
+    are sharded over the ranks (L divisible by their number), each rank
+    runs its block of lanes with no collective, and the results are
+    gathered, so every rank returns all L lanes; the mesh's device is the
+    run's."""
     return _cross_batch(fun, n, params, max_rank=max_rank, accuracy=accuracy,
                         pivoting=pivoting, quad=quad, truth=truth, key=key, dtype=dtype,
                         verbose=verbose, max_sweeps=max_sweeps, small_element=small_element,
@@ -166,12 +172,8 @@ def _cross_batch(fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, k
         if int(np.shape(leaf)[0]) != L:
             raise ValueError("every params leaf needs the same leading lane-axis size; "
                              f"got {np.shape(leaf)[0]} vs {L}")
-    if mesh is not None:
-        raise NotImplementedError("cross_batch(mesh=...) is not ported to ttcross_tpu_torch "
-                                  "yet (ROADMAP queue 1 item 9)")
-    if sweep_mode == "jacobi":
-        raise NotImplementedError("cross_batch(sweep_mode='jacobi') is not ported to "
-                                  "ttcross_tpu_torch yet (ROADMAP queue 1 item 7b.7)")
+    if mesh is not None and L % mesh.size:
+        raise ValueError(f"lane count {L} must be divisible by the mesh's {mesh.size} devices")
     if dtype not in (torch.float64, torch.float32):
         raise ValueError(f"dtype must be torch.float64 or torch.float32, got {dtype}")
     if truth is None:
@@ -183,7 +185,13 @@ def _cross_batch(fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, k
         if len(truths) != L:
             raise ValueError(f"truth must be scalar or length {L}")
 
-    dev = torch.device(device)
+    dev = torch.device(device) if mesh is None else mesh.device
+    L_all, lane0 = L, 0
+    if mesh is not None:
+        # this rank's block of lanes
+        L = L_all // mesh.size
+        lane0 = mesh.rank * L
+        params = pytree.tree_map(lambda a: a[lane0:lane0 + L], params)
     params = pytree.tree_map(lambda a: as_tensor(a, dev), params)
     se, sp = precision_thresholds(dtype)
     if small_element is not None:
@@ -191,14 +199,16 @@ def _cross_batch(fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, k
     if small_pivot is not None:
         sp = float(small_pivot)
     cfg = CrossConfig(d=d, n=n, N=max(n), R=max_rank, piv=int(pivoting),
-                      small_element=se, small_pivot=sp)
+                      small_element=se, small_pivot=sp, jacobi=sweep_mode == "jacobi")
     kit = make_engine(_lane_fun(fun, params), cfg, dev, dtype, lanes=L)
     if max_sweeps is None:
         max_sweeps = max_rank - 1
     NLOT = 2 * (cfg.R + cfg.N)
     if uniforms is None:
         uniforms = torch.stack([draw_uniforms(lane_key(key, i), max_sweeps, d, NLOT)
-                                for i in range(L)], dim=1)
+                                for i in range(lane0, lane0 + L)], dim=1)
+    elif mesh is not None:
+        uniforms = uniforms[:, lane0:lane0 + L]
     uniforms = torch.as_tensor(uniforms, dtype=torch.float64).to(dev)
     if uniforms.shape[0] < max_sweeps or uniforms.shape[1:] != (L, d - 1, 2, NLOT):
         raise ValueError(f"uniforms must be ({max_sweeps}, {L}, {d - 1}, 2, {NLOT}), "
@@ -210,11 +220,18 @@ def _cross_batch(fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, k
     st, _, last, vals, pmax, nev, _ = run_sweeps(kit, kit.init_fn(), uniforms, w,
                                               accuracy=accuracy, max_sweeps=max_sweeps)
     solved = kit.finalize_fn(st)
+    if mesh is not None:
+        # every rank's lanes, in lane order, to every rank
+        solved, st = _gather_lanes(mesh, solved, 1), st._replace(
+            **{f: _gather_lanes(mesh, getattr(st, f), 1) for f in ("rk", "vip")},
+            **{f: _gather_lanes(mesh, getattr(st, f), 0) for f in ("neval", "padded")})
+        last, vals, pmax, nev = (_gather_lanes(mesh, torch.from_numpy(a).to(dev), a.ndim - 1)
+                                 .cpu().numpy() for a in (last, vals, pmax, nev))
     rk, vip, neval, padded = (t.cpu().numpy() for t in (st.rk, st.vip, st.neval, st.padded))
     wall = time.perf_counter() - t0
 
     lanes = []
-    for i in range(L):
+    for i in range(L_all):
         last_it = int(last[i])
         values, errors = _values_errors(vals[:, i], last_it, truths[i], with_quad)
         r = rk[:, i]
@@ -233,3 +250,12 @@ def _cross_batch(fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, k
                   f"n_evals {lanes[-1].neval:9d}{tail}")
     return BatchCrossResult(lanes=lanes, neval=sum(r.neval for r in lanes), time=wall,
                             sweeps=max(r.sweeps for r in lanes))
+
+
+def _gather_lanes(mesh, x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Every rank's block of lanes of x (its lane axis `axis`) joined in
+    rank order: the all_gather of the sharded family's results."""
+    from ..parallel.mesh import all_gather
+
+    g = all_gather(mesh, x.contiguous())                  # (ranks, ...)
+    return torch.cat(g.unbind(0), dim=axis)

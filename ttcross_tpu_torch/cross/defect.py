@@ -67,13 +67,14 @@ def cross_defect_corrected(
     weights.  levels: number of crosses (2 = classic defect correction; 3
     adds a second correction over A - TT1 - TT2, limited by the ~1e-31
     absolute noise of dd evaluation).  Level l runs cross() with key
-    key + l.  mesh: the distributed engine is ROADMAP item 9
-    (NotImplementedError).  uniforms (test-only): [U_1, ..., U_L], each
-    level's lottery uniforms in place of its key's (cross/engine.py::_cross).
-    Returns (hi, lo, info)."""
-    if mesh is not None:
-        raise NotImplementedError("cross_defect_corrected(mesh=...) needs the distributed engine "
-                                  "(ROADMAP queue 1 item 9)")
+    key + l.  mesh: a bond mesh (parallel/mesh.py::bond_mesh) whose every
+    rank calls with the same arguments: every level's cross then runs on
+    the distributed engine (parallel/engine.py::cross_parallel; the
+    reference's mp tier is MPI-parallel, dmrggmp.f90:518-629, and this is
+    its defect-corrected analogue) and every rank returns the same result.
+    uniforms (test-only): [U_1, ..., U_L], each level's lottery uniforms
+    in place of its key's (cross/engine.py::_cross; on a mesh, this rank's,
+    cross_parallel's uniforms).  Returns (hi, lo, info)."""
     n = [int(x) for x in n]
     max_rank2 = max_rank2 or max_rank
     if uniforms is not None and len(uniforms) != levels:
@@ -84,11 +85,18 @@ def cross_defect_corrected(
     k = key
     for lvl in range(levels):
         f, r = (fun, max_rank) if lvl == 0 else (_Defect(fun_dd, trains), max_rank2)
-        res = _cross(f, n, max_rank=r, accuracy=accuracy, pivoting=pivoting, quad=None,
-                     truth=None, key=k, dtype=torch.float64, verbose=verbose,
-                     return_state=False, max_sweeps=None, small_element=None,
-                     small_pivot=None, oversample=0, sweep_mode="sequential", device=device,
-                     uniforms=None if uniforms is None else uniforms[lvl])
+        U = None if uniforms is None else uniforms[lvl]
+        if mesh is not None:
+            from ..parallel.engine import cross_parallel
+
+            res = cross_parallel(f, n, max_rank=r, accuracy=accuracy, pivoting=pivoting,
+                                 key=k, mesh=mesh, verbose=verbose, uniforms=U)
+        else:
+            res = _cross(f, n, max_rank=r, accuracy=accuracy, pivoting=pivoting, quad=None,
+                         truth=None, key=k, dtype=torch.float64, verbose=verbose,
+                         return_state=False, max_sweeps=None, small_element=None,
+                         small_pivot=None, oversample=0, sweep_mode="sequential",
+                         device=device, uniforms=U)
         trains.append(res.tt)
         nevals.append(res.neval)
         ranks.append(res.ranks)

@@ -93,6 +93,12 @@ class EngineKit(NamedTuple):
     jacobi_apply: Callable
     chain_ev: ChainEvaluator | None   # the chain evaluator when chain= was given
     lanes: int = 0          # 0: one run's states; L >= 1: lane states of L runs
+    # the pieces the distributed engine (parallel/engine.py) builds on, one run only
+    visit_bond: Callable | None = None      # (st, p, fwd, own_lo, own_hi, ltab, rtab, u2)
+    eval_col_fiber: Callable | None = None  # (st, p, ltab, rtab, kk, qq)
+    eval_row_fiber: Callable | None = None  # (st, p, ltab, rtab, ii, jj)
+    value_mats: Callable | None = None      # (st, w) -> (d, R, R)
+    init_neval: int = 0     # evaluations of init_fn
 
 
 def round_and_revalue(res: CrossResult, max_rank: int, quad, truth) -> CrossResult:
@@ -155,10 +161,7 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
     as one lane on views of the state.  chain: optional
     chain_eval.ChainSpec of a chain-structured integrand, for O(1) hunt
     evaluation from interface states on the all-bonds-batched sweeps
-    (which take lanes = 0 only)."""
-    if lanes and cfg.jacobi:
-        raise NotImplementedError("the all-bonds sweeps take one run, not lanes "
-                                  "(ROADMAP queue 1 item 7b.7)")
+    (lanes = 0 only)."""
     d, N, R = cfg.d, cfg.N, cfg.R
     n = cfg.n
     L = max(lanes, 1)
@@ -448,12 +451,17 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         arow = vals.gather(1, row.view(L, 1, 1).expand(L, 1, N * R)).reshape(L, N, R)
         return st, (row // N, row % N, colx // R, colx % R), pivot, acol, arow
 
-    def _accept(st, p, piv_idx, pivot, acol, arow, upd) -> CrossState:
+    def _accept(st, p, piv_idx, pivot, acol, arow, upd, own_lo=0, own_hi=d - 1):
         """Append the accepted pivots: extend vip / LU / cores / factors
         (dmrgg.f90:602-757), all IN PLACE at each lane's slot s = rk[p+1]
         and masked by the tensor flags upd, so a rejected pivot leaves its
         lane's state as it was (JAX: dynamic_update_slice of where(upd,
-        new, old))."""
+        new, old)).  own_lo / own_hi bound the bond slab a distributed rank
+        owns (the whole train otherwise): the factor slices across the
+        slab's edges are left to the distributed engine's boundary fixup,
+        as the reference's `p > own(me)` / `p < own(me+1)-1` guards do
+        (dmrgg.f90:715, 730).  Returns (st, c_new, u_new): the LU border
+        row and column, masked to the active rank."""
         ii, jj, kk, qq = piv_idx
         s = st.rk[p + 1].long()
         slot = s.clamp(max=R - 1)   # a saturated bond never accepts
@@ -485,11 +493,11 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         masked_slot_write(st.cores[p + 1], 1, slot, arow, upd)
         masked_slot_write(st.colf[p], 3, slot, new_colf, upd)
         masked_slot_write(st.rowf[p + 1], 1, slot, new_rowf, upd)
-        if p > 0:
+        if p > own_lo:
             # row factor of bond p-1 on core p gains the new column with the
             # bond p-1 L-solve applied (dmrgg.f90:715-728)
             masked_slot_write(st.rowf[p], 3, slot, matmul_by_sums(st.itl[p - 1], acol), upd)
-        if p < d - 2:
+        if p < own_hi - 1:
             # col factor of bond p+1 on core p+1 gains the new row with the
             # bond p+1 T-solve applied (dmrgg.f90:730-749)
             masked_slot_write(st.colf[p + 1], 1, slot, matmul_by_sums(arow, st.itt[p + 1]), upd)
@@ -502,7 +510,7 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
                                torch.where(upd, torch.minimum(st.pivotmin, apiv),
                                            st.pivotmin))
         st.rk[p + 1] += upd.to(torch.int32)     # in place
-        return st._replace(pivotmax=pivotmax, pivotmin=pivotmin)
+        return st._replace(pivotmax=pivotmax, pivotmin=pivotmin), c_new, u_new
 
     def _caps(p: int):
         """Bond p's padded candidate ranks (Rl, Rr) and its rank bound Rb:
@@ -514,11 +522,13 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         Rr = 1 if p == d - 2 else min(R, int(cfg.caps[p + 1]))
         return Rl, Rr, min(R, int(cfg.caps[p]))
 
-    def visit_bond(st: CrossState, p: int, fwd: bool, ltab, rtab, u2, lw=None,
-                   live=None) -> CrossState:
+    def _visit(st: CrossState, p: int, fwd: bool, ltab, rtab, u2, lw=None,
+               live=None, own_lo: int = 0, own_hi: int = d - 1):
         """Hunt + (maybe) accept at bond p in every lane; u2 (L, 2, NLOT)
         lottery uniforms, lw the lottery weights of a weighted draw, live
-        (L,) the lanes that may accept (None: all).
+        (L,) the lanes that may accept (None: all), own_lo / own_hi the
+        slab of a distributed rank (_accept).  Returns (st, upd, (ii, jj,
+        kk, qq), pivot, c_new, u_new).
 
         Capped (cfg.caps, rank_caps; ttcross_tpu/cross/engine.py:835-1002):
         the lottery and the rook fibers are evaluated at (Rl, N) / (N, Rr),
@@ -561,7 +571,8 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
                & (st.rk[p + 1] < Rb))
         if live is not None:
             upd = upd & live
-        return _accept(st, p, piv_idx, pivot, acol, arow, upd)
+        st, c_new, u_new = _accept(st, p, piv_idx, pivot, acol, arow, upd, own_lo, own_hi)
+        return st, upd, piv_idx, pivot, c_new, u_new
 
     def sweep_lanes(st: CrossState, it: int, U, lw=None, live=None) -> CrossState:
         """One sequential sweep of every lane: '>>' on odd it, '<<' on even
@@ -580,7 +591,7 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
             p = idx if fwd else d - 2 - idx
             ltab = tab if fwd else AT[p]
             rtab = AT[p] if fwd else tab
-            st = visit_bond(st, p, fwd, ltab, rtab, U[:, p], lw, live)
+            st = _visit(st, p, fwd, ltab, rtab, U[:, p], lw, live)[0]
             tab = (advance_left(tab, st.vip[p], p) if fwd
                    else advance_right(tab, st.vip[p], p - 1))
         st = st._replace(pivotmax_prev=st.pivotmax)
@@ -590,22 +601,26 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
                               for f in _SCALARS})
 
     chain_ev = None if chain is None else ChainEvaluator(chain, d, dtype)
-    make_sweep_jacobi, jacobi_hunt, jacobi_apply = build_jacobi(
-        cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=chain_ev, dtype=dtype)
-    if cfg.jacobi:
-        sweep_jac = {True: make_sweep_jacobi(True), False: make_sweep_jacobi(False)}
+    sweep_jac, jacobi_hunt, jacobi_apply = build_jacobi(
+        cfg, fun_l if lanes else fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=chain_ev,
+        dtype=dtype, lanes=lanes)
+
+    def mats_lanes(st: CrossState, w) -> torch.Tensor:
+        """The LU-solved (R, R) contraction matrix of every core against
+        the weights w (d, N) (the ttqq core + dtt_lua application,
+        dmrgg.f90:986-992): (d, L, R, R).  Products summed as in
+        matmul_by_sums, so a lane's matrices are its single run's."""
+        mats = (st.cores * w[:, None, None, :, None]).sum(dim=3)    # (d, L, R, R)
+        mats[1:] = matmul_by_sums(st.itl, mats[1:])
+        mats[:-1] = matmul_by_sums(mats[:-1], st.itt)
+        return mats
 
     def value_lanes(st: CrossState, w) -> torch.Tensor:
         """Quadrature value of each lane's current cross against per-mode
         weights w (d, N), with the growing-LU inverses applied (ttqq +
         dtt_lua + dtt_quad, dmrgg.f90:975-1006), as a norm-balanced
         product chain; (L,)."""
-        # products summed as in matmul_by_sums, so a lane's value is its
-        # single run's
-        mats = (st.cores * w[:, None, None, :, None]).sum(dim=3)    # (d, L, R, R)
-        mats[1:] = matmul_by_sums(st.itl, mats[1:])
-        mats[:-1] = matmul_by_sums(mats[:-1], st.itt)
-        P, ex = balanced_matmul_chain(mats)
+        P, ex = balanced_matmul_chain(mats_lanes(st, w))
         return scale_pow2(P[..., 0, 0], ex)
 
     def finalize_lanes(st: CrossState) -> torch.Tensor:
@@ -617,9 +632,47 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         return g
 
     if lanes:
-        return EngineKit(cfg=cfg, init_fn=init_fn, sweep_fn=sweep_lanes, value_fn=value_lanes,
-                         finalize_fn=finalize_lanes, jacobi_hunt=jacobi_hunt,
-                         jacobi_apply=jacobi_apply, chain_ev=chain_ev, lanes=lanes)
+        def sweep_fn_lanes(st: CrossState, it: int, U, lw=None, live=None) -> CrossState:
+            """One sweep of every live lane: sequential, or all-bonds batched
+            (cfg.jacobi) with every (bond, lane) row in one batch."""
+            if cfg.jacobi:
+                return sweep_jac(st, it % 2 == 1, U, lw=lw, live=live)
+            return sweep_lanes(st, it, U, lw, live)
+
+        return EngineKit(cfg=cfg, init_fn=init_fn, sweep_fn=sweep_fn_lanes,
+                         value_fn=value_lanes, finalize_fn=finalize_lanes,
+                         jacobi_hunt=jacobi_hunt, jacobi_apply=jacobi_apply, chain_ev=chain_ev,
+                         lanes=lanes)
+
+    def visit_bond(st: CrossState, p: int, fwd: bool, own_lo: int, own_hi: int, ltab, rtab, u2):
+        """Hunt + (maybe) accept at bond p of one run, the distributed
+        engine's step (ttcross_tpu/cross/engine.py:713-783): ltab, rtab
+        (R, d) the bond's chain tables, u2 (2, NLOT) its lottery uniforms,
+        own_lo / own_hi the rank's bond slab.  Returns (st, tape_i (5,)
+        int32 = (accepted, ii, jj, kk, qq), tape_f (2R+1,) = (c border, u
+        border, pivot)), both zero where the pivot was rejected: the record
+        a rank ships so that the others replay vip, rk and the LU."""
+        stl, upd, (ii, jj, kk, qq), pivot, c_new, u_new = _visit(
+            as_lanes(st), p, fwd, ltab[None], rtab[None], u2[None], None, None, own_lo, own_hi)
+        tape_i = torch.where(upd[:, None], torch.stack(
+            [torch.ones_like(ii), ii, jj, kk, qq], 1), 0).to(torch.int32)[0]
+        tape_f = torch.where(upd[:, None], torch.cat([c_new, u_new, pivot[:, None]], 1), 0.0)[0]
+        return lane(stl, 0), tape_i, tape_f
+
+    def eval_col_fiber(st: CrossState, p: int, ltab, rtab, kk, qq):
+        """The raw column fiber (R, N) of bond p of one run at (kk, qq),
+        masked to the active block: (fiber, amax', neval', padded')."""
+        stl = as_lanes(st)
+        vals, cnt = _col_fiber(stl, p, ltab[None], rtab[None], kk.view(1), qq.view(1))
+        return (vals[0], torch.maximum(st.amax, vals.abs().amax()), st.neval + cnt[0],
+                st.padded + R * N)
+
+    def eval_row_fiber(st: CrossState, p: int, ltab, rtab, ii, jj):
+        """The raw row fiber (N, R) of bond p of one run at (ii, jj)."""
+        stl = as_lanes(st)
+        vals, cnt = _row_fiber(stl, p, ltab[None], rtab[None], ii.view(1), jj.view(1))
+        return (vals[0], torch.maximum(st.amax, vals.abs().amax()), st.neval + cnt[0],
+                st.padded + N * R)
 
     def sweep_fn(st: CrossState, it: int, U, cs=None, lw=None, live=None):
         """One sweep over all bonds of one run: '>>' on odd it, '<<' on
@@ -629,13 +682,17 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         weighted draw.  live is accepted for the run loop's sake: one run
         is live in every sweep it makes."""
         if cfg.jacobi:
-            return sweep_jac[it % 2 == 1](st, U, cs, lw)
+            return sweep_jac(st, it % 2 == 1, U, cs, lw)
         return lane(sweep_lanes(as_lanes(st), it, U[None], lw), 0)
 
     return EngineKit(cfg=cfg, init_fn=lambda: lane(init_fn(), 0), sweep_fn=sweep_fn,
                      value_fn=lambda st, w: value_lanes(as_lanes(st), w)[0],
                      finalize_fn=lambda st: finalize_lanes(as_lanes(st))[:, 0],
-                     jacobi_hunt=jacobi_hunt, jacobi_apply=jacobi_apply, chain_ev=chain_ev)
+                     jacobi_hunt=jacobi_hunt, jacobi_apply=jacobi_apply, chain_ev=chain_ev,
+                     visit_bond=visit_bond, eval_col_fiber=eval_col_fiber,
+                     eval_row_fiber=eval_row_fiber,
+                     value_mats=lambda st, w: mats_lanes(as_lanes(st), w)[:, 0],
+                     init_neval=cfg.snum * int(min(n)) + int(sum(n)))
 
 
 def finalize(st: CrossState, kit: EngineKit) -> TT:
@@ -648,16 +705,18 @@ def finalize(st: CrossState, kit: EngineKit) -> TT:
 
 
 def _apply_refine(res: CrossResult, fun, n, refine_sweeps: int, quad, truth,
-                  state: CrossState, device) -> CrossResult:
+                  state: CrossState, device, refine_fn=None) -> CrossResult:
     """Maxvol pivot-replacement post-pass (cross(refine_sweeps=k)): seed
-    the alternating-maxvol refinement (cross/maxvol.py) with the greedy
+    the alternating-maxvol refinement (cross/maxvol.py, or refine_fn with
+    its signature: the distributed one, parallel/maxvol.py) with the greedy
     pivot sets of `state` and swap in the refined interpolant.  One 'mv'
     history record per call; neval and padded_evals accumulate."""
     from .maxvol import maxvol_refine
 
     I, J = pivot_index_sets(state.vip, state.rk)
-    mv = maxvol_refine(fun, n, init_sets=(I, J), sweeps=int(refine_sweeps),
-                       quad=quad, truth=truth, device=device, dtype=state.cores.dtype)
+    mv = (refine_fn or maxvol_refine)(fun, n, init_sets=(I, J), sweeps=int(refine_sweeps),
+                                      quad=quad, truth=truth, device=device,
+                                      dtype=state.cores.dtype)
     res.tt = mv.tt
     res.ranks = mv.ranks
     res.neval += mv.neval

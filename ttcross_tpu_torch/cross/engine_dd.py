@@ -96,7 +96,7 @@ class DDCrossResult:
 
 class DDKit(NamedTuple):
     """The dd engine's phases and the per-bond pieces the distributed dd
-    engine (ROADMAP item 9) builds on."""
+    engine (parallel/engine_dd.py) builds on."""
 
     init_fn: Callable
     sweep_fn: Callable
