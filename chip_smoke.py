@@ -118,12 +118,25 @@ Phases, each printing its result as it goes:
      accchk(mesh=) and cross_batch(mesh=) of the 4-lane mvn_d6 family; and
      cross_batch(sweep_mode="jacobi") of that family, each lane its single
      jacobi run.  Every rank's launches are held as phase 3 holds its
-     shapes.
+     shapes;
+ 17. the qd tier (csrc/qd_kernels.cu's kernels Q1-Q4): cross_qd on Ising C_4
+     at n = 65, rank 55 (the JAX package's 64.2-digit record configuration;
+     digits, wall, n_evals, launches, host reads per bond visit, the card's
+     busy share from one profiled run), bench.py's stdnorm_d4_qd_engine
+     (ranks 1, 9,666 evaluations, >= 60 digits), cross_defect_corrected_qd at
+     drivers/crs_ising_qd.py's defaults, cross_qd_parallel with two spawned
+     workers on the card equal to two on the CPU, refine_dd on the JAX
+     package's two test cases and a small cross_qd against the CPU; every qd
+     kernel held bit for bit against its plain version at every shape these
+     runs launched it at, with device time, bound and host time at the
+     shape of each path that holds the most work.
 The line before the last is the kernels' JSON summary, one entry for every
 (kernel, shape) that the C_6 headline, the C_256 long chain, each
 configuration of phase 7 and phases 8-16 launched at (an f32 launch's entry
 named <kernel>_f32), with that run's launches at the shape beside phase 3's
-error, times and bound there; the last line is
+error, times and bound there, and one entry for every (qd kernel, path) of
+phase 17 (its launches on the path, the shapes held, the times and bound at
+the path's heaviest shape); the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 It imports nothing of JAX.
 """
@@ -139,6 +152,7 @@ import time
 
 KERNEL_SOURCE = "ttcross_tpu_torch/csrc/kernels.cu"
 DD_KERNEL_SOURCE = "ttcross_tpu_torch/csrc/dd_kernels.cu"
+QD_KERNEL_SOURCE = "ttcross_tpu_torch/csrc/qd_kernels.cu"
 MAIN_PATH_KERNELS = ("score_residual_argmax", "ising_integrand_fused")
 LONG_CHAIN_KERNELS = ("score_residual_argmax_batched", "small_table_lookup")
 LONG_CHAIN = dict(n=17, max_rank=10, accuracy=500 * 2.2e-16, pivoting=1)
@@ -261,11 +275,19 @@ KERNEL_REPLACES = {   # the TPU kernel each CUDA kernel stands for
     "dd_dot": "ttcross_tpu/ops/pallas_kernels.py:62",
     "ising_c_integrand_dd_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
     "dd_gather_tt_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
+    # the qd tier's (csrc/qd_kernels.cu): Q2 and Q4 of kernel A's residual and
+    # its products, Q1 and Q3 of the lookup kernel's gathers
+    "qd_score_residual_argmax": "ttcross_tpu/ops/pallas_kernels.py:62",
+    "qd_dot": "ttcross_tpu/ops/pallas_kernels.py:62",
+    "ising_c_integrand_qd_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
+    "qd_gather_tt_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
 }
 F32_KERNELS = ("score_residual_argmax", "score_residual_argmax_batched", "small_table_lookup",
                "ising_integrand_fused")   # the kernels with an f32 instantiation
 DD_KERNELS = ("dd_score_residual_argmax", "dd_dot", "ising_c_integrand_dd_fused",
               "dd_gather_tt_fused")
+QD_KERNELS = ("qd_score_residual_argmax", "qd_dot", "ising_c_integrand_qd_fused",
+              "qd_gather_tt_fused")
 # The dd tier (phase 15).  Digits of each configuration over its keys, from
 # CPU runs of both packages (PYTHONPATH=. JAX_PLATFORMS=cpu python
 # tests/test_torch_engine_dd.py prints them), port / JAX package as minimum,
@@ -461,7 +483,8 @@ def device_per_call(fn, calls: int = 50, tries: int = 10) -> dict:
             break
     return {"device_us": sum(_device_us(e) for e in kern) / calls,
             "kernels_per_call": sum(e.count for e in kern) / calls,
-            "by_kernel_us": {e.key[:60]: _device_us(e) / calls for e in kern}}
+            "by_kernel_us": {e.key[:60]: _device_us(e) / calls for e in kern},
+            "by_kernel": {e.key: (_device_us(e), e.count) for e in kern}}
 
 
 def host_us_per_call(fn, calls: int = 1000) -> float:
@@ -2497,6 +2520,7 @@ def _par_surface(device):
 def _held_everywhere(dev, gen, held, checked, label, shapes) -> None:
     hold_new_shapes(dev, gen, shapes, held, checked, label=label)
     hold_dd_shapes(dev, gen, shapes, held, checked)
+    hold_qd_shapes(dev, gen, shapes, held, checked)
     _require_held(label, shapes, held)
 
 
@@ -2710,6 +2734,617 @@ def _merge_counts(runs) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 17: the qd tier
+# The quad-double tier (csrc/qd_kernels.cu's Q1-Q4; ROADMAP item 8's qd part).
+# The JAX package runs it on the host in numpy (a TPU's emulated f64 breaks
+# Dekker's two_prod); the port runs it on the card.  Digits against Bailey's
+# C_4 (ISING_C_STR[4]) or pi^2, in decimal.  The floors stand on CPU runs of
+# both packages at the same configurations, seed / key 0 (port / JAX package,
+# digits, n_evals, wall on one core of the CPU host):
+#   cross_qd C_4 n=65 rank 55            64.2097 / 64.2097 (the same limbs),
+#                                        221,467 evals, 54 sweeps; 74.2 s / 55.9 s
+#   stdnorm_d4_qd_engine                 62.3185 / 62.3185, 9,666 evals
+#   defect C_4 n=33 ranks 16 / 33, 3 lv  33.6912 / 33.6912 (level-1 ranks
+#                                        (1, 15, 14, 1) / (1, 15, 15, 1): the
+#                                        f64 lotteries differ); 312 s / 232 s
+#   cross_qd_parallel C_4 n=65 rank 33,  37.3395 / 37.3395 (the same limbs),
+#   2 workers                            87,115 evals, 32 sweeps; 19.2 s / 14.7 s
+QD_C4 = dict(m=4, n=65, max_rank=55)          # BENCH_NOTES.md:281, the 64.2-digit record
+QD_C4_FLOOR = 64.0
+QD_STDNORM = dict(d=4, n=201, max_rank=4)     # bench.py:550-568, stdnorm_d4_qd_engine
+QD_STDNORM_EVALS, QD_STDNORM_DIGITS = 9666, 60.0
+QD_DEFECT = dict(m=4, n=33, max_rank=16, max_rank2=33, levels=3)   # drivers/crs_ising_qd.py
+QD_DEFECT_FLOOR = 32.0
+QD_PAR = dict(m=4, n=65, max_rank=33, n_workers=2)                 # drivers/crs_ising_qde.py
+QD_SMALL = dict(m=4, n=17, max_rank=10)
+QD_PAR_RTOL, QD_SMALL_RTOL = 1e-58, 1e-60
+QD_REFINE_ABS, QD_REFINE_DIGITS = 1e-27, 28.0   # tests/test_refine.py's cases
+QD_MUL_FLOPS, QD_ADD_FLOPS, QD_DIV_FLOPS = 508, 172, 1586   # ops/qd.py's qd_mul, qd_add, qd_div
+QD_KERNEL_SYMBOLS = {"qd_score_residual_argmax": "qd_score_kernel", "qd_dot": "qd_dot_kernel",
+                     "qd_gather_tt_fused": "qd_gather_tt_kernel",
+                     "ising_c_integrand_qd_fused": "ising_c_qd_kernel"}   # csrc/qd_kernels.cu
+QD_PATH_KERNELS = {"cross_qd": ("qd_score_residual_argmax", "qd_dot", "ising_c_integrand_qd_fused"),
+                   "stdnorm": ("qd_score_residual_argmax", "qd_dot"),
+                   "defect": ("score_residual_argmax", "ising_integrand_fused",
+                              "ising_c_integrand_qd_fused", "qd_gather_tt_fused", "qd_dot"),
+                   "refine": ("score_residual_argmax", "qd_dot")}
+
+
+def _qd_bound(name, shape):
+    """The least time of a qd kernel's call: f64 flops (QD_MUL_FLOPS per qd
+    multiply, QD_ADD_FLOPS per qd add, QD_DIV_FLOPS per qd divide, counted
+    from ops/qd.py's operations) over the f64 vector rate, or bytes (each
+    input read once, four limbs of every qd value, each output written once)
+    over the memory rate, whichever is larger."""
+    if name == "qd_score_residual_argmax":
+        B, T = shape
+        nbytes = 32 * (2 * B * T + B) + 32 * B
+        flops = B * (T * QD_MUL_FLOPS + T * QD_ADD_FLOPS)     # T - 1 tree adds + the subtraction
+    elif name == "qd_dot":
+        M, N, T = shape[:3]
+        nbytes = 32 * (M * T + T * N + M * N)
+        flops = M * N * (T * QD_MUL_FLOPS + max(T - 1, 0) * QD_ADD_FLOPS)
+    elif name == "qd_gather_tt_fused":     # (B, N) + the train's ranks
+        B, N, ranks = shape[0], shape[1], shape[2:]
+        d = len(ranks) - 1
+        nbytes = 8 * N * sum(ranks[c] * ranks[c + 1] for c in range(d)) + 4 * B * d + 32 * B
+        flops = B * sum(ranks[c + 1] * (ranks[c] * QD_MUL_FLOPS + (ranks[c] - 1) * QD_ADD_FLOPS)
+                        for c in range(d))
+    else:   # ising_c_integrand_qd_fused: 3d + 2 multiplies, 2d adds, one divide per row
+        B, d, n = shape
+        nbytes = 4 * B * d + 64 * n + 32 * B
+        flops = B * ((3 * d + 2) * QD_MUL_FLOPS + 2 * d * QD_ADD_FLOPS + QD_DIV_FLOPS)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F64_VECTOR_FLOPS
+    return max(t_bytes, t_ops) * 1e6, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _qd_rand(gen, shape, dev):
+    """Random qd values with populated low limbs, on the card."""
+    import torch
+
+    from ttcross_tpu_torch.ops.qd import QD
+
+    e0 = torch.randn(shape, generator=gen, dtype=torch.float64)
+    e1 = e0 * torch.randn(shape, generator=gen, dtype=torch.float64) * 1e-17
+    e2 = e1 * torch.randn(shape, generator=gen, dtype=torch.float64) * 1e-17
+    e3 = e2 * torch.randn(shape, generator=gen, dtype=torch.float64) * 1e-17
+    return QD(*(e.to(dev) for e in (e0, e1, e2, e3)))
+
+
+def _qd_cases(dev, gen, name, shape):
+    """(label, fn, plain, inputs) per layout that the qd tier gives the
+    kernel at this shape: Q2 as a lottery (both operands gathered), a
+    column pass (y a broadcast vector) and a row pass (x a broadcast vector,
+    y a transposed view); Q4 on GEMM views (a row broadcast over N, a
+    transposed column over M), in the launch's mode; Q3 on a random train
+    of the run's ranks and modes of N; Q1 on make_ising_qd's tables.
+    `inputs` are the call's arguments."""
+    import torch
+
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.ops.qd import QD
+
+    out = []
+    if name == "qd_score_residual_argmax":
+        B, T = shape
+        vals, x, y = _qd_rand(gen, (B,), dev), _qd_rand(gen, (B, T), dev), _qd_rand(gen, (B, T), dev)
+        vec = _qd_rand(gen, (T,), dev)
+        yt = QD(*(e.T for e in _qd_rand(gen, (T, B), dev)))
+        for label, args in (("lottery", (vals, x, y)),
+                            ("col", (vals, x, QD(*(e.expand(B, T) for e in vec)))),
+                            ("row", (vals, QD(*(e.expand(B, T) for e in vec)), yt))):
+            out.append((label, (lambda a=args: K.qd_score_residual_argmax(*a)),
+                        (lambda a=args: K.qd_score_residual_argmax_plain(*a)), args))
+    elif name == "qd_dot":
+        M, N, T, mode = shape
+        a, b = _qd_rand(gen, (M, T), dev), _qd_rand(gen, (T, N), dev)
+        args = (QD(*(e[:, None, :].expand(M, N, T) for e in a)),
+                QD(*(e.T[None].expand(M, N, T) for e in b)), mode == "tree")
+        out.append(("gemm", (lambda: K.qd_dot(*args)), (lambda: K.qd_dot_plain(*args)), args))
+    elif name == "qd_gather_tt_fused":
+        B, N, ranks = shape[0], shape[1], shape[2:]
+        args = (_qd_train(gen, N, ranks, dev),
+                torch.randint(0, N, (B, len(ranks) - 1), generator=gen, dtype=torch.int32).to(dev))
+        out.append(("train", (lambda: K.qd_gather_tt_fused(*args)),
+                    (lambda: K.qd_gather_tt_plain(*args)), args))
+    else:
+        B, d, n = shape
+        args = (_qd_tables(d, n, dev),
+                torch.randint(0, n, (B, d), generator=gen, dtype=torch.int32).to(dev))
+        out.append(("rows", (lambda: K.ising_c_integrand_qd_fused(*args)),
+                    (lambda: K.ising_c_integrand_qd_plain(*args)), args))
+    return out
+
+
+_QD_TRAINS, _QD_TABLES = {}, {}
+
+
+def _qd_train(gen, N, ranks, dev):
+    """One random packed train per (N, ranks), shared by the shapes of a
+    group (so their plain versions run as one call)."""
+    import torch
+
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.tt.types import TT
+
+    key = (N, tuple(ranks))
+    if key not in _QD_TRAINS:
+        d = len(ranks) - 1
+        _QD_TRAINS[key] = K.pack_tt(TT(tuple(
+            torch.randn((ranks[c], N, ranks[c + 1]), generator=gen, dtype=torch.float64).to(dev)
+            for c in range(d))))
+    return _QD_TRAINS[key]
+
+
+def _qd_tables(d, n, dev):
+    from ttcross_tpu_torch.apps import make_ising_qd
+
+    if (d, n) not in _QD_TABLES:
+        _QD_TABLES[d, n] = make_ising_qd(m=d + 1, n=n, device=dev)[1].tables
+    return _QD_TABLES[d, n]
+
+
+def _qd_parts(r):
+    from ttcross_tpu_torch.ops.qd import QD
+
+    if isinstance(r, QD):
+        return list(r)
+    return [p for x in r for p in (_qd_parts(x) if isinstance(x, tuple) else [x])]
+
+
+def _qd_group(name, shape):
+    """Shapes whose plain versions run as one call: the per-output
+    arithmetic depends on T (and Q4's mode), Q3's train, Q1's table."""
+    if name == "qd_score_residual_argmax":
+        return shape[1]
+    if name == "qd_dot":
+        return shape[2:]
+    if name == "qd_gather_tt_fused":
+        return shape[1:]
+    return shape[1:]
+
+
+def _qd_plain_of_group(name, calls):
+    """The plain version over every call of a group at once, split back per
+    call: the outputs are elementwise in the rows (Q2, Q3, Q1) or the
+    outputs (Q4), so each equals the plain version of its own call bit for
+    bit.  calls: the argument tuples.  Returns one plain result per call."""
+    import torch
+
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.ops.qd import QD
+
+    def cat(parts):
+        return QD(*(torch.cat([p[k].contiguous().reshape(-1, *p[k].shape[len(p[k].shape) - 1:])
+                               if p[k].dim() > 1 else p[k].reshape(-1) for p in parts])
+                    for k in range(4)))
+
+    if name == "qd_score_residual_argmax":
+        sizes = [a[1][0].shape[0] for a in calls]
+        r, _ = K.qd_score_residual_argmax_plain(cat([a[0] for a in calls]), cat([a[1] for a in calls]),
+                                                cat([a[2] for a in calls]))
+        out = []
+        for part in zip(*(e.split(sizes) for e in r)):
+            q = QD(*part)
+            out.append((q, torch.argmax(q.e0.abs())))
+        return out
+    if name == "qd_dot":
+        T, tree = calls[0][0][0].shape[2], calls[0][2]
+        flat = [(QD(*(e.reshape(-1, 1, T) for e in x)), QD(*(e.reshape(-1, 1, T) for e in y)))
+                for x, y, _ in calls]
+        sizes = [f[0][0].shape[0] for f in flat]
+        r = K.qd_dot_plain(QD(*(torch.cat([f[0][k].contiguous() for f in flat]) for k in range(4))),
+                           QD(*(torch.cat([f[1][k].contiguous() for f in flat]) for k in range(4))),
+                           tree)
+        return [QD(*(e.reshape(x[0].shape[:2]) for e in part))
+                for part, (x, _, _) in zip(zip(*(e.reshape(-1).split(sizes) for e in r)), calls)]
+    sizes = [a[1].shape[0] for a in calls]
+    ind = torch.cat([a[1] for a in calls])
+    r = (K.qd_gather_tt_plain(calls[0][0], ind) if name == "qd_gather_tt_fused"
+         else K.ising_c_integrand_qd_plain(calls[0][0], ind))
+    return [QD(*part) for part in zip(*(e.split(sizes) for e in r))]
+
+
+def hold_qd_shapes(dev, gen, shapes, held, checked) -> None:
+    """Phase 17's kernel check: every qd kernel at every shape a run launched
+    it at, in each layout the qd tier gives it there (_qd_cases), bit for
+    bit against its plain version on the card (all four limbs, and Q2's
+    index).  The plain versions of the shapes of a group (_qd_group) run as
+    one call (_qd_plain_of_group): a qd plain version is some hundreds of
+    launches per qd operation whatever the shape.  Each shape's row
+    (max_abs_err over its layouts, 0 when bit-equal) joins `checked` and
+    `held`.  Times: time_qd_row."""
+    import torch
+
+    for name in QD_KERNELS:
+        groups = {}
+        for shape in sorted(set(shapes.get(name, {})) - held[name], key=str):
+            groups.setdefault(_qd_group(name, shape), []).append(shape)
+        for group in groups.values():
+            calls = []     # (shape, label, kernel result, arguments)
+            for shape in group:
+                for label, fn, _, args in _qd_cases(dev, gen, name, shape):
+                    calls.append((shape, label, fn(), args))
+            wants = _qd_plain_of_group(name, [c[3] for c in calls])
+            torch.cuda.synchronize()
+            errs = {}
+            for (shape, label, got, _), want in zip(calls, wants):
+                got, want = _qd_parts(got), _qd_parts(want)
+                if not all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(got, want)):
+                    raise AssertionError(f"{name} {shape} ({label}): not bit-equal to its plain "
+                                         "version")
+                errs[shape] = max([errs.get(shape, 0.0)] + [
+                    float((a.double() - b.double()).abs().max()) for a, b in zip(got, want)])
+            for shape in group:
+                bound, by = _qd_bound(name, shape)
+                checked[name][tuple(shape)] = {"kernel": name, "shape": list(shape),
+                                               "max_abs_err": errs[shape], "bound_us": bound,
+                                               "bound_by": by}
+                held[name].add(tuple(shape))
+
+
+def time_qd_row(dev, gen, name, shape, row) -> dict:
+    """The times of a held qd kernel's shape (first layout): device µs per
+    call and the kernel's own µs (torch.profiler, each device operation at
+    its mean per recorded launch), the kernels per call the profiler
+    recorded, CUDA-event ms of kernel and plain, the plain version's device
+    µs, host µs per wrapper call; the bound's share.  Added to `row` once."""
+    if "ms" in row:
+        return row
+    _, fn, plain, _ = _qd_cases(dev, gen, name, shape)[0]
+    calls = 20
+    for _ in range(10):      # a window may record none of the kernel's launches: profile again
+        dev_k = device_per_call(fn, calls=calls)
+        own = [v for k, v in dev_k["by_kernel"].items() if QD_KERNEL_SYMBOLS[name] in k]
+        if own:
+            break
+    own_per_call = sum(c for _, c in own) / calls
+    if not 0 < own_per_call <= 1:
+        raise AssertionError(f"{name} {shape}: {own_per_call} launches of "
+                             f"{QD_KERNEL_SYMBOLS[name]} per call (one is the design)")
+    # each device operation of a call (the kernel; Q2's scratch zeroing too) at its mean over
+    # the launches the profiler recorded, which now and then are fewer than the calls
+    device_us = sum(t / c for t, c in dev_k["by_kernel"].values())
+    dev_p = device_per_call(plain, calls=2)
+    row.update(ms=_time_ms(fn, reps=10), plain_ms=_time_ms(plain, reps=3), library_ms=None,
+               device_us=device_us, kernels_per_call=dev_k["kernels_per_call"],
+               kernel_us=sum(t for t, _ in own) / sum(c for _, c in own),
+               device_ops_us={k[:48]: t / c for k, (t, c) in dev_k["by_kernel"].items()},
+               plain_device_us=dev_p["device_us"],
+               plain_kernels_per_call=dev_p["kernels_per_call"],
+               share_of_bound=row["bound_us"] / device_us,
+               host_us_per_call=host_us_per_call(fn, calls=100))
+    _emit({"phase": "qd_kernel", **row})
+    return row
+
+
+def _qd_digits(limbs, truth: str) -> float:
+    from decimal import Decimal, localcontext
+
+    from ttcross_tpu_torch.ops.qd import qd_to_mp
+
+    with localcontext() as ctx:
+        ctx.prec = 80
+        rel = abs(1 - qd_to_mp(*limbs) / Decimal(truth))
+        return float(-rel.log10()) if rel != 0 else 80.0
+
+
+def _qd_rel(a, b) -> float:
+    from decimal import localcontext
+
+    from ttcross_tpu_torch.ops.qd import qd_to_mp
+
+    with localcontext() as ctx:
+        ctx.prec = 80
+        x, y = qd_to_mp(*a), qd_to_mp(*b)
+        return float(abs(x - y) / abs(y)) if y != 0 else float(abs(x))
+
+
+def _pi_squared() -> str:
+    """pi^2 = pi^(d/2) at d = 4, the product Gaussian's truth, as a string
+    at 70 digits."""
+    from decimal import Decimal, localcontext
+
+    from ttcross_tpu_torch.apps import TPI_STR
+
+    with localcontext() as ctx:
+        ctx.prec = 70
+        return str((Decimal(TPI_STR) / 2) ** 2)
+
+
+def _limbs(x) -> list:
+    return [float(e) for e in x]
+
+
+def run_qd_c4(dev, **cfg):
+    """One cross_qd on make_ising_qd(m, n) at `max_rank`, rook, seed 0, on
+    `dev`: (result, wall, launches, by shape)."""
+    import torch
+
+    from ttcross_tpu_torch.apps import ISING_C_STR, make_ising_qd
+    from ttcross_tpu_torch.cross import cross_qd
+    from ttcross_tpu_torch.ops import kernels as K
+
+    prob, fun_qd, wq = make_ising_qd(m=cfg["m"], n=cfg["n"], device=dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cross_qd(fun_qd, [prob.n] * prob.d, max_rank=cfg["max_rank"], pivoting=1, quad=wq,
+                   truth=ISING_C_STR[cfg["m"]], seed=0, device=dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, K.launch_counts(), K.launch_shapes()
+
+
+def _vip_of(monkey_mod):
+    """Record the QdEngine each cross_qd builds (its pivot chains)."""
+    seen = []
+    base = monkey_mod.QdEngine
+
+    class Recorded(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen.append(self)
+
+    monkey_mod.QdEngine = Recorded
+    return seen, base
+
+
+def run_qd_parallel(device):
+    """cross_qd_parallel at QD_PAR through the hub, as cross_qd_parallel
+    calls it, with the workers' reports: the result, wall, every worker's
+    vip, launches by shape (workers and parent merged) and host reads."""
+    import torch
+
+    from ttcross_tpu_torch.apps import ISING_C_STR, make_ising_qd
+    from ttcross_tpu_torch.cross.engine_qd import QD_DPS
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.parallel._hub import run_hub
+    from ttcross_tpu_torch.parallel.engine_qd import _QdAdapter
+
+    prob, fun_qd, wq = make_ising_qd(m=QD_PAR["m"], n=QD_PAR["n"], device=device)
+    reports = []
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_hub(_QdAdapter(None, -7.0, device), fun_qd, [prob.n] * prob.d, QD_PAR["max_rank"],
+                  1, wq, ISING_C_STR[4], -QD_DPS + 4, 8, 0, False, QD_PAR["n_workers"], None,
+                  name="cross_qd_parallel", timeout=600.0, reports=reports)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shapes = _merge_shapes([K.launch_shapes()] + [e["shapes"] for e in reports])
+    return res, wall, [e["vip"] for e in reports], shapes, sum(e["host_reads"] for e in reports)
+
+
+def _dyadic_case(dev):
+    """tests/test_refine.py's exact-rank case, on the port: a (2, 2) train
+    of dyadic rationals at d = 3, n = 5, its dense tensor and the exact
+    quadrature against weights 1/8."""
+    from fractions import Fraction
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(31)
+    cores = [np.round(rng.standard_normal((r1, 5, r2)) * 16) / 16
+             for (r1, r2) in [(1, 2), (2, 2), (2, 1)]]
+    dense = np.einsum("aib,bjc,ckd->ijk", *cores)
+    exact = sum((Fraction(float(dense[idx])) * Fraction(1, 8) ** 3
+                 for idx in np.ndindex(*dense.shape)), Fraction(0))
+    table = torch.from_numpy(dense).to(dev)
+
+    def fun(ind):
+        i = ind.long()
+        return table[i[:, 0], i[:, 1], i[:, 2]]
+
+    def fun_dd(ind):
+        v = fun(ind)
+        return v, torch.zeros_like(v)
+
+    return fun, fun_dd, exact
+
+
+def check_refine(dev) -> dict:
+    """refine_dd on the JAX package's two test cases, on the card: the
+    exact-rank dyadic tensor against exact rationals (QD_REFINE_ABS), and
+    stdnorm d = 4 at n = 101 on [-8.5, 8.5] (>= QD_REFINE_DIGITS)."""
+    from decimal import Decimal, localcontext
+    from fractions import Fraction
+
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_stdnorm
+    from ttcross_tpu_torch.apps.stdnorm import StdnormDD
+    from ttcross_tpu_torch.cross import cross, refine_dd
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.ops.dd import DD, dd, dd_mul
+    from ttcross_tpu_torch.ops.quadrature import gauss_legendre_dd
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    fun, fun_dd, exact = _dyadic_case(dev)
+    res = cross(fun, [5] * 3, max_rank=3, pivoting=1, accuracy=1e-12, return_state=True,
+                device=dev)
+    hi, lo, neval = refine_dd(res.state, [5] * 3, fun_dd, [np.full(5, 0.125)] * 3, device=dev)
+    err = abs(float(Fraction(hi) + Fraction(lo) - exact))
+    (xh, xl), (wh, wl) = gauss_legendre_dd(101)
+    X = dd_mul(DD(torch.from_numpy(xh), torch.from_numpy(xl)), dd(8.5))
+    W = dd_mul(DD(torch.from_numpy(wh), torch.from_numpy(wl)), dd(8.5))
+    prob = make_stdnorm(d=4, n=101, a=-8.5, b=8.5, device=dev)
+    sres = cross(prob.fun, [101] * 4, max_rank=4, pivoting=1, accuracy=25e-16, return_state=True,
+                 device=dev)
+    shi, slo, sneval = refine_dd(sres.state, [101] * 4, StdnormDD(X, dev), [W.hi.numpy()] * 4,
+                                 [W.lo.numpy()] * 4, device=dev)
+    torch.cuda.synchronize()
+    with localcontext() as ctx:
+        ctx.prec = 70
+        rel = abs(1 - (Decimal(shi) + Decimal(slo)) / Decimal(_pi_squared()))
+        digits = float(-rel.log10()) if rel != 0 else 70.0
+    row = {"phase": "qd_refine", "config": "refine_dd: exact-rank dyadic d=3 n=5 rank 3; stdnorm "
+           "d=4 n=101 [-8.5, 8.5] rank 4", "dyadic_abs_err": err, "dyadic_n_evals": neval,
+           "stdnorm_digits": digits, "stdnorm_n_evals": sneval, "wall_s": time.perf_counter() - t0,
+           "launches": K.launch_counts()}
+    _emit(row)
+    if not err < QD_REFINE_ABS or digits < QD_REFINE_DIGITS:
+        raise AssertionError(f"refine_dd: dyadic error {err}, stdnorm digits {digits}")
+    return K.launch_shapes()
+
+
+def check_small_qd_against_cpu(dev) -> dict:
+    """cross_qd at QD_SMALL on the card and on the CPU with the same seed:
+    vip, ranks, n_evals and sweeps equal, the value within QD_SMALL_RTOL
+    (and whether its limbs are bit-equal)."""
+    import ttcross_tpu_torch.cross.engine_qd as E
+
+    out = {}
+    for where in (dev, "cpu"):
+        seen, base = _vip_of(E)
+        try:
+            out[str(where)] = (run_qd_c4(where, **QD_SMALL)[0], seen[0].vip)
+        finally:
+            E.QdEngine = base
+    (card, cvip), (cpu, pvip) = out[str(dev)], out["cpu"]
+    rel = _qd_rel(_limbs(card.value), _limbs(cpu.value))
+    same = (cvip == pvip and card.ranks == cpu.ranks and card.neval == cpu.neval
+            and card.sweeps == cpu.sweeps)
+    row = {"phase": "qd_small_vs_cpu", "config": "cross_qd C_4 n=17 rank 10 seed 0",
+           "card": _limbs(card.value), "cpu": _limbs(cpu.value), "ranks": list(card.ranks),
+           "n_evals": card.neval, "sweeps": card.sweeps, "equal": same, "rel": rel,
+           "bit_equal": _limbs(card.value) == _limbs(cpu.value)}
+    _emit(row)
+    if not same or rel > QD_SMALL_RTOL:
+        raise AssertionError(f"the card's cross_qd differs from the CPU's: {row}")
+    return row
+
+
+def check_qd(dev, gen, held, checked, profile=False):
+    """Phase 17: the qd tier.  (1) cross_qd at QD_C4 (digits >= QD_C4_FLOOR;
+    wall, n_evals, sweeps, launches, host reads per bond visit; one
+    profiled run for the card's busy share); (2) bench.py's
+    stdnorm_d4_qd_engine (ranks 1, QD_STDNORM_EVALS evaluations, >=
+    QD_STDNORM_DIGITS); (3) cross_defect_corrected_qd at QD_DEFECT (>=
+    QD_DEFECT_FLOOR); (4) cross_qd_parallel with 2 workers on the card at
+    QD_PAR, equal to 2 workers on the CPU (vip, ranks, n_evals; value within
+    QD_PAR_RTOL); (5) refine_dd on the two JAX test cases; (6) a small
+    cross_qd against the CPU.  Every qd kernel held bit for bit at every
+    shape these runs launched it at (hold_qd_shapes), the f64 kernels of
+    the defect's and refine's crosses at theirs.  Returns [(path label,
+    launches by shape, the kernels it must launch)]."""
+    import torch
+
+    from ttcross_tpu_torch.apps import ISING_C_STR, make_ising_qd, make_stdnorm_qd
+    from ttcross_tpu_torch.cross import cross_defect_corrected_qd, cross_qd
+    from ttcross_tpu_torch.ops import kernels as K
+
+    paths = []
+    t_phase = time.perf_counter()
+
+    def hold(label, shapes, everywhere=False):
+        t0 = time.perf_counter()
+        if everywhere:
+            _held_everywhere(dev, gen, held, checked, label, shapes)
+        else:
+            hold_qd_shapes(dev, gen, shapes, held, checked)
+        _emit({"phase": "qd_hold", "path": label, "seconds": time.perf_counter() - t0,
+               "shapes": {k: len(v) for k, v in shapes.items() if v},
+               "phase_elapsed_s": time.perf_counter() - t_phase})
+
+    # 1. C_4 at n = 65, rank 55
+    res, wall, counts, shapes = run_qd_c4(dev, **QD_C4)
+    digits = _qd_digits(_limbs(res.value), ISING_C_STR[4])
+    visits = res.sweeps * (QD_C4["m"] - 2)
+    row = {"phase": "qd", "config": "cross_qd C_4 n=65 rank 55 pivoting=1 seed 0",
+           "digits": digits, "floor": QD_C4_FLOOR, "value": _limbs(res.value),
+           "n_evals": res.neval, "sweeps": res.sweeps, "ranks": list(res.ranks), "wall_s": wall,
+           "launches": counts, "host_reads": res.history[-1]["host_reads"],
+           "host_reads_per_bond_visit": res.history[-1]["host_reads"] / visits}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_qd_c4(dev, **QD_C4)
+            pwall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+        busy = sum(_device_us(e) for e in kern) * 1e-6
+        row.update(profiled_wall_s=pwall, device_busy_s=busy, device_busy_share=busy / pwall,
+                   device_launches=sum(e.count for e in kern),
+                   top=[[e.key[:60], e.count, _device_us(e)] for e in
+                        sorted(kern, key=_device_us, reverse=True)[:8]])
+    _emit(row)
+    if digits < QD_C4_FLOOR or not all(math.isfinite(v) for v in row["value"]):
+        raise AssertionError(f"cross_qd C_4 n=65 rank 55: {digits} digits < {QD_C4_FLOOR}")
+    hold("qd cross_qd", shapes)
+    paths.append(("qd cross_qd C_4 n=65 rank 55", shapes, QD_PATH_KERNELS["cross_qd"]))
+
+    # 2. stdnorm d = 4, n = 201, rank 4
+    prob, fun_qd, wq = make_stdnorm_qd(d=QD_STDNORM["d"], n=QD_STDNORM["n"], device=dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    sres = cross_qd(fun_qd, [prob.n] * prob.d, max_rank=QD_STDNORM["max_rank"], quad=wq,
+                    device=dev)
+    torch.cuda.synchronize()
+    sdig = _qd_digits(_limbs(sres.value), _pi_squared())
+    srow = {"phase": "qd", "config": "stdnorm_d4_qd_engine: make_stdnorm_qd(d=4, n=201) rank 4",
+            "digits": sdig, "n_evals": sres.neval, "ranks": list(sres.ranks),
+            "sweeps": sres.sweeps, "wall_s": time.perf_counter() - t0,
+            "launches": K.launch_counts()}
+    _emit(srow)
+    sshapes = K.launch_shapes()
+    if (sres.ranks != (1,) * 5 or sres.neval != QD_STDNORM_EVALS
+            or sdig < QD_STDNORM_DIGITS):
+        raise AssertionError(f"stdnorm_d4_qd_engine: {srow}")
+    hold("qd stdnorm", sshapes)
+    paths.append(("qd stdnorm_d4_qd_engine", sshapes, QD_PATH_KERNELS["stdnorm"]))
+
+    # 3. the qd defect pipeline at drivers/crs_ising_qd.py's defaults
+    prob, fun_qd, wq = make_ising_qd(m=QD_DEFECT["m"], n=QD_DEFECT["n"], device=dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    limbs, info = cross_defect_corrected_qd(prob.fun, fun_qd, [prob.n] * prob.d, wq,
+                                            max_rank=QD_DEFECT["max_rank"],
+                                            max_rank2=QD_DEFECT["max_rank2"],
+                                            levels=QD_DEFECT["levels"], device=dev)
+    torch.cuda.synchronize()
+    ddig = _qd_digits(limbs, ISING_C_STR[4])
+    dshapes = K.launch_shapes()
+    _emit({"phase": "qd", "config": "cross_defect_corrected_qd C_4 n=33 ranks 16 / 33 levels 3",
+           "digits": ddig, "floor": QD_DEFECT_FLOOR, "limbs": list(limbs),
+           "n_evals": info["nevals"], "ranks": [list(r) for r in info["ranks"]],
+           "wall_s": time.perf_counter() - t0, "launches": K.launch_counts(),
+           "launches_by_shape": _by_shape(dshapes)})
+    if ddig < QD_DEFECT_FLOOR:
+        raise AssertionError(f"cross_defect_corrected_qd: {ddig} digits < {QD_DEFECT_FLOOR}")
+    hold("qd defect", dshapes, everywhere=True)
+    paths.append(("qd cross_defect_corrected_qd C_4 n=33", dshapes, QD_PATH_KERNELS["defect"]))
+
+    # 4. cross_qd_parallel, 2 workers on the card against 2 on the CPU
+    pres, pwall, pvips, pshapes, preads = run_qd_parallel(str(dev))
+    cres, cwall, cvips, _, _ = run_qd_parallel("cpu")
+    prel = _qd_rel(_limbs(pres.value), _limbs(cres.value))
+    same = (pvips[0] == cvips[0] and all(v == pvips[0] for v in pvips + cvips)
+            and pres.ranks == cres.ranks and pres.neval == cres.neval)
+    _emit({"phase": "qd_parallel", "config": "cross_qd_parallel C_4 n=65 rank 33, 2 workers",
+           "digits": _qd_digits(_limbs(pres.value), ISING_C_STR[4]), "n_evals": pres.neval,
+           "sweeps": pres.sweeps, "ranks": list(pres.ranks), "wall_s": pwall, "cpu_wall_s": cwall,
+           "equals_cpu": same, "rel_cpu": prel, "host_reads": preads,
+           "bit_equal_cpu": _limbs(pres.value) == _limbs(cres.value),
+           "launches_by_shape": _by_shape(pshapes)})
+    if not same or prel > QD_PAR_RTOL:
+        raise AssertionError("cross_qd_parallel: 2 workers on the card differ from 2 on the CPU")
+    hold("qd parallel", pshapes)
+    paths.append(("qd cross_qd_parallel 2 workers", pshapes, QD_PATH_KERNELS["cross_qd"]))
+
+    # 5. refine_dd
+    rshapes = check_refine(dev)
+    hold("qd refine", rshapes, everywhere=True)
+    paths.append(("qd refine_dd", rshapes, QD_PATH_KERNELS["refine"]))
+
+    # 6. the small cross_qd against the CPU
+    check_small_qd_against_cpu(dev)
+    return paths
+
+
 def profile_run(label: str, run) -> None:
     """torch.profiler over one steady run (run() returns a tuple that
     starts with the result): kernel time by name, the device's busy share
@@ -2731,6 +3366,9 @@ def profile_run(label: str, run) -> None:
            "kernel_launches_per_sweep": sum(e.count for e in kernels) / res.sweeps,
            "top": [[e.key[:80], e.count, _device_us(e)] for e in
                    sorted(kernels, key=_device_us, reverse=True)[:15]]})
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -2780,6 +3418,7 @@ def main() -> int:
                [("score_residual_argmax", a_rows), ("score_residual_argmax_batched", ab_rows),
                 ("small_table_lookup", b_rows), ("ising_integrand_fused", i_rows)]}
     checked.update({name: {} for name in DD_KERNELS})   # held by phase 15 at its runs' shapes
+    checked.update({name: {} for name in QD_KERNELS})   # held by phase 17 at its runs' shapes
     held = {name: set(by) for name, by in checked.items()}
     args = sys.argv[1:]
     if "--parent" in args:
@@ -2856,6 +3495,11 @@ def main() -> int:
     new_runs += [(path, shapes) for path, shapes, _ in dd_paths]
     par_paths = check_parallel(dev, gen, held, checked)
     new_runs += [(path, shapes) for path, shapes, _ in par_paths]
+    t17 = time.perf_counter()
+    qd_paths = check_qd(dev, gen, held, checked, profile=True)
+    _emit({"phase": "qd_done", "seconds": time.perf_counter() - t17,
+           "script_elapsed_s": time.perf_counter() - T_START})
+    new_runs += [(path, shapes) for path, shapes, _ in qd_paths]
     if "--profile" in args:
         for name in ("c4_n65_r32", "c6_n65_r48"):
             profile_run(f"dd {name}", lambda name=name: run_dd(dev, name))
@@ -2868,6 +3512,26 @@ def main() -> int:
     entries = []
     for path, by_kernel in [("C_6 headline", shapes), ("C_256 long chain", lc_shapes)] + mvn_runs + new_runs:
         for name, by in sorted(by_kernel.items()):
+            if name in QD_KERNELS and by:
+                # the qd tier launches at hundreds of shapes (the ranks grow
+                # sweep by sweep): one entry per (kernel, path), every shape
+                # held bit for bit (max_abs_err over them), times and bound
+                # at the shape that holds most of the path's work (launches
+                # times the bound)
+                shape = max(by, key=lambda sh: (by[sh] * checked[name][sh]["bound_us"], str(sh)))
+                row = time_qd_row(dev, gen, name, shape, checked[name][shape])
+                entries.append({
+                    "name": name, "route": "cuda", "source": QD_KERNEL_SOURCE, "dtype": "qd",
+                    "replaces": KERNEL_REPLACES[name], "path": path, "shape": row["shape"],
+                    "shapes_on_path": len(by), "launches": sum(by.values()),
+                    "launches_at_shape": by[shape],
+                    "bound_ms_on_path": sum(by[sh] * checked[name][sh]["bound_us"]
+                                            for sh in by) * 1e-3,
+                    "max_abs_err": max(checked[name][sh]["max_abs_err"] for sh in by),
+                    "ms": row["ms"], "plain_ms": row["plain_ms"],
+                    "device_ms": row["device_us"] * 1e-3, "bound_ms": row["bound_us"] * 1e-3,
+                    "bound_by": row["bound_by"], "library_ms": None})
+                continue
             for shape, count in sorted(by.items()):
                 row = checked[name][shape]
                 f32 = shape[-1] == "f32"
@@ -2893,6 +3557,7 @@ def main() -> int:
                                             ("mvn_d6 f32", [k + "_f32" for k in MVN_KERNELS])]
                                            + [(path, need) for path, _, need in dd_paths]
                                            + [(path, need) for path, _, need in par_paths]
+                                           + [(path, need) for path, _, need in qd_paths]
                for k in need if not any(e["name"] == k and e["path"] == path and e["launches"] > 0
                                         for e in entries)}
     if missing:
@@ -2901,6 +3566,7 @@ def main() -> int:
                 if not any(sh[-1] == "f32" for sh in checked[k])}
     if unheld32:
         raise AssertionError(f"f32 instantiations that phase 3 did not hold: {sorted(unheld32)}")
+    _emit({"phase": "done", "script_elapsed_s": time.perf_counter() - T_START})
     print(smi, flush=True)
     _emit({"kernels": entries})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,6 +13,8 @@ torch = pytest.importorskip("torch")
 
 pytestmark = pytest.mark.cuda
 
+LANE_SWEEP_SEED = 0   # the lottery uniforms of test_a_lane_sweep_makes_no_host_sync
+
 
 @pytest.fixture
 def cuda_device():
@@ -38,7 +40,10 @@ def test_a_lane_sweep_makes_no_host_sync(piv, cuda_device):
                       small_pivot=sp)
     kit = make_engine(_lane_fun(fam.fun, fam.params), cfg, cuda_device, lanes=3)
     st = kit.init_fn()
-    U = torch.rand((2, 3, 3, 2, 2 * (6 + fam.n)), dtype=torch.float64, device=cuda_device)
+    ranks0 = st.rk[1:-1].sum(dim=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(LANE_SWEEP_SEED)
+    U = torch.rand((2, 3, 3, 2, 2 * (6 + fam.n)), dtype=torch.float64, device=cuda_device,
+                   generator=gen)
     live = torch.tensor([True, False, True], device=cuda_device)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -48,7 +53,10 @@ def test_a_lane_sweep_makes_no_host_sync(piv, cuda_device):
         st = kit.sweep_fn(st, 2, U[1], live=live)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert int(st.rk[1:-1, 0].min()) >= 2
+    # the live lanes accepted pivots (a bond may stay at rank 1 on these
+    # near-separable lanes: the lottery decides which)
+    grew = (st.rk[1:-1].sum(dim=0) > ranks0).tolist()
+    assert grew[0] and grew[2], (ranks0.tolist(), st.rk.tolist())
     for name, a, b in zip(lane(st, 1)._fields, lane(st, 1), lane(st._make(frozen), 1)):
         assert torch.equal(a, b), name
 
@@ -72,3 +80,21 @@ def test_a_kernel_refuses_a_vmapped_tensor_on_the_card(cuda_device):
     res = cross_batch(fam.fun, [fam.n] * 3, fam.params, max_rank=3, quad=[fam.quad_weights] * 3,
                       truth=1.0)
     assert all(r.tt.device.type == "cuda" and np.isfinite(r.values[-1]) for r in res)
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=. python tests/test_torch_cuda_batch.py: the lane sweep over
+    # the seeds 0-19 of its lottery uniforms (LANE_SWEEP_SEED), every
+    # pivoting; needs a CUDA device.
+    import sys
+
+    failed = []
+    for seed in range(20):
+        LANE_SWEEP_SEED = seed
+        for piv in (1, 0, -1):
+            try:
+                test_a_lane_sweep_makes_no_host_sync(piv, torch.device("cuda"))
+            except AssertionError as e:
+                failed.append((seed, piv, str(e)[:200]))
+    print("lane sweep, seeds 0-19 x pivoting (1, 0, -1): failed", failed)
+    sys.exit(1 if failed else 0)

@@ -188,7 +188,9 @@ def test_public_cross_runs_and_rejects_unported(problems):
     "cross.extract_skeleton", "cross.derive_host_fun", "apps.make_quantics",
     "apps.quantics_cross", "cross.cross_dd", "cross.cross_defect_corrected",
     "apps.make_ising_dd", "apps.make_stdnorm_dd", "parallel.cross_parallel",
-    "parallel.cross_dd_parallel", "parallel.maxvol_refine_parallel"])
+    "parallel.cross_dd_parallel", "parallel.maxvol_refine_parallel", "cross.cross_qd",
+    "cross.cross_defect_corrected_qd", "apps.make_ising_qd", "apps.make_stdnorm_qd",
+    "cross.refine_dd", "parallel.cross_qd_parallel"])
 def test_entry_points_default_to_the_card(entry):
     module, name = entry.split(".")
     entry = getattr(importlib.import_module("ttcross_tpu_torch." + module), name)
@@ -219,7 +221,9 @@ def test_port_imports_no_jax():
                 "ops.sampling", "tt.serialize", "utils.indexing", "utils.guards", "utils.printing",
                 "cross.batch", "cross.skeleton", "apps.quantics", "utils.cli", "ops.dd",
                 "cross.engine_dd", "cross.defect", "parallel", "parallel.mesh", "parallel.engine",
-                "parallel.engine_dd", "parallel.maxvol", "parallel.quad", "parallel.launch"):
+                "parallel.engine_dd", "parallel.maxvol", "parallel.quad", "parallel.launch",
+                "ops.qd", "cross.engine_qd", "cross.hostwalk", "cross.refine", "parallel._hub",
+                "parallel.engine_qd"):
         assert "ttcross_tpu_torch." + new in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -192,10 +192,24 @@ def test_cpu_wrappers_take_the_plain_path(rng):
     assert K.dd_gather_tt_fused(K.pack_tt(t), torch.zeros((4, 2), dtype=torch.int32)).hi.shape == (4,)
     tables = torch.from_numpy(np.abs(rng.normal(size=(4, 5))))
     assert K.ising_c_integrand_dd_fused(tables, torch.from_numpy(ind[:, :3])).hi.shape == (len(ind),)
+    # and the qd kernels' wrappers (csrc/qd_kernels.cu)
+    from ttcross_tpu_torch.ops.qd import QD
+
+    q = QD(x.hi, x.lo, x.lo, x.lo)
+    r, flat = K.qd_score_residual_argmax(QD(*(e[:, 0] for e in q)), q, q)
+    assert r.e0.shape == (6,) and 0 <= int(flat) < 6
+    assert K.qd_dot(QD(*(e[None] for e in q)), QD(*(e[None] for e in q)), True).e0.shape == (1, 6)
+    assert K.qd_dot(QD(*(e[None] for e in q)), QD(*(e[None] for e in q)), False).e0.shape == (1, 6)
+    assert K.qd_gather_tt_fused(K.pack_tt(t), torch.zeros((4, 2), dtype=torch.int32)).e0.shape == (4,)
+    qtables = torch.cat([tables[:1], torch.zeros(3, 5, dtype=torch.float64), tables[2:3],
+                         torch.zeros(3, 5, dtype=torch.float64)])
+    assert K.ising_c_integrand_qd_fused(qtables, torch.from_numpy(ind[:, :3])).e0.shape == (len(ind),)
     assert K.launch_counts() == {"score_residual_argmax": 0, "score_residual_argmax_batched": 0,
                                  "small_table_lookup": 0, "ising_integrand_fused": 0,
                                  "dd_score_residual_argmax": 0, "dd_dot": 0,
-                                 "dd_gather_tt_fused": 0, "ising_c_integrand_dd_fused": 0}
+                                 "dd_gather_tt_fused": 0, "ising_c_integrand_dd_fused": 0,
+                                 "qd_score_residual_argmax": 0, "qd_dot": 0,
+                                 "qd_gather_tt_fused": 0, "ising_c_integrand_qd_fused": 0}
     assert K.launch_shapes() == {name: {} for name in K.launch_counts()}
 
 

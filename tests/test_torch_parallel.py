@@ -20,8 +20,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ttcross_tpu_torch.cross.engine import _cross
-from ttcross_tpu_torch.parallel import (bond_mesh, cross_mp_parallel, cross_parallel,
-                                        cross_qd_parallel, share, spawn_ranks)
+from ttcross_tpu_torch.parallel import (bond_mesh, cross_mp_parallel, cross_parallel, share,
+                                        spawn_ranks)
 from ttcross_tpu_torch.parallel.engine import rank_uniforms, slab_bounds
 from ttcross_tpu_torch.tt.ops import full as pfull
 from ttcross_tpu_torch.tt.ops import gather as pgather
@@ -272,7 +272,7 @@ def test_share_and_surface():
     a, b = rank_uniforms(0, 0, 2, 3, 4), rank_uniforms(0, 1, 2, 3, 4)
     assert a.shape == (2, 3, 2, 4) and not torch.equal(a, b)
     assert torch.equal(a, rank_uniforms(0, 0, 2, 3, 4))
-    for f in (cross_qd_parallel, cross_mp_parallel):
+    for f in (cross_mp_parallel,):
         with pytest.raises(NotImplementedError, match="item 8"):
             f(None, [3, 3])
     with pytest.raises(RuntimeError, match="init_process_group"):

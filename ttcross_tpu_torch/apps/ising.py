@@ -19,12 +19,14 @@ import torch
 
 from ..cross.chain_eval import ChainSpec
 from ..ops.dd import DD, dd, dd_add, dd_mul
-from ..ops.kernels import (ISING_KINDS, ising_c_integrand_dd_fused, ising_integrand_fused,
-                           small_table_lookup)
-from ..ops.quadrature import gauss_legendre_dd, lgwt
+from ..ops.kernels import (ISING_KINDS, ising_c_integrand_dd_fused, ising_c_integrand_qd_fused,
+                           ising_integrand_fused, small_table_lookup)
+from ..ops.qd import QD, qd_from_mp
+from ..ops.quadrature import gauss_legendre_dd, gauss_legendre_decimal, lgwt
 
 __all__ = ["IsingProblem", "make_ising", "ising_integrand", "ising_integrand_np", "ising_c_chain",
-           "IsingDD", "ising_c_integrand_dd", "ising_dd_problem", "make_ising_dd"]
+           "IsingDD", "ising_c_integrand_dd", "ising_dd_problem", "make_ising_dd",
+           "IsingQD", "ising_c_integrand_qd", "make_ising_qd"]
 
 
 def ising_integrand(ind, tables, kind: str):
@@ -251,3 +253,81 @@ def make_ising_dd(m: int = 6, n: int = 65, device: str | torch.device = "cuda"):
     Xn = dd_mul(dd_add(DD(torch.from_numpy(xh), torch.from_numpy(xl)), dd(1.0)), half)
     Wn = dd_mul(DD(torch.from_numpy(wh), torch.from_numpy(wl)), dd(0.5 * float(n // 2)))
     return ising_dd_problem(Xn, Wn, m, device)
+
+
+# ------------------------------------------------------------- the qd tier
+def _qd_tables(nodes_qd, weights_qd) -> np.ndarray:
+    """(8, n) float64 host array: node limbs e0..e3, then weight limbs."""
+    return np.stack([np.asarray(torch.as_tensor(a).cpu(), np.float64)
+                     for a in (*nodes_qd, *weights_qd)])
+
+
+def ising_c_integrand_qd(ind, nodes_qd, weights_qd) -> QD:
+    """C-kind Ising integrand in quad-double arithmetic (~62 digits) on
+    ind's device: the telescoping prefix / suffix product sums as qd scans,
+    2 / (v w) by qd_div, then the weight product
+    (ttcross_tpu/apps/ising.py:246-278).  nodes_qd, weights_qd: QDs (or
+    4-tuples of arrays) of (n,) limbs.  On the card one launch of
+    ops/kernels.py::ising_c_integrand_qd_fused (Q1); on the CPU its plain
+    version.  Returns QD (B,)."""
+    tables = torch.from_numpy(_qd_tables(nodes_qd, weights_qd)).to(ind.device)
+    return ising_c_integrand_qd_fused(tables, ind)
+
+
+class IsingQD:
+    """fun_qd of the C-kind Ising problem, ind (B, d) int -> QD (B,): Q1 on
+    the card (its plain version on the CPU) over ``tables``, the (8, n) qd
+    nodes and weights on the problem's device.  A module-level class, so it
+    pickles (as host limbs and the device's name) into the spawned workers
+    of parallel/engine_qd.py::cross_qd_parallel, which place the tables
+    again on their own card."""
+
+    def __init__(self, limbs: np.ndarray, device):
+        self.limbs = np.ascontiguousarray(limbs, np.float64)
+        self.device = torch.device(device)
+        self.tables = torch.from_numpy(self.limbs).to(self.device)
+
+    def __getstate__(self):
+        return {"limbs": self.limbs, "device": str(self.device)}
+
+    def __setstate__(self, state):
+        self.__init__(state["limbs"], state["device"])
+
+    def __call__(self, ind) -> QD:
+        ind = torch.as_tensor(ind, device=self.device)
+        if ind.device.type == "cuda":
+            ind = ind.to(torch.int32)
+        return ising_c_integrand_qd_fused(self.tables, ind)
+
+
+def make_ising_qd(m: int = 6, n: int = 65, dps: int = 80, device: str | torch.device = "cuda"):
+    """Ising C_m problem with quad-double quadrature data: returns
+    (prob_f64, fun_qd, weights_qd) for cross_qd and the qd defect pipeline
+    (ttcross_tpu/apps/ising.py:281-323).  The rule is
+    ops/quadrature.py::gauss_legendre_decimal at dps + 20 digits, mapped to
+    [0, 1] and split into qd limbs at max(dps, 80) digits; the f64
+    problem's nodes and weights are the leading limbs, so its cross
+    approximates the same qd-sampled tensor to f64.  ``device`` places the
+    tables and the weights: the card unless the caller asks for
+    ``device="cpu"``."""
+    from decimal import Decimal, localcontext
+
+    from .truths import ising_truth
+
+    if n % 2 == 0:
+        n += 1
+    d = m - 1
+    x, w = gauss_legendre_decimal(n, dps + 20)
+    val = n // 2
+    with localcontext() as ctx:
+        ctx.prec = dps + 20
+        Xl = np.array([qd_from_mp((xi + 1) / 2) for xi in x])            # (n, 4)
+        Wl = np.array([qd_from_mp(wi * val / 2) for wi in w])
+        wq = qd_from_mp(Decimal(1) / val)
+    fun_qd = IsingQD(np.concatenate([Xl.T, Wl.T]), device)
+    quad_weights = np.full(n, 1.0 / val)    # 1/(n//2) is exact in f64
+    prob = IsingProblem(kind="C", m=m, d=d, n=n, nodes=np.ascontiguousarray(Xl[:, 0]),
+                        weights=np.ascontiguousarray(Wl[:, 0]), quad_weights=quad_weights,
+                        tables=_tables(Xl[:, 0], Wl[:, 0], device), truth=ising_truth("C", m))
+    weights_qd = [QD(*(torch.full((n,), c, dtype=torch.float64, device=device) for c in wq))] * d
+    return prob, fun_qd, weights_qd

@@ -15,10 +15,11 @@ import torch
 
 from ..ops.dd import DD, dd, dd_add, dd_exp, dd_mul, dd_neg, dd_sum
 from ..ops.dense import table_lookup
-from ..ops.quadrature import gauss_legendre_dd, lgwt, map_to_interval
+from ..ops.qd import QD, qd_exp, qd_from_mp, qd_mul, qd_neg, qd_sum
+from ..ops.quadrature import gauss_legendre_dd, gauss_legendre_decimal, lgwt, map_to_interval
 
 __all__ = ["StdnormProblem", "make_stdnorm", "StdnormDD", "stdnorm_integrand_dd",
-           "stdnorm_dd_problem", "make_stdnorm_dd"]
+           "stdnorm_dd_problem", "make_stdnorm_dd", "StdnormQD", "make_stdnorm_qd"]
 
 
 @dataclass(frozen=True)
@@ -106,3 +107,58 @@ def make_stdnorm_dd(d: int = 6, n: int = 65, a: float = -10.0, b: float = 10.0,
                 DD(mid.hi.expand(n), mid.lo.expand(n)))
     Wn = dd_mul(DD(torch.from_numpy(wh), torch.from_numpy(wl)), half_len)
     return stdnorm_dd_problem(Xn, Wn, d, device)
+
+
+# ------------------------------------------------------------- the qd tier
+class StdnormQD:
+    """fun_qd of the product-Gaussian problem, ind (B, d) int -> QD (B,):
+    exp(-sum x^2) in qd, the sum by qd_sum's tree and the exponential by
+    ops/qd.py::qd_exp, plain qd operations on the problem's device (no hand
+    kernel; ttcross_tpu/apps/stdnorm.py:117-122).  Pickles as host limbs and
+    the device's name."""
+
+    def __init__(self, limbs: np.ndarray, device):
+        self.limbs = np.ascontiguousarray(limbs, np.float64)
+        self.device = torch.device(device)
+        self.nodes = QD(*(torch.from_numpy(a).to(self.device) for a in self.limbs))
+
+    def __getstate__(self):
+        return {"limbs": self.limbs, "device": str(self.device)}
+
+    def __setstate__(self, state):
+        self.__init__(state["limbs"], state["device"])
+
+    def __call__(self, ind) -> QD:
+        i = torch.as_tensor(ind, device=self.device).long()
+        x = QD(*(e[i] for e in self.nodes))                       # (B, d)
+        return qd_exp(qd_neg(qd_sum(qd_mul(x, x), axis=1)))
+
+
+def make_stdnorm_qd(d: int = 4, n: int = 201, a: float = -12.5, b: float = 12.5, dps: int = 80,
+                    device: str | torch.device = "cuda"):
+    """stdnorm problem with quad-double quadrature data for the qd cross
+    engine: returns (prob_f64, fun_qd, weights_qd)
+    (ttcross_tpu/apps/stdnorm.py:86-124).  The box is wider than the
+    reference's [-10, 10]: int_{|x|>10} exp(-x^2) ~ 2e-45 would cap any rule
+    at ~44.7 digits, [-12.5, 12.5] pushes it to ~6e-70.  The rule is
+    ops/quadrature.py::gauss_legendre_decimal at dps + 20 digits, mapped to
+    [a, b] and split into qd limbs; ``device`` places the tables: the card
+    unless the caller asks for ``device="cpu"``."""
+    from decimal import Decimal, localcontext
+
+    if n % 2 == 0:
+        n += 1
+    x, w = gauss_legendre_decimal(n, dps + 20)
+    with localcontext() as ctx:
+        ctx.prec = dps + 20
+        hl = (Decimal(repr(b)) - Decimal(repr(a))) / 2
+        mid = (Decimal(repr(b)) + Decimal(repr(a))) / 2
+        Xl = np.array([qd_from_mp(hl * xi + mid) for xi in x])       # (n, 4)
+        Wl = np.array([qd_from_mp(wi * hl) for wi in w])
+    prob = StdnormProblem(d=d, n=n, nodes=np.ascontiguousarray(Xl[:, 0]),
+                          quad_weights=np.ascontiguousarray(Wl[:, 0]),
+                          truth=float(np.pi) ** (d / 2),
+                          table=torch.from_numpy(np.ascontiguousarray(Xl[:, 0])).to(device))
+    weights_qd = [QD(*(torch.from_numpy(np.ascontiguousarray(Wl[:, k])).to(device)
+                       for k in range(4)))] * d
+    return prob, StdnormQD(Xl.T, device), weights_qd

@@ -13,7 +13,8 @@ ttcross_tpu/apps/truths.py:316-407.
 
 from __future__ import annotations
 
-__all__ = ["ising_truth", "ISING_C_STR", "TPI_STR", "STDNORM", "MVN_MASS", "CHF_REFERENCE", "CHF_RHO05"]
+__all__ = ["ising_truth", "ising_truth_str", "ISING_C_STR", "ISING_DE_STR", "TPI_STR", "STDNORM",
+           "MVN_MASS", "CHF_REFERENCE", "CHF_RHO05"]
 
 TPI_STR = "6.283185307179586476925286766559005768394338798750211641949889184615632"
 TPI = float(TPI_STR)
@@ -37,12 +38,13 @@ ISING_C_STR = {
 }
 ISING_C = {m: float(v) for m, v in ISING_C_STR.items()}
 
-ISING_DE = {
-    ("D", 5): float("0.00248460576234031547995050915390974963506067764248751615870769216182"),
-    ("D", 6): float("0.00048914170018803477510066231535045603322055262753059988378760460832"),
-    ("E", 5): float("0.00349365371172952174068806727918425156963294495514131468369898233699"),
-    ("E", 6): float("0.00068783287182640943700478427369021070381480331032227271753389653967"),
+ISING_DE_STR = {
+    ("D", 5): "0.00248460576234031547995050915390974963506067764248751615870769216182",
+    ("D", 6): "0.00048914170018803477510066231535045603322055262753059988378760460832",
+    ("E", 5): "0.00349365371172952174068806727918425156963294495514131468369898233699",
+    ("E", 6): "0.00068783287182640943700478427369021070381480331032227271753389653967",
 }
+ISING_DE = {k: float(v) for k, v in ISING_DE_STR.items()}
 
 
 def ising_truth(kind: str, m: int) -> float:
@@ -68,6 +70,17 @@ def ising_truth(kind: str, m: int) -> float:
                     - 256.0 * LOG2**3 / 3.0 + 4.0 * TPI**2 * LOG2 - 11.0 * TPI**2 / 6.0)
         return ISING_DE[("E", m)]
     raise KeyError(f"unknown Ising integral kind: {kind}")
+
+
+def ising_truth_str(kind: str, m: int) -> str:
+    """The decimal string of a tabulated C_m, D_m or E_m (the qd tier
+    counts its digits against it); KeyError when it is not tabulated (the
+    JAX package's mpmath fallback for the small D / E closed forms belongs
+    to the mp tier)."""
+    kind = kind.upper()
+    if kind == "C":
+        return ISING_C_STR[m]
+    return ISING_DE_STR[(kind, m)]
 
 
 def STDNORM(d: int) -> float:

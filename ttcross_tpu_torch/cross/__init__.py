@@ -1,22 +1,28 @@
 """The cross engines of the port: the DMRG-greedy cross and its lane-batched
 family form, the alternating maxvol refinement, the frozen skeleton, the
-accuracy check, and the dd tier: the dd engine (cross_dd) and the
-defect-corrected cross (cross_defect_corrected)."""
+accuracy check, the dd tier: the dd engine (cross_dd) and the
+defect-corrected cross (cross_defect_corrected), and the qd tier: the qd
+engine (cross_qd), its defect-corrected cross (cross_defect_corrected_qd)
+and the extended-precision refinement of an f64 cross (refine_dd)."""
 
 from .accchk import accchk
 from .batch import BatchCrossResult, cross_batch, lane_batched, lane_key
-from .defect import cross_defect_corrected
+from .defect import cross_defect_corrected, cross_defect_corrected_qd
 from .engine import CrossConfig, CrossResult, cross, make_engine, round_and_revalue
 from .engine_dd import (DDConfig, DDCrossResult, DDKit, DDState, cross_dd, dd_quad_cores,
                         get_dd_engine)
+from .engine_qd import QD_DPS, QdCrossResult, QdEngine, cross_qd
+from .hostwalk import walk_index
 from .maxvol import cross_maxvol, masked_solve, maxvol_refine, maxvol_select
+from .refine import refine_dd
 from .skeleton import (Skeleton, derive_host_fun, extract_skeleton, reevaluate_host,
                        skeleton_tt_fn, skeleton_value_fn)
 from .state import CrossState, empty_state, pad_state
 
 __all__ = ["BatchCrossResult", "CrossConfig", "CrossResult", "CrossState", "DDConfig",
-           "DDCrossResult", "DDKit", "DDState", "Skeleton", "accchk",
-           "cross", "cross_batch", "cross_dd", "cross_defect_corrected", "cross_maxvol",
+           "DDCrossResult", "DDKit", "DDState", "QD_DPS", "QdCrossResult", "QdEngine", "Skeleton",
+           "accchk", "cross", "cross_batch", "cross_dd", "cross_defect_corrected",
+           "cross_defect_corrected_qd", "cross_maxvol", "cross_qd", "refine_dd", "walk_index",
            "dd_quad_cores", "derive_host_fun", "empty_state", "get_dd_engine",
            "extract_skeleton", "lane_batched", "lane_key", "make_engine", "masked_solve",
            "maxvol_refine", "maxvol_select", "pad_state", "reevaluate_host", "round_and_revalue",

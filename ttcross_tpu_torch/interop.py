@@ -19,11 +19,13 @@ from .apps.stdnorm import StdnormProblem
 from .cross.engine_dd import DDState
 from .cross.state import CrossState
 from .ops.dd import DD
+from .ops.qd import QD
 from .tt.types import TT
 
 __all__ = ["state_from_numpy", "chain_states_from_numpy", "tt_from_numpy",
            "ising_from_numpy", "mvn_from_numpy", "stdnorm_from_numpy",
-           "cos_from_numpy", "sets_from_numpy", "dd_pair_from_numpy", "dd_state_from_numpy"]
+           "cos_from_numpy", "sets_from_numpy", "dd_pair_from_numpy", "dd_state_from_numpy",
+           "qd_from_numpy", "qd_state_from_numpy"]
 
 _INT_FIELDS = {"rk": torch.int32, "vip": torch.int32,
                "neval": torch.int64, "padded": torch.int64, "sweeps": torch.int64}
@@ -126,3 +128,33 @@ def dd_state_from_numpy(arrays: Mapping, device) -> DDState:
             t = torch.from_numpy(np.array(arr, order="C"))
             fields[name] = t.to(_DD_INT_FIELDS.get(name, torch.float64)).to(device)
     return DDState(**fields)
+
+
+def qd_from_numpy(x, device) -> QD:
+    """A port QD of float64 tensors on `device` from a numpy-backed QD (the
+    JAX package's ops/qd.py QD, or any four limb arrays)."""
+    return QD(*(torch.from_numpy(np.array(e, dtype=np.float64, order="C")).to(device) for e in x))
+
+
+_QD_LIST_FIELDS = ("G", "Cf", "Rf", "itl", "itt")
+
+
+def qd_state_from_numpy(engine, state: Mapping, device=None):
+    """Carry a JAX QdEngine's state into a port QdEngine (cross/engine_qd.py)
+    built with the same integrand and settings: ``state`` maps vip, r, G,
+    Cf, Rf, itl, itt and log_amax (and, when present, log_pivotmax_prev,
+    neval and rng, the numpy Generator's bit_generator.state) to the JAX
+    engine's values, the qd fields as lists of numpy-backed QDs.  Returns
+    the engine, its qd state on `device` (the engine's by default)."""
+    dev = engine.device if device is None else torch.device(device)
+    engine.vip = [[tuple(int(v) for v in pv) for pv in bond] for bond in state["vip"]]
+    engine.r = [int(v) for v in state["r"]]
+    for name in _QD_LIST_FIELDS:
+        setattr(engine, name, [qd_from_numpy(x, dev) for x in state[name]])
+    engine.log_amax = float(state["log_amax"])
+    engine.log_pivotmax_prev = float(state.get("log_pivotmax_prev", engine.log_amax))
+    if "neval" in state:
+        engine.neval = int(state["neval"])
+    if "rng" in state:
+        engine.rng.bit_generator.state = state["rng"]
+    return engine

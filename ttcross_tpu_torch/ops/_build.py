@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (csrc/kernels.cu, csrc/dd_kernels.cu).
+"""Build and load the port's CUDA kernels (csrc/kernels.cu, csrc/dd_kernels.cu,
+csrc/qd_kernels.cu).
 
 The sources are compiled with nvcc for sm_90a, one nvcc per source, all
 started together, and their objects linked into one shared library with a
@@ -24,7 +25,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "kernels.cu",      # kernels A and B, the fused integrand
-           _PKG / "csrc" / "dd_kernels.cu")   # the dd tier's kernels
+           _PKG / "csrc" / "dd_kernels.cu",   # the dd tier's kernels
+           _PKG / "csrc" / "qd_kernels.cu")   # the qd tier's kernels
 BUILD_ROOT = _PKG.parent / "build" / "ttcross_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -33,6 +35,7 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _D = ctypes.c_double
+_PP = ctypes.POINTER(ctypes.c_void_p)   # a host array of the 4 limb pointers of a qd operand
 _SIGNATURES = {
     "ttc_configure": ([_I], _I),
     "ttc_score_residual_argmax": (
@@ -57,6 +60,14 @@ _SIGNATURES = {
     "ttd_threads": ([], _I),
     "ttd_cluster_max": ([], _I),
     "ttd_gather_rmax": ([], _I),
+    "ttq_score_residual_argmax": ([_PP, _PP, _PP, _LL, _I, _LL, _LL, _LL, _LL, _P, _P, _P], _I),
+    "ttq_dot": ([_PP, _PP, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P], _I),
+    "ttq_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _P, _I, _P], _I),
+    "ttq_ising_c_integrand": ([_P, _I, _P, _LL, _I, _P, _P], _I),
+    "ttq_threads": ([], _I),
+    "ttq_rows_threads": ([], _I),
+    "ttq_gather_rmax": ([], _I),
+    "ttq_tree_max": ([], _I),
 }
 
 

@@ -1,12 +1,14 @@
 """The port's hand-written CUDA kernels, their plain PyTorch versions and
 their launch counters: kernel A (the masked residual argmax), kernel B
 (the small-table lookup) and kernel B's redesign, the fused Ising
-integrand; and the dd tier's kernels (csrc/dd_kernels.cu): D1 the dd
+integrand; the dd tier's kernels (csrc/dd_kernels.cu): D1 the dd
 residual argmax, D2 the dd Ising integrand, D3 the dd train gather, D4 the
-small dd GEMM.
+small dd GEMM; and the qd tier's (csrc/qd_kernels.cu): Q1 the qd Ising
+integrand, Q2 the qd residual argmax, Q3 the qd train gather, Q4 the small
+qd product.
 
 Counterpart of ttcross_tpu/ops/pallas_kernels.py.  The CUDA sources are
-``csrc/kernels.cu`` and ``csrc/dd_kernels.cu`` (built into one library by
+``csrc/kernels.cu``, ``csrc/dd_kernels.cu`` and ``csrc/qd_kernels.cu`` (built into one library by
 ``ops/_build.py``).  Each wrapper routes a
 tensor that lies on the CPU to the plain version and a CUDA tensor to the
 kernel; on a CUDA tensor it launches the kernel or raises, never falling
@@ -21,6 +23,7 @@ call, an f32 launch's shape ending in "f32".
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -35,6 +38,9 @@ __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
            "dd_score_residual_argmax", "dd_score_residual_argmax_plain", "dd_dot", "dd_dot_plain",
            "dd_gather_tt_fused", "dd_gather_tt_plain", "PackedTT", "pack_tt",
            "ising_c_integrand_dd_fused", "ising_c_integrand_dd_plain",
+           "qd_score_residual_argmax", "qd_score_residual_argmax_plain", "qd_dot", "qd_dot_plain",
+           "qd_gather_tt_fused", "qd_gather_tt_plain", "ising_c_integrand_qd_fused",
+           "ising_c_integrand_qd_plain",
            "launch_counts", "launch_shapes", "reset_launch_counts"]
 
 _THREADS = 256             # kThreads: a block of kernel B
@@ -125,6 +131,9 @@ def _lib():
     if ((lib.ttd_threads(), lib.ttd_cluster_max(), lib.ttd_gather_rmax())
             != (_DD_THREADS, _DD_CLUSTER_MAX, _DD_GATHER_RMAX)):
         raise RuntimeError("the constants of csrc/dd_kernels.cu disagree with ops/kernels.py")
+    if ((lib.ttq_threads(), lib.ttq_rows_threads(), lib.ttq_gather_rmax(), lib.ttq_tree_max())
+            != (_QD_THREADS, _QD_ROWS_THREADS, _QD_GATHER_RMAX, _QD_TREE_MAX)):
+        raise RuntimeError("the constants of csrc/qd_kernels.cu disagree with ops/kernels.py")
     return lib
 
 
@@ -832,9 +841,265 @@ def ising_c_integrand_dd_fused(tables, ind):
 
 ising_c_integrand_dd_fused.launches = 0
 
+# ------------------------------------------------------------ the qd kernels
+# csrc/qd_kernels.cu, linked into the one library: Q1 the qd Ising integrand,
+# Q2 the qd residual argmax, Q3 the qd train gather, Q4 the small qd product.
+# Each computes in the operation order of ops/qd.py with intrinsics nvcc does
+# not contract, so it is bit for bit its plain version (the plain versions
+# below are ops/qd.py's functions, which the CPU tests hold against the JAX
+# package's numpy path).
+_QD_THREADS = 256          # kThreads: a block of Q2, Q3, Q4
+_QD_ROWS_THREADS = 128     # kRowsThreads: a block of Q1
+_QD_GATHER_RMAX = 64       # kGatherRMax: Q3 takes ranks up to this
+_QD_TREE_MAX = 1 << 16     # the pairwise tree's terms at most
+
+
+def _qd_mod():
+    from . import qd as qdm        # ops/qd.py imports this module
+    return qdm
+
+
+def _check_limbs(name, x, ndim, device) -> None:
+    """A qd operand on the card: four float64 limbs of one shape and one
+    layout (strides may be anything, a broadcast's 0 too)."""
+    if len(x) != 4:
+        raise ValueError(f"{name} must be a QD of 4 limbs")
+    for part in x:
+        if part.device != device:
+            raise ValueError(f"{name} must lie on {device}, got {part.device}")
+        if part.dtype != torch.float64:
+            raise TypeError(f"{name} must be float64 limbs, got {part.dtype}")
+        if part.dim() != ndim:
+            raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(part.shape)}")
+    if any(p.shape != x[0].shape or p.stride() != x[0].stride() for p in x[1:]):
+        raise ValueError(f"{name}'s limbs must share shape and strides")
+
+
+def _limb_ptrs(x):
+    return (ctypes.c_void_p * 4)(*(e.data_ptr() for e in x))
+
+
+def qd_score_residual_argmax_plain(vals, x, y):
+    """r = vals - qd_sum(qd_mul(x, y), axis=1) in qd (ops/qd.py's tree),
+    then the first maximum of |r.e0| (torch.argmax).  vals QD (B,), x and y
+    QD (B, T) of any strides, x the left factor.  Returns (r QD (B,), flat
+    int64 0-d)."""
+    qdm = _qd_mod()
+    r = qdm.qd_sub(qdm.QD(*vals), qdm.qd_sum(qdm.qd_mul(qdm.QD(*x), qdm.QD(*y)), axis=1))
+    return r, torch.argmax(r.e0.abs())
+
+
+def qd_score_residual_argmax(vals, x, y):
+    """Q2, the qd kernel A: qd_score_residual_argmax_plain in one launch.
+
+    The qd variant of ttcross_tpu/ops/pallas_kernels.py::
+    score_residual_argmax (:62-120), for the qd engine's lottery, rook
+    passes and accept (ttcross_tpu/cross/engine_qd.py:175-290).  On a CPU
+    tensor this is the plain version; on a CUDA tensor it launches
+    csrc/qd_kernels.cu's qd_score_kernel (a thread per row, the last block
+    reduces the blocks' best) and adds one to
+    ``qd_score_residual_argmax.launches``."""
+    qdm = _qd_mod()
+    if x[0].device.type == "cpu":
+        return qd_score_residual_argmax_plain(vals, x, y)
+    dev = x[0].device
+    _check_limbs("x", x, 2, dev)
+    _check_limbs("y", y, 2, dev)
+    B, T = x[0].shape
+    if tuple(y[0].shape) != (B, T):
+        raise ValueError(f"shape mismatch: x {tuple(x[0].shape)}, y {tuple(y[0].shape)}")
+    if B == 0 or T == 0 or T > _QD_TREE_MAX:
+        raise ValueError(f"qd_score_residual_argmax takes B >= 1 and 1 <= T <= {_QD_TREE_MAX}, "
+                         f"got ({B}, {T})")
+    _check_limbs("vals", vals, 1, dev)
+    if vals[0].shape[0] != B or not vals[0].is_contiguous():
+        raise ValueError(f"vals must be ({B},) contiguous, got {tuple(vals[0].shape)}")
+    blocks = -(-B // _QD_THREADS)
+    out = torch.empty((4, B), dtype=torch.float64, device=dev)
+    # the index, the blocks' best scores and indices, and the block counter:
+    # zeroed per call, so no state outlives a launch
+    words = torch.zeros(2 + 2 * blocks, dtype=torch.int64, device=dev)
+    rc = _call(dev, _lib().ttq_score_residual_argmax, _limb_ptrs(vals), _limb_ptrs(x),
+               _limb_ptrs(y), B, T, x[0].stride(0), x[0].stride(1), y[0].stride(0),
+               y[0].stride(1), out.data_ptr(), words.data_ptr())
+    _raise_on(rc, "qd_score_residual_argmax launch")
+    qd_score_residual_argmax.launches += 1
+    _SHAPES["qd_score_residual_argmax", (B, T)] += 1
+    return qdm.QD(out[0], out[1], out[2], out[3]), words[0]
+
+
+qd_score_residual_argmax.launches = 0
+
+
+def qd_dot_plain(x, y, tree: bool):
+    """out[i, j] = sum_t x[i, j, t] y[i, j, t] in qd: x and y QD (M, N, T)
+    of any strides, x the left factor; the sum by qd_sum's tree (tree=True,
+    qd_vdot_axis) or from term 0 by qd_add of each next term in order
+    (tree=False, qd_matmul's k-loop; zeros when T = 0) -> QD (M, N)."""
+    qdm = _qd_mod()
+    if tree:
+        return qdm.qd_sum(qdm.qd_mul(qdm.QD(*x), qdm.QD(*y)), axis=2)
+    M, N, T = x[0].shape
+    acc = None
+    for t in range(T):
+        term = qdm.qd_mul(qdm.QD(*(e[:, :, t] for e in x)), qdm.QD(*(e[:, :, t] for e in y)))
+        acc = term if acc is None else qdm.qd_add(acc, term)
+    return acc if acc is not None else qdm.qd_zeros((M, N), x[0].device)
+
+
+def qd_dot(x, y, tree: bool):
+    """Q4, the small qd product: qd_dot_plain in one launch.
+
+    x and y QD (M, N, T) views of any strides (a stride 0 broadcasts): A @
+    B is qd_dot(A[:, None, :] expanded over N, B.T[None] expanded over M,
+    tree=False).  It serves qd_matmul and qd_vdot_axis (ops/qd.py), so the
+    qd engine's apply_*_slice, solve_core, _extend_inverses and value chain,
+    qd_contract, qd_tt_value and refine_dd.  On a CPU tensor this is the
+    plain version; on a CUDA tensor it launches csrc/qd_kernels.cu's
+    qd_dot_kernel (a thread per output) and adds one to
+    ``qd_dot.launches``."""
+    qdm = _qd_mod()
+    if x[0].device.type == "cpu":
+        return qd_dot_plain(x, y, tree)
+    dev = x[0].device
+    _check_limbs("x", x, 3, dev)
+    _check_limbs("y", y, 3, dev)
+    M, N, T = x[0].shape
+    if tuple(y[0].shape) != (M, N, T):
+        raise ValueError(f"shape mismatch: x {tuple(x[0].shape)}, y {tuple(y[0].shape)}")
+    if M * N == 0 or T > _QD_TREE_MAX or (tree and T == 0):
+        raise ValueError(f"qd_dot takes a non-empty output and T <= {_QD_TREE_MAX} (T >= 1 for "
+                         f"the tree), got ({M}, {N}, {T})")
+    out = torch.empty((4, M, N), dtype=torch.float64, device=dev)
+    rc = _call(dev, _lib().ttq_dot, _limb_ptrs(x), _limb_ptrs(y), M, N, T, *x[0].stride(),
+               *y[0].stride(), int(tree), out.data_ptr())
+    _raise_on(rc, "qd_dot launch")
+    qd_dot.launches += 1
+    _SHAPES["qd_dot", (M, N, T, "tree" if tree else "seq")] += 1
+    return qdm.QD(out[0], out[1], out[2], out[3])
+
+
+qd_dot.launches = 0
+
+
+def qd_gather_tt_plain(tt: PackedTT, ind):
+    """ops/qd.py::qd_gather_tt of the packed train: each core's active block."""
+    r = tt.ranks
+    cores = tuple(tt.cores[c, : r[c], : tt.n[c], : r[c + 1]] for c in range(len(tt.n)))
+    return _qd_mod()._qd_gather_tt_plain(cores, ind)
+
+
+def qd_gather_tt_fused(tt: PackedTT, ind):
+    """Q3: the f64 train evaluated at (B, d) int32 indices with qd
+    accumulation, QD (B,), in one launch.
+
+    The qd defect integrand's train gather (ttcross_tpu/cross/defect.py:
+    164-173, ops/qd.py:384-403).  On a CPU tensor this is
+    qd_gather_tt_plain; on a CUDA tensor it launches csrc/qd_kernels.cu's
+    qd_gather_tt_kernel (W = the ranks rounded up to 32 threads per row) and
+    adds one to ``qd_gather_tt_fused.launches``."""
+    qdm = _qd_mod()
+    if ind.device.type == "cpu":
+        return qd_gather_tt_plain(tt, ind)
+    dev = ind.device
+    _check_cuda("ind", ind, _I32, 2, dev)
+    _check_cuda("cores", tt.cores, _F64, 4, dev)
+    _check_cuda("ranks", tt.ranks_t, _I32, 1, dev)
+    d, R, N, _ = tt.cores.shape
+    B = ind.shape[0]
+    if ind.shape[1] != d:
+        raise ValueError(f"ind must be (B, {d}), got {tuple(ind.shape)}")
+    W = -(-R // 32) * 32
+    if W > _QD_GATHER_RMAX:
+        raise ValueError(f"rank {R} exceeds the qd gather kernel's {_QD_GATHER_RMAX}")
+    out = torch.empty((4, B), dtype=torch.float64, device=dev)
+    if B == 0:
+        return qdm.QD(out[0], out[1], out[2], out[3])
+    rc = _call(dev, _lib().ttq_gather_tt, tt.cores.data_ptr(), tt.ranks_t.data_ptr(), d, R, N,
+               ind.data_ptr(), B, out.data_ptr(), W)
+    _raise_on(rc, "qd_gather_tt_fused launch")
+    qd_gather_tt_fused.launches += 1
+    _SHAPES["qd_gather_tt_fused", (B, N) + tt.ranks] += 1
+    return qdm.QD(out[0], out[1], out[2], out[3])
+
+
+qd_gather_tt_fused.launches = 0
+
+
+def ising_c_integrand_qd_plain(tables, ind):
+    """The C-kind Ising integrand in qd, QD (B,): tables (8, n) f64 (node
+    limbs e0..e3, weight limbs e0..e3), ind (B, d) int, clamped into [0, n).
+    The order of ttcross_tpu/apps/ising.py:246-278: w = 1 + the
+    prefix-product sums from the left, v the same from the right; b =
+    qd_div(2, v w); then the weight product."""
+    qdm = _qd_mod()
+    i = ind.long().clamp(0, tables.shape[1] - 1)
+    x = qdm.QD(*(tables[k][i] for k in range(4)))                # (B, d) each
+    g = qdm.QD(*(tables[4 + k][i] for k in range(4)))
+    B, d = i.shape
+
+    def one():
+        return qdm.qd(torch.ones(B, dtype=torch.float64, device=ind.device))
+
+    def cum_sum_of_prods(cols):
+        pk, s = one(), one()
+        for c in cols:
+            pk = qdm.qd_mul(pk, qdm.QD(*(e[:, c] for e in x)))
+            s = qdm.qd_add(s, pk)
+        return s
+
+    w_sum = cum_sum_of_prods(range(d))
+    v_sum = cum_sum_of_prods(range(d - 1, -1, -1))
+    b = qdm.qd_div(qdm.qd(torch.full((B,), 2.0, dtype=torch.float64, device=ind.device)),
+                   qdm.qd_mul(v_sum, w_sum))
+    prodw = one()
+    for c in range(d):
+        prodw = qdm.qd_mul(prodw, qdm.QD(*(e[:, c] for e in g)))
+    return qdm.qd_mul(b, prodw)
+
+
+def ising_c_integrand_qd_fused(tables, ind):
+    """Q1: the qd Ising integrand with its table lookup, QD (B,), in one
+    launch.
+
+    The qd variant of ttcross_tpu/ops/pallas_kernels.py::
+    small_table_lookup_limbs (:151-197) on the qd integrand's path
+    (ttcross_tpu/apps/ising.py:246-278).  On a CPU tensor this is
+    ising_c_integrand_qd_plain; on a CUDA tensor it launches
+    csrc/qd_kernels.cu's ising_c_qd_kernel (a row per thread, any d) and adds
+    one to ``ising_c_integrand_qd_fused.launches``."""
+    qdm = _qd_mod()
+    if ind.device.type == "cpu":
+        return ising_c_integrand_qd_plain(tables, ind)
+    dev = ind.device
+    _check_cuda("ind", ind, _I32, 2, dev)
+    _check_cuda("tables", tables, _F64, 2, dev)
+    if tables.shape[0] != 8:
+        raise ValueError(f"tables must be (8, n): node limbs, weight limbs; got "
+                         f"{tuple(tables.shape)}")
+    B, d = ind.shape
+    n = tables.shape[1]
+    if d < 1:
+        raise ValueError(f"the qd integrand kernel takes d >= 1, got {d}")
+    if 8 * n * 8 > _LOOKUP_SMEM:
+        raise ValueError(f"a table of {n} points exceeds the kernel's shared memory")
+    out = torch.empty((4, B), dtype=torch.float64, device=dev)
+    if B == 0:
+        return qdm.QD(out[0], out[1], out[2], out[3])
+    rc = _call(dev, _lib().ttq_ising_c_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d,
+               out.data_ptr())
+    _raise_on(rc, "ising_c_integrand_qd_fused launch")
+    ising_c_integrand_qd_fused.launches += 1
+    _SHAPES["ising_c_integrand_qd_fused", (B, d, n)] += 1
+    return qdm.QD(out[0], out[1], out[2], out[3])
+
+
+ising_c_integrand_qd_fused.launches = 0
+
 _WRAPPERS = (score_residual_argmax, score_residual_argmax_batched, small_table_lookup,
              ising_integrand_fused, dd_score_residual_argmax, dd_dot, dd_gather_tt_fused,
-             ising_c_integrand_dd_fused)
+             ising_c_integrand_dd_fused, qd_score_residual_argmax, qd_dot, qd_gather_tt_fused,
+             ising_c_integrand_qd_fused)
 
 
 def launch_counts() -> dict[str, int]:
@@ -847,7 +1112,9 @@ def launch_shapes() -> dict[str, dict[tuple, int]]:
     wrapper: kernel A (M, K, R), batched (P, M, K, R), the lookup
     (L, B, d, n), the fused integrand (B, d, n); an f32 launch's shape
     ends in "f32"; the dd kernels: D1 (B, T), D4 (M, N, T), D3 (B, N) + the
-    train's ranks (N its largest mode), D2 (B, d, n)."""
+    train's ranks (N its largest mode), D2 (B, d, n); the qd kernels: Q2
+    (B, T), Q4 (M, N, T, "tree" | "seq"), Q3 (B, N) + the train's ranks,
+    Q1 (B, d, n)."""
     out = {f.__name__: {} for f in _WRAPPERS}
     for (name, shape), count in _SHAPES.items():
         out[name][shape] = count

@@ -5,7 +5,9 @@ map_to_interval and the 1/t rule quad_rinv / quad_rinv_error (quad.f90:
 8-95), kept here so that the port imports nothing of the JAX package; and
 gauss_legendre_dd, the dd tier's rule, which the JAX package takes from
 its native library (__float128 Newton, ttcross_tpu/native/src/
-ttcross_native.cpp:31-64) and the port computes with Python's decimal.
+ttcross_native.cpp:31-64) and the port computes with Python's decimal; and
+gauss_legendre_decimal, the qd tier's 80-digit rule, which the JAX package
+takes from mpmath (ttcross_tpu/ops/mp.py:75-103, mp_lgwt).
 """
 
 from __future__ import annotations
@@ -15,12 +17,11 @@ from decimal import Decimal, localcontext
 
 import numpy as np
 
-__all__ = ["lgwt", "gauss_legendre", "gauss_legendre_dd", "map_to_interval", "quad_rinv",
-           "quad_rinv_error"]
+__all__ = ["lgwt", "gauss_legendre", "gauss_legendre_dd", "gauss_legendre_decimal",
+           "map_to_interval", "quad_rinv", "quad_rinv_error"]
 
 _TWO_PI = 6.283185307179586476925286766559005768394338798750211641949889184615632812572418
 _DD_DIGITS = 50                            # decimal digits of gauss_legendre_dd's Newton
-_DD_NEWTON_TOL = Decimal(10) ** -(_DD_DIGITS - 10)  # its last step is below this
 
 
 def lgwt(n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -67,33 +68,51 @@ def gauss_legendre_dd(n: int):
 
     The JAX package's rule (native.gauss_legendre_dd): the Chebyshev seed
     cos(pi (4i - 1) / (4n + 2)), Newton on the Legendre recurrence until
-    the step is below 1e-35, here in decimal at 50 digits until it is
-    below 1e-40 (the seed in binary64, which three Newton steps make
-    exact), then each value
-    rounded to hi = the nearest double and lo = the nearest double of the
-    rest.  Nodes ascend, the upper half mirrors the lower one, and an odd
-    n has the node 0 exactly."""
-    xh, xl, wh, wl = (np.zeros(n) for _ in range(4))
+    the step is below 1e-35; here gauss_legendre_decimal at 50 digits (its
+    step below 1e-40), each value rounded to hi = the nearest double and lo
+    = the nearest double of the rest.  Nodes ascend, the upper half mirrors
+    the lower one, and an odd n has the node 0 exactly."""
+    x, w = gauss_legendre_decimal(n, _DD_DIGITS)
     with localcontext() as ctx:
         ctx.prec = _DD_DIGITS
-        one = Decimal(1)
-        for i in range(1, (n + 1) // 2 + 1):
-            z = Decimal(math.cos(math.pi * (4 * i - 1) / (4 * n + 2)))
-            for _ in range(100):
-                p1, p2 = one, Decimal(0)
-                for j in range(1, n + 1):
-                    p1, p2 = ((2 * j - 1) * z * p1 - (j - 1) * p2) / j, p1
-                pp = n * (z * p1 - p2) / (z * z - one)
-                dz = p1 / pp
-                z -= dz
-                if abs(dz) < _DD_NEWTON_TOL:
-                    break
-            w = 2 / ((one - z * z) * pp * pp)
-            (xh[i - 1], xl[i - 1]), (wh[i - 1], wl[i - 1]) = _dd_pair(-z), _dd_pair(w)
-            xh[n - i], xl[n - i], wh[n - i], wl[n - i] = -xh[i - 1], -xl[i - 1], wh[i - 1], wl[i - 1]
-        if n % 2 == 1:
-            xh[n // 2] = xl[n // 2] = 0.0
+        (xh, xl), (wh, wl) = (np.array([_dd_pair(v) for v in vs], np.float64).reshape(n, 2).T.copy()
+                              for vs in (x, w))
     return (xh, xl), (wh, wl)
+
+
+def gauss_legendre_decimal(n: int, digits: int = 100):
+    """Gauss-Legendre nodes and weights on [-1, 1] as Decimals at `digits`
+    significant digits (lists of n, nodes ascending): mp_lgwt's algorithm
+    (lgwt, quad.f90:97-131, at arbitrary precision), Newton on the
+    Legendre recurrence from the seed cos(pi (k + 3/4) / (n + 1/2)) until
+    the step is below 10^-(digits - 10), here in decimal.  The qd makers
+    round these to qd limbs (ops/qd.py::qd_from_mp), at the JAX package's
+    80 digits or beyond."""
+    x, w = [Decimal(0)] * n, [Decimal(0)] * n
+    with localcontext() as ctx:
+        ctx.prec = digits
+        one = Decimal(1)
+        tol = Decimal(10) ** -(digits - 10)
+        for k in range(n // 2 + n % 2):
+            t = Decimal(math.cos(math.pi * (k + 0.75) / (n + 0.5)))
+            for _ in range(100):
+                p0, p1 = one, t
+                for j in range(2, n + 1):
+                    p0, p1 = p1, ((2 * j - 1) * t * p1 - (j - 1) * p0) / j
+                dp = n * (t * p1 - p0) / (t * t - one)
+                step = p1 / dp
+                t -= step
+                if abs(step) < tol:
+                    break
+            p0, p1 = one, t
+            for j in range(2, n + 1):
+                p0, p1 = p1, ((2 * j - 1) * t * p1 - (j - 1) * p0) / j
+            dp = n * (t * p1 - p0) / (t * t - one)
+            x[k], x[n - 1 - k] = -t, t
+            w[k] = w[n - 1 - k] = 2 / ((one - t * t) * dp * dp)
+        if n % 2 == 1:
+            x[n // 2] = Decimal(0)
+    return x, w
 
 
 def map_to_interval(x: np.ndarray, w: np.ndarray, a: float, b: float) -> tuple[np.ndarray, np.ndarray]:
