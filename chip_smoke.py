@@ -129,14 +129,23 @@ Phases, each printing its result as it goes:
      package's two test cases and a small cross_qd against the CPU; every qd
      kernel held bit for bit against its plain version at every shape these
      runs launched it at, with device time, bound and host time at the
-     shape of each path that holds the most work.
+     shape of each path that holds the most work;
+ 18. the host libraries, the mp tier and the drivers: both native libraries
+     built with g++ (seconds) and the MPFR ABI self-test;
+     ising_cross_mp_native at bench.py's ising_c4_mp120_native equal to the
+     CPU run; cross_mp and cross_mp_parallel (two spawned workers) equal to
+     the JAX package's CPU runs, string for string; the eight drivers of
+     ttcross_tpu_torch/drivers/ in process on the card (digits held to their
+     CPU floors, walls, launches per kernel), the dd / qd drivers' kernels
+     launched and held at every shape; the mp tier launches nothing.
 The line before the last is the kernels' JSON summary, one entry for every
 (kernel, shape) that the C_6 headline, the C_256 long chain, each
 configuration of phase 7 and phases 8-16 launched at (an f32 launch's entry
 named <kernel>_f32), with that run's launches at the shape beside phase 3's
 error, times and bound there, and one entry for every (qd kernel, path) of
-phase 17 (its launches on the path, the shapes held, the times and bound at
-the path's heaviest shape); the last line is
+phases 17-18 (its launches on the path, the shapes held, the times and bound
+at the path's heaviest shape), and phase 18's dd / qd drivers' paths
+beside them; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 It imports nothing of JAX.
 """
@@ -3345,6 +3354,196 @@ def check_qd(dev, gen, held, checked, profile=False):
     return paths
 
 
+# ------------------------------------------------------------ phase 18: the mp tier, native, the drivers
+# The mp tier (ops/mp.py, cross_mp, cross_mp_parallel, the compiled MPFR
+# engine) and native/ are host code by design, as in the JAX package and the
+# reference's MPFUN tier (ttcross_tpu/ops/mp.py:1-17): they run on the card's
+# host and launch nothing on the card.  The drivers (ttcross_tpu_torch/
+# drivers/) run the card's tiers from a user's command line.  Expected
+# results: CPU runs of the JAX package, which the port's CPU runs equal
+# string for string (tests/test_torch_engine_mp.py, test_torch_mp_native.py):
+#   ising_cross_mp_native C_4 n=65 rank 32 dps 120 (bench.py:574-590,
+#     ising_c4_mp120_native)            37.0267 digits, 80,385 evals, 31 sweeps
+#   cross_mp C_4 n=33 rank 12 dps 60    14.1946 digits, 7,425 evals, 11 sweeps
+#   cross_mp_parallel, 2 workers        14.5004 digits, 7,777 evals, 11 sweeps
+# The drivers' floors are the CPU floors of the configurations that phases 15
+# and 17 run (DD_FLOORS, QD_*), or, where no phase runs it, the JAX driver's
+# digits on the CPU at that configuration, which the port's CPU run equals:
+#   crs_ising_qde 4 65 33 1 1 (its defaults)                   37.72
+#   crs_ising_mpf C 4 33 12 60 (phase 18's cross_mp; its default, rank 48 at
+#     n = 65 and 120 digits, takes minutes in mpmath)          14.19
+#   crs_ising_mpn (its defaults: C 4 33 16 1 120)               19.87
+MP_NATIVE = dict(kind="C", m=4, n=65, max_rank=32, dps=120)
+MP_NATIVE_VALUE = ("0.70119986017642999981651392754834582798122257723922270354599932590271471281"
+                   "726467977910992326699961230123086303075723359195856975E0")
+MP_NATIVE_EVALS, MP_NATIVE_SWEEPS, MP_NATIVE_FLOOR = 80385, 31, 37.0
+MP_CROSS = dict(m=4, n=33, max_rank=12, dps=60)
+MP_CROSS_RUNS = {   # entry point: (value at 60 digits, n_evals, ranks, sweeps)
+    "cross_mp": ("0.701199860176425520113207819413718382858226560439547794973630", 7425,
+                 (1, 12, 12, 1), 11),
+    "cross_mp_parallel": ("0.701199860176427784531338581204031348248389026947825551268724",
+                          7777, (1, 12, 12, 1), 11),
+}
+MP_WORKERS = 2
+DRIVER_RUNS = [   # (driver, argv, digits floor, the kernels its path must launch)
+    ("crs_ising_dd", [], DD_FLOORS["defect_c6"], DD_PATH_KERNELS["defect"]),
+    ("crs_ising_mp", [], DD_FLOORS["c4_n65_r32"], DD_PATH_KERNELS["dd"]),
+    ("crs_stdnorm_dd", [], QD_REFINE_DIGITS, QD_PATH_KERNELS["refine"] + ("small_table_lookup",)),
+    ("crs_ising_qd", [], QD_DEFECT_FLOOR, QD_PATH_KERNELS["defect"]),
+    ("crs_ising_qde", [], 37.72, QD_PATH_KERNELS["cross_qd"]),
+    ("crs_ising_mpf", ["C", "4", "33", "12", "60"], 14.19, ()),
+    ("crs_ising_mpn", [], 19.87, ()),
+    ("chf_equal", [], None, ()),
+]
+HOST_DRIVERS = ("crs_ising_mpf", "crs_ising_mpn")
+
+
+def _prerequisites() -> dict:
+    """What the host libraries need on the card's host: g++, the MPFR / GMP /
+    quadmath shared libraries and mpmath (torch's sympy depends on it)."""
+    import ctypes
+    import importlib.util
+    import shutil
+
+    have = {"g++": shutil.which("g++") is not None,
+            "mpmath": importlib.util.find_spec("mpmath") is not None}
+    for lib in ("libmpfr.so.6", "libgmp.so.10", "libquadmath.so.0"):
+        try:
+            ctypes.CDLL(lib)
+            have[lib] = True
+        except OSError:
+            have[lib] = False
+    return have
+
+
+def _run_driver(name, argv, device):
+    """One driver's main in process: (exit code, output, wall)."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    mod = importlib.import_module(f"ttcross_tpu_torch.drivers.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv) if name in HOST_DRIVERS else mod.main(argv, device=device)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def _driver_digits(out):
+    for line in out.splitlines():
+        if line.startswith("correct digits:"):
+            return float(line.split(":")[1].split()[0])
+    return None
+
+
+def check_mp_native_drivers(dev, gen, held, checked):
+    """Phase 18: the host libraries, the mp tier and the drivers.
+      1. both native libraries built with g++ (seconds each) and the MPFR
+         library's ABI self-test;
+      2. ising_cross_mp_native at MP_NATIVE: value_str, n_evals and sweeps
+         those of the CPU run, digits >= MP_NATIVE_FLOOR, its wall;
+      3. cross_mp and cross_mp_parallel (MP_WORKERS spawned workers) at
+         MP_CROSS: the JAX package's value strings, n_evals, ranks, sweeps;
+      4. every driver in process (DRIVER_RUNS), on the card: its digits held
+         to its floor, its wall and launches per kernel; the dd / qd paths'
+         kernels must launch, and every shape is held against the plain
+         version (_held_everywhere); the mp tier launches nothing.
+    Returns [(path label, launches by shape, the kernels it must launch)]."""
+    from mpmath import mp
+
+    from ttcross_tpu_torch import native
+    from ttcross_tpu_torch.apps import make_ising_mp
+    from ttcross_tpu_torch.cross import cross_mp, ising_cross_mp_native
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.ops.mp import workdps
+    from ttcross_tpu_torch.parallel import cross_mp_parallel
+
+    have = _prerequisites()
+    absent = sorted(k for k, v in have.items() if not v)
+    for what in absent:
+        print(f"phase 18: {what} is absent on the card's host", flush=True)
+    _emit({"phase": "native_prerequisites", **have})
+    if absent:
+        raise AssertionError(f"phase 18 needs {absent}")
+
+    t0 = time.perf_counter()
+    ok_native = native.build()
+    t1 = time.perf_counter()
+    ok_mpfr = native.build_mpfr()
+    t2 = time.perf_counter()
+    selftest = native.load_mpfr().mp_selftest() if ok_mpfr else None
+    _emit({"phase": "native_build", "ttcross_native_s": t1 - t0, "mpfr_cross_s": t2 - t1,
+           "built": [ok_native, ok_mpfr], "mp_selftest": selftest})
+    if not (ok_native and ok_mpfr and native.available() and selftest == 27182818):
+        raise AssertionError(f"native libraries: built {ok_native} / {ok_mpfr}, self-test "
+                             f"{selftest}")
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = ising_cross_mp_native(**MP_NATIVE)
+    row = {"phase": "mp", "config": "ising_cross_mp_native C_4 n=65 rank 32 dps 120",
+           "digits": r.digits, "n_evals": r.neval, "sweeps": r.sweeps, "ranks": list(r.ranks),
+           "wall_s": time.perf_counter() - t0, "equals_cpu": r.value_str == MP_NATIVE_VALUE,
+           "value": r.value_str[:50]}
+    _emit(row)
+    if (not row["equals_cpu"] or (r.neval, r.sweeps) != (MP_NATIVE_EVALS, MP_NATIVE_SWEEPS)
+            or r.digits < MP_NATIVE_FLOOR):
+        raise AssertionError(f"ising_cross_mp_native differs from the CPU run: {row}")
+
+    d, n, fun, quad, truth = make_ising_mp("C", m=MP_CROSS["m"], n=MP_CROSS["n"],
+                                           dps=MP_CROSS["dps"])
+    kw = dict(max_rank=MP_CROSS["max_rank"], pivoting=1, quad=quad, truth=truth,
+              dps=MP_CROSS["dps"])
+    for name, run in (("cross_mp", lambda: cross_mp(fun, [n] * d, **kw)),
+                      ("cross_mp_parallel",
+                       lambda: cross_mp_parallel(fun, [n] * d, n_workers=MP_WORKERS, **kw))):
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+        with workdps(MP_CROSS["dps"]):
+            got = (mp.nstr(res.value, MP_CROSS["dps"], strip_zeros=False), res.neval,
+                   tuple(res.ranks), res.sweeps)
+            digits = float(-mp.log10(abs(1 - res.value / truth)))
+        row = {"phase": "mp", "config": f"{name} C_4 n=33 rank 12 dps 60"
+               + (f", {MP_WORKERS} spawned workers" if name != "cross_mp" else ""),
+               "digits": digits, "n_evals": res.neval, "sweeps": res.sweeps,
+               "ranks": list(res.ranks), "wall_s": wall, "equals_jax": got == MP_CROSS_RUNS[name]}
+        _emit(row)
+        if not row["equals_jax"]:
+            raise AssertionError(f"{name} differs from the JAX package's CPU run: {got}")
+    if sum(K.launch_counts().values()):
+        raise AssertionError(f"the mp tier launched kernels: {K.launch_counts()}")
+
+    paths = []
+    for name, argv, floor, need in DRIVER_RUNS:
+        K.reset_launch_counts()
+        rc, out, wall = _run_driver(name, argv, dev)
+        counts, shapes = K.launch_counts(), K.launch_shapes()
+        digits = _driver_digits(out)
+        row = {"phase": "driver", "driver": name, "argv": argv, "rc": rc, "digits": digits,
+               "floor": floor, "wall_s": wall, "launches": {k: v for k, v in counts.items() if v},
+               "equal": "EQUAL" in out if name == "chf_equal" else None}
+        _emit(row)
+        if rc != 0 or (floor is not None and (digits is None or digits < floor)):
+            raise AssertionError(f"driver {name}: {row}\n{out[-2000:]}")
+        if name in HOST_DRIVERS and sum(counts.values()):
+            raise AssertionError(f"driver {name} (host only) launched kernels: {counts}")
+        if need:
+            if min(counts.get(k, 0) for k in need) <= 0:
+                raise AssertionError(f"driver {name}: a kernel of its path never launched: "
+                                     f"{counts}")
+            t0 = time.perf_counter()
+            _held_everywhere(dev, gen, held, checked, f"driver {name}", shapes)
+            _emit({"phase": "driver_hold", "driver": name, "seconds": time.perf_counter() - t0,
+                   "shapes": {k: len(v) for k, v in shapes.items() if v}})
+            paths.append((f"driver {name}", shapes, need))
+    return paths
+
+
 def profile_run(label: str, run) -> None:
     """torch.profiler over one steady run (run() returns a tuple that
     starts with the result): kernel time by name, the device's busy share
@@ -3500,6 +3699,11 @@ def main() -> int:
     _emit({"phase": "qd_done", "seconds": time.perf_counter() - t17,
            "script_elapsed_s": time.perf_counter() - T_START})
     new_runs += [(path, shapes) for path, shapes, _ in qd_paths]
+    t18 = time.perf_counter()
+    drv_paths = check_mp_native_drivers(dev, gen, held, checked)
+    _emit({"phase": "phase18_done", "seconds": time.perf_counter() - t18,
+           "script_elapsed_s": time.perf_counter() - T_START})
+    new_runs += [(path, shapes) for path, shapes, _ in drv_paths]
     if "--profile" in args:
         for name in ("c4_n65_r32", "c6_n65_r48"):
             profile_run(f"dd {name}", lambda name=name: run_dd(dev, name))
@@ -3558,6 +3762,7 @@ def main() -> int:
                                            + [(path, need) for path, _, need in dd_paths]
                                            + [(path, need) for path, _, need in par_paths]
                                            + [(path, need) for path, _, need in qd_paths]
+                                           + [(path, need) for path, _, need in drv_paths]
                for k in need if not any(e["name"] == k and e["path"] == path and e["launches"] > 0
                                         for e in entries)}
     if missing:

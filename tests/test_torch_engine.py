@@ -190,11 +190,27 @@ def test_public_cross_runs_and_rejects_unported(problems):
     "apps.make_ising_dd", "apps.make_stdnorm_dd", "parallel.cross_parallel",
     "parallel.cross_dd_parallel", "parallel.maxvol_refine_parallel", "cross.cross_qd",
     "cross.cross_defect_corrected_qd", "apps.make_ising_qd", "apps.make_stdnorm_qd",
-    "cross.refine_dd", "parallel.cross_qd_parallel"])
+    "cross.refine_dd", "parallel.cross_qd_parallel", "drivers.crs_ising_dd.main",
+    "drivers.crs_ising_mp.main", "drivers.crs_stdnorm_dd.main", "drivers.crs_ising_qd.main",
+    "drivers.crs_ising_qde.main", "drivers.chf_equal.main"])
 def test_entry_points_default_to_the_card(entry):
-    module, name = entry.split(".")
+    module, name = entry.rsplit(".", 1)
     entry = getattr(importlib.import_module("ttcross_tpu_torch." + module), name)
     assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+# The mp tier is host code by design, as in the JAX package and the
+# reference's MPFUN tier (ttcross_tpu/ops/mp.py:1-17): these take no device.
+HOST_ONLY = ("cross.cross_mp", "parallel.cross_mp_parallel", "cross.cross_mp_native",
+             "cross.ising_cross_mp_native")
+
+
+@pytest.mark.parametrize("entry", HOST_ONLY + ("drivers.crs_ising_mpf.main",
+                                               "drivers.crs_ising_mpn.main"))
+def test_host_only_entry_points_take_no_device(entry):
+    module, name = entry.rsplit(".", 1)
+    entry = getattr(importlib.import_module("ttcross_tpu_torch." + module), name)
+    assert "device" not in inspect.signature(entry).parameters
 
 
 def test_no_card_and_no_device_raises(problems):
@@ -223,7 +239,11 @@ def test_port_imports_no_jax():
                 "cross.engine_dd", "cross.defect", "parallel", "parallel.mesh", "parallel.engine",
                 "parallel.engine_dd", "parallel.maxvol", "parallel.quad", "parallel.launch",
                 "ops.qd", "cross.engine_qd", "cross.hostwalk", "cross.refine", "parallel._hub",
-                "parallel.engine_qd"):
+                "parallel.engine_qd", "ops.mp", "cross.engine_mp", "cross.engine_mp_native",
+                "parallel.engine_mp", "native", "native._mpfr", "native._gxx", "drivers",
+                "drivers.crs_ising_dd", "drivers.crs_ising_mp", "drivers.crs_stdnorm_dd",
+                "drivers.crs_ising_qd", "drivers.crs_ising_qde", "drivers.crs_ising_mpf",
+                "drivers.crs_ising_mpn", "drivers.chf_equal"):
         assert "ttcross_tpu_torch." + new in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -258,7 +258,7 @@ def test_one_rank_is_cross(runs):
 
 def test_share_and_surface():
     """share is the JAX package's block distribution; slab checks, the
-    stream of each rank, and the entry points that belong to later slices."""
+    stream of each rank, and cross_mp_parallel's worker-count check."""
     from ttcross_tpu.parallel.mesh import share as jshare
 
     for nb, nd in [(10, 4), (5, 5), (7, 2), (254, 4), (3, 1)]:
@@ -272,9 +272,10 @@ def test_share_and_surface():
     a, b = rank_uniforms(0, 0, 2, 3, 4), rank_uniforms(0, 1, 2, 3, 4)
     assert a.shape == (2, 3, 2, 4) and not torch.equal(a, b)
     assert torch.equal(a, rank_uniforms(0, 0, 2, 3, 4))
-    for f in (cross_mp_parallel,):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            f(None, [3, 3])
+    # cross_mp_parallel is ported (tests/test_torch_parallel_mp.py): too
+    # many workers for the bonds is rejected before any worker starts
+    with pytest.raises(ValueError, match="n_workers"):
+        cross_mp_parallel(None, [3, 3], n_workers=2)
     with pytest.raises(RuntimeError, match="init_process_group"):
         bond_mesh(device="cpu")
 

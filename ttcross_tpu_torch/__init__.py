@@ -16,7 +16,11 @@ Entry points: the problem makers of ``ttcross_tpu_torch.apps``
 torch.distributed group); all run on the card (``device="cuda"``) unless
 the caller passes ``device="cpu"``.  The
 f64 tier is the default; ``dtype=torch.float32`` (cross, cross_batch and
-the makers) runs the f32 tier.
+the makers) runs the f32 tier.  The mp tier (``cross_mp``,
+``cross_mp_parallel``, ``ising_cross_mp_native``, ``cross_mp_native``) and
+``ttcross_tpu_torch.native`` are host code, as in the JAX package; the
+drivers of ``ttcross_tpu_torch.drivers`` run the precision tiers from the
+command line (``python -m ttcross_tpu_torch.drivers.<name>``).
 """
 
 from .tt.types import TT, from_cores, ones, rank1, zeros  # noqa: F401
@@ -24,4 +28,4 @@ from .tt.types import TT, from_cores, ones, rank1, zeros  # noqa: F401
 __version__ = "0.1.0"
 
 __all__ = ["TT", "from_cores", "ones", "rank1", "zeros",
-           "apps", "cross", "interop", "ops", "parallel", "tt", "utils"]
+           "apps", "cross", "drivers", "interop", "native", "ops", "parallel", "tt", "utils"]

@@ -26,7 +26,7 @@ from ..ops.quadrature import gauss_legendre_dd, gauss_legendre_decimal, lgwt
 
 __all__ = ["IsingProblem", "make_ising", "ising_integrand", "ising_integrand_np", "ising_c_chain",
            "IsingDD", "ising_c_integrand_dd", "ising_dd_problem", "make_ising_dd",
-           "IsingQD", "ising_c_integrand_qd", "make_ising_qd"]
+           "IsingQD", "ising_c_integrand_qd", "make_ising_qd", "IsingMP", "make_ising_mp"]
 
 
 def ising_integrand(ind, tables, kind: str):
@@ -331,3 +331,89 @@ def make_ising_qd(m: int = 6, n: int = 65, dps: int = 80, device: str | torch.de
                         tables=_tables(Xl[:, 0], Wl[:, 0], device), truth=ising_truth("C", m))
     weights_qd = [QD(*(torch.full((n,), c, dtype=torch.float64, device=device) for c in wq))] * d
     return prob, fun_qd, weights_qd
+
+
+# ------------------------------------------------------------- the mp tier
+class IsingMP:
+    """fun_mp of make_ising_mp: ind (B, d) int -> (B,) object array of mpf,
+    the reference's dfunc_ising_discr (test_crs_ising.f90:176-218) in mpmath
+    arithmetic at `dps` digits, on the host (the mp tier never uses the
+    card).  The JAX package's fun_mp is a closure that its forked workers
+    inherit; this one is a module-level class holding the kind, d, dps and
+    the mpf nodes and weights, so it pickles into the spawned workers of
+    parallel/engine_mp.py::cross_mp_parallel."""
+
+    def __init__(self, kind: str, d: int, dps: int, nodes, weights):
+        self.kind, self.d, self.dps = kind, int(d), int(dps)
+        self.nodes, self.weights = nodes, weights
+
+    def __call__(self, ind):
+        from mpmath import mpf
+
+        from ..ops.mp import workdps
+
+        kid, d, nodes, weights = ISING_KINDS[self.kind], self.d, self.nodes, self.weights
+        ind = np.asarray(ind)
+        with workdps(self.dps):
+            out = np.empty(ind.shape[0], dtype=object)
+            for t in range(ind.shape[0]):
+                xs = [nodes[ind[t, s]] for s in range(d)]
+                f = mpf(2)
+                if kid in (2, 3):  # a-term: prod_{i<j} ((u-1)/(u+1))^2
+                    P = [mpf(1)]
+                    for v in xs:
+                        P.append(P[-1] * v)
+                    a = mpf(1)
+                    for i in range(d + 1):
+                        for j in range(i + 1, d + 1):
+                            ratio = (P[j] - P[i]) / (P[j] + P[i])
+                            a *= ratio * ratio
+                    f *= a
+                if kid in (1, 2):  # b-term: 2/(v w)
+                    pre = mpf(1)
+                    wsum = mpf(1)
+                    for v in xs:
+                        pre *= v
+                        wsum += pre
+                    suf = mpf(1)
+                    vsum = mpf(1)
+                    for v in reversed(xs):
+                        suf *= v
+                        vsum += suf
+                    f /= vsum * wsum
+                for s in range(d):
+                    f *= weights[ind[t, s]]
+                out[t] = f
+            return out
+
+
+def make_ising_mp(kind: str = "C", m: int = 4, n: int = 33, dps: int = 120):
+    """Ising problem at arbitrary precision (the test_mpf_ising role, the
+    data plane of mptt_dmrgg; ttcross_tpu/apps/ising.py:326-427): the mp
+    Gauss-Legendre rule on [0, 1], the mp integrand, mp rank-1 quad weights,
+    the mp truth.  Host code, no device.
+
+    Returns (d, n, fun_mp, quad_w, truth_mp); fun_mp is an IsingMP."""
+    from mpmath import mpf
+
+    from ..ops.mp import mp_lgwt, workdps
+    from .truths import ising_truth_mp
+
+    kind = kind.upper()
+    if kind not in ISING_KINDS:
+        raise ValueError(f"unknown Ising integral kind: {kind}")
+    if n % 2 == 0:
+        n += 1
+    d = m - 1
+    with workdps(dps):
+        x, w = mp_lgwt(n, dps)
+        half = mpf(1) / 2
+        nodes = np.array([(xi + 1) * half for xi in x], dtype=object)
+        val = mpf(n // 2)
+        weights = np.array([wi * half * val for wi in w], dtype=object)
+        quad_w = np.array([1 / val] * n, dtype=object)
+        try:
+            truth = ising_truth_mp(kind, m, dps)
+        except KeyError:
+            truth = None
+    return d, n, IsingMP(kind, d, dps, nodes, weights), [quad_w] * d, truth

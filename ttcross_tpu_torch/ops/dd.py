@@ -10,10 +10,11 @@ package's eager ones, and they are the plain versions of the dd kernels
 (ops/kernels.py).  dd_sum is a sequential scan from zero, left to right.
 
 The JAX package's float32-pair range machinery (its _full_f64_range,
-pow2_balance, _pow2_chain, _exact_pow2: the TPU emulates f64 as a pair of
-f32s) is not carried over: the port always has binary64's range, so
-dd_exp saturates at the binary64 floor and ceiling, and scales by 2^k
-with ops/dense.py::scale_pow2.
+_pow2_chain, _exact_pow2: the TPU emulates f64 as a pair of f32s) is not
+carried over: the port always has binary64's range, so dd_exp saturates at
+the binary64 floor and ceiling, and scales by 2^k with
+ops/dense.py::scale_pow2; pow2_balance reads the exponent from the bits
+(ops/dense.py::pow2_balance_mats).
 """
 
 from __future__ import annotations
@@ -25,12 +26,12 @@ from typing import NamedTuple
 import torch
 
 from . import kernels as _kernels
-from .dense import scale_pow2
+from .dense import pow2_balance_mats, scale_pow2
 
 __all__ = ["DD", "dd", "two_sum", "two_prod", "dd_add", "dd_sub", "dd_mul",
            "dd_div", "dd_neg", "dd_abs", "dd_sum", "dd_dot", "dd_matvec",
            "dd_matmul", "dd_to_float", "dd_from_string", "dd_to_string",
-           "dd_contract", "dd_gather_tt", "dd_exp", "dd_log"]
+           "dd_contract", "dd_gather_tt", "dd_exp", "dd_log", "pow2_balance"]
 
 _SPLIT = 134217729.0  # 2^27 + 1, Dekker splitting constant for binary64
 
@@ -205,6 +206,17 @@ def dd_exp(x: DD) -> DD:
                      torch.where(x.hi > _EXP_CEIL, torch.full_like(z, math.inf), out.hi))
     lo = torch.where((x.hi < _EXP_FLOOR) | (x.hi > _EXP_CEIL), z, out.lo)
     return DD(hi, lo)
+
+
+def pow2_balance(x):
+    """Norm-balance by an exact power of two (ttcross_tpu/ops/dd.py:231):
+    returns (x * 2^-e, e) with e = floor(log2 max|x|), so max|x * 2^-e| is
+    in [1, 2); e is a 0-d float64 tensor on x's device, 0 when max|x| is 0
+    or not finite (x then passes through).  The exponent comes from the
+    bits (pow2_balance_mats over x as one matrix), where the JAX package
+    takes a log2."""
+    y, e = pow2_balance_mats(x.reshape(1, 1, -1))
+    return y.reshape(x.shape), e[0].to(torch.float64)
 
 
 def dd_log(x: DD) -> DD:

@@ -6,8 +6,8 @@ cross_dd_parallel (engine_dd.py), maxvol_refine_parallel (maxvol.py) and
 pcontract (quad.py) over parallel/mesh.py's bond axis; spawn_ranks
 (launch.py) starts a local group from Python.  cross_qd_parallel
 (engine_qd.py) distributes the qd tier over spawned worker processes
-through the bond-slab hub (_hub.py); the mp tier's (cross_mp_parallel) is a
-later slice of the port."""
+through the bond-slab hub (_hub.py), and cross_mp_parallel (engine_mp.py)
+the mp tier, host code, over the same hub."""
 
 from .engine import cross_parallel, get_parallel_engine, make_parallel_engine, rank_key
 from .engine_dd import cross_dd_parallel, get_parallel_dd_engine, make_parallel_dd_engine
@@ -23,7 +23,13 @@ __all__ = ["BOND_AXIS", "BondMesh", "bond_mesh", "cross_dd_parallel", "cross_mp_
            "maxvol_refine_parallel", "pcontract", "rank_key", "share", "spawn_ranks"]
 
 
-def cross_mp_parallel(*args, **kwargs):
-    """The distributed multiprecision tier: not ported yet."""
-    raise NotImplementedError("cross_mp_parallel belongs to the mp tier, the mp part of ROADMAP "
-                              "queue 1 item 8, which is not ported to ttcross_tpu_torch yet")
+
+def __getattr__(name):
+    # the mp tier imports mpmath at module scope: exported on first access,
+    # so that importing this package does not need mpmath
+    if name == "cross_mp_parallel":
+        from .engine_mp import cross_mp_parallel
+
+        globals()[name] = cross_mp_parallel
+        return cross_mp_parallel
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

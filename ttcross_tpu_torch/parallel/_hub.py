@@ -1,8 +1,9 @@
 """Bond-slab worker hub of the host-indexed precision tiers.
 
 Counterpart of ttcross_tpu/parallel/_hub.py (:1-336).  The qd engine
-(cross/engine_qd.py) keeps its pivot bookkeeping on the host, so its
-distribution unit is a process: a pool of workers, each running its tier's
+(cross/engine_qd.py) keeps its pivot bookkeeping on the host and the mp
+engine (cross/engine_mp.py) is host code, so their distribution unit is a
+process: a pool of workers, each running its tier's
 engine over an owned bond slab, exchanging per-sweep tapes through this
 parent hub.  The consistency model is the reference's MPI mp mode
 (mptt_dmrgg, dmrggmp.f90:518-629), unchanged from the JAX package:
@@ -34,6 +35,8 @@ worker is stopped before run_hub returns or raises.
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
+
 import numpy as np
 import torch
 import torch.multiprocessing as mp
@@ -46,14 +49,28 @@ __all__ = ["TierAdapter", "run_hub"]
 class TierAdapter:
     """Type-specific operations a tier plugs into the hub protocol.
 
-    Subclasses (one per tier, parallel/engine_qd.py) override everything
-    below; the base class documents the contract."""
+    Subclasses (one per tier, parallel/engine_qd.py and engine_mp.py)
+    override what they need; the base class documents the contract."""
 
     tag = ""             # verbose-line prefix inside [..w], e.g. "qd"
 
     def prepare_parent(self):
         """Run in the parent before the workers are spawned (build the
         kernels the workers will load)."""
+
+    def worker_ctx(self):
+        """Context manager around a worker's whole life (the mp tier sets
+        its working precision: a spawned process starts at mpmath's
+        default)."""
+        return nullcontext()
+
+    def parent_ctx(self):
+        """Context manager around the parent's driver loop."""
+        return nullcontext()
+
+    def prep_truth(self, truth):
+        """The caller's truth in the tier's representation (in the parent)."""
+        return truth
 
     def make_engine(self, fun, n, max_rank, pivoting, snum, seed):
         raise NotImplementedError
@@ -132,73 +149,74 @@ def _owned_cores(own, w, d, nw):
 def _worker_main(ad: TierAdapter, conn, wid, nw, own, fun, n, max_rank, pivoting, snum, seed):
     try:
         torch.set_num_threads(1)
-        d = len(n)
-        my_bonds = list(_owned_bonds(own, wid))
-        my_cores = _owned_cores(own, wid, d, nw)
-        eng = ad.make_engine(fun, n, max_rank, pivoting, snum, seed + 7919 * wid)
-        eng.init_state()
-        if nw > 1:
-            eng.own_cores = my_cores
-        init_neval = eng.neval
-        conn.send(("ready", init_neval))
-        # the quadrature arrives over the pipe, converted by the parent
-        msg = conn.recv()
-        assert msg[0] == "quad"
-        w = ad.from_host(msg[1])
-
-        while True:
+        with ad.worker_ctx():
+            d = len(n)
+            my_bonds = list(_owned_bonds(own, wid))
+            my_cores = _owned_cores(own, wid, d, nw)
+            eng = ad.make_engine(fun, n, max_rank, pivoting, snum, seed + 7919 * wid)
+            eng.init_state()
+            if nw > 1:
+                eng.own_cores = my_cores
+            init_neval = eng.neval
+            conn.send(("ready", init_neval))
+            # the quadrature arrives over the pipe, converted by the parent
             msg = conn.recv()
-            if msg[0] == "stop":
-                break
-            assert msg[0] == "sweep"
-            it = msg[1]
-            dir_fwd = it % 2 == 1
-            bonds = my_bonds if dir_fwd else list(reversed(my_bonds))
-            recs = []
-            for b in bonds:
-                rec = eng.visit_bond(b, dir_fwd)
-                if rec is None:
-                    continue
-                # owner-local neighbour slices (the serial path does the
-                # same right after the visit)
-                if b - 1 in my_bonds:
-                    eng.apply_left_slice(b, rec["acol"])
-                if b + 1 in my_bonds:
-                    eng.apply_right_slice(b, rec["arow"])
-                recs.append(rec)
-            conn.send(("tape", ad.to_host(recs), eng.log_amax, eng.neval - init_neval))
+            assert msg[0] == "quad"
+            w = ad.from_host(msg[1])
 
-            all_recs, g_amax = conn.recv()
-            all_recs = ad.from_host(all_recs)
-            eng.log_amax = max(eng.log_amax, g_amax)
-            # replay every REMOTE accept (vip / rank / inverses), sorted
-            # by bond so the replicated state is identical
-            remote = sorted((r for r in all_recs if r["b"] not in my_bonds),
-                            key=lambda r: r["b"])
-            for rec in remote:
-                eng.replay_remote(rec)
-            # boundary fixups with post-replay chains: raw fibers into
-            # owned cores, factor slices for slab-adjacent bonds; each
-            # side padded only if THIS worker consumes it
-            for rec in remote:
-                b = rec["b"]
-                if b - 1 in my_bonds:
-                    eng.apply_left_slice(b, ad.fixup_row(eng, rec))
-                if (b + 1 in my_cores) or (b + 1 in my_bonds and b + 1 <= d - 2):
-                    arow = ad.fixup_col(eng, rec)
-                    if b + 1 in my_cores:
-                        ad.append_core_right(eng, b, arow)
-                    if b + 1 in my_bonds and b + 1 <= d - 2:
-                        eng.apply_right_slice(b, arow)
-            lps = [r["lp"] for r in all_recs]
-            if lps:
-                eng.log_pivotmax_prev = max(lps)
-            part = ad.value_partial(eng, w, my_cores) if w is not None else None
-            conn.send(("done", eng.neval - init_neval, ad.to_host(part)))
+            while True:
+                msg = conn.recv()
+                if msg[0] == "stop":
+                    break
+                assert msg[0] == "sweep"
+                it = msg[1]
+                dir_fwd = it % 2 == 1
+                bonds = my_bonds if dir_fwd else list(reversed(my_bonds))
+                recs = []
+                for b in bonds:
+                    rec = eng.visit_bond(b, dir_fwd)
+                    if rec is None:
+                        continue
+                    # owner-local neighbour slices (the serial path does the
+                    # same right after the visit)
+                    if b - 1 in my_bonds:
+                        eng.apply_left_slice(b, rec["acol"])
+                    if b + 1 in my_bonds:
+                        eng.apply_right_slice(b, rec["arow"])
+                    recs.append(rec)
+                conn.send(("tape", ad.to_host(recs), eng.log_amax, eng.neval - init_neval))
 
-        solved = {c: eng.solve_core(c) for c in sorted(my_cores)}
-        conn.send(("cores", ad.to_host(solved), eng.neval - init_neval, tuple(eng.r),
-                   ad.worker_report(eng)))
+                all_recs, g_amax = conn.recv()
+                all_recs = ad.from_host(all_recs)
+                eng.log_amax = max(eng.log_amax, g_amax)
+                # replay every REMOTE accept (vip / rank / inverses), sorted
+                # by bond so the replicated state is identical
+                remote = sorted((r for r in all_recs if r["b"] not in my_bonds),
+                                key=lambda r: r["b"])
+                for rec in remote:
+                    eng.replay_remote(rec)
+                # boundary fixups with post-replay chains: raw fibers into
+                # owned cores, factor slices for slab-adjacent bonds; each
+                # side padded only if THIS worker consumes it
+                for rec in remote:
+                    b = rec["b"]
+                    if b - 1 in my_bonds:
+                        eng.apply_left_slice(b, ad.fixup_row(eng, rec))
+                    if (b + 1 in my_cores) or (b + 1 in my_bonds and b + 1 <= d - 2):
+                        arow = ad.fixup_col(eng, rec)
+                        if b + 1 in my_cores:
+                            ad.append_core_right(eng, b, arow)
+                        if b + 1 in my_bonds and b + 1 <= d - 2:
+                            eng.apply_right_slice(b, arow)
+                lps = [r["lp"] for r in all_recs]
+                if lps:
+                    eng.log_pivotmax_prev = max(lps)
+                part = ad.value_partial(eng, w, my_cores) if w is not None else None
+                conn.send(("done", eng.neval - init_neval, ad.to_host(part)))
+
+            solved = {c: eng.solve_core(c) for c in sorted(my_cores)}
+            conn.send(("cores", ad.to_host(solved), eng.neval - init_neval, tuple(eng.r),
+                       ad.worker_report(eng)))
     except Exception as e:  # noqa: BLE001 - surfaced by the parent
         import traceback
 
@@ -214,6 +232,13 @@ def run_hub(ad: TierAdapter, fun, n, max_rank, pivoting, quad, truth, lacc, snum
     result.  timeout: seconds any one message from a worker may take.
     reports: a list that receives each worker's ad.worker_report, in worker
     order."""
+    with ad.parent_ctx():
+        return _run_hub(ad, fun, n, max_rank, pivoting, quad, truth, lacc, snum, seed, verbose,
+                        n_workers, mybonds, name, timeout, reports)
+
+
+def _run_hub(ad, fun, n, max_rank, pivoting, quad, truth, lacc, snum, seed, verbose, n_workers,
+             mybonds, name, timeout, reports):
     n = tuple(int(x) for x in n)
     d = len(n)
     if d < 2:
@@ -271,6 +296,8 @@ def run_hub(ad: TierAdapter, fun, n, max_rank, pivoting, quad, truth, lacc, snum
         w_host = ad.to_host(w)
         for c in conns:
             c.send(("quad", w_host))
+        if truth is not None:
+            truth = ad.prep_truth(truth)
 
         history = []
         strike = 0

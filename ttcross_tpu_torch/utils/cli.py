@@ -14,13 +14,16 @@ import sys
 __all__ = ["readarg", "maybe_accchk", "print_config"]
 
 
-def readarg(pos: int, default, cast=None):
-    """Positional argument `pos` (1-based) of sys.argv with a default; the
-    cast is the default's type unless given."""
+def readarg(pos: int, default, cast=None, argv=None):
+    """Positional argument `pos` (1-based) of the command line with a
+    default; the cast is the default's type unless given.  argv: the
+    arguments after the program's name (sys.argv[1:] when None), so a
+    driver's main(argv) reads a list given in process."""
     if cast is None:
         cast = type(default)
-    if len(sys.argv) > pos:
-        return cast(sys.argv[pos])
+    args = sys.argv[1:] if argv is None else list(argv)
+    if len(args) >= pos:
+        return cast(args[pos - 1])
     return default
 
 
