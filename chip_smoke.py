@@ -137,15 +137,26 @@ Phases, each printing its result as it goes:
      the JAX package's CPU runs, string for string; the eight drivers of
      ttcross_tpu_torch/drivers/ in process on the card (digits held to their
      CPU floors, walls, launches per kernel), the dd / qd drivers' kernels
-     launched and held at every shape; the mp tier launches nothing.
+     launched and held at every shape; the mp tier launches nothing;
+ 19. the f64 drivers and the multichip dry run: the other fourteen drivers
+     in process on the card at the JAX scripts' defaults (and
+     crs_ising D 10 17 8 1, the rescaled D path at d = 9, and crs_batch
+     with COMPARE=1), in a temporary working directory, each held to the
+     port's CPU run at the same arguments (digits, or the D_10 value and
+     its last cnv), with walls and launches per kernel, every launched
+     shape held (the fused integrand's D kind at d = 9 against its plain
+     version at the driver's shapes); plot_ttcross_data where matplotlib
+     imports; parallel/dryrun.py::dryrun_multichip(8) on eight gloo ranks
+     sharing the card, every mode err < 1e-8, beside MULTICHIP_r05.json's
+     JAX record.
 The line before the last is the kernels' JSON summary, one entry for every
 (kernel, shape) that the C_6 headline, the C_256 long chain, each
 configuration of phase 7 and phases 8-16 launched at (an f32 launch's entry
 named <kernel>_f32), with that run's launches at the shape beside phase 3's
 error, times and bound there, and one entry for every (qd kernel, path) of
 phases 17-18 (its launches on the path, the shapes held, the times and bound
-at the path's heaviest shape), and phase 18's dd / qd drivers' paths
-beside them; the last line is
+at the path's heaviest shape), and phase 18's dd / qd drivers' paths and
+phase 19's drivers' and dry run's beside them; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 It imports nothing of JAX.
 """
@@ -1907,31 +1918,6 @@ def check_family(dev, held):
     return shapes
 
 
-def mvn_rho_fun(nodes, d, sigma=0.4, T=1.0):
-    """drivers/crs_greeks.py::mvn_rho_fun on the port: the MVN pdf with the
-    equicorrelation rho a differentiable parameter (closed-form
-    Sherman-Morrison inverse of cov = s2 ((1 - rho) I + rho 11^T)).  The
-    node lookup is kernel B: its inputs, the indices and the nodes, are free
-    of rho, so it runs under torch.func.grad and once under torch.func.vmap
-    over rho."""
-    import numpy as np
-    import torch
-
-    from ttcross_tpu_torch.ops.dense import table_lookup
-
-    s2 = sigma * sigma * T
-    mu = float(np.log(100.0) - 0.5 * sigma * sigma * T)
-
-    def fun(ind, rho):
-        diff = table_lookup(nodes, ind) - mu
-        denom = 1.0 + (d - 1.0) * rho
-        q = ((diff * diff).sum(dim=1) - rho / denom * diff.sum(dim=1) ** 2) / (s2 * (1.0 - rho))
-        det = (s2 ** d) * ((1.0 - rho) ** (d - 1)) * denom
-        return torch.exp(-0.5 * q) / torch.sqrt((2.0 * np.pi) ** d * det)
-
-    return fun
-
-
 def check_greeks(dev, gen, held, checked):
     """Phase 10: drivers/crs_greeks.py's problem at its defaults on the card:
     a cross at rho0 (return_state), its frozen skeleton, the skeleton value,
@@ -1944,6 +1930,7 @@ def check_greeks(dev, gen, held, checked):
 
     from ttcross_tpu_torch.apps.mvn import MVN_BOX
     from ttcross_tpu_torch.cross import cross, extract_skeleton, skeleton_value_fn
+    from ttcross_tpu_torch.drivers.crs_greeks import mvn_rho_fun
     from ttcross_tpu_torch.ops import kernels as K
     from ttcross_tpu_torch.ops.quadrature import lgwt, map_to_interval
 
@@ -3544,6 +3531,264 @@ def check_mp_native_drivers(dev, gen, held, checked):
     return paths
 
 
+# ------------------------------------------------------------ phase 19: the f64 drivers, the dry run
+# The f64 drivers (ttcross_tpu_torch/drivers/) at the JAX scripts'
+# defaults, in process on the card, in a temporary working directory
+# (crs_pdf, crs_store and crs_coscoeff write out/ there).  Their floors are
+# the port's CPU runs of the same drivers at the same arguments, which draw
+# the same uniforms (`main(argv, device="cpu")`), 0.5 digits under them:
+# kernel A's sums in another order may move a pivot.
+#   crs_ising (C 6 65 20 1)                   12.90 digits, 89,067 evals
+#   crs_ising D 10 17 8 1 (rescaled, d = 9)   7.34923526550625e-07, no truth;
+#     last cnv 1.39e-6 (its law over keys 0-31 is the JAX package's:
+#     tests/test_torch_drivers_f64.py)
+#   crs_stdnorm (6 65 20 1, accuracy 5 eps)   14.75
+#   crs_mvn, crs_mvn_complex, crs_chf's phi_0, crs_pdf's mass (6 65 20 1)  5.84
+#   crs_batch (6 65 14 4)                     lanes 9.20 / 5.57 / 4.22 / 2.70
+#   crs_quantics (20 10 1 1)                  12.83, 64-point probe error 6.7e-15
+#   crs_greeks (6 65 14 5)                    held as phase 10 holds it
+F64_DRIVER_RUNS = [   # (driver, argv, CPU digits, the kernels its path must launch)
+    ("crs_ising", [], 12.90, MAIN_PATH_KERNELS),
+    ("crs_ising", ["D", "10", "17", "8", "1"], None, MAIN_PATH_KERNELS),
+    ("crs_stdnorm", [], 14.75, MVN_KERNELS),
+    ("crs_mvn", [], 5.84, MVN_KERNELS),
+    ("crs_mvn_complex", [], 5.84, MVN_KERNELS),
+    ("crs_chf", [], 5.84, MVN_KERNELS),
+    ("crs_pdf", [], 5.84, MVN_KERNELS),
+    ("crs_store", [], None, MVN_KERNELS),
+    ("crs_coscoeff", [], None, ("score_residual_argmax",)),
+    ("crs_batch", [], (9.20, 5.57, 4.22, 2.70), FAMILY_KERNELS),
+    ("crs_batch", ["6", "65", "14", "4", "1"], (9.20, 5.57, 4.22, 2.70), FAMILY_KERNELS),
+    ("crs_greeks", [], None, MVN_KERNELS),
+    ("crs_quantics", [], 12.83, ("score_residual_argmax",)),
+    ("print_s_vectors", [], None, ()),
+    ("print_cos_coeff", [], None, ()),
+]
+DRIVER_MARGIN = 0.5
+D10 = dict(kind="D", m=10, n=17)
+D10_CPU_VALUE = 7.34923526550625e-07
+D10_RTOL = 1e-6             # tests/test_torch_drivers_f64.py: every key of both packages
+D10_CNV = 2e-6              # over both packages' largest last cnv, keys 0-31
+QUANTICS_PROBE = 1e-12
+COS_TABLE_RTOL = 1e-13      # print_cos_coeff on the card against the CPU, of the largest
+DRYRUN_RANKS = 8
+DRYRUN_KERNELS = ("score_residual_argmax", "small_table_lookup")
+MULTICHIP_R05_TAIL = [      # the JAX package's record of __graft_entry__.dryrun_multichip(8)
+    "dryrun_multichip(8): OK  ranks=(1, 2, 2, 2, 2, 2, 2, 2, 2, 1) err=5.68e-13 neval=661",
+    "dryrun_multichip(8): jacobi err=6.25e-13, maxvol-refine err=1.99e-13, rb-chain "
+    "err=2.89e-15 — all distributed modes OK",
+    "dryrun_multichip(8): lane-sharded cross_batch (8 lanes) worst err=5.68e-13 — OK"]
+
+
+def _out_field(out, label):
+    return next(ln for ln in out.splitlines() if ln.startswith(label))[len(label):].strip()
+
+
+def _driver_reading(name, argv, want, out, dev) -> tuple[dict, bool]:
+    """What phase 19 reads from one driver's output (and the files it
+    wrote), and whether that holds against the port's CPU run."""
+    import numpy as np
+
+    floor = None if want is None or isinstance(want, tuple) else want - DRIVER_MARGIN
+    if name == "crs_ising" and argv:
+        val = float(_out_field(out, "computed value:"))
+        cnv = float([ln for ln in out.splitlines() if " n_evals:" in ln][-1]
+                    .split("cnv")[1].split()[0])
+        rel = abs(val / D10_CPU_VALUE - 1)
+        return ({"value": val, "cpu_value": D10_CPU_VALUE, "rel_to_cpu": rel, "last_cnv": cnv},
+                rel <= D10_RTOL and cnv <= D10_CNV and "correct digits" not in out)
+    if name in ("crs_chf", "crs_pdf"):
+        if name == "crs_chf":
+            phis = [complex(*(float(v) for v in ln.split(":")[1].split()))
+                    for ln in out.splitlines() if ln.startswith("computed value:")]
+            golden = [ln for ln in out.splitlines() if ln.startswith("golden  value:")]
+            mass, extra = phis[0].real, {"n_values": len(phis), "n_golden": len(golden)}
+            ok = len(phis) == len(golden) == 32 and all(np.isfinite([abs(p) for p in phis]))
+        else:
+            data = np.loadtxt("out/tt-cross-pdf.txt")
+            mass = float(np.trapezoid(data[:, 1], data[:, 0]))
+            extra = {"points": len(data), "pdf_min": float(data[:, 1].min())}
+            ok = (data.shape == (200, 2) and bool(np.isfinite(data).all())
+                  and extra["pdf_min"] >= -1e-6)
+        digits = float(-np.log10(abs(1 - mass)))
+        return {"digits": digits, "floor": floor, "mass": mass, **extra}, ok and digits >= floor
+    if name == "crs_store":
+        from ttcross_tpu_torch.tt import load_ttbin
+
+        t = load_ttbin("out/tensor_train.ttx", device=dev)
+        h5 = "wrote out/tensor_train.h5" in out
+        ok = (t.device.type == "cuda" and t.d == 6 and max(t.r) <= 20 and len(
+            np.loadtxt("out/tt-cross-pdf.txt")) == 200
+              and (h5 or "(h5py unavailable; skipping HDF5)" in out))
+        return {"ttx_ranks": list(t.r), "hdf5": h5}, ok
+    if name == "crs_coscoeff":
+        neval = int(out.split("...with ")[1].split()[0])
+        return ({"n_evals": neval, "sweeps": out.count(" n_evals:"),
+                 "hdf5": "wrote out/coeff-tt-6-65-10-0.5.h5" in out}, neval > 0)
+    if name == "crs_batch":
+        lanes = [float(ln.split("correct digits")[1].split()[0]) for ln in out.splitlines()
+                 if ln.startswith("  corr ")]
+        row = {"lane_digits": lanes, "cpu_lane_digits": list(want)}
+        if "steady wall:" in out:
+            words = _out_field(out, "steady wall:").split()
+            row.update(batch_steady_s=float(words[1]), singles_steady_s=float(words[7]),
+                       family_speedup=float(words[-1].rstrip("x")))
+        return row, len(lanes) == 4 and all(g >= c - DRIVER_MARGIN for g, c in zip(lanes, want))
+    if name == "crs_greeks":
+        mass, cross_value = (float(v) for v in _out_field(out, "mass(0.5) =").replace(
+            "(cross value", "").split(",")[0].split())
+        g, fd = (float(v) for v in _out_field(out, "d mass / d rho =").split("central-FD check"))
+        return ({"mass": mass, "cross_value": cross_value, "grad": g, "central_difference": fd},
+                abs(mass / cross_value - 1) <= GREEK_VALUE_RTOL
+                and abs(g - fd) <= GREEK_FD_RTOL * max(1.0, abs(g)))
+    if name == "print_s_vectors":
+        from ttcross_tpu_torch.apps import s_vectors
+
+        text = "".join(" ".join(f"{int(x):+d}" for x in row) + "\n" for row in s_vectors(4))
+        return {"rows": len(out.splitlines())}, out == text
+    if name == "print_cos_coeff":
+        import torch
+
+        from ttcross_tpu_torch.apps import make_cos_coefficients, make_mvn_density
+
+        dens = make_mvn_density(4, device="cpu")
+        cc = make_cos_coefficients(4, dens.mu, dens.cov, 0.52517, 8.52517, device="cpu")
+        ind = torch.zeros((32, 4), dtype=torch.int32)
+        ind[:, -1] = torch.arange(32)
+        want_v = cc.fun(ind).numpy()
+        got = np.array([float(ln.split("coeff=")[1]) for ln in out.splitlines()])
+        dev_max = float(np.abs(got - want_v).max() / np.abs(want_v).max())
+        return {"max_rel_to_cpu": dev_max}, len(got) == 32 and dev_max <= COS_TABLE_RTOL
+    digits = float(_out_field(out, "correct digits:").split()[0])
+    row = {"digits": digits, "floor": floor, "cpu_digits": want}
+    ok = digits >= floor
+    if name == "crs_quantics":
+        row["probe_err"] = float(_out_field(
+            out, "max point-eval error on the 64-point dyadic probe:"))
+        ok = ok and row["probe_err"] <= QUANTICS_PROBE
+    return row, ok
+
+
+def hold_integrand_kind(dev, gen, shapes, held, checked, kind, m, n, label) -> None:
+    """Hold the fused integrand of `kind` at every (B, d, n) shape a run of
+    make_ising(kind, m, n) launched it at, with that problem's tables (its
+    rescaled weights) and _integrand_rtol's tolerance for the kind; the
+    rows replace any kind-C row of the shape."""
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising
+
+    p = make_ising(kind, m, n, device=dev)
+    cases = []
+    for (B, d, nn) in sorted(shapes.get("ising_integrand_fused", {})):
+        if (d, nn) != (p.d, p.n):
+            raise AssertionError(f"{label}: an integrand launch at {(B, d, nn)} is not this "
+                                 f"problem's (d, n) = {(p.d, p.n)}")
+        ind = torch.randint(0, p.n, (B, d), generator=gen, dtype=torch.int32)
+        ind[0, 0], ind[min(1, B - 1), d - 1] = -1, p.n
+        cases.append((f"{label}_{B}x{d}", kind, p.tables, ind.to(dev)))
+    for r in check_integrand(cases):
+        checked["ising_integrand_fused"][tuple(r["shape"])] = r
+        held["ising_integrand_fused"].add(tuple(r["shape"]))
+
+
+def check_f64_drivers(dev, gen, held, checked):
+    """Phase 19: the f64 drivers and the multichip dry run.
+      1. every run of F64_DRIVER_RUNS in process on the card, in a temporary
+         working directory: its exit code, what it prints (and writes) held
+         to the port's CPU run (_driver_reading), its wall and launches per
+         kernel; the kernels of its path must launch, and every shape is
+         held against the plain version (the D_10 run's integrand in the D
+         kind with the problem's rescaled tables first);
+      2. plot_ttcross_data.plot_pdf on crs_pdf's file where matplotlib
+         imports (host code), else a line that says it is absent;
+      3. dryrun_multichip(DRYRUN_RANKS) on gloo ranks sharing the card:
+         every mode err < 1e-8 on every rank, the sequential ranks those of
+         the JAX package's record, every rank's launches held.
+    Returns [(path label, launches by shape, the kernels it must launch)]."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from ttcross_tpu_torch.ops import kernels as K
+    from ttcross_tpu_torch.parallel import dryrun_multichip
+
+    paths = []
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="ttcross_drivers_") as tmp:
+        os.chdir(tmp)
+        try:
+            for name, argv, want, need in F64_DRIVER_RUNS:
+                K.reset_launch_counts()
+                rc, out, wall = _run_driver(name, argv, dev)
+                counts, shapes = K.launch_counts(), K.launch_shapes()
+                reading, ok = _driver_reading(name, argv, want, out, dev)
+                label = f"driver {name} {' '.join(argv)}".rstrip()
+                row = {"phase": "driver_f64", "driver": name, "argv": argv, "rc": rc,
+                       **reading, "wall_s": wall,
+                       "launches": {k: v for k, v in counts.items() if v},
+                       "launches_by_shape": _by_shape({k: v for k, v in shapes.items() if v})}
+                _emit(row)
+                if rc != 0 or not ok:
+                    raise AssertionError(f"{label}: {row}\n{out[-3000:]}")
+                if min((counts.get(k, 0) for k in need), default=1) <= 0:
+                    raise AssertionError(f"{label}: a kernel of its path never launched: "
+                                         f"{counts}")
+                if not need and sum(counts.values()):
+                    raise AssertionError(f"{label} launched kernels: {counts}")
+                t0 = time.perf_counter()
+                if name == "crs_ising" and argv:
+                    hold_integrand_kind(dev, gen, shapes, held, checked, label=label, **D10)
+                _held_everywhere(dev, gen, held, checked, label, shapes)
+                _emit({"phase": "driver_hold", "driver": label,
+                       "seconds": time.perf_counter() - t0,
+                       "shapes": {k: len(v) for k, v in shapes.items() if v}})
+                if need:
+                    paths.append((label, shapes, need))
+            try:
+                import matplotlib  # noqa: F401
+            except ImportError:
+                print("phase 19: matplotlib is absent on the card's host: "
+                      "plot_ttcross_data (host code) not run", flush=True)
+            else:
+                from ttcross_tpu_torch.drivers.plot_ttcross_data import plot_pdf
+
+                plot_pdf("out/tt-cross-pdf.txt", "out/tt-cross-pdf.png")
+                _emit({"phase": "driver_f64", "driver": "plot_ttcross_data",
+                       "png_bytes": os.path.getsize("out/tt-cross-pdf.png")})
+        finally:
+            os.chdir(home)
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        outs = dryrun_multichip(DRYRUN_RANKS)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    shapes = _merge_shapes([o["launch_shapes"] for o in outs])
+    counts = {k: sum(v.values()) for k, v in shapes.items() if v}
+    seq = outs[0]["sequential"]
+    modes = ("sequential", "jacobi", "maxvol-refine", "rb-chain")
+    row = {"phase": "dryrun_multichip", "ranks": DRYRUN_RANKS, "backend": "gloo",
+           "devices": sorted({o["device"] for o in outs}), "wall_s": wall,
+           "err": {m: max(o[m]["err"] for o in outs) for m in modes},
+           "lanes_worst_err": max(max(o["lanes"]["errs"]) for o in outs),
+           "tt_ranks": list(seq["ranks"]), "neval": seq["neval"], "launches": counts,
+           "port_lines": lines, "jax_record_MULTICHIP_r05": MULTICHIP_R05_TAIL}
+    _emit(row)
+    if (len(lines) != 3 or seq["ranks"] != (1,) + (2,) * DRYRUN_RANKS + (1,)
+            or any(o["device"] != "cuda:0" for o in outs)
+            or min(counts.get(k, 0) for k in DRYRUN_KERNELS) <= 0):
+        raise AssertionError(f"dryrun_multichip({DRYRUN_RANKS}): {row}")
+    label = f"dryrun_multichip({DRYRUN_RANKS})"
+    _held_everywhere(dev, gen, held, checked, label, shapes)
+    paths.append((label, shapes, DRYRUN_KERNELS))
+    return paths
+
+
 def profile_run(label: str, run) -> None:
     """torch.profiler over one steady run (run() returns a tuple that
     starts with the result): kernel time by name, the device's busy share
@@ -3704,6 +3949,11 @@ def main() -> int:
     _emit({"phase": "phase18_done", "seconds": time.perf_counter() - t18,
            "script_elapsed_s": time.perf_counter() - T_START})
     new_runs += [(path, shapes) for path, shapes, _ in drv_paths]
+    t19 = time.perf_counter()
+    f64_paths = check_f64_drivers(dev, gen, held, checked)
+    _emit({"phase": "phase19_done", "seconds": time.perf_counter() - t19,
+           "script_elapsed_s": time.perf_counter() - T_START})
+    new_runs += [(path, shapes) for path, shapes, _ in f64_paths]
     if "--profile" in args:
         for name in ("c4_n65_r32", "c6_n65_r48"):
             profile_run(f"dd {name}", lambda name=name: run_dd(dev, name))
@@ -3763,6 +4013,7 @@ def main() -> int:
                                            + [(path, need) for path, _, need in par_paths]
                                            + [(path, need) for path, _, need in qd_paths]
                                            + [(path, need) for path, _, need in drv_paths]
+                                           + [(path, need) for path, _, need in f64_paths]
                for k in need if not any(e["name"] == k and e["path"] == path and e["launches"] > 0
                                         for e in entries)}
     if missing:

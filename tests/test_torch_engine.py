@@ -192,7 +192,12 @@ def test_public_cross_runs_and_rejects_unported(problems):
     "cross.cross_defect_corrected_qd", "apps.make_ising_qd", "apps.make_stdnorm_qd",
     "cross.refine_dd", "parallel.cross_qd_parallel", "drivers.crs_ising_dd.main",
     "drivers.crs_ising_mp.main", "drivers.crs_stdnorm_dd.main", "drivers.crs_ising_qd.main",
-    "drivers.crs_ising_qde.main", "drivers.chf_equal.main"])
+    "drivers.crs_ising_qde.main", "drivers.chf_equal.main", "drivers.crs_ising.main",
+    "drivers.crs_stdnorm.main", "drivers.crs_mvn.main", "drivers.crs_mvn_complex.main",
+    "drivers.crs_chf.main", "drivers.crs_pdf.main", "drivers.crs_store.main",
+    "drivers.crs_coscoeff.main", "drivers.crs_batch.main", "drivers.crs_greeks.main",
+    "drivers.crs_quantics.main", "drivers.print_s_vectors.main", "drivers.print_cos_coeff.main",
+    "parallel.dryrun_multichip"])
 def test_entry_points_default_to_the_card(entry):
     module, name = entry.rsplit(".", 1)
     entry = getattr(importlib.import_module("ttcross_tpu_torch." + module), name)
@@ -206,7 +211,8 @@ HOST_ONLY = ("cross.cross_mp", "parallel.cross_mp_parallel", "cross.cross_mp_nat
 
 
 @pytest.mark.parametrize("entry", HOST_ONLY + ("drivers.crs_ising_mpf.main",
-                                               "drivers.crs_ising_mpn.main"))
+                                               "drivers.crs_ising_mpn.main",
+                                               "drivers.plot_ttcross_data.plot_pdf"))
 def test_host_only_entry_points_take_no_device(entry):
     module, name = entry.rsplit(".", 1)
     entry = getattr(importlib.import_module("ttcross_tpu_torch." + module), name)
@@ -243,7 +249,12 @@ def test_port_imports_no_jax():
                 "parallel.engine_mp", "native", "native._mpfr", "native._gxx", "drivers",
                 "drivers.crs_ising_dd", "drivers.crs_ising_mp", "drivers.crs_stdnorm_dd",
                 "drivers.crs_ising_qd", "drivers.crs_ising_qde", "drivers.crs_ising_mpf",
-                "drivers.crs_ising_mpn", "drivers.chf_equal"):
+                "drivers.crs_ising_mpn", "drivers.chf_equal", "drivers.crs_ising",
+                "drivers.crs_stdnorm", "drivers.crs_mvn", "drivers.crs_mvn_complex",
+                "drivers.crs_chf", "drivers.crs_pdf", "drivers.crs_store", "drivers.crs_coscoeff",
+                "drivers.crs_batch", "drivers.crs_greeks", "drivers.crs_quantics",
+                "drivers.print_s_vectors", "drivers.print_cos_coeff",
+                "drivers.plot_ttcross_data", "parallel.dryrun"):
         assert "ttcross_tpu_torch." + new in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -33,11 +33,11 @@ from ttcross_tpu.cross.skeleton import (derive_host_fun as jderive_host_fun,
                                         skeleton_value_fn as jskeleton_value_fn)
 from ttcross_tpu.ops.quadrature import lgwt as jlgwt, map_to_interval as jmap_to_interval
 from ttcross_tpu.tt.ortho import svd_round_host as jsvd_round_host
-from chip_smoke import mvn_rho_fun      # drivers/crs_greeks.py's integrand on the port
 from ttcross_tpu_torch.apps.ising import ising_integrand_np
 from ttcross_tpu_torch.cross import (cross, derive_host_fun, extract_skeleton, reevaluate_host,
                                      skeleton_tt_fn, skeleton_value_fn)
 from ttcross_tpu_torch.cross.engine import _cross
+from ttcross_tpu_torch.drivers.crs_greeks import mvn_rho_fun
 from ttcross_tpu_torch.interop import ising_from_numpy
 from ttcross_tpu_torch.tt import contract
 from ttcross_tpu_torch.tt.ortho import svd_round_host

@@ -1,10 +1,11 @@
-"""Correct digits -log10|1 - value/truth| in decimal, for the drivers."""
+"""Correct digits -log10|1 - value/truth| for the drivers: in decimal for
+the extended-precision tiers, in f64 for the f64 drivers."""
 
 from __future__ import annotations
 
 from decimal import Decimal, localcontext
 
-__all__ = ["digits_of", "report"]
+__all__ = ["digits_of", "report", "report_f64"]
 
 
 def digits_of(value: Decimal, truth: str, prec: int) -> float:
@@ -26,5 +27,20 @@ def report(value: Decimal, truth: str | None, prec: int, shown: int) -> float | 
             return None
         print(f"analytic value: {+Decimal(truth)}")
     digits = digits_of(value, truth, prec)
+    print(f"correct digits: {digits:7.2f}")
+    return digits
+
+
+def report_f64(value: float, truth: float | None) -> float | None:
+    """The f64 drivers' lines (drivers/crs_ising.py:45-50): the computed
+    value, and with a truth the analytic value and the correct digits;
+    returns the digits."""
+    import numpy as np
+
+    print(f"computed value: {value:.40e}")
+    if not truth:
+        return None
+    print(f"analytic value: {truth:.40e}")
+    digits = float(-np.log10(abs(1 - value / truth)))
     print(f"correct digits: {digits:7.2f}")
     return digits

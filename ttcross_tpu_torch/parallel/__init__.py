@@ -7,9 +7,11 @@ pcontract (quad.py) over parallel/mesh.py's bond axis; spawn_ranks
 (launch.py) starts a local group from Python.  cross_qd_parallel
 (engine_qd.py) distributes the qd tier over spawned worker processes
 through the bond-slab hub (_hub.py), and cross_mp_parallel (engine_mp.py)
-the mp tier, host code, over the same hub."""
+the mp tier, host code, over the same hub.  dryrun_multichip (dryrun.py)
+runs every distributed mode on spawned ranks at tiny shapes."""
 
 from .engine import cross_parallel, get_parallel_engine, make_parallel_engine, rank_key
+from .dryrun import dryrun_multichip
 from .engine_dd import cross_dd_parallel, get_parallel_dd_engine, make_parallel_dd_engine
 from .engine_qd import cross_qd_parallel
 from .launch import spawn_ranks
@@ -18,7 +20,7 @@ from .mesh import BOND_AXIS, BondMesh, bond_mesh, share
 from .quad import pcontract
 
 __all__ = ["BOND_AXIS", "BondMesh", "bond_mesh", "cross_dd_parallel", "cross_mp_parallel",
-           "cross_parallel", "cross_qd_parallel", "get_parallel_dd_engine",
+           "cross_parallel", "cross_qd_parallel", "dryrun_multichip", "get_parallel_dd_engine",
            "get_parallel_engine", "make_parallel_dd_engine", "make_parallel_engine",
            "maxvol_refine_parallel", "pcontract", "rank_key", "share", "spawn_ranks"]
 
