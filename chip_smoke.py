@@ -13,6 +13,15 @@
                                      # the parent commit, unpacked with git
                                      # archive) against this one's, in
                                      # turns, in one process
+    python3 chip_smoke.py --qd-regimes [--parent DIR]
+                                     # only: build, then time Q4 in every
+                                     # regime at the qd paths' shapes and
+                                     # a sweep of output counts (the data
+                                     # of dot_plan's rule), Q3 with other
+                                     # rows and threads a block, and Q3 /
+                                     # Q4 against DIR's at the kernel
+                                     # table's shapes; no main path, no
+                                     # result line
 
 Phases, each printing its result as it goes:
   1. the card: nvidia-smi's name and power limit, torch's device name;
@@ -129,7 +138,10 @@ Phases, each printing its result as it goes:
      package's two test cases and a small cross_qd against the CPU; every qd
      kernel held bit for bit against its plain version at every shape these
      runs launched it at, with device time, bound and host time at the
-     shape of each path that holds the most work;
+     shape of each path that holds the most work and at the kernel table's
+     shapes (QD_TABLE_SHAPES: Q4 in each regime), and each qd and dd
+     kernel's device time summed over the shapes its path launched it at
+     (device_totals);
  18. the host libraries, the mp tier and the drivers: both native libraries
      built with g++ (seconds) and the MPFR ABI self-test;
      ising_cross_mp_native at bench.py's ising_c4_mp120_native equal to the
@@ -507,6 +519,39 @@ def device_per_call(fn, calls: int = 50, tries: int = 10) -> dict:
             "by_kernel": {e.key: (_device_us(e), e.count) for e in kern}}
 
 
+SPIN_CYCLES_PER_S = 2.0e9   # torch.cuda._sleep's cycles a second, at most (H100 SXM: 1.98 GHz)
+
+
+def device_us_idle(fn, reps: int = 5) -> float:
+    """Device µs per call of fn: CUDA events around `reps` calls queued
+    behind a spin kernel (torch.cuda._sleep) that outlasts their host time,
+    so the card runs them back to back and the events time the card alone,
+    as device_per_call's profiler does, at a few ms a reading instead of
+    ~0.1 s a window (phase 17 reads every qd shape of every path)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin_s = 2.0 * reps * (time.perf_counter() - t0) + 1e-4
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(5):
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued_s = time.perf_counter() - t0
+        b.synchronize()
+        if queued_s < 0.5 * spin_s:   # every call was queued before the spin ended
+            return a.elapsed_time(b) * 1e3 / reps
+        spin_s *= 4
+    raise AssertionError("the host could not queue the calls while the card spun")
+
+
 def host_us_per_call(fn, calls: int = 1000) -> float:
     """Host clock around `calls` calls and one synchronize, per call."""
     import torch
@@ -834,6 +879,8 @@ def _package_of(root: str):
     from pathlib import Path
 
     name = "other_ttcross_tpu_torch"
+    if name in sys.modules:
+        return name
     pkg = Path(root).resolve() / "ttcross_tpu_torch"
     spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
                                                   submodule_search_locations=[str(pkg)])
@@ -2756,9 +2803,18 @@ QD_SMALL = dict(m=4, n=17, max_rank=10)
 QD_PAR_RTOL, QD_SMALL_RTOL = 1e-58, 1e-60
 QD_REFINE_ABS, QD_REFINE_DIGITS = 1e-27, 28.0   # tests/test_refine.py's cases
 QD_MUL_FLOPS, QD_ADD_FLOPS, QD_DIV_FLOPS = 508, 172, 1586   # ops/qd.py's qd_mul, qd_add, qd_div
-QD_KERNEL_SYMBOLS = {"qd_score_residual_argmax": "qd_score_kernel", "qd_dot": "qd_dot_kernel",
+QD_KERNEL_SYMBOLS = {"qd_score_residual_argmax": "qd_score_kernel", "qd_dot": "qd_dot_",
                      "qd_gather_tt_fused": "qd_gather_tt_kernel",
                      "ising_c_integrand_qd_fused": "ising_c_qd_kernel"}   # csrc/qd_kernels.cu
+# the kernel table's shapes (PERF.md): Q4's heaviest and lightest calls
+# (solve_core, its two workers' size, qd_contract, refine_dd's and stdnorm's
+# one-output trees), the defect's trains, and one shape of each path's other
+# calls per Q4 regime (apply_*_slice, _extend_inverses, a one-output chain)
+QD_TABLE_SHAPES = {"qd_dot": [(55, 3575, 55, "seq"), (33, 2145, 33, "seq"), (33, 33, 33, "tree"),
+                              (1, 1, 201, "tree"), (1, 1, 101, "tree"), (55, 65, 55, "seq"),
+                              (1, 55, 55, "tree"), (1, 1, 55, "seq")],
+                   "qd_gather_tt_fused": [(1089, 33, 1, 33, 33, 1), (1089, 33, 1, 15, 14, 1)]}
+QD_MUL_F64_FLOPS = 199   # qd_mul_f64: 3 two_prods, a product, a distill of 7 terms (Q3's leaf)
 QD_PATH_KERNELS = {"cross_qd": ("qd_score_residual_argmax", "qd_dot", "ising_c_integrand_qd_fused"),
                    "stdnorm": ("qd_score_residual_argmax", "qd_dot"),
                    "defect": ("score_residual_argmax", "ising_integrand_fused",
@@ -2781,11 +2837,13 @@ def _qd_bound(name, shape):
         nbytes = 32 * (M * T + T * N + M * N)
         flops = M * N * (T * QD_MUL_FLOPS + max(T - 1, 0) * QD_ADD_FLOPS)
     elif name == "qd_gather_tt_fused":     # (B, N) + the train's ranks
+        # a leaf multiplies by an f64 core entry: qd_mul_f64, bit for bit the
+        # plain version's qd_mul by (g, 0, 0, 0) at 199 flops of its 508
         B, N, ranks = shape[0], shape[1], shape[2:]
         d = len(ranks) - 1
         nbytes = 8 * N * sum(ranks[c] * ranks[c + 1] for c in range(d)) + 4 * B * d + 32 * B
-        flops = B * sum(ranks[c + 1] * (ranks[c] * QD_MUL_FLOPS + (ranks[c] - 1) * QD_ADD_FLOPS)
-                        for c in range(d))
+        flops = B * sum(ranks[c + 1] * (ranks[c] * QD_MUL_F64_FLOPS
+                                         + (ranks[c] - 1) * QD_ADD_FLOPS) for c in range(d))
     else:   # ising_c_integrand_qd_fused: 3d + 2 multiplies, 2d adds, one divide per row
         B, d, n = shape
         nbytes = 4 * B * d + 64 * n + 32 * B
@@ -2966,7 +3024,7 @@ def hold_qd_shapes(dev, gen, shapes, held, checked) -> None:
             errs = {}
             for (shape, label, got, _), want in zip(calls, wants):
                 got, want = _qd_parts(got), _qd_parts(want)
-                if not all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(got, want)):
+                if not _bit_equal(got, want):
                     raise AssertionError(f"{name} {shape} ({label}): not bit-equal to its plain "
                                          "version")
                 errs[shape] = max([errs.get(shape, 0.0)] + [
@@ -3012,6 +3070,149 @@ def time_qd_row(dev, gen, name, shape, row) -> dict:
                host_us_per_call=host_us_per_call(fn, calls=100))
     _emit({"phase": "qd_kernel", **row})
     return row
+
+
+_IDLE_US = {}   # (kernel, shape) -> device_us_idle of its first layout
+
+
+def _idle_us(dev, gen, name, shape) -> float:
+    key = (name, tuple(shape))
+    if key not in _IDLE_US:
+        cases = (_qd_cases(dev, gen, name, shape) if name in QD_KERNELS
+                 else _dd_cases(dev, gen, name, shape))
+        _IDLE_US[key] = device_us_idle(cases[0][1])
+    return _IDLE_US[key]
+
+
+def time_qd_table(dev, gen, held, checked) -> None:
+    """The kernel table's rows (QD_TABLE_SHAPES), held against the plain
+    version first where no run launched them: the profiler's device µs per
+    call (time_qd_row) beside device_us_idle's, the bound and its share, and
+    Q4's plan (qd_dot_plan)."""
+    from ttcross_tpu_torch.ops import kernels as K
+
+    hold_qd_shapes(dev, gen, {name: {sh: 1 for sh in shapes}
+                              for name, shapes in QD_TABLE_SHAPES.items()}, held, checked)
+    for name, shapes in QD_TABLE_SHAPES.items():
+        for shape in shapes:
+            row = time_qd_row(dev, gen, name, shape, checked[name][shape])
+            out = {"phase": "qd_table", "kernel": name, "shape": list(shape),
+                   "device_us": row["device_us"], "kernel_us": row["kernel_us"],
+                   "idle_us": _idle_us(dev, gen, name, shape), "bound_us": row["bound_us"],
+                   "share_of_bound": row["share_of_bound"], "plain_ms": row["plain_ms"]}
+            if name == "qd_dot":
+                out["plan"] = list(K.qd_dot_plan(*shape[:3], shape[3] == "tree"))
+            _emit(out)
+
+
+def device_totals(dev, gen, runs, checked) -> dict:
+    """Each dd and qd kernel's device time on each run's path: the sum over
+    the shapes the run launched it at of launches x the shape's device µs
+    (device_us_idle, the first layout), beside its bound summed the same
+    way; Q4 per regime.  Returns {(path, kernel): ms}."""
+    from ttcross_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    totals = {}
+    for path, by_kernel in runs:
+        for name in DD_KERNELS + QD_KERNELS:
+            groups = {}
+            for shape, count in sorted((by_kernel.get(name) or {}).items(), key=str):
+                regime = (K.qd_dot_plan(*shape[:3], shape[3] == "tree").regime
+                          if name == "qd_dot" else "")
+                g = groups.setdefault(regime, {"shapes": 0, "launches": 0, "device_ms": 0.0,
+                                               "bound_ms": 0.0})
+                g["shapes"] += 1
+                g["launches"] += count
+                g["device_ms"] += count * _idle_us(dev, gen, name, shape) * 1e-3
+                g["bound_ms"] += count * checked[name][shape]["bound_us"] * 1e-3
+            for regime, g in groups.items():
+                _emit({"phase": "device_totals", "path": path, "kernel": name, "regime": regime,
+                       **g})
+                totals[path, name] = totals.get((path, name), 0.0) + g["device_ms"]
+    _emit({"phase": "device_totals_done", "seconds": time.perf_counter() - t0,
+           "shapes_timed": len(_IDLE_US)})
+    return totals
+
+
+# Q4's tuning data (--qd-regimes): the qd paths' shapes and output counts
+# from 1 to 196,625 at T = 12 to 55, each in every regime
+QD_TUNE_SHAPES = ([(55, n, 55, "seq") for n in (1, 65, 260, 380, 428, 520, 1040, 1430, 3575)]
+                  + [(33, n, 33, "seq") for n in (65, 520, 700, 1040, 1985, 2145)]
+                  + [(r, 65 * r, r, "seq") for r in (12, 16, 19, 20, 24)]
+                  + [(1, 1, 33, "seq"), (1, 33, 33, "seq"), (33, 33, 33, "seq"),
+                     (1, 1, 201, "tree"), (1, 1, 101, "tree"), (1, 33, 33, "tree"),
+                     (1, 55, 55, "tree"), (33, 33, 33, "tree"), (33, 33, 65, "tree"),
+                     (55, 55, 65, "tree"), (55, 3575, 55, "tree")])
+QD_TUNE_PLANS = {"seq": [("thread", 256, 0), ("thread", 128, 0), ("thread", 64, 0),
+                         ("chain", 32, 7), ("chain", 16, 14), ("chain", 8, 28), ("chain", 4, 56),
+                         ("chain", 2, 112), ("chain", 1, 224)],
+                 "tree": [("thread", 256, 0), ("tree", 1, 0), ("tree", 2, 0), ("tree", 4, 0),
+                          ("tree", 8, 0), ("tree", 16, 0)]}
+# Q3's tuning data: the defect's trains at its batch sizes, rows x threads a block
+QD_TUNE_GATHER = [(1089, 33, 1, 33, 33, 1), (132, 33, 1, 33, 33, 1), (1089, 33, 1, 15, 14, 1),
+                  (132, 33, 1, 15, 14, 1)]
+QD_TUNE_GATHER_PLANS = [(r, t) for r in (1, 2, 3, 4, 5, 6, 8) for t in (64, 128, 256)]
+
+
+def tune_qd_kernels(dev, gen) -> None:
+    """Q4 at QD_TUNE_SHAPES in its own plan and in each of QD_TUNE_PLANS,
+    and Q3 at QD_TUNE_GATHER with each of QD_TUNE_GATHER_PLANS' rows and
+    threads a block, every launch bit-equal to the rule's, device µs per
+    call (device_us_idle)."""
+    from ttcross_tpu_torch.ops import kernels as K
+
+    for shape in QD_TUNE_SHAPES:
+        _, fn, _, args = _qd_cases(dev, gen, "qd_dot", shape)[0]
+        want = _qd_parts(fn())
+        rule = K.qd_dot_plan(*shape[:3], shape[3] == "tree")
+        us = {"rule": device_us_idle(fn)}
+        for plan in QD_TUNE_PLANS[shape[3]]:
+            if not _bit_equal(_qd_parts(K.qd_dot_planned(*args, plan)), want):
+                raise AssertionError(f"qd_dot {shape} in {plan}: not bit-equal to its own plan")
+            us["/".join(map(str, plan))] = device_us_idle(lambda p=plan: K.qd_dot_planned(*args, p))
+        _emit({"phase": "qd_regimes", "shape": list(shape), "rule": list(rule), "device_us": us})
+    for shape in QD_TUNE_GATHER:
+        _, fn, _, args = _qd_cases(dev, gen, "qd_gather_tt_fused", shape)[0]
+        want = _qd_parts(fn())
+        us = {"rule": device_us_idle(fn)}
+        for plan in QD_TUNE_GATHER_PLANS:
+            if not _bit_equal(_qd_parts(K.qd_gather_tt_planned(*args, *plan)), want):
+                raise AssertionError(f"qd_gather_tt {shape} in {plan}: not bit-equal to its rule")
+            us["/".join(map(str, plan))] = device_us_idle(
+                lambda p=plan: K.qd_gather_tt_planned(*args, *p))
+        _emit({"phase": "qd_gather_regimes", "shape": list(shape), "device_us": us})
+
+
+def _bit_equal(got, want) -> bool:
+    import torch
+
+    return all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(got, want))
+
+
+def compare_qd_with(root: str, dev, gen) -> None:
+    """Q3 and Q4 of the checkout at `root` (the parent) and of this one at
+    the kernel table's shapes, on the same inputs, in turns (other, this,
+    this, other): device µs per call from the profiler (20 calls) and from
+    device_us_idle; the two results bit-equal."""
+    import importlib
+
+    from ttcross_tpu_torch.ops import kernels as K
+
+    other_k = importlib.import_module(_package_of(root) + ".ops.kernels")
+    for name, shapes in QD_TABLE_SHAPES.items():
+        for shape in shapes:
+            _, _, _, args = _qd_cases(dev, gen, name, shape)[0]
+            fns = {"other": lambda: getattr(other_k, name)(*args),
+                   "this": lambda: getattr(K, name)(*args)}
+            if not _bit_equal(_qd_parts(fns["this"]()), _qd_parts(fns["other"]())):
+                raise AssertionError(f"{name} {shape}: this checkout and {root} differ")
+            reads = {"other": [], "this": []}
+            for who in ("other", "this", "this", "other"):
+                reads[who].append({"device_us": device_per_call(fns[who], calls=20)["device_us"],
+                                   "idle_us": device_us_idle(fns[who])})
+            _emit({"phase": "compare_qd", "other": root, "kernel": name, "shape": list(shape),
+                   **reads})
 
 
 def _qd_digits(limbs, truth: str) -> float:
@@ -3338,6 +3539,7 @@ def check_qd(dev, gen, held, checked, profile=False):
 
     # 6. the small cross_qd against the CPU
     check_small_qd_against_cpu(dev)
+    time_qd_table(dev, gen, held, checked)
     return paths
 
 
@@ -3840,10 +4042,16 @@ def main() -> int:
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": nvcc_s,
            "library": str(lib_path.relative_to(_build.BUILD_ROOT.parent.parent))})
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry function" in line:
             print(f"ptxas: {line.strip()}", flush=True)
 
     gen = torch.Generator().manual_seed(1234)
+    args = sys.argv[1:]
+    if "--qd-regimes" in args:
+        tune_qd_kernels(dev, gen)
+        if "--parent" in args:
+            compare_qd_with(args[args.index("--parent") + 1], dev, gen)
+        return 0
     a_cases, b_cases = kernel_cases(dev, gen)
     i_cases = integrand_cases(dev, gen)
     a_rows, b_rows = check_kernels(dev, a_cases, b_cases)
@@ -3864,7 +4072,6 @@ def main() -> int:
     checked.update({name: {} for name in DD_KERNELS})   # held by phase 15 at its runs' shapes
     checked.update({name: {} for name in QD_KERNELS})   # held by phase 17 at its runs' shapes
     held = {name: set(by) for name, by in checked.items()}
-    args = sys.argv[1:]
     if "--parent" in args:
         _emit(compare_with(args[args.index("--parent") + 1], a_cases, b_cases, i_cases))
     del a_cases, b_cases, i_cases
@@ -3958,6 +4165,8 @@ def main() -> int:
         for name in ("c4_n65_r32", "c6_n65_r48"):
             profile_run(f"dd {name}", lambda name=name: run_dd(dev, name))
 
+    totals = device_totals(dev, gen, new_runs, checked)
+
     # one entry for every (kernel, shape) that a path's run launched at: the
     # launches are those of that run, counted from 0 (the C_6 headline's
     # first run, the C_256 long chain's, the first run of each configuration
@@ -3981,6 +4190,7 @@ def main() -> int:
                     "launches_at_shape": by[shape],
                     "bound_ms_on_path": sum(by[sh] * checked[name][sh]["bound_us"]
                                             for sh in by) * 1e-3,
+                    "device_ms_on_path": totals[path, name],
                     "max_abs_err": max(checked[name][sh]["max_abs_err"] for sh in by),
                     "ms": row["ms"], "plain_ms": row["plain_ms"],
                     "device_ms": row["device_us"] * 1e-3, "bound_ms": row["bound_us"] * 1e-3,

@@ -105,10 +105,68 @@ def test_q4_is_its_plain_version(M, N, T, tree, tiny, cuda_device, gen):
     assert _same(K.qd_dot(x, y, tree), K.qd_dot_plain(x, y, tree))
 
 
+# Q4 in each regime it can take at a shape (K.qd_dot_planned): a thread per
+# output, 64 or 256 a block (the depth-first walk for the tree), chain warps with one output a
+# block, several, and all 32, the shared tree with one output a block and with
+# several; the shapes on each side of the sequential switch point
+# (kChainOutputsMax = 23,552 outputs) and at it, the paths' shapes
+REGIMES = {False: [("thread", 64, 0), ("thread", 256, 0), ("chain", 1, 224), ("chain", 5, 44),
+                  ("chain", 32, 7)],
+           True: [("thread", 64, 0), ("tree", 1, 0), ("tree", 3, 0), ("tree", 8, 0)]}
+REGIME_SHAPES = [(91, 258, 55, False), (92, 256, 55, False), (93, 256, 55, False),
+                 (24, 1560, 24, False), (1, 65 * 1024, 3, False),
+                 (55, 65, 55, False), (33, 2145, 33, False), (1, 1, 201, False),
+                 (33, 33, 33, True), (1, 1, 201, True), (1, 1, 101, True), (1, 33, 33, True),
+                 (7, 9, 1000, True), (1, 1, 2, True), (4, 3, 0, False)]
+
+
+@pytest.mark.parametrize("M,N,T,tree", REGIME_SHAPES)
+def test_q4_every_regime(M, N, T, tree, cuda_device, gen):
+    """Q4 bit-equal to its plain version in the regime its shape takes and
+    in every other one it can take there."""
+    a = _qd(gen, (M, T), cuda_device)
+    b = _qd(gen, (T, N), cuda_device)
+    x = QD(*(e[:, None, :].expand(M, N, T) for e in a))
+    y = QD(*(e.T[None].expand(M, N, T) for e in b))
+    want = K.qd_dot_plain(x, y, tree)
+    assert _same(K.qd_dot(x, y, tree), want)
+    for plan in REGIMES[tree]:
+        assert _same(K.qd_dot_planned(x, y, tree, plan), want), plan
+
+
+@pytest.mark.parametrize("tree", [False, True])
+def test_q4_broadcast_vector(tree, cuda_device, gen):
+    """qd_contract's layout: y one weight vector broadcast over both output
+    axes (strides (0, 0, 1)), x a permuted f64 core with zero low limbs."""
+    r1, r2, n = 33, 33, 33
+    g = torch.as_tensor(gen.standard_normal((r1, n, r2))).to(cuda_device).permute(0, 2, 1)
+    zero = torch.zeros_like(g)
+    w = _qd(gen, (n,), cuda_device)
+    x, y = QD(g, zero, zero, zero), QD(*(e[None, None].expand(r1, r2, n) for e in w))
+    want = K.qd_dot_plain(x, y, tree)
+    assert _same(K.qd_dot(x, y, tree), want)
+    for plan in REGIMES[tree]:
+        assert _same(K.qd_dot_planned(x, y, tree, plan), want), plan
+
+
+def test_q4_plan_is_the_shape_s(cuda_device):
+    """The regime at the paths' shapes (csrc/qd_kernels.cu::dot_plan)."""
+    assert K.qd_dot_plan(55, 3575, 55, False).regime == "thread"
+    assert K.qd_dot_plan(55, 65, 55, False).regime == "chain"
+    assert K.qd_dot_plan(1, 1, 201, True) == K.QdDotPlan("tree", 1, 101, 128, 1, 32 * 101)
+    assert K.qd_dot_plan(1, 1, 1 << 16, True).regime == "thread"
+
+
 @pytest.mark.parametrize("ranks,B,N", [((1, 16, 16, 1), 1089, 33), ((1, 33, 33, 1), 1089, 33),
                                        ((1, 33, 33, 1), 136, 33), ((1, 7, 5, 1), 99, 17),
-                                       ((1, 1, 1, 1, 1), 402, 201)])
+                                       ((1, 1, 1, 1, 1), 402, 201), ((1, 15, 14, 1), 1089, 33),
+                                       ((1, 15, 14, 1), 132, 33), ((1, 33, 33, 1), 1, 33),
+                                       ((1, 64, 64, 1), 300, 9), ((1, 64, 64, 1), 1, 9),
+                                       ((1, 3, 64, 2, 1), 257, 5)])
 def test_q3_is_its_plain_version(ranks, B, N, cuda_device, gen):
+    """Q3 in its own launch and with other rows and threads a block (one
+    row of 32 threads, 3 rows of 96, 7 of 256 where shared memory holds
+    them)."""
     from ttcross_tpu_torch.tt.types import TT
 
     d = len(ranks) - 1
@@ -116,7 +174,10 @@ def test_q3_is_its_plain_version(ranks, B, N, cuda_device, gen):
                  for c in range(d)))
     packed = K.pack_tt(t)
     ind = torch.as_tensor(gen.integers(0, N, (B, d)), dtype=torch.int32).to(cuda_device)
-    assert _same(K.qd_gather_tt_fused(packed, ind), K.qd_gather_tt_plain(packed, ind))
+    want = K.qd_gather_tt_plain(packed, ind)
+    assert _same(K.qd_gather_tt_fused(packed, ind), want)
+    for rows, threads in ((1, 32), (3, 96), (7, 256) if max(ranks) < 64 else (2, 256)):
+        assert _same(K.qd_gather_tt_planned(packed, ind, rows, threads), want), (rows, threads)
 
 
 @pytest.mark.parametrize("d", [3, 15, 31])

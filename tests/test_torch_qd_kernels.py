@@ -1,13 +1,17 @@
 """The qd kernels' arithmetic (csrc/qd_kernels.cu, Q1-Q4) on the CPU.
 
 The kernels run only on a card (tests/test_torch_cuda_qd.py holds them to
-their plain versions there, Q2's argmax too).  Their per-output functions
-(the distill sweeps, the qd operations, the pairwise tree walked depth
-first, each kernel's row or output) are written once for both: compiled by
-a host C++ compiler with -DTTQ_HOST and -ffp-contract=off, the file gives
-host entry points that compute one output each with those functions.  Here
-every output is held to the plain versions (ops/kernels.py::*_plain) at
-the slice's shapes and layouts.  Tolerance: none, every limb bit-equal.
+their plain versions there, Q2's argmax too).  Their arithmetic (the
+distill sweeps, the qd operations, the pairwise tree walked depth first or
+level by level, each kernel's row, output or block stages) is written once
+for both: compiled by a host C++ compiler with -DTTQ_HOST and
+-ffp-contract=off, the file gives host entry points that run those
+functions in one host thread: Q1's and Q2's row, and Q3's and Q4's whole
+call, block after block, each stage's items in turn (Q4 in any of its
+regimes).  Here every output is held to the plain versions
+(ops/kernels.py::*_plain) at the slice's shapes and layouts.  Tolerance:
+none, every limb bit-equal (where an input holds inf or NaN: the same NaN
+positions and every other limb bit-equal).
 Without a host C++ compiler the build is not possible and the tests skip.
 The wrappers' routing by device and the plain versions' parity with the
 JAX package are in tests/test_torch_qd.py and the engine tests."""
@@ -23,7 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ttcross_tpu_torch.ops import kernels as K
-from ttcross_tpu_torch.ops.qd import QD
+from ttcross_tpu_torch.ops.qd import QD, qd_mul
 from torch_qd_helpers import one_torch_thread  # noqa: F401  (a fixture)
 
 SRC = Path(__file__).resolve().parent.parent / "ttcross_tpu_torch" / "csrc" / "qd_kernels.cu"
@@ -86,6 +90,37 @@ def test_q2_arithmetic(kind, B, T, tiny, host_lib):
     assert _same(out, K.qd_score_residual_argmax_plain(vals, x, y)[0])
 
 
+THREAD, CHAIN, TREE = 0, 1, 2    # Q4's regimes (csrc/qd_kernels.cu::dot_plan)
+
+
+def _q4_host(host_lib, x, y, tree, plan=None):
+    """Q4's call through the host emulation, in `plan` = (regime, P, C) or
+    the card's own plan for the shape (ttq_dot_plan); -> QD (M, N)."""
+    M, N, T = x[0].shape
+    if plan is None:
+        plan = _q4_plan(host_lib, M, N, T, tree)[:3]
+    out = torch.empty((4, M, N), dtype=torch.float64)
+    rc = host_lib.ttq_host_q4(_ptrs(x), _ptrs(y), LL(M), LL(N), T,
+                              *(LL(s) for s in x[0].stride()), *(LL(s) for s in y[0].stride()),
+                              int(tree), *plan, VP(out.data_ptr()))
+    assert rc == 0, f"the host emulation refused {plan} at {(M, N, T, tree)}"
+    return QD(*out)
+
+
+def _q4_plan(host_lib, M, N, T, tree):
+    plan = (LL * 6)()
+    assert host_lib.ttq_dot_plan(LL(M), LL(N), T, int(tree), plan) == 0
+    return tuple(plan)
+
+
+def _gemm(gen, M, N, T, tiny=False):
+    """qd_matmul's operands as Q4 takes them: a row of A broadcast over N
+    (stride 0), a transposed column of B broadcast over M."""
+    a, b = _qd(gen, (M, T), tiny), _qd(gen, (T, N))
+    return (QD(*(e[:, None, :].expand(M, N, T) for e in a)),
+            QD(*(e.T[None].expand(M, N, T) for e in b)))
+
+
 Q4_CASES = [(M, N, T, tree) for M, N, T in [(715, 55, 55), (55, 65, 55), (1, 33, 33),
                                               (33, 33, 65), (1, 1, 201), (5, 7, 1), (4, 3, 0)]
             for tree in (False, True) if T > 0 or not tree]   # the tree takes T >= 1
@@ -93,43 +128,176 @@ Q4_CASES = [(M, N, T, tree) for M, N, T in [(715, 55, 55), (55, 65, 55), (1, 33,
 
 @pytest.mark.parametrize("M,N,T,tree", Q4_CASES)
 def test_q4_arithmetic(M, N, T, tree, host_lib):
-    gen = np.random.default_rng(M + N + T)
-    a, b = _qd(gen, (M, T)), _qd(gen, (T, N))
+    """Q4's call in the plan the card takes for the shape."""
+    x, y = _gemm(np.random.default_rng(M + N + T), M, N, T)
+    assert _same_qd(_q4_host(host_lib, x, y, tree), K.qd_dot_plain(x, y, tree))
+
+
+# every regime at each length: a thread per output, 32 a block (the depth-first
+# walk for the tree), the chain with one output a block (chunks of 224), several (chunks of 7
+# at P = 32, 44 at P = 5) and a chunk of 3, the tree with one output and with
+# several a block
+Q4_REGIMES = {False: [(THREAD, 32, 0), (CHAIN, 1, 224), (CHAIN, 5, 44), (CHAIN, 32, 7),
+                      (CHAIN, 4, 3)],
+              True: [(THREAD, 32, 0), (TREE, 1, 0), (TREE, 3, 0), (TREE, 8, 0)]}
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 5, 31, 32, 33, 55, 101, 201, 1000])
+@pytest.mark.parametrize("tree", [False, True])
+def test_q4_regimes(T, tree, host_lib):
+    """Every regime of Q4 bit-equal to the plain version, on 3 x 5 outputs
+    (the last block of P = 4 or 8 partly empty)."""
+    x, y = _gemm(np.random.default_rng(T), 3, 5, T)
+    want = K.qd_dot_plain(x, y, tree)
+    for plan in Q4_REGIMES[tree]:
+        assert _same_qd(_q4_host(host_lib, x, y, tree, plan), want), plan
+
+
+def test_q4_sequential_of_no_terms(host_lib):
+    """T = 0 in the sequential mode: zeros, in every regime."""
+    x, y = _gemm(np.random.default_rng(0), 4, 3, 0)
+    for plan in Q4_REGIMES[False]:
+        assert _same_qd(_q4_host(host_lib, x, y, False, plan), K.qd_dot_plain(x, y, False))
+
+
+@pytest.mark.parametrize("M,N,T,tree,want", [
+    (55, 3575, 55, False, (THREAD, 256, 0)),       # solve_core
+    (33, 2145, 33, False, (THREAD, 64, 0)),        # the 2 workers' solve_core
+    (92, 256, 55, False, (THREAD, 64, 0)),         # at kChainOutputsMax
+    (91, 258, 55, False, (CHAIN, 32, 7)),          # just under it
+    (55, 1040, 55, False, (THREAD, 64, 0)), (33, 1985, 33, False, (THREAD, 256, 0)),
+    (55, 65, 55, False, (CHAIN, 32, 7)),           # apply_*_slice
+    (33, 33, 33, False, (CHAIN, 16, 14)), (1, 65, 1, False, (CHAIN, 1, 1)),
+    (1, 1, 33, False, (CHAIN, 1, 33)), (1, 1, 300, False, (CHAIN, 1, 224)),
+    (3, 1, 2, False, (CHAIN, 1, 2)), (4, 3, 0, False, (CHAIN, 1, 1)),
+    (1, 1, 201, True, (TREE, 1, 101)), (1, 1, 101, True, (TREE, 1, 51)),
+    (33, 33, 33, True, (TREE, 9, 17)), (1, 33, 33, True, (TREE, 1, 17)),
+    (1, 1, 1, True, (TREE, 1, 1)), (55, 3575, 55, True, (TREE, 9, 28)),
+    (1, 1, 12800, True, (TREE, 1, 6400)), (1, 1, 12801, True, (THREAD, 64, 0)),
+])
+def test_q4_plan(M, N, T, tree, want, host_lib):
+    """The regime rule (csrc/qd_kernels.cu::dot_plan) at the paths' shapes and
+    at its edges; every plan launchable (<= 256 threads, the shared memory
+    the kernel asks for within the card's 227 KB)."""
+    plan = _q4_plan(host_lib, M, N, T, tree)
+    regime, P, C, threads, blocks, smem = plan
+    assert (regime, P, C) == want
+    assert 32 <= threads <= 256 and threads % 32 == 0 and smem <= 227 * 1024
+    assert blocks == -(-M * N // P)
+
+
+def _special(gen, shape):
+    """Finite values with special ones strewn in: signed zeros, subnormals,
+    inf, -inf, NaN."""
+    v = gen.standard_normal(shape)
+    flat = v.reshape(-1)
+    picks = gen.choice(flat.size, size=min(flat.size, 10), replace=False)
+    for k, pick in enumerate(picks):
+        flat[pick] = [0.0, -0.0, 5e-324, -2.5e-310, np.inf, -np.inf, np.nan, 1e-300, -0.0,
+                      0.0][k]
+    return v
+
+
+def _bits(t):
+    """NaN positions and the bits of every other entry."""
+    nan = torch.isnan(t)
+    return nan, torch.where(nan, torch.zeros_like(t), t).view(torch.int64)
+
+
+def _same_qd(got, want):
+    """Every limb bit-equal (a signed zero too), NaN where the other has NaN."""
+    for g, w in zip(got, want):
+        (gn, gb), (wn, wb) = _bits(g.reshape(-1)), _bits(w.reshape(-1))
+        if not (torch.equal(gn, wn) and torch.equal(gb, wb)):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("tree", [False, True])
+def test_q4_special_values(tree, host_lib):
+    """Q4's regimes where the operands hold signed zeros, subnormals, inf and
+    NaN."""
+    gen = np.random.default_rng(11)
+    M, N, T = 4, 5, 33
+    a = QD(*(torch.from_numpy(_special(gen, (M, T))) for _ in range(4)))
+    b = QD(*(torch.from_numpy(_special(gen, (T, N))) for _ in range(4)))
     x = QD(*(e[:, None, :].expand(M, N, T) for e in a))
     y = QD(*(e.T[None].expand(M, N, T) for e in b))
-    args = (_ptrs(x), _ptrs(y), LL(M), LL(N), T, *(LL(s) for s in x[0].stride()),
-            *(LL(s) for s in y[0].stride()), int(tree))
-    out = _outs(M * N, lambda e, p: host_lib.ttq_host_q4_out(*args, LL(e // N), LL(e % N), p))
-    assert _same(out, K.qd_dot_plain(x, y, tree))
+    want = K.qd_dot_plain(x, y, tree)
+    for plan in Q4_REGIMES[tree]:
+        assert _same_qd(_q4_host(host_lib, x, y, tree, plan), want), plan
+
+
+def test_mul_by_f64_is_qd_mul(host_lib):
+    """Q3's leaf, qd_mul_f64(v, g), against qd_mul(v, (g, 0, 0, 0)) (the
+    plain version's) on every combination of limbs and factor drawn from
+    signed zeros, subnormals, the extremes, inf, -inf, NaN and ordinary
+    values: every limb bit-equal, NaN where the other has NaN."""
+    vals = np.array([0.0, -0.0, 5e-324, -2.5e-310, 2.2250738585072014e-308, np.inf, -np.inf,
+                     np.nan, 1.7976931348623157e308, -1e300, 1.0, -3.7, 1.3e-17, -2.2e-34])
+    grid = np.stack(np.meshgrid(*[vals] * 5, indexing="ij")).reshape(5, -1)
+    x = QD(*(torch.from_numpy(np.ascontiguousarray(grid[k])) for k in range(4)))
+    g = torch.from_numpy(np.ascontiguousarray(grid[4]))
+    n = g.numel()
+    full, f64 = (torch.empty((4, n), dtype=torch.float64) for _ in range(2))
+    host_lib.ttq_host_mul_by_f64(_ptrs(x), VP(g.data_ptr()), LL(n), VP(full.data_ptr()),
+                                 VP(f64.data_ptr()))
+    assert _same_qd(QD(*f64), QD(*full))
+    zero = torch.zeros_like(g)
+    assert _same_qd(QD(*full), qd_mul(x, QD(g, zero, zero, zero)))
+
+
+def _q3_host(host_lib, packed, ind, rows=None):
+    """Q3's call through the host emulation, `rows` per block (default: the
+    card's, ttq_gather_rows)."""
+    _, R, NN, _ = packed.cores.shape
+    B, d = ind.shape
+    rows = rows or host_lib.ttq_gather_rows(R, LL(B))
+    ranks = torch.tensor(packed.ranks, dtype=torch.int32)
+    out = torch.empty((4, B), dtype=torch.float64)
+    host_lib.ttq_host_q3(VP(packed.cores.data_ptr()), VP(ranks.data_ptr()), d, R, NN,
+                         VP(ind.data_ptr()), LL(B), rows, VP(out.data_ptr()))
+    return QD(*out)
+
+
+def _train(gen, ranks, N, values=None):
+    from ttcross_tpu_torch.tt.types import TT
+
+    values = values or gen.standard_normal
+    return K.pack_tt(TT(tuple(torch.from_numpy(values((ranks[c], N, ranks[c + 1])))
+                              for c in range(len(ranks) - 1))))
 
 
 @pytest.mark.parametrize("ranks,N", [((1, 16, 16, 1), 33), ((1, 33, 33, 1), 33),
-                                     ((1, 7, 5, 1), 17), ((1, 1, 1, 1, 1), 201)])
+                                     ((1, 7, 5, 1), 17), ((1, 1, 1, 1, 1), 201),
+                                     ((1, 15, 14, 1), 33), ((1, 32, 32, 1), 9),
+                                     ((1, 64, 64, 1), 5), ((1, 3, 64, 2, 1), 4)])
 def test_q3_arithmetic(ranks, N, host_lib):
-    """Each core's step of every row: v' from v, the row's index and the
-    packed core, v carried from core to core as the kernel carries it."""
-    from ttcross_tpu_torch.tt.types import TT
+    """Q3's call, rows per block as the card takes them, and one row a
+    block, against the plain version."""
+    gen = np.random.default_rng(N + sum(ranks))
+    packed, B = _train(gen, ranks, N), 129
+    ind = torch.from_numpy(gen.integers(0, N, (B, len(ranks) - 1)).astype(np.int32))
+    want = K.qd_gather_tt_plain(packed, ind)
+    assert _same_qd(_q3_host(host_lib, packed, ind), want)
+    assert _same_qd(_q3_host(host_lib, packed, ind, rows=1), want)
 
-    gen = np.random.default_rng(N)
-    d, B = len(ranks) - 1, 129
-    t = TT(tuple(torch.from_numpy(gen.standard_normal((ranks[c], N, ranks[c + 1])))
-                 for c in range(d)))
-    packed = K.pack_tt(t)
-    ind = gen.integers(0, N, (B, d))
-    _, R, NN, _ = packed.cores.shape
-    cores, row_size = packed.cores.data_ptr(), 8
-    out = torch.empty((B, 4), dtype=torch.float64)
-    for row in range(B):
-        v = torch.zeros((4, 1), dtype=torch.float64)
-        v[0, 0] = 1.0
-        for c in range(d):
-            g0 = cores + row_size * (c * R * NN * R + int(ind[row, c]) * R)
-            nxt = _outs(ranks[c + 1], lambda j, p: host_lib.ttq_host_q3_out(
-                _ptrs(v), VP(g0 + row_size * j), ranks[c], NN, R, p))
-            v = nxt.T.contiguous()
-        out[row] = v[:, 0]
-    want = K.qd_gather_tt_plain(packed, torch.from_numpy(ind.astype(np.int32)))
-    assert _same(out, want)
+
+@pytest.mark.parametrize("R,B,rows", [(33, 1089, 3), (33, 132, 1), (15, 1089, 3), (64, 1089, 1),
+                                      (1, 402, 2), (33, 1, 1), (8, 100000, 57)])
+def test_q3_rows_per_block(R, B, rows, host_lib):
+    """Rows a block: what kGatherSmem holds, no more than spread B over
+    kFillBlocks blocks."""
+    assert host_lib.ttq_gather_rows(R, LL(B)) == rows
+
+
+def test_q3_special_values(host_lib):
+    """Q3 where the cores hold signed zeros, subnormals, inf and NaN (the
+    full qd multiply, as the plain version)."""
+    gen = np.random.default_rng(5)
+    packed = _train(gen, (1, 6, 5, 1), 7, values=lambda shape: _special(gen, shape))
+    ind = torch.from_numpy(gen.integers(0, 7, (50, 3)).astype(np.int32))
+    assert _same_qd(_q3_host(host_lib, packed, ind), K.qd_gather_tt_plain(packed, ind))
 
 
 @pytest.mark.parametrize("d", [3, 15, 31])

@@ -19,7 +19,7 @@
 //   Q2 qd_score_kernel       qd residual vals - sum_t x y (pairwise tree) and
 //                            the first index of max |e0|
 //   Q3 qd_gather_tt_kernel   an f64 train at (B, d) indices, qd accumulation
-//   Q4 qd_dot_kernel         the small qd product: qd_matmul's sequential
+//   Q4 qd_dot_*_kernel       the small qd product: qd_matmul's sequential
 //                            k-loop or qd_vdot_axis's pairwise tree
 //
 // Rounding.  Every step is written with __dadd_rn / __dsub_rn / __dmul_rn /
@@ -27,21 +27,41 @@
 // of ttcross_tpu_torch/ops/qd.py (Dekker's two_prod, the four bottom-up
 // distill sweeps and the tail summed in order, qd_sum's tree with the odd
 // middle term riding along, qd_matmul's k-loop).  So each kernel is bit for
-// bit its plain PyTorch version on any input.
+// bit its plain PyTorch version on any input: a kernel chooses which thread
+// computes a product or a sum, never which operands a qd_mul or qd_add sees
+// or how the adds pair up.
 //
 // Host emulation.  Compiled without nvcc (-DTTQ_HOST, a host C++ compiler,
-// -ffp-contract=off), the file gives host entry points ttq_host_* that
-// compute one output of a kernel with its own per-output function: the CPU
-// tests hold that arithmetic to the plain versions where there is no card.
+// -ffp-contract=off), the file gives host entry points ttq_host_* that run
+// the kernels' own functions in one host thread: the per-output functions,
+// and the block-level stages of Q3 and Q4 (every item of a stage in turn,
+// the stages in the kernel's order).  The CPU tests hold that arithmetic
+// and its bookkeeping to the plain versions where there is no card.
 //
 // What bounds them: f64 operations.  A qd multiply is 6 two_prods (17
 // flops each), 5 products and the order-4 sum (5), and a distill of 17
 // terms (4 x 16 two_sums of 6 flops, 13 adds): 508 flops; a qd add is a
 // distill of 8 terms, 4 x 7 x 6 + 4 = 172 flops.  None runs on the f64
-// tensor cores, so the card's rate for them is its f64 vector rate (33.5
-// TFLOP/s on the H100 SXM).  The shapes are small (a few thousand outputs of
-// T <= a few hundred terms), so the design is a thread per output with its
-// sum in order, and one launch per call.
+// tensor cores or fuses into an FMA, so the card's rate for them is its f64
+// vector rate (33.5 TFLOP/s on the H100 SXM, counting an FMA as two: one
+// plain operation a lane a cycle reaches half of it).  A qd operation is a
+// chain of dependent operations (a qd add some 0.16 us on one thread, a qd
+// multiply some 0.45 us), so a call with few outputs is bound by that chain,
+// not by the rate, unless its sums are spread over threads:
+//   - Q4 in three regimes, chosen from the shape alone (dot_plan): the
+//     tree (qd_vdot_axis) always by the shared level-by-level tree below, a
+//     block's threads over the leaves and each level's adds of its outputs
+//     (critical path one multiply, one add and ceil(log2 T) - 1 adds, where
+//     a thread per output walked T of each); the sequential sum of a
+//     call with fewer than kChainOutputsMax outputs by a chain warp, one
+//     lane per output adding the terms in order, while the other warps
+//     compute the next chunk of products into the other half of a double
+//     buffer (critical path T adds); above that, and for a tree longer than
+//     kDotTreeSmem holds, a thread per output as before, which at
+//     solve_core's 196,625 outputs already issues at the f64 pipes' rate.
+//   - Q3: a block of rows; per core every leaf of every row's r x r2 grid
+//     on its own thread, then the r2 trees of each row level by level, v
+//     carried in shared memory: no thread bound to an absent column.
 
 #include <climits>
 #include <cmath>
@@ -57,6 +77,7 @@
 #define TTQ_DIV(a, b) __ddiv_rn((a), (b))
 #define TTQ_ISNAN(a) isnan(a)
 #else
+#include <vector>
 #define TTQ_FN static inline
 #define TTQ_UNROLL
 #define TTQ_ADD(a, b) ((a) + (b))
@@ -73,6 +94,13 @@ constexpr int kThreads = 256;           // a block of Q2, Q3 and Q4
 constexpr int kRowsThreads = 128;       // Q1: rows (threads) of a block
 constexpr int kGatherRMax = 64;         // Q3: ranks up to this
 constexpr int kTreeDepth = 16;          // the pairwise tree takes up to 2^16 terms
+constexpr long long kChainOutputsMax = 23552;  // Q4 sequential: chains below this many outputs
+constexpr int kChainLanes = 32;         // Q4 sequential: outputs of a block at most (a warp's lanes)
+constexpr int kSMs = 132;               // the H100 SXM's SMs: Q4 spreads few outputs over them
+constexpr int kDotTreeSmem = 200 * 1024;  // Q4 tree: a block's level-1 terms' bytes at most
+constexpr int kGatherSmem = 72 * 1024;  // Q3: a block's shared memory at most (three blocks an SM)
+constexpr int kFillBlocks = 3 * 132;    // Q3: blocks that fill the card (three on each SM)
+constexpr int kStaticSmem = 48 * 1024;  // dynamic shared memory above this needs an opt-in
 
 struct QD {
   double e0, e1, e2, e3;
@@ -235,6 +263,59 @@ TTQ_FN QD tree_sum(int T, Leaf leaf) {
   }
 }
 
+// The shared pairwise tree: qd_sum's pairing, level by level, over a set of
+// trees of T leaves each in a buffer (shared memory on the card, a plain
+// array on the host).  Limb k of tree g's position p is buf[k * ls + off(g,
+// p)].  tree_leaves writes level 1 straight from the leaves (level 0 is never
+// stored): position p < K_1 is qd_add(leaf(g, p), leaf(g, p + K_1)) when p <
+// T - K_1, else leaf(g, p).  tree_levels then folds level l into level l + 1
+// in place: position p < K_l - K_{l+1} becomes qd_add(p, p + K_{l+1}), the
+// odd middle term stays (it reads positions >= K_{l+1} and writes below K_l
+// - K_{l+1} <= K_{l+1}, so no position is both read and written within a
+// level).  Tree g's sum ends at position 0.  The items (g, p) of a stage go
+// to threads tid, tid + nth, ... with g fastest, and sync() ends each stage
+// (__syncthreads on the card; on the host, nothing: one thread takes every
+// item in turn).  Every qd_add sees the operands qd_sum gives it, so each
+// sum is qd_sum's bit for bit.
+TTQ_FN QD get_at(const double* buf, int ls, int o) {
+  return QD{buf[o], buf[ls + o], buf[2 * ls + o], buf[3 * ls + o]};
+}
+
+TTQ_FN void put_at(double* buf, int ls, int o, const QD& v) {
+  buf[o] = v.e0;
+  buf[ls + o] = v.e1;
+  buf[2 * ls + o] = v.e2;
+  buf[3 * ls + o] = v.e3;
+}
+
+template <typename Leaf, typename Off, typename Sync>
+TTQ_FN void tree_leaves(double* buf, int ls, int ntrees, int T, Leaf leaf, Off off, int tid,
+                        int nth, Sync sync) {
+  const int K1 = (T + 1) / 2, paired = T - K1;
+  for (int it = tid; it < ntrees * K1; it += nth) {
+    const int g = it % ntrees, p = it / ntrees;
+    QD s = leaf(g, p);
+    if (p < paired) s = qd_add(s, leaf(g, p + K1));
+    put_at(buf, ls, off(g, p), s);
+  }
+  sync();
+}
+
+template <typename Off, typename Sync>
+TTQ_FN void tree_levels(double* buf, int ls, int ntrees, int T, Off off, int tid, int nth,
+                        Sync sync) {
+  for (int K = (T + 1) / 2; K > 1;) {
+    const int K2 = (K + 1) / 2, paired = K - K2;
+    for (int it = tid; it < ntrees * paired; it += nth) {
+      const int g = it % ntrees, p = it / ntrees;
+      put_at(buf, ls, off(g, p),
+             qd_add(get_at(buf, ls, off(g, p)), get_at(buf, ls, off(g, p + K2))));
+    }
+    sync();
+    K = K2;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Per-output functions, shared by the kernels and the host emulation.
 // ---------------------------------------------------------------------------
@@ -271,27 +352,182 @@ struct DotArgs {
   long long xs0, xs1, xs2, ys0, ys1, ys2;
 };
 
-TTQ_FN QD q4_out(const DotArgs& a, long long i, long long j) {
-  const long long xo = i * a.xs0 + j * a.xs1, yo = i * a.ys0 + j * a.ys1;
-  auto term = [&](int t) {
-    return qd_mul(at(a.x, xo + (long long)t * a.xs2), at(a.y, yo + (long long)t * a.ys2));
-  };
-  if (a.tree) return tree_sum(a.T, term);
+// Term t of flat output o = i N + j.
+TTQ_FN QD q4_term(const DotArgs& a, long long o, int t) {
+  const long long i = o / a.N, j = o - i * a.N;
+  return qd_mul(at(a.x, i * a.xs0 + j * a.xs1 + (long long)t * a.xs2),
+                at(a.y, i * a.ys0 + j * a.ys1 + (long long)t * a.ys2));
+}
+
+// A thread's whole output: the tree walked depth first, or the chain.
+template <bool kTree>
+TTQ_FN QD q4_out(const DotArgs& a, long long o) {
+  auto term = [&](int t) { return q4_term(a, o, t); };
+  if (kTree) return tree_sum(a.T, term);
   if (a.T == 0) return QD{0.0, 0.0, 0.0, 0.0};
   QD acc = term(0);
   for (int t = 1; t < a.T; ++t) acc = qd_add(acc, term(t));
   return acc;
 }
 
-// Q3's entry j of the next v: sum_{t < r} qd_mul(v[t], (G_c[t, i_c, j], 0,
-// 0, 0)) by the tree; g points at G_c[0, i_c, j] of the packed (R, N, R)
-// core, vat(t) gives v[t].
-template <typename V>
-TTQ_FN QD q3_out(V vat, const double* g, int r, int N, int R) {
-  return tree_sum(r, [&](int t) {
-    return qd_mul(vat(t), QD{g[(long long)t * N * R], 0.0, 0.0, 0.0});
-  });
+// Q4's launch for one shape, from the shape alone.  regime kDotThread: a
+// thread per output, P a block; kDotChain: P outputs a block, the
+// chain warp's lanes 0..P-1 each adding its output's terms in order, the
+// other threads - 32 computing chunks of C terms of every output; kDotTree:
+// P outputs a block, C = K_1 = ceil(T / 2) level-1 terms each.
+enum { kDotThread = 0, kDotChain = 1, kDotTree = 2 };
+struct DotPlan {
+  int regime, P, C, threads;
+  long long blocks, smem;
+};
+
+DotPlan dot_plan_of(long long M, long long N, int T, int regime, int P, int C) {
+  const long long E = M * N;
+  DotPlan p{regime, P, 0, P, (E + P - 1) / P, 0};
+  if (regime == kDotTree) {
+    p.C = (T + 1) / 2;
+    const long long items = (long long)P * p.C;
+    p.threads = (int)(items < kThreads ? (items + 31) / 32 * 32 : kThreads);
+    p.smem = 32 * items;
+  } else if (regime == kDotChain) {
+    p.C = C;
+    const long long items = (long long)P * C;
+    p.threads = 32 + (int)(items < kThreads - 32 ? (items + 31) / 32 * 32 : kThreads - 32);
+    p.smem = 64 * items;
+  }
+  return p;
 }
+
+// The rule, measured on an H100 (chip_smoke.py --qd-regimes; PERF.md).  The
+// tree: outputs of a block up to a block's kThreads level-1 terms, but no
+// more than leave every SM a block (8 warps on one SM contend for its f64
+// pipes: (1, 33, 33) in one block of 15 outputs 7.4 us, in 33 blocks 6.4).
+// The sequential sum: chains below kChainOutputsMax outputs, a thread per
+// output from there.  A thread per output takes T x ~1.1-1.5 us while each
+// SM holds at most ~256 of them (its f64 pipes half idle), longer in
+// proportion above; the chains E T x ~0.065 ns (the card's f64 rate, less
+// the chain warp's adds in a row).  Measured crossover between E = 20,900
+// (75 against 84 us at T = 55) and 23,540 (89 against 85); at 17,160 (T =
+// 33) 47 against 54.  A chain block takes a warp of outputs once that
+// leaves 66 blocks, fewer below (a power of two).  The threads' block,
+// 256, 128 or 64, is the one that puts the fewest outputs on the busiest
+// SM, the larger on a tie: (33, 2145, 33) 122 us in blocks of 64 or 128, 140
+// in blocks of 256; (55, 1430, 55) 203 against 233; solve_core 457 in 256.
+int thread_block(long long E) {
+  int best = kThreads;
+  long long load = 0;
+  for (int b = kThreads; b >= 64; b /= 2) {
+    const long long blocks = (E + b - 1) / b, l = (blocks + kSMs - 1) / kSMs * b;
+    if (load == 0 || l < load) {
+      best = b;
+      load = l;
+    }
+  }
+  return best;
+}
+
+DotPlan dot_plan(long long M, long long N, int T, int tree) {
+  const long long E = M * N;
+  if (tree) {
+    const int K1 = (T + 1) / 2;
+    if (32LL * K1 > kDotTreeSmem) return dot_plan_of(M, N, T, kDotThread, thread_block(E), 0);
+    const long long fill = K1 >= kThreads ? 1 : kThreads / K1, spread = (E + kSMs - 1) / kSMs;
+    return dot_plan_of(M, N, T, kDotTree, (int)(fill < spread ? fill : spread), 0);
+  }
+  if (E >= kChainOutputsMax) return dot_plan_of(M, N, T, kDotThread, thread_block(E), 0);
+  int P = 1;
+  while (2 * P <= kChainLanes && 2 * P * (kSMs / 2) <= E) P *= 2;
+  const int C = (kThreads - 32) / P;
+  return dot_plan_of(M, N, T, kDotChain, P, T < 1 ? 1 : (T < C ? T : C));
+}
+
+// The tree regime's block: outputs o0 .. o0 + np - 1, each a tree over its T
+// terms; level-1 terms at off(g, p) = p P + g (a stage's neighbouring threads
+// on neighbouring words).  Returns nothing: the sums stay at position 0.
+template <typename Sync>
+TTQ_FN void q4_tree_block(const DotArgs& a, long long o0, int np, int P, double* buf, int tid,
+                          int nth, Sync sync) {
+  const int ls = P * ((a.T + 1) / 2);
+  auto off = [&](int g, int p) { return p * P + g; };
+  tree_leaves(buf, ls, np, a.T, [&](int g, int t) { return q4_term(a, o0 + g, t); }, off, tid,
+              nth, sync);
+  tree_levels(buf, ls, np, a.T, off, tid, nth, sync);
+}
+
+// The chain regime's stages.  Chunk k holds terms kC .. kC + C - 1 of each
+// of the block's np outputs, in half k & 1 of the double buffer (position
+// c of output g at (k & 1) C P + c P + g, limb stride 2 C P).
+TTQ_FN void q4_produce(const DotArgs& a, long long o0, int np, int P, int C, double* buf, int k,
+                       int tid, int nth) {
+  const int t0 = k * C, len = a.T - t0 < C ? a.T - t0 : C, half = (k & 1) * C * P;
+  for (int it = tid; it < np * len; it += nth) {
+    const int g = it % np, c = it / np;
+    put_at(buf, 2 * C * P, half + c * P + g, q4_term(a, o0 + g, t0 + c));
+  }
+}
+
+TTQ_FN void q4_chain(const DotArgs& a, int P, int C, const double* buf, int k, int g, QD& acc) {
+  const int t0 = k * C, len = a.T - t0 < C ? a.T - t0 : C, half = (k & 1) * C * P;
+  for (int c = 0; c < len; ++c) {
+    const QD v = get_at(buf, 2 * C * P, half + c * P + g);
+    acc = t0 + c == 0 ? v : qd_add(acc, v);
+  }
+}
+
+// Q3's block: rows row0 .. row0 + np - 1 of an f64 train at ind (B, d), qd
+// accumulation (ttcross_tpu/ops/qd.py::qd_gather_tt).  Per core c, row b's
+// next v'[j] = sum_{t < r} qd_mul(v_b[t], (G_c[t, i_{b,c}, j], 0, 0, 0)) by
+// the shared tree.  Each leaf is qd_mul_f64(v_b[t], G_c[...]) (199 flops, not
+// 508): with y's low limbs zero, qd_mul's 17 distill terms are qd_mul_f64's
+// 7 in the same order with exact zeros between them, which two_sum passes
+// through unchanged, so the two agree bit for bit (signed zeros, subnormals,
+// inf and NaN too: tests/test_torch_qd_kernels.py::test_mul_by_f64_is_qd_mul
+// over every combination of such limbs).  The np r2 trees (g = b r2 + j) at
+// off(g, p) = b K R + p R + j (K = ceil(R / 2), R the padded rank); v in its
+// own buffer (limb stride P R), carried from core to core.  Ends with each
+// row's value at v_b[0].
+template <typename Sync>
+TTQ_FN void q3_block(const double* cores, const int32_t* ranks, int d, int R, int N,
+                     const int32_t* ind, long long row0, int np, int P, double* buf, double* v,
+                     int tid, int nth, Sync sync) {
+  const int K = (R + 1) / 2, lsb = P * K * R, lsv = P * R;
+  for (int b = tid; b < np; b += nth) put_at(v, lsv, b * R, QD{1.0, 0.0, 0.0, 0.0});
+  sync();
+  for (int c = 0; c < d; ++c) {
+    const int r = ranks[c], r2 = ranks[c + 1];
+    const double* core = cores + (long long)c * R * N * R;
+    auto off = [&](int g, int p) {
+      const int b = g / r2;
+      return b * K * R + p * R + (g - b * r2);
+    };
+    auto leaf = [&](int g, int t) {
+      const int b = g / r2, j = g - b * r2;
+      int i = ind[(row0 + b) * d + c];
+      i = i < 0 ? 0 : (i >= N ? N - 1 : i);
+      return qd_mul_f64(get_at(v, lsv, b * R + t),
+                        core[(long long)t * N * R + (long long)i * R + j]);
+    };
+    tree_leaves(buf, lsb, np * r2, r, leaf, off, tid, nth, sync);
+    tree_levels(buf, lsb, np * r2, r, off, tid, nth, sync);
+    for (int g = tid; g < np * r2; g += nth) {
+      const int b = g / r2;
+      put_at(v, lsv, b * R + (g - b * r2), get_at(buf, lsb, off(g, 0)));
+    }
+    sync();
+  }
+}
+
+// Q3's rows per block: as many as kGatherSmem holds (at least one), no
+// more than spread B over kFillBlocks blocks.
+int gather_rows(int R, long long B) {
+  const long long row_bytes = 32LL * ((R + 1) / 2 * R + R);
+  long long P = kGatherSmem / row_bytes;
+  const long long spread = (B + kFillBlocks - 1) / kFillBlocks;
+  if (P > spread) P = spread;
+  return (int)(P < 1 ? 1 : P);
+}
+
+long long gather_smem(int R, int P) { return 32LL * P * ((R + 1) / 2 * R + R); }
 
 // Q1's row: f = 2 / (v w) prod_i W_i with w = 1 + sum_k prod_{i<=k} x_i and
 // v the same over the reversed row (ttcross_tpu/apps/ising.py:246-278);
@@ -423,70 +659,80 @@ qd_score_kernel(ScoreArgs a, double* __restrict__ out, long long* __restrict__ w
 // qd_matmul (tree = 0: apply_*_slice, solve_core, the value chain's
 // products) and qd_vdot_axis (tree = 1: _extend_inverses, the value chain's
 // weight contraction, qd_contract, refine_dd).  Bound: operations, M N T (qd
-// multiply + qd add).  A thread per output.
+// multiply + qd add).  Three kernels, one launch a call, the regime from
+// dot_plan.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-qd_dot_kernel(DotArgs a, double* __restrict__ out) {
+__device__ __forceinline__ void put_out(double* out, long long E, long long o, const QD& r) {
+  out[o] = r.e0;
+  out[E + o] = r.e1;
+  out[2 * E + o] = r.e2;
+  out[3 * E + o] = r.e3;
+}
+
+// kDotThread: a thread per output; kTree only for a tree longer than the
+// tree regime's shared memory (the depth-first walk, one frame a level).
+template <bool kTree>
+__global__ void __launch_bounds__(kThreads) qd_dot_kernel(DotArgs a, double* __restrict__ out) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long E = a.M * a.N;
   if (e >= E) return;
-  const QD r = q4_out(a, e / a.N, e % a.N);
-  out[e] = r.e0;
-  out[E + e] = r.e1;
-  out[2 * E + e] = r.e2;
-  out[3 * E + e] = r.e3;
+  put_out(out, E, e, q4_out<kTree>(a, e));
+}
+
+// kDotChain: lanes 0..np-1 of warp 0 each add their output's terms in order
+// from one half of the double buffer while warps 1.. compute the next chunk
+// into the other half; one barrier a chunk.
+__global__ void __launch_bounds__(kThreads)
+qd_dot_chain_kernel(DotArgs a, int P, int C, double* __restrict__ out) {
+  extern __shared__ double qsm[];
+  const long long E = a.M * a.N, o0 = (long long)blockIdx.x * P;
+  const int np = (int)(E - o0 < P ? E - o0 : P), tid = threadIdx.x;
+  const int nch = (a.T + C - 1) / C;
+  QD acc{0.0, 0.0, 0.0, 0.0};
+  for (int k = 0; k <= nch; ++k) {
+    if (tid >= 32) {
+      if (k < nch) q4_produce(a, o0, np, P, C, qsm, k, tid - 32, blockDim.x - 32);
+    } else if (tid < np && k > 0) {
+      q4_chain(a, P, C, qsm, k - 1, tid, acc);
+    }
+    __syncthreads();
+  }
+  if (tid < np) put_out(out, E, o0 + tid, acc);
+}
+
+// kDotTree: the block's P outputs by the shared tree.
+__global__ void __launch_bounds__(kThreads)
+qd_dot_tree_kernel(DotArgs a, int P, double* __restrict__ out) {
+  extern __shared__ double qsm[];
+  const long long E = a.M * a.N, o0 = (long long)blockIdx.x * P;
+  const int np = (int)(E - o0 < P ? E - o0 : P);
+  q4_tree_block(a, o0, np, P, qsm, threadIdx.x, blockDim.x, [] { __syncthreads(); });
+  const int ls = P * ((a.T + 1) / 2);
+  for (int g = threadIdx.x; g < np; g += blockDim.x) put_out(out, E, o0 + g, get_at(qsm, ls, g));
 }
 
 // ---------------------------------------------------------------------------
 // Q3: qd_gather_tt, an f64 train at (B, d) indices with qd accumulation
 // (ttcross_tpu/ops/qd.py:384-403), the qd defect integrand's cost
 // (ttcross_tpu/cross/defect.py:115-184).  The cores come packed, (d, R, N,
-// R) zero-padded, the ranks on the device.  W threads per row (a multiple of
-// 32, W >= every rank), kThreads / W rows per block; thread j of a row
-// computes v'[j]; v lives in shared memory, double-buffered, one barrier per
-// core.  Bound: operations, B sum_c r_c r_{c+1} (qd multiply + qd add).
+// R) zero-padded, the ranks on the device.  P rows a block (gather_rows),
+// q3_block's stages over all kThreads threads: per core the np r r2 leaves
+// (a core element feeds one leaf, so it is read once, from the L2, along j),
+// the np r2 trees, v' into v.  Bound: operations, B sum_c r_{c+1} (r_c qd
+// multiplies + r_c - 1 qd adds).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 qd_gather_tt_kernel(const double* __restrict__ cores, const int32_t* __restrict__ ranks, int d,
-                    int R, int N, const int32_t* __restrict__ ind, long long B,
-                    double* __restrict__ out, int W) {
-  __shared__ double v[2][4][kThreads];   // [buffer][limb][row in block * W + j]
-  const int j = threadIdx.x % W;
-  const int rb = threadIdx.x / W;
-  const long long row = (long long)blockIdx.x * (blockDim.x / W) + rb;
-  const bool live = row < B;
-  const int base = rb * W;
-  v[0][0][base + j] = j == 0 ? 1.0 : 0.0;
-  v[0][1][base + j] = 0.0;
-  v[0][2][base + j] = 0.0;
-  v[0][3][base + j] = 0.0;
-  __syncthreads();
-  int cur = 0;
-  for (int c = 0; c < d; ++c) {
-    const int r = ranks[c], r2 = ranks[c + 1];
-    if (live && j < r2) {
-      int i = ind[row * d + c];
-      i = i < 0 ? 0 : (i >= N ? N - 1 : i);
-      const double* g = cores + (long long)c * R * N * R + (long long)i * R + j;
-      const QD acc = q3_out(
-          [&](int t) {
-            return QD{v[cur][0][base + t], v[cur][1][base + t], v[cur][2][base + t],
-                      v[cur][3][base + t]};
-          },
-          g, r, N, R);
-      v[cur ^ 1][0][base + j] = acc.e0;
-      v[cur ^ 1][1][base + j] = acc.e1;
-      v[cur ^ 1][2][base + j] = acc.e2;
-      v[cur ^ 1][3][base + j] = acc.e3;
-    }
-    cur ^= 1;
-    __syncthreads();
-  }
-  if (live && j == 0) {
-    out[row] = v[cur][0][base];
-    out[B + row] = v[cur][1][base];
-    out[2 * B + row] = v[cur][2][base];
-    out[3 * B + row] = v[cur][3][base];
+                    int R, int N, const int32_t* __restrict__ ind, long long B, int P,
+                    double* __restrict__ out) {
+  extern __shared__ double qsm[];
+  const long long row0 = (long long)blockIdx.x * P;
+  const int np = (int)(B - row0 < P ? B - row0 : P);
+  double* v = qsm + 4 * P * ((R + 1) / 2) * R;
+  q3_block(cores, ranks, d, R, N, ind, row0, np, P, qsm, v, threadIdx.x, blockDim.x,
+           [] { __syncthreads(); });
+  for (int b = threadIdx.x; b < np; b += blockDim.x) {
+    put_out(out, B, row0 + b, get_at(v, P * R, b * R));
   }
 }
 
@@ -532,6 +778,21 @@ DotArgs dot_args(const double* const* x, const double* const* y, long long M, lo
   return DotArgs{limbs_of(x), limbs_of(y), M, N, T, tree, xs0, xs1, xs2, ys0, ys1, ys2};
 }
 
+// A shape ttq_dot takes, and a plan that launches at it.
+bool dot_shape_ok(long long M, long long N, int T, int tree) {
+  return M >= 1 && N >= 1 && T >= (tree ? 1 : 0) && T <= (1 << kTreeDepth) &&
+         M * N <= (long long)INT_MAX * kThreads;
+}
+
+bool dot_plan_ok(int tree, const DotPlan& p) {
+  const long long smem_max = 227 * 1024;
+  if (p.blocks > INT_MAX) return false;
+  if (p.regime == kDotThread) return p.P >= 32 && p.P <= kThreads && p.P % 32 == 0;
+  if (p.regime == kDotTree) return tree && p.P >= 1 && p.smem <= smem_max;
+  return p.regime == kDotChain && !tree && p.P >= 1 && p.P <= kChainLanes && p.C >= 1 &&
+         p.smem <= smem_max;
+}
+
 #if !defined(__CUDACC__)
 void put(const QD& r, double* out4) {
   out4[0] = r.e0;
@@ -563,34 +824,83 @@ int ttq_score_residual_argmax(const double* const* vals, const double* const* x,
 }
 
 // Q4.  out (4, M, N) contiguous; strides in elements; tree: 1 for the
-// pairwise tree (T >= 1), 0 for the sequential sum (T >= 0).
-int ttq_dot(const double* const* x, const double* const* y, long long M, long long N, int T,
-            long long xs0, long long xs1, long long xs2, long long ys0, long long ys1,
-            long long ys2, int tree, double* out, void* stream) {
-  const long long E = M * N;
-  if (M < 1 || N < 1 || T < (tree ? 1 : 0) || T > (1 << kTreeDepth) ||
-      E > (long long)INT_MAX * kThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// pairwise tree (T >= 1), 0 for the sequential sum (T >= 0).  The launch
+// is dot_plan's for the shape.
+int launch_dot(const DotArgs& a, const DotPlan& p, double* out, cudaStream_t st) {
+  const unsigned blocks = (unsigned)p.blocks;
+  if (p.regime == kDotThread) {
+    if (a.tree) {
+      qd_dot_kernel<true><<<blocks, p.threads, 0, st>>>(a, out);
+    } else {
+      qd_dot_kernel<false><<<blocks, p.threads, 0, st>>>(a, out);
+    }
+  } else if (p.regime == kDotChain) {
+    if (p.smem > kStaticSmem) {
+      cudaFuncSetAttribute(qd_dot_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)p.smem);
+    }
+    qd_dot_chain_kernel<<<blocks, p.threads, p.smem, st>>>(a, p.P, p.C, out);
+  } else {
+    if (p.smem > kStaticSmem) {
+      cudaFuncSetAttribute(qd_dot_tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)p.smem);
+    }
+    qd_dot_tree_kernel<<<blocks, p.threads, p.smem, st>>>(a, p.P, out);
   }
-  const unsigned blocks = (unsigned)((E + kThreads - 1) / kThreads);
-  qd_dot_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      dot_args(x, y, M, N, T, xs0, xs1, xs2, ys0, ys1, ys2, tree), out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Q3.  cores (d, R, N, R) f64 contiguous, ranks d + 1 int32 on the device
-// (every rank <= W <= kGatherRMax, W a multiple of 32), ind (B, d) int32;
-// out 4B doubles.
-int ttq_gather_tt(const double* cores, const int32_t* ranks, int d, int R, int N,
-                  const int32_t* ind, long long B, double* out, int W, void* stream) {
-  if (B < 1 || d < 1 || W < 32 || W > kGatherRMax || W % 32 != 0 || R > W) {
+int ttq_dot(const double* const* x, const double* const* y, long long M, long long N, int T,
+            long long xs0, long long xs1, long long xs2, long long ys0, long long ys1,
+            long long ys2, int tree, double* out, void* stream) {
+  if (!dot_shape_ok(M, N, T, tree)) return static_cast<int>(cudaErrorInvalidValue);
+  const DotPlan p = dot_plan(M, N, T, tree);
+  if (!dot_plan_ok(tree, p)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dot(dot_args(x, y, M, N, T, xs0, xs1, xs2, ys0, ys1, ys2, tree), p, out,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// Q4 in a regime the caller names (regime, P, C as ttq_dot_plan gives them;
+// C is the chain's chunk, ignored by the other regimes): the card tests and
+// the tuning of kChainOutputsMax launch every regime at one shape.
+int ttq_dot_planned(const double* const* x, const double* const* y, long long M, long long N,
+                    int T, long long xs0, long long xs1, long long xs2, long long ys0,
+                    long long ys1, long long ys2, int tree, int regime, int P, int C,
+                    double* out, void* stream) {
+  const DotPlan p = dot_plan_of(M, N, T, regime, P, C);
+  if (!dot_shape_ok(M, N, T, tree) || !dot_plan_ok(tree, p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int rows = kThreads / W;
+  return launch_dot(dot_args(x, y, M, N, T, xs0, xs1, xs2, ys0, ys1, ys2, tree), p, out,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// Q3.  cores (d, R, N, R) f64 contiguous, ranks d + 1 int32 on the device
+// (every rank <= R <= kGatherRMax), ind (B, d) int32; out 4B doubles.
+// Q3 with `rows` rows and `threads` threads a block (ttq_gather_tt: gather_rows
+// and kThreads; the card tests and the tuning launch others).
+int ttq_gather_tt_planned(const double* cores, const int32_t* ranks, int d, int R, int N,
+                          const int32_t* ind, long long B, int rows, int threads, double* out,
+                          void* stream) {
+  const long long smem = gather_smem(R, rows);
+  if (B < 1 || d < 1 || R < 1 || R > kGatherRMax || rows < 1 || threads < 32 ||
+      threads > kThreads || threads % 32 != 0 || smem > 227 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem > kStaticSmem) {
+    cudaFuncSetAttribute(qd_gather_tt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
   const unsigned blocks = (unsigned)((B + rows - 1) / rows);
-  qd_gather_tt_kernel<<<blocks, rows * W, 0, static_cast<cudaStream_t>(stream)>>>(
-      cores, ranks, d, R, N, ind, B, out, W);
+  qd_gather_tt_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      cores, ranks, d, R, N, ind, B, rows, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+int ttq_gather_tt(const double* cores, const int32_t* ranks, int d, int R, int N,
+                  const int32_t* ind, long long B, double* out, void* stream) {
+  return ttq_gather_tt_planned(cores, ranks, d, R, N, ind, B, gather_rows(R, B), kThreads, out,
+                               stream);
 }
 
 // Q1.  tables (8, n) f64: node limbs e0..e3, weight limbs e0..e3; ind (B, d)
@@ -614,7 +924,7 @@ int ttq_gather_rmax(void) { return kGatherRMax; }
 
 int ttq_tree_max(void) { return 1 << kTreeDepth; }
 
-#else   // the host emulation: each kernel's per-output function, one output a call
+#else   // the host emulation: the kernels' functions in one host thread
 
 // Q2's r[row], arguments as ttq_score_residual_argmax's.
 void ttq_host_q2_row(const double* const* vals, const double* const* x, const double* const* y,
@@ -623,20 +933,79 @@ void ttq_host_q2_row(const double* const* vals, const double* const* x, const do
   put(q2_row(score_args(vals, x, y, B, T, xsb, xst, ysb, yst), row), out4);
 }
 
-// Q4's out[i, j], arguments as ttq_dot's.
-void ttq_host_q4_out(const double* const* x, const double* const* y, long long M, long long N,
-                     int T, long long xs0, long long xs1, long long xs2, long long ys0,
-                     long long ys1, long long ys2, int tree, long long i, long long j,
-                     double* out4) {
-  put(q4_out(dot_args(x, y, M, N, T, xs0, xs1, xs2, ys0, ys1, ys2, tree), i, j), out4);
+// Q4's whole call in a regime (arguments as ttq_dot_planned's): block after
+// block, each stage's items in turn, the stages in the kernel's order.  out
+// (4, M, N) limb-major.  Returns 0, or -1 for a shape or plan the card's
+// entry point refuses.
+int ttq_host_q4(const double* const* x, const double* const* y, long long M, long long N, int T,
+                long long xs0, long long xs1, long long xs2, long long ys0, long long ys1,
+                long long ys2, int tree, int regime, int P, int C, double* out) {
+  const DotPlan p = dot_plan_of(M, N, T, regime, P, C);
+  if (!dot_shape_ok(M, N, T, tree) || !dot_plan_ok(tree, p)) return -1;
+  const DotArgs a = dot_args(x, y, M, N, T, xs0, xs1, xs2, ys0, ys1, ys2, tree);
+  const long long E = M * N;
+  auto store = [&](long long o, const QD& r) {
+    out[o] = r.e0;
+    out[E + o] = r.e1;
+    out[2 * E + o] = r.e2;
+    out[3 * E + o] = r.e3;
+  };
+  auto nosync = [] {};
+  std::vector<double> buf(p.smem / 8 + 1);
+  for (long long o0 = 0; o0 < E; o0 += p.P) {
+    const int np = (int)(E - o0 < p.P ? E - o0 : p.P);
+    if (regime == kDotThread) {
+      for (int g = 0; g < np; ++g) {
+        store(o0 + g, tree ? q4_out<true>(a, o0 + g) : q4_out<false>(a, o0 + g));
+      }
+    } else if (regime == kDotTree) {
+      q4_tree_block(a, o0, np, p.P, buf.data(), 0, 1, nosync);
+      for (int g = 0; g < np; ++g) store(o0 + g, get_at(buf.data(), p.P * ((T + 1) / 2), g));
+    } else {
+      const int nch = (T + p.C - 1) / p.C;
+      std::vector<QD> acc(np, QD{0.0, 0.0, 0.0, 0.0});
+      for (int k = 0; k <= nch; ++k) {
+        if (k < nch) q4_produce(a, o0, np, p.P, p.C, buf.data(), k, 0, 1);
+        for (int g = 0; g < np && k > 0; ++g) q4_chain(a, p.P, p.C, buf.data(), k - 1, g, acc[g]);
+      }
+      for (int g = 0; g < np; ++g) store(o0 + g, acc[g]);
+    }
+  }
+  return 0;
 }
 
-// Q3's next v[j] from v (4 limb pointers, r entries) and g at G_c[0, i_c, j]
-// of the packed (R, N, R) core.
-void ttq_host_q3_out(const double* const* v, const double* g, int r, int N, int R,
-                     double* out4) {
-  const Limbs l = limbs_of(v);
-  put(q3_out([&](int t) { return at(l, t); }, g, r, N, R), out4);
+// Q3's whole call, P rows a block (arguments as ttq_gather_tt's, the ranks
+// on the host).
+void ttq_host_q3(const double* cores, const int32_t* ranks, int d, int R, int N,
+                 const int32_t* ind, long long B, int P, double* out) {
+  std::vector<double> smem(gather_smem(R, P) / 8);
+  double* v = smem.data() + 4 * P * ((R + 1) / 2) * R;
+  for (long long row0 = 0; row0 < B; row0 += P) {
+    const int np = (int)(B - row0 < P ? B - row0 : P);
+    q3_block(cores, ranks, d, R, N, ind, row0, np, P, smem.data(), v, 0, 1, [] {});
+    for (int b = 0; b < np; ++b) {
+      const QD r = get_at(v, P * R, b * R);
+      out[row0 + b] = r.e0;
+      out[B + row0 + b] = r.e1;
+      out[2 * B + row0 + b] = r.e2;
+      out[3 * B + row0 + b] = r.e3;
+    }
+  }
+}
+
+// qd_mul(x[k], (g[k], 0, 0, 0)) and qd_mul_f64(x[k], g[k]) for k < n: x 4
+// limb pointers, out_full / out_f64 (4, n) limb-major.
+void ttq_host_mul_by_f64(const double* const* x, const double* g, long long n, double* out_full,
+                         double* out_f64) {
+  const Limbs l = limbs_of(x);
+  for (long long k = 0; k < n; ++k) {
+    const QD a = qd_mul(at(l, k), QD{g[k], 0.0, 0.0, 0.0}), b = qd_mul_f64(at(l, k), g[k]);
+    const double fa[4] = {a.e0, a.e1, a.e2, a.e3}, fb[4] = {b.e0, b.e1, b.e2, b.e3};
+    for (int q = 0; q < 4; ++q) {
+      out_full[q * n + k] = fa[q];
+      out_f64[q * n + k] = fb[q];
+    }
+  }
 }
 
 // Q1's row: tables (8, n), ri the row's d indices.
@@ -645,5 +1014,19 @@ void ttq_host_q1_row(const double* tables, int n, const int32_t* ri, int d, doub
 }
 
 #endif  // __CUDACC__
+
+// Q4's launch for a shape (dot_plan): plan[0..5] = regime (0 a thread per
+// output, 1 chain, 2 tree), P, C, threads, blocks, shared bytes.  Returns
+// 0, or -1 for a shape ttq_dot refuses.
+int ttq_dot_plan(long long M, long long N, int T, int tree, long long* plan) {
+  if (!dot_shape_ok(M, N, T, tree)) return -1;
+  const DotPlan p = dot_plan(M, N, T, tree);
+  const long long v[6] = {p.regime, p.P, p.C, p.threads, p.blocks, p.smem};
+  for (int k = 0; k < 6; ++k) plan[k] = v[k];
+  return 0;
+}
+
+// Q3's rows per block for (R, B) (gather_rows).
+int ttq_gather_rows(int R, long long B) { return gather_rows(R, B); }
 
 }  // extern "C"

@@ -62,7 +62,11 @@ _SIGNATURES = {
     "ttd_gather_rmax": ([], _I),
     "ttq_score_residual_argmax": ([_PP, _PP, _PP, _LL, _I, _LL, _LL, _LL, _LL, _P, _P, _P], _I),
     "ttq_dot": ([_PP, _PP, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P], _I),
-    "ttq_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _P, _I, _P], _I),
+    "ttq_dot_planned": (
+        [_PP, _PP, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P], _I),
+    "ttq_dot_plan": ([_LL, _LL, _I, _I, ctypes.POINTER(_LL)], _I),
+    "ttq_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _P, _P], _I),
+    "ttq_gather_tt_planned": ([_P, _P, _I, _I, _I, _P, _LL, _I, _I, _P, _P], _I),
     "ttq_ising_c_integrand": ([_P, _I, _P, _LL, _I, _P, _P], _I),
     "ttq_threads": ([], _I),
     "ttq_rows_threads": ([], _I),

@@ -39,7 +39,9 @@ __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
            "dd_gather_tt_fused", "dd_gather_tt_plain", "PackedTT", "pack_tt",
            "ising_c_integrand_dd_fused", "ising_c_integrand_dd_plain",
            "qd_score_residual_argmax", "qd_score_residual_argmax_plain", "qd_dot", "qd_dot_plain",
-           "qd_gather_tt_fused", "qd_gather_tt_plain", "ising_c_integrand_qd_fused",
+           "qd_dot_plan", "qd_dot_planned", "QdDotPlan",
+           "qd_gather_tt_fused", "qd_gather_tt_planned", "qd_gather_tt_plain",
+           "ising_c_integrand_qd_fused",
            "ising_c_integrand_qd_plain",
            "launch_counts", "launch_shapes", "reset_launch_counts"]
 
@@ -947,6 +949,28 @@ def qd_dot_plain(x, y, tree: bool):
     return acc if acc is not None else qdm.qd_zeros((M, N), x[0].device)
 
 
+class QdDotPlan(NamedTuple):
+    """Q4's launch for one shape (csrc/qd_kernels.cu::dot_plan)."""
+    regime: str     # "thread" (a thread per output), "chain" or "tree"
+    P: int          # outputs of a block
+    C: int          # the chain's chunk of terms; the tree's level-1 terms per output
+    threads: int
+    blocks: int
+    smem: int       # dynamic shared memory per block, bytes
+
+
+_QD_REGIMES = ("thread", "chain", "tree")
+
+
+def qd_dot_plan(M: int, N: int, T: int, tree: bool) -> QdDotPlan:
+    """The launch Q4 takes at (M, N, T, mode): a function of the shape
+    alone, so each shape of launch_shapes() names its regime."""
+    out = (ctypes.c_longlong * 6)()
+    if _lib().ttq_dot_plan(M, N, T, int(tree), out) != 0:
+        raise ValueError(f"qd_dot takes no shape ({M}, {N}, {T}, tree={tree})")
+    return QdDotPlan(_QD_REGIMES[out[0]], *out[1:])
+
+
 def qd_dot(x, y, tree: bool):
     """Q4, the small qd product: qd_dot_plain in one launch.
 
@@ -955,12 +979,26 @@ def qd_dot(x, y, tree: bool):
     tree=False).  It serves qd_matmul and qd_vdot_axis (ops/qd.py), so the
     qd engine's apply_*_slice, solve_core, _extend_inverses and value chain,
     qd_contract, qd_tt_value and refine_dd.  On a CPU tensor this is the
-    plain version; on a CUDA tensor it launches csrc/qd_kernels.cu's
-    qd_dot_kernel (a thread per output) and adds one to
+    plain version; on a CUDA tensor it launches one of csrc/qd_kernels.cu's
+    Q4 kernels, in the regime qd_dot_plan gives the shape (the tree by the
+    shared level-by-level tree, the sequential sum by chain warps or, at
+    many outputs, a thread per output), and adds one to
     ``qd_dot.launches``."""
-    qdm = _qd_mod()
     if x[0].device.type == "cpu":
         return qd_dot_plain(x, y, tree)
+    return _qd_dot_launch(x, y, tree, None)
+
+
+def qd_dot_planned(x, y, tree: bool, plan: tuple):
+    """Q4 on CUDA tensors in the regime `plan` = (regime, P, C) names (as
+    QdDotPlan's first three fields), whatever qd_dot_plan gives the shape:
+    the card tests hold every regime to the plain version with it.  Counts
+    its launch as qd_dot's."""
+    return _qd_dot_launch(x, y, tree, plan)
+
+
+def _qd_dot_launch(x, y, tree, plan):
+    qdm = _qd_mod()
     dev = x[0].device
     _check_limbs("x", x, 3, dev)
     _check_limbs("y", y, 3, dev)
@@ -971,8 +1009,13 @@ def qd_dot(x, y, tree: bool):
         raise ValueError(f"qd_dot takes a non-empty output and T <= {_QD_TREE_MAX} (T >= 1 for "
                          f"the tree), got ({M}, {N}, {T})")
     out = torch.empty((4, M, N), dtype=torch.float64, device=dev)
-    rc = _call(dev, _lib().ttq_dot, _limb_ptrs(x), _limb_ptrs(y), M, N, T, *x[0].stride(),
-               *y[0].stride(), int(tree), out.data_ptr())
+    args = (_limb_ptrs(x), _limb_ptrs(y), M, N, T, *x[0].stride(), *y[0].stride(), int(tree))
+    if plan is None:
+        rc = _call(dev, _lib().ttq_dot, *args, out.data_ptr())
+    else:
+        regime, P, C = plan
+        rc = _call(dev, _lib().ttq_dot_planned, *args, _QD_REGIMES.index(regime), P, C,
+                   out.data_ptr())
     _raise_on(rc, "qd_dot launch")
     qd_dot.launches += 1
     _SHAPES["qd_dot", (M, N, T, "tree" if tree else "seq")] += 1
@@ -996,11 +1039,24 @@ def qd_gather_tt_fused(tt: PackedTT, ind):
     The qd defect integrand's train gather (ttcross_tpu/cross/defect.py:
     164-173, ops/qd.py:384-403).  On a CPU tensor this is
     qd_gather_tt_plain; on a CUDA tensor it launches csrc/qd_kernels.cu's
-    qd_gather_tt_kernel (W = the ranks rounded up to 32 threads per row) and
+    qd_gather_tt_kernel (a block of rows, every leaf of a core on its own
+    thread, the trees level by level; ranks up to _QD_GATHER_RMAX) and
     adds one to ``qd_gather_tt_fused.launches``."""
-    qdm = _qd_mod()
     if ind.device.type == "cpu":
         return qd_gather_tt_plain(tt, ind)
+    return _qd_gather_tt_launch(tt, ind, None)
+
+
+def qd_gather_tt_planned(tt: PackedTT, ind, rows: int, threads: int):
+    """Q3 on CUDA tensors with `rows` rows and `threads` threads a block,
+    whatever the launch rule (ttq_gather_rows, 256 threads) gives: the card
+    tests and the tuning use it.  Counts its launch as
+    qd_gather_tt_fused's."""
+    return _qd_gather_tt_launch(tt, ind, (rows, threads))
+
+
+def _qd_gather_tt_launch(tt, ind, plan):
+    qdm = _qd_mod()
     dev = ind.device
     _check_cuda("ind", ind, _I32, 2, dev)
     _check_cuda("cores", tt.cores, _F64, 4, dev)
@@ -1009,14 +1065,17 @@ def qd_gather_tt_fused(tt: PackedTT, ind):
     B = ind.shape[0]
     if ind.shape[1] != d:
         raise ValueError(f"ind must be (B, {d}), got {tuple(ind.shape)}")
-    W = -(-R // 32) * 32
-    if W > _QD_GATHER_RMAX:
+    if R > _QD_GATHER_RMAX:
         raise ValueError(f"rank {R} exceeds the qd gather kernel's {_QD_GATHER_RMAX}")
     out = torch.empty((4, B), dtype=torch.float64, device=dev)
     if B == 0:
         return qdm.QD(out[0], out[1], out[2], out[3])
-    rc = _call(dev, _lib().ttq_gather_tt, tt.cores.data_ptr(), tt.ranks_t.data_ptr(), d, R, N,
-               ind.data_ptr(), B, out.data_ptr(), W)
+    if plan is None:
+        rc = _call(dev, _lib().ttq_gather_tt, tt.cores.data_ptr(), tt.ranks_t.data_ptr(), d, R,
+                   N, ind.data_ptr(), B, out.data_ptr())
+    else:
+        rc = _call(dev, _lib().ttq_gather_tt_planned, tt.cores.data_ptr(), tt.ranks_t.data_ptr(),
+                   d, R, N, ind.data_ptr(), B, *plan, out.data_ptr())
     _raise_on(rc, "qd_gather_tt_fused launch")
     qd_gather_tt_fused.launches += 1
     _SHAPES["qd_gather_tt_fused", (B, N) + tt.ranks] += 1
