@@ -348,6 +348,15 @@ DD_PATH_KERNELS = {"dd": ("dd_score_residual_argmax", "dd_dot", "ising_c_integra
                                       "dd_gather_tt_fused", "dd_dot")}
 DD_MUL_FLOPS, DD_ADD_FLOPS = 24, 11   # ops/dd.py: two_prod 17 + cross terms 4 + quick_two_sum 3;
                                       # two_sum 6 + 2 adds + quick_two_sum 3
+DD_KERNEL_SYMBOLS = {"dd_score_residual_argmax": "dd_score_", "dd_dot": "dd_dot_kernel",
+                     "dd_gather_tt_fused": "dd_gather_tt_kernel",
+                     "ising_c_integrand_dd_fused": "ising_c_dd_kernel"}   # csrc/dd_kernels.cu
+# D1's kernel table (PERF.md): the dd paths' shapes, (B, T) = the rook fibers
+# and the accept's fibers, the lottery, the accept's (R, R) products at C_6
+# rank 48, C_4 n = 65 rank 32 and C_4 n = 33 rank 16; each layout timed
+DD_TABLE_SHAPES = [(3120, 48), (226, 48), (48, 48), (2080, 32), (194, 32), (32, 32), (528, 16),
+                   (98, 16), (16, 16)]
+DD_CHAIN_FLOOR_T = (480, 4800)   # D1 at B = 1, one chain lane: µs per dependent dd_add
 F64_VECTOR_FLOPS = 33.5e12  # H100 SXM f64 outside the tensor cores (dd cannot use them)
 SCORE_RTOL = 1e-12          # kernel A vs cuBLAS: f64 sums in another order
                             # (the 2-D path's DMMA tiles in yet another)
@@ -513,7 +522,7 @@ def device_per_call(fn, calls: int = 50, tries: int = 10) -> dict:
         kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
         if kern:
             break
-    return {"device_us": sum(_device_us(e) for e in kern) / calls,
+    return {"device_us": sum(_device_us(e) for e in kern) / calls, "calls": calls,
             "kernels_per_call": sum(e.count for e in kern) / calls,
             "by_kernel_us": {e.key[:60]: _device_us(e) / calls for e in kern},
             "by_kernel": {e.key: (_device_us(e), e.count) for e in kern}}
@@ -2074,10 +2083,12 @@ def _dd_pair(gen, shape, dev):
 
 
 def _dd_cases(dev, gen, name, shape):
-    """(label, fn, plain) per layout that the dd engine gives the kernel at
+    """(label, fn, plain, inputs) per layout that the dd engine gives the kernel at
     this shape: D1 as the lottery (both operands gathered, the rank mask on
-    x), a column pass (y a broadcast vector, mask on y) and a row pass (x a
-    broadcast vector, y a transposed view); D4 as a GEMM and as the
+    x; y contiguous, and y the transposed view cross/engine_dd.py gathers),
+    a column pass (y a broadcast vector, mask on y), a row pass (x a
+    broadcast vector, y a transposed view) and the accept's products (no
+    vals, mask or rank); D4 as a GEMM and as the
     contraction of a core against a weight vector; D3 on a random train of
     the run's ranks and modes of N; D2 on the dd C_m tables."""
     import torch
@@ -2098,12 +2109,14 @@ def _dd_cases(dev, gen, name, shape):
         vec = _dd_pair(gen, (T,), dev)
         yt = m(lambda t: t.T, _dd_pair(gen, (T, B), dev))
         for label, args in (("lottery", (vals, x, y, rank, mask, K.MASK_X)),
+                            ("lottery_t", (vals, x, yt, rank, mask, K.MASK_X)),
                             ("col", (vals, x, m(lambda t: t.expand(B, T), vec), rank, mask,
                                      K.MASK_Y)),
                             ("row", (vals, m(lambda t: t.expand(B, T), vec), yt, rank, mask,
-                                     K.MASK_X))):
+                                     K.MASK_X)),
+                            ("products", (None, x, yt, None, None, K.MASK_NONE))):
             out.append((label, (lambda a=args: K.dd_score_residual_argmax(*a)),
-                        (lambda a=args: K.dd_score_residual_argmax_plain(*a))))
+                        (lambda a=args: K.dd_score_residual_argmax_plain(*a)), args))
     elif name == "dd_dot":
         M, N, T = shape
         a, b = _dd_pair(gen, (M, T), dev), _dd_pair(gen, (T, N), dev)
@@ -2111,7 +2124,8 @@ def _dd_cases(dev, gen, name, shape):
         g, w = _dd_pair(gen, (M, T, N), dev), _dd_pair(gen, (T,), dev)
         xg, yw = m(lambda t: t.permute(0, 2, 1), g), m(lambda t: t[None, None].expand(M, N, T), w)
         for label, args in (("gemm", (x, y)), ("core_weights", (xg, yw))):
-            out.append((label, (lambda a=args: K.dd_dot(*a)), (lambda a=args: K.dd_dot_plain(*a))))
+            out.append((label, (lambda a=args: K.dd_dot(*a)), (lambda a=args: K.dd_dot_plain(*a)),
+                        args))
     elif name == "dd_gather_tt_fused":
         from ttcross_tpu_torch.tt.types import TT
 
@@ -2122,7 +2136,7 @@ def _dd_cases(dev, gen, name, shape):
         packed = K.pack_tt(t)
         ind = torch.randint(0, N, (B, d), generator=gen, dtype=torch.int32).to(dev)
         out.append(("train", (lambda: K.dd_gather_tt_fused(packed, ind)),
-                    (lambda: K.dd_gather_tt_plain(packed, ind))))
+                    (lambda: K.dd_gather_tt_plain(packed, ind)), (packed, ind)))
     else:
         from ttcross_tpu_torch.apps import make_ising_dd
 
@@ -2130,8 +2144,20 @@ def _dd_cases(dev, gen, name, shape):
         tables = make_ising_dd(m=d + 1, n=n - 1 if n % 2 == 0 else n, device=dev)[1].tables
         ind = torch.randint(0, n, (B, d), generator=gen, dtype=torch.int32).to(dev)
         out.append(("rows", (lambda: K.ising_c_integrand_dd_fused(tables, ind)),
-                    (lambda: K.ising_c_integrand_dd_plain(tables, ind))))
+                    (lambda: K.ising_c_integrand_dd_plain(tables, ind)), (tables, ind)))
     return out
+
+
+def _one_launch(name, shape, dev_k) -> None:
+    """One launch of the kernel per call (the design), and no other device
+    operation but D1's zeroing of its block counter (a memset, where the
+    grid has more than one block)."""
+    own = sum(c for k, (_, c) in dev_k["by_kernel"].items() if DD_KERNEL_SYMBOLS[name] in k)
+    others = [k for k in dev_k["by_kernel"] if DD_KERNEL_SYMBOLS[name] not in k]
+    if not 0 < own / max(dev_k["calls"], 1) <= 1 or any(
+            name != "dd_score_residual_argmax" or "memset" not in k.lower() for k in others):
+        raise AssertionError(f"{name} {shape}: {dev_k['by_kernel']} per "
+                             f"{dev_k['calls']} calls (one launch a call is the design)")
 
 
 def hold_dd_shapes(dev, gen, shapes, held, checked) -> None:
@@ -2155,7 +2181,7 @@ def hold_dd_shapes(dev, gen, shapes, held, checked) -> None:
         for shape in sorted(set(shapes.get(name, {})) - held[name]):
             cases = _dd_cases(dev, gen, name, shape)
             err = 0.0
-            for label, fn, plain in cases:
+            for label, fn, plain, _ in cases:
                 got, want = parts(fn()), parts(plain())
                 torch.cuda.synchronize()
                 if not all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(got, want)):
@@ -2163,11 +2189,9 @@ def hold_dd_shapes(dev, gen, shapes, held, checked) -> None:
                                          "version")
                 err = max([err] + [float((a.double() - b.double()).abs().max())
                                    for a, b in zip(got, want)])
-            _, fn, plain = cases[0]
+            _, fn, plain, _ = cases[0]
             dev_k = device_per_call(fn)
-            if not 0 < dev_k["kernels_per_call"] <= 1:
-                raise AssertionError(f"{name} {shape}: {dev_k['kernels_per_call']} kernels per "
-                                     "call (one is the design)")
+            _one_launch(name, shape, dev_k)
             # the plain versions launch ~35 ops per dd multiply-add: fewer calls
             dev_p = device_per_call(plain, calls=5)
             bound, by = _dd_bound(name, shape)
@@ -2183,6 +2207,53 @@ def hold_dd_shapes(dev, gen, shapes, held, checked) -> None:
             _emit(row)
             checked[name][tuple(shape)] = row
             held[name].add(tuple(shape))
+
+
+def d1_chain_floor_us(dev, gen) -> float:
+    """D1's chain floor: µs per dependent dd_add on one chain lane, the
+    slope of D1's device time at B = 1 between the lengths DD_CHAIN_FLOOR_T
+    (one row, chunks of 224 terms: the lane adds in order from shared
+    memory while the producers compute the next chunk in one pass)."""
+    from ttcross_tpu_torch.ops import kernels as K
+
+    us = []
+    for T in DD_CHAIN_FLOOR_T:
+        x, y, v = _dd_pair(gen, (1, T), dev), _dd_pair(gen, (1, T), dev), _dd_pair(gen, (1,), dev)
+        us.append(device_us_idle(lambda: K.dd_score_residual_argmax_planned(
+            v, x, y, plan=(1, 224))))
+    slope = (us[1] - us[0]) / (DD_CHAIN_FLOOR_T[1] - DD_CHAIN_FLOOR_T[0])
+    _emit({"phase": "d1_chain_floor", "T": list(DD_CHAIN_FLOOR_T), "device_us": us,
+           "us_per_dd_add": slope})
+    return slope
+
+
+def time_dd_table(dev, gen, held, checked) -> None:
+    """D1's kernel table (DD_TABLE_SHAPES), held against the plain version
+    first where no run launched them: each device operation of a call (the
+    kernel, the memset of its block counter) at its mean per recorded launch
+    (the profiler, 20 calls of the first layout), every layout's device µs
+    per call (device_us_idle), the plan, the bound and its share, the chain
+    floor (T dependent dd_adds at d1_chain_floor_us), the plain version's
+    time at the first layout."""
+    from ttcross_tpu_torch.ops import kernels as K
+
+    name = "dd_score_residual_argmax"
+    hold_dd_shapes(dev, gen, {name: {sh: 1 for sh in DD_TABLE_SHAPES}}, held, checked)
+    per_add = d1_chain_floor_us(dev, gen)
+    for shape in DD_TABLE_SHAPES:
+        row = checked[name][shape]
+        cases = _dd_cases(dev, gen, name, shape)
+        dev_k = device_per_call(cases[0][1], calls=20)
+        _one_launch(name, shape, dev_k)
+        ops = {k[:48]: t / c for k, (t, c) in dev_k["by_kernel"].items()}
+        _emit({"phase": "dd_table", "kernel": name, "shape": list(shape),
+               "plan": list(K.dd_score_plan(*shape)), "device_ops_us": ops,
+               "device_us": sum(ops.values()),
+               "idle_us": {label: device_us_idle(fn) for label, fn, _, _ in cases},
+               "bound_us": row["bound_us"], "bound_by": row["bound_by"],
+               "share_of_bound": row["bound_us"] / sum(ops.values()),
+               "chain_floor_us": shape[1] * per_add, "plain_device_us": row["plain_device_us"],
+               "plain_ms": row["plain_ms"]})
 
 
 def _dd_digits(value, truth: str) -> float:
@@ -2355,6 +2426,7 @@ def check_dd(dev, gen, held, checked):
         paths.append((f"dd {name}", first[4], need))
     _emit(check_small_dd_against_cpu(dev))
     _emit(dd_sweeps_without_sync(dev))
+    time_dd_table(dev, gen, held, checked)
     return paths
 
 
@@ -2803,14 +2875,17 @@ QD_SMALL = dict(m=4, n=17, max_rank=10)
 QD_PAR_RTOL, QD_SMALL_RTOL = 1e-58, 1e-60
 QD_REFINE_ABS, QD_REFINE_DIGITS = 1e-27, 28.0   # tests/test_refine.py's cases
 QD_MUL_FLOPS, QD_ADD_FLOPS, QD_DIV_FLOPS = 508, 172, 1586   # ops/qd.py's qd_mul, qd_add, qd_div
-QD_KERNEL_SYMBOLS = {"qd_score_residual_argmax": "qd_score_kernel", "qd_dot": "qd_dot_",
+QD_KERNEL_SYMBOLS = {"qd_score_residual_argmax": "qd_score_", "qd_dot": "qd_dot_",
                      "qd_gather_tt_fused": "qd_gather_tt_kernel",
                      "ising_c_integrand_qd_fused": "ising_c_qd_kernel"}   # csrc/qd_kernels.cu
-# the kernel table's shapes (PERF.md): Q4's heaviest and lightest calls
-# (solve_core, its two workers' size, qd_contract, refine_dd's and stdnorm's
-# one-output trees), the defect's trains, and one shape of each path's other
-# calls per Q4 regime (apply_*_slice, _extend_inverses, a one-output chain)
-QD_TABLE_SHAPES = {"qd_dot": [(55, 3575, 55, "seq"), (33, 2145, 33, "seq"), (33, 33, 33, "tree"),
+# the kernel table's shapes (PERF.md): Q2's rook fibers at C_4 rank 55 and on
+# two workers, the lottery, stdnorm's rank-1 fibers; Q4's heaviest and
+# lightest calls (solve_core, its two workers' size, qd_contract, refine_dd's
+# and stdnorm's one-output trees), the defect's trains, and one shape of each
+# path's other calls per Q4 regime (apply_*_slice, _extend_inverses, a
+# one-output chain)
+QD_TABLE_SHAPES = {"qd_score_residual_argmax": [(3575, 54), (2080, 32), (240, 55), (404, 1)],
+                   "qd_dot": [(55, 3575, 55, "seq"), (33, 2145, 33, "seq"), (33, 33, 33, "tree"),
                               (1, 1, 201, "tree"), (1, 1, 101, "tree"), (55, 65, 55, "seq"),
                               (1, 55, 55, "tree"), (1, 1, 55, "seq")],
                    "qd_gather_tt_fused": [(1089, 33, 1, 33, 33, 1), (1089, 33, 1, 15, 14, 1)]}
@@ -3102,6 +3177,8 @@ def time_qd_table(dev, gen, held, checked) -> None:
                    "share_of_bound": row["share_of_bound"], "plain_ms": row["plain_ms"]}
             if name == "qd_dot":
                 out["plan"] = list(K.qd_dot_plan(*shape[:3], shape[3] == "tree"))
+            elif name == "qd_score_residual_argmax":
+                out["plan"] = list(K.qd_score_plan(*shape))
             _emit(out)
 
 
@@ -3149,6 +3226,17 @@ QD_TUNE_PLANS = {"seq": [("thread", 256, 0), ("thread", 128, 0), ("thread", 64, 
                          ("chain", 2, 112), ("chain", 1, 224)],
                  "tree": [("thread", 256, 0), ("tree", 1, 0), ("tree", 2, 0), ("tree", 4, 0),
                           ("tree", 8, 0), ("tree", 16, 0)]}
+# D1's and Q2's tuning data: the dd and qd paths' shapes and, for D1, row
+# counts up to ~50k at T = 48 (the data of score_plan's rule), each in every
+# plan: D1 at P rows a block with chunks of one or of kItems products per
+# producer (224 / P, 896 / P terms)
+D1_TUNE_SHAPES = DD_TABLE_SHAPES + [(1, 48), (64, 48), (1055, 48), (4223, 48), (12480, 48),
+                                    (49920, 48)]
+D1_TUNE_PLANS = [(P, c // P) for P in (1, 2, 4, 8, 16, 32) for c in (224, 896)]
+Q2_TUNE_SHAPES = [(3575, 54), (3575, 55), (3575, 33), (2080, 32), (715, 55), (240, 55), (30, 201),
+                  (404, 1), (201, 1), (1, 55), (8, 55)]
+Q2_TUNE_PLANS = [("thread", 256), ("thread", 64), ("tree", 1), ("tree", 2), ("tree", 4),
+                 ("tree", 8), ("tree", 9), ("tree", 12), ("tree", 14), ("tree", 16), ("tree", 32)]
 # Q3's tuning data: the defect's trains at its batch sizes, rows x threads a block
 QD_TUNE_GATHER = [(1089, 33, 1, 33, 33, 1), (132, 33, 1, 33, 33, 1), (1089, 33, 1, 15, 14, 1),
                   (132, 33, 1, 15, 14, 1)]
@@ -3156,11 +3244,44 @@ QD_TUNE_GATHER_PLANS = [(r, t) for r in (1, 2, 3, 4, 5, 6, 8) for t in (64, 128,
 
 
 def tune_qd_kernels(dev, gen) -> None:
-    """Q4 at QD_TUNE_SHAPES in its own plan and in each of QD_TUNE_PLANS,
-    and Q3 at QD_TUNE_GATHER with each of QD_TUNE_GATHER_PLANS' rows and
-    threads a block, every launch bit-equal to the rule's, device µs per
-    call (device_us_idle)."""
+    """D1 at D1_TUNE_SHAPES (the lottery's layout) and Q2 at Q2_TUNE_SHAPES
+    in their own plan and in each of D1_TUNE_PLANS / Q2_TUNE_PLANS that
+    launches there, Q4 at QD_TUNE_SHAPES in its own plan and in each of
+    QD_TUNE_PLANS, and Q3 at QD_TUNE_GATHER with each of
+    QD_TUNE_GATHER_PLANS' rows and threads a block, every launch bit-equal
+    to the rule's, device µs per call (device_us_idle)."""
+    import functools
+
+    import torch
+
     from ttcross_tpu_torch.ops import kernels as K
+
+    for B, T in D1_TUNE_SHAPES:
+        args = (_dd_pair(gen, (B,), dev), _dd_pair(gen, (B, T), dev), _dd_pair(gen, (B, T), dev),
+                torch.tensor([max(T - 1, 0)], dtype=torch.int32, device=dev),
+                (torch.rand(B, generator=gen) > 0.3).to(dev), K.MASK_X)
+        fn = functools.partial(K.dd_score_residual_argmax, *args)
+        want = _d1_parts(fn())
+        us = {"rule": device_us_idle(fn)}
+        for plan in D1_TUNE_PLANS:
+            got = functools.partial(K.dd_score_residual_argmax_planned, *args, plan=plan)
+            if not _bit_equal(_d1_parts(got()), want):
+                raise AssertionError(f"dd_score {(B, T)} in {plan}: not bit-equal to its own plan")
+            us["/".join(map(str, plan))] = device_us_idle(got)
+        _emit({"phase": "d1_regimes", "shape": [B, T], "rule": list(K.dd_score_plan(B, T)),
+               "device_us": us})
+        del args
+    for shape in Q2_TUNE_SHAPES:
+        _, fn, _, args = _qd_cases(dev, gen, "qd_score_residual_argmax", shape)[0]
+        want = _qd_parts(fn())
+        us = {"rule": device_us_idle(fn)}
+        for plan in Q2_TUNE_PLANS:
+            got = functools.partial(K.qd_score_residual_argmax_planned, *args, plan)
+            if not _bit_equal(_qd_parts(got()), want):
+                raise AssertionError(f"qd_score {shape} in {plan}: not bit-equal to its own plan")
+            us["/".join(map(str, plan))] = device_us_idle(got)
+        _emit({"phase": "q2_regimes", "shape": list(shape), "rule": list(K.qd_score_plan(*shape)),
+               "device_us": us})
 
     for shape in QD_TUNE_SHAPES:
         _, fn, _, args = _qd_cases(dev, gen, "qd_dot", shape)[0]
@@ -3190,29 +3311,44 @@ def _bit_equal(got, want) -> bool:
     return all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(got, want))
 
 
+def _d1_parts(r) -> list:
+    """D1's result as tensors: r's hi and lo, the flat index, r[flat]."""
+    (rh, rl), flat, (bh, bl) = r
+    return [rh, rl, flat, bh, bl]
+
+
 def compare_qd_with(root: str, dev, gen) -> None:
-    """Q3 and Q4 of the checkout at `root` (the parent) and of this one at
-    the kernel table's shapes, on the same inputs, in turns (other, this,
-    this, other): device µs per call from the profiler (20 calls) and from
+    """D1 (every layout), Q2, Q3 and Q4 of the checkout at `root` (the
+    parent) and of this one at the kernel tables' shapes (DD_TABLE_SHAPES,
+    QD_TABLE_SHAPES), on the same inputs, in turns (other, this, this,
+    other): device µs per call from the profiler (20 calls) and from
     device_us_idle; the two results bit-equal."""
     import importlib
 
     from ttcross_tpu_torch.ops import kernels as K
 
     other_k = importlib.import_module(_package_of(root) + ".ops.kernels")
+    cases = []     # (kernel, shape, layout, this, other, parts)
+    name = "dd_score_residual_argmax"
+    for shape in DD_TABLE_SHAPES:
+        for label, _, _, args in _dd_cases(dev, gen, name, shape):
+            cases.append((name, shape, label, lambda a=args: K.dd_score_residual_argmax(*a),
+                          lambda a=args: other_k.dd_score_residual_argmax(*a), _d1_parts))
     for name, shapes in QD_TABLE_SHAPES.items():
         for shape in shapes:
-            _, _, _, args = _qd_cases(dev, gen, name, shape)[0]
-            fns = {"other": lambda: getattr(other_k, name)(*args),
-                   "this": lambda: getattr(K, name)(*args)}
-            if not _bit_equal(_qd_parts(fns["this"]()), _qd_parts(fns["other"]())):
-                raise AssertionError(f"{name} {shape}: this checkout and {root} differ")
-            reads = {"other": [], "this": []}
-            for who in ("other", "this", "this", "other"):
-                reads[who].append({"device_us": device_per_call(fns[who], calls=20)["device_us"],
-                                   "idle_us": device_us_idle(fns[who])})
-            _emit({"phase": "compare_qd", "other": root, "kernel": name, "shape": list(shape),
-                   **reads})
+            label, _, _, args = _qd_cases(dev, gen, name, shape)[0]
+            cases.append((name, shape, label, lambda n=name, a=args: getattr(K, n)(*a),
+                          lambda n=name, a=args: getattr(other_k, n)(*a), _qd_parts))
+    for name, shape, label, this, other, parts in cases:
+        fns = {"other": other, "this": this}
+        if not _bit_equal(parts(this()), parts(other())):
+            raise AssertionError(f"{name} {shape} ({label}): this checkout and {root} differ")
+        reads = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            reads[who].append({"device_us": device_per_call(fns[who], calls=20)["device_us"],
+                               "idle_us": device_us_idle(fns[who])})
+        _emit({"phase": "compare_qd", "other": root, "kernel": name, "shape": list(shape),
+               "layout": label, **reads})
 
 
 def _qd_digits(limbs, truth: str) -> float:

@@ -80,8 +80,8 @@ def test_dd_score_kernel_matches_plain(kind, B, T, N, rank_frac, gen, cuda_devic
 
 
 def test_dd_score_kernel_ties_and_empty_mask(gen, cuda_device):
-    """Equal scores in different blocks of the cluster: the smaller index
-    wins; no mask (the accept's products): flat 0, r the sum itself."""
+    """Equal scores in different blocks: the smaller index wins; no mask
+    (the accept's products): flat 0, r the sum itself."""
     B, T = 5000, 8
     x = _pair(gen, (B, T), cuda_device)
     y = DD(torch.zeros(B, T, dtype=torch.float64, device=cuda_device),
@@ -98,6 +98,66 @@ def test_dd_score_kernel_ties_and_empty_mask(gen, cuda_device):
     assert int(flat) == int(want[1]) == 0 and _same(r, want[0])
     r, flat, _ = K.dd_score_residual_argmax(None, x, _pair(gen, (B, T), cuda_device), None, None)
     assert int(flat) == 0
+
+
+# D1's other plans (K.dd_score_residual_argmax_planned), (P rows a block, C
+# terms a chunk): one row a block (all terms in one chunk, chunks of 5),
+# several (P = 3: a last block partly empty; chunks longer than a producer
+# pass loads), 8, 16 and 32
+D1_PLANS = [(1, 896), (1, 5), (3, 74), (3, 300), (8, 112), (16, 14), (32, 7), (32, 28)]
+
+
+def _d1_layout(kind, B, T, gen, dev):
+    """(vals, x, y, rank, mask, side) as the dd engine gives D1: the lottery
+    (y the transposed gathered columns), a column pass, a row pass, the
+    accept's products (no vals, mask or rank)."""
+    vals = _pair(gen, (B,), dev)
+    mask = torch.as_tensor(gen.random(B) > 0.3).to(dev)
+    rank = torch.tensor([max(T - 2, 0)], dtype=torch.int32, device=dev)
+    x = _pair(gen, (B, T), dev)
+    yt = DD(*(p.T for p in _pair(gen, (T, B), dev)))
+    vec = _pair(gen, (T,), dev)
+    if kind == "lottery":
+        return vals, x, yt, rank, mask, K.MASK_X
+    if kind == "col":
+        return vals, x, DD(*(p.expand(B, T) for p in vec)), rank, mask, K.MASK_Y
+    if kind == "row":
+        return vals, DD(*(p.expand(B, T) for p in vec)), yt, rank, mask, K.MASK_X
+    return None, x, yt, None, None, K.MASK_NONE
+
+
+@pytest.mark.parametrize("B,T", [(3120, 48), (226, 48), (48, 48), (2080, 32), (194, 32),
+                                 (32, 32), (528, 16), (98, 16), (16, 16), (1, 48)])
+@pytest.mark.parametrize("kind", ["lottery", "col", "row", "products"])
+def test_dd_score_every_plan(B, T, kind, gen, cuda_device):
+    """D1 bit-equal to its plain version at the dd paths' shapes in each
+    layout, in its own plan and in every other (hi, lo, the index, r at
+    it)."""
+    args = _d1_layout(kind, B, T, gen, cuda_device)
+    want = K.dd_score_residual_argmax_plain(*args)
+    for plan in [None] + D1_PLANS:
+        got = (K.dd_score_residual_argmax(*args) if plan is None
+               else K.dd_score_residual_argmax_planned(*args, plan=plan))
+        assert _same(got[0], want[0]) and int(got[1]) == int(want[1]), plan
+        assert _same(got[2], want[2]), plan
+
+
+def test_dd_score_plan_is_the_shape_s(cuda_device):
+    """D1's launch at the paths' shapes (csrc/dd_kernels.cu::score_plan)."""
+    assert K.dd_score_plan(3120, 48) == K.DdScorePlan(16, 48, 256, 195, 25088)
+    assert K.dd_score_plan(226, 48)[:2] == (8, 48)
+    assert K.dd_score_plan(32, 32)[:4] == (32, 28, 256, 1)
+
+
+def test_dd_score_repeats_without_state(gen, cuda_device):
+    """Back-to-back launches on one stream, of several blocks, each with
+    its own scratch: the same result every time (the last block's counter
+    is zeroed per launch, so no launch sees another's count)."""
+    args = _d1_layout("col", 3120, 48, gen, cuda_device)
+    first = K.dd_score_residual_argmax(*args)
+    for _ in range(20):
+        got = K.dd_score_residual_argmax(*args)
+        assert _same(got[0], first[0]) and int(got[1]) == int(first[1])
 
 
 @pytest.mark.parametrize("M,N,T,layout", [(48, 65, 48, "mm"), (65, 48, 48, "mm"),

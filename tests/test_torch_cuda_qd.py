@@ -69,6 +69,40 @@ def test_q2_is_its_plain_version(kind, B, T, tiny, cuda_device, gen):
     assert int(flat) == int(wflat)
 
 
+Q2_PLANS = [("thread", 64), ("thread", 256), ("tree", 1), ("tree", 3), ("tree", 9), ("tree", 32)]
+
+
+@pytest.mark.parametrize("B,T", [(3575, 54), (2080, 32), (240, 55), (404, 1), (201, 1), (1, 55),
+                                 (715, 55), (30, 201)])
+@pytest.mark.parametrize("kind", ["lottery", "col", "row"])
+def test_q2_every_plan(B, T, kind, cuda_device, gen):
+    """Q2 bit-equal to its plain version at the qd paths' shapes (C_4 rank
+    55's rook fibers and lottery, two workers', stdnorm's rank 1) in each
+    layout, in its own plan and in every other (four limbs and the index)."""
+    vals, x = _qd(gen, (B,), cuda_device), _qd(gen, (B, T), cuda_device)
+    if kind == "lottery":
+        y = _qd(gen, (B, T), cuda_device)
+    elif kind == "col":
+        y = QD(*(e.expand(B, T) for e in _qd(gen, (T,), cuda_device)))
+    else:
+        x = QD(*(e.expand(B, T) for e in _qd(gen, (T,), cuda_device)))
+        y = QD(*(e.T for e in _qd(gen, (T, B), cuda_device)))
+    want, wflat = K.qd_score_residual_argmax_plain(vals, x, y)
+    for plan in [None] + Q2_PLANS:
+        r, flat = (K.qd_score_residual_argmax(vals, x, y) if plan is None
+                   else K.qd_score_residual_argmax_planned(vals, x, y, plan))
+        assert _same(r, want) and int(flat) == int(wflat), plan
+
+
+def test_q2_plan_is_the_shape_s(cuda_device):
+    """Q2's launch: Q4's tree rule for B outputs, one block where it holds
+    every level-1 term, full blocks raised to one wave of two an SM."""
+    assert K.qd_score_plan(3575, 54) == K.QdDotPlan("tree", 14, 27, 256, 256, 12096)
+    assert K.qd_score_plan(404, 1)[:2] == ("tree", 4)
+    assert K.qd_score_plan(201, 1)[:2] == ("tree", 201)
+    assert K.qd_score_plan(1, 1 << 16).regime == "thread"
+
+
 def test_q2_ties_and_nan_pick_torch_argmax(cuda_device, gen):
     """The first of equal maxima, and a NaN above every number."""
     x = _qd(gen, (600, 3), cuda_device)

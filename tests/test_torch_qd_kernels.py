@@ -6,12 +6,13 @@ distill sweeps, the qd operations, the pairwise tree walked depth first or
 level by level, each kernel's row, output or block stages) is written once
 for both: compiled by a host C++ compiler with -DTTQ_HOST and
 -ffp-contract=off, the file gives host entry points that run those
-functions in one host thread: Q1's and Q2's row, and Q3's and Q4's whole
-call, block after block, each stage's items in turn (Q4 in any of its
-regimes).  Here every output is held to the plain versions
-(ops/kernels.py::*_plain) at the slice's shapes and layouts.  Tolerance:
-none, every limb bit-equal (where an input holds inf or NaN: the same NaN
-positions and every other limb bit-equal).
+functions in one host thread: Q1's row, and Q2's, Q3's and Q4's whole
+call, block after block, each stage's items in turn (Q2 and Q4 in any of
+their plans, Q2's argmax over the blocks' best at the end).  Here every
+output is held to the plain versions (ops/kernels.py::*_plain) at the
+slice's shapes and layouts.  Tolerance: none, every limb bit-equal (where
+an input holds inf or NaN: the same NaN positions and every other limb
+bit-equal), and Q2's flat index equal.
 Without a host C++ compiler the build is not possible and the tests skip.
 The wrappers' routing by device and the plain versions' parity with the
 JAX package are in tests/test_torch_qd.py and the engine tests."""
@@ -72,11 +73,10 @@ def _outs(rows, call):
     return out
 
 
-@pytest.mark.parametrize("kind,B,T", [("lottery", 240, 55), ("col", 3575, 55), ("row", 715, 55),
-                                      ("lottery", 97, 33), ("col", 65, 7), ("row", 17, 1),
-                                      ("accept", 1, 55), ("lottery", 30, 201)])
-@pytest.mark.parametrize("tiny", [False, True])
-def test_q2_arithmetic(kind, B, T, tiny, host_lib):
+THREAD, CHAIN, TREE = 0, 1, 2    # Q2's and Q4's regimes (csrc/qd_kernels.cu::dot_plan)
+
+
+def _q2_args(kind, B, T, tiny):
     gen = np.random.default_rng(B * 7 + T)
     vals, x, y = _qd(gen, (B,), tiny), _qd(gen, (B, T), tiny), _qd(gen, (B, T))
     if kind == "col":
@@ -84,13 +84,97 @@ def test_q2_arithmetic(kind, B, T, tiny, host_lib):
     elif kind == "row":
         x = QD(*(e[0].expand(B, T) for e in x))
         y = QD(*(e.T for e in _qd(gen, (T, B))))
-    args = (_ptrs(vals), _ptrs(x), _ptrs(y), LL(B), T, *(LL(s) for s in x[0].stride()),
-            *(LL(s) for s in y[0].stride()))
-    out = _outs(B, lambda r, p: host_lib.ttq_host_q2_row(*args, LL(r), p))
-    assert _same(out, K.qd_score_residual_argmax_plain(vals, x, y)[0])
+    return vals, x, y
 
 
-THREAD, CHAIN, TREE = 0, 1, 2    # Q4's regimes (csrc/qd_kernels.cu::dot_plan)
+def _q2_plan(host_lib, B, T):
+    plan = (LL * 6)()
+    assert host_lib.ttq_score_plan(LL(B), T, plan) == 0
+    return tuple(plan)
+
+
+def _q2_host(host_lib, vals, x, y, plan=None):
+    """Q2's call through the host emulation, in `plan` = (regime, P) or the
+    card's own plan for the shape (ttq_score_plan); -> (QD (B,), flat)."""
+    B, T = x[0].shape
+    plan = plan or _q2_plan(host_lib, B, T)[:2]
+    out = torch.empty((4, B), dtype=torch.float64)
+    flat = LL(-1)
+    rc = host_lib.ttq_host_q2(_ptrs(vals), _ptrs(x), _ptrs(y), LL(B), T,
+                              *(LL(s) for s in x[0].stride()), *(LL(s) for s in y[0].stride()),
+                              *plan, VP(out.data_ptr()), ctypes.byref(flat))
+    assert rc == 0, f"the host emulation refused {plan} at {(B, T)}"
+    return QD(*out), flat.value
+
+
+def _same_q2(got, want):
+    return _same_qd(got[0], want[0]) and got[1] == int(want[1])
+
+
+# every plan Q2 can take: a thread per row (the depth-first walk), 32 / 64 /
+# 256 a block; the shared tree with one row a block, 3 (a last block partly
+# empty), 9 and 32
+Q2_PLANS = [(THREAD, 32), (THREAD, 64), (THREAD, 256), (TREE, 1), (TREE, 3), (TREE, 9),
+            (TREE, 32)]
+
+
+@pytest.mark.parametrize("kind,B,T", [("lottery", 240, 55), ("col", 3575, 55), ("row", 715, 55),
+                                      ("lottery", 97, 33), ("col", 65, 7), ("row", 17, 1),
+                                      ("accept", 1, 55), ("lottery", 30, 201)])
+@pytest.mark.parametrize("tiny", [False, True])
+def test_q2_arithmetic(kind, B, T, tiny, host_lib):
+    """Q2's whole call in the plan the card takes for the shape, and in every
+    other plan: the residual's limbs and the flat argmax."""
+    vals, x, y = _q2_args(kind, B, T, tiny)
+    want = K.qd_score_residual_argmax_plain(vals, x, y)
+    assert _same_q2(_q2_host(host_lib, vals, x, y), want)
+    for plan in Q2_PLANS:
+        assert _same_q2(_q2_host(host_lib, vals, x, y, plan), want), plan
+
+
+def test_q2_ties_and_nan(host_lib):
+    """The first of equal maxima in different blocks, and a NaN above every
+    number, in every plan."""
+    gen = np.random.default_rng(6)
+    B, T = 600, 3
+    vals = QD(*(torch.zeros(B, dtype=torch.float64) for _ in range(4)))
+    x = _qd(gen, (B, T))
+    for e in x:
+        e[7] = e[7] * 10      # the largest residual, tied at rows 7, 400 and 599
+        e[400] = e[7]
+        e[599] = e[7]
+    y = QD(*(e.clone() for e in x))
+    flats = []
+    for nan in (False, True):
+        if nan:
+            x.e0[300] = float("nan")
+        want = K.qd_score_residual_argmax_plain(vals, x, y)
+        for plan in [None] + Q2_PLANS:
+            got = _q2_host(host_lib, vals, x, y, plan)
+            assert _same_q2(got, want), plan
+        flats.append(got[1])
+    assert flats == [7, 300]
+
+
+@pytest.mark.parametrize("B,T,want", [
+    (3575, 54, (TREE, 14, 27, 256, 256, 12096)),   # C_4 rank 55: the rook fibers
+    (2080, 32, (TREE, 16, 16, 256, 130, 8192)),    # 2 workers' fibers
+    (240, 55, (TREE, 2, 28, 64, 120, 1792)),       # the lottery
+    (404, 1, (TREE, 4, 1, 32, 101, 128)),          # stdnorm (rank 1)
+    (201, 1, (TREE, 201, 1, 224, 1, 6432)),        # one block holds every row
+    (1, 55, (TREE, 1, 28, 32, 1, 896)),
+    (9, 55, (TREE, 9, 28, 256, 1, 8064)),
+    (10, 55, (TREE, 1, 28, 32, 10, 896)),          # spread: a row a block
+    (2376, 55, (TREE, 9, 28, 256, 264, 8064)),     # one wave of two blocks an SM
+    (2377, 55, (TREE, 10, 28, 256, 238, 8960)),
+    (10 ** 6, 55, (TREE, 228, 28, 256, 4386, 204288)),   # as many rows as shared memory holds
+    (1, 1 << 16, (THREAD, 64, 0, 64, 1, 0)),       # longer than the tree's shared memory
+])
+def test_q2_plan(B, T, want, host_lib):
+    """Q2's launch rule: Q4's tree rule for B outputs (dot_plan(1, B, T)),
+    one block where its threads hold every level-1 term, and full blocks
+    raised to one wave of two blocks an SM."""
+    assert _q2_plan(host_lib, B, T) == want
 
 
 def _q4_host(host_lib, x, y, tree, plan=None):

@@ -16,7 +16,7 @@
 // and :151 small_table_lookup_limbs), because in eager PyTorch one qd
 // multiply is some 130 elementwise launches.
 //   Q1 ising_c_qd_kernel     the C-kind Ising integrand in qd with its lookup
-//   Q2 qd_score_kernel       qd residual vals - sum_t x y (pairwise tree) and
+//   Q2 qd_score_*_kernel     qd residual vals - sum_t x y (pairwise tree) and
 //                            the first index of max |e0|
 //   Q3 qd_gather_tt_kernel   an f64 train at (B, d) indices, qd accumulation
 //   Q4 qd_dot_*_kernel       the small qd product: qd_matmul's sequential
@@ -33,9 +33,10 @@
 //
 // Host emulation.  Compiled without nvcc (-DTTQ_HOST, a host C++ compiler,
 // -ffp-contract=off), the file gives host entry points ttq_host_* that run
-// the kernels' own functions in one host thread: the per-output functions,
-// and the block-level stages of Q3 and Q4 (every item of a stage in turn,
-// the stages in the kernel's order).  The CPU tests hold that arithmetic
+// the kernels' own functions in one host thread: Q1's row, and the
+// block-level stages of Q2, Q3 and Q4 (every item of a stage in turn, the
+// stages in the kernel's order, block after block, Q2's argmax over the
+// blocks' best at the end).  The CPU tests hold that arithmetic
 // and its bookkeeping to the plain versions where there is no card.
 //
 // What bounds them: f64 operations.  A qd multiply is 6 two_prods (17
@@ -62,6 +63,10 @@
 //   - Q3: a block of rows; per core every leaf of every row's r x r2 grid
 //     on its own thread, then the r2 trees of each row level by level, v
 //     carried in shared memory: no thread bound to an absent column.
+//   - Q2: a block of rows by the same shared tree, Q4's tree rule choosing
+//     the rows a block (score_plan = dot_plan of B outputs), then a thread
+//     per row for the residual; a tree longer than kDotTreeSmem holds keeps
+//     a thread per row walking it depth first.
 
 #include <climits>
 #include <cmath>
@@ -335,12 +340,18 @@ struct ScoreArgs {
   long long xsb, xst, ysb, yst;
 };
 
+TTQ_FN QD q2_term(const ScoreArgs& a, long long row, int t) {
+  return qd_mul(at(a.x, row * a.xsb + (long long)t * a.xst),
+                at(a.y, row * a.ysb + (long long)t * a.yst));
+}
+
+TTQ_FN QD q2_finish(const ScoreArgs& a, long long row, const QD& sum) {
+  return qd_sub(at(a.v, row), sum);
+}
+
+// The thread regime's row: the tree walked depth first on one thread.
 TTQ_FN QD q2_row(const ScoreArgs& a, long long row) {
-  const QD r = tree_sum(a.T, [&](int t) {
-    return qd_mul(at(a.x, row * a.xsb + (long long)t * a.xst),
-                  at(a.y, row * a.ysb + (long long)t * a.yst));
-  });
-  return qd_sub(at(a.v, row), r);
+  return q2_finish(a, row, tree_sum(a.T, [&](int t) { return q2_term(a, row, t); }));
 }
 
 // Q4's output (i, j): sum_t x[i, j, t] y[i, j, t], by the tree (qd_vdot_axis)
@@ -450,6 +461,18 @@ TTQ_FN void q4_tree_block(const DotArgs& a, long long o0, int np, int P, double*
   const int ls = P * ((a.T + 1) / 2);
   auto off = [&](int g, int p) { return p * P + g; };
   tree_leaves(buf, ls, np, a.T, [&](int g, int t) { return q4_term(a, o0 + g, t); }, off, tid,
+              nth, sync);
+  tree_levels(buf, ls, np, a.T, off, tid, nth, sync);
+}
+
+// Q2's tree block: rows row0 .. row0 + np - 1, as q4_tree_block's outputs;
+// each row's sum ends at position g of buf (limb stride P ceil(T / 2)).
+template <typename Sync>
+TTQ_FN void q2_tree_block(const ScoreArgs& a, long long row0, int np, int P, double* buf, int tid,
+                          int nth, Sync sync) {
+  const int ls = P * ((a.T + 1) / 2);
+  auto off = [&](int g, int p) { return p * P + g; };
+  tree_leaves(buf, ls, np, a.T, [&](int g, int t) { return q2_term(a, row0 + g, t); }, off, tid,
               nth, sync);
   tree_levels(buf, ls, np, a.T, off, tid, nth, sync);
 }
@@ -568,16 +591,16 @@ TTQ_FN bool better(double as, long long ai, double bs, long long bi) {
   return as > bs || (as == bs && ai < bi);
 }
 
-#if defined(__CUDACC__)
 struct Best {
   double score;
   long long idx;
 };
 
-__device__ __forceinline__ void keep(Best& b, const Best& o) {
+TTQ_FN void keep(Best& b, const Best& o) {
   if (better(o.score, o.idx, b.score, b.idx)) b = o;
 }
 
+#if defined(__CUDACC__)
 __device__ __forceinline__ Best warp_reduce(Best b) {
   for (int off = 16; off > 0; off >>= 1) {
     Best o;
@@ -612,26 +635,36 @@ __device__ Best block_reduce(Best b) {
 // Q2: the qd kernel A.  The qd variant of ttcross_tpu/ops/pallas_kernels.py:62
 // score_residual_argmax on the qd engine's lottery and rook passes
 // (ttcross_tpu/cross/engine_qd.py:175-268) and the accept's residual fibers
-// (:281-290).  A thread per row writes r[row] (4 limbs); each block writes
-// its best |r.e0| and index to the scratch words, and the last block to
-// finish (by the counter in words[1], zeroed by the caller for each launch)
-// reduces them into words[0].  Bound: operations, B T (qd multiply + qd add)
-// + B qd adds.
+// (:281-290).  r[row] = vals[row] - qd_sum(x[row, :] y[row, :]) (4 limbs),
+// then the first index of max |r.e0|.  Bound: operations, B T (qd multiply
+// + qd add), but a thread walking its row's tree depth first waits on ~T
+// dependent qd operations and keeps a stack frame a level in local memory,
+// and ceil(B / 256) blocks leave most SMs idle at the engine's shapes.  Two
+// kernels, the regime from score_plan (Q4's tree rule for B outputs of T
+// terms): the shared tree, P rows a block (every leaf on its own thread, the
+// levels folded in shared memory, then a thread per row for the residual);
+// and, for a tree longer than the tree regime's shared memory, a thread per
+// row walking it depth first.  Each block writes its best |r.e0| and index
+// to the scratch words, and the last block to finish (by the counter in
+// words[1], zeroed by the entry point on the stream for each launch) reduces
+// them into words[0]; a grid of one block writes its best there directly.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-qd_score_kernel(ScoreArgs a, double* __restrict__ out, long long* __restrict__ words) {
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  Best b{-INFINITY, LLONG_MAX};
-  if (row < a.B) {
-    const QD r = q2_row(a, row);
-    out[row] = r.e0;
-    out[a.B + row] = r.e1;
-    out[2 * a.B + row] = r.e2;
-    out[3 * a.B + row] = r.e3;
-    b = Best{fabs(r.e0), row};
-  }
-  b = block_reduce(b);
+__device__ __forceinline__ void put_out(double* out, long long E, long long o, const QD& r) {
+  out[o] = r.e0;
+  out[E + o] = r.e1;
+  out[2 * E + o] = r.e2;
+  out[3 * E + o] = r.e3;
+}
+
+// The grid's best from each block's (valid in its thread 0; every thread of
+// the block calls it).  words: the index; with more than one block, then
+// the counter (zero at the launch) and the blocks' scores and indices.
+__device__ void grid_argmax(Best b, long long* words) {
   const unsigned nb = gridDim.x;
+  if (nb == 1) {
+    if (threadIdx.x == 0) words[0] = b.idx;
+    return;
+  }
   unsigned long long* counter = reinterpret_cast<unsigned long long*>(words + 1);
   double* pscore = reinterpret_cast<double*>(words + 2);
   long long* pidx = words + 2 + nb;
@@ -652,6 +685,36 @@ qd_score_kernel(ScoreArgs a, double* __restrict__ out, long long* __restrict__ w
   if (threadIdx.x == 0) words[0] = q.idx;
 }
 
+// kDotThread: a thread per row, the tree walked depth first.
+__global__ void __launch_bounds__(kThreads)
+qd_score_kernel(ScoreArgs a, double* __restrict__ out, long long* __restrict__ words) {
+  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  Best b{-INFINITY, LLONG_MAX};
+  if (row < a.B) {
+    const QD r = q2_row(a, row);
+    put_out(out, a.B, row, r);
+    b = Best{fabs(r.e0), row};
+  }
+  grid_argmax(block_reduce(b), words);
+}
+
+// kDotTree: the block's P rows by the shared tree, then a thread per row.
+__global__ void __launch_bounds__(kThreads)
+qd_score_tree_kernel(ScoreArgs a, int P, double* __restrict__ out, long long* __restrict__ words) {
+  extern __shared__ double qsm[];
+  const long long row0 = (long long)blockIdx.x * P;
+  const int np = (int)(a.B - row0 < P ? a.B - row0 : P);
+  q2_tree_block(a, row0, np, P, qsm, threadIdx.x, blockDim.x, [] { __syncthreads(); });
+  const int ls = P * ((a.T + 1) / 2);
+  Best b{-INFINITY, LLONG_MAX};
+  for (int g = threadIdx.x; g < np; g += blockDim.x) {
+    const QD r = q2_finish(a, row0 + g, get_at(qsm, ls, g));
+    put_out(out, a.B, row0 + g, r);
+    keep(b, Best{fabs(r.e0), row0 + g});
+  }
+  grid_argmax(block_reduce(b), words);
+}
+
 // ---------------------------------------------------------------------------
 // Q4: a small qd product with strides.  out[i, j] = sum_t x[i, j, t]
 // y[i, j, t], out (4, M, N) contiguous, x and y any strided views (a GEMM A @
@@ -662,12 +725,6 @@ qd_score_kernel(ScoreArgs a, double* __restrict__ out, long long* __restrict__ w
 // multiply + qd add).  Three kernels, one launch a call, the regime from
 // dot_plan.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void put_out(double* out, long long E, long long o, const QD& r) {
-  out[o] = r.e0;
-  out[E + o] = r.e1;
-  out[2 * E + o] = r.e2;
-  out[3 * E + o] = r.e3;
-}
 
 // kDotThread: a thread per output; kTree only for a tree longer than the
 // tree regime's shared memory (the depth-first walk, one frame a level).
@@ -793,6 +850,27 @@ bool dot_plan_ok(int tree, const DotPlan& p) {
          p.smem <= smem_max;
 }
 
+// Q2's launch: Q4's tree rule for B outputs of T terms (kDotTree, or
+// kDotThread for a tree longer than kDotTreeSmem holds), with two changes
+// measured on an H100 (chip_smoke.py --qd-regimes; PERF.md): a call whose
+// level-1 terms fit one block's threads is one block, with no step across
+// blocks ((201, 1) 5.1 us in one block against 8.1-9.9 in 2-201); and full
+// blocks take more rows until the grid is one wave of two blocks an SM (a
+// tree block of 256 threads at 98 registers: two fit an SM; (3575, 54) 19.6
+// us at 14 rows a block against 24.5 at 9), within kDotTreeSmem.
+DotPlan score_plan(long long B, int T) {
+  const long long K1 = (T + 1) / 2;
+  if (B * K1 <= kThreads) return dot_plan_of(1, B, T, kDotTree, (int)B, 0);
+  const DotPlan p = dot_plan(1, B, T, 1);
+  if (p.regime != kDotTree || p.threads < kThreads || p.blocks <= 2 * kSMs) return p;
+  const long long wave = (B + 2 * kSMs - 1) / (2 * kSMs), fit = kDotTreeSmem / (32 * K1);
+  return dot_plan_of(1, B, T, kDotTree, (int)(wave < fit ? wave : fit), 0);
+}
+
+bool score_shape_ok(long long B, int T) { return dot_shape_ok(1, B, T, 1); }
+
+bool score_plan_ok(const DotPlan& p) { return p.regime != kDotChain && dot_plan_ok(1, p); }
+
 #if !defined(__CUDACC__)
 void put(const QD& r, double* out4) {
   out4[0] = r.e0;
@@ -807,19 +885,35 @@ void put(const QD& r, double* out4) {
 extern "C" {
 
 #if defined(__CUDACC__)
-// Q2.  vals/x/y: host arrays of the 4 limb pointers; x and y strided (B, T)
+// Q2 in the plan (regime, P) that ttq_score_plan gives the shape, or another
+// the caller names (the card tests and the tuning launch every plan).
+// vals/x/y: host arrays of the 4 limb pointers; x and y strided (B, T)
 // views, element (b, t) at b * s?b + t * s?t; T >= 1.  out: 4B doubles
 // (limb-major).  words: 2 + 2 * blocks eight-byte words on the device, the
-// index first, then the block counter, which must be zero at the launch.
-// blocks = ceil(B / kThreads).
+// index first; with more than one block the counter after it is zeroed
+// here, on the stream, before the launch.
 int ttq_score_residual_argmax(const double* const* vals, const double* const* x,
                               const double* const* y, long long B, int T, long long xsb,
-                              long long xst, long long ysb, long long yst, double* out,
-                              long long* words, void* stream) {
-  if (B < 1 || T < 1 || T > (1 << kTreeDepth)) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  qd_score_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      score_args(vals, x, y, B, T, xsb, xst, ysb, yst), out, words);
+                              long long xst, long long ysb, long long yst, int regime, int P,
+                              double* out, long long* words, void* stream) {
+  const DotPlan p = dot_plan_of(1, B, T, regime, P, 0);
+  if (!score_shape_ok(B, T) || !score_plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.blocks > 1) {
+    const cudaError_t err = cudaMemsetAsync(words + 1, 0, sizeof(long long), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const ScoreArgs a = score_args(vals, x, y, B, T, xsb, xst, ysb, yst);
+  const unsigned blocks = (unsigned)p.blocks;
+  if (p.regime == kDotThread) {
+    qd_score_kernel<<<blocks, p.threads, 0, st>>>(a, out, words);
+  } else {
+    if (p.smem > kStaticSmem) {
+      cudaFuncSetAttribute(qd_score_tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)p.smem);
+    }
+    qd_score_tree_kernel<<<blocks, p.threads, p.smem, st>>>(a, p.P, out, words);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -926,11 +1020,40 @@ int ttq_tree_max(void) { return 1 << kTreeDepth; }
 
 #else   // the host emulation: the kernels' functions in one host thread
 
-// Q2's r[row], arguments as ttq_score_residual_argmax's.
-void ttq_host_q2_row(const double* const* vals, const double* const* x, const double* const* y,
-                     long long B, int T, long long xsb, long long xst, long long ysb,
-                     long long yst, long long row, double* out4) {
-  put(q2_row(score_args(vals, x, y, B, T, xsb, xst, ysb, yst), row), out4);
+// Q2's whole call in the plan (regime, P), arguments as
+// ttq_score_residual_argmax's (every pointer on the host): block after
+// block, each stage's items in turn, the stages in the kernel's order, then
+// the grid's argmax over the blocks' best.  out: (4, B) limb-major; *index:
+// the flat argmax.  Returns 0, or -1 for a shape or plan the card's entry
+// point refuses.
+int ttq_host_q2(const double* const* vals, const double* const* x, const double* const* y,
+                long long B, int T, long long xsb, long long xst, long long ysb, long long yst,
+                int regime, int P, double* out, long long* index) {
+  const DotPlan p = dot_plan_of(1, B, T, regime, P, 0);
+  if (!score_shape_ok(B, T) || !score_plan_ok(p)) return -1;
+  const ScoreArgs a = score_args(vals, x, y, B, T, xsb, xst, ysb, yst);
+  std::vector<double> buf(p.smem / 8 + 1);
+  std::vector<Best> parts;
+  for (long long row0 = 0; row0 < B; row0 += p.P) {
+    const int np = (int)(B - row0 < p.P ? B - row0 : p.P);
+    if (regime == kDotTree) q2_tree_block(a, row0, np, p.P, buf.data(), 0, 1, [] {});
+    Best b{-INFINITY, LLONG_MAX};
+    for (int g = 0; g < np; ++g) {
+      const long long row = row0 + g;
+      const QD r = regime == kDotTree ? q2_finish(a, row, get_at(buf.data(), p.P * p.C, g))
+                                      : q2_row(a, row);
+      out[row] = r.e0;
+      out[B + row] = r.e1;
+      out[2 * B + row] = r.e2;
+      out[3 * B + row] = r.e3;
+      keep(b, Best{std::fabs(r.e0), row});
+    }
+    parts.push_back(b);
+  }
+  Best q{-INFINITY, LLONG_MAX};
+  for (const Best& b : parts) keep(q, b);
+  *index = q.idx;
+  return 0;
 }
 
 // Q4's whole call in a regime (arguments as ttq_dot_planned's): block after
@@ -1021,6 +1144,17 @@ void ttq_host_q1_row(const double* tables, int n, const int32_t* ri, int d, doub
 int ttq_dot_plan(long long M, long long N, int T, int tree, long long* plan) {
   if (!dot_shape_ok(M, N, T, tree)) return -1;
   const DotPlan p = dot_plan(M, N, T, tree);
+  const long long v[6] = {p.regime, p.P, p.C, p.threads, p.blocks, p.smem};
+  for (int k = 0; k < 6; ++k) plan[k] = v[k];
+  return 0;
+}
+
+// Q2's launch for a shape (score_plan), plan[0..5] as ttq_dot_plan's
+// (regime 0 a thread per row, 2 tree).  Returns 0, or -1 for a shape
+// ttq_score_residual_argmax refuses.
+int ttq_score_plan(long long B, int T, long long* plan) {
+  if (!score_shape_ok(B, T)) return -1;
+  const DotPlan p = score_plan(B, T);
   const long long v[6] = {p.regime, p.P, p.C, p.threads, p.blocks, p.smem};
   for (int k = 0; k < 6; ++k) plan[k] = v[k];
   return 0;

@@ -52,15 +52,17 @@ _SIGNATURES = {
     "ttc_integrand_rows_d_max": ([], _I),
     "ttc_integrand_warp_d_max": ([], _I),
     "ttd_score_residual_argmax": (
-        [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL, _LL, _LL, _P, _I, _P, _P, _P, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL, _LL, _LL, _P, _I, _P, _I, _I, _P, _P, _P],
         _I),
+    "ttd_dd_score_plan": ([_LL, _I, ctypes.POINTER(_LL)], _I),
     "ttd_dot": ([_P, _P, _P, _P, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P], _I),
     "ttd_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _P, _P, _I, _P], _I),
     "ttd_ising_c_integrand": ([_P, _I, _P, _LL, _I, _P, _P, _P], _I),
     "ttd_threads": ([], _I),
-    "ttd_cluster_max": ([], _I),
     "ttd_gather_rmax": ([], _I),
-    "ttq_score_residual_argmax": ([_PP, _PP, _PP, _LL, _I, _LL, _LL, _LL, _LL, _P, _P, _P], _I),
+    "ttq_score_residual_argmax": (
+        [_PP, _PP, _PP, _LL, _I, _LL, _LL, _LL, _LL, _I, _I, _P, _P, _P], _I),
+    "ttq_score_plan": ([_LL, _I, ctypes.POINTER(_LL)], _I),
     "ttq_dot": ([_PP, _PP, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P], _I),
     "ttq_dot_planned": (
         [_PP, _PP, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P], _I),

@@ -35,10 +35,13 @@ __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
            "score_residual_argmax_batched", "score_residual_argmax_batched_plain",
            "small_table_lookup", "small_table_lookup_plain",
            "ising_integrand_fused", "ising_integrand_plain",
-           "dd_score_residual_argmax", "dd_score_residual_argmax_plain", "dd_dot", "dd_dot_plain",
+           "dd_score_residual_argmax", "dd_score_residual_argmax_plain",
+           "dd_score_residual_argmax_planned", "dd_score_plan", "DdScorePlan", "dd_dot",
+           "dd_dot_plain",
            "dd_gather_tt_fused", "dd_gather_tt_plain", "PackedTT", "pack_tt",
            "ising_c_integrand_dd_fused", "ising_c_integrand_dd_plain",
-           "qd_score_residual_argmax", "qd_score_residual_argmax_plain", "qd_dot", "qd_dot_plain",
+           "qd_score_residual_argmax", "qd_score_residual_argmax_plain",
+           "qd_score_residual_argmax_planned", "qd_score_plan", "qd_dot", "qd_dot_plain",
            "qd_dot_plan", "qd_dot_planned", "QdDotPlan",
            "qd_gather_tt_fused", "qd_gather_tt_planned", "qd_gather_tt_plain",
            "ising_c_integrand_qd_fused",
@@ -130,8 +133,7 @@ def _lib():
             != (_THREADS, _TILE_THREADS, _TILE_SMEM, _SIMT_THREADS, _ROWS_THREADS, _ROWS_D_MAX,
                 _WARP_D_MAX)):
         raise RuntimeError("the constants of csrc/kernels.cu disagree with ops/kernels.py")
-    if ((lib.ttd_threads(), lib.ttd_cluster_max(), lib.ttd_gather_rmax())
-            != (_DD_THREADS, _DD_CLUSTER_MAX, _DD_GATHER_RMAX)):
+    if (lib.ttd_threads(), lib.ttd_gather_rmax()) != (_DD_THREADS, _DD_GATHER_RMAX):
         raise RuntimeError("the constants of csrc/dd_kernels.cu disagree with ops/kernels.py")
     if ((lib.ttq_threads(), lib.ttq_rows_threads(), lib.ttq_gather_rmax(), lib.ttq_tree_max())
             != (_QD_THREADS, _QD_ROWS_THREADS, _QD_GATHER_RMAX, _QD_TREE_MAX)):
@@ -544,8 +546,7 @@ ising_integrand_fused.launches = 0
 # it is bit for bit its plain version (the plain versions below are
 # ops/dd.py's functions, which the CPU tests hold against the JAX
 # package's).
-_DD_THREADS = 256          # kThreads: a block of D1, D3, D4
-_DD_CLUSTER_MAX = 16       # kClusterMax: D1's cluster
+_DD_THREADS = 256          # kThreads: a block of D1, D3, D4 at most
 _DD_GATHER_RMAX = 64       # kGatherRMax: D3 takes ranks up to this
 _F64 = (torch.float64,)
 MASK_NONE, MASK_X, MASK_Y = 0, 1, 2   # the side of the dot that D1's rank mask multiplies
@@ -601,6 +602,25 @@ def dd_score_residual_argmax_plain(vals, x, y, rank=None, mask=None, mask_side: 
     return r, flat, ddm.DD(r.hi[flat], r.lo[flat])
 
 
+class DdScorePlan(NamedTuple):
+    """D1's launch for one shape (csrc/dd_kernels.cu::score_plan)."""
+    P: int          # rows of a block (lanes of its chain warp)
+    C: int          # terms of a chunk
+    threads: int    # the chain warp and the producers
+    blocks: int
+    smem: int       # dynamic shared memory per block, bytes
+
+
+@functools.lru_cache(maxsize=4096)
+def dd_score_plan(B: int, T: int) -> DdScorePlan:
+    """The launch D1 takes at (B, T): a function of the shape alone, so each
+    shape of launch_shapes() names its plan."""
+    out = (ctypes.c_longlong * 5)()
+    if _lib().ttd_dd_score_plan(B, T, out) != 0:
+        raise ValueError(f"dd_score_residual_argmax takes no shape ({B}, {T})")
+    return DdScorePlan(*out)
+
+
 def dd_score_residual_argmax(vals, x, y, rank=None, mask=None, mask_side: int = MASK_NONE):
     """D1, the dd kernel A: dd_score_residual_argmax_plain in one launch.
 
@@ -608,15 +628,29 @@ def dd_score_residual_argmax(vals, x, y, rank=None, mask=None, mask_side: int = 
     score_residual_argmax (:62-120), for the dd engine's lottery, rook
     passes and accept (ttcross_tpu/cross/engine_dd.py:274-283, :306-334,
     :378-394).  On a CPU tensor this is the plain version; on a CUDA tensor
-    it launches csrc/dd_kernels.cu's dd_score_kernel (a cluster of up to 16
-    blocks, a thread per row) and adds one to
-    ``dd_score_residual_argmax.launches``.  rank: a one-element int32 CUDA
-    tensor (it may be a slice of the state's ranks; read on the card).  r
-    is a view of one buffer allocated per call, flat and r[flat] of
-    another."""
-    ddm = _dd_mod()
+    it launches csrc/dd_kernels.cu's dd_score_kernel in the plan
+    dd_score_plan gives the shape (blocks of up to 32 rows, a chain warp
+    adding each row's terms in order while the other warps compute the next
+    chunk of products) and adds one to ``dd_score_residual_argmax.launches``.  rank: a one-element
+    int32 CUDA tensor (it may be a slice of the state's ranks; read on the
+    card).  r is a view of one buffer allocated per call, flat and r[flat]
+    of another."""
     if x[0].device.type == "cpu":
         return dd_score_residual_argmax_plain(vals, x, y, rank, mask, mask_side)
+    return _dd_score_launch(vals, x, y, rank, mask, mask_side, None)
+
+
+def dd_score_residual_argmax_planned(vals, x, y, rank=None, mask=None,
+                                     mask_side: int = MASK_NONE, plan: tuple = None):
+    """D1 on CUDA tensors in the plan `plan` = (P, C) names (as
+    DdScorePlan's first two fields), whatever dd_score_plan gives the
+    shape: the card tests and the tuning hold other plans to the plain
+    version with it.  Counts its launch as dd_score_residual_argmax's."""
+    return _dd_score_launch(vals, x, y, rank, mask, mask_side, plan)
+
+
+def _dd_score_launch(vals, x, y, rank, mask, mask_side, plan):
+    ddm = _dd_mod()
     dev = x[0].device
     _check_pair("x", x, 2, dev)
     _check_pair("y", y, 2, dev)
@@ -639,10 +673,10 @@ def dd_score_residual_argmax(vals, x, y, rank=None, mask=None, mask_side: int = 
             raise ValueError("rank must hold one int32")
     if mask_side not in (MASK_NONE, MASK_X, MASK_Y):
         raise ValueError(f"mask_side must be MASK_NONE, MASK_X or MASK_Y, got {mask_side}")
-    blocks = min(_DD_CLUSTER_MAX, -(-B // _DD_THREADS))
-    threads = _DD_THREADS if blocks > 1 else min(_DD_THREADS, -(-B // 32) * 32)
+    P, C = dd_score_plan(B, T)[:2] if plan is None else plan
     out = torch.empty((2, B), dtype=torch.float64, device=dev)
-    words = torch.empty(4 + 4 * blocks * (threads // 32), dtype=torch.int64, device=dev)
+    # [index, score, hi, lo], the counter, the blocks' scores, indices, hi, lo
+    words = torch.empty(5 + 4 * -(-B // max(P, 1)), dtype=torch.int64, device=dev)
     null = 0
     rc = _call(dev, _lib().ttd_score_residual_argmax,
                vals[0].data_ptr() if vals is not None else null,
@@ -650,8 +684,8 @@ def dd_score_residual_argmax(vals, x, y, rank=None, mask=None, mask_side: int = 
                x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(), B, T,
                x[0].stride(0), x[0].stride(1), y[0].stride(0), y[0].stride(1),
                rank.data_ptr() if rank is not None else null, mask_side,
-               mask.data_ptr() if mask is not None else null, out.data_ptr(), words.data_ptr(),
-               blocks, threads)
+               mask.data_ptr() if mask is not None else null, P, C, out.data_ptr(),
+               words.data_ptr())
     _raise_on(rc, "dd_score_residual_argmax launch")
     dd_score_residual_argmax.launches += 1
     _SHAPES["dd_score_residual_argmax", (B, T)] += 1
@@ -891,19 +925,42 @@ def qd_score_residual_argmax_plain(vals, x, y):
     return r, torch.argmax(r.e0.abs())
 
 
+@functools.lru_cache(maxsize=4096)
+def qd_score_plan(B: int, T: int) -> "QdDotPlan":
+    """The launch Q2 takes at (B, T): Q4's tree plan for B outputs of T terms
+    (regime "tree", or "thread" for a tree longer than the tree regime's
+    shared memory holds), a function of the shape alone."""
+    out = (ctypes.c_longlong * 6)()
+    if _lib().ttq_score_plan(B, T, out) != 0:
+        raise ValueError(f"qd_score_residual_argmax takes no shape ({B}, {T})")
+    return QdDotPlan(_QD_REGIMES[out[0]], *out[1:])
+
+
 def qd_score_residual_argmax(vals, x, y):
     """Q2, the qd kernel A: qd_score_residual_argmax_plain in one launch.
 
     The qd variant of ttcross_tpu/ops/pallas_kernels.py::
     score_residual_argmax (:62-120), for the qd engine's lottery, rook
     passes and accept (ttcross_tpu/cross/engine_qd.py:175-290).  On a CPU
-    tensor this is the plain version; on a CUDA tensor it launches
-    csrc/qd_kernels.cu's qd_score_kernel (a thread per row, the last block
-    reduces the blocks' best) and adds one to
+    tensor this is the plain version; on a CUDA tensor it launches one of
+    csrc/qd_kernels.cu's Q2 kernels in the plan qd_score_plan gives the
+    shape (a block of rows by the shared level-by-level tree, the last
+    block reducing the blocks' best) and adds one to
     ``qd_score_residual_argmax.launches``."""
-    qdm = _qd_mod()
     if x[0].device.type == "cpu":
         return qd_score_residual_argmax_plain(vals, x, y)
+    return _qd_score_launch(vals, x, y, None)
+
+
+def qd_score_residual_argmax_planned(vals, x, y, plan: tuple):
+    """Q2 on CUDA tensors in the plan `plan` = (regime, P) names ("tree" or
+    "thread"), whatever qd_score_plan gives the shape: the card tests and
+    the tuning use it.  Counts its launch as qd_score_residual_argmax's."""
+    return _qd_score_launch(vals, x, y, plan)
+
+
+def _qd_score_launch(vals, x, y, plan):
+    qdm = _qd_mod()
     dev = x[0].device
     _check_limbs("x", x, 2, dev)
     _check_limbs("y", y, 2, dev)
@@ -916,14 +973,14 @@ def qd_score_residual_argmax(vals, x, y):
     _check_limbs("vals", vals, 1, dev)
     if vals[0].shape[0] != B or not vals[0].is_contiguous():
         raise ValueError(f"vals must be ({B},) contiguous, got {tuple(vals[0].shape)}")
-    blocks = -(-B // _QD_THREADS)
+    regime, P = qd_score_plan(B, T)[:2] if plan is None else plan
     out = torch.empty((4, B), dtype=torch.float64, device=dev)
-    # the index, the blocks' best scores and indices, and the block counter:
-    # zeroed per call, so no state outlives a launch
-    words = torch.zeros(2 + 2 * blocks, dtype=torch.int64, device=dev)
+    # the index, the block counter (zeroed by the entry point per launch, so
+    # no state outlives a launch), the blocks' best scores and indices
+    words = torch.empty(2 + 2 * -(-B // max(P, 1)), dtype=torch.int64, device=dev)
     rc = _call(dev, _lib().ttq_score_residual_argmax, _limb_ptrs(vals), _limb_ptrs(x),
                _limb_ptrs(y), B, T, x[0].stride(0), x[0].stride(1), y[0].stride(0),
-               y[0].stride(1), out.data_ptr(), words.data_ptr())
+               y[0].stride(1), _QD_REGIMES.index(regime), P, out.data_ptr(), words.data_ptr())
     _raise_on(rc, "qd_score_residual_argmax launch")
     qd_score_residual_argmax.launches += 1
     _SHAPES["qd_score_residual_argmax", (B, T)] += 1
