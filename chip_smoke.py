@@ -14,13 +14,15 @@
                                      # archive) against this one's, in
                                      # turns, in one process
     python3 chip_smoke.py --qd-regimes [--parent DIR]
-                                     # only: build, then time Q4 in every
-                                     # regime at the qd paths' shapes and
-                                     # a sweep of output counts (the data
-                                     # of dot_plan's rule), Q3 with other
-                                     # rows and threads a block, and Q3 /
-                                     # Q4 against DIR's at the kernel
-                                     # table's shapes; no main path, no
+                                     # only: build, then time D1, D4, Q2
+                                     # and Q4 in every plan or regime at
+                                     # the dd and qd paths' shapes and
+                                     # sweeps of row and output counts
+                                     # (the data of the plans' rules), D3
+                                     # and Q3 with other rows and threads
+                                     # a block, and D1, D3, D4, Q2-Q4
+                                     # against DIR's at the kernel
+                                     # tables' shapes; no main path, no
                                      # result line
 
 Phases, each printing its result as it goes:
@@ -114,8 +116,10 @@ Phases, each printing its result as it goes:
      CPU, values, pivots and ranks; two dd sweeps and a defect-integrand call
      under torch's sync debug mode set to raise; every dd kernel held bit for
      bit against its plain version at every shape these runs launched it
-     at, with device time, kernels per call, bound (f64 vector flops) and
-     host time per call;
+     at (D4 in both regimes), with device time, kernels per call, bound
+     (f64 vector flops) and host time per call; then the dd kernel table
+     (dd_table lines: D1, D4 and D3 at DD_TABLES' shapes, the plan, device
+     µs, bound, share and chain floor);
  16. the distributed engines (ttcross_tpu_torch/parallel/), their ranks
      spawned by this script (parallel/launch.py): one NCCL rank's
      cross_parallel of bench.py's parallel line (C_32, n = 16, rank 8) and
@@ -348,14 +352,28 @@ DD_PATH_KERNELS = {"dd": ("dd_score_residual_argmax", "dd_dot", "ising_c_integra
                                       "dd_gather_tt_fused", "dd_dot")}
 DD_MUL_FLOPS, DD_ADD_FLOPS = 24, 11   # ops/dd.py: two_prod 17 + cross terms 4 + quick_two_sum 3;
                                       # two_sum 6 + 2 adds + quick_two_sum 3
-DD_KERNEL_SYMBOLS = {"dd_score_residual_argmax": "dd_score_", "dd_dot": "dd_dot_kernel",
-                     "dd_gather_tt_fused": "dd_gather_tt_kernel",
-                     "ising_c_integrand_dd_fused": "ising_c_dd_kernel"}   # csrc/dd_kernels.cu
-# D1's kernel table (PERF.md): the dd paths' shapes, (B, T) = the rook fibers
-# and the accept's fibers, the lottery, the accept's (R, R) products at C_6
-# rank 48, C_4 n = 65 rank 32 and C_4 n = 33 rank 16; each layout timed
+DD_KERNEL_SYMBOLS = {   # csrc/dd_kernels.cu: each wrapper's kernels, one per regime
+    "dd_score_residual_argmax": ("dd_score_kernel",),
+    "dd_dot": ("dd_dot_chain_kernel", "dd_dot_kernel"),
+    "dd_gather_tt_fused": ("dd_gather_tt_kernel",),
+    "ising_c_integrand_dd_fused": ("ising_c_dd_kernel",)}
+# The dd kernel table (PERF.md).  D1: the dd paths' shapes, (B, T) = the rook
+# fibers and the accept's fibers, the lottery, the accept's (R, R) products at
+# C_6 rank 48, C_4 n = 65 rank 32 and C_4 n = 33 rank 16; each layout timed
 DD_TABLE_SHAPES = [(3120, 48), (226, 48), (48, 48), (2080, 32), (194, 32), (32, 32), (528, 16),
                    (98, 16), (16, 16)]
+# D4: C_6 rank 48's _mm_left, _mm_right, finalize (both sides), value_mat and
+# the quadrature's vector; C_4 n = 65 rank 32's _mm and finalize
+DD_DOT_TABLE_SHAPES = [(48, 65, 48), (65, 48, 48), (48, 3120, 48), (3120, 48, 48), (48, 48, 65),
+                       (1, 48, 48), (32, 65, 32), (65, 32, 32), (32, 2080, 32)]
+# D3: defect C_6 level 2's first train (ranks DD_GATHER_RANKS, n = 65) at its rook
+# fibers, lottery and init batches; defect stdnorm_d4's rank-1 train
+DD_GATHER_RANKS = (1, 16, 32, 32, 16, 1)
+DD_GATHER_TABLE_SHAPES = [(3120, 65) + DD_GATHER_RANKS, (226, 65) + DD_GATHER_RANKS,
+                          (520, 65) + DD_GATHER_RANKS, (325, 65) + DD_GATHER_RANKS,
+                          (390, 65, 1, 1, 1, 1, 1)]
+DD_TABLES = {"dd_score_residual_argmax": DD_TABLE_SHAPES, "dd_dot": DD_DOT_TABLE_SHAPES,
+             "dd_gather_tt_fused": DD_GATHER_TABLE_SHAPES}
 DD_CHAIN_FLOOR_T = (480, 4800)   # D1 at B = 1, one chain lane: µs per dependent dd_add
 F64_VECTOR_FLOPS = 33.5e12  # H100 SXM f64 outside the tensor cores (dd cannot use them)
 SCORE_RTOL = 1e-12          # kernel A vs cuBLAS: f64 sums in another order
@@ -2148,28 +2166,43 @@ def _dd_cases(dev, gen, name, shape):
     return out
 
 
+def _own(name, key) -> bool:
+    """Whether the profiler's kernel `key` is one of the wrapper's kernels."""
+    return any(sym in key for sym in DD_KERNEL_SYMBOLS[name])
+
+
 def _one_launch(name, shape, dev_k) -> None:
     """One launch of the kernel per call (the design), and no other device
     operation but D1's zeroing of its block counter (a memset, where the
     grid has more than one block)."""
-    own = sum(c for k, (_, c) in dev_k["by_kernel"].items() if DD_KERNEL_SYMBOLS[name] in k)
-    others = [k for k in dev_k["by_kernel"] if DD_KERNEL_SYMBOLS[name] not in k]
+    own = sum(c for k, (_, c) in dev_k["by_kernel"].items() if _own(name, k))
+    others = [k for k in dev_k["by_kernel"] if not _own(name, k)]
     if not 0 < own / max(dev_k["calls"], 1) <= 1 or any(
             name != "dd_score_residual_argmax" or "memset" not in k.lower() for k in others):
         raise AssertionError(f"{name} {shape}: {dev_k['by_kernel']} per "
                              f"{dev_k['calls']} calls (one launch a call is the design)")
 
 
+def dd_dot_regimes(shape) -> list:
+    """D4's plan in each regime at (M, N, T): a thread per output in blocks
+    of 256, and the chain in D1's plan for M N rows of T terms."""
+    from ttcross_tpu_torch.ops import kernels as K
+
+    M, N, T = shape
+    return [("thread", 256, 0), ("chain",) + tuple(K.dd_score_plan(M * N, T)[:2])]
+
+
 def hold_dd_shapes(dev, gen, shapes, held, checked) -> None:
     """Phase 15's kernel check: every dd kernel at every shape a dd run
     launched it at, in each layout the engine gives it there (_dd_cases),
     bit for bit against its plain version on the card (hi, lo, and D1's
-    index and r at it), max_abs_err the largest |kernel - plain| over
-    them; the first layout's device time, kernels per call
-    (one is the design), bound, share, CUDA-event time of kernel and plain,
-    and host time per call.  The rows join `checked` and `held`."""
+    index and r at it; D4 in both regimes, dd_dot_regimes), max_abs_err the
+    largest |kernel - plain| over them; the first layout's device time,
+    kernels per call (one is the design), bound, share, CUDA-event time of
+    kernel and plain, and host time per call.  The rows join `checked` and `held`."""
     import torch
 
+    from ttcross_tpu_torch.ops import kernels as K
     from ttcross_tpu_torch.ops.dd import DD
 
     def parts(r):
@@ -2181,7 +2214,7 @@ def hold_dd_shapes(dev, gen, shapes, held, checked) -> None:
         for shape in sorted(set(shapes.get(name, {})) - held[name]):
             cases = _dd_cases(dev, gen, name, shape)
             err = 0.0
-            for label, fn, plain, _ in cases:
+            for label, fn, plain, args in cases:
                 got, want = parts(fn()), parts(plain())
                 torch.cuda.synchronize()
                 if not all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(got, want)):
@@ -2189,6 +2222,12 @@ def hold_dd_shapes(dev, gen, shapes, held, checked) -> None:
                                          "version")
                 err = max([err] + [float((a.double() - b.double()).abs().max())
                                    for a, b in zip(got, want)])
+                for plan in dd_dot_regimes(shape) if name == "dd_dot" else []:
+                    got = parts(K.dd_dot_planned(*args, plan))
+                    if not all(torch.equal(a.reshape(-1), b.reshape(-1))
+                               for a, b in zip(got, want)):
+                        raise AssertionError(f"dd_dot {shape} ({label}) in {plan}: not bit-equal "
+                                             "to its plain version")
             _, fn, plain, _ = cases[0]
             dev_k = device_per_call(fn)
             _one_launch(name, shape, dev_k)
@@ -2227,33 +2266,50 @@ def d1_chain_floor_us(dev, gen) -> float:
     return slope
 
 
-def time_dd_table(dev, gen, held, checked) -> None:
-    """D1's kernel table (DD_TABLE_SHAPES), held against the plain version
-    first where no run launched them: each device operation of a call (the
-    kernel, the memset of its block counter) at its mean per recorded launch
-    (the profiler, 20 calls of the first layout), every layout's device µs
-    per call (device_us_idle), the plan, the bound and its share, the chain
-    floor (T dependent dd_adds at d1_chain_floor_us), the plain version's
-    time at the first layout."""
+def _dd_plan(name, shape) -> list:
+    """The launch a dd kernel takes at a shape of its table."""
     from ttcross_tpu_torch.ops import kernels as K
 
-    name = "dd_score_residual_argmax"
-    hold_dd_shapes(dev, gen, {name: {sh: 1 for sh in DD_TABLE_SHAPES}}, held, checked)
+    if name == "dd_score_residual_argmax":
+        return list(K.dd_score_plan(*shape))
+    if name == "dd_dot":
+        return list(K.dd_dot_plan(*shape))
+    B, N, ranks = shape[0], shape[1], shape[2:]
+    return list(K.dd_gather_plan(B, len(ranks) - 1, max(ranks), N))
+
+
+def _chain_terms(name, shape) -> int:
+    """Dependent dd_adds on a call's critical path: T of a D1 row or a D4
+    output; for D3 the terms of each core's sums, r_0 + ... + r_{d-1}."""
+    return sum(shape[2:-1]) if name == "dd_gather_tt_fused" else shape[-1]
+
+
+def time_dd_table(dev, gen, held, checked) -> None:
+    """The dd kernel table (DD_TABLES: D1, D4, D3), held against the plain
+    version first where no run launched them: each device operation of a
+    call (the kernel, D1's memset of its block counter) at its mean per
+    recorded launch (the profiler, 20 calls of the first layout), every
+    layout's device µs per call (device_us_idle), the plan, the bound and
+    its share, the chain floor (the critical path's dependent dd_adds at
+    d1_chain_floor_us), the plain version's time at the first layout."""
+    hold_dd_shapes(dev, gen, {name: {sh: 1 for sh in shapes} for name, shapes in DD_TABLES.items()},
+                   held, checked)
     per_add = d1_chain_floor_us(dev, gen)
-    for shape in DD_TABLE_SHAPES:
-        row = checked[name][shape]
-        cases = _dd_cases(dev, gen, name, shape)
-        dev_k = device_per_call(cases[0][1], calls=20)
-        _one_launch(name, shape, dev_k)
-        ops = {k[:48]: t / c for k, (t, c) in dev_k["by_kernel"].items()}
-        _emit({"phase": "dd_table", "kernel": name, "shape": list(shape),
-               "plan": list(K.dd_score_plan(*shape)), "device_ops_us": ops,
-               "device_us": sum(ops.values()),
-               "idle_us": {label: device_us_idle(fn) for label, fn, _, _ in cases},
-               "bound_us": row["bound_us"], "bound_by": row["bound_by"],
-               "share_of_bound": row["bound_us"] / sum(ops.values()),
-               "chain_floor_us": shape[1] * per_add, "plain_device_us": row["plain_device_us"],
-               "plain_ms": row["plain_ms"]})
+    for name, shapes in DD_TABLES.items():
+        for shape in shapes:
+            row = checked[name][shape]
+            cases = _dd_cases(dev, gen, name, shape)
+            dev_k = device_per_call(cases[0][1], calls=20)
+            _one_launch(name, shape, dev_k)
+            ops = {k[:48]: t / c for k, (t, c) in dev_k["by_kernel"].items()}
+            _emit({"phase": "dd_table", "kernel": name, "shape": list(shape),
+                   "plan": _dd_plan(name, shape), "device_ops_us": ops,
+                   "device_us": sum(ops.values()),
+                   "idle_us": {label: device_us_idle(fn) for label, fn, _, _ in cases},
+                   "bound_us": row["bound_us"], "bound_by": row["bound_by"],
+                   "share_of_bound": row["bound_us"] / sum(ops.values()),
+                   "chain_floor_us": _chain_terms(name, shape) * per_add,
+                   "plain_device_us": row["plain_device_us"], "plain_ms": row["plain_ms"]})
 
 
 def _dd_digits(value, truth: str) -> float:
@@ -3186,7 +3242,7 @@ def device_totals(dev, gen, runs, checked) -> dict:
     """Each dd and qd kernel's device time on each run's path: the sum over
     the shapes the run launched it at of launches x the shape's device µs
     (device_us_idle, the first layout), beside its bound summed the same
-    way; Q4 per regime.  Returns {(path, kernel): ms}."""
+    way; Q4 and D4 per regime.  Returns {(path, kernel): ms}."""
     from ttcross_tpu_torch.ops import kernels as K
 
     t0 = time.perf_counter()
@@ -3196,7 +3252,8 @@ def device_totals(dev, gen, runs, checked) -> dict:
             groups = {}
             for shape, count in sorted((by_kernel.get(name) or {}).items(), key=str):
                 regime = (K.qd_dot_plan(*shape[:3], shape[3] == "tree").regime
-                          if name == "qd_dot" else "")
+                          if name == "qd_dot" else
+                          K.dd_dot_plan(*shape).regime if name == "dd_dot" else "")
                 g = groups.setdefault(regime, {"shapes": 0, "launches": 0, "device_ms": 0.0,
                                                "bound_ms": 0.0})
                 g["shapes"] += 1
@@ -3237,6 +3294,20 @@ Q2_TUNE_SHAPES = [(3575, 54), (3575, 55), (3575, 33), (2080, 32), (715, 55), (24
                   (404, 1), (201, 1), (1, 55), (8, 55)]
 Q2_TUNE_PLANS = [("thread", 256), ("thread", 64), ("tree", 1), ("tree", 2), ("tree", 4),
                  ("tree", 8), ("tree", 9), ("tree", 12), ("tree", 14), ("tree", 16), ("tree", 32)]
+# D4's tuning data: both regimes at the dd paths' shapes, over output counts
+# M N = 48 to 149,760 at T = 48 and 16, and over term counts at M N = 48 and
+# 3120 (the data of dot_plan's rule); the chain in D1's plans of 4-32 rows
+D4_TUNE_SHAPES = (DD_DOT_TABLE_SHAPES + [(48, n, 48) for n in (1, 8, 130, 260, 520, 1040, 2080)]
+                  + [(16, n, 16) for n in (65, 520, 1560, 3120)]
+                  + [(1, 48, t) for t in (1, 2, 3, 4, 8, 16)] + [(1, 16, 32), (1, 32, 16)]
+                  + [(48, 65, t) for t in (1, 2, 4, 8, 16)])
+D4_TUNE_PLANS = ([("thread", b, 0) for b in (256, 128, 64)]
+                 + [("chain", P, 28) for P in (1, 2, 4, 8, 16, 32)]
+                 + [("chain", P, 224 // P) for P in (4, 8, 16)])
+# D3's: the table's shapes, rows x threads a block (those D3 takes there:
+# K.dd_gather_plan_ok)
+D3_TUNE_PLANS = [(r, 32 * r) for r in (1, 2, 3, 4, 6, 8)] + [
+    (1, 64), (2, 128), (4, 256), (3, 32), (8, 32), (16, 64), (32, 128)]
 # Q3's tuning data: the defect's trains at its batch sizes, rows x threads a block
 QD_TUNE_GATHER = [(1089, 33, 1, 33, 33, 1), (132, 33, 1, 33, 33, 1), (1089, 33, 1, 15, 14, 1),
                   (132, 33, 1, 15, 14, 1)]
@@ -3244,10 +3315,11 @@ QD_TUNE_GATHER_PLANS = [(r, t) for r in (1, 2, 3, 4, 5, 6, 8) for t in (64, 128,
 
 
 def tune_qd_kernels(dev, gen) -> None:
-    """D1 at D1_TUNE_SHAPES (the lottery's layout) and Q2 at Q2_TUNE_SHAPES
-    in their own plan and in each of D1_TUNE_PLANS / Q2_TUNE_PLANS that
-    launches there, Q4 at QD_TUNE_SHAPES in its own plan and in each of
-    QD_TUNE_PLANS, and Q3 at QD_TUNE_GATHER with each of
+    """D1 at D1_TUNE_SHAPES (the lottery's layout), D4 at D4_TUNE_SHAPES
+    (the GEMM's), D3 at DD_GATHER_TABLE_SHAPES and Q2 at Q2_TUNE_SHAPES in
+    their own plan and in each of D1_TUNE_PLANS / D4_TUNE_PLANS /
+    D3_TUNE_PLANS / Q2_TUNE_PLANS that launches there, Q4 at QD_TUNE_SHAPES
+    in its own plan and in each of QD_TUNE_PLANS, and Q3 at QD_TUNE_GATHER with each of
     QD_TUNE_GATHER_PLANS' rows and threads a block, every launch bit-equal
     to the rule's, device µs per call (device_us_idle)."""
     import functools
@@ -3271,6 +3343,32 @@ def tune_qd_kernels(dev, gen) -> None:
         _emit({"phase": "d1_regimes", "shape": [B, T], "rule": list(K.dd_score_plan(B, T)),
                "device_us": us})
         del args
+    for shape in D4_TUNE_SHAPES:
+        _, fn, _, args = _dd_cases(dev, gen, "dd_dot", shape)[0]
+        want = list(fn())
+        us = {"rule": device_us_idle(fn)}
+        for plan in D4_TUNE_PLANS:
+            got = functools.partial(K.dd_dot_planned, *args, plan)
+            if not _bit_equal(list(got()), want):
+                raise AssertionError(f"dd_dot {shape} in {plan}: not bit-equal to its own plan")
+            us["/".join(map(str, plan))] = device_us_idle(got)
+        _emit({"phase": "d4_regimes", "shape": list(shape), "rule": list(K.dd_dot_plan(*shape)),
+               "device_us": us})
+        del args
+    for shape in DD_GATHER_TABLE_SHAPES:
+        _, fn, _, (packed, ind) = _dd_cases(dev, gen, "dd_gather_tt_fused", shape)[0]
+        want = list(fn())
+        us = {"rule": device_us_idle(fn)}
+        d, (R, N) = len(shape) - 3, (max(shape[2:]), shape[1])
+        for plan in D3_TUNE_PLANS:
+            if not K.dd_gather_plan_ok(shape[0], d, R, N, *plan):
+                continue
+            got = functools.partial(K.dd_gather_tt_planned, packed, ind, *plan)
+            if not _bit_equal(list(got()), want):
+                raise AssertionError(f"dd_gather_tt {shape} in {plan}: not bit-equal to its rule")
+            us["/".join(map(str, plan))] = device_us_idle(got)
+        _emit({"phase": "d3_regimes", "shape": list(shape), "rule": _dd_plan(
+            "dd_gather_tt_fused", shape), "device_us": us})
     for shape in Q2_TUNE_SHAPES:
         _, fn, _, args = _qd_cases(dev, gen, "qd_score_residual_argmax", shape)[0]
         want = _qd_parts(fn())
@@ -3318,8 +3416,8 @@ def _d1_parts(r) -> list:
 
 
 def compare_qd_with(root: str, dev, gen) -> None:
-    """D1 (every layout), Q2, Q3 and Q4 of the checkout at `root` (the
-    parent) and of this one at the kernel tables' shapes (DD_TABLE_SHAPES,
+    """D1, D4, D3 (every layout), Q2, Q3 and Q4 of the checkout at `root`
+    (the parent) and of this one at the kernel tables' shapes (DD_TABLES,
     QD_TABLE_SHAPES), on the same inputs, in turns (other, this, this,
     other): device µs per call from the profiler (20 calls) and from
     device_us_idle; the two results bit-equal."""
@@ -3334,6 +3432,11 @@ def compare_qd_with(root: str, dev, gen) -> None:
         for label, _, _, args in _dd_cases(dev, gen, name, shape):
             cases.append((name, shape, label, lambda a=args: K.dd_score_residual_argmax(*a),
                           lambda a=args: other_k.dd_score_residual_argmax(*a), _d1_parts))
+    for name in ("dd_dot", "dd_gather_tt_fused"):
+        for shape in DD_TABLES[name]:
+            for label, _, _, args in _dd_cases(dev, gen, name, shape):
+                cases.append((name, shape, label, lambda n=name, a=args: getattr(K, n)(*a),
+                              lambda n=name, a=args: getattr(other_k, n)(*a), list))
     for name, shapes in QD_TABLE_SHAPES.items():
         for shape in shapes:
             label, _, _, args = _qd_cases(dev, gen, name, shape)[0]

@@ -15,8 +15,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from ttcross_tpu_torch.ops import kernels as K
-from ttcross_tpu_torch.ops.dd import DD
+import dd_kernel_cases as cases  # noqa: E402  (tests/dd_kernel_cases.py)
+from dd_kernel_cases import bits_same as _bits_same, pair as _pair  # noqa: E402
+from ttcross_tpu_torch.ops import kernels as K  # noqa: E402
+from ttcross_tpu_torch.ops.dd import DD  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -31,12 +33,6 @@ def cuda_device():
 @pytest.fixture
 def gen():
     return np.random.default_rng(4321)
-
-
-def _pair(gen, shape, dev, scale=1.0):
-    hi = gen.standard_normal(shape) * scale
-    lo = hi * gen.standard_normal(shape) * 2.0 ** -54
-    return DD(torch.as_tensor(hi).to(dev), torch.as_tensor(lo).to(dev))
 
 
 def _same(a, b):
@@ -160,37 +156,149 @@ def test_dd_score_repeats_without_state(gen, cuda_device):
         assert _same(got[0], first[0]) and int(got[1]) == int(first[1])
 
 
+def _d4_layout(layout, M, N, T, gen, dev):
+    return cases.d4_operands(gen, layout, M, N, T, dev)
+
+
 @pytest.mark.parametrize("M,N,T,layout", [(48, 65, 48, "mm"), (65, 48, 48, "mm"),
                                           (48, 3120, 48, "mm"), (3120, 48, 48, "mm"),
                                           (48, 48, 65, "value"), (1, 48, 48, "mm"),
-                                          (16, 33, 16, "mm")])
+                                          (16, 33, 16, "mm"), (1, 48, 48, "pairs"),
+                                          (1, 16, 1, "pairs"), (32, 2080, 32, "strided")])
 def test_dd_dot_kernel_matches_plain(M, N, T, layout, gen, cuda_device):
-    if layout == "mm":       # A (M, T) @ B (T, N)
-        a, b = _pair(gen, (M, T), cuda_device), _pair(gen, (T, N), cuda_device)
-        x = DD(*(p[:, None, :].expand(M, N, T) for p in a))
-        y = DD(*(p.T[None].expand(M, N, T) for p in b))
-    else:                    # m[i, j] = sum_n g[i, n, j] w[n]
-        g, w = _pair(gen, (M, T, N), cuda_device), _pair(gen, (T,), cuda_device)
-        x = DD(*(p.permute(0, 2, 1) for p in g))
-        y = DD(*(p[None, None].expand(M, N, T) for p in w))
+    x, y = _d4_layout(layout, M, N, T, gen, cuda_device)
     got, want = K.dd_dot(x, y), K.dd_dot_plain(x, y)
     assert _same(got, want)
+
+
+# D4's regimes (K.dd_dot_planned), (regime, P, C): a thread per output in
+# blocks of 256 and 64; the chain with 1 output a block (one chunk, chunks
+# of 5), 3 (a last block partly empty), 8, 16 and 32
+D4_PLANS = [("thread", 256, 0), ("thread", 64, 0), ("chain", 1, 896), ("chain", 1, 5),
+            ("chain", 3, 74), ("chain", 8, 112), ("chain", 16, 56), ("chain", 32, 7),
+            ("chain", 32, 28)]
+
+
+@pytest.mark.parametrize("M,N,T", [(48, 65, 48), (65, 48, 48), (48, 3120, 48), (48, 48, 65),
+                                   (1, 48, 48), (32, 65, 32), (65, 32, 32), (32, 2080, 32),
+                                   (1, 16, 1), (16, 33, 16), (5, 7, 0)])
+@pytest.mark.parametrize("layout", ["mm", "value", "strided"])
+def test_dd_dot_every_regime(M, N, T, layout, gen, cuda_device):
+    """D4 bit-equal to its plain version at the dd paths' shapes in each
+    caller's layout, in its own regime and in every other plan."""
+    x, y = _d4_layout(layout, M, N, T, gen, cuda_device)
+    want = K.dd_dot_plain(x, y)
+    for plan in [None] + D4_PLANS:
+        got = K.dd_dot(x, y) if plan is None else K.dd_dot_planned(x, y, plan)
+        assert _bits_same(got, want), plan
+
+
+def test_dd_dot_plan_is_the_shape_s(cuda_device):
+    """D4's launch at the paths' shapes (csrc/dd_kernels.cu::dot_plan)."""
+    assert K.dd_dot_plan(48, 65, 48) == K.DdDotPlan("chain", 8, 28, 256, 390, 7936)
+    assert K.dd_dot_plan(48, 3120, 48).regime == "thread"
+    assert K.dd_dot_plan(1, 16, 1).regime == "thread"
+
+
+def test_dd_dot_repeats_without_state(gen, cuda_device):
+    """Back-to-back launches in each regime: the same result every time."""
+    x, y = _d4_layout("mm", 48, 65, 48, gen, cuda_device)
+    first = K.dd_dot(x, y)
+    for _ in range(10):
+        for plan in [None] + D4_PLANS:
+            got = K.dd_dot(x, y) if plan is None else K.dd_dot_planned(x, y, plan)
+            assert _same(got, first), plan
+
+
+def test_dd_dot_special_values(gen, cuda_device):
+    """Signed zeros, subnormals, inf, NaN and 2^+-1000 (a row of -0: +0
+    after the scan's first add), in every regime."""
+    x, y = cases.d4_specials(gen, cuda_device)
+    want = K.dd_dot_plain(x, y)
+    assert torch.isnan(want.hi).any() and (want.hi == 0).any()
+    for plan in [None] + D4_PLANS:
+        got = K.dd_dot(x, y) if plan is None else K.dd_dot_planned(x, y, plan)
+        assert _bits_same(got, want), plan
+
+
+def _d3_train(gen, ranks, n, dev, R=None, N=None):
+    return cases.train(gen, ranks, n, dev, R, N)
 
 
 @pytest.mark.parametrize("B,ranks,n", [(1560, (1, 24, 32, 32, 24, 1), 65),
                                        (3120, (1, 32, 32, 32, 32, 1), 65),
                                        (226, (1, 8, 8, 1), 17), (500, (1, 48, 64, 48, 1), 33)])
 def test_dd_gather_tt_kernel_matches_plain(B, ranks, n, gen, cuda_device):
-    from ttcross_tpu_torch.tt.types import TT
-
-    d = len(ranks) - 1
-    t = TT(tuple(torch.as_tensor(gen.standard_normal((ranks[c], n, ranks[c + 1]))).to(cuda_device)
-                 for c in range(d)))
-    packed = K.pack_tt(t)
-    ind = torch.as_tensor(gen.integers(0, n, (B, d)), dtype=torch.int32).to(cuda_device)
+    packed = _d3_train(gen, ranks, n, cuda_device)
+    ind = torch.as_tensor(gen.integers(0, n, (B, len(ranks) - 1)), dtype=torch.int32)
+    ind = ind.to(cuda_device)
     got = K.dd_gather_tt_fused(packed, ind)
     want = K.dd_gather_tt_plain(packed, ind)
     assert _same(got, want)
+
+
+# D3's plans (K.dd_gather_tt_planned), (rows, threads) a block: one row (its
+# lanes; more threads, idle), several (a last block partly empty), those a
+# block can have at the train's rank
+D3_PLANS = [(1, 32), (1, 256), (2, 64), (2, 256), (3, 96), (4, 128), (8, 256)]
+
+
+def _plans(packed, B):
+    """The plans of D3_PLANS that D3 takes for B rows of the train."""
+    d, R, N, _ = packed.cores.shape
+    return [p for p in D3_PLANS if K.dd_gather_plan_ok(B, d, R, N, *p)]
+
+
+@pytest.mark.parametrize("B,ranks,n", [(3120, (1, 16, 32, 32, 16, 1), 65),
+                                       (226, (1, 16, 32, 32, 16, 1), 65),
+                                       (520, (1, 16, 32, 32, 16, 1), 65),
+                                       (325, (1, 16, 32, 32, 16, 1), 65),
+                                       (390, (1, 1, 1, 1, 1), 65), (142, (1, 1, 1, 1, 1), 65),
+                                       (61, (1, 5, 7, 3, 1), 33), (37, (1, 48, 64, 48, 1), 33)])
+def test_dd_gather_every_plan(B, ranks, n, gen, cuda_device):
+    """D3 bit-equal to its plain version at the defect's shapes, in its own
+    plan and in every other that fits."""
+    packed = _d3_train(gen, ranks, n, cuda_device)
+    ind = torch.as_tensor(gen.integers(0, n, (B, len(ranks) - 1)), dtype=torch.int32)
+    ind = ind.to(cuda_device)
+    want = K.dd_gather_tt_plain(packed, ind)
+    for plan in [None] + _plans(packed, B):
+        got = (K.dd_gather_tt_fused(packed, ind) if plan is None
+               else K.dd_gather_tt_planned(packed, ind, *plan))
+        assert _same(got, want), plan
+
+
+def test_dd_gather_padding_clamp_and_specials(gen, cuda_device):
+    """A train packed with a larger rank and mode than its own (the padding
+    never read); indices outside [0, N) clamped; signed zeros, subnormals,
+    2^+-1000, inf and NaN in the cores."""
+    packed = _d3_train(gen, (1, 7, 12, 5, 1), 17, cuda_device, R=32, N=20)
+    ind = torch.as_tensor(gen.integers(0, 17, (300, 4)), dtype=torch.int32).to(cuda_device)
+    want = K.dd_gather_tt_plain(packed, ind)
+    for plan in [None] + _plans(packed, 300):
+        got = (K.dd_gather_tt_fused(packed, ind) if plan is None
+               else K.dd_gather_tt_planned(packed, ind, *plan))
+        assert _same(got, want), plan
+    packed = cases.d3_specials(gen, cuda_device)
+    ind = torch.as_tensor(gen.integers(-20, 30, (400, 4)), dtype=torch.int32).to(cuda_device)
+    want = K.dd_gather_tt_plain(packed, ind.clamp(0, 6))
+    assert torch.isnan(want.hi).any() and (want.hi == 0).any()
+    for plan in [None] + _plans(packed, 400):
+        got = (K.dd_gather_tt_fused(packed, ind) if plan is None
+               else K.dd_gather_tt_planned(packed, ind, *plan))
+        assert _bits_same(got, want), plan
+
+
+def test_dd_gather_plan_and_repeats(gen, cuda_device):
+    """D3's launch at the defect's shapes (csrc/dd_kernels.cu::gather_plan)
+    and back-to-back launches with the same result."""
+    assert K.dd_gather_plan(3120, 5, 32, 65)[:2] == (8, 256)
+    assert K.dd_gather_plan(390, 4, 1, 65)[:2] == (3, 32)
+    packed = _d3_train(gen, (1, 16, 32, 32, 16, 1), 65, cuda_device)
+    ind = torch.as_tensor(gen.integers(0, 65, (3120, 5)), dtype=torch.int32).to(cuda_device)
+    first = K.dd_gather_tt_fused(packed, ind)
+    for _ in range(10):
+        assert _same(K.dd_gather_tt_fused(packed, ind), first)
 
 
 @pytest.mark.parametrize("B,d,n", [(3120, 5, 65), (226, 5, 65), (2080, 3, 65), (98, 3, 33),
@@ -231,6 +339,24 @@ def test_dd_kernels_refuse_wrong_input(gen, cuda_device):
     with pytest.raises(ValueError):
         K.ising_c_integrand_dd_fused(torch.zeros((2, 5), dtype=torch.float64, device=cuda_device),
                                      torch.zeros((3, 2), dtype=torch.int32, device=cuda_device))
+    xd, yd = _d4_layout("mm", 4, 5, 6, gen, cuda_device)
+    for plan in [("chain", 33, 4), ("chain", 4, 0), ("thread", 48, 0), ("thread", 512, 0)]:
+        with pytest.raises(RuntimeError):
+            K.dd_dot_planned(xd, yd, plan)
+    with pytest.raises(ValueError):
+        K.dd_dot(xd, DD(*(p[:, :4] for p in yd)))
+    packed = _d3_train(gen, (1, 3, 1), 5, cuda_device)
+    ind = torch.zeros((10, 2), dtype=torch.int32, device=cuda_device)
+    for plan in [(0, 64), (1, 16), (1, 512), (1, 48), (16, 32)]:
+        with pytest.raises(RuntimeError):
+            K.dd_gather_tt_planned(packed, ind, *plan)
+    with pytest.raises(TypeError):
+        K.dd_gather_tt_fused(packed, ind.long())
+    with pytest.raises(ValueError):
+        K.dd_gather_tt_fused(packed, ind[:, :1].contiguous())
+    with pytest.raises(ValueError):
+        K.dd_gather_tt_fused(_d3_train(gen, (1, 65, 1), 3, cuda_device),
+                             torch.zeros((4, 2), dtype=torch.int32, device=cuda_device))
 
 
 def test_cross_dd_card_equals_cpu(cuda_device):

@@ -17,42 +17,26 @@ version's parity with the JAX package is in tests/test_torch_dd.py and the
 dd engine tests."""
 
 import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from ttcross_tpu_torch.ops import kernels as K
-from ttcross_tpu_torch.ops.dd import DD
+import dd_kernel_cases as cases  # noqa: E402  (tests/dd_kernel_cases.py)
+from dd_kernel_cases import dd_map as _map, pair as _pair  # noqa: E402
+from ttcross_tpu_torch.ops import kernels as K  # noqa: E402
+from ttcross_tpu_torch.ops.dd import DD  # noqa: E402
 
-SRC = Path(__file__).resolve().parent.parent / "ttcross_tpu_torch" / "csrc" / "dd_kernels.cu"
 LL, VP = ctypes.c_longlong, ctypes.c_void_p
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
+    lib = cases.host_lib(tmp_path_factory)
+    if lib is None:
         pytest.skip("no host C++ compiler to build the kernels' host emulation")
-    out = tmp_path_factory.mktemp("ddhost") / "libddhost.so"
-    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-DTTD_HOST", "-x", "c++", str(SRC), "-o", str(out)], check=True,
-                   capture_output=True, text=True)
-    return ctypes.CDLL(str(out))
-
-
-def _pair(gen, shape):
-    hi = gen.standard_normal(shape)
-    lo = hi * gen.standard_normal(shape) * 2.0 ** -54
-    return DD(torch.from_numpy(hi), torch.from_numpy(lo))
-
-
-def _map(f, x):
-    return DD(f(x.hi), f(x.lo))
+    return lib
 
 
 def _case(gen, layout, B, T):
@@ -101,22 +85,11 @@ def _host(host_lib, args, plan=None):
     return DD(out[0], out[1]), int(words[0]), DD(best[2], best[3])
 
 
-def _bits(t):
-    """NaN positions and the bits of every other entry."""
-    t = t.reshape(-1)
-    nan = torch.isnan(t)
-    return nan, torch.where(nan, torch.zeros_like(t), t).view(torch.int64)
-
-
 def _same(got, want):
     """r's hi and lo bit-equal (a signed zero too, NaN where the other has
     NaN), the flat index and r at it equal."""
     (gr, gflat, gbest), (wr, wflat, wbest) = got, want
-    for g, w in zip(list(gr) + list(gbest), list(wr) + list(wbest)):
-        (gn, gb), (wn, wb) = _bits(g), _bits(w)
-        if not (torch.equal(gn, wn) and torch.equal(gb, wb)):
-            return False
-    return gflat == int(wflat)
+    return cases.bits_same(list(gr) + list(gbest), list(wr) + list(wbest)) and gflat == int(wflat)
 
 
 SHAPES = [(3120, 48), (226, 48), (48, 48), (2080, 32), (528, 16), (16, 16), (1, 48), (1, 1)]

@@ -27,9 +27,10 @@
 //
 // Host emulation.  Compiled without nvcc (-DTTD_HOST, a host C++ compiler,
 // -ffp-contract=off), the file gives host entry points ttd_host_* that run
-// D1's own functions in one host thread: its whole call block after block,
-// each stage's items in turn, the stages in the kernel's order, in any plan;
-// and ttd_dd_score_plan, its launch rule.  The CPU tests hold that
+// D1's, D3's and D4's own functions in one host thread: a whole call block
+// after block, each stage's items in turn, the stages in the kernel's order,
+// in any plan; and ttd_dd_score_plan, ttd_dd_dot_plan and
+// ttd_dd_gather_plan, their launch rules.  The CPU tests hold that
 // arithmetic and its bookkeeping to the plain version where there is no
 // card.
 //
@@ -39,12 +40,13 @@
 // rate for them is its f64 vector rate (33.5 TFLOP/s on the H100 SXM).
 // Their shapes are small (a few thousand rows of R <= 64 terms), so the
 // rate is far off; what a call waits on is a chain of dependent operations
-// and loads.  D1's sum is ops/dd.py::dd_sum's scan, left to right from
-// (0, 0) (the JAX package's lax.scan, on which the dd engine's
-// pivot-for-pivot parity rests), so it cannot become a tree: one row's
-// critical path is T dependent dd_adds (8 dependent f64 adds each).  D1
-// therefore moves the products and their loads off the adding thread and
-// spreads the rows over the card (below); D2-D4 keep a thread per output.
+// and loads.  D1's, D3's and D4's sums are ops/dd.py::dd_sum's scan, left to
+// right from (0, 0) (the JAX package's lax.scan, on which the dd engine's
+// pivot-for-pivot parity rests), so none can become a tree: one sum's
+// critical path is T dependent dd_adds (8 dependent f64 adds each).  D1, D3
+// and D4 therefore move the products and their loads off the adding thread
+// (chain lanes that only add, from shared memory) and spread the rows over
+// the card (below); D2 keeps a thread per row.
 
 #include <climits>
 #include <cmath>
@@ -82,8 +84,14 @@ constexpr double kSplit = 134217729.0;  // 2^27 + 1, Dekker's constant for binar
 constexpr int kThreads = 256;           // a block of D1, D3 and D4 at most
 constexpr int kGatherRMax = 64;         // D3: ranks up to this
 constexpr int kIsingThreads = 128;      // D2: rows (threads) of a block
-constexpr int kChainLanes = 32;         // D1 chain: rows of a block at most (a warp's lanes)
-constexpr int kItems = 4;               // D1: products a producer loads before it multiplies
+constexpr int kChainLanes = 32;         // D1, D4 chain: rows of a block at most (a warp's lanes)
+constexpr int kItems = 4;               // D1, D4: products a producer loads before it multiplies
+constexpr int kSMs = 132;               // the H100 SXM's SMs: D3 and D4 spread over them
+constexpr int kGatherGroup = 8;         // D3: products a lane forms before it adds them
+constexpr long long kDotChainMax = 16384;     // D4: the chain below this many outputs
+constexpr int kDotChainTMin = 8;        // D4: the chain from this many terms
+constexpr int kDotBlocks = 3 * kSMs;    // D4 chain: blocks that fill the card (three an SM)
+constexpr int kDotChunk = 28;           // D4 chain: terms of a chunk at most
 constexpr int kSmemMax = 227 * 1024;    // shared memory one block may use
 constexpr int kStaticSmem = 48 * 1024;  // dynamic shared memory above this needs an opt-in
 
@@ -143,55 +151,45 @@ TTD_FN DD dd_div(DD x, DD y) {
 }
 
 // ---------------------------------------------------------------------------
-// D1: the dd kernel A, masked |residual| argmax in dd.
+// The chain body of D1 and D4: a block of P <= 32 rows (D1's rows, D4's
+// outputs), each the sum of T products from (0, 0) by dd_add in order
+// (ops/dd.py::dd_sum's scan).
 //
-// The dd variant of ttcross_tpu/ops/pallas_kernels.py:62
-// score_residual_argmax; its dd function is every lottery and rook pass of
-// ttcross_tpu/cross/engine_dd.py (:274-283, :306-334) and, with no mask,
-// the accept's _mv_rank / _vm_rank (:378-394).  For b < B:
-//     r[b] = vals[b] - sum_t x[b, t] y[b, t]   (r = the sum without vals)
-// in dd, the sum from (0, 0) by dd_add of each dd_mul term in order, and the
-// first maximum of
-//     mask[b] ? |r[b].hi| : -1
-// with NaN above every number (torch.argmax), its index and r there.  x and
-// y are strided views (a stride may be 0: a broadcast vector, or the
-// transposed row factor of a row pass).  The rank mask m_t = (t < rank)
-// multiplies x (mask_side 1) or y (mask_side 2), as the JAX engine's does.
+// Row b's term t is x[b, t] y[b, t] with x and y strided views (D1's
+// ScoreArgs; D4's DotArgs: row b is output element (i, j) = (b / N, b % N)).
+// The rank mask m_t = (t < rank) multiplies x (mask_side 1) or y (mask_side
+// 2), as the JAX engine's does (D1 only).
 //
-// Bound.  Operations: B T dd multiply-adds (3120 x 48 x 35 flops at C_6,
-// R = 48: 5.2 MFLOP, 0.16 us at 33.5 TFLOP/s), or bytes where both operands
-// are gathered; but a row's critical path is its T dependent dd_adds
-// (the scan may not become a tree), each 8 dependent f64 adds from the
-// running sum's hi part to the next one's: ~0.04 us a term on an H100.  A
-// thread that loads its own terms waits on four scattered loads per term
-// before its dd_mul and dd_add (0.3-0.5 us a term measured with a thread
-// per row in one cluster of at most 16 blocks: the loads' latency, not the
-// adds'), and few rows leave most SMs idle.
+// Bound.  A row's critical path is its T dependent dd_adds (the scan may
+// not become a tree), each 8 dependent f64 adds from the running sum's hi
+// part to the next one's: ~0.04 us a term on an H100.  A thread that loads
+// its own terms waits on four scattered loads per term before its dd_mul
+// and dd_add (0.24-0.5 us a term measured with a thread per row or output:
+// the loads' latency, not the adds'), and few rows leave most SMs idle.
 //
-// Design.  A block takes P <= 32 rows.  Warp 0 is the chain warp: lane g
-// holds row g's sum and adds its terms in order from shared memory.  The
-// block's other warps (the producers) load the next chunk of C terms of x
-// and y and compute its dd_mul products (rank mask included) into the
-// other half of a double buffer, one barrier a chunk; each producer issues
-// the loads of up to kItems products before it multiplies any, so a chunk
-// costs about one load latency however long it is.  The producers walk t
-// fastest where an operand is a (B, T) array contiguous along t (the
-// lottery's and the column pass's gathered rows), b fastest where the only
-// such operand is contiguous along b (the row pass's transposed rowf_t), so
-// neighbouring threads read neighbouring words; a broadcast vector (stride
-// 0 along b) comes from the L2 once per block and from L1 after.  The plan
-// (score_plan) is a function of the shape alone: every row in one block up
-// to 32 rows (no step across blocks), else P rows a block so that a small B
-// still spreads over the card.  Each block writes its best (score, index,
-// r.hi, r.lo) to the scratch words; the last block to finish (a counter in
-// the scratch words that the entry point zeroes on the stream for each
-// launch, so no state outlives a launch) reduces them.  A grid of one block
-// writes its best directly.
+// Design.  Warp 0 is the chain warp: lane g holds row g's sum and adds its
+// terms in order from shared memory.  The block's other warps (the
+// producers) load the next chunk of C terms of x and y and compute its
+// dd_mul products (rank mask included) into the other half of a double
+// buffer, one barrier a chunk; each producer issues the loads of up to
+// kItems products before it multiplies any, so a chunk costs about one load
+// latency however long it is.  D4's rows' operand offsets are computed once,
+// by their chain lanes, into a table in shared memory.  The producers walk t
+// fastest where an operand is contiguous along t and not broadcast over the
+// rows (the lottery's and the column pass's gathered rows), the rows
+// fastest where the only operand contiguous along the rows is (the row
+// pass's transposed rowf_t, D4's GEMM factor B and value_mat's permuted
+// core), so neighbouring threads read neighbouring words; a broadcast
+// operand (stride 0 along the rows) comes from the L2 once per block and
+// from L1 after.  The plan (score_plan) is a function of the shape alone:
+// every row in one block up to 32 rows, else P rows a block so that a small
+// B still spreads over the card.
 // ---------------------------------------------------------------------------
 
+// D1's rows: row b's term t at b xsb + t xst of x (y alike).
 struct ScoreArgs {
   const double *vh, *vl, *xh, *xl, *yh, *yl;
-  long long B;
+  long long B;   // rows
   int T;
   long long xsb, xst, ysb, yst;
   const int32_t* rank;
@@ -199,11 +197,33 @@ struct ScoreArgs {
   const uint8_t* mask;
 };
 
+// D4's outputs as the chain body's rows: row b is output element (i, j) =
+// (b / N, b % N), its term t at i xsb + j xs1 + t xst of x (y alike).
+struct DotArgs : ScoreArgs {
+  long long N, xs1, ys1;
+};
+
 TTD_FN int rank_of(const ScoreArgs& a) { return a.rank != nullptr ? TTD_LD(a.rank) : a.T; }
 
-// Term t of row b's factors.
-TTD_FN void d1_load(const ScoreArgs& a, long long b, int t, DD& x, DD& y) {
-  const long long xo = b * a.xsb + (long long)t * a.xst, yo = b * a.ysb + (long long)t * a.yst;
+// The operand offsets of D4's rows row0 .. row0 + np - 1: x's at off[g],
+// y's at off[kChainLanes + g].
+TTD_FN void row_offsets(const DotArgs& a, long long row0, int np, long long* off, int tid,
+                        int nth) {
+  for (int g = tid; g < np; g += nth) {
+    const long long b = row0 + g, i = b / a.N, j = b - i * a.N;
+    off[g] = i * a.xsb + j * a.xs1;
+    off[kChainLanes + g] = i * a.ysb + j * a.ys1;
+  }
+}
+
+// Term t of the block's row g: its offsets from the table (kTable, D4) or
+// from its index row0 + g (D1).
+template <bool kTable>
+TTD_FN void d1_load(const ScoreArgs& a, const long long* off, long long row0, int g, int t, DD& x,
+                    DD& y) {
+  const long long xb = kTable ? off[g] : (row0 + g) * a.xsb;
+  const long long yb = kTable ? off[kChainLanes + g] : (row0 + g) * a.ysb;
+  const long long xo = xb + (long long)t * a.xst, yo = yb + (long long)t * a.yst;
   x = DD{TTD_LD(a.xh + xo), TTD_LD(a.xl + xo)};
   y = DD{TTD_LD(a.yh + yo), TTD_LD(a.yl + yo)};
 }
@@ -236,10 +256,17 @@ TTD_FN DD d1_finish(const ScoreArgs& a, const RowIn& in, DD acc) {
   return a.vh == nullptr ? acc : dd_add(in.v, dd_neg(acc));
 }
 
-// Whether the producers walk t fastest (else b): see the design note.
-TTD_FN bool terms_fastest(const ScoreArgs& a) {
-  const bool xt = a.xsb != 0 && a.xst == 1, yt = a.ysb != 0 && a.yst == 1;
-  return xt || yt || !(a.xsb == 1 || a.ysb == 1);
+// Whether the producers walk t fastest (else the rows): see the design note.
+TTD_FN bool walk_terms(long long xsb, long long xst, long long ysb, long long yst) {
+  const bool xt = xsb != 0 && xst == 1, yt = ysb != 0 && yst == 1;
+  return xt || yt || !(xsb == 1 || ysb == 1);
+}
+
+TTD_FN bool terms_fastest(const ScoreArgs& a) { return walk_terms(a.xsb, a.xst, a.ysb, a.yst); }
+
+// D4's rows run along j where N > 1, along i otherwise.
+TTD_FN bool terms_fastest(const DotArgs& a) {
+  return a.N > 1 ? walk_terms(a.xs1, a.xst, a.ys1, a.yst) : walk_terms(a.xsb, a.xst, a.ysb, a.yst);
 }
 
 // The stages.  Chunk k holds terms kC .. kC + len - 1 of the block's np rows
@@ -249,8 +276,9 @@ TTD_FN bool terms_fastest(const ScoreArgs& a) {
 // (k & 1) 2 P W.
 TTD_HD int pitch(int C) { return C | 1; }
 
-TTD_FN void d1_produce(const ScoreArgs& a, long long row0, int np, int P, int C, double* buf,
-                       int k, int rk, bool tfast, int tid, int nth) {
+template <bool kTable>
+TTD_FN void d1_produce(const ScoreArgs& a, const long long* off, long long row0, int np, int P,
+                       int C, double* buf, int k, int rk, bool tfast, int tid, int nth) {
   const int t0 = k * C, len = a.T - t0 < C ? a.T - t0 : C, W = pitch(C);
   const int half = (k & 1) * 2 * P * W, n = np * len;
   for (int base = tid; base < n; base += kItems * nth) {
@@ -260,7 +288,7 @@ TTD_FN void d1_produce(const ScoreArgs& a, long long row0, int np, int P, int C,
       const int it = base + u * nth;
       if (it < n) {
         const int g = tfast ? it / len : it % np, c = tfast ? it - g * len : it / np;
-        d1_load(a, row0 + g, t0 + c, x[u], y[u]);
+        d1_load<kTable>(a, off, row0, g, t0 + c, x[u], y[u]);
       }
     }
     TTD_UNROLL
@@ -350,6 +378,316 @@ ScoreArgs score_args(const double* vh, const double* vl, const double* xh, const
   return ScoreArgs{vh, vl, xh, xl, yh, yl, B, T, xsb, xst, ysb, yst, rank, mask_side, mask};
 }
 
+// ---------------------------------------------------------------------------
+// D4: a small dd GEMM with strides.  out[i, j] = sum_t x[i, j, t] y[i, j, t]
+// (t = 0..T-1 in order from (0, 0)), out (M, N) contiguous, x and y any
+// strided views (a GEMM A @ B is x = A broadcast over j, y = B broadcast
+// over i).  It serves the dd engine's _mm_left / _mm_right, value_mat and
+// finalize (ttcross_tpu/cross/engine_dd.py:135-147, :443-504), its dd
+// quadrature and the dd contraction (ops/dd.py::dd_contract).  Bound:
+// operations, M N T dd multiply-adds; but an output's critical path is its
+// T dependent dd_adds, as D1's row's.  Two kernels, the regime a function of
+// the shape (dot_plan): the chain body above with D4's store for an
+// epilogue (outputs are its rows: N, s0 = i's strides, s1 = j's), and a
+// thread per output for many outputs or few terms.
+// ---------------------------------------------------------------------------
+
+DotArgs dot_args(const double* xh, const double* xl, const double* yh, const double* yl,
+                 long long M, long long N, int T, long long xs0, long long xs1, long long xs2,
+                 long long ys0, long long ys1, long long ys2) {
+  return DotArgs{{nullptr, nullptr, xh, xl, yh, yl, M * N, T, xs0, xs2, ys0, ys2, nullptr, 0,
+                  nullptr},
+                 N, xs1, ys1};
+}
+
+// The thread regime's output at offsets xo of x and yo of y: its T
+// products and sum in one thread.
+TTD_FN DD d4_out(const double* __restrict__ xh, const double* __restrict__ xl,
+                 const double* __restrict__ yh, const double* __restrict__ yl, long long xo,
+                 long long yo, int T, long long xs2, long long ys2) {
+  DD acc{0.0, 0.0};
+  for (int t = 0; t < T; ++t) {
+    acc = dd_add(acc, dd_mul(DD{xh[xo + t * xs2], xl[xo + t * xs2]},
+                             DD{yh[yo + t * ys2], yl[yo + t * ys2]}));
+  }
+  return acc;
+}
+
+enum { kDotThread = 0, kDotChain = 1 };
+struct DotPlan {
+  int regime, P, C, threads;
+  long long blocks, smem;
+};
+
+// regime kDotChain: score_plan_of's P outputs a block in chunks of C terms;
+// kDotThread: P threads (outputs) a block.
+DotPlan dot_plan_of(long long E, int regime, int P, int C) {
+  if (regime == kDotChain) {     // the chunks' buffer and the offsets' table
+    const ScorePlan s = score_plan_of(E, P, C);
+    return DotPlan{kDotChain, s.P, s.C, s.threads, s.blocks, s.smem + 16LL * kChainLanes};
+  }
+  return DotPlan{regime, P, 0, P, (E + P - 1) / (P < 1 ? 1 : P), 0};
+}
+
+// The threads' block, 256, 128 or 64: the one that puts the fewest outputs
+// on the busiest SM, the larger on a tie (Q4's rule; (3120, 48, 48) 27.8 us
+// in blocks of 128 against 29.8 in 256, (48, 2080, 48) 20.7 in 256 against
+// 22.9).
+int thread_block(long long E) {
+  int best = kThreads;
+  long long load = 0;
+  for (int b = kThreads; b >= 64; b /= 2) {
+    const long long blocks = (E + b - 1) / b, l = (blocks + kSMs - 1) / kSMs * b;
+    if (load == 0 || l < load) {
+      best = b;
+      load = l;
+    }
+  }
+  return best;
+}
+
+// The rule, measured on an H100 (chip_smoke.py --qd-regimes times both
+// regimes at the dd paths' shapes and over output and term counts;
+// PERF.md): the chain below kDotChainMax outputs and from kDotChainTMin
+// terms, a thread per output otherwise (T = 48: 10.4 against 14.7 us at
+// 12,480 outputs, 17.7 against 15.1 at 24,960; T = 16: 5.8 against 6.9 at
+// 8,320, 10.2 against 7.1 at 24,960; (48, 65, T): the thread 3.8 against
+// 4.0 at T = 4, the chain 4.3 against 4.8 at T = 8).  The chain's outputs a
+// block: the fewest, from 4, a power of two, that leave at most kDotBlocks
+// blocks ((48, 65, 48) 6.8 us at 8 against 7.7 at 16; (1, 48, 48) 5.7 at 4
+// against 6.2 at 8; (48, 260, 48) 10.4 at 32 against 13.5 at 16); chunks of
+// kDotChunk terms, at most T.
+DotPlan dot_plan(long long M, long long N, int T) {
+  const long long E = M * N;
+  if (E >= kDotChainMax || T < kDotChainTMin) return dot_plan_of(E, kDotThread, thread_block(E), 0);
+  long long P = 4;
+  while (P < kChainLanes && E > P * kDotBlocks) P *= 2;
+  return dot_plan_of(E, kDotChain, (int)(P < E ? P : E), T < kDotChunk ? T : kDotChunk);
+}
+
+bool dot_shape_ok(long long M, long long N, int T) { return M >= 1 && N >= 1 && T >= 0; }
+
+bool dot_plan_ok(const DotPlan& p) {
+  if (p.regime == kDotChain) return score_plan_ok(ScorePlan{p.P, p.C, p.threads, p.blocks, p.smem});
+  return p.regime == kDotThread && p.P >= 32 && p.P <= kThreads && p.P % 32 == 0 &&
+         p.blocks <= INT_MAX;
+}
+
+// ---------------------------------------------------------------------------
+// D3: dd_gather_tt, an f64 train evaluated at (B, d) indices with dd
+// accumulation (ttcross_tpu/ops/dd.py:319-335): v = (1), then per core c
+// v'[j] = sum_t v[t] * (G_c[t, i_c, j], 0) for t < r_c in order from (0, 0)
+// (dd_sum's scan), j < r_{c+1}; the result v[0].  The defect integrand's
+// whole cost (cross/defect.py): at C_6 level 2, ranks (1, 16, 32, 32, 16,
+// 1), 2,080 dd multiply-adds a row.  The cores come packed, (d, R, N, R)
+// zero-padded, with the ranks on the device; an index outside [0, N) is
+// clamped.
+//
+// Bound: operations, B sum_c r_c r_{c+1} dd multiply-adds (35 flops of f64
+// adds and multiplies, none an FMA, so the f64 pipes give half the FMA rate
+// the bound counts: 14.7 us at (3120, 5) at 1.83 GHz against the bound's
+// 6.8).  A row's critical path is sum_c r_c dependent dd_adds (97 at C_6),
+// and a thread that loads G itself inside its sum waits on the load each
+// term (0.27 us a term measured).
+//
+// Design.  A block holds P rows and P W lanes (W: R rounded up to a power of
+// two, at most 32).  At core c a row takes row_lanes(r_{c+1}) of them (a
+// lane takes columns j and j + 32 where r_{c+1} > 32), so a core of few
+// columns packs several rows into a warp and the warps it leaves idle skip
+// it instead of issuing at a fraction of their lanes.  Lane (b, j) walks its
+// column's terms a group of kG at a time (gather_group: kGatherGroup, or 1
+// below that rank): it issues the loads of the next group's G values
+// before it forms the current group's products (the full dd_mul(v_b[t],
+// (G, 0)) of the plain version, v from shared memory; independent of the
+// sum, so they overlap the adds) and adds them to its sum in order, so no
+// add waits on a load; its first group of the next core is loaded during
+// this one, from the ranks and the rows' indices that the block reads into
+// shared memory once.  It writes v'_b[j] into the other half of v's double
+// buffer; one barrier a core.  At the last core lane (b, 0) writes the
+// row's value.  Shared memory: v (4 R doubles a row), the ranks and the
+// indices, so every row of the defect's batches is resident at once.
+//
+// Designs that lost on an H100 (tools/d3_variants.cu, timed in turns by
+// tools/d3_variants.py; PERF.md), at (3120, 5) / (226, 5) against this
+// kernel's 30.6 / 12.4 us: each product on its own producer thread into
+// shared memory and a chain lane per column adding them, the rows' slices
+// staged by cp.async a core ahead, 100-106 / 30-37; the same reading G
+// from global memory, 61-65 / 35-40; the core's products formed by every
+// thread, then added by the lanes, 79-111 / 15-21; the products on the
+// lanes from staged slices, 54-64 / 20-23; the earlier kernel, a thread
+// per column loading G inside its sum, 31.1 / 17.2 with its rows a block
+// spread over the SMs.
+// ---------------------------------------------------------------------------
+
+struct GatherArgs {
+  const double* cores;
+  const int32_t* ranks;
+  int d, R, N;
+  const int32_t* ind;
+  long long B;
+};
+
+TTD_HD int log2_up(int v) {   // the least l with 2^l >= v
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
+}
+
+TTD_HD int row_lanes(int R) { return R >= 32 ? 32 : 1 << log2_up(R); }
+
+TTD_HD int chain_warps(int P, int R) { return (P * row_lanes(R) + 31) / 32; }
+
+// Shared memory of P rows: v hi and lo [2][P][R] each, then the ranks (d +
+// 1) and the rows' clamped indices [P][d] as ints.
+TTD_HD long long gather_smem(int P, int R, int d) {
+  return 32LL * P * R + (4LL * (d + 1 + (long long)P * d) + 7) / 8 * 8;
+}
+
+struct GatherSmem {
+  double *vh, *vl;
+  int *rk, *ix;
+};
+
+TTD_FN GatherSmem gather_smem_of(double* base, int P, int R, int d) {
+  int* ints = reinterpret_cast<int*>(base + 4 * P * R);
+  return GatherSmem{base, base + 2 * P * R, ints, ints + d + 1};
+}
+
+// The ranks and the np rows' indices into shared memory, by threads tid of
+// nth; an index outside [0, N) clamped.
+TTD_FN void d3_load(const GatherArgs& a, const GatherSmem& s, long long row0, int np, int tid,
+                    int nth) {
+  for (int k = tid; k <= a.d; k += nth) s.rk[k] = TTD_LD(a.ranks + k);
+  for (int k = tid; k < np * a.d; k += nth) {
+    const int i = TTD_LD(a.ind + row0 * a.d + k);
+    s.ix[k] = i < 0 ? 0 : (i >= a.N ? a.N - 1 : i);
+  }
+}
+
+// The block's row that lane L takes at a core of output rank r2.
+TTD_HD int lane_row(int L, int r2) { return L >> log2_up(row_lanes(r2)); }
+
+// Lane L's first group of values at core c (ranks r, r2): G_c[t, i_b, j0]
+// for t < kG (clamped to t < r), its row b and column j0 there; nothing for
+// a lane idle at core c.
+template <int kG>
+TTD_FN void d3_first(const GatherArgs& a, const GatherSmem& s, int np, int c, int r, int r2, int L,
+                     double* first) {
+  const int W = row_lanes(r2), b = L >> log2_up(W), j0 = L & (W - 1);
+  if (b >= np || j0 >= r2 || r < 1) return;
+  const long long step = (long long)a.N * a.R;
+  const double* col = a.cores + (long long)c * a.R * step + (long long)s.ix[b * a.d + c] * a.R + j0;
+  TTD_UNROLL
+  for (int u = 0; u < kG; ++u) first[u] = TTD_LD(col + (u < r ? u : r - 1) * step);
+}
+
+// Lane L = (b, j0)'s columns j0 and j0 + 32 of core c (ranks r, r2; a row
+// has row_lanes(r2) lanes at this core, so the core's work fills the first
+// warps and the others skip it): sum_t dd_mul(v_b[t], (G_c[t, i_b, j], 0))
+// from (0, 0) in order, v_b from half c & 1 of v, into half (c + 1) & 1 (at
+// the last core, column 0 to the output).  first: column j0's first group,
+// loaded a core ahead; on return, the lane's first group at core c + 1 (of
+// output rank r3), in flight during this core.  kG: the terms of a group.
+template <int kG>
+TTD_FN void d3_lane(const GatherArgs& a, const GatherSmem& s, long long row0, int np, int P, int c,
+                    int r, int r2, int r3, int L, double* first, double* oh, double* ol) {
+  const int R = a.R, W = row_lanes(r2), lw = log2_up(W);
+  const int b = L >> lw, j0 = L & (W - 1);
+  double next[kG];
+  TTD_UNROLL
+  for (int u = 0; u < kG; ++u) next[u] = first[u];
+  if (c + 1 < a.d) d3_first<kG>(a, s, np, c + 1, r2, r3, L, first);
+  if (b >= np) return;
+  const int vin = (c & 1) * P * R + b * R, vout = ((c + 1) & 1) * P * R + b * R;
+  const long long step = (long long)a.N * R;   // G_c[t + 1, i, j] - G_c[t, i, j]
+  const double* row = a.cores + (long long)c * R * step + (long long)s.ix[b * a.d + c] * R;
+  for (int j = j0; j < r2; j += W) {
+    const double* col = row + j;
+    if (j != j0) {   // the second column (r2 > 32): its first group now
+      TTD_UNROLL
+      for (int u = 0; u < kG; ++u) next[u] = TTD_LD(col + (u < r ? u : r - 1) * step);
+    }
+    DD acc{0.0, 0.0};
+    int t = 0;
+    for (; t + kG <= r; t += kG) {   // straight-line groups
+      double g[kG];
+      TTD_UNROLL
+      for (int u = 0; u < kG; ++u) {   // this group's values; the next group's loads
+        g[u] = next[u];
+        const int tn = t + kG + u;
+        next[u] = TTD_LD(col + (tn < r ? tn : r - 1) * step);   // clamped: no load conditional
+      }
+      DD p[kG];
+      TTD_UNROLL
+      for (int u = 0; u < kG; ++u) {
+        p[u] = dd_mul(DD{s.vh[vin + t + u], s.vl[vin + t + u]}, DD{g[u], 0.0});
+      }
+      TTD_UNROLL
+      for (int u = 0; u < kG; ++u) acc = dd_add(acc, p[u]);
+    }
+    TTD_UNROLL
+    for (int u = 0; u < kG - 1; ++u) {   // the last r mod kG terms
+      if (t + u < r) {
+        acc = dd_add(acc, dd_mul(DD{s.vh[vin + t + u], s.vl[vin + t + u]}, DD{next[u], 0.0}));
+      }
+    }
+    if (c == a.d - 1 && j == 0) {
+      oh[row0 + b] = acc.hi;
+      ol[row0 + b] = acc.lo;
+    } else {
+      s.vh[vout + j] = acc.hi;
+      s.vl[vout + j] = acc.lo;
+    }
+  }
+}
+
+TTD_FN void d3_init(const GatherSmem& s, int np, int R, int tid, int nth) {
+  for (int b = tid; b < np; b += nth) {
+    s.vh[b * R] = 1.0;
+    s.vl[b * R] = 0.0;
+  }
+}
+
+// Launch of one shape: P rows a block, `threads` threads (the rows' lanes,
+// or more: those idle).
+struct GatherPlan {
+  int P, threads;
+  long long blocks, smem;
+};
+
+GatherPlan gather_plan_of(long long B, int R, int d, int P, int threads) {
+  return GatherPlan{P, threads, (B + P - 1) / (P < 1 ? 1 : P), gather_smem(P, R, d)};
+}
+
+// The rule, measured on an H100 (chip_smoke.py --qd-regimes times D3 in
+// every plan at the defect's shapes; PERF.md): rows a block to spread B
+// over the SMs, no more than a block's kThreads lanes hold; threads: the
+// rows' lanes.
+GatherPlan gather_plan(long long B, int R, int d) {
+  long long P = (B + kSMs - 1) / kSMs;
+  const long long lanes = kThreads / row_lanes(R);
+  if (P > lanes) P = lanes;
+  if (P < 1) P = 1;
+  return gather_plan_of(B, R, d, (int)P, 32 * chain_warps((int)P, R));
+}
+
+bool gather_shape_ok(long long B, int d, int R, int N) {
+  return B >= 1 && d >= 1 && R >= 1 && R <= kGatherRMax && N >= 1;
+}
+
+bool gather_plan_ok(const GatherPlan& p, int R) {
+  return p.P >= 1 && p.threads <= kThreads && p.threads % 32 == 0 &&
+         p.threads >= 32 * chain_warps(p.P, R) && p.blocks <= INT_MAX && p.smem <= kSmemMax;
+}
+
+// The terms of a lane's group at packed rank R (the kernel's kG): groups of
+// kGatherGroup from that rank, single terms below it, where a group would
+// only repeat its clamped loads (tools/d3_variants.py on an H100: the
+// rank-1 train at (390, 4) 5.5 us in single terms against 6.2 in groups of
+// 8; the defect's rank-32 train at (226, 5) 12.4 in groups of 8, 16.1 in
+// groups of 4, 24.2 in single terms).
+TTD_HD int gather_group(int R) { return R < kGatherGroup ? 1 : kGatherGroup; }
+
 #if defined(__CUDACC__)
 __device__ __forceinline__ Best warp_reduce(Best b) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -408,31 +746,48 @@ __device__ void grid_argmax(Best b, long long* words) {
   }
 }
 
-// Lanes 0..np-1 of warp 0 each add their row's terms in order from one half
-// of the double buffer while warps 1.. compute the next chunk into the other
-// half; one barrier a chunk.
-__global__ void __launch_bounds__(kThreads)
-dd_score_kernel(ScoreArgs a, int P, int C, double* __restrict__ out,
-                long long* __restrict__ words) {
-  extern __shared__ double dsm[];
-  const long long row0 = (long long)blockIdx.x * P;
-  const int np = (int)(a.B - row0 < P ? a.B - row0 : P), tid = threadIdx.x;
+// The chain body: the block's rows row0 .. row0 + np - 1; lanes 0..np-1 of
+// warp 0 each add their row's terms in order from one half of the double
+// buffer while warps 1.. compute the next chunk into the other half; one
+// barrier a chunk.  Returns row tid's sum in lanes tid < np.  kTable: the
+// rows' offsets from a table `off` the chain lanes fill first (D4; D1's, N =
+// 1, need none).  rk, tfast: rank_of(a), terms_fastest(a).
+template <bool kTable, typename Args>
+__device__ __forceinline__ DD chain_sum(const Args& a, long long row0, int np, int P, int C,
+                                        double* dsm, long long* off, int rk, bool tfast) {
+  const int tid = threadIdx.x;
+  if constexpr (kTable) {
+    if (tid < kChainLanes) row_offsets(a, row0, np, off, tid, kChainLanes);
+  }
   const int nch = (a.T + C - 1) / C;
-  const int rk = rank_of(a);
-  const bool tfast = terms_fastest(a);
-  const RowIn in = tid < np ? d1_row_in(a, row0 + tid) : RowIn{DD{0.0, 0.0}, false};
+  if (kTable) __syncthreads();
   DD acc{0.0, 0.0};
   for (int k = 0; k <= nch; ++k) {
     if (tid >= kChainLanes) {
       if (k < nch) {
-        d1_produce(a, row0, np, P, C, dsm, k, rk, tfast, tid - kChainLanes,
-                   blockDim.x - kChainLanes);
+        d1_produce<kTable>(a, off, row0, np, P, C, dsm, k, rk, tfast, tid - kChainLanes,
+                           blockDim.x - kChainLanes);
       }
     } else if (tid < np && k > 0) {
       d1_chain(a, P, C, dsm, k - 1, tid, acc);
     }
     __syncthreads();
   }
+  return acc;
+}
+
+// D1: the chain body, then each row's residual, the block's best and the
+// grid's argmax.
+__global__ void __launch_bounds__(kThreads)
+dd_score_kernel(ScoreArgs a, int P, int C, double* __restrict__ out,
+                long long* __restrict__ words) {
+  extern __shared__ double dsm[];
+  const long long row0 = (long long)blockIdx.x * P;
+  const int np = (int)(a.B - row0 < P ? a.B - row0 : P), tid = threadIdx.x;
+  const int rk = rank_of(a);
+  const bool tfast = terms_fastest(a);
+  const RowIn in = tid < np ? d1_row_in(a, row0 + tid) : RowIn{DD{0.0, 0.0}, false};
+  const DD acc = chain_sum<false>(a, row0, np, P, C, dsm, nullptr, rk, tfast);
   Best b = none();
   if (tid < np) {
     const DD r = d1_finish(a, in, acc);
@@ -444,16 +799,23 @@ dd_score_kernel(ScoreArgs a, int P, int C, double* __restrict__ out,
   grid_argmax(b, words);
 }
 
-// ---------------------------------------------------------------------------
-// D4: a small dd GEMM with strides.  out[i, j] = sum_t x[i, j, t] y[i, j, t]
-// (t = 0..T-1 in order from (0, 0)), out (M, N) contiguous, x and y any
-// strided views (a GEMM A @ B is x = A broadcast over j, y = B broadcast
-// over i).  It serves the dd engine's _mm_left / _mm_right, value_mat and
-// finalize (ttcross_tpu/cross/engine_dd.py:135-147, :443-504), its dd
-// quadrature and the dd contraction (ops/dd.py::dd_contract).  Bound:
-// operations, M N T dd multiply-adds.  A thread per output.
-// ---------------------------------------------------------------------------
+// D4, kDotChain: the chain body, each output stored by its chain lane; the
+// outputs' offsets in a table after the chunks' buffer.
+__global__ void __launch_bounds__(kThreads)
+dd_dot_chain_kernel(DotArgs a, int P, int C, double* __restrict__ oh, double* __restrict__ ol) {
+  extern __shared__ double dsm[];
+  const long long o0 = (long long)blockIdx.x * P;
+  const int np = (int)(a.B - o0 < P ? a.B - o0 : P), tid = threadIdx.x;
+  long long* off = reinterpret_cast<long long*>(dsm + 4 * P * pitch(C));   // after the chunks
+  const DD acc = chain_sum<true>(a, o0, np, P, C, dsm, off, rank_of(a), terms_fastest(a));
+  if (tid < np) {
+    oh[o0 + tid] = acc.hi;
+    ol[o0 + tid] = acc.lo;
+  }
+}
 
+// D4, kDotThread: a thread per output (its __restrict__ arguments let nvcc
+// read x and y through the read-only path).
 __global__ void __launch_bounds__(kThreads)
 dd_dot_kernel(const double* __restrict__ xh, const double* __restrict__ xl,
               const double* __restrict__ yh, const double* __restrict__ yl, long long M,
@@ -462,62 +824,32 @@ dd_dot_kernel(const double* __restrict__ xh, const double* __restrict__ xl,
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= M * N) return;
   const long long i = e / N, j = e % N;
-  const long long xo = i * xs0 + j * xs1, yo = i * ys0 + j * ys1;
-  DD acc{0.0, 0.0};
-  for (int t = 0; t < T; ++t) {
-    acc = dd_add(acc, dd_mul(DD{xh[xo + t * xs2], xl[xo + t * xs2]},
-                             DD{yh[yo + t * ys2], yl[yo + t * ys2]}));
-  }
+  const DD acc = d4_out(xh, xl, yh, yl, i * xs0 + j * xs1, i * ys0 + j * ys1, T, xs2, ys2);
   oh[e] = acc.hi;
   ol[e] = acc.lo;
 }
 
-// ---------------------------------------------------------------------------
-// D3: dd_gather_tt, an f64 train evaluated at (B, d) indices with dd
-// accumulation (ttcross_tpu/ops/dd.py:319-335): v = (1), then per core c
-// v'[j] = sum_t v[t] * (G_c[t, i_c, j], 0) for t < r_c in order from (0, 0).
-// The defect integrand's whole cost (cross/defect.py): at C_6 level 2 with
-// a rank-32 first train ~4 x 32 x 32 dd multiply-adds per row.  The cores
-// come packed, (d, R, N, R) zero-padded, with the ranks on the device.
-// W threads per row (a multiple of 32, W >= every rank), kThreads / W rows
-// per block; thread j of a row computes v'[j]; v lives in shared memory,
-// double-buffered, one barrier per core.  Bound: operations.
-// ---------------------------------------------------------------------------
-
+// D3: the block's P rows through the cores (see above), in groups of kG
+// terms.
+template <int kG>
 __global__ void __launch_bounds__(kThreads)
-dd_gather_tt_kernel(const double* __restrict__ cores, const int32_t* __restrict__ ranks, int d,
-                    int R, int N, const int32_t* __restrict__ ind, long long B,
-                    double* __restrict__ oh, double* __restrict__ ol, int W) {
-  __shared__ double v[2][2][kThreads];   // [buffer][hi, lo][row in block * W + j]
-  const int j = threadIdx.x % W;
-  const int rb = threadIdx.x / W;
-  const long long row = (long long)blockIdx.x * (blockDim.x / W) + rb;
-  const bool live = row < B;
-  const int base = rb * W;
-  v[0][0][base + j] = j == 0 ? 1.0 : 0.0;
-  v[0][1][base + j] = 0.0;
+dd_gather_tt_kernel(GatherArgs a, int P, double* __restrict__ oh, double* __restrict__ ol) {
+  extern __shared__ double dsm[];
+  const long long row0 = (long long)blockIdx.x * P;
+  const int np = (int)(a.B - row0 < P ? a.B - row0 : P), tid = threadIdx.x;
+  const GatherSmem s = gather_smem_of(dsm, P, a.R, a.d);
+  d3_load(a, s, row0, np, tid, blockDim.x);
+  d3_init(s, np, a.R, tid, blockDim.x);
   __syncthreads();
-  int cur = 0;
-  for (int c = 0; c < d; ++c) {
-    const int r = ranks[c], r2 = ranks[c + 1];
-    if (live && j < r2) {
-      int i = ind[row * d + c];
-      i = i < 0 ? 0 : (i >= N ? N - 1 : i);
-      const double* g = cores + (long long)c * R * N * R + (long long)i * R + j;
-      DD acc{0.0, 0.0};
-      for (int t = 0; t < r; ++t) {
-        const DD x{v[cur][0][base + t], v[cur][1][base + t]};
-        acc = dd_add(acc, dd_mul(x, DD{g[(long long)t * N * R], 0.0}));
-      }
-      v[cur ^ 1][0][base + j] = acc.hi;
-      v[cur ^ 1][1][base + j] = acc.lo;
-    }
-    cur ^= 1;
-    __syncthreads();
-  }
-  if (live && j == 0) {
-    oh[row] = v[cur][0][base];
-    ol[row] = v[cur][1][base];
+  int r = s.rk[0], r2 = s.rk[1];
+  double first[kG];
+  d3_first<kG>(a, s, np, 0, r, r2, tid, first);
+  for (int c = 0; c < a.d; ++c) {
+    const int r3 = c + 1 < a.d ? s.rk[c + 2] : 0;
+    if (c > 0) __syncthreads();   // v of core c complete
+    d3_lane<kG>(a, s, row0, np, P, c, r, r2, r3, tid, first, oh, ol);
+    r = r2;
+    r2 = r3;
   }
 }
 
@@ -571,6 +903,62 @@ ising_c_dd_kernel(const double* __restrict__ tables, int n, const int32_t* __res
   oh[row] = f.hi;
   ol[row] = f.lo;
 }
+
+template <typename Kernel>
+void allow_smem(Kernel kernel, long long smem) {
+  if (smem > kStaticSmem) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+}
+
+template <int kG>
+cudaError_t gather_launch(const GatherArgs& a, const GatherPlan& p, double* oh, double* ol,
+                          cudaStream_t st) {
+  allow_smem(dd_gather_tt_kernel<kG>, p.smem);
+  dd_gather_tt_kernel<kG><<<(unsigned)p.blocks, p.threads, p.smem, st>>>(a, p.P, oh, ol);
+  return cudaGetLastError();
+}
+
+#else
+// The chain body's block on the host: each chunk's products, then each chain
+// lane's adds, in the kernel's order.  acc: np sums.
+template <bool kTable, typename Args>
+void host_chain_sum(const Args& a, long long row0, int np, int P, int C, double* buf, DD* acc) {
+  long long off[2 * kChainLanes];
+  if constexpr (kTable) row_offsets(a, row0, np, off, 0, 1);
+  const int rk = rank_of(a);
+  const bool tfast = terms_fastest(a);
+  const int nch = (a.T + C - 1) / C;
+  for (int g = 0; g < np; ++g) acc[g] = DD{0.0, 0.0};
+  for (int k = 0; k <= nch; ++k) {
+    if (k < nch) d1_produce<kTable>(a, off, row0, np, P, C, buf, k, rk, tfast, 0, 1);
+    for (int g = 0; g < np && k > 0; ++g) d1_chain(a, P, C, buf, k - 1, g, acc[g]);
+  }
+}
+
+// D3's call in plan p with groups of kG terms on the host: block after
+// block, core after core, each lane's sums in turn.
+template <int kG>
+void host_d3(const GatherArgs& a, const GatherPlan& p, double* oh, double* ol) {
+  std::vector<double> buf(p.smem / 8);
+  const GatherSmem s = gather_smem_of(buf.data(), p.P, a.R, a.d);
+  std::vector<double> first((size_t)p.threads * kG);
+  for (long long row0 = 0; row0 < a.B; row0 += p.P) {
+    const int np = (int)(a.B - row0 < p.P ? a.B - row0 : p.P);
+    d3_load(a, s, row0, np, 0, 1);
+    d3_init(s, np, a.R, 0, 1);
+    for (int tid = 0; tid < p.threads; ++tid) {
+      d3_first<kG>(a, s, np, 0, s.rk[0], s.rk[1], tid, &first[tid * kG]);
+    }
+    for (int c = 0; c < a.d; ++c) {
+      const int r3 = c + 1 < a.d ? s.rk[c + 2] : 0;
+      for (int tid = 0; tid < p.threads; ++tid) {
+        d3_lane<kG>(a, s, row0, np, p.P, c, s.rk[c], s.rk[c + 1], r3, tid, &first[tid * kG], oh,
+                    ol);
+      }
+    }
+  }
+}
 #endif  // __CUDACC__
 
 }  // namespace
@@ -601,42 +989,51 @@ int ttd_score_residual_argmax(const double* vh, const double* vl, const double* 
     const cudaError_t err = cudaMemsetAsync(words + 4, 0, sizeof(long long), st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (p.smem > kStaticSmem) {
-    cudaFuncSetAttribute(dd_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)p.smem);
-  }
+  allow_smem(dd_score_kernel, p.smem);
   dd_score_kernel<<<(unsigned)p.blocks, p.threads, p.smem, st>>>(
       score_args(vh, vl, xh, xl, yh, yl, B, T, xsb, xst, ysb, yst, rank, mask_side, mask), p.P,
       p.C, out, words);
   return static_cast<int>(cudaGetLastError());
 }
 
-// D4.  out (M, N) contiguous, hi and lo; strides in elements.
+// D4 in the regime (regime, P, C): kDotChain (0 < P <= 32 outputs a block,
+// chunks of C terms) or kDotThread (P threads a block, C unused), as
+// ttd_dd_dot_plan gives it the shape or as the caller names it.  out (M, N)
+// contiguous, hi and lo; strides in elements (any, 0 too).
 int ttd_dot(const double* xh, const double* xl, const double* yh, const double* yl, long long M,
             long long N, int T, long long xs0, long long xs1, long long xs2, long long ys0,
-            long long ys1, long long ys2, double* oh, double* ol, void* stream) {
-  const long long E = M * N;
-  if (M < 1 || N < 1 || T < 0 || E > (long long)INT_MAX * kThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
+            long long ys1, long long ys2, int regime, int P, int C, double* oh, double* ol,
+            void* stream) {
+  if (!dot_shape_ok(M, N, T)) return static_cast<int>(cudaErrorInvalidValue);
+  const DotPlan p = dot_plan_of(M * N, regime, P, C);
+  if (!dot_plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+  const DotArgs a = dot_args(xh, xl, yh, yl, M, N, T, xs0, xs1, xs2, ys0, ys1, ys2);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.regime == kDotChain) {
+    allow_smem(dd_dot_chain_kernel, p.smem);
+    dd_dot_chain_kernel<<<(unsigned)p.blocks, p.threads, p.smem, st>>>(a, p.P, p.C, oh, ol);
+  } else {
+    dd_dot_kernel<<<(unsigned)p.blocks, p.threads, 0, st>>>(xh, xl, yh, yl, M, N, T, xs0, xs1,
+                                                            xs2, ys0, ys1, ys2, oh, ol);
   }
-  const unsigned blocks = (unsigned)((E + kThreads - 1) / kThreads);
-  dd_dot_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xh, xl, yh, yl, M, N, T, xs0, xs1, xs2, ys0, ys1, ys2, oh, ol);
   return static_cast<int>(cudaGetLastError());
 }
 
-// D3.  cores (d, R, N, R) f64 contiguous, ranks d + 1 int32 on the device
-// (every rank <= W <= kGatherRMax, W a multiple of 32), ind (B, d) int32.
+// D3 with P rows and `threads` threads a block, as ttd_dd_gather_plan gives
+// them the shape or as the caller names them.  cores (d, R, N, R) f64
+// contiguous, ranks d + 1 int32 on the device (every rank <= R <=
+// kGatherRMax), ind (B, d) int32.
 int ttd_gather_tt(const double* cores, const int32_t* ranks, int d, int R, int N,
-                  const int32_t* ind, long long B, double* oh, double* ol, int W, void* stream) {
-  if (B < 1 || d < 1 || W < 32 || W > kGatherRMax || W % 32 != 0 || R > W) {
+                  const int32_t* ind, long long B, int P, int threads, double* oh, double* ol,
+                  void* stream) {
+  const GatherPlan p = gather_plan_of(B, R, d, P, threads);
+  if (!gather_shape_ok(B, d, R, N) || !gather_plan_ok(p, R)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int rows = kThreads / W;
-  const unsigned blocks = (unsigned)((B + rows - 1) / rows);
-  dd_gather_tt_kernel<<<blocks, rows * W, 0, static_cast<cudaStream_t>(stream)>>>(
-      cores, ranks, d, R, N, ind, B, oh, ol, W);
-  return static_cast<int>(cudaGetLastError());
+  const GatherArgs a{cores, ranks, d, R, N, ind, B};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(gather_group(R) == 1 ? gather_launch<1>(a, p, oh, ol, st)
+                                               : gather_launch<kGatherGroup>(a, p, oh, ol, st));
 }
 
 // D2.  tables (4, n) f64: node hi, node lo, weight hi, weight lo; ind (B, d)
@@ -656,7 +1053,7 @@ int ttd_threads(void) { return kThreads; }
 
 int ttd_gather_rmax(void) { return kGatherRMax; }
 
-#else   // the host emulation: D1's functions in one host thread
+#else   // the host emulation: D1's, D3's and D4's functions in one host thread
 
 // D1's whole call in the plan (P, C), arguments as
 // ttd_score_residual_argmax's (every pointer on the host): block after
@@ -672,18 +1069,12 @@ int ttd_host_d1(const double* vh, const double* vl, const double* xh, const doub
   if (!score_shape_ok(B, T, mask_side) || !score_plan_ok(p)) return -1;
   const ScoreArgs a = score_args(vh, vl, xh, xl, yh, yl, B, T, xsb, xst, ysb, yst, rank,
                                  mask_side, mask);
-  const int rk = rank_of(a);
-  const bool tfast = terms_fastest(a);
-  const int nch = (T + C - 1) / C;
   std::vector<double> buf(p.smem / 8);
+  DD acc[kChainLanes];
   Best q = none();     // the blocks' best, in block order
   for (long long row0 = 0; row0 < B; row0 += P) {
     const int np = (int)(B - row0 < P ? B - row0 : P);
-    std::vector<DD> acc(np, DD{0.0, 0.0});
-    for (int k = 0; k <= nch; ++k) {
-      if (k < nch) d1_produce(a, row0, np, P, C, buf.data(), k, rk, tfast, 0, 1);
-      for (int g = 0; g < np && k > 0; ++g) d1_chain(a, P, C, buf.data(), k - 1, g, acc[g]);
-    }
+    host_chain_sum<false>(a, row0, np, P, C, buf.data(), acc);
     Best b = none();
     for (int g = 0; g < np; ++g) {
       const RowIn in = d1_row_in(a, row0 + g);
@@ -702,6 +1093,57 @@ int ttd_host_d1(const double* vh, const double* vl, const double* xh, const doub
   return 0;
 }
 
+// D4's whole call in the regime (regime, P, C), arguments as ttd_dot's
+// (every pointer on the host): the chain regime block after block as D1's,
+// the thread regime output after output.  Returns 0, or -1 for a shape or
+// plan the card's entry point refuses.
+int ttd_host_d4(const double* xh, const double* xl, const double* yh, const double* yl,
+                long long M, long long N, int T, long long xs0, long long xs1, long long xs2,
+                long long ys0, long long ys1, long long ys2, int regime, int P, int C,
+                double* oh, double* ol) {
+  if (!dot_shape_ok(M, N, T)) return -1;
+  const DotPlan p = dot_plan_of(M * N, regime, P, C);
+  if (!dot_plan_ok(p)) return -1;
+  const DotArgs a = dot_args(xh, xl, yh, yl, M, N, T, xs0, xs1, xs2, ys0, ys1, ys2);
+  if (p.regime == kDotThread) {
+    for (long long e = 0; e < a.B; ++e) {
+      const long long i = e / N, j = e % N;
+      const DD r = d4_out(xh, xl, yh, yl, i * xs0 + j * xs1, i * ys0 + j * ys1, T, xs2, ys2);
+      oh[e] = r.hi;
+      ol[e] = r.lo;
+    }
+    return 0;
+  }
+  std::vector<double> buf(p.smem / 8);
+  DD acc[kChainLanes];
+  for (long long o0 = 0; o0 < a.B; o0 += P) {
+    const int np = (int)(a.B - o0 < P ? a.B - o0 : P);
+    host_chain_sum<true>(a, o0, np, P, C, buf.data(), acc);
+    for (int g = 0; g < np; ++g) {
+      oh[o0 + g] = acc[g].hi;
+      ol[o0 + g] = acc[g].lo;
+    }
+  }
+  return 0;
+}
+
+// D3's whole call with P rows and `threads` threads a block, arguments as
+// ttd_gather_tt's (every pointer on the host): block after block, core
+// after core, each lane's sums in turn.  Returns 0, or -1 for a shape or
+// plan the card's entry point refuses.
+int ttd_host_d3(const double* cores, const int32_t* ranks, int d, int R, int N,
+                const int32_t* ind, long long B, int P, int threads, double* oh, double* ol) {
+  const GatherPlan p = gather_plan_of(B, R, d, P, threads);
+  if (!gather_shape_ok(B, d, R, N) || !gather_plan_ok(p, R)) return -1;
+  const GatherArgs a{cores, ranks, d, R, N, ind, B};
+  if (gather_group(R) == 1) {
+    host_d3<1>(a, p, oh, ol);
+  } else {
+    host_d3<kGatherGroup>(a, p, oh, ol);
+  }
+  return 0;
+}
+
 #endif  // __CUDACC__
 
 // D1's launch for a shape (score_plan): plan[0..4] = P, C, threads, blocks,
@@ -712,6 +1154,33 @@ int ttd_dd_score_plan(long long B, int T, long long* plan) {
   const long long v[5] = {p.P, p.C, p.threads, p.blocks, p.smem};
   for (int k = 0; k < 5; ++k) plan[k] = v[k];
   return 0;
+}
+
+// D4's launch for a shape (dot_plan): plan[0..5] = regime, P, C, threads,
+// blocks, shared bytes.  Returns 0, or -1 for a shape the entry point
+// refuses.
+int ttd_dd_dot_plan(long long M, long long N, int T, long long* plan) {
+  if (!dot_shape_ok(M, N, T)) return -1;
+  const DotPlan p = dot_plan(M, N, T);
+  const long long v[6] = {p.regime, p.P, p.C, p.threads, p.blocks, p.smem};
+  for (int k = 0; k < 6; ++k) plan[k] = v[k];
+  return 0;
+}
+
+// D3's launch for a shape (gather_plan): plan[0..3] = P, threads, blocks,
+// shared bytes.  Returns 0, or -1 for a shape the entry point refuses.
+int ttd_dd_gather_plan(long long B, int d, int R, int N, long long* plan) {
+  if (!gather_shape_ok(B, d, R, N)) return -1;
+  const GatherPlan p = gather_plan(B, R, d);
+  const long long v[4] = {p.P, p.threads, p.blocks, p.smem};
+  for (int k = 0; k < 4; ++k) plan[k] = v[k];
+  return 0;
+}
+
+// Whether D3 takes P rows and `threads` threads a block at this shape
+// (ttd_gather_tt refuses the plan otherwise): 1 or 0.
+int ttd_dd_gather_plan_ok(long long B, int d, int R, int N, int P, int threads) {
+  return gather_shape_ok(B, d, R, N) && gather_plan_ok(gather_plan_of(B, R, d, P, threads), R);
 }
 
 }  // extern "C"

@@ -55,8 +55,12 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL, _LL, _LL, _P, _I, _P, _I, _I, _P, _P, _P],
         _I),
     "ttd_dd_score_plan": ([_LL, _I, ctypes.POINTER(_LL)], _I),
-    "ttd_dot": ([_P, _P, _P, _P, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P], _I),
-    "ttd_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _P, _P, _I, _P], _I),
+    "ttd_dot": ([_P, _P, _P, _P, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _P, _P,
+                 _P], _I),
+    "ttd_dd_dot_plan": ([_LL, _LL, _I, ctypes.POINTER(_LL)], _I),
+    "ttd_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _I, _I, _P, _P, _P], _I),
+    "ttd_dd_gather_plan": ([_LL, _I, _I, _I, ctypes.POINTER(_LL)], _I),
+    "ttd_dd_gather_plan_ok": ([_LL, _I, _I, _I, _I, _I], _I),
     "ttd_ising_c_integrand": ([_P, _I, _P, _LL, _I, _P, _P, _P], _I),
     "ttd_threads": ([], _I),
     "ttd_gather_rmax": ([], _I),

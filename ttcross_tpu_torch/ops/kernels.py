@@ -37,8 +37,9 @@ __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
            "ising_integrand_fused", "ising_integrand_plain",
            "dd_score_residual_argmax", "dd_score_residual_argmax_plain",
            "dd_score_residual_argmax_planned", "dd_score_plan", "DdScorePlan", "dd_dot",
-           "dd_dot_plain",
-           "dd_gather_tt_fused", "dd_gather_tt_plain", "PackedTT", "pack_tt",
+           "dd_dot_plain", "dd_dot_plan", "dd_dot_planned", "DdDotPlan",
+           "dd_gather_tt_fused", "dd_gather_tt_planned", "dd_gather_plan", "dd_gather_plan_ok",
+           "DdGatherPlan", "dd_gather_tt_plain", "PackedTT", "pack_tt",
            "ising_c_integrand_dd_fused", "ising_c_integrand_dd_plain",
            "qd_score_residual_argmax", "qd_score_residual_argmax_plain",
            "qd_score_residual_argmax_planned", "qd_score_plan", "qd_dot", "qd_dot_plain",
@@ -703,6 +704,29 @@ def dd_dot_plain(x, y):
     return ddm.dd_sum(ddm.dd_mul(ddm.DD(*x), ddm.DD(*y)), axis=2)
 
 
+class DdDotPlan(NamedTuple):
+    """D4's launch for one shape (csrc/dd_kernels.cu::dot_plan)."""
+    regime: str     # "thread" (a thread per output) or "chain"
+    P: int          # outputs of a block (the chain: lanes of its chain warp)
+    C: int          # the chain's chunk of terms (0 for the thread regime)
+    threads: int
+    blocks: int
+    smem: int       # dynamic shared memory per block, bytes
+
+
+_DD_REGIMES = ("thread", "chain")
+
+
+@functools.lru_cache(maxsize=4096)
+def dd_dot_plan(M: int, N: int, T: int) -> DdDotPlan:
+    """The launch D4 takes at (M, N, T): a function of the shape alone, so
+    each shape of launch_shapes() names its regime."""
+    out = (ctypes.c_longlong * 6)()
+    if _lib().ttd_dd_dot_plan(M, N, T, out) != 0:
+        raise ValueError(f"dd_dot takes no shape ({M}, {N}, {T})")
+    return DdDotPlan(_DD_REGIMES[out[0]], *out[1:])
+
+
 def dd_dot(x, y):
     """D4, the small dd GEMM: dd_dot_plain in one launch.
 
@@ -711,12 +735,26 @@ def dd_dot(x, y):
     expanded over N, B.T[None] expanded over M).  It serves the dd engine's
     _mm_left / _mm_right, value_mat and finalize (ttcross_tpu/cross/
     engine_dd.py:135-147, :443-504) and its quadrature.  On a CPU tensor
-    this is the plain version; on a CUDA tensor it launches
-    csrc/dd_kernels.cu's dd_dot_kernel (a thread per output) and adds one
-    to ``dd_dot.launches``."""
-    ddm = _dd_mod()
+    this is the plain version; on a CUDA tensor it launches one of
+    csrc/dd_kernels.cu's D4 kernels in the regime dd_dot_plan gives the
+    shape (chain lanes adding each output's terms in order while producer
+    warps compute the next chunk of products, or at many outputs or few
+    terms a thread per output) and adds one to ``dd_dot.launches``."""
     if x[0].device.type == "cpu":
         return dd_dot_plain(x, y)
+    return _dd_dot_launch(x, y, None)
+
+
+def dd_dot_planned(x, y, plan: tuple):
+    """D4 on CUDA tensors in the regime `plan` = (regime, P, C) names (as
+    DdDotPlan's first three fields), whatever dd_dot_plan gives the shape:
+    the card tests and the tuning hold every regime to the plain version
+    with it.  Counts its launch as dd_dot's."""
+    return _dd_dot_launch(x, y, plan)
+
+
+def _dd_dot_launch(x, y, plan):
+    ddm = _dd_mod()
     dev = x[0].device
     _check_pair("x", x, 3, dev)
     _check_pair("y", y, 3, dev)
@@ -725,10 +763,11 @@ def dd_dot(x, y):
         raise ValueError(f"shape mismatch: x {tuple(x[0].shape)}, y {tuple(y[0].shape)}")
     if M * N == 0:
         raise ValueError("dd_dot of an empty output")
+    regime, P, C = dd_dot_plan(M, N, T)[:3] if plan is None else plan
     out = torch.empty((2, M, N), dtype=torch.float64, device=dev)
     rc = _call(dev, _lib().ttd_dot, x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(),
-               y[1].data_ptr(), M, N, T, *x[0].stride(), *y[0].stride(), out[0].data_ptr(),
-               out[1].data_ptr())
+               y[1].data_ptr(), M, N, T, *x[0].stride(), *y[0].stride(),
+               _DD_REGIMES.index(regime), P, C, out[0].data_ptr(), out[1].data_ptr())
     _raise_on(rc, "dd_dot launch")
     dd_dot.launches += 1
     _SHAPES["dd_dot", (M, N, T)] += 1
@@ -769,18 +808,55 @@ def dd_gather_tt_plain(tt: PackedTT, ind):
     return ddm.dd_gather_tt(TT(cores), ind)
 
 
+class DdGatherPlan(NamedTuple):
+    """D3's launch for one shape (csrc/dd_kernels.cu::gather_plan)."""
+    P: int          # rows of a block
+    threads: int
+    blocks: int
+    smem: int       # dynamic shared memory per block, bytes
+
+
+@functools.lru_cache(maxsize=4096)
+def dd_gather_plan(B: int, d: int, R: int, N: int) -> DdGatherPlan:
+    """The launch D3 takes for B rows of a packed train (d, R, N, R): a
+    function of the shape alone."""
+    out = (ctypes.c_longlong * 4)()
+    if _lib().ttd_dd_gather_plan(B, d, R, N, out) != 0:
+        raise ValueError(f"dd_gather_tt_fused takes no shape B={B}, (d, R, N) = ({d}, {R}, {N})")
+    return DdGatherPlan(*out)
+
+
+def dd_gather_plan_ok(B: int, d: int, R: int, N: int, rows: int, threads: int) -> bool:
+    """Whether D3 takes `rows` rows and `threads` threads a block at this
+    shape (dd_gather_tt_planned raises on a plan it does not take)."""
+    return _lib().ttd_dd_gather_plan_ok(B, d, R, N, rows, threads) == 1
+
+
 def dd_gather_tt_fused(tt: PackedTT, ind):
     """D3: the f64 train evaluated at (B, d) int32 indices with dd
     accumulation, DD (B,), in one launch.
 
     The defect integrand's whole cost (ttcross_tpu/cross/defect.py:33-49,
     ops/dd.py:319-335).  On a CPU tensor this is dd_gather_tt_plain; on a
-    CUDA tensor it launches csrc/dd_kernels.cu's dd_gather_tt_kernel
-    (W = the ranks rounded up to 32 threads per row) and adds one to
-    ``dd_gather_tt_fused.launches``."""
-    ddm = _dd_mod()
+    CUDA tensor it launches csrc/dd_kernels.cu's dd_gather_tt_kernel in the
+    plan dd_gather_plan gives the shape (a block of rows, a lane per column
+    of a core adding its products in order, each lane's loads a group of
+    terms ahead of its adds; ranks up to _DD_GATHER_RMAX) and adds one to
+    ``dd_gather_tt_fused.launches``.  An index outside [0, N) is clamped."""
     if ind.device.type == "cpu":
         return dd_gather_tt_plain(tt, ind)
+    return _dd_gather_tt_launch(tt, ind, None)
+
+
+def dd_gather_tt_planned(tt: PackedTT, ind, rows: int, threads: int):
+    """D3 on CUDA tensors with `rows` rows and `threads` threads a block,
+    whatever dd_gather_plan gives the shape: the card tests and the tuning
+    use it.  Counts its launch as dd_gather_tt_fused's."""
+    return _dd_gather_tt_launch(tt, ind, (rows, threads))
+
+
+def _dd_gather_tt_launch(tt, ind, plan):
+    ddm = _dd_mod()
     dev = ind.device
     _check_cuda("ind", ind, _I32, 2, dev)
     _check_cuda("cores", tt.cores, _F64, 4, dev)
@@ -789,14 +865,14 @@ def dd_gather_tt_fused(tt: PackedTT, ind):
     B = ind.shape[0]
     if ind.shape[1] != d:
         raise ValueError(f"ind must be (B, {d}), got {tuple(ind.shape)}")
-    W = -(-R // 32) * 32
-    if W > _DD_GATHER_RMAX:
+    if R > _DD_GATHER_RMAX:
         raise ValueError(f"rank {R} exceeds the dd gather kernel's {_DD_GATHER_RMAX}")
     out = torch.empty((2, B), dtype=torch.float64, device=dev)
     if B == 0:
         return ddm.DD(out[0], out[1])
+    P, threads = dd_gather_plan(B, d, R, N)[:2] if plan is None else plan
     rc = _call(dev, _lib().ttd_gather_tt, tt.cores.data_ptr(), tt.ranks_t.data_ptr(), d, R, N,
-               ind.data_ptr(), B, out[0].data_ptr(), out[1].data_ptr(), W)
+               ind.data_ptr(), B, P, threads, out[0].data_ptr(), out[1].data_ptr())
     _raise_on(rc, "dd_gather_tt_fused launch")
     dd_gather_tt_fused.launches += 1
     _SHAPES["dd_gather_tt_fused", (B, N) + tt.ranks] += 1
