@@ -372,9 +372,19 @@ DD_GATHER_RANKS = (1, 16, 32, 32, 16, 1)
 DD_GATHER_TABLE_SHAPES = [(3120, 65) + DD_GATHER_RANKS, (226, 65) + DD_GATHER_RANKS,
                           (520, 65) + DD_GATHER_RANKS, (325, 65) + DD_GATHER_RANKS,
                           (390, 65, 1, 1, 1, 1, 1)]
+# D2: the dd integrand's (B, d, n) on C_6 (rook fibers, lottery), C_4 n = 65
+# and C_4 n = 33
+DD_ISING_TABLE_SHAPES = [(3120, 5, 65), (226, 5, 65), (2080, 3, 65), (194, 3, 65), (528, 3, 33)]
 DD_TABLES = {"dd_score_residual_argmax": DD_TABLE_SHAPES, "dd_dot": DD_DOT_TABLE_SHAPES,
-             "dd_gather_tt_fused": DD_GATHER_TABLE_SHAPES}
+             "dd_gather_tt_fused": DD_GATHER_TABLE_SHAPES,
+             "ising_c_integrand_dd_fused": DD_ISING_TABLE_SHAPES}
 DD_CHAIN_FLOOR_T = (480, 4800)   # D1 at B = 1, one chain lane: µs per dependent dd_add
+ONE_ROW_D = (4, 32)   # D2 and Q1 at B = 1 (n = 65): µs per column step of a row
+# D2's and Q1's rows a block held by phases 15 and 17 and timed by
+# --qd-regimes: one to four warps' rows (ising_rows.cuh: 10 a warp; the rule
+# takes four, or fewer where B or the shared memory is smaller)
+ROWS_TUNE_PLANS = [10, 20, 30, 40]
+ROWS_TUNE_ROUNDS = 5
 F64_VECTOR_FLOPS = 33.5e12  # H100 SXM f64 outside the tensor cores (dd cannot use them)
 SCORE_RTOL = 1e-12          # kernel A vs cuBLAS: f64 sums in another order
                             # (the 2-D path's DMMA tiles in yet another)
@@ -2196,7 +2206,8 @@ def hold_dd_shapes(dev, gen, shapes, held, checked) -> None:
     """Phase 15's kernel check: every dd kernel at every shape a dd run
     launched it at, in each layout the engine gives it there (_dd_cases),
     bit for bit against its plain version on the card (hi, lo, and D1's
-    index and r at it; D4 in both regimes, dd_dot_regimes), max_abs_err the
+    index and r at it; D4 in both regimes, dd_dot_regimes; D2 in each of
+    ROWS_TUNE_PLANS), max_abs_err the
     largest |kernel - plain| over them; the first layout's device time,
     kernels per call (one is the design), bound, share, CUDA-event time of
     kernel and plain, and host time per call.  The rows join `checked` and `held`."""
@@ -2228,6 +2239,11 @@ def hold_dd_shapes(dev, gen, shapes, held, checked) -> None:
                                for a, b in zip(got, want)):
                         raise AssertionError(f"dd_dot {shape} ({label}) in {plan}: not bit-equal "
                                              "to its plain version")
+                for plan in ROWS_TUNE_PLANS if name == "ising_c_integrand_dd_fused" else []:
+                    got = parts(K.ising_c_integrand_dd_planned(*args, plan))
+                    if not _bit_equal(got, want):
+                        raise AssertionError(f"ising_c_integrand_dd_fused {shape} in {plan}: not "
+                                             "bit-equal to its plain version")
             _, fn, plain, _ = cases[0]
             dev_k = device_per_call(fn)
             _one_launch(name, shape, dev_k)
@@ -2266,6 +2282,24 @@ def d1_chain_floor_us(dev, gen) -> float:
     return slope
 
 
+def one_row_time(dev, gen, name) -> dict:
+    """D2's or Q1's one-row time: the device µs of a call of one row (B = 1,
+    n = 65) at the depths ONE_ROW_D, the slope between them (µs per column
+    step: a step of each of the row's three scans, side by side), and
+    `at(d)`, the line through them.  It is the kernel's own time for one
+    row, set by its design (the chain of a scan and the tail on one lane),
+    not a limit on the function: the bound is that."""
+    us = []
+    for d in ONE_ROW_D:
+        cases = (_dd_cases(dev, gen, name, (1, d, 65)) if name in DD_KERNELS
+                 else _qd_cases(dev, gen, name, (1, d, 65)))
+        us.append(device_us_idle(cases[0][1]))
+    slope = (us[1] - us[0]) / (ONE_ROW_D[1] - ONE_ROW_D[0])
+    _emit({"phase": "one_row", "kernel": name, "d": list(ONE_ROW_D), "device_us": us,
+           "us_per_column": slope})
+    return {"us_per_column": slope, "at": lambda d: us[0] + (d - ONE_ROW_D[0]) * slope}
+
+
 def _dd_plan(name, shape) -> list:
     """The launch a dd kernel takes at a shape of its table."""
     from ttcross_tpu_torch.ops import kernels as K
@@ -2274,6 +2308,8 @@ def _dd_plan(name, shape) -> list:
         return list(K.dd_score_plan(*shape))
     if name == "dd_dot":
         return list(K.dd_dot_plan(*shape))
+    if name == "ising_c_integrand_dd_fused":
+        return list(K.ising_c_dd_plan(*shape))
     B, N, ranks = shape[0], shape[1], shape[2:]
     return list(K.dd_gather_plan(B, len(ranks) - 1, max(ranks), N))
 
@@ -2285,16 +2321,18 @@ def _chain_terms(name, shape) -> int:
 
 
 def time_dd_table(dev, gen, held, checked) -> None:
-    """The dd kernel table (DD_TABLES: D1, D4, D3), held against the plain
+    """The dd kernel table (DD_TABLES: D1, D4, D3, D2), held against the plain
     version first where no run launched them: each device operation of a
     call (the kernel, D1's memset of its block counter) at its mean per
     recorded launch (the profiler, 20 calls of the first layout), every
     layout's device µs per call (device_us_idle), the plan, the bound and
     its share, the chain floor (the critical path's dependent dd_adds at
-    d1_chain_floor_us), the plain version's time at the first layout."""
+    d1_chain_floor_us; D2's one-row time, one_row_time), the plain version's
+    time at the first layout."""
     hold_dd_shapes(dev, gen, {name: {sh: 1 for sh in shapes} for name, shapes in DD_TABLES.items()},
                    held, checked)
     per_add = d1_chain_floor_us(dev, gen)
+    d2_one_row = one_row_time(dev, gen, "ising_c_integrand_dd_fused")
     for name, shapes in DD_TABLES.items():
         for shape in shapes:
             row = checked[name][shape]
@@ -2302,13 +2340,15 @@ def time_dd_table(dev, gen, held, checked) -> None:
             dev_k = device_per_call(cases[0][1], calls=20)
             _one_launch(name, shape, dev_k)
             ops = {k[:48]: t / c for k, (t, c) in dev_k["by_kernel"].items()}
+            floor = ({"one_row_us": d2_one_row["at"](shape[1])}
+                     if name == "ising_c_integrand_dd_fused"
+                     else {"chain_floor_us": _chain_terms(name, shape) * per_add})
             _emit({"phase": "dd_table", "kernel": name, "shape": list(shape),
                    "plan": _dd_plan(name, shape), "device_ops_us": ops,
                    "device_us": sum(ops.values()),
                    "idle_us": {label: device_us_idle(fn) for label, fn, _, _ in cases},
                    "bound_us": row["bound_us"], "bound_by": row["bound_by"],
-                   "share_of_bound": row["bound_us"] / sum(ops.values()),
-                   "chain_floor_us": _chain_terms(name, shape) * per_add,
+                   "share_of_bound": row["bound_us"] / sum(ops.values()), **floor,
                    "plain_device_us": row["plain_device_us"], "plain_ms": row["plain_ms"]})
 
 
@@ -2944,7 +2984,9 @@ QD_TABLE_SHAPES = {"qd_score_residual_argmax": [(3575, 54), (2080, 32), (240, 55
                    "qd_dot": [(55, 3575, 55, "seq"), (33, 2145, 33, "seq"), (33, 33, 33, "tree"),
                               (1, 1, 201, "tree"), (1, 1, 101, "tree"), (55, 65, 55, "seq"),
                               (1, 55, 55, "tree"), (1, 1, 55, "seq")],
-                   "qd_gather_tt_fused": [(1089, 33, 1, 33, 33, 1), (1089, 33, 1, 15, 14, 1)]}
+                   "qd_gather_tt_fused": [(1089, 33, 1, 33, 33, 1), (1089, 33, 1, 15, 14, 1)],
+                   # Q1's (B, d, n): C_4 n = 65's smallest and largest batch, the defect's
+                   "ising_c_integrand_qd_fused": [(65, 3, 65), (3575, 3, 65), (1089, 3, 33)]}
 QD_MUL_F64_FLOPS = 199   # qd_mul_f64: 3 two_prods, a product, a distill of 7 terms (Q3's leaf)
 QD_PATH_KERNELS = {"cross_qd": ("qd_score_residual_argmax", "qd_dot", "ising_c_integrand_qd_fused"),
                    "stdnorm": ("qd_score_residual_argmax", "qd_dot"),
@@ -3034,7 +3076,7 @@ def _qd_cases(dev, gen, name, shape):
                     (lambda: K.qd_gather_tt_plain(*args)), args))
     else:
         B, d, n = shape
-        args = (_qd_tables(d, n, dev),
+        args = (_qd_tables(n, dev),
                 torch.randint(0, n, (B, d), generator=gen, dtype=torch.int32).to(dev))
         out.append(("rows", (lambda: K.ising_c_integrand_qd_fused(*args)),
                     (lambda: K.ising_c_integrand_qd_plain(*args)), args))
@@ -3061,12 +3103,14 @@ def _qd_train(gen, N, ranks, dev):
     return _QD_TRAINS[key]
 
 
-def _qd_tables(d, n, dev):
+def _qd_tables(n, dev):
+    """make_ising_qd's (8, n) table, the n nodes' and weights' limbs: the
+    same for every m (m = 4, whose truth the maker knows, for any d)."""
     from ttcross_tpu_torch.apps import make_ising_qd
 
-    if (d, n) not in _QD_TABLES:
-        _QD_TABLES[d, n] = make_ising_qd(m=d + 1, n=n, device=dev)[1].tables
-    return _QD_TABLES[d, n]
+    if n not in _QD_TABLES:
+        _QD_TABLES[n] = make_ising_qd(m=4, n=n, device=dev)[1].tables
+    return _QD_TABLES[n]
 
 
 def _qd_parts(r):
@@ -3138,8 +3182,10 @@ def hold_qd_shapes(dev, gen, shapes, held, checked) -> None:
     one call (_qd_plain_of_group): a qd plain version is some hundreds of
     launches per qd operation whatever the shape.  Each shape's row
     (max_abs_err over its layouts, 0 when bit-equal) joins `checked` and
-    `held`.  Times: time_qd_row."""
+    `held`; Q1 is held in each of ROWS_TUNE_PLANS too.  Times: time_qd_row."""
     import torch
+
+    from ttcross_tpu_torch.ops import kernels as K
 
     for name in QD_KERNELS:
         groups = {}
@@ -3153,11 +3199,16 @@ def hold_qd_shapes(dev, gen, shapes, held, checked) -> None:
             wants = _qd_plain_of_group(name, [c[3] for c in calls])
             torch.cuda.synchronize()
             errs = {}
-            for (shape, label, got, _), want in zip(calls, wants):
+            for (shape, label, got, args), want in zip(calls, wants):
                 got, want = _qd_parts(got), _qd_parts(want)
                 if not _bit_equal(got, want):
                     raise AssertionError(f"{name} {shape} ({label}): not bit-equal to its plain "
                                          "version")
+                for plan in ROWS_TUNE_PLANS if name == "ising_c_integrand_qd_fused" else []:
+                    if not _bit_equal(_qd_parts(K.ising_c_integrand_qd_planned(*args, plan)),
+                                      want):
+                        raise AssertionError(f"{name} {shape} in {plan}: not bit-equal to its "
+                                             "plain version")
                 errs[shape] = max([errs.get(shape, 0.0)] + [
                     float((a.double() - b.double()).abs().max()) for a, b in zip(got, want)])
             for shape in group:
@@ -3218,12 +3269,13 @@ def _idle_us(dev, gen, name, shape) -> float:
 def time_qd_table(dev, gen, held, checked) -> None:
     """The kernel table's rows (QD_TABLE_SHAPES), held against the plain
     version first where no run launched them: the profiler's device µs per
-    call (time_qd_row) beside device_us_idle's, the bound and its share, and
-    Q4's plan (qd_dot_plan)."""
+    call (time_qd_row) beside device_us_idle's, the bound and its share, the
+    plan of Q4, Q2 and Q1, and Q1's one-row time (one_row_time)."""
     from ttcross_tpu_torch.ops import kernels as K
 
     hold_qd_shapes(dev, gen, {name: {sh: 1 for sh in shapes}
                               for name, shapes in QD_TABLE_SHAPES.items()}, held, checked)
+    q1_one_row = one_row_time(dev, gen, "ising_c_integrand_qd_fused")
     for name, shapes in QD_TABLE_SHAPES.items():
         for shape in shapes:
             row = time_qd_row(dev, gen, name, shape, checked[name][shape])
@@ -3235,6 +3287,9 @@ def time_qd_table(dev, gen, held, checked) -> None:
                 out["plan"] = list(K.qd_dot_plan(*shape[:3], shape[3] == "tree"))
             elif name == "qd_score_residual_argmax":
                 out["plan"] = list(K.qd_score_plan(*shape))
+            elif name == "ising_c_integrand_qd_fused":
+                out["plan"] = list(K.ising_c_qd_plan(*shape))
+                out["one_row_us"] = q1_one_row["at"](shape[1])
             _emit(out)
 
 
@@ -3320,7 +3375,9 @@ def tune_qd_kernels(dev, gen) -> None:
     their own plan and in each of D1_TUNE_PLANS / D4_TUNE_PLANS /
     D3_TUNE_PLANS / Q2_TUNE_PLANS that launches there, Q4 at QD_TUNE_SHAPES
     in its own plan and in each of QD_TUNE_PLANS, and Q3 at QD_TUNE_GATHER with each of
-    QD_TUNE_GATHER_PLANS' rows and threads a block, every launch bit-equal
+    QD_TUNE_GATHER_PLANS' rows and threads a block, D2 and Q1 at their table's
+    shapes in each of ROWS_TUNE_PLANS (the median of ROWS_TUNE_ROUNDS readings
+    taken in turns) and their one-row times (one_row_time), every launch bit-equal
     to the rule's, device µs per call (device_us_idle)."""
     import functools
 
@@ -3391,6 +3448,31 @@ def tune_qd_kernels(dev, gen) -> None:
                 raise AssertionError(f"qd_dot {shape} in {plan}: not bit-equal to its own plan")
             us["/".join(map(str, plan))] = device_us_idle(lambda p=plan: K.qd_dot_planned(*args, p))
         _emit({"phase": "qd_regimes", "shape": list(shape), "rule": list(rule), "device_us": us})
+    for name, shapes, planned in (
+            ("ising_c_integrand_dd_fused", DD_ISING_TABLE_SHAPES, K.ising_c_integrand_dd_planned),
+            ("ising_c_integrand_qd_fused", QD_TABLE_SHAPES["ising_c_integrand_qd_fused"],
+             K.ising_c_integrand_qd_planned)):
+        for shape in shapes:
+            cases = (_dd_cases if name in DD_KERNELS else _qd_cases)(dev, gen, name, shape)
+            _, fn, _, args = cases[0]
+            want = _qd_parts(fn()) if name in QD_KERNELS else list(fn())
+            fns = {"rule": fn}
+            for plan in ROWS_TUNE_PLANS:
+                got = functools.partial(planned, *args, plan)
+                r = got()
+                if not _bit_equal(_qd_parts(r) if name in QD_KERNELS else list(r), want):
+                    raise AssertionError(f"{name} {shape} in {plan}: not bit-equal to its rule")
+                fns[str(plan)] = got
+            # the plans differ by tenths of a µs: ROWS_TUNE_ROUNDS readings each, in turns
+            reads = {k: [] for k in fns}
+            for _ in range(ROWS_TUNE_ROUNDS):
+                for k, f in fns.items():
+                    reads[k].append(device_us_idle(f))
+            _emit({"phase": "rows_regimes", "kernel": name, "shape": list(shape),
+                   "rule": list((K.ising_c_dd_plan if name in DD_KERNELS else K.ising_c_qd_plan)(
+                       *shape)), "device_us": {k: statistics.median(v) for k, v in reads.items()},
+                   "reads": reads})
+        one_row_time(dev, gen, name)
     for shape in QD_TUNE_GATHER:
         _, fn, _, args = _qd_cases(dev, gen, "qd_gather_tt_fused", shape)[0]
         want = _qd_parts(fn())
@@ -3416,7 +3498,7 @@ def _d1_parts(r) -> list:
 
 
 def compare_qd_with(root: str, dev, gen) -> None:
-    """D1, D4, D3 (every layout), Q2, Q3 and Q4 of the checkout at `root`
+    """D1, D4, D3, D2 (every layout), Q2, Q3, Q4 and Q1 of the checkout at `root`
     (the parent) and of this one at the kernel tables' shapes (DD_TABLES,
     QD_TABLE_SHAPES), on the same inputs, in turns (other, this, this,
     other): device µs per call from the profiler (20 calls) and from
@@ -3432,7 +3514,7 @@ def compare_qd_with(root: str, dev, gen) -> None:
         for label, _, _, args in _dd_cases(dev, gen, name, shape):
             cases.append((name, shape, label, lambda a=args: K.dd_score_residual_argmax(*a),
                           lambda a=args: other_k.dd_score_residual_argmax(*a), _d1_parts))
-    for name in ("dd_dot", "dd_gather_tt_fused"):
+    for name in ("dd_dot", "dd_gather_tt_fused", "ising_c_integrand_dd_fused"):
         for shape in DD_TABLES[name]:
             for label, _, _, args in _dd_cases(dev, gen, name, shape):
                 cases.append((name, shape, label, lambda n=name, a=args: getattr(K, n)(*a),

@@ -1,7 +1,7 @@
 """Inputs and comparisons shared by the dd kernels' tests: the host
 emulation's tests (tests/test_torch_dd_kernels.py,
 tests/test_torch_dd_gather_dot_kernels.py) and the card's
-(tests/test_torch_cuda_dd.py).
+(tests/test_torch_cuda_dd.py); ROWS_PLANS also by the qd tests of Q1.
 
 Operands are made from a numpy Generator, so a case is the same on the CPU
 and on the card; `dev` places them."""
@@ -23,6 +23,11 @@ SRC = Path(__file__).resolve().parent.parent / "ttcross_tpu_torch" / "csrc" / "d
 SPECIALS = [0.0, -0.0, 5e-324, -2.5e-310, np.inf, -np.inf, np.nan, 2.0 ** 1000, -2.0 ** -1000,
             2.0 ** -1000, 1e-300]
 
+
+# the rows a block D2 and Q1 take (csrc/ising_rows.cuh: 10 rows a warp),
+# held by their host and card tests: one row, 7, a warp's rows, a warp and a
+# part of the next, four warps' rows
+ROWS_PLANS = [1, 7, 10, 13, 40]
 
 _HOST_LIB = {}
 

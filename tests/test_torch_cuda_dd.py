@@ -302,17 +302,34 @@ def test_dd_gather_plan_and_repeats(gen, cuda_device):
 
 
 @pytest.mark.parametrize("B,d,n", [(3120, 5, 65), (226, 5, 65), (2080, 3, 65), (98, 3, 33),
-                                   (136, 3, 17), (1, 8, 17), (500, 15, 17), (70, 31, 33)])
+                                   (136, 3, 17), (1, 8, 17), (500, 15, 17), (70, 31, 33),
+                                   (83, 1, 65), (83, 2, 65)])
 def test_dd_ising_kernel_matches_plain(B, d, n, gen, cuda_device):
+    """D2 in its own plan and in every other, the indices drawn from [-2, n
+    + 2) (clamped), bit for bit against the plain version."""
     from ttcross_tpu_torch.apps.ising import make_ising_dd
 
     _, fun_dd, _, _ = make_ising_dd(m=d + 1, n=n, device=cuda_device)
     tables = fun_dd.tables
-    ind = torch.as_tensor(gen.integers(0, tables.shape[1], (B, d)), dtype=torch.int32)
+    ind = torch.as_tensor(gen.integers(-2, tables.shape[1] + 2, (B, d)), dtype=torch.int32)
     ind = ind.to(cuda_device)
-    got = K.ising_c_integrand_dd_fused(tables, ind)
     want = K.ising_c_integrand_dd_plain(tables, ind)
-    assert _same(got, want)
+    assert _same(K.ising_c_integrand_dd_fused(tables, ind), want)
+    for plan in cases.ROWS_PLANS:
+        assert _same(K.ising_c_integrand_dd_planned(tables, ind, plan), want), plan
+    specials = cases.strew(gen, tables.clone())
+    want = K.ising_c_integrand_dd_plain(specials, ind)
+    for plan in [None] + cases.ROWS_PLANS:
+        got = (K.ising_c_integrand_dd_fused(specials, ind) if plan is None
+               else K.ising_c_integrand_dd_planned(specials, ind, plan))
+        assert _bits_same(got, want), plan
+
+
+def test_dd_ising_plan(cuda_device):
+    """D2's launch at the dd paths' shapes (csrc/ising_rows.cuh::rows_plan)."""
+    assert K.ising_c_dd_plan(3120, 5, 65)[:3] == (40, 128, 78)
+    assert K.ising_c_dd_plan(226, 5, 65)[:3] == (40, 128, 6)
+    assert all(K.ising_c_dd_plan_ok(10, 3, 65, plan) for plan in cases.ROWS_PLANS)
 
 
 def test_dd_contract_card_equals_cpu(gen, cuda_device):
@@ -339,6 +356,14 @@ def test_dd_kernels_refuse_wrong_input(gen, cuda_device):
     with pytest.raises(ValueError):
         K.ising_c_integrand_dd_fused(torch.zeros((2, 5), dtype=torch.float64, device=cuda_device),
                                      torch.zeros((3, 2), dtype=torch.int32, device=cuda_device))
+    tables = torch.zeros((4, 5), dtype=torch.float64, device=cuda_device)
+    rows = torch.zeros((10, 3), dtype=torch.int32, device=cuda_device)
+    for plan in [0, -1, 41, 129]:
+        assert not K.ising_c_dd_plan_ok(10, 3, 5, plan)
+        with pytest.raises(RuntimeError):
+            K.ising_c_integrand_dd_planned(tables, rows, plan)
+    with pytest.raises(TypeError):
+        K.ising_c_integrand_dd_fused(tables, rows.long())
     xd, yd = _d4_layout("mm", 4, 5, 6, gen, cuda_device)
     for plan in [("chain", 33, 4), ("chain", 4, 0), ("thread", 48, 0), ("thread", 512, 0)]:
         with pytest.raises(RuntimeError):

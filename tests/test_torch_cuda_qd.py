@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from dd_kernel_cases import ROWS_PLANS  # noqa: E402  (tests/dd_kernel_cases.py)
 from ttcross_tpu_torch.ops import kernels as K
 from ttcross_tpu_torch.ops.qd import QD
 
@@ -214,15 +215,37 @@ def test_q3_is_its_plain_version(ranks, B, N, cuda_device, gen):
         assert _same(K.qd_gather_tt_planned(packed, ind, rows, threads), want), (rows, threads)
 
 
-@pytest.mark.parametrize("d", [3, 15, 31])
-@pytest.mark.parametrize("B", [3575, 240, 1])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 15, 31])
+@pytest.mark.parametrize("B", [3575, 240, 83, 1])
 def test_q1_is_its_plain_version(d, B, cuda_device, gen):
+    """Q1 in its own plan and in every other, the indices drawn from [-2, n
+    + 2) (clamped), bit for bit against the plain version."""
     from ttcross_tpu_torch.apps import make_ising_qd
 
     _, fun_qd, _ = make_ising_qd(m=d + 1, n=65, device=cuda_device)
-    ind = torch.as_tensor(gen.integers(0, 65, (B, d)), dtype=torch.int32).to(cuda_device)
-    assert _same(K.ising_c_integrand_qd_fused(fun_qd.tables, ind),
-                 K.ising_c_integrand_qd_plain(fun_qd.tables, ind))
+    ind = torch.as_tensor(gen.integers(-2, 67, (B, d)), dtype=torch.int32).to(cuda_device)
+    want = K.ising_c_integrand_qd_plain(fun_qd.tables, ind)
+    assert _same(K.ising_c_integrand_qd_fused(fun_qd.tables, ind), want)
+    for plan in ROWS_PLANS:
+        assert _same(K.ising_c_integrand_qd_planned(fun_qd.tables, ind, plan), want), plan
+
+
+def test_q1_plan_and_refusals(cuda_device):
+    """Q1's launch at the qd paths' shapes (csrc/ising_rows.cuh::rows_plan),
+    and the plans and inputs its entry point refuses."""
+    assert K.ising_c_qd_plan(65, 3, 65)[:3] == (40, 128, 2)
+    assert K.ising_c_qd_plan(3575, 3, 65)[:3] == (40, 128, 90)
+    assert all(K.ising_c_qd_plan_ok(10, 3, 65, plan) for plan in ROWS_PLANS)
+    tables = torch.zeros((8, 5), dtype=torch.float64, device=cuda_device)
+    rows = torch.zeros((10, 3), dtype=torch.int32, device=cuda_device)
+    for plan in [0, -1, 41, 129]:
+        assert not K.ising_c_qd_plan_ok(10, 3, 5, plan)
+        with pytest.raises(RuntimeError):
+            K.ising_c_integrand_qd_planned(tables, rows, plan)
+    with pytest.raises(ValueError):
+        K.ising_c_integrand_qd_fused(tables[:4], rows)
+    with pytest.raises(TypeError):
+        K.ising_c_integrand_qd_fused(tables, rows.long())
 
 
 def test_wrappers_route_by_device(cuda_device, gen):

@@ -1,17 +1,20 @@
-"""D1, the dd residual argmax of csrc/dd_kernels.cu, on the CPU.
+"""D1, the dd residual argmax of csrc/dd_kernels.cu, and D2, the dd Ising
+integrand, on the CPU.
 
-The kernel runs only on a card (tests/test_torch_cuda_dd.py holds it to its
-plain version there).  Its arithmetic and bookkeeping (the dd operations,
-each row's masked terms, the chain regime's chunks of products in a
-double buffer and the chain lanes' sums in order, the blocks' best and the
-grid's argmax over them) are written once for
-both: compiled by a host C++ compiler with -DTTD_HOST and -ffp-contract=off,
-the file gives ttd_host_d1, which runs the whole call block after block in
-one host thread, each stage's items in turn, in any plan, and
-ttd_dd_score_plan, the launch rule.  Here every call is held to
-ops/kernels.py::dd_score_residual_argmax_plain at the dd paths' shapes and
-layouts.  Tolerance: none, r's hi and lo bit-equal (NaN where the plain
-version has NaN), the flat index and the pivot r[flat] equal.  Without a
+The kernels run only on a card (tests/test_torch_cuda_dd.py holds them to
+their plain versions there).  Their arithmetic and bookkeeping (the dd
+operations, D1's masked terms, its chunks of products in a double buffer
+and its chain lanes' sums in order, the blocks' best and the grid's argmax;
+D2's staging, its lanes' scans and each group's tail with its neighbours'
+results) are written once for both: compiled by a host C++ compiler with
+-DTTD_HOST and -ffp-contract=off, the file gives ttd_host_d1 and
+ttd_host_d2, which run the whole call block after block in one host
+thread, each stage's items in turn, in any plan, and ttd_dd_score_plan and
+ttd_dd_ising_plan, the launch rules.  Here every call is held to
+ops/kernels.py::dd_score_residual_argmax_plain and
+ising_c_integrand_dd_plain at the dd paths' shapes and layouts.
+Tolerance: none, hi and lo bit-equal (NaN where the plain version has NaN),
+D1's flat index and the pivot r[flat] equal.  Without a
 host C++ compiler the build is not possible and the tests skip.  The plain
 version's parity with the JAX package is in tests/test_torch_dd.py and the
 dd engine tests."""
@@ -219,3 +222,91 @@ def test_d1_refuses_what_the_card_refuses(host_lib):
         with pytest.raises(AssertionError):
             _host(host_lib, args, plan)
     assert host_lib.ttd_dd_score_plan(LL(0), 4, (LL * 5)()) == -1
+
+
+def _d2_plan(host_lib, B, d, n):
+    plan = (LL * 4)()
+    assert host_lib.ttd_dd_ising_plan(LL(B), d, n, plan) == 0
+    return tuple(plan)
+
+
+def _d2_host(host_lib, tables, ind, plan=None):
+    """D2's call through the host emulation with `plan` rows a block or in
+    the card's own plan for the shape (ttd_dd_ising_plan); -> DD (B,)."""
+    B, d = ind.shape
+    n = tables.shape[1]
+    plan = _d2_plan(host_lib, B, d, n)[0] if plan is None else plan
+    out = torch.empty((2, B), dtype=torch.float64)
+    rc = host_lib.ttd_host_d2(VP(tables.data_ptr()), n, VP(ind.data_ptr()), LL(B), d, plan,
+                              VP(out[0].data_ptr()), VP(out[1].data_ptr()))
+    assert rc == 0, f"the host emulation refused {plan} at {(B, d, n)}"
+    return DD(out[0], out[1])
+
+
+@pytest.fixture(scope="module")
+def d2_tables():
+    from ttcross_tpu_torch.apps import make_ising_dd
+
+    return make_ising_dd(m=4, n=65, device="cpu")[1].tables
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 15, 31])
+def test_d2_arithmetic(d, host_lib, d2_tables):
+    """D2's whole call in the card's plan for the shape and in every other
+    plan, at B = 1 and B = 83 (every plan's last block partly empty), the
+    indices drawn from [-2, n + 2) (clamped): hi and lo bit-equal to the
+    plain version."""
+    for B in (1, 83):
+        gen = np.random.default_rng(d * 100 + B)
+        ind = torch.from_numpy(gen.integers(-2, 67, (B, d)).astype(np.int32))
+        want = K.ising_c_integrand_dd_plain(d2_tables, ind)
+        assert cases.bits_same(_d2_host(host_lib, d2_tables, ind), want), B
+        for plan in cases.ROWS_PLANS:
+            assert cases.bits_same(_d2_host(host_lib, d2_tables, ind, plan), want), (B, plan)
+
+
+def test_d2_special_values(host_lib):
+    """D2 where the table holds signed zeros, subnormals, inf and NaN, and
+    the indices a view at an odd offset (the staging's 16-byte chunks start
+    before the block's first index), in every plan."""
+    gen = np.random.default_rng(13)
+    n = 9
+    tables = cases.strew(gen, torch.from_numpy(gen.standard_normal((4, n))))
+    ind = torch.from_numpy(gen.integers(-3, n + 3, (61, 5)).astype(np.int32))[1:]
+    want = K.ising_c_integrand_dd_plain(tables, ind)
+    assert torch.isnan(want.hi).any()
+    for plan in [None] + cases.ROWS_PLANS:
+        assert cases.bits_same(_d2_host(host_lib, tables, ind, plan), want), plan
+
+
+@pytest.mark.parametrize("B,d,n,want", [
+    (3120, 5, 65, (40, 128, 78, 2912)),         # C_6: the rook fibers
+    (226, 5, 65, (40, 128, 6, 2912)),           # its lottery
+    (2080, 3, 65, (40, 128, 52, 2592)),         # C_4 n = 65
+    (194, 3, 65, (40, 128, 5, 2592)),
+    (528, 3, 33, (40, 128, 14, 1568)),          # C_4 n = 33
+    (1, 5, 65, (1, 32, 1, 2144)),               # no more rows than B
+    (5280, 5, 65, (40, 128, 132, 2912)),        # a block on each of the 132 SMs
+    (10 ** 6, 5, 65, (40, 128, 25000, 2912)),
+    (3, 50000, 65, (1, 32, 3, 202112)),         # one row's indices take the shared memory
+])
+def test_d2_plan(B, d, n, want, host_lib):
+    """D2's launch rule (csrc/ising_rows.cuh::rows_plan) at the dd paths'
+    shapes and at its edges: four warps' rows a block (10 a warp), no more
+    rows than B nor than shared memory holds."""
+    assert _d2_plan(host_lib, B, d, n) == want
+
+
+def test_d2_refuses_what_the_card_refuses(host_lib, d2_tables):
+    """A plan or shape the card's entry point refuses: the host emulation
+    returns -1, the plan rule and its check say so."""
+    ind = torch.zeros((10, 3), dtype=torch.int32)
+    for plan in [0, -1, 41, 129]:
+        with pytest.raises(AssertionError):
+            _d2_host(host_lib, d2_tables, ind, plan)
+        assert host_lib.ttd_dd_ising_plan_ok(LL(10), 3, 65, plan) == 0
+    for P in cases.ROWS_PLANS:
+        assert host_lib.ttd_dd_ising_plan_ok(LL(10), 3, 65, P) == 1
+    out = (LL * 4)()
+    for shape in [(0, 3, 65), (5, 0, 65), (5, 3, 0), (5, 3, 1537), (5, 60000, 65)]:
+        assert host_lib.ttd_dd_ising_plan(LL(shape[0]), shape[1], shape[2], out) == -1, shape

@@ -6,9 +6,10 @@ distill sweeps, the qd operations, the pairwise tree walked depth first or
 level by level, each kernel's row, output or block stages) is written once
 for both: compiled by a host C++ compiler with -DTTQ_HOST and
 -ffp-contract=off, the file gives host entry points that run those
-functions in one host thread: Q1's row, and Q2's, Q3's and Q4's whole
-call, block after block, each stage's items in turn (Q2 and Q4 in any of
-their plans, Q2's argmax over the blocks' best at the end).  Here every
+functions in one host thread: Q1's, Q2's, Q3's and Q4's whole call, block
+after block, each stage's items in turn (Q1, Q2 and Q4 in any of their
+plans: Q1's staging, its lanes' scans and each group's tail with its
+neighbours' results, Q2's argmax over the blocks' best at the end).  Here every
 output is held to the plain versions (ops/kernels.py::*_plain) at the
 slice's shapes and layouts.  Tolerance: none, every limb bit-equal (where
 an input holds inf or NaN: the same NaN positions and every other limb
@@ -27,6 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from dd_kernel_cases import ROWS_PLANS  # noqa: E402  (tests/dd_kernel_cases.py)
 from ttcross_tpu_torch.ops import kernels as K
 from ttcross_tpu_torch.ops.qd import QD, qd_mul
 from torch_qd_helpers import one_torch_thread  # noqa: F401  (a fixture)
@@ -384,14 +386,88 @@ def test_q3_special_values(host_lib):
     assert _same_qd(_q3_host(host_lib, packed, ind), K.qd_gather_tt_plain(packed, ind))
 
 
-@pytest.mark.parametrize("d", [3, 15, 31])
-def test_q1_arithmetic(d, host_lib):
+def _q1_plan(host_lib, B, d, n):
+    plan = (LL * 4)()
+    assert host_lib.ttq_q1_plan(LL(B), d, n, plan) == 0
+    return tuple(plan)
+
+
+def _q1_host(host_lib, tables, ind, plan=None):
+    """Q1's call through the host emulation with `plan` rows a block or in
+    the card's own plan for the shape (ttq_q1_plan); -> QD (B,)."""
+    B, d = ind.shape
+    n = tables.shape[1]
+    plan = _q1_plan(host_lib, B, d, n)[0] if plan is None else plan
+    out = torch.empty((4, B), dtype=torch.float64)
+    rc = host_lib.ttq_host_q1(VP(tables.data_ptr()), n, VP(ind.data_ptr()), LL(B), d, plan,
+                              VP(out.data_ptr()))
+    assert rc == 0, f"the host emulation refused {plan} at {(B, d, n)}"
+    return QD(*out)
+
+
+@pytest.fixture(scope="module")
+def q1_tables():
     from ttcross_tpu_torch.apps import make_ising_qd
 
-    gen = np.random.default_rng(d)
-    fun_qd = make_ising_qd(m=d + 1, n=65, device="cpu")[1]
-    B = 200
-    ind = torch.from_numpy(gen.integers(-2, 67, (B, d)).astype(np.int32))   # clamped
-    tab, ip = VP(fun_qd.tables.data_ptr()), ind.data_ptr()
-    out = _outs(B, lambda r, p: host_lib.ttq_host_q1_row(tab, 65, VP(ip + 4 * r * d), d, p))
-    assert _same(out, K.ising_c_integrand_qd_plain(fun_qd.tables, ind))
+    return make_ising_qd(m=4, n=65, device="cpu")[1].tables
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 15, 31])
+def test_q1_arithmetic(d, host_lib, q1_tables):
+    """Q1's whole call in the card's plan for the shape and in every other
+    plan, at B = 1 and B = 83 (every plan's last block partly empty), the
+    indices drawn from [-2, n + 2) (clamped)."""
+    for B in (1, 83):
+        gen = np.random.default_rng(d * 100 + B)
+        ind = torch.from_numpy(gen.integers(-2, 67, (B, d)).astype(np.int32))
+        want = K.ising_c_integrand_qd_plain(q1_tables, ind)
+        assert _same_qd(_q1_host(host_lib, q1_tables, ind), want), B
+        for plan in ROWS_PLANS:
+            assert _same_qd(_q1_host(host_lib, q1_tables, ind, plan), want), (B, plan)
+
+
+def test_q1_special_values(host_lib):
+    """Q1 where the table holds signed zeros, subnormals, inf and NaN, and
+    the indices a view at an odd offset (the staging's 16-byte chunks start
+    before the block's first index), in every plan."""
+    gen = np.random.default_rng(12)
+    n = 9
+    tables = torch.from_numpy(_special(gen, (8, n)))
+    ind = torch.from_numpy(gen.integers(-3, n + 3, (61, 5)).astype(np.int32))[1:]
+    want = K.ising_c_integrand_qd_plain(tables, ind)
+    assert any(torch.isnan(e).any() for e in want)
+    for plan in [None] + ROWS_PLANS:
+        assert _same_qd(_q1_host(host_lib, tables, ind, plan), want), plan
+
+
+@pytest.mark.parametrize("B,d,n,want", [
+    (65, 3, 65, (40, 128, 2, 4672)),            # C_4 n = 65: the smallest batch
+    (3575, 3, 65, (40, 128, 90, 4672)),         # its largest
+    (1089, 3, 33, (40, 128, 28, 2624)),         # the defect's (n = 33)
+    (1, 3, 65, (1, 32, 1, 4208)),               # no more rows than B
+    (5280, 3, 65, (40, 128, 132, 4672)),        # a block on each of the 132 SMs
+    (5281, 3, 65, (40, 128, 133, 4672)),
+    (10 ** 6, 3, 65, (40, 128, 25000, 4672)),
+    (200, 31, 65, (40, 128, 5, 9152)),
+    (3, 50000, 65, (1, 32, 3, 204192)),         # one row's indices take the shared memory
+])
+def test_q1_plan(B, d, n, want, host_lib):
+    """Q1's launch rule (csrc/ising_rows.cuh::rows_plan): four warps' rows a
+    block (10 a warp; a warp on each of an SM's sub-partitions), no more
+    rows than B nor than shared memory holds."""
+    assert _q1_plan(host_lib, B, d, n) == want
+
+
+def test_q1_refuses_what_the_card_refuses(host_lib, q1_tables):
+    """A plan or shape the card's entry point refuses: the host emulation
+    returns -1, the plan rule and its check say so."""
+    ind = torch.zeros((10, 3), dtype=torch.int32)
+    for plan in [0, -1, 41, 129]:
+        with pytest.raises(AssertionError):
+            _q1_host(host_lib, q1_tables, ind, plan)
+        assert host_lib.ttq_q1_plan_ok(LL(10), 3, 65, plan) == 0
+    for P in ROWS_PLANS:
+        assert host_lib.ttq_q1_plan_ok(LL(10), 3, 65, P) == 1
+    out = (LL * 4)()
+    for shape in [(0, 3, 65), (5, 0, 65), (5, 3, 0), (5, 3, 769), (5, 60000, 65)]:
+        assert host_lib.ttq_q1_plan(LL(shape[0]), shape[1], shape[2], out) == -1, shape

@@ -27,10 +27,10 @@
 //
 // Host emulation.  Compiled without nvcc (-DTTD_HOST, a host C++ compiler,
 // -ffp-contract=off), the file gives host entry points ttd_host_* that run
-// D1's, D3's and D4's own functions in one host thread: a whole call block
-// after block, each stage's items in turn, the stages in the kernel's order,
-// in any plan; and ttd_dd_score_plan, ttd_dd_dot_plan and
-// ttd_dd_gather_plan, their launch rules.  The CPU tests hold that
+// D1's, D2's, D3's and D4's own functions in one host thread: a whole call
+// block after block, each stage's items in turn, the stages in the kernel's
+// order, in any plan; and ttd_dd_score_plan, ttd_dd_dot_plan,
+// ttd_dd_gather_plan and ttd_dd_ising_plan, their launch rules.  The CPU tests hold that
 // arithmetic and its bookkeeping to the plain version where there is no
 // card.
 //
@@ -46,7 +46,8 @@
 // critical path is T dependent dd_adds (8 dependent f64 adds each).  D1, D3
 // and D4 therefore move the products and their loads off the adding thread
 // (chain lanes that only add, from shared memory) and spread the rows over
-// the card (below); D2 keeps a thread per row.
+// the card (below); D2's three scans per row are independent, and run side
+// by side (ising_rows.cuh).
 
 #include <climits>
 #include <cmath>
@@ -78,12 +79,13 @@
 #define TTD_FABS(a) std::fabs(a)
 #endif
 
+#include "ising_rows.cuh"   // D2's body, launch, plan and host emulation, shared with Q1
+
 namespace {
 
 constexpr double kSplit = 134217729.0;  // 2^27 + 1, Dekker's constant for binary64
 constexpr int kThreads = 256;           // a block of D1, D3 and D4 at most
 constexpr int kGatherRMax = 64;         // D3: ranks up to this
-constexpr int kIsingThreads = 128;      // D2: rows (threads) of a block
 constexpr int kChainLanes = 32;         // D1, D4 chain: rows of a block at most (a warp's lanes)
 constexpr int kItems = 4;               // D1, D4: products a producer loads before it multiplies
 constexpr int kSMs = 132;               // the H100 SXM's SMs: D3 and D4 spread over them
@@ -93,7 +95,6 @@ constexpr int kDotChainTMin = 8;        // D4: the chain from this many terms
 constexpr int kDotBlocks = 3 * kSMs;    // D4 chain: blocks that fill the card (three an SM)
 constexpr int kDotChunk = 28;           // D4 chain: terms of a chunk at most
 constexpr int kSmemMax = 227 * 1024;    // shared memory one block may use
-constexpr int kStaticSmem = 48 * 1024;  // dynamic shared memory above this needs an opt-in
 
 struct DD {
   double hi, lo;
@@ -859,56 +860,62 @@ dd_gather_tt_kernel(GatherArgs a, int P, double* __restrict__ oh, double* __rest
 // pallas_kernels.py:151, on the integrand of ttcross_tpu/apps/ising.py:
 // 172-210): f = 2 / (v w) prod_i W_i with w = 1 + sum_k prod_{i<=k} x_i and
 // v the same over the reversed row, each a scan of dd_mul / dd_add, then
-// dd_div, then the weight product, in that file's order.  A row per thread,
-// any d: each scan reads the row's indices from ind as it goes; the (4, n)
-// table (node hi, node lo, weight hi, weight lo) in shared memory.  An
-// index outside [0, n) is clamped, as JAX's gather clamps.  Bound:
-// operations, ~4d + 20 dd operations per row.
+// dd_div, then the weight product, in that file's order.  Any d; the (4, n)
+// table (node hi, node lo, weight hi, weight lo) and the block's rows'
+// indices staged in shared memory in one cp.async round trip.  An index
+// outside [0, n) is clamped, as JAX's gather clamps.  Bound: operations,
+// ~4d + 20 dd operations per row; but a dd operation is a short chain of
+// dependent f64 operations, so a row's time is its critical path: the
+// three scans are independent, and run on three lanes of one warp
+// (ising_rows.cuh): the path is one scan and the tail.
 // ---------------------------------------------------------------------------
+#endif  // __CUDACC__
 
-__global__ void __launch_bounds__(kIsingThreads)
+TTD_FN DD d2_at(const double* t, int n, int i) { return DD{t[i], t[n + i]}; }
+
+// D2's row (ising_rows.cuh): the (4, n) table, hi and lo out.
+struct D2Row {
+  using T = DD;
+  static constexpr int kTab = 4;
+
+  // The lane of role `role`: 0 the forward scan's w, 1 the backward scan's
+  // v, 2 the weight product, each from one in the plain version's order and
+  // operand order (dd_mul(pk, x), dd_add(s, pk)); one loop for every role,
+  // the weight lane's sum computed with the others' and dropped.  ri: the
+  // row's d indices.
+  static TTR_DEV DD lane(const double* tab, int n, const int32_t* ri, int d, int role) {
+    const double* t = tab + (role == 2 ? 2 * n : 0);
+    const DD one{1.0, 0.0};
+    DD pk = one, s = one;
+    for (int k = 0; k < d; ++k) {
+      pk = dd_mul(pk, d2_at(t, n, clamp_index(ri[role == 1 ? d - 1 - k : k], n)));
+      s = dd_add(s, pk);
+    }
+    return role == 2 ? pk : s;
+  }
+
+  static TTR_DEV DD tail(DD v, DD w, DD pw) {
+    return dd_mul(dd_div(DD{2.0, 0.0}, dd_mul(v, w)), pw);
+  }
+
+  static TTR_DEV void store(const RowsOut& o, long long row, const DD& f) {
+    o.p[0][row] = f.hi;
+    o.p[1][row] = f.lo;
+  }
+
+#if defined(__CUDACC__)
+  static __device__ __forceinline__ DD shfl(const DD& x, int src) {
+    return DD{__shfl_sync(0xffffffffu, x.hi, src), __shfl_sync(0xffffffffu, x.lo, src)};
+  }
+#endif
+};
+
+#if defined(__CUDACC__)
+__global__ void __launch_bounds__(kRowsThreads)
 ising_c_dd_kernel(const double* __restrict__ tables, int n, const int32_t* __restrict__ ind,
-                  long long B, int d, double* __restrict__ oh, double* __restrict__ ol) {
-  extern __shared__ double tab[];
-  for (int e = threadIdx.x; e < 4 * n; e += blockDim.x) tab[e] = tables[e];
-  __syncthreads();
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const int32_t* row_ind = ind + row * d;
-  auto at = [&](int c) {
-    const int i = row_ind[c];
-    return i < 0 ? 0 : (i >= n ? n - 1 : i);
-  };
-  const DD one{1.0, 0.0};
-  DD pk = one, w = one;
-  for (int c = 0; c < d; ++c) {
-    const int i = at(c);
-    pk = dd_mul(pk, DD{tab[i], tab[n + i]});
-    w = dd_add(w, pk);
-  }
-  DD v = one;
-  pk = one;
-  for (int c = d - 1; c >= 0; --c) {
-    const int i = at(c);
-    pk = dd_mul(pk, DD{tab[i], tab[n + i]});
-    v = dd_add(v, pk);
-  }
-  const DD b = dd_div(DD{2.0, 0.0}, dd_mul(v, w));
-  DD pw = one;
-  for (int c = 0; c < d; ++c) {
-    const int i = at(c);
-    pw = dd_mul(pw, DD{tab[2 * n + i], tab[3 * n + i]});
-  }
-  const DD f = dd_mul(b, pw);
-  oh[row] = f.hi;
-  ol[row] = f.lo;
-}
-
-template <typename Kernel>
-void allow_smem(Kernel kernel, long long smem) {
-  if (smem > kStaticSmem) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
+                  long long B, int d, int P, RowsOut out) {
+  extern __shared__ __align__(16) unsigned char d2sm[];
+  rows_body<D2Row>(d2sm, tables, n, ind, B, d, P, out);
 }
 
 template <int kG>
@@ -1036,24 +1043,20 @@ int ttd_gather_tt(const double* cores, const int32_t* ranks, int d, int R, int N
                                                : gather_launch<kGatherGroup>(a, p, oh, ol, st));
 }
 
-// D2.  tables (4, n) f64: node hi, node lo, weight hi, weight lo; ind (B, d)
-// int32, d >= 1.
+// D2 with P rows a block, as ttd_dd_ising_plan gives them the shape or as
+// the caller names them.  tables (4, n) f64: node hi, node lo, weight hi,
+// weight lo; ind (B, d) int32, d >= 1.
 int ttd_ising_c_integrand(const double* tables, int n, const int32_t* ind, long long B, int d,
-                          double* oh, double* ol, void* stream) {
-  if (B < 1 || d < 1 || n < 1 || 4 * n * (int)sizeof(double) > 48 * 1024) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const unsigned blocks = (unsigned)((B + kIsingThreads - 1) / kIsingThreads);
-  ising_c_dd_kernel<<<blocks, kIsingThreads, 4 * n * sizeof(double),
-                      static_cast<cudaStream_t>(stream)>>>(tables, n, ind, B, d, oh, ol);
-  return static_cast<int>(cudaGetLastError());
+                          int P, double* oh, double* ol, void* stream) {
+  return rows_launch<D2Row>(ising_c_dd_kernel, tables, n, ind, B, d, P,
+                            RowsOut{{oh, ol, nullptr, nullptr}}, stream);
 }
 
 int ttd_threads(void) { return kThreads; }
 
 int ttd_gather_rmax(void) { return kGatherRMax; }
 
-#else   // the host emulation: D1's, D3's and D4's functions in one host thread
+#else   // the host emulation: D1's, D2's, D3's and D4's functions in one host thread
 
 // D1's whole call in the plan (P, C), arguments as
 // ttd_score_residual_argmax's (every pointer on the host): block after
@@ -1144,7 +1147,32 @@ int ttd_host_d3(const double* cores, const int32_t* ranks, int d, int R, int N,
   return 0;
 }
 
+// D2's whole call with P rows a block, arguments as ttd_ising_c_integrand's
+// (every pointer on the host; ising_rows.cuh::rows_host).  Returns 0, or -1
+// for a shape or plan the card's entry point refuses.
+int ttd_host_d2(const double* tables, int n, const int32_t* ind, long long B, int d, int P,
+                double* oh, double* ol) {
+  return rows_host<D2Row>(tables, n, ind, B, d, P, RowsOut{{oh, ol, nullptr, nullptr}});
+}
+
 #endif  // __CUDACC__
+
+// D2's launch for a shape (rows_plan): plan[0..3] = P, threads, blocks,
+// shared bytes.  Returns 0, or -1 for a shape ttd_ising_c_integrand refuses.
+int ttd_dd_ising_plan(long long B, int d, int n, long long* plan) {
+  if (!rows_shape_ok(B, d, n, D2Row::kTab)) return -1;
+  const RowsPlan p = rows_plan(B, d, n, D2Row::kTab);
+  const long long v[4] = {p.P, p.threads, p.blocks, p.smem};
+  for (int k = 0; k < 4; ++k) plan[k] = v[k];
+  return 0;
+}
+
+// Whether D2 takes P rows a block at this shape (ttd_ising_c_integrand
+// refuses the plan otherwise): 1 or 0.
+int ttd_dd_ising_plan_ok(long long B, int d, int n, int P) {
+  return rows_shape_ok(B, d, n, D2Row::kTab) &&
+         rows_plan_ok(rows_plan_of(B, d, n, D2Row::kTab, P));
+}
 
 // D1's launch for a shape (score_plan): plan[0..4] = P, C, threads, blocks,
 // shared bytes.  Returns 0, or -1 for a shape the entry point refuses.

@@ -33,11 +33,12 @@
 //
 // Host emulation.  Compiled without nvcc (-DTTQ_HOST, a host C++ compiler,
 // -ffp-contract=off), the file gives host entry points ttq_host_* that run
-// the kernels' own functions in one host thread: Q1's row, and the
-// block-level stages of Q2, Q3 and Q4 (every item of a stage in turn, the
-// stages in the kernel's order, block after block, Q2's argmax over the
-// blocks' best at the end).  The CPU tests hold that arithmetic
-// and its bookkeeping to the plain versions where there is no card.
+// the kernels' own functions in one host thread: the block-level stages of
+// Q1, Q2, Q3 and Q4 (every item of a stage in turn, the stages in the
+// kernel's order, block after block, Q1's lanes through the tail with their
+// neighbours' results as the shuffles give them, Q2's argmax over the
+// blocks' best at the end).  The CPU tests hold that arithmetic and its
+// bookkeeping to the plain versions where there is no card.
 //
 // What bounds them: f64 operations.  A qd multiply is 6 two_prods (17
 // flops each), 5 products and the order-4 sum (5), and a distill of 17
@@ -92,11 +93,12 @@
 #define TTQ_ISNAN(a) std::isnan(a)
 #endif
 
+#include "ising_rows.cuh"   // Q1's body, launch, plan and host emulation, shared with D2
+
 namespace {
 
 constexpr double kSplit = 134217729.0;  // 2^27 + 1, Dekker's constant for binary64
 constexpr int kThreads = 256;           // a block of Q2, Q3 and Q4
-constexpr int kRowsThreads = 128;       // Q1: rows (threads) of a block
 constexpr int kGatherRMax = 64;         // Q3: ranks up to this
 constexpr int kTreeDepth = 16;          // the pairwise tree takes up to 2^16 terms
 constexpr long long kChainOutputsMax = 23552;  // Q4 sequential: chains below this many outputs
@@ -105,7 +107,6 @@ constexpr int kSMs = 132;               // the H100 SXM's SMs: Q4 spreads few ou
 constexpr int kDotTreeSmem = 200 * 1024;  // Q4 tree: a block's level-1 terms' bytes at most
 constexpr int kGatherSmem = 72 * 1024;  // Q3: a block's shared memory at most (three blocks an SM)
 constexpr int kFillBlocks = 3 * 132;    // Q3: blocks that fill the card (three on each SM)
-constexpr int kStaticSmem = 48 * 1024;  // dynamic shared memory above this needs an opt-in
 
 struct QD {
   double e0, e1, e2, e3;
@@ -552,36 +553,54 @@ int gather_rows(int R, long long B) {
 
 long long gather_smem(int R, int P) { return 32LL * P * ((R + 1) / 2 * R + R); }
 
-// Q1's row: f = 2 / (v w) prod_i W_i with w = 1 + sum_k prod_{i<=k} x_i and
-// v the same over the reversed row (ttcross_tpu/apps/ising.py:246-278);
-// tab: (8, n) node limbs e0..e3 then weight limbs e0..e3; an index outside
-// [0, n) is clamped.
-TTQ_FN QD q1_row(const double* tab, int n, const int32_t* ri, int d) {
-  auto col = [&](int c) {
-    const int i = ri[c];
-    return i < 0 ? 0 : (i >= n ? n - 1 : i);
-  };
-  auto node = [&](int i) { return QD{tab[i], tab[n + i], tab[2 * n + i], tab[3 * n + i]}; };
-  auto weight = [&](int i) {
-    return QD{tab[4 * n + i], tab[5 * n + i], tab[6 * n + i], tab[7 * n + i]};
-  };
-  const QD one{1.0, 0.0, 0.0, 0.0};
-  QD pk = one, w = one;
-  for (int c = 0; c < d; ++c) {
-    pk = qd_mul(pk, node(col(c)));
-    w = qd_add(w, pk);
-  }
-  QD v = one;
-  pk = one;
-  for (int c = d - 1; c >= 0; --c) {
-    pk = qd_mul(pk, node(col(c)));
-    v = qd_add(v, pk);
-  }
-  const QD b = qd_div(QD{2.0, 0.0, 0.0, 0.0}, qd_mul(v, w));
-  QD pw = one;
-  for (int c = 0; c < d; ++c) pw = qd_mul(pw, weight(col(c)));
-  return qd_mul(b, pw);
+// Q1's row (ising_rows.cuh): f = 2 / (v w) prod_i W_i with w = 1 + sum_k
+// prod_{i<=k} x_i and v the same over the reversed row
+// (ttcross_tpu/apps/ising.py:246-278); tab: (8, n) node limbs e0..e3 then
+// weight limbs e0..e3; the tail qd_mul(qd_div(2, qd_mul(v, w)), pw); out
+// (4, B) limb-major.
+TTQ_FN QD q1_at(const double* t, int n, int i) {
+  return QD{t[i], t[n + i], t[2 * n + i], t[3 * n + i]};
 }
+
+struct Q1Row {
+  using T = QD;
+  static constexpr int kTab = 8;
+
+  // The lane of role `role`: 0 the forward scan's w, 1 the backward scan's
+  // v, 2 the weight product, each from one in the plain version's order and
+  // operand order (qd_mul(pk, x), qd_add(s, pk)).  One loop for every role
+  // (its table and column order from the role), so a warp's lanes run one
+  // instruction stream; the weight lane's sum is computed with the others'
+  // and dropped.  ri: the row's d indices, one outside [0, n) clamped.
+  static TTR_DEV QD lane(const double* tab, int n, const int32_t* ri, int d, int role) {
+    const double* t = tab + (role == 2 ? 4 * n : 0);
+    const QD one{1.0, 0.0, 0.0, 0.0};
+    QD pk = one, s = one;
+    for (int k = 0; k < d; ++k) {
+      pk = qd_mul(pk, q1_at(t, n, clamp_index(ri[role == 1 ? d - 1 - k : k], n)));
+      s = qd_add(s, pk);
+    }
+    return role == 2 ? pk : s;
+  }
+
+  static TTR_DEV QD tail(const QD& v, const QD& w, const QD& pw) {
+    return qd_mul(qd_div(QD{2.0, 0.0, 0.0, 0.0}, qd_mul(v, w)), pw);
+  }
+
+  static TTR_DEV void store(const RowsOut& o, long long row, const QD& r) {
+    o.p[0][row] = r.e0;
+    o.p[1][row] = r.e1;
+    o.p[2][row] = r.e2;
+    o.p[3][row] = r.e3;
+  }
+
+#if defined(__CUDACC__)
+  static __device__ __forceinline__ QD shfl(const QD& x, int src) {
+    return QD{__shfl_sync(0xffffffffu, x.e0, src), __shfl_sync(0xffffffffu, x.e1, src),
+              __shfl_sync(0xffffffffu, x.e2, src), __shfl_sync(0xffffffffu, x.e3, src)};
+  }
+#endif
+};
 
 // NaN above every number, then the larger score, then the smaller index
 // (torch.argmax's order).
@@ -797,23 +816,20 @@ qd_gather_tt_kernel(const double* __restrict__ cores, const int32_t* __restrict_
 // Q1: the C-kind Ising integrand in qd, fused with its node / weight lookup
 // (the qd variant of small_table_lookup_limbs, ttcross_tpu/ops/
 // pallas_kernels.py:151, on the integrand of ttcross_tpu/apps/ising.py:
-// 246-278).  A row per thread, any d; the (8, n) table in shared memory.
-// Bound: operations, per row 3d qd multiplies, 2d qd adds, one qd multiply,
-// one qd divide and one more multiply.
+// 246-278).  Any d; the (8, n) table and the block's rows' indices staged
+// in shared memory in one cp.async round trip.  Bound: operations, per row
+// 3d qd multiplies, 2d qd adds, one qd multiply, one qd divide and one more
+// multiply (at d = 3 8,206 f64 operations); but a call of 65-3,575 rows puts
+// at most one warp on an SM sub-partition, so a warp's sequence of
+// operations is its time.  The row's three scans are independent: on three
+// lanes of one warp (ising_rows.cuh) they cost what one costs, and a row's
+// sequence falls to one scan and the tail (4,642 at d = 3).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kRowsThreads)
 ising_c_qd_kernel(const double* __restrict__ tables, int n, const int32_t* __restrict__ ind,
-                  long long B, int d, double* __restrict__ out) {
-  extern __shared__ double tab[];
-  for (int e = threadIdx.x; e < 8 * n; e += blockDim.x) tab[e] = tables[e];
-  __syncthreads();
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const QD f = q1_row(tab, n, ind + row * d, d);
-  out[row] = f.e0;
-  out[B + row] = f.e1;
-  out[2 * B + row] = f.e2;
-  out[3 * B + row] = f.e3;
+                  long long B, int d, int P, RowsOut out) {
+  extern __shared__ __align__(16) unsigned char q1sm[];
+  rows_body<Q1Row>(q1sm, tables, n, ind, B, d, P, out);
 }
 #endif  // __CUDACC__
 
@@ -871,15 +887,6 @@ bool score_shape_ok(long long B, int T) { return dot_shape_ok(1, B, T, 1); }
 
 bool score_plan_ok(const DotPlan& p) { return p.regime != kDotChain && dot_plan_ok(1, p); }
 
-#if !defined(__CUDACC__)
-void put(const QD& r, double* out4) {
-  out4[0] = r.e0;
-  out4[1] = r.e1;
-  out4[2] = r.e2;
-  out4[3] = r.e3;
-}
-#endif
-
 }  // namespace
 
 extern "C" {
@@ -908,10 +915,7 @@ int ttq_score_residual_argmax(const double* const* vals, const double* const* x,
   if (p.regime == kDotThread) {
     qd_score_kernel<<<blocks, p.threads, 0, st>>>(a, out, words);
   } else {
-    if (p.smem > kStaticSmem) {
-      cudaFuncSetAttribute(qd_score_tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)p.smem);
-    }
+    allow_smem(qd_score_tree_kernel, p.smem);
     qd_score_tree_kernel<<<blocks, p.threads, p.smem, st>>>(a, p.P, out, words);
   }
   return static_cast<int>(cudaGetLastError());
@@ -929,16 +933,10 @@ int launch_dot(const DotArgs& a, const DotPlan& p, double* out, cudaStream_t st)
       qd_dot_kernel<false><<<blocks, p.threads, 0, st>>>(a, out);
     }
   } else if (p.regime == kDotChain) {
-    if (p.smem > kStaticSmem) {
-      cudaFuncSetAttribute(qd_dot_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)p.smem);
-    }
+    allow_smem(qd_dot_chain_kernel, p.smem);
     qd_dot_chain_kernel<<<blocks, p.threads, p.smem, st>>>(a, p.P, p.C, out);
   } else {
-    if (p.smem > kStaticSmem) {
-      cudaFuncSetAttribute(qd_dot_tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)p.smem);
-    }
+    allow_smem(qd_dot_tree_kernel, p.smem);
     qd_dot_tree_kernel<<<blocks, p.threads, p.smem, st>>>(a, p.P, out);
   }
   return static_cast<int>(cudaGetLastError());
@@ -981,10 +979,7 @@ int ttq_gather_tt_planned(const double* cores, const int32_t* ranks, int d, int 
       threads > kThreads || threads % 32 != 0 || smem > 227 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (smem > kStaticSmem) {
-    cudaFuncSetAttribute(qd_gather_tt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  }
+  allow_smem(qd_gather_tt_kernel, smem);
   const unsigned blocks = (unsigned)((B + rows - 1) / rows);
   qd_gather_tt_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       cores, ranks, d, R, N, ind, B, rows, out);
@@ -997,17 +992,13 @@ int ttq_gather_tt(const double* cores, const int32_t* ranks, int d, int R, int N
                                stream);
 }
 
-// Q1.  tables (8, n) f64: node limbs e0..e3, weight limbs e0..e3; ind (B, d)
-// int32, d >= 1; out 4B doubles.
+// Q1 with P rows a block, as ttq_q1_plan gives them the shape or as the
+// caller names them.  tables (8, n) f64: node limbs e0..e3, weight limbs
+// e0..e3; ind (B, d) int32, d >= 1; out 4B doubles.
 int ttq_ising_c_integrand(const double* tables, int n, const int32_t* ind, long long B, int d,
-                          double* out, void* stream) {
-  if (B < 1 || d < 1 || n < 1 || 8 * n * (int)sizeof(double) > 48 * 1024) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const unsigned blocks = (unsigned)((B + kRowsThreads - 1) / kRowsThreads);
-  ising_c_qd_kernel<<<blocks, kRowsThreads, 8 * n * sizeof(double),
-                      static_cast<cudaStream_t>(stream)>>>(tables, n, ind, B, d, out);
-  return static_cast<int>(cudaGetLastError());
+                          int P, double* out, void* stream) {
+  return rows_launch<Q1Row>(ising_c_qd_kernel, tables, n, ind, B, d, P,
+                            RowsOut{{out, out + B, out + 2 * B, out + 3 * B}}, stream);
 }
 
 int ttq_threads(void) { return kThreads; }
@@ -1131,12 +1122,34 @@ void ttq_host_mul_by_f64(const double* const* x, const double* g, long long n, d
   }
 }
 
-// Q1's row: tables (8, n), ri the row's d indices.
-void ttq_host_q1_row(const double* tables, int n, const int32_t* ri, int d, double* out4) {
-  put(q1_row(tables, n, ri, d), out4);
+// Q1's whole call with P rows a block, arguments as ttq_ising_c_integrand's
+// (every pointer on the host; ising_rows.cuh::rows_host); out (4, B)
+// limb-major.  Returns 0, or -1 for a shape or plan the card's entry point
+// refuses.
+int ttq_host_q1(const double* tables, int n, const int32_t* ind, long long B, int d, int P,
+                double* out) {
+  return rows_host<Q1Row>(tables, n, ind, B, d, P,
+                          RowsOut{{out, out + B, out + 2 * B, out + 3 * B}});
 }
 
 #endif  // __CUDACC__
+
+// Q1's launch for a shape (rows_plan): plan[0..3] = P, threads, blocks,
+// shared bytes.  Returns 0, or -1 for a shape ttq_ising_c_integrand refuses.
+int ttq_q1_plan(long long B, int d, int n, long long* plan) {
+  if (!rows_shape_ok(B, d, n, Q1Row::kTab)) return -1;
+  const RowsPlan p = rows_plan(B, d, n, Q1Row::kTab);
+  const long long v[4] = {p.P, p.threads, p.blocks, p.smem};
+  for (int k = 0; k < 4; ++k) plan[k] = v[k];
+  return 0;
+}
+
+// Whether Q1 takes P rows a block at this shape (ttq_ising_c_integrand
+// refuses the plan otherwise): 1 or 0.
+int ttq_q1_plan_ok(long long B, int d, int n, int P) {
+  return rows_shape_ok(B, d, n, Q1Row::kTab) &&
+         rows_plan_ok(rows_plan_of(B, d, n, Q1Row::kTab, P));
+}
 
 // Q4's launch for a shape (dot_plan): plan[0..5] = regime (0 a thread per
 // output, 1 chain, 2 tree), P, C, threads, blocks, shared bytes.  Returns

@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels (csrc/kernels.cu, csrc/dd_kernels.cu,
-csrc/qd_kernels.cu).
+csrc/qd_kernels.cu, and the header csrc/ising_rows.cuh that the last two include).
 
 The sources are compiled with nvcc for sm_90a, one nvcc per source, all
 started together, and their objects linked into one shared library with a
 plain C interface, loaded with ctypes, at first use: the build lands in
 ``build/ttcross_tpu_torch/<hash>/`` at the root of the checkout, keyed by a
-hash of the sources and the flags, so a changed source is rebuilt and
+hash of the sources, the header and the flags, so a changed source is rebuilt and
 unchanged ones are reused within a checkout.  Nothing is built or loaded
 when the package is imported.
 """
@@ -27,6 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "kernels.cu",      # kernels A and B, the fused integrand
            _PKG / "csrc" / "dd_kernels.cu",   # the dd tier's kernels
            _PKG / "csrc" / "qd_kernels.cu")   # the qd tier's kernels
+HEADERS = (_PKG / "csrc" / "ising_rows.cuh",)   # D2's and Q1's body, launch and plan
 BUILD_ROOT = _PKG.parent / "build" / "ttcross_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -61,7 +62,9 @@ _SIGNATURES = {
     "ttd_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _I, _I, _P, _P, _P], _I),
     "ttd_dd_gather_plan": ([_LL, _I, _I, _I, ctypes.POINTER(_LL)], _I),
     "ttd_dd_gather_plan_ok": ([_LL, _I, _I, _I, _I, _I], _I),
-    "ttd_ising_c_integrand": ([_P, _I, _P, _LL, _I, _P, _P, _P], _I),
+    "ttd_ising_c_integrand": ([_P, _I, _P, _LL, _I, _I, _P, _P, _P], _I),
+    "ttd_dd_ising_plan": ([_LL, _I, _I, ctypes.POINTER(_LL)], _I),
+    "ttd_dd_ising_plan_ok": ([_LL, _I, _I, _I], _I),
     "ttd_threads": ([], _I),
     "ttd_gather_rmax": ([], _I),
     "ttq_score_residual_argmax": (
@@ -73,7 +76,9 @@ _SIGNATURES = {
     "ttq_dot_plan": ([_LL, _LL, _I, _I, ctypes.POINTER(_LL)], _I),
     "ttq_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _P, _P], _I),
     "ttq_gather_tt_planned": ([_P, _P, _I, _I, _I, _P, _LL, _I, _I, _P, _P], _I),
-    "ttq_ising_c_integrand": ([_P, _I, _P, _LL, _I, _P, _P], _I),
+    "ttq_ising_c_integrand": ([_P, _I, _P, _LL, _I, _I, _P, _P], _I),
+    "ttq_q1_plan": ([_LL, _I, _I, ctypes.POINTER(_LL)], _I),
+    "ttq_q1_plan_ok": ([_LL, _I, _I, _I], _I),
     "ttq_threads": ([], _I),
     "ttq_rows_threads": ([], _I),
     "ttq_gather_rmax": ([], _I),
@@ -107,7 +112,7 @@ def build() -> tuple[Path, float, str]:
     -Xptxas=-v report of every source); the seconds are 0.0 when the
     library was already built."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
     lib = out_dir / "libttcross_kernels.so"

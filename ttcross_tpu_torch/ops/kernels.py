@@ -41,12 +41,13 @@ __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
            "dd_gather_tt_fused", "dd_gather_tt_planned", "dd_gather_plan", "dd_gather_plan_ok",
            "DdGatherPlan", "dd_gather_tt_plain", "PackedTT", "pack_tt",
            "ising_c_integrand_dd_fused", "ising_c_integrand_dd_plain",
+           "ising_c_integrand_dd_planned", "ising_c_dd_plan", "ising_c_dd_plan_ok", "IsingRowsPlan",
            "qd_score_residual_argmax", "qd_score_residual_argmax_plain",
            "qd_score_residual_argmax_planned", "qd_score_plan", "qd_dot", "qd_dot_plain",
            "qd_dot_plan", "qd_dot_planned", "QdDotPlan",
            "qd_gather_tt_fused", "qd_gather_tt_planned", "qd_gather_tt_plain",
-           "ising_c_integrand_qd_fused",
-           "ising_c_integrand_qd_plain",
+           "ising_c_integrand_qd_fused", "ising_c_integrand_qd_plain",
+           "ising_c_integrand_qd_planned", "ising_c_qd_plan", "ising_c_qd_plan_ok",
            "launch_counts", "launch_shapes", "reset_launch_counts"]
 
 _THREADS = 256             # kThreads: a block of kernel B
@@ -915,6 +916,52 @@ def ising_c_integrand_dd_plain(tables, ind):
     return ddm.dd_mul(b, prodw)
 
 
+class IsingRowsPlan(NamedTuple):
+    """D2's or Q1's launch for one shape (csrc/ising_rows.cuh::rows_plan): a
+    row's three scans on 3 lanes of one warp, 10 rows a warp."""
+    P: int          # rows of a block
+    threads: int
+    blocks: int
+    smem: int       # dynamic shared memory per block, bytes: the table and the rows' indices
+
+
+def _rows_plan(entry, what: str, B: int, d: int, n: int) -> IsingRowsPlan:
+    out = (ctypes.c_longlong * 4)()
+    if entry(B, d, n, out) != 0:
+        raise ValueError(f"{what} takes no shape (B, d, n) = ({B}, {d}, {n})")
+    return IsingRowsPlan(*out)
+
+
+@functools.lru_cache(maxsize=4096)
+def ising_c_dd_plan(B: int, d: int, n: int) -> IsingRowsPlan:
+    """The launch D2 takes for B rows of d indices into an n-point table: a
+    function of the shape alone."""
+    return _rows_plan(_lib().ttd_dd_ising_plan, "ising_c_integrand_dd_fused", B, d, n)
+
+
+def ising_c_dd_plan_ok(B: int, d: int, n: int, rows: int) -> bool:
+    """Whether D2 takes `rows` rows a block at this shape
+    (ising_c_integrand_dd_planned raises on a plan it does not take)."""
+    return _lib().ttd_dd_ising_plan_ok(B, d, n, rows) == 1
+
+
+def _check_rows(name: str, tables, ind, limbs: int):
+    """The checks of D2's and Q1's inputs on the card: (B, d, n)."""
+    dev = ind.device
+    _check_cuda("ind", ind, _I32, 2, dev)
+    _check_cuda("tables", tables, _F64, 2, dev)
+    if tables.shape[0] != 2 * limbs:
+        raise ValueError(f"tables must be ({2 * limbs}, n): the nodes' {limbs} limbs, then the "
+                         f"weights'; got {tuple(tables.shape)}")
+    B, d = ind.shape
+    n = tables.shape[1]
+    if d < 1:
+        raise ValueError(f"{name} takes d >= 1, got {d}")
+    if 2 * limbs * n * 8 > _LOOKUP_SMEM:
+        raise ValueError(f"a table of {n} points exceeds the kernel's shared memory")
+    return B, d, n
+
+
 def ising_c_integrand_dd_fused(tables, ind):
     """D2: the dd Ising integrand with its table lookup, DD (B,), in one
     launch.
@@ -923,27 +970,31 @@ def ising_c_integrand_dd_fused(tables, ind):
     small_table_lookup_limbs (:151-197) on the dd integrand's path
     (ttcross_tpu/apps/ising.py:172-210).  On a CPU tensor this is
     ising_c_integrand_dd_plain; on a CUDA tensor it launches
-    csrc/dd_kernels.cu's ising_c_dd_kernel (a row per thread, any d) and
-    adds one to ``ising_c_integrand_dd_fused.launches``."""
-    ddm = _dd_mod()
+    csrc/dd_kernels.cu's ising_c_dd_kernel in the plan ising_c_dd_plan gives
+    the shape (a row's three scans on three lanes of one warp; the table
+    and the block's indices staged in shared memory) and adds one to
+    ``ising_c_integrand_dd_fused.launches``."""
     if ind.device.type == "cpu":
         return ising_c_integrand_dd_plain(tables, ind)
+    return _ising_dd_launch(tables, ind, None)
+
+
+def ising_c_integrand_dd_planned(tables, ind, rows: int):
+    """D2 on CUDA tensors with `rows` rows a block (IsingRowsPlan.P),
+    whatever ising_c_dd_plan gives the shape: the card tests and the tuning
+    use it.  Counts its launch as ising_c_integrand_dd_fused's."""
+    return _ising_dd_launch(tables, ind, rows)
+
+
+def _ising_dd_launch(tables, ind, rows):
+    ddm = _dd_mod()
     dev = ind.device
-    _check_cuda("ind", ind, _I32, 2, dev)
-    _check_cuda("tables", tables, _F64, 2, dev)
-    if tables.shape[0] != 4:
-        raise ValueError(f"tables must be (4, n): node hi, lo, weight hi, lo; got "
-                         f"{tuple(tables.shape)}")
-    B, d = ind.shape
-    n = tables.shape[1]
-    if d < 1:
-        raise ValueError(f"the dd integrand kernel takes d >= 1, got {d}")
-    if 4 * n * 8 > _LOOKUP_SMEM:
-        raise ValueError(f"a table of {n} points exceeds the kernel's shared memory")
+    B, d, n = _check_rows("ising_c_integrand_dd_fused", tables, ind, 2)
     out = torch.empty((2, B), dtype=torch.float64, device=dev)
     if B == 0:
         return ddm.DD(out[0], out[1])
-    rc = _call(dev, _lib().ttd_ising_c_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d,
+    P = ising_c_dd_plan(B, d, n).P if rows is None else rows
+    rc = _call(dev, _lib().ttd_ising_c_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d, P,
                out[0].data_ptr(), out[1].data_ptr())
     _raise_on(rc, "ising_c_integrand_dd_fused launch")
     ising_c_integrand_dd_fused.launches += 1
@@ -961,7 +1012,7 @@ ising_c_integrand_dd_fused.launches = 0
 # below are ops/qd.py's functions, which the CPU tests hold against the JAX
 # package's numpy path).
 _QD_THREADS = 256          # kThreads: a block of Q2, Q3, Q4
-_QD_ROWS_THREADS = 128     # kRowsThreads: a block of Q1
+_QD_ROWS_THREADS = 128     # kRowsThreads: a block of Q1 (and D2) at most (csrc/ising_rows.cuh)
 _QD_GATHER_RMAX = 64       # kGatherRMax: Q3 takes ranks up to this
 _QD_TREE_MAX = 1 << 16     # the pairwise tree's terms at most
 
@@ -1250,6 +1301,19 @@ def ising_c_integrand_qd_plain(tables, ind):
     return qdm.qd_mul(b, prodw)
 
 
+@functools.lru_cache(maxsize=4096)
+def ising_c_qd_plan(B: int, d: int, n: int) -> IsingRowsPlan:
+    """The launch Q1 takes for B rows of d indices into an n-point table: a
+    function of the shape alone."""
+    return _rows_plan(_lib().ttq_q1_plan, "ising_c_integrand_qd_fused", B, d, n)
+
+
+def ising_c_qd_plan_ok(B: int, d: int, n: int, rows: int) -> bool:
+    """Whether Q1 takes `rows` rows a block at this shape
+    (ising_c_integrand_qd_planned raises on a plan it does not take)."""
+    return _lib().ttq_q1_plan_ok(B, d, n, rows) == 1
+
+
 def ising_c_integrand_qd_fused(tables, ind):
     """Q1: the qd Ising integrand with its table lookup, QD (B,), in one
     launch.
@@ -1258,27 +1322,31 @@ def ising_c_integrand_qd_fused(tables, ind):
     small_table_lookup_limbs (:151-197) on the qd integrand's path
     (ttcross_tpu/apps/ising.py:246-278).  On a CPU tensor this is
     ising_c_integrand_qd_plain; on a CUDA tensor it launches
-    csrc/qd_kernels.cu's ising_c_qd_kernel (a row per thread, any d) and adds
-    one to ``ising_c_integrand_qd_fused.launches``."""
-    qdm = _qd_mod()
+    csrc/qd_kernels.cu's ising_c_qd_kernel in the plan ising_c_qd_plan gives
+    the shape (a row's three scans on three lanes of one warp; the table
+    and the block's indices staged in shared memory) and adds one to
+    ``ising_c_integrand_qd_fused.launches``."""
     if ind.device.type == "cpu":
         return ising_c_integrand_qd_plain(tables, ind)
+    return _ising_qd_launch(tables, ind, None)
+
+
+def ising_c_integrand_qd_planned(tables, ind, rows: int):
+    """Q1 on CUDA tensors with `rows` rows a block (IsingRowsPlan.P),
+    whatever ising_c_qd_plan gives the shape: the card tests and the tuning
+    use it.  Counts its launch as ising_c_integrand_qd_fused's."""
+    return _ising_qd_launch(tables, ind, rows)
+
+
+def _ising_qd_launch(tables, ind, rows):
+    qdm = _qd_mod()
     dev = ind.device
-    _check_cuda("ind", ind, _I32, 2, dev)
-    _check_cuda("tables", tables, _F64, 2, dev)
-    if tables.shape[0] != 8:
-        raise ValueError(f"tables must be (8, n): node limbs, weight limbs; got "
-                         f"{tuple(tables.shape)}")
-    B, d = ind.shape
-    n = tables.shape[1]
-    if d < 1:
-        raise ValueError(f"the qd integrand kernel takes d >= 1, got {d}")
-    if 8 * n * 8 > _LOOKUP_SMEM:
-        raise ValueError(f"a table of {n} points exceeds the kernel's shared memory")
+    B, d, n = _check_rows("ising_c_integrand_qd_fused", tables, ind, 4)
     out = torch.empty((4, B), dtype=torch.float64, device=dev)
     if B == 0:
         return qdm.QD(out[0], out[1], out[2], out[3])
-    rc = _call(dev, _lib().ttq_ising_c_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d,
+    P = ising_c_qd_plan(B, d, n).P if rows is None else rows
+    rc = _call(dev, _lib().ttq_ising_c_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d, P,
                out.data_ptr())
     _raise_on(rc, "ising_c_integrand_qd_fused launch")
     ising_c_integrand_qd_fused.launches += 1
