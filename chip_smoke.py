@@ -24,6 +24,17 @@
                                      # against DIR's at the kernel
                                      # tables' shapes; no main path, no
                                      # result line
+    python3 chip_smoke.py --batched-regimes [--mvn-keys] [--parent DIR]
+                                     # only: build, then time the batched
+                                     # kernel A's block body and its
+                                     # clusters at a grid of fiber counts,
+                                     # lengths and ranks (the data of
+                                     # _plan's cluster rule), the batched
+                                     # kernel A and the MVN integrands
+                                     # against DIR's in turns; with
+                                     # --mvn-keys every MVN key's digits
+                                     # and n_evals beside DIR's; no main
+                                     # path, no result line
 
 Phases, each printing its result as it goes:
   1. the card: nvidia-smi's name and power limit, torch's device name;
@@ -46,7 +57,13 @@ Phases, each printing its result as it goes:
      and, bit for bit, against one single-fiber launch per bond; kernel A
      and kernel B at every shape the MVN / COS path gives them (mvn_shapes:
      the rook fibers at ranks 20, 26 and 8, the lottery and init batches,
-     the maxvol fiber crosses (26000, 6) and (43940, 6)); and the f32
+     the maxvol fiber crosses (26000, 6) and (43940, 6)), and the fused
+     MVN integrand (kernel B's redesign on the MVN path, mvn_pdf_fused) at
+     every (L, B, d, n) of that path, one problem and the 4-lane family's,
+     bit for bit its emulation (mvn_pdf_emulated) and within its stated
+     tolerance of the plain version on the card and on the host, one kernel
+     per call; the batched kernel A also at the family's, the mesh's and
+     the lane jacobi's fibers of 1300 (a cluster per fiber); and the f32
      instantiation of every kernel (f32_cases) at the shapes the f32 runs
      of phase 14 give it, and kernel A's 2-D path (the SIMT kernel), the
      batched kernel A and the integrand's warp path at the f64 phase's;
@@ -78,8 +95,9 @@ Phases, each printing its result as it goes:
      function against the rho = 0.5 goldens and its COS density; the COS
      coefficient tensor with accchk over 2^14 samples; stdnorm at d = 10;
      a serialization round trip through the reference's 'TT' stream; and a
-     small MVN cross on the card against the CPU.  Kernel B (the node
-     lookup) and kernel A must have launched, at shapes that phase 3 held;
+     small MVN cross on the card against the CPU.  The fused MVN integrand
+     (stdnorm: kernel B, the node lookup) and kernel A must have launched,
+     at shapes that phase 3 held;
   8. the headline exactly as bench.py runs it, cross(..., oversample=6,
      host_reeval=True), keys 0-7 against the headline's floors, beside the
      device-only train of each key from phase 4: its n_evals are the device
@@ -89,9 +107,9 @@ Phases, each printing its result as it goes:
   9. the 4-lane mvn_d6 family of bench.py's mvn_family_batch (cross_batch,
      rank 20, corr 0.2-0.6), first and steady, then each lane's single
      cross() with its lane_key: lanes equal to their single runs, the worst
-     lane above its floor, kernel B once per lane-batched integrand step and
-     kernel A batched over the lanes, launches of the batch against a single
-     run's;
+     lane above its floor, the fused MVN integrand once per lane-batched
+     integrand step (kernel B never) and kernel A batched over the lanes, launches
+     of the batch against a single run's;
  10. the Greeks of drivers/crs_greeks.py (d = 6, n = 65, rank 14): a cross at
      rho0, its frozen skeleton, torch.func.grad of the skeleton value against
      a central difference, and the torch.func.vmap rho sweep of values and
@@ -255,11 +273,12 @@ STDNORM = dict(d=10, n=32, max_rank=8, accuracy=5 * 2.2e-16, pivoting=1)
 STDNORM_DIGITS = 3.3
 COS_ACCCHK_REL = 1e-4       # coscoeff_d6 at rank 20: accchk's einf / ainf over 2^14 samples
 COMPLEX_RTOL = 1e-13        # complex contraction vs the real one, and its imaginary part
-MVN_KERNELS = ("score_residual_argmax", "small_table_lookup")
+MVN_KERNELS = ("score_residual_argmax", "mvn_pdf_fused")   # the MVN integrand: one fused launch
+LOOKUP_KERNELS = ("score_residual_argmax", "small_table_lookup")   # stdnorm, the Greeks: kernel B
 # The family (bench.py:707-741's mvn_family_batch): mvn_d6 at rank 20 over
 # four correlations in one cross_batch, every lane against its single run.
 FAMILY_LANES = 4
-FAMILY_KERNELS = ("score_residual_argmax_batched", "small_table_lookup")
+FAMILY_KERNELS = ("score_residual_argmax_batched", "mvn_pdf_fused")
 FAMILY_RTOL = 1e-13         # a lane's values against its single run's
 # Worst-lane digits of the family over keys 0-3, from CPU runs of both
 # packages (PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_batch.py;
@@ -305,6 +324,7 @@ KERNEL_REPLACES = {   # the TPU kernel each CUDA kernel stands for
     "score_residual_argmax_batched": "ttcross_tpu/ops/pallas_kernels.py:62",
     "small_table_lookup": "ttcross_tpu/ops/pallas_kernels.py:151",
     "ising_integrand_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
+    "mvn_pdf_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
     # the dd tier's variants (csrc/dd_kernels.cu): D1 and D4 of kernel A's
     # residual and its dd products, D2 and D3 of the lookup kernel's gathers
     "dd_score_residual_argmax": "ttcross_tpu/ops/pallas_kernels.py:62",
@@ -319,7 +339,7 @@ KERNEL_REPLACES = {   # the TPU kernel each CUDA kernel stands for
     "qd_gather_tt_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
 }
 F32_KERNELS = ("score_residual_argmax", "score_residual_argmax_batched", "small_table_lookup",
-               "ising_integrand_fused")   # the kernels with an f32 instantiation
+               "ising_integrand_fused", "mvn_pdf_fused")   # the kernels with an f32 instantiation
 DD_KERNELS = ("dd_score_residual_argmax", "dd_dot", "ising_c_integrand_dd_fused",
               "dd_gather_tt_fused")
 QD_KERNELS = ("qd_score_residual_argmax", "qd_dot", "ising_c_integrand_qd_fused",
@@ -620,37 +640,42 @@ def mvn_shapes(d: int, N: int, R: int, maxvol: bool = False):
 def mvn_path_shapes():
     """Every shape the MVN / COS phase launches at: mvn_d6 at ranks 20 (the
     greedy and the refined run, whose maxvol pads to the largest rank, 20)
-    and 26 (oversample=6, alone and with refine_sweeps=2), stdnorm_d10 at
-    rank 8 on its 33-point rule, the small run against the CPU (d = 4,
-    n = 17, ranks 6 and 8), the Greeks' nominal cross at rank 14, and the
-    4-lane family at rank 20: every lane's batch in one kernel-B launch."""
-    a, b = [], []
-    for d, N, R, n, mv in [(6, 65, 20, 65, True), (6, 65, 26, 65, True), (10, 33, 8, 33, False),
-                           (4, 17, 6, 17, True), (4, 17, 8, 17, False), (6, 65, 14, 65, False)]:
+    and 26 (oversample=6, alone and with refine_sweeps=2), the small run
+    against the CPU (d = 4, n = 17, ranks 6 and 8), and the 4-lane family at
+    rank 20, each MVN integrand call one fused launch at (L, B, d, n) (one
+    problem: L = 1; the family: every lane at once); stdnorm_d10 at rank 8
+    on its 33-point rule and the Greeks' nominal cross at rank 14, whose
+    lookups are kernel B's (B, d, n).  Returns kernel A's, kernel B's and
+    the fused MVN integrand's shapes."""
+    a, b, m = [], [], []
+    for d, N, R, n, mv, mvn in [(6, 65, 20, 65, True, True), (6, 65, 26, 65, True, True),
+                                (10, 33, 8, 33, False, False), (4, 17, 6, 17, True, True),
+                                (4, 17, 8, 17, False, True), (6, 65, 14, 65, False, False)]:
         sa, sb = mvn_shapes(d, N, R, mv)
         for shape in sa:
             if shape not in a:
                 a.append(shape)
         for shape in sb:
-            if (*shape, n) not in b:
+            if mvn and (1, *shape, n) not in m:
+                m.append((1, *shape, n))
+            elif not mvn and (*shape, n) not in b:
                 b.append((*shape, n))
-    sa, sb = mvn_shapes(6, 65, 20)
-    b += [(FAMILY_LANES * B, d, 65) for B, d in sb]
-    return a, b
+    m += [(FAMILY_LANES, B, d, 65) for B, d in mvn_shapes(6, 65, 20)[1]]
+    return a, b, m
 
 
 def kernel_cases(dev, gen):
     """Kernel A's and kernel B's inputs: the main path's shapes (the rook
     passes, the integrand's batches), the larger ones of full pivoting and
-    long chains, and the MVN / COS path's (mvn_path_shapes; kernel B there
-    reads one table, the nodes)."""
+    long chains, and kernel B's on the MVN / COS path (mvn_path_shapes:
+    stdnorm's and the Greeks' lookups, one table, the nodes)."""
     import torch
 
     R, N, B = 30, 65, 1950            # the headline's padded rank and mode size
     a = [(name, _score_inputs(gen, M, Kc, Rr, dev)) for name, M, Kc, Rr in
          [("col_pass", B, 1, R), ("row_pass", 1, B, R), ("superblock", B, B, R),
           ("random", 8192, 8192, 32), ("long_col", 100000, 1, R), ("long_row", 1, 70001, R)]]
-    mvn_a, mvn_b = mvn_path_shapes()
+    mvn_a, mvn_b, _ = mvn_path_shapes()
     a += [(f"mvn_{'col' if Kc == 1 else 'row'}_r{Rr}_{M * Kc}", _score_inputs(gen, M, Kc, Rr, dev))
           for M, Kc, Rr in mvn_a]
     b = []
@@ -759,6 +784,112 @@ def check_integrand(cases):
     return rows
 
 
+def mvn_case(gen, L, B, d, n, dev, dtype=None):
+    """The fused MVN integrand's operands at (L, B, d, n): the MVN rule's n
+    nodes and L equicorrelated densities (corr 0.2-0.6, the family's
+    lanes; one lane: corr 0.5) in `dtype` (default float64); indices in
+    range but for rows at the box's corners (every index 0 or n - 1: the
+    largest quadratic forms) and rows past the table (and one at -1)."""
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_mvn_family
+
+    corrs = np.linspace(0.2, 0.6, L) if L > 1 else (0.5,)
+    fam = make_mvn_family(d=d, n=n, corrs=corrs, device=dev)
+    if fam.n != n:
+        raise AssertionError(f"the MVN rule has {fam.n} nodes, not {n}")
+    ind = torch.randint(0, n, (L, B, d), generator=gen, dtype=torch.int32)
+    k = min(B, 4)
+    ind[:, :k] = torch.randint(0, 2, (L, k, d), generator=gen, dtype=torch.int32) * (n - 1)
+    if B > 6:
+        ind[:, 4, 0], ind[:, 5, d - 1], ind[:, 6, :] = n, -1, n + 5
+    dt = dtype or torch.float64
+    return (fam.table.to(dt), ind.to(dev), fam.params["mu"].to(dt),
+            fam.params["inv_cov"].to(dt), fam.params["norm"].to(dt))
+
+
+def _mvn_bound(L, B, d, n, esz=8):
+    # the int32 indices, the table and each lane's mu, C and norm read once,
+    # one value per row written; per row d differences, d^2 products and
+    # sums for t, d of each for q, the scale, exp and the division
+    nbytes = 4 * L * B * d + esz * (n + L * (d * d + d + 1)) + esz * L * B
+    return _bound_us(nbytes, L * B * (2 * d * d + 3 * d + 3), esz)
+
+
+def _ulps(got, want) -> int:
+    """The largest distance in units in the last place between two tensors
+    of one float dtype (finite, of one sign where they differ)."""
+    import torch
+
+    it = torch.int64 if got.dtype == torch.float64 else torch.int32
+    return int((got.contiguous().view(it).long() - want.contiguous().view(it).long()).abs().max())
+
+
+def check_mvn(cases):
+    """Phase 3, the fused MVN integrand: bit for bit its emulation
+    (mvn_pdf_emulated: the kernel's order, one torch op per product or
+    sum) on the card, and within K.mvn_pdf_tolerance of its plain version on the card
+    and on the host; one kernel per call; times, bound and share.  No single
+    PyTorch call computes the integrand, so it has no library yardstick."""
+    import torch
+
+    from ttcross_tpu_torch.ops import kernels as K
+
+    rows = []
+    for name, args in cases:
+        L, B, d = args[1].shape
+        n = args[0].shape[0]
+        got = K.mvn_pdf_fused(*args)
+        emulated = K.mvn_pdf_emulated(*args)
+        plain = K.mvn_pdf_plain(*args)
+        host = K.mvn_pdf_plain(*(a.cpu() for a in args))
+        torch.cuda.synchronize()
+        if not torch.equal(got, emulated):
+            bad = got != emulated
+            raise AssertionError(f"fused MVN {name}: {int(bad.sum())} of {got.numel()} values "
+                                 f"differ from the emulation, by up to {_ulps(got, emulated)} "
+                                 f"ulp (first at {bad.nonzero()[0].tolist()})")
+        err = {}
+        for where, w in (("card", plain), ("cpu", host)):
+            diff = (got.double().cpu() - w.double().cpu()).abs()
+            if not bool((diff <= K.mvn_pdf_tolerance(*args[:4], w)).all()):
+                raise AssertionError(f"fused MVN {name}: {float(diff.max())} from the plain "
+                                     f"version on the {where}, beyond the tolerance")
+            nz = w != 0
+            err[where] = (float(diff.max()),
+                          float((diff[nz.cpu()] / w.double().cpu()[nz.cpu()].abs()).max())
+                          if bool(nz.any()) else 0.0)
+        fn = lambda: K.mvn_pdf_fused(*args)  # noqa: E731
+        plain_fn = lambda: K.mvn_pdf_plain(*args)  # noqa: E731
+        dev_k = device_per_call(fn)
+        if not (0 < dev_k["kernels_per_call"] <= 1
+                and all("mvn_pdf_kernel" in k for k in dev_k["by_kernel_us"])):
+            raise AssertionError(f"fused MVN {name}: {dev_k['by_kernel_us']} at "
+                                 f"{dev_k['kernels_per_call']} kernels per call (one is the design)")
+        bound, by = _mvn_bound(L, B, d, n, args[0].element_size())
+        row = {"kernel": "mvn_pdf_fused", "shape": [L, B, d, n] + _tag(args[0]), "case": name,
+               "bit_equal_to_emulation": True, "max_abs_err": err["card"][0],
+               "max_rel_err_vs_card_plain": err["card"][1],
+               "max_rel_err_vs_cpu_plain": err["cpu"][1],
+               "ms": _time_ms(fn), "plain_ms": _time_ms(plain_fn), "library_ms": None,
+               "device_us": dev_k["device_us"], "kernels_per_call": dev_k["kernels_per_call"],
+               "bound_us": bound, "bound_by": by, "share_of_bound": bound / dev_k["device_us"]}
+        if name.endswith("rook_fiber"):
+            row["host_us_per_call"] = host_us_per_call(fn)
+        _emit(row)
+        rows.append(row)
+    return rows
+
+
+def mvn_cases(dev, gen):
+    """The fused MVN integrand at every shape of mvn_path_shapes, in f64."""
+    _, _, m = mvn_path_shapes()
+    names = {1300: "rook_fiber", 1690: "rook_fiber"}
+    return [(f"mvn_{L}x{B}x{d}_n{n}" + (f"_{names[B]}" if B in names and L == 1 else ""),
+             mvn_case(gen, L, B, d, n, dev)) for L, B, d, n in m]
+
+
 def check_kernels(dev, a_cases, b_cases):
     """Phase 3: kernel vs plain on the card, with times, bounds and shares."""
     import torch
@@ -844,7 +975,10 @@ BATCHED_CASES = [("col_pass_c256", 254, 170, 1, 10), ("row_pass_c256", 254, 1, 1
                  ("col_one_bond", 1, 170, 1, 10), ("row_one_bond", 1, 1, 170, 10),
                  # the 4-lane mvn_d6 family: one launch scores every lane's fiber
                  ("col_pass_family", FAMILY_LANES, 1300, 1, 20),
-                 ("row_pass_family", FAMILY_LANES, 1, 1300, 20)]
+                 ("row_pass_family", FAMILY_LANES, 1, 1300, 20),
+                 # cross_batch(mesh=): two lanes a rank; the lane jacobi: 4 lanes x 5 bonds
+                 ("col_pass_mesh", 2, 1300, 1, 20), ("row_pass_mesh", 2, 1, 1300, 20),
+                 ("col_pass_lane_jacobi", 20, 1300, 1, 20), ("row_pass_lane_jacobi", 20, 1, 1300, 20)]
 
 
 def check_batched(dev, gen, cases=BATCHED_CASES, dtype=None):
@@ -895,8 +1029,9 @@ def check_batched(dev, gen, cases=BATCHED_CASES, dtype=None):
             raise AssertionError(f"batched kernel A {name}: {dev_k['kernels_per_call']} kernels "
                                  "per call (one is the design)")
         bound, by = _batched_bound(P, M, Kc, R, vals.element_size())
+        plan = K._plan(M, Kc, R, K._sms(vals.device.index), bonds=P, esz=vals.element_size())
         row = {"kernel": "score_residual_argmax_batched", "shape": [P, M, Kc, R] + _tag(vals),
-               "case": name,
+               "case": name, "cluster": plan.cluster, "threads": plan.threads,
                "max_abs_err": err, "bit_equal_to_single_launches": True,
                "ms": _time_ms(fn), "plain_ms": _time_ms(plain), "library_ms": None,
                "device_us": dev_k["device_us"], "kernels_per_call": dev_k["kernels_per_call"],
@@ -927,13 +1062,75 @@ def _package_of(root: str):
     return name
 
 
-def compare_with(root: str, a_cases, b_cases, i_cases) -> dict:
+def _in_turns(pairs) -> dict:
+    """Device-only and host time per call of each (label, other, this, args)
+    pair, in turns: other, this, this, other."""
+    out = {}
+    for label, f_other, f_this, args in pairs:
+        reads = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            f = f_other if who == "other" else f_this
+            dev = device_per_call(lambda: f(*args))
+            reads[who].append({"device_us": dev["device_us"],
+                               "kernels_per_call": dev["kernels_per_call"],
+                               "host_us_per_call": host_us_per_call(lambda: f(*args))})
+        out[label] = reads
+    return out
+
+
+def redesigned_pairs(root: str, dev, gen) -> list:
+    """(label, other, this, args) of the kernels that the checkout at `root`
+    runs another design of: the batched kernel A at BATCHED_CASES' shapes,
+    and each package's MVN integrand (apps.mvn: MvnProblem.fun at mvn_d6's
+    batches, MvnFamily.fun at the 4-lane family's), on the same indices
+    (e.g. the parent's kernel B and eager chain against this one's fused
+    kernel)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from ttcross_tpu_torch.apps import make_mvn, make_mvn_family
+    from ttcross_tpu_torch.ops import kernels as K
+
+    name = _package_of(root)
+    other_k = importlib.import_module(name + ".ops.kernels")
+    other_a = importlib.import_module(name + ".apps")
+    pairs = []
+    for case, P, M, Kc, R in BATCHED_CASES:
+        args = tuple(torch.randn(sh, generator=gen, dtype=torch.float64).to(dev)
+                     for sh in ((P, M, Kc), (P, M, R), (P, R, Kc)))
+        args += ((torch.rand((P, M, Kc), generator=gen) > 0.2).to(dev),)
+        pairs.append((f"score_residual_argmax_batched {case} {[P, M, Kc, R]}",
+                      other_k.score_residual_argmax_batched, K.score_residual_argmax_batched,
+                      args))
+    mine, theirs = make_mvn(d=MVN["d"], n=MVN["n"], device=dev), \
+        other_a.make_mvn(d=MVN["d"], n=MVN["n"], device=dev)
+    corrs = np.linspace(0.2, 0.6, FAMILY_LANES)
+    fam, ofam = (mk(d=MVN["d"], n=MVN["n"], corrs=corrs, device=dev)
+                 for mk in (make_mvn_family, other_a.make_mvn_family))
+    for B, d in mvn_shapes(MVN["d"], MVN["n"], MVN["max_rank"], True)[1] + [(43940, 6)]:
+        ind = torch.randint(0, MVN["n"], (B, d), generator=gen, dtype=torch.int32).to(dev)
+        pairs.append((f"mvn integrand {[1, B, d, MVN['n']]}", theirs.fun, mine.fun, (ind,)))
+    for B, d in mvn_shapes(MVN["d"], MVN["n"], MVN["max_rank"])[1]:
+        ind = torch.randint(0, MVN["n"], (FAMILY_LANES, B, d), generator=gen,
+                            dtype=torch.int32).to(dev)
+        pairs.append((f"mvn family integrand {[FAMILY_LANES, B, d, MVN['n']]}",
+                      lambda i: ofam.fun(i, ofam.params), lambda i: fam.fun(i, fam.params),
+                      (ind,)))
+    return pairs
+
+
+def compare_with(root: str, a_cases, b_cases, i_cases, m_cases) -> dict:
     """Device-only and host time per call of the kernels of the checkout at
     `root` and of this one, on the same inputs, in turns: other, this,
     this, other.  The integrand is each checkout's apps.ising.
     ising_integrand at the rook fiber's shape and at C_256's fibers (e.g. the
-    parent's kernel B and eager chain against this one's fused kernel)."""
+    parent's kernel B and eager chain against this one's fused kernel), and
+    each checkout's MVN integrands and batched kernel A (redesigned_pairs)."""
     import importlib
+
+    import torch
 
     from ttcross_tpu_torch.apps import ising
     from ttcross_tpu_torch.ops import kernels as K
@@ -948,17 +1145,142 @@ def compare_with(root: str, a_cases, b_cases, i_cases) -> dict:
     cases += [(f"ising_integrand {c}", other_i.ising_integrand, ising.ising_integrand,
                (ind, tables, kind)) for c, kind, tables, ind in i_cases
               if c in ("rook_fiber", "lc_fibers")]
-    out = {}
-    for label, f_other, f_this, args in cases:
-        reads = {"other": [], "this": []}
-        for who in ("other", "this", "this", "other"):
-            f = f_other if who == "other" else f_this
-            dev = device_per_call(lambda: f(*args))
-            reads[who].append({"device_us": dev["device_us"],
-                               "kernels_per_call": dev["kernels_per_call"],
-                               "host_us_per_call": host_us_per_call(lambda: f(*args))})
-        out[label] = reads
-    return {"phase": "compare", "other": root, "per_call": out}
+    gen = torch.Generator().manual_seed(4321)
+    cases += redesigned_pairs(root, m_cases[0][1][1].device, gen)
+    return {"phase": "compare", "other": root, "per_call": _in_turns(cases)}
+
+
+# --batched-regimes: the batched kernel A's bodies at these fiber counts,
+# lengths and ranks (the data of _plan's cluster rule), the clusters tried
+BATCHED_TUNE_P = (1, 2, 4, 8, 16, 32, 64, 128, 254, 1022)
+BATCHED_TUNE_LR = ((170, 10), (170, 20), (1300, 10), (1300, 20))
+BATCHED_TUNE_CLUSTERS = (1, 2, 4, 8, 16)
+BATCHED_TUNE_ROUNDS = 2
+
+
+def tune_batched(dev, gen) -> None:
+    """The batched kernel A in each body at every (P, length, R) of the grid
+    above, column and row fibers: the block body (cluster 1) and clusters of
+    2, 4, 8 and the single-fiber kernel's own size (16 where it asks for
+    more), each cut to the fiber's tiles, timed in turns
+    (BATCHED_TUNE_ROUNDS readings each, device_us_idle: CUDA events behind
+    a spin), every plan bit-equal to the block body.  One
+    batched_regimes line per shape: the median µs of each cluster size,
+    the best, and the rule's choice."""
+    import torch
+
+    from ttcross_tpu_torch.ops import kernels as K
+
+    sms = K._sms(dev.index)
+    for length, R in BATCHED_TUNE_LR:
+        for P in BATCHED_TUNE_P:
+            for M, Kc in ((length, 1), (1, length)):
+                args = tuple(torch.randn(sh, generator=gen, dtype=torch.float64).to(dev)
+                             for sh in ((P, M, Kc), (P, M, R), (P, R, Kc)))
+                args += ((torch.rand((P, M, Kc), generator=gen) > 0.2).to(dev),)
+                plans = sorted({K._plan(M, Kc, R, sms, bonds=P, cluster=c).cluster
+                                for c in BATCHED_TUNE_CLUSTERS})
+                base = K.score_residual_argmax_batched_planned(*args, 1)
+                for c in plans:
+                    got = K.score_residual_argmax_batched_planned(*args, c)
+                    if not all(torch.equal(g, b) for g, b in zip(got, base)):
+                        raise AssertionError(f"batched kernel A {[P, M, Kc, R]}: cluster {c} "
+                                             "differs from the block body")
+                reads = {c: [] for c in plans}
+                for rnd in range(BATCHED_TUNE_ROUNDS):
+                    for c in (plans if rnd % 2 == 0 else plans[::-1]):
+                        reads[c].append(device_us_idle(
+                            lambda c=c: K.score_residual_argmax_batched_planned(*args, c)))
+                us = {c: statistics.median(v) for c, v in reads.items()}
+                _emit({"phase": "batched_regimes", "shape": [P, M, Kc, R],
+                       "us": {str(c): u for c, u in us.items()},
+                       "best": min(us, key=us.get),
+                       "rule": K._plan(M, Kc, R, sms, bonds=P).cluster})
+                del args, base
+
+
+def mvn_floor(dev, gen) -> None:
+    """Device µs per call (profiler) of the fused MVN integrand at one row
+    and at the rook fiber's 1300 rows for d = 1, 6 and 12, beside the fused
+    Ising integrand (the same staging, no exp) at one row and at its rook
+    fiber and kernel B alone at (1300, 6): where a call's time goes."""
+    import torch
+
+    from ttcross_tpu_torch.apps import make_ising
+    from ttcross_tpu_torch.ops import kernels as K
+
+    rows = {}
+    for B in (1, 1300):
+        for d in (1, 6, 12):
+            args = mvn_case(gen, 1, B, d, 65, dev)
+            rows[f"mvn_pdf_fused {[1, B, d, 65]}"] = device_per_call(
+                lambda: K.mvn_pdf_fused(*args))["device_us"]
+    p = make_ising("C", 6, 64, device=dev)
+    for B in (1, 1950):
+        ind = torch.randint(0, p.n, (B, p.d), generator=gen, dtype=torch.int32).to(dev)
+        rows[f"ising_integrand_fused {[B, p.d, p.n]}"] = device_per_call(
+            lambda: K.ising_integrand_fused(p.tables, ind, "C"))["device_us"]
+    tables = torch.randn((1, 65), generator=gen, dtype=torch.float64).to(dev)
+    ind = torch.randint(0, 65, (1300, 6), generator=gen, dtype=torch.int32).to(dev)
+    rows["small_table_lookup [1, 1300, 6, 65]"] = device_per_call(
+        lambda: K.small_table_lookup(tables, ind))["device_us"]
+    _emit({"phase": "mvn_floor", "device_us": rows})
+
+
+def mvn_keys(dev, root: str | None) -> None:
+    """Each key's digits, n_evals and ranks (the family: digits and n_evals)
+    of the MVN configurations of phases 7, 9 and 14 (mvn_d6 greedy,
+    oversample=6, refine_sweeps=2 and f32 over keys 0-7; the weighted
+    lottery, oversample + refine at key 0; the family's lanes), this
+    checkout's beside the checkout's at `root` (e.g. the parent's, whose
+    MVN integrand rounds otherwise), how many keys took another path and
+    how far the digits moved."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    pkgs = {"this": "ttcross_tpu_torch"}
+    if root:
+        pkgs["other"] = _package_of(root)
+    configs = [(f"mvn_d6 {v}", extra, KEYS) for v, extra in MVN_VARIANTS.items()]
+    configs += [("mvn_d6 weighted_lottery", {"weighted_lottery": True}, [0]),
+                ("mvn_d6 oversample=6 refine_sweeps=2", {"oversample": 6, "refine_sweeps": 2}, [0]),
+                ("mvn_d6 f32", {"dtype": torch.float32, "accuracy": F32_ACCURACY}, KEYS)]
+    out = {label: {} for label, _, _ in configs}
+    out["mvn_d6 family"] = {}
+    for who, pkg in pkgs.items():
+        apps = importlib.import_module(pkg + ".apps")
+        cross = importlib.import_module(pkg + ".cross")
+        for label, extra, keys in configs:
+            extra = dict(extra)
+            dtype = extra.pop("dtype", torch.float64)
+            kw = dict(max_rank=MVN["max_rank"], accuracy=extra.pop("accuracy", MVN["accuracy"]),
+                      pivoting=MVN["pivoting"], device=dev)
+            if dtype == torch.float32:
+                kw["dtype"] = dtype
+            prob = apps.make_mvn(d=MVN["d"], n=MVN["n"], device=dev, dtype=dtype)
+            rows = []
+            for key in keys:
+                res = cross.cross(prob.fun, [prob.n] * prob.d, quad=[prob.quad_weights] * prob.d,
+                                  truth=prob.truth, key=key, **kw, **extra)
+                rows.append([float(-np.log10(res.errors[-1])), int(res.neval),
+                             list(res.ranks)])
+            out[label][who] = rows
+        fam = apps.make_mvn_family(d=MVN["d"], n=MVN["n"],
+                                   corrs=np.linspace(0.2, 0.6, FAMILY_LANES), device=dev)
+        res = cross.cross_batch(fam.fun, [fam.n] * fam.d, fam.params, max_rank=MVN["max_rank"],
+                                accuracy=MVN["accuracy"], pivoting=MVN["pivoting"],
+                                quad=[fam.quad_weights] * fam.d, truth=1.0, device=dev)
+        out["mvn_d6 family"][who] = [[float(-np.log10(r.errors[-1])), int(r.neval)] for r in res]
+    for label, by in out.items():
+        row = {"phase": "mvn_keys", "config": label, **by}
+        if "other" in by:      # a key's path: its n_evals and ranks
+            pairs = list(zip(by["this"], by["other"]))
+            row["paths_moved"] = sum(a[1:] != b[1:] for a, b in pairs)
+            row["max_digits_moved"] = max(abs(a[0] - b[0]) for a, b in pairs)
+            row["keys"] = len(pairs)
+        _emit(row)
 
 
 def run_headline(dev, oversample, return_state=False, key=0):
@@ -1350,7 +1672,7 @@ def check_mvn_path(dev, held):
     sdigits = float(-np.log10(sres.errors[-1]))
     _emit({"phase": "mvn", "config": "stdnorm_d10 n=33 rank 8 pivoting=1",
            **_mvn_row(sres, wall, sdigits, counts, shapes_s)})
-    if sdigits < STDNORM_DIGITS or min(counts[k] for k in MVN_KERNELS) <= 0:
+    if sdigits < STDNORM_DIGITS or min(counts[k] for k in LOOKUP_KERNELS) <= 0:
         raise AssertionError(f"stdnorm_d10: {sdigits} digits, launches {counts}")
     _require_held("stdnorm_d10", shapes_s, held)
     runs.append(("stdnorm_d10", shapes_s))
@@ -1491,11 +1813,14 @@ def hold_new_shapes(dev, gen, shapes, held, checked, label="skeleton") -> None:
         i_cases.append((f"{label}_{B}x{d}", "C", p.tables, ind.to(dev)))
     for (P, M, Kc, R), dt in new("score_residual_argmax_batched"):
         p_cases.append(((f"{label}_{P}x{M}x{Kc}", P, M, Kc, R), dt))
+    m_cases = [(f"{label}_{L}x{B}x{d}_n{n}", mvn_case(gen, L, B, d, n, dev, dt))
+               for (L, B, d, n), dt in new("mvn_pdf_fused")]
     a_rows, b_rows = check_kernels(dev, a_cases, b_cases)
     p_rows = [r for case, dt in p_cases for r in check_batched(dev, gen, [case], dt)]
     for name, rows in [("score_residual_argmax", a_rows), ("small_table_lookup", b_rows),
                        ("ising_integrand_fused", check_integrand(i_cases)),
-                       ("score_residual_argmax_batched", p_rows)]:
+                       ("score_residual_argmax_batched", p_rows),
+                       ("mvn_pdf_fused", check_mvn(m_cases))]:
         for r in rows:
             checked[name][tuple(r["shape"])] = r
             held[name].add(tuple(r["shape"]))
@@ -1592,10 +1917,12 @@ def check_headline_host_reeval(dev, gen, held, checked, device_only):
 def f32_cases(dev, gen):
     """Phase 3's f32 instantiations, at the shapes the f32 runs of phase 14
     launch them (C_6 n = 65 at rank 24: rook fibers of 1560, lottery 178,
-    init 520 / 325; mvn_d6 at rank 20, mvn_shapes) and, for the paths no
-    f32 run drives, at the f64 phase's shapes: kernel A's 2-D path (the
-    SIMT kernel) and a long fiber, the batched kernel A at C_256's, the
-    fused integrand's D / E rows and its warp path at C_256's fibers."""
+    init 520 / 325; mvn_d6 at rank 20, mvn_shapes: the fused MVN
+    integrand) and, for the paths no f32 run drives, at the f64 phase's
+    shapes: kernel A's 2-D path (the SIMT kernel) and a long fiber, kernel B
+    at mvn_d6's shapes, the batched kernel A at C_256's and the family's
+    (both bodies), the fused integrand's D / E rows and its warp path at
+    C_256's fibers."""
     import torch
 
     from ttcross_tpu_torch.apps import make_ising
@@ -1621,8 +1948,12 @@ def f32_cases(dev, gen):
         ind = torch.randint(0, p.n, (B, p.d), generator=gen, dtype=torch.int32)
         ind[0, 0], ind[1, p.d - 1] = -1, p.n
         i.append((name, kind, p.tables, ind.to(dev)))
-    batched = [("f32_col_pass_c256", 254, 170, 1, 10), ("f32_row_pass_c256", 254, 1, 170, 10)]
-    return a, b, i, batched
+    batched = [("f32_col_pass_c256", 254, 170, 1, 10), ("f32_row_pass_c256", 254, 1, 170, 10),
+               ("f32_col_pass_family", FAMILY_LANES, 1300, 1, 20),
+               ("f32_row_pass_family", FAMILY_LANES, 1, 1300, 20)]
+    m = [(f"f32_mvn_1x{Bb}x{d}", mvn_case(gen, 1, Bb, d, 65, dev, f32))
+         for Bb, d in mvn_shapes(6, 65, 20)[1]]
+    return a, b, i, m, batched
 
 
 def run_capped(dev, key=0, chunks=CAPPED["rank_chunks"], caps=CAPPED["rank_caps"]):
@@ -1881,7 +2212,7 @@ def check_f32(dev, gen, held, checked):
     """Phase 14: the f32 tier.  C_6 (n = 65, rank 24, rook) in float32 over
     keys 0-7 through kernel A's and the fused integrand's f32
     instantiations, held to F32_FLOORS; mvn_d6 greedy (n = 65, rank 20) in
-    float32, key 0, through kernel B's and kernel A's.  Every launch of
+    float32, key 0, through the fused MVN integrand's and kernel A's.  Every launch of
     these runs is an f32 one, at a shape phase 3 held in f32.  Returns the
     launches by shape of key 0's C_6 run and of the mvn_d6 run."""
     first = run_f32(dev, "C_6")
@@ -1927,9 +2258,10 @@ def check_family(dev, held):
     one cross_batch (rank 20, greedy), first and steady call; then each
     lane's single cross() with its lane_key, first and steady.  Every lane
     equals its single run (ranks, sweeps, n_evals, vip; values to
-    FAMILY_RTOL), the worst lane holds FAMILY_WORST_FLOOR, kernel B launches
-    once per lane-batched integrand step (a single run's count, not L
-    times) and kernel A once per pass for all lanes (batched).  Returns
+    FAMILY_RTOL), the worst lane holds FAMILY_WORST_FLOOR, the fused MVN
+    integrand launches once per lane-batched integrand step (a single run's
+    count, not L times; kernel B never) and kernel A once per pass for all
+    lanes (batched).  Returns
     the batch's launches by shape."""
     import numpy as np
     import torch
@@ -1976,7 +2308,7 @@ def check_family(dev, held):
                      "equals_single_run": same, "max_rel_value_diff": rel})
     worst = min(row["digits"] for row in rows)
     busy = {"batch": device_launches(batch), "single_lane_0": device_launches(singles[0][4])}
-    steps = max(c["small_table_lookup"] for *_, c, _ in singles)
+    steps = max(c["mvn_pdf_fused"] for *_, c, _ in singles)
     _emit({"phase": "family", "config": "mvn_d6 n=65 rank 20 pivoting=1, 4 lanes corr 0.2-0.6 "
            "(bench.py:707-741)", "first_s": first, "steady_s": steady, "n_evals": res.neval,
            "sweeps": res.sweeps, "worst_lane_digits": worst, "lanes": rows,
@@ -1991,11 +2323,13 @@ def check_family(dev, held):
                                  f"values {row['max_rel_value_diff']} apart")
     if worst < FAMILY_WORST_FLOOR:
         raise AssertionError(f"family worst lane {worst} digits < {FAMILY_WORST_FLOOR}")
-    if launches["small_table_lookup"] != steps or launches["score_residual_argmax"] != 0 or \
+    if launches["mvn_pdf_fused"] != steps or launches["small_table_lookup"] != 0 or \
+            launches["score_residual_argmax"] != 0 or \
             launches["score_residual_argmax_batched"] != max(c["score_residual_argmax"]
                                                              for *_, c, _ in singles):
-        raise AssertionError(f"family: launches {launches}, a single run's {singles[0][3]}: kernel B "
-                             "once per integrand step and kernel A batched once per pass expected")
+        raise AssertionError(f"family: launches {launches}, a single run's {singles[0][3]}: the "
+                             "fused MVN integrand once per integrand step (no kernel B) and "
+                             "kernel A batched once per pass expected")
     if (res2.neval, [r.ranks for r in res2], launches2) != (res.neval, [r.ranks for r in res], launches):
         raise AssertionError("the repeated family run took another path")
     _require_held("mvn_d6 family", shapes, held)
@@ -4073,7 +4407,7 @@ def check_mp_native_drivers(dev, gen, held, checked):
 F64_DRIVER_RUNS = [   # (driver, argv, CPU digits, the kernels its path must launch)
     ("crs_ising", [], 12.90, MAIN_PATH_KERNELS),
     ("crs_ising", ["D", "10", "17", "8", "1"], None, MAIN_PATH_KERNELS),
-    ("crs_stdnorm", [], 14.75, MVN_KERNELS),
+    ("crs_stdnorm", [], 14.75, LOOKUP_KERNELS),
     ("crs_mvn", [], 5.84, MVN_KERNELS),
     ("crs_mvn_complex", [], 5.84, MVN_KERNELS),
     ("crs_chf", [], 5.84, MVN_KERNELS),
@@ -4082,7 +4416,7 @@ F64_DRIVER_RUNS = [   # (driver, argv, CPU digits, the kernels its path must lau
     ("crs_coscoeff", [], None, ("score_residual_argmax",)),
     ("crs_batch", [], (9.20, 5.57, 4.22, 2.70), FAMILY_KERNELS),
     ("crs_batch", ["6", "65", "14", "4", "1"], (9.20, 5.57, 4.22, 2.70), FAMILY_KERNELS),
-    ("crs_greeks", [], None, MVN_KERNELS),
+    ("crs_greeks", [], None, LOOKUP_KERNELS),
     ("crs_quantics", [], 12.83, ("score_residual_argmax",)),
     ("print_s_vectors", [], None, ()),
     ("print_cos_coeff", [], None, ()),
@@ -4368,34 +4702,61 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(1234)
     args = sys.argv[1:]
+    parent = args[args.index("--parent") + 1] if "--parent" in args else None
+    if "--batched-regimes" in args or "--mvn-keys" in args:
+        if "--batched-regimes" in args:
+            tune_batched(dev, gen)
+            mvn_floor(dev, gen)
+            if parent:
+                _emit({"phase": "compare", "other": parent,
+                       "per_call": _in_turns(redesigned_pairs(parent, dev, gen))})
+        if "--mvn-keys" in args:
+            mvn_keys(dev, parent)
+        return 0
     if "--qd-regimes" in args:
         tune_qd_kernels(dev, gen)
         if "--parent" in args:
             compare_qd_with(args[args.index("--parent") + 1], dev, gen)
         return 0
+    t3 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *a):       # phase 3's seconds by check (the phase3_done line)
+        t = time.perf_counter()
+        out = fn(*a)
+        parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+        return out
+
     a_cases, b_cases = kernel_cases(dev, gen)
     i_cases = integrand_cases(dev, gen)
-    a_rows, b_rows = check_kernels(dev, a_cases, b_cases)
-    i_rows = check_integrand(i_cases)
-    ab_rows = check_batched(dev, gen)
+    m_cases = mvn_cases(dev, gen)
+    a_rows, b_rows = part("kernels_a_b", check_kernels, dev, a_cases, b_cases)
+    i_rows = part("integrand", check_integrand, i_cases)
+    ab_rows = part("batched", check_batched, dev, gen)
+    m_rows = part("mvn", check_mvn, m_cases)
     # the f32 instantiations of every kernel
-    a32, b32, i32, p32 = f32_cases(dev, gen)
-    a32_rows, b32_rows = check_kernels(dev, a32, b32)
+    a32, b32, i32, m32, p32 = f32_cases(dev, gen)
+    a32_rows, b32_rows = part("kernels_a_b", check_kernels, dev, a32, b32)
     a_rows, b_rows = a_rows + a32_rows, b_rows + b32_rows
-    i_rows = i_rows + check_integrand(i32)
-    ab_rows = ab_rows + check_batched(dev, gen, p32, torch.float32)
-    del a32, b32, i32
+    i_rows = i_rows + part("integrand", check_integrand, i32)
+    m_rows = m_rows + part("mvn", check_mvn, m32)
+    ab_rows = ab_rows + part("batched", check_batched, dev, gen, p32, torch.float32)
+    del a32, b32, i32, m32
+    _emit({"phase": "phase3_done", "seconds": time.perf_counter() - t3, "parts_s": parts,
+           "script_elapsed_s": time.perf_counter() - T_START})
     # phase 3's row of every (kernel, shape) it held against the plain version
     # (the first at a shape: the integrand's kind C, which every driven run uses)
     checked = {name: {tuple(r["shape"]): r for r in reversed(rows)} for name, rows in
                [("score_residual_argmax", a_rows), ("score_residual_argmax_batched", ab_rows),
-                ("small_table_lookup", b_rows), ("ising_integrand_fused", i_rows)]}
+                ("small_table_lookup", b_rows), ("ising_integrand_fused", i_rows),
+                ("mvn_pdf_fused", m_rows)]}
     checked.update({name: {} for name in DD_KERNELS})   # held by phase 15 at its runs' shapes
     checked.update({name: {} for name in QD_KERNELS})   # held by phase 17 at its runs' shapes
     held = {name: set(by) for name, by in checked.items()}
     if "--parent" in args:
-        _emit(compare_with(args[args.index("--parent") + 1], a_cases, b_cases, i_cases))
-    del a_cases, b_cases, i_cases
+        _emit(compare_with(args[args.index("--parent") + 1], a_cases, b_cases, i_cases,
+                           m_cases))
+    del a_cases, b_cases, i_cases, m_cases
 
     K.reset_launch_counts()
     res, first, digits = run_headline(dev, oversample=6)
@@ -4534,9 +4895,9 @@ def main() -> int:
                                             ("mvn_d6 greedy", MVN_KERNELS),
                                             ("C_6 headline host_reeval", MAIN_PATH_KERNELS),
                                             ("mvn_d6 family", FAMILY_KERNELS),
-                                            ("Greeks", MVN_KERNELS),
+                                            ("Greeks", LOOKUP_KERNELS),
                                             ("C_6 capped + chunked", MAIN_PATH_KERNELS),
-                                            ("stdnorm_d10 adaptive", MVN_KERNELS),
+                                            ("stdnorm_d10 adaptive", LOOKUP_KERNELS),
                                             ("quantics", ("score_residual_argmax",)),
                                             ("C_6 f32", [k + "_f32" for k in MAIN_PATH_KERNELS]),
                                             ("mvn_d6 f32", [k + "_f32" for k in MVN_KERNELS])]

@@ -170,6 +170,54 @@ def test_score_batched_kernel_first_maximum_nan_and_what_it_does_not_take(cuda_d
                                         rowf, mask)            # not contiguous
 
 
+# the shapes of the family (4 lanes), cross_batch(mesh=) (2 a rank) and the
+# lane jacobi (4 lanes x 5 bonds), where the rule takes a cluster per fiber
+BATCHED_LANE_SHAPES = [(P, M, Kc, 20) for P in (2, 4, 20) for M, Kc in ((1300, 1), (1, 1300))]
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("P,M,Kc,R", BATCHED_LANE_SHAPES + [(5, 1, 170, 10), (3, 4000, 1, 30)])
+def test_score_batched_cluster_body_is_single_launches_bit_for_bit(P, M, Kc, R, dtype, cluster,
+                                                                   gen, cuda_device):
+    """Both bodies of the batched kernel A (cluster 1: a block per fiber;
+    2, 16 or the rule's, 0) give the bits of one single-fiber launch per
+    fiber, a fully masked fiber (0, -1) among them."""
+    vals, colf, rowf = (torch.as_tensor(gen.standard_normal(sh), dtype=dtype).to(cuda_device)
+                        for sh in ((P, M, Kc), (P, M, R), (P, R, Kc)))
+    mask = torch.as_tensor(gen.random((P, M, Kc)) > 0.2).to(cuda_device)
+    mask[1] = False
+    args = (vals, colf, rowf, mask)
+    if cluster:
+        got = K.score_residual_argmax_batched_planned(*args, cluster)
+    else:
+        got = K.score_residual_argmax_batched(*args)
+    single = [K.score_residual_argmax(*(a[p] for a in args)) for p in range(P)]
+    torch.cuda.synchronize()
+    for i in range(3):
+        assert torch.equal(got[i], torch.stack([x[i] for x in single]))
+    assert int(got[0][1]) == 0 and float(got[1][1]) == -1.0
+    if not cluster and max(M, Kc) == 1300:
+        assert K._plan(M, Kc, R, torch.cuda.get_device_properties(0).multi_processor_count,
+                       bonds=P, esz=vals.element_size()).cluster >= 2
+
+
+@pytest.mark.parametrize("cluster", [1, 4, 11])
+def test_score_batched_cluster_body_first_maximum_and_nan(cluster, cuda_device):
+    f64 = dict(dtype=torch.float64, device=cuda_device)
+    P, M, R = 3, 1300, 3
+    vals = torch.zeros((P, M, 1), **f64)
+    vals[0, 1200, 0] = vals[0, 37, 0] = 4.0          # ties in different blocks: the first
+    vals[1, 1299, 0] = float("nan")
+    vals[1, 5, 0] = 9.0
+    mask = torch.ones((P, M, 1), dtype=torch.bool, device=cuda_device)
+    mask[2] = False
+    colf, rowf = torch.zeros((P, M, R), **f64), torch.zeros((P, R, 1), **f64)
+    got = K.score_residual_argmax_batched_planned(vals, colf, rowf, mask, cluster)
+    assert got[0].tolist() == [37, 1299, 0]
+    assert float(got[1][0]) == 4.0 and torch.isnan(got[1][1]) and float(got[1][2]) == -1.0
+
+
 @pytest.mark.parametrize("shape", [(254, 170, 1, 10), (1022, 1, 170, 10)])
 def test_score_batched_kernel_is_one_kernel(shape, gen, cuda_device):
     from torch.profiler import ProfilerActivity, profile
@@ -281,6 +329,102 @@ def test_integrand_wrapper_raises_on_what_the_kernel_does_not_take(gen, cuda_dev
     with pytest.raises(ValueError):
         K.ising_integrand_fused(tables, torch.zeros((4, 1025), dtype=torch.int32,
                                                     device=cuda_device), "C")   # d too large
+
+
+# the MVN path's batches (mvn_d6 at rank 20: rook fiber, lottery, init
+# diagonals and fibers, the maxvol fiber cross; at rank 26 the same),
+# each for one problem (L = 1) and for the 4-lane family; d = 1-16 has a
+# kernel per d, d = 20 and 40 the generic one
+MVN_SHAPES = [(L, B, 6, 65) for L in (1, 4) for B in (1300, 170, 520, 390, 26000)] + [
+    (1, 43940, 6, 65), (1, 1690, 6, 65), (1, 612, 4, 17), (2, 100, 8, 33), (2, 100, 9, 33),
+    (3, 500, 12, 33), (2, 300, 20, 33), (1, 200, 40, 17), (1, 1, 1, 5)]
+
+
+def _mvn_args(gen, L, B, d, n, dtype, dev):
+    """A random SPD inverse covariance and mean per lane, the MVN box's
+    nodes, indices in range but for rows at the box's corners and rows
+    past the table (and one at -1)."""
+    from ttcross_tpu_torch.apps.mvn import _rule
+
+    _, x, _ = _rule(n - 1 if n % 2 else n)
+    A = gen.standard_normal((L, d, d)) * 0.3
+    icov = A @ A.transpose(0, 2, 1) + np.eye(d) * 2.0
+    mu = 4.5 + gen.standard_normal((L, d)) * 0.1
+    norm = 1.0 + gen.random(L)
+    ind = gen.integers(0, n, size=(L, B, d))
+    ind[:, :min(B, 4)] = gen.integers(0, 2, size=(L, min(B, 4), d)) * (n - 1)
+    if B > 6:
+        ind[:, 4, 0], ind[:, 5, d - 1], ind[:, 6, :] = n, -1, n + 5
+    t = lambda a: torch.as_tensor(a, dtype=dtype).to(dev)  # noqa: E731
+    return (t(x), torch.as_tensor(ind, dtype=torch.int32).to(dev), t(mu), t(icov), t(norm))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L,B,d,n", MVN_SHAPES)
+def test_mvn_kernel_is_its_emulation_bit_for_bit_and_near_plain(L, B, d, n, dtype, gen,
+                                                               cuda_device):
+    args = _mvn_args(gen, L, B, d, n, dtype, cuda_device)
+    n0, b0 = K.mvn_pdf_fused.launches, K.small_table_lookup.launches
+    got = K.mvn_pdf_fused(*args)
+    emulated = K.mvn_pdf_emulated(*args)
+    plain = K.mvn_pdf_plain(*args)
+    torch.cuda.synchronize()
+    assert K.mvn_pdf_fused.launches == n0 + 1 and K.small_table_lookup.launches == b0
+    assert got.shape == (L, B) and got.dtype == dtype
+    assert torch.equal(got, emulated)
+    err = (got.double() - plain.double()).abs().cpu()
+    assert bool((err <= K.mvn_pdf_tolerance(*args[:4], plain)).all())
+    one = K.mvn_pdf_fused(args[0], args[1][0], args[2][0], args[3][0], args[4][:1])
+    assert torch.equal(one, got[0])          # a lane alone: the same bits
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_mvn_integrands_are_one_kernel_per_call(dtype, cuda_device):
+    """MvnProblem.fun and MvnFamily.fun on the card: one launch of the fused
+    kernel per call, no kernel B and no other kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ttcross_tpu_torch.apps import make_mvn, make_mvn_family
+
+    p = make_mvn(d=6, n=65, dtype=dtype)
+    ind = torch.randint(0, 65, (4, 1300, 6), dtype=torch.int32, device=cuda_device)
+    calls = [lambda: p.fun(ind[0])]
+    if dtype == torch.float64:
+        fam = make_mvn_family(d=6, n=65, corrs=(0.2, 0.4, 0.5, 0.6))
+        calls += [lambda: fam.fun(ind, fam.params), lambda: fam.fun(ind[2], fam.lane(2))]
+        assert torch.equal(fam.fun(ind, fam.params)[2], fam.fun(ind[2], fam.lane(2)))
+    for call in calls:
+        call()
+        torch.cuda.synchronize()
+        for _ in range(3):      # a window that records no device event is profiled again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    call()
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+            if kern:
+                break
+        assert [e.key for e in kern] and all("mvn_pdf_kernel" in e.key for e in kern)
+        assert 0 < sum(e.count for e in kern) <= 10
+
+
+def test_mvn_wrapper_raises_on_what_the_kernel_does_not_take(gen, cuda_device):
+    table, ind, mu, icov, norm = _mvn_args(gen, 2, 100, 6, 65, torch.float64, cuda_device)
+    with pytest.raises(TypeError):
+        K.mvn_pdf_fused(table, ind.long(), mu, icov, norm)
+    with pytest.raises(TypeError):
+        K.mvn_pdf_fused(table, ind, mu.float(), icov, norm)        # no input is converted
+    with pytest.raises(ValueError):
+        K.mvn_pdf_fused(table, ind, mu, icov.transpose(1, 2), norm)    # not contiguous
+    with pytest.raises(ValueError):
+        K.mvn_pdf_fused(table, ind, mu, icov, norm.cpu())          # elsewhere
+    with pytest.raises(ValueError):
+        K.mvn_pdf_fused(table, ind, mu[:1], icov, norm)            # a lane short
+    big = torch.zeros((1, 4, 80), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="shared-memory"):
+        K.mvn_pdf_fused(table, big, torch.zeros((1, 80), dtype=torch.float64, device=cuda_device),
+                        torch.zeros((1, 80, 80), dtype=torch.float64, device=cuda_device),
+                        norm[:1])
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
@@ -444,7 +588,8 @@ def test_small_mvn_cross_on_the_card_matches_the_cpu(extra, cuda_device):
 
     row, counts, _ = chip_smoke.small_mvn_against_cpu(cuda_device, extra)
     assert row["max_rel_value_diff"] <= 1e-11 and row["n_evals"] > 0
-    assert counts["small_table_lookup"] > 0 and counts["score_residual_argmax"] > 0
+    assert counts["mvn_pdf_fused"] > 0 and counts["score_residual_argmax"] > 0
+    assert counts["small_table_lookup"] == 0        # the MVN integrand is one fused launch
 
 
 def test_mvn_sweep_and_maxvol_visit_make_no_host_sync(cuda_device):

@@ -44,7 +44,7 @@ RUNS = {   # driver: (module, argv, floor, the kernels its path must launch)
     "crs_stdnorm": (crs_stdnorm, ["4", "33", "4", "1"], 3.83,
                     ("score_residual_argmax", "small_table_lookup")),
     "crs_mvn": (crs_mvn, ["4", "33", "16", "1"], 5.21,
-                ("score_residual_argmax", "small_table_lookup")),
+                ("score_residual_argmax", "mvn_pdf_fused")),
     "crs_quantics": (crs_quantics, ["12", "8", "1", "1"], 14.25, ("score_residual_argmax",)),
 }
 
@@ -108,7 +108,7 @@ def test_batch_driver_launches_kernel_a_batched(cuda_device):
     rc, out = _run(crs_batch, ["4", "17", "8", "2", "1"])
     counts = K.launch_counts()
     assert rc == 0 and "family speedup" in out, out
-    assert counts["score_residual_argmax_batched"] > 0 and counts["small_table_lookup"] > 0
+    assert counts["score_residual_argmax_batched"] > 0 and counts["mvn_pdf_fused"] > 0
 
 
 def test_dryrun_multichip_on_the_card(cuda_device):

@@ -105,7 +105,8 @@ def test_gloo_collectives_on_the_card(built):
 
 def test_lane_jacobi_sweep_makes_no_sync(built):
     """One sweep of the 4-lane mvn_d6 family's all-bonds engine (kernel A
-    batched over lanes x bonds, kernel B once per integrand step) after a
+    batched over lanes x bonds, the fused MVN integrand once per integrand
+    step) after a
     first one, one lane frozen, with sync debug "error"."""
     from ttcross_tpu_torch.apps import make_mvn_family
     from ttcross_tpu_torch.config import precision_thresholds

@@ -204,8 +204,12 @@ def test_cpu_wrappers_take_the_plain_path(rng):
     qtables = torch.cat([tables[:1], torch.zeros(3, 5, dtype=torch.float64), tables[2:3],
                          torch.zeros(3, 5, dtype=torch.float64)])
     assert K.ising_c_integrand_qd_fused(qtables, torch.from_numpy(ind[:, :3])).e0.shape == (len(ind),)
+    nodes = torch.from_numpy(np.abs(table[0]))
+    mu, icov, norm = (torch.from_numpy(a) for a in (rng.normal(size=(3,)), np.eye(3), np.ones(1)))
+    assert K.mvn_pdf_fused(nodes, torch.from_numpy(ind[:, :3]), mu, icov, norm).shape == (len(ind),)
     assert K.launch_counts() == {"score_residual_argmax": 0, "score_residual_argmax_batched": 0,
                                  "small_table_lookup": 0, "ising_integrand_fused": 0,
+                                 "mvn_pdf_fused": 0,
                                  "dd_score_residual_argmax": 0, "dd_dot": 0,
                                  "dd_gather_tt_fused": 0, "ising_c_integrand_dd_fused": 0,
                                  "qd_score_residual_argmax": 0, "qd_dot": 0,
@@ -262,20 +266,26 @@ def test_plan_covers_each_element_once_within_the_card(M, Kc, R):
                                       (1022, 1, 170, 10), (1, 170, 1, 10), (30, 102, 1, 6),
                                       (7, 1, 1300, 30), (5, 3, 1, 2), (254, 170, 1, 500)])
 def test_plan_batched_is_one_block_per_bond_over_whole_tiles(P, M, Kc, R):
-    """The batched path: a block per bond and no cluster, the bond's fiber
-    walked in tiles of `threads` elements that shared memory holds; the
-    all-bonds sweeps' fiber of 170 is one tile of 192 threads."""
+    """The batched path: where the rule keeps a block per bond (no cluster),
+    the bond's fiber walked in tiles of `threads` elements that shared
+    memory holds; the all-bonds sweeps' fiber of 170 is one tile of 192
+    threads.  Few long fibers (7 of 1300) take a cluster per fiber, every
+    block of it with a tile, one partial per warp."""
     plan = K._plan(M, Kc, R, _SMS, bonds=P)
     length = max(M, Kc)
+    C = plan.cluster
     assert plan.path == (K.BATCH_COL if Kc == 1 else K.BATCH_ROW)
-    assert (plan.blocks, plan.cluster, plan.nparts) == (P, 1, 0)
+    assert (plan.blocks, plan.nparts) == (P * C, 0 if C == 1 else P * C * plan.threads // 32)
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512
     assert plan.tile == ((plan.threads, 1) if Kc == 1 else (1, plan.threads))
     assert plan.smem == 8 * R + 16 + 8 * plan.threads * R <= K.SMEM_OPTIN - 1024
     tiles = -(-length // plan.threads)
-    assert (tiles - 1) * plan.threads < length <= tiles * plan.threads
+    if C == 1:
+        assert (tiles - 1) * plan.threads < length <= tiles * plan.threads
+    else:
+        assert 2 <= C <= tiles
     if length == 170 and R == 10:
-        assert plan.threads == 192 and tiles == 1
+        assert plan.threads == 192 and tiles == 1 and C == 1
     assert K._plan(M, Kc, R, _SMS) != plan          # the single-fiber plan stays its own
 
 

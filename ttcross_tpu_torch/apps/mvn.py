@@ -5,10 +5,11 @@ covariance sigma = 0.4, corr = 0.5, X0 = log 100, mvn_init at :15-60, and
 the Mahalanobis-exponent pdf, :63-83).  The problem is an immutable bundle
 with the inverse covariance computed on the host once; the mean, the
 inverse covariance and the node table lie on the problem's device from
-construction, so a call copies nothing from the host.  The node lookup is
-ops/dense.py::table_lookup (kernel B on the card); the quadratic form is a
-plain matmul, as it is a plain einsum outside any kernel in the JAX
-package.
+construction, so a call copies nothing from the host.  An integrand call
+(MvnProblem.fun, MvnFamily.fun) is ops/kernels.py::mvn_pdf_fused: on the
+card one launch that looks the nodes up and forms the density (kernel B's
+redesign on this path), on the CPU its plain version, the JAX package's
+composition of the lookup, the quadratic form and exp.
 
 Used by the MVN probability program (test_crs_mvn.f90: mass = 1 on the
 cumulant box [0.52517, 8.52517]) and by the CHF / pdf / COS pipelines.
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from ..cross.batch import lane_batched
-from ..ops.dense import matmul_by_sums, table_lookup
+from ..ops.kernels import mvn_pdf_fused
 from ..ops.quadrature import lgwt, map_to_interval
 
 __all__ = ["MvnDensity", "make_mvn_density", "MvnProblem", "make_mvn",
@@ -39,8 +40,9 @@ def _quad_form(diff, inv_cov):
 
 @dataclass(frozen=True)
 class MvnDensity:
-    """N(mu, cov) density with precomputed inverse covariance; mu_t and
-    inv_cov_t are mu and inv_cov on the density's device."""
+    """N(mu, cov) density with precomputed inverse covariance; mu_t,
+    inv_cov_t and norm_t are mu, inv_cov and the normalisation
+    sqrt((2 pi)^d det_cov) (shape (1,)) on the density's device."""
 
     mu: np.ndarray
     cov: np.ndarray
@@ -48,6 +50,7 @@ class MvnDensity:
     det_cov: float
     mu_t: torch.Tensor
     inv_cov_t: torch.Tensor
+    norm_t: torch.Tensor
 
     @property
     def d(self) -> int:
@@ -63,9 +66,11 @@ class MvnDensity:
 def density_from_numpy(mu, cov, inv_cov, det_cov: float, device,
                        dtype: torch.dtype = torch.float64) -> MvnDensity:
     mu, cov, inv_cov = (np.asarray(a, np.float64) for a in (mu, cov, inv_cov))
+    norm = np.sqrt((2.0 * np.pi) ** mu.shape[0] * float(det_cov))
     return MvnDensity(mu=mu, cov=cov, inv_cov=inv_cov, det_cov=float(det_cov),
                       mu_t=torch.from_numpy(mu).to(device, dtype),
-                      inv_cov_t=torch.from_numpy(inv_cov).to(device, dtype))
+                      inv_cov_t=torch.from_numpy(inv_cov).to(device, dtype),
+                      norm_t=torch.tensor([norm], dtype=torch.float64).to(device, dtype))
 
 
 def make_mvn_density(d: int, r: float = 0.0, T: float = 1.0, sigma: float = 0.4,
@@ -95,8 +100,10 @@ class MvnProblem:
     table: torch.Tensor
 
     def fun(self, ind):
-        """ind (B, d) int32 on the problem's device -> (B,) pdf values."""
-        return self.density.pdf(table_lookup(self.table, ind))
+        """ind (B, d) int32 on the problem's device -> (B,) pdf values: one
+        fused launch on the card (a family of one lane's arithmetic)."""
+        dn = self.density
+        return mvn_pdf_fused(self.table, ind, dn.mu_t, dn.inv_cov_t, dn.norm_t)
 
 
 def _rule(n: int):
@@ -140,18 +147,15 @@ class MvnFamily:
 
     @lane_batched
     def fun(self, ind, par):
-        """ind (L, B, d) int32 with the whole params -> (L, B): every lane's
-        nodes in one lookup (one kernel-B launch at (L*B, d)) and the
-        quadratic forms of every lane with inv_cov (L, d, d) at once
-        (cross/batch.py::lane_batched).  ind (B, d) with one lane's par ->
+        """ind (L, B, d) int32 with the whole params -> (L, B): every lane
+        in one mvn_pdf_fused launch on the card (on the CPU the lookup and
+        the quadratic forms of every lane with inv_cov (L, d, d) at once,
+        cross/batch.py::lane_batched).  ind (B, d) with one lane's par ->
         (B,) runs the same as a family of one, so a lane's single run does
         the lane's arithmetic."""
         if ind.dim() == 2:
             return self.fun(ind[None], {k: v[None] for k, v in par.items()})[0]
-        x = table_lookup(self.table, ind.reshape(-1, ind.shape[-1])).reshape(ind.shape)
-        diff = x - par["mu"][:, None, :]
-        q = (matmul_by_sums(diff, par["inv_cov"]) * diff).sum(dim=-1)
-        return torch.exp(-0.5 * q) / par["norm"][:, None]
+        return mvn_pdf_fused(self.table, ind.contiguous(), par["mu"], par["inv_cov"], par["norm"])
 
     def lane(self, i: int) -> dict:
         """The parameters of lane i."""

@@ -68,8 +68,8 @@ class BatchCrossResult:
 def lane_batched(fun: Callable) -> Callable:
     """Mark ``fun(ind, par)`` as lane-batched: called with ind (L, B, d) and
     the whole params (every leaf with its lane axis) it returns (L, B), all
-    lanes in one call (apps/mvn.py::MvnFamily.fun: one kernel-B launch for
-    every lane's nodes).  cross_batch calls a marked integrand once per
+    lanes in one call (apps/mvn.py::MvnFamily.fun: one mvn_pdf_fused launch
+    for every lane).  cross_batch calls a marked integrand once per
     integrand step and vmaps an unmarked one."""
     fun.lane_batched = True
     return fun

@@ -16,8 +16,9 @@ place.
 Kernels on these paths (ops/kernels.py): every integrand call of the Ising
 problem is one fused launch; every rook pass and the full-pivoting hunt
 score their residual with the masked argmax (kernel A, batched over bonds
-on the all-bonds sweeps); the chain evaluator's lift and the node lookup of
-the MVN and stdnorm integrands are the small-table lookup (kernel B).
+on the all-bonds sweeps); the MVN integrand is one fused launch too
+(mvn_pdf_fused); the chain evaluator's lift and the node lookup of the
+stdnorm integrand are the small-table lookup (kernel B).
 """
 
 from __future__ import annotations

@@ -350,19 +350,42 @@ score_fiber_kernel(const S* __restrict__ vals,
   }
 }
 
-// P fibers in one launch, the all-bonds (jacobi) sweeps' shape: 254 or 1022
-// bonds, each a fiber of R * N = 170 elements at R = 10.  JAX computes it
-// per bond with XLA ops in f32 and recomputes the chosen pivot in f64
-// (ttcross_tpu/cross/engine_jacobi.py:237-251, 269-282); here it is kernel
-// A's fiber walk, so the residual returned is the pivot in S.  What bounds
-// it: bytes, 15.2 KB per bond read once at f64 (3.9 MB at 254 bonds, ~1.2
-// us at 3.35 TB/s), under a launch's own floor.  A fiber this short wants
-// no cluster: one block per bond walks the bond's tiles with
-// score_fiber_tiles (the single-fiber kernel's staging and FMA order, so
-// the two agree bit for bit) and reduces them alone.  Bond p reads vals
-// and mask at p * L, its L x R (COL) or 1 x R factor of colf and its R x 1
-// or R x L (row fiber) factor of rowf, and writes out_idx[p],
-// out_score[p], out_resid[p].
+// P fibers in one launch: the all-bonds (jacobi) sweeps' 254 or 1022 bonds,
+// each a fiber of R * N = 170 elements at R = 10, and a family's lanes (the
+// 4-lane mvn_d6 family's 4 fibers of 1300 at R = 20, its lane jacobi's 20).
+// JAX computes it per bond with XLA ops in f32 and recomputes the chosen
+// pivot in f64 (ttcross_tpu/cross/engine_jacobi.py:237-251, 269-282); here
+// it is kernel A's fiber walk, so the residual returned is the pivot in S.
+// What bounds it: bytes, 15.2 KB per bond read once at f64 (3.9 MB at 254
+// bonds, ~1.2 us at 3.35 TB/s), under a launch's own floor; at a few long
+// fibers, the latency of the walk along each one.  Two bodies, the cluster
+// size C chosen by ops/kernels.py::_plan:
+// * C = 1, many short fibers: one block per bond walks the bond's tiles
+//   with score_fiber_tiles and reduces them alone.
+// * C > 1, few long fibers: the single-fiber kernel with a fiber axis.  The
+//   grid is (C, P) with clusters of (C, 1, 1): block `rank` of fiber p's
+//   cluster scores its tiles rank, rank + C, ... as score_fiber_kernel
+//   does, each warp writes its best to fiber p's C * warps slots of the
+//   scratch buffer and arrives on the cluster barrier, and rank 0's first
+//   warp alone waits, reduces the fiber's slots and writes its result.
+// Either body stages and sums each element as the single-fiber kernel does
+// (score_fiber_tiles: the same FMA order along R), and better() is a total
+// order, so fiber p's result equals one score_fiber_kernel launch on it bit
+// for bit, whatever C is.  Bond p reads vals and mask at p * L, its L x R
+// (COL) or 1 x R factor of colf and its R x 1 or R x L (row fiber) factor
+// of rowf, and writes out_idx[p], out_score[p], out_resid[p].
+template <bool COL, typename S>
+__device__ __forceinline__ Best<S> score_bond(const S* __restrict__ vals,
+                                              const S* __restrict__ colf,
+                                              const S* __restrict__ rowf,
+                                              const uint8_t* __restrict__ mask, long long p,
+                                              long long L, int R, long long first,
+                                              long long step, S* fiber_s) {
+  return score_fiber_tiles<COL, S>(vals + p * L, colf + p * (COL ? L * R : (long long)R),
+                                   rowf + p * (COL ? (long long)R : R * L), mask + p * L, L, R,
+                                   first, step, fiber_s);
+}
+
 template <bool COL, typename S>
 __global__ void __launch_bounds__(kFiberThreadsMax)
 score_fiber_batched_kernel(const S* __restrict__ vals,
@@ -375,14 +398,57 @@ score_fiber_batched_kernel(const S* __restrict__ vals,
   extern __shared__ __align__(16) unsigned char fiber_raw[];
   S* fiber_s = reinterpret_cast<S*>(fiber_raw);
   const long long p = blockIdx.x;
-  Best<S> b = score_fiber_tiles<COL, S>(vals + p * L, colf + p * (COL ? L * R : (long long)R),
-                                        rowf + p * (COL ? (long long)R : R * L), mask + p * L,
-                                        L, R, 0, 1, fiber_s);
+  Best<S> b = score_bond<COL, S>(vals, colf, rowf, mask, p, L, R, 0, 1, fiber_s);
   b = block_reduce(b);
   if (threadIdx.x == 0) {
     out_idx[p] = b.idx;
     out_score[p] = b.score;
     out_resid[p] = b.resid;
+  }
+}
+
+template <bool COL, typename S>
+__global__ void __launch_bounds__(kFiberThreadsMax)
+score_fiber_batched_cluster_kernel(const S* __restrict__ vals,
+                                   const S* __restrict__ colf,
+                                   const S* __restrict__ rowf,
+                                   const uint8_t* __restrict__ mask, long long L, int R,
+                                   S* __restrict__ part_score, long long* __restrict__ part_idx,
+                                   S* __restrict__ part_resid, long long* __restrict__ out_idx,
+                                   S* __restrict__ out_score,
+                                   S* __restrict__ out_resid) {
+  extern __shared__ __align__(16) unsigned char fiber_raw[];
+  S* fiber_s = reinterpret_cast<S*>(fiber_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned C = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const long long p = blockIdx.y;
+  const int t = threadIdx.x;
+  const int T = blockDim.x;
+  Best<S> b = score_bond<COL, S>(vals, colf, rowf, mask, p, L, R, rank, C, fiber_s);
+  const unsigned nparts = C * (T >> 5);
+  const long long base = p * nparts;   // fiber p's slots
+  b = warp_reduce(b);
+  if ((t & 31) == 0) {
+    const long long i = base + rank * (T >> 5) + (t >> 5);
+    part_score[i] = b.score;
+    part_idx[i] = b.idx;
+    part_resid[i] = b.resid;
+  }
+  // release: the warps' partials are visible to whoever acquires the barrier
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  if (rank != 0 || t >= 32) return;
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+  Best<S> q{-INFINITY, LLONG_MAX, S(0)};
+  for (unsigned i = t; i < nparts; i += 32) {
+    keep(q, __ldcg(part_score + base + i), __ldcg(part_idx + base + i),
+         __ldcg(part_resid + base + i));
+  }
+  q = warp_reduce(q);
+  if (t == 0) {
+    out_idx[p] = q.idx;
+    out_score[p] = q.score;
+    out_resid[p] = q.resid;
   }
 }
 
@@ -1091,6 +1157,163 @@ void launch_integrand(int path, int blocks, int threads, int smem, cudaStream_t 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The MVN density integrand, fused: kernel B's redesign on the MVN path.
+//
+// Replaces, on the MVN integrand's path, ttcross_tpu/ops/pallas_kernels.py::
+// small_table_lookup_limbs (the Pallas body _lookup_kernel at :127-148,
+// pl.pallas_call at :191) together with the eager chain of
+// ttcross_tpu/apps/mvn.py::MvnDensity.pdf (:42-48) and MvnFamily.fun
+// (:105-111) that consumed its output.  For the (n,) node table, ind
+// (L, B, d) int32, and per lane l its mean mu_l (d), inverse covariance C_l
+// (d, d) and normalisation norm_l:
+//     diff_j = table[ind[l, b, j]] - mu_l[j]   (the entry 0 outside [0, n))
+//     t_k = sum_j diff_j C_l[j, k],  q = sum_k t_k diff_k,
+//     out[l, b] = exp(-0.5 q) / norm_l.
+//
+// What bounds it: the launch.  At mvn_d6's rook fiber (1300, 6) it reads
+// 31 KB of indices and writes 10 KB (0.012 us at 3.35 TB/s); at the maxvol
+// fiber cross (43940, 6) 1.05 MB and 0.35 MB, 0.42 us.  Kernel B wrote the
+// (B, d) nodes and 7 eager launches read them back (subtract, the form's
+// product, multiply and sum, scale, exp, divide; 9 for a family): 13.4-14.2
+// us of device time a call on an H100 (700 W), 21.3-21.9 at the maxvol's
+// batches.  Here the nodes and the differences never leave registers, and
+// a call is one launch.
+//
+// Design.  A block takes `rows` rows of one lane (blockIdx.y), a row per
+// thread.  It stages the lane's C and mu, the node table and norm_l in
+// shared memory in one cp.async round trip, together with its rows of
+// indices (one contiguous range, copied as the 16-byte chunks that cover
+// it: a d = 6 row read by each thread from device memory would stride 24
+// bytes across the warp).  A thread then forms its d differences, each
+// t_k with j ascending and q with k ascending, -0.5 q, its exp and the
+// division, every product and sum with __d*_rn / __f*_rn so that nvcc
+// contracts nothing: a row's arithmetic depends on nothing but the row and
+// its lane, so a lane of a family repeats its single run bit for bit, and
+// ops/kernels.py::mvn_pdf_emulated repeats it op by op in torch.  Up to
+// kMvnDMax variables there is a kernel per d (the template's D): its loops
+// unroll in full with no branch, so every load of C and every product is
+// issued ahead of the sums that need them, and the only chains left are
+// the sums' own.  A first version unrolled to 16 with a branch per term
+// (`if (j < d)`), which kept each term's shared load and product on the
+// chain: 2.87-2.91 us a call at every mvn_d6 batch on an H100 (700 W),
+// against 1.75-1.81 now.  Beyond kMvnDMax (D = 0) a thread forms each
+// difference again where it needs it, from its row in shared memory, with
+// the same bits (no path has such a d).
+// ---------------------------------------------------------------------------
+
+constexpr int kMvnThreads = 128;  // a block's rows at most, a row per thread
+constexpr int kMvnDMax = 16;      // up to this d a kernel per d
+
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double exp_s(double x) { return exp(x); }
+__device__ __forceinline__ float exp_s(float x) { return expf(x); }
+
+// Bytes of C (d * d), mu (d), the table (n) and norm (1) in shared memory,
+// rounded up to 16 so that the indices that follow start on a 16-byte
+// boundary; ops/kernels.py::_mvn_plan sizes the block with the same sum.
+template <typename S>
+__host__ __device__ constexpr int mvn_param_bytes(int d, int n) {
+  return ((d * d + d + n + 1) * (int)sizeof(S) + 15) / 16 * 16;
+}
+
+template <typename S>
+__device__ __forceinline__ S mvn_diff(const S* tab, int n, int i, S mu) {
+  return sub_rn((i >= 0 && i < n) ? tab[i] : S(0), mu);
+}
+
+template <int D, typename S>
+__global__ void __launch_bounds__(kMvnThreads)
+mvn_pdf_kernel(const S* __restrict__ table, int n, const int32_t* __restrict__ ind,
+               long long B, int dyn_d, const S* __restrict__ mu, const S* __restrict__ icov,
+               const S* __restrict__ norm, int rows, S* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char mvn_raw[];
+  const int d = D > 0 ? D : dyn_d;
+  S* c_s = reinterpret_cast<S*>(mvn_raw);
+  S* mu_s = c_s + d * d;
+  S* tab_s = mu_s + d;
+  S* norm_s = tab_s + n;
+  int32_t* rows_s = reinterpret_cast<int32_t*>(mvn_raw + mvn_param_bytes<S>(d, n));
+  const int t = threadIdx.x;
+  const int T = blockDim.x;
+  const long long l = blockIdx.y;
+  const long long b0 = (long long)blockIdx.x * rows;
+  const int nr = (int)min((long long)rows, B - b0);
+  for (int i = t; i < d * d; i += T) cp_async_s(c_s + i, icov + l * d * d + i);
+  for (int i = t; i < d; i += T) cp_async_s(mu_s + i, mu + l * d + i);
+  for (int i = t; i < n; i += T) cp_async_s(tab_s + i, table + i);
+  if (t == 0) cp_async_s(norm_s, norm + l);
+  const int off = copy_ints(rows_s, ind + (l * B + b0) * d, (long long)nr * d, t, T);
+  cp_async_commit();
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  if (t >= nr) return;
+  const int32_t* r = rows_s + off + t * d;
+  S q = S(0);
+  if constexpr (D > 0) {
+    S dif[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) dif[j] = mvn_diff<S>(tab_s, n, r[j], mu_s[j]);
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      S tk = S(0);
+#pragma unroll
+      for (int j = 0; j < D; ++j) tk = add_rn(tk, mul_rn(dif[j], c_s[j * D + k]));
+      q = add_rn(q, mul_rn(tk, dif[k]));
+    }
+  } else {
+    for (int k = 0; k < d; ++k) {
+      S tk = S(0);
+      for (int j = 0; j < d; ++j) {
+        tk = add_rn(tk, mul_rn(mvn_diff<S>(tab_s, n, r[j], mu_s[j]), c_s[j * d + k]));
+      }
+      q = add_rn(q, mul_rn(tk, mvn_diff<S>(tab_s, n, r[k], mu_s[k])));
+    }
+  }
+  out[l * B + b0 + t] = div_rn(exp_s(mul_rn(S(-0.5), q)), *norm_s);
+}
+
+// Launches the kernel for d (D = d up to kMvnDMax, else the generic D = 0).
+template <int D, typename S>
+void launch_mvn(dim3 grid, int threads, int smem, cudaStream_t s, const S* table, int n,
+                const int32_t* ind, long long B, int d, const S* mu, const S* icov,
+                const S* norm, int rows, S* out) {
+  if constexpr (D > kMvnDMax) {
+    mvn_pdf_kernel<0, S><<<grid, threads, smem, s>>>(table, n, ind, B, d, mu, icov, norm, rows,
+                                                     out);
+  } else {
+    if (d == D) {
+      mvn_pdf_kernel<D, S><<<grid, threads, smem, s>>>(table, n, ind, B, d, mu, icov, norm,
+                                                       rows, out);
+    } else {
+      launch_mvn<D + 1, S>(grid, threads, smem, s, table, n, ind, B, d, mu, icov, norm, rows,
+                           out);
+    }
+  }
+}
+
+template <typename S>
+int mvn_pdf(const S* table, int n, const int32_t* ind, long long L, long long B, int d,
+            const S* mu, const S* icov, const S* norm, int rows, int blocks, int smem, S* out,
+            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || n < 1 || L < 1 || L > 65535 || B < 1 || rows < 1 || rows > kMvnThreads ||
+      blocks < 1 || (long long)blocks * rows < B) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(blocks, (unsigned)L);
+  const int threads = (rows + 31) / 32 * 32;
+  launch_mvn<1, S>(grid, threads, smem, s, table, n, ind, B, d, mu, icov, norm, rows, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The entry points' bodies, one per scalar type (extern "C" below).
 template <typename S>
 cudaError_t configure(int fiber_smem) {
@@ -1115,6 +1338,22 @@ cudaError_t configure(int fiber_smem) {
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(score_fiber_batched_kernel<false, S>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_fiber_batched_cluster_kernel<true, S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_fiber_batched_cluster_kernel<false, S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, fiber_smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_fiber_batched_cluster_kernel<true, S>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(score_fiber_batched_cluster_kernel<false, S>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
   return err;
 }
@@ -1161,27 +1400,67 @@ int score_residual_argmax(const S* vals, const S* colf, const S* rowf, const uin
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool COL, typename S>
+cudaError_t launch_batched_cluster(const S* vals, const S* colf, const S* rowf,
+                                   const uint8_t* mask, long long P, long long L, int R,
+                                   int cluster, int threads, int smem, S* part_score,
+                                   long long* part_idx, S* part_resid, long long* out_idx,
+                                   S* out_score, S* out_resid, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (unsigned)P);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;  // a cluster per fiber
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, score_fiber_batched_cluster_kernel<COL, S>, vals, colf, rowf,
+                            mask, L, R, part_score, part_idx, part_resid, out_idx, out_score,
+                            out_resid);
+}
+
 template <typename S>
 int score_residual_argmax_batched(const S* vals, const S* colf, const S* rowf,
                                   const uint8_t* mask, long long P, long long L, int R, int col,
-                                  int threads, int smem, void* out, void* stream) {
+                                  int cluster, int threads, int smem, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (P < 1 || P > INT_MAX || threads % 32 != 0 || threads < 32 || threads > kFiberThreadsMax) {
+  if (P < 1 || P > (cluster == 1 ? INT_MAX : 65535) || threads % 32 != 0 || threads < 32 ||
+      threads > kFiberThreadsMax || cluster < 1 || cluster > 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // 8-byte words: the P indices, then the P scores, then the P residuals
-  // (of S, packed from the start of their block of P words)
+  // (of S, packed from the start of their block of P words); with clusters
+  // then the P * cluster * warps partials: their scores, indices, residuals
   long long* words = static_cast<long long*>(out);
   long long* out_idx = words;
   S* out_score = reinterpret_cast<S*>(words + P);
   S* out_resid = reinterpret_cast<S*>(words + 2 * P);
-  if (col) {
-    score_fiber_batched_kernel<true, S><<<(unsigned)P, threads, smem, s>>>(
-        vals, colf, rowf, mask, L, R, out_idx, out_score, out_resid);
-  } else {
-    score_fiber_batched_kernel<false, S><<<(unsigned)P, threads, smem, s>>>(
-        vals, colf, rowf, mask, L, R, out_idx, out_score, out_resid);
+  if (cluster == 1) {
+    if (col) {
+      score_fiber_batched_kernel<true, S><<<(unsigned)P, threads, smem, s>>>(
+          vals, colf, rowf, mask, L, R, out_idx, out_score, out_resid);
+    } else {
+      score_fiber_batched_kernel<false, S><<<(unsigned)P, threads, smem, s>>>(
+          vals, colf, rowf, mask, L, R, out_idx, out_score, out_resid);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
+  const long long nparts = P * cluster * (threads / 32);
+  S* part_score = reinterpret_cast<S*>(words + 3 * P);
+  long long* part_idx = words + 3 * P + nparts;
+  S* part_resid = reinterpret_cast<S*>(words + 3 * P + 2 * nparts);
+  const cudaError_t err =
+      col ? launch_batched_cluster<true, S>(vals, colf, rowf, mask, P, L, R, cluster, threads,
+                                            smem, part_score, part_idx, part_resid, out_idx,
+                                            out_score, out_resid, s)
+          : launch_batched_cluster<false, S>(vals, colf, rowf, mask, P, L, R, cluster, threads,
+                                             smem, part_score, part_idx, part_resid, out_idx,
+                                             out_score, out_resid, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1268,15 +1547,18 @@ int ttc_score_residual_argmax_f32(const float* vals, const float* colf,
 
 // Kernel A for P fibers of length L at once: vals and mask (P, L), colf
 // (P, L, R) and rowf (P, R) for column fibers (col != 0), colf (P, R) and
-// rowf (P, R, L) for row fibers.  One block of `threads` threads per bond
-// with `smem` bytes of dynamic shared memory; out holds 8-byte words, the
-// P indices, then the P scores, then the P residuals.
+// rowf (P, R, L) for row fibers.  A cluster of `cluster` blocks per fiber
+// (1: one block per fiber and no cluster), each of `threads` threads with
+// `smem` bytes of dynamic shared memory; out holds 8-byte words, the P
+// indices, then the P scores, then the P residuals, and with cluster > 1
+// then room for P * cluster * threads / 32 partials (scores, indices,
+// residuals).
 int ttc_score_residual_argmax_batched(const double* vals, const double* colf,
                                       const double* rowf, const uint8_t* mask,
-                                      long long P, long long L, int R, int col,
+                                      long long P, long long L, int R, int col, int cluster,
                                       int threads, int smem, void* out, void* stream) {
-  return score_residual_argmax_batched<double>(vals, colf, rowf, mask, P, L, R, col, threads,
-                                               smem, out, stream);
+  return score_residual_argmax_batched<double>(vals, colf, rowf, mask, P, L, R, col, cluster,
+                                               threads, smem, out, stream);
 }
 
 // The same in f32: the P scores are f32 packed from the start of the P
@@ -1284,10 +1566,10 @@ int ttc_score_residual_argmax_batched(const double* vals, const double* colf,
 // next P.
 int ttc_score_residual_argmax_batched_f32(const float* vals, const float* colf,
                                           const float* rowf, const uint8_t* mask,
-                                          long long P, long long L, int R, int col,
+                                          long long P, long long L, int R, int col, int cluster,
                                           int threads, int smem, void* out, void* stream) {
-  return score_residual_argmax_batched<float>(vals, colf, rowf, mask, P, L, R, col, threads,
-                                              smem, out, stream);
+  return score_residual_argmax_batched<float>(vals, colf, rowf, mask, P, L, R, col, cluster,
+                                              threads, smem, out, stream);
 }
 
 // tables (L, n) f64, ind E int32 elements, out (L, E) f64; blocks of
@@ -1325,6 +1607,28 @@ int ttc_ising_integrand_f32(const float* tables, int n, const int32_t* ind, long
   return ising_integrand<float>(tables, n, ind, B, d, kind, path, blocks, threads, smem, den0,
                                 out, stream);
 }
+
+// The MVN density integrand for L lanes: table (n,) f64, ind (L, B, d)
+// int32, mu (L, d), icov (L, d, d), norm (L,) f64, out (L, B) f64; a grid of
+// (blocks, L) blocks of `rows` rows (a thread each) with `smem` bytes of
+// dynamic shared memory (at most 48 KB), as ops/kernels.py::_mvn_plan gives
+// them.
+int ttc_mvn_pdf(const double* table, int n, const int32_t* ind, long long L, long long B, int d,
+                const double* mu, const double* icov, const double* norm, int rows, int blocks,
+                int smem, double* out, void* stream) {
+  return mvn_pdf<double>(table, n, ind, L, B, d, mu, icov, norm, rows, blocks, smem, out,
+                         stream);
+}
+
+// The same in f32: every operand and the whole row in f32.
+int ttc_mvn_pdf_f32(const float* table, int n, const int32_t* ind, long long L, long long B,
+                    int d, const float* mu, const float* icov, const float* norm, int rows,
+                    int blocks, int smem, float* out, void* stream) {
+  return mvn_pdf<float>(table, n, ind, L, B, d, mu, icov, norm, rows, blocks, smem, out,
+                        stream);
+}
+
+int ttc_mvn_threads(void) { return kMvnThreads; }
 
 int ttc_threads_per_block(void) { return kThreads; }
 

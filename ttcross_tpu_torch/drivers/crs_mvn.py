@@ -3,8 +3,8 @@
 
 The counterpart of drivers/crs_mvn.py (test_crs_mvn.f90): the
 equicorrelated lognormal-model pdf on the cumulant box, truth 1; the mean
-and the covariance are printed for D < 10.  The integrand's node lookup
-is kernel B, the rook passes kernel A."""
+and the covariance are printed for D < 10.  The integrand is one fused
+launch a call (mvn_pdf_fused), the rook passes kernel A."""
 
 from __future__ import annotations
 

@@ -24,7 +24,7 @@ from pathlib import Path
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "kernels.cu",      # kernels A and B, the fused integrand
+SOURCES = (_PKG / "csrc" / "kernels.cu",      # kernels A and B, the fused integrands
            _PKG / "csrc" / "dd_kernels.cu",   # the dd tier's kernels
            _PKG / "csrc" / "qd_kernels.cu")   # the qd tier's kernels
 HEADERS = (_PKG / "csrc" / "ising_rows.cuh",)   # D2's and Q1's body, launch and plan
@@ -42,9 +42,11 @@ _SIGNATURES = {
     "ttc_score_residual_argmax": (
         [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P], _I),
     "ttc_score_residual_argmax_batched": (
-        [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P], _I),
+        [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P], _I),
     "ttc_small_table_lookup": ([_P, _I, _I, _P, _LL, _P, _I, _P], _I),
     "ttc_ising_integrand": ([_P, _I, _P, _LL, _I, _I, _I, _I, _I, _I, _D, _P, _P], _I),
+    "ttc_mvn_pdf": ([_P, _I, _P, _LL, _LL, _I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "ttc_mvn_threads": ([], _I),
     "ttc_threads_per_block": ([], _I),
     "ttc_tile_threads": ([], _I),
     "ttc_tile_smem": ([], _I),
@@ -87,7 +89,7 @@ _SIGNATURES = {
 
 
 _F32_ENTRIES = ("ttc_score_residual_argmax", "ttc_score_residual_argmax_batched",
-                "ttc_small_table_lookup", "ttc_ising_integrand")
+                "ttc_small_table_lookup", "ttc_ising_integrand", "ttc_mvn_pdf")
 
 
 def _nvcc() -> str:

@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels, their plain PyTorch versions and
-their launch counters: kernel A (the masked residual argmax), kernel B
-(the small-table lookup) and kernel B's redesign, the fused Ising
-integrand; the dd tier's kernels (csrc/dd_kernels.cu): D1 the dd
-residual argmax, D2 the dd Ising integrand, D3 the dd train gather, D4 the
+their launch counters: kernel A (the masked residual argmax, also batched
+over fibers), kernel B (the small-table lookup) and kernel B's redesigns,
+the fused Ising integrand and the fused MVN density integrand; the dd
+tier's kernels (csrc/dd_kernels.cu): D1 the dd residual argmax, D2 the dd Ising integrand, D3 the dd train gather, D4 the
 small dd GEMM; and the qd tier's (csrc/qd_kernels.cu): Q1 the qd Ising
 integrand, Q2 the qd residual argmax, Q3 the qd train gather, Q4 the small
 qd product.
@@ -35,6 +35,8 @@ __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
            "score_residual_argmax_batched", "score_residual_argmax_batched_plain",
            "small_table_lookup", "small_table_lookup_plain",
            "ising_integrand_fused", "ising_integrand_plain",
+           "mvn_pdf_fused", "mvn_pdf_plain", "mvn_pdf_emulated", "mvn_pdf_tolerance",
+           "score_residual_argmax_batched_planned",
            "dd_score_residual_argmax", "dd_score_residual_argmax_plain",
            "dd_score_residual_argmax_planned", "dd_score_plan", "DdScorePlan", "dd_dot",
            "dd_dot_plain", "dd_dot_plan", "dd_dot_planned", "DdDotPlan",
@@ -55,6 +57,9 @@ _TILE_THREADS = 512        # kTileThreads: a block of the 2-D kernel
 _FIBER_THREADS = 128       # a fiber block, unless the fiber is longer than a cluster's pass
 _FIBER_THREADS_MAX = 512   # kFiberThreadsMax
 _CLUSTER_MAX = 16          # blocks of a (non-portable) thread block cluster
+# the batched kernel A's clusters (_batched_cluster): the single-fiber
+# cluster while the P clusters take at most _BATCHED_FULL blocks an SM
+_BATCHED_FULL = 6
 SMEM_OPTIN = 232_448       # shared memory one block may use on Hopper (227 KB)
 _FIBER_SMEM = SMEM_OPTIN - 1024   # dynamic shared memory budget of a fiber block
 TILE = (64, 64)            # kBM x kBN of the 2-D kernel
@@ -131,9 +136,9 @@ def _lib():
     lib = _build.load()
     if ((lib.ttc_threads_per_block(), lib.ttc_tile_threads(), lib.ttc_tile_smem(),
          lib.ttc_simt_threads(), lib.ttc_integrand_rows_threads(), lib.ttc_integrand_rows_d_max(),
-         lib.ttc_integrand_warp_d_max())
+         lib.ttc_integrand_warp_d_max(), lib.ttc_mvn_threads())
             != (_THREADS, _TILE_THREADS, _TILE_SMEM, _SIMT_THREADS, _ROWS_THREADS, _ROWS_D_MAX,
-                _WARP_D_MAX)):
+                _WARP_D_MAX, _MVN_THREADS)):
         raise RuntimeError("the constants of csrc/kernels.cu disagree with ops/kernels.py")
     if (lib.ttd_threads(), lib.ttd_gather_rmax()) != (_DD_THREADS, _DD_GATHER_RMAX):
         raise RuntimeError("the constants of csrc/dd_kernels.cu disagree with ops/kernels.py")
@@ -179,8 +184,45 @@ class Plan(NamedTuple):
     nparts: int             # partials in the scratch buffer (per warp / per block)
 
 
+def _fiber_threads(length: int, R: int, esz: int, blocks: int) -> int:
+    """Threads of a fiber block when `blocks` blocks share a fiber of
+    `length` elements at rank R: enough that they cover it in one pass, at
+    least _FIBER_THREADS, at most what shared memory holds (the tile's R
+    elements per element, the R-vector and the 16-byte copies' slack);
+    below 32 if not even a warp's tile fits.  blocks=0: the batched kernel
+    A's block body, one block per fiber, as many threads as the fiber has
+    elements up to the same bounds."""
+    fit = (_FIBER_SMEM - esz * R - (2 * 16 - 2 * esz)) // max(esz * R, 1) // 32 * 32
+    if blocks == 0:
+        return min(-(-length // 32) * 32, _FIBER_THREADS_MAX, fit)
+    want = max(_FIBER_THREADS, -(-length // (32 * blocks)) * 32)
+    return min(want, _FIBER_THREADS_MAX, fit)
+
+
+def _batched_cluster(P: int, length: int, R: int, sms: int, esz: int) -> int:
+    """The rule's cluster size for P fibers of `length` at rank R, from the
+    block body and clusters of 2-16 timed in turns on an H100 (`chip_smoke.py
+    --batched-regimes`, PERF.md):
+    * 1 (a block per fiber) where one block's tile covers the fiber: at 170
+      elements the block body beat a cluster of 2 at every P from 1 to
+      1022 (by 0.4-0.7 µs, 3.6 µs at 1022);
+    * else the single-fiber kernel's cluster (11 blocks of 128 at 1300)
+      while the P clusters take at most _BATCHED_FULL blocks an SM (P <= 72
+      at 1300: fastest or within 0.35 µs up to P = 64, where the block body
+      lost by 0.5-3.6 µs);
+    * else 1 (P = 128 and above: the block body fastest, or within 0.42 µs
+      of a cluster of 7).
+    Of the 80 shapes timed (P 1-1022, fibers 170 / 1300, R 10 / 20) the
+    rule picks the fastest at 68 and is within 0.42 µs at the others."""
+    if length <= _fiber_threads(length, R, esz, 0):
+        return 1
+    full = min(_CLUSTER_MAX, -(-length // max(_fiber_threads(length, R, esz, _CLUSTER_MAX), 1)))
+    return full if P * full <= _BATCHED_FULL * sms else 1
+
+
 @functools.lru_cache(maxsize=1024)
-def _plan(M: int, K: int, R: int, sms: int, bonds: int = 0, esz: int = 8) -> Plan:
+def _plan(M: int, K: int, R: int, sms: int, bonds: int = 0, esz: int = 8,
+          cluster: int = 0) -> Plan:
     """Launch geometry of kernel A for vals (M, K) and rank R on a card
     with `sms` streaming multiprocessors; with bonds > 0, for `bonds` such
     fibers in one launch; esz: the bytes of an element (8: f64, 4: f32).
@@ -193,41 +235,52 @@ def _plan(M: int, K: int, R: int, sms: int, bonds: int = 0, esz: int = 8) -> Pla
     persistent grid of at most one block per SM; block b scores tiles b,
     b + blocks, ... of the row-major grid of TILE tiles.
 
-    Batched over bonds (the all-bonds sweeps: 254 or 1022 fibers of 170
-    elements): one block per bond and no cluster; the block walks its
-    bond's fiber in tiles of `threads` elements, staged as a fiber block
-    stages them, and reduces it alone (no scratch partials).  A fiber
-    block's shared memory is its tile's factor (`threads` x R elements),
-    the R-vector and the slack of a COL tile's 16-byte copies (2 * 16 - 2 *
+    Batched over `bonds` fibers (the all-bonds sweeps: 254 or 1022 fibers
+    of 170 elements; a family's lanes: 2, 4 or 20 fibers of 1300), a
+    cluster of `cluster` blocks per fiber; cluster=0 takes the rule's.
+    With one block (the block body) the block walks its fiber in tiles of
+    `threads` elements, staged as a fiber block stages them, and reduces it
+    alone (no scratch partials).  With C > 1 blocks the fiber is walked as
+    the single-fiber kernel walks it (block b of the cluster takes tiles b,
+    b + C, ...), one partial per warp, P * C * warps in all.  The rule
+    (_batched_cluster, measured): the block body where one block's tile
+    covers the fiber, else the single-fiber cluster of such a fiber (11
+    blocks of 128 at 1300) while the P clusters fit 6 blocks an SM, else
+    the block body: a cluster of 11 at the family's 4,
+    the mesh's 2 and the lane jacobi's 20 fibers of 1300, the block body
+    at C_256's 254 and C_1024's 1022 fibers of 170.  A fiber block's
+    shared memory is its tile's factor (`threads` x R elements), the
+    R-vector and the slack of a COL tile's 16-byte copies (2 * 16 - 2 *
     esz bytes).  The f32 2-D path is the SIMT kernel: a persistent grid of
     up to _SIMT_BLOCKS_PER_SM blocks per SM over the same tiles, its
     shared memory static."""
     if esz not in (4, 8):
         raise ValueError(f"no kernel-A instantiation for {esz}-byte elements")
     slack = 2 * 16 - 2 * esz
-    if M < 1 or K < 1 or R < 0 or bonds < 0:
+    if M < 1 or K < 1 or R < 0 or bonds < 0 or not 0 <= cluster <= _CLUSTER_MAX:
         raise ValueError(f"no kernel-A launch for ({M}, {K}) at rank {R}")
     if bonds:
         if M != 1 and K != 1:
             raise ValueError(f"the batched kernel A takes fibers (K = 1 or M = 1), not ({M}, {K})")
         col = K == 1
         length = M if col else K
-        fit = (_FIBER_SMEM - esz * R - slack) // max(esz * R, 1) // 32 * 32
-        threads = min(-(-length // 32) * 32, _FIBER_THREADS_MAX, fit)
+        C = cluster or _batched_cluster(bonds, length, R, sms, esz)
+        threads = _fiber_threads(length, R, esz, 0 if C == 1 else C)
+        if C > 1:
+            C = min(C, -(-length // max(threads, 1)))   # no block without a tile
         if threads < 32:
             raise ValueError(f"rank {R} exceeds the fiber kernel's shared memory")
-        return Plan(BATCH_COL if col else BATCH_ROW, bonds, threads, 1,
+        if C > 1 and bonds > 65535:
+            raise ValueError(f"{bonds} fibers exceed the cluster grid's 65535")
+        return Plan(BATCH_COL if col else BATCH_ROW, bonds * C, threads, C,
                     esz * R + slack + esz * threads * R,
-                    (threads, 1) if col else (1, threads), 0)
+                    (threads, 1) if col else (1, threads),
+                    0 if C == 1 else bonds * C * threads // 32)
     if M == 1 or K == 1:
         col = K == 1
         length = M if col else K
-        # enough threads that one cluster covers the fiber in a pass, at
-        # least _FIBER_THREADS, at most what shared memory holds: the tile's
-        # R elements per element, the R-vector and the alignment slack
-        want = max(_FIBER_THREADS, -(-length // (32 * _CLUSTER_MAX)) * 32)
-        fit = (_FIBER_SMEM - esz * R - slack) // max(esz * R, 1) // 32 * 32
-        threads = min(want, _FIBER_THREADS_MAX, fit)
+        # enough threads that one cluster covers the fiber in a pass
+        threads = _fiber_threads(length, R, esz, _CLUSTER_MAX)
         smem = esz * R + slack + esz * threads * R
         if threads < 32:
             raise ValueError(f"rank {R} exceeds the fiber kernel's shared memory")
@@ -323,21 +376,37 @@ def score_residual_argmax_batched_plain(vals, colf, rowf, mask):
 
 def score_residual_argmax_batched(vals, colf, rowf, mask):
     """Masked |residual| argmax of P fibers at once, three (P,) tensors
-    (flat int64, score, residual): kernel A batched over bonds, for the
-    all-bonds sweeps (ttcross_tpu/cross/engine_jacobi.py:237-242, 269-274
-    compute it per bond with XLA ops in f32 and recompute the pivot in f64).
+    (flat int64, score, residual): kernel A batched over bonds or lanes, for
+    the all-bonds sweeps (ttcross_tpu/cross/engine_jacobi.py:237-242,
+    269-274 compute it per bond with XLA ops in f32 and recompute the pivot
+    in f64) and a family's lanes.
 
     Only fibers: vals (P, M, 1) with colf (P, M, R), rowf (P, R, 1), or
     vals (P, 1, K) with colf (P, 1, R), rowf (P, R, K).  On a CPU tensor
     this is score_residual_argmax_batched_plain; on a CUDA tensor it is ONE
     launch of csrc/kernels.cu's batched fiber kernel as _plan lays it out
-    (a block per bond), and adds one to
+    (a cluster of blocks per fiber when the fibers are few and long, else a
+    block per fiber), and adds one to
     ``score_residual_argmax_batched.launches``.  Each element's sum runs
     in the single-fiber kernel's order, so the result equals P calls of
     score_residual_argmax bit for bit.  The results are views of one
     buffer allocated per call."""
     if vals.device.type == "cpu":
         return score_residual_argmax_batched_plain(vals, colf, rowf, mask)
+    return _batched_launch(vals, colf, rowf, mask, 0)
+
+
+def score_residual_argmax_batched_planned(vals, colf, rowf, mask, cluster: int):
+    """The batched kernel A on CUDA tensors with `cluster` blocks per fiber
+    (1: the block body), whatever _plan's rule gives the shape: the card
+    tests and the tuning hold and time both bodies with it.  Counts its
+    launch as score_residual_argmax_batched's."""
+    if cluster < 1:
+        raise ValueError(f"cluster must be at least 1, got {cluster}")
+    return _batched_launch(vals, colf, rowf, mask, cluster)
+
+
+def _batched_launch(vals, colf, rowf, mask, cluster: int):
     vals, colf, rowf, mask = _launchable(vals, colf, rowf, mask)
     with torch._C._DisableFuncTorch():     # plain tensors from here on
         dev = vals.device
@@ -354,13 +423,16 @@ def score_residual_argmax_batched(vals, colf, rowf, mask):
                              f"mask {tuple(mask.shape)}")
         if P * M * K == 0:
             raise ValueError("score_residual_argmax_batched of an empty stack")
-        plan = _plan(M, K, R, _sms(dev.index), bonds=P, esz=vals.element_size())
-        # 8-byte words: [P indices, P scores, P residuals]; f32 scores and
-        # residuals packed from the start of their P words
-        buf = torch.empty(3 * P, dtype=torch.int64, device=dev)
+        plan = _plan(M, K, R, _sms(dev.index), bonds=P, esz=vals.element_size(),
+                     cluster=cluster)
+        # 8-byte words: [P indices, P scores, P residuals, nparts scores,
+        # indices, residuals]; f32 scores and residuals packed from the start
+        # of their P words, an f32 partial at the start of its word
+        buf = torch.empty(3 * P + 3 * plan.nparts, dtype=torch.int64, device=dev)
         rc = _call(dev, _entry("ttc_score_residual_argmax_batched", dt), vals.data_ptr(),
                    colf.data_ptr(), rowf.data_ptr(), mask.data_ptr(), P, M * K, R,
-                   int(plan.path == BATCH_COL), plan.threads, plan.smem, buf.data_ptr())
+                   int(plan.path == BATCH_COL), plan.cluster, plan.threads, plan.smem,
+                   buf.data_ptr())
         _raise_on(rc, "score_residual_argmax_batched launch")
         score_residual_argmax_batched.launches += 1
         _SHAPES["score_residual_argmax_batched", (P, M, K, R) + _tag(dt)] += 1
@@ -421,6 +493,153 @@ def small_table_lookup(tables, ind):
 
 
 small_table_lookup.launches = 0
+
+
+# ------------------------------------------------- the fused MVN density integrand
+_MVN_THREADS = 128         # kMvnThreads: rows of a block at most, a row per thread
+_MVN_SMEM = 48 * 1024      # its dynamic shared memory: the 48 KB a block gets without opting in
+
+
+class MvnPlan(NamedTuple):
+    """The fused MVN integrand's launch for one shape (see csrc/kernels.cu)."""
+    blocks: int             # blocks per lane (the grid's x)
+    rows: int               # rows of a block, a thread each
+    smem: int               # dynamic shared memory per block, bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def _mvn_plan(B: int, d: int, n: int, esz: int = 8) -> MvnPlan:
+    """Launch geometry of the fused MVN integrand for B rows of d variables
+    per lane and an n-point node table of esz-byte elements.  A block's
+    shared memory holds the lane's inverse covariance (d * d), mean (d), the
+    table (n) and the normalisation, rounded up to 16 bytes as csrc's
+    mvn_param_bytes rounds them, then its rows' indices with room for the
+    16-byte chunks that cover them; _MVN_THREADS rows a block, halved down
+    to 32 while that exceeds _MVN_SMEM bytes."""
+    if B < 1 or d < 1 or n < 1 or esz not in (4, 8):
+        raise ValueError(f"no fused MVN launch for ({B}, {d}) with n = {n} of {esz}-byte elements")
+    params = -(-(d * d + d + n + 1) * esz // 16) * 16
+    rows = _MVN_THREADS
+    while rows > 32 and params + 4 * (rows * d + 8) > _MVN_SMEM:
+        rows //= 2
+    smem = params + 4 * (rows * d + 8)
+    if smem > _MVN_SMEM:
+        raise ValueError(f"d = {d} and a table of {n} points exceed the fused MVN kernel's "
+                         f"{_MVN_SMEM}-byte shared-memory budget (the inverse covariance and "
+                         f"32 rows of indices need {smem} bytes)")
+    return MvnPlan(-(-B // rows), rows, smem)
+
+
+def mvn_pdf_plain(table, ind, mu, inv_cov, norm):
+    """The MVN density at the looked-up nodes, as apps/mvn.py composed it:
+    x = table[ind] (0 outside [0, n)), then exp(-0.5 (x - mu)^T C (x - mu))
+    / norm.
+
+    One problem: ind (B, d) int32, mu (d,), inv_cov (d, d), norm (1,) ->
+    (B,), the quadratic form by a matmul (MvnDensity.pdf).  L lanes: ind
+    (L, B, d), mu (L, d), inv_cov (L, d, d), norm (L,) -> (L, B), the form
+    by ops/dense.py::matmul_by_sums (MvnFamily.fun).  table (n,) float64 or
+    float32, every other operand of its dtype."""
+    from .dense import matmul_by_sums     # ops/dense.py imports this module
+
+    d = ind.shape[-1]
+    x = small_table_lookup_plain(table[None], ind.reshape(-1, d))[0].reshape(ind.shape)
+    if ind.dim() == 2:
+        diff = x - mu
+        return torch.exp(-0.5 * ((diff @ inv_cov) * diff).sum(dim=1)) / norm
+    diff = x - mu[:, None, :]
+    q = (matmul_by_sums(diff, inv_cov) * diff).sum(dim=-1)
+    return torch.exp(-0.5 * q) / norm[:, None]
+
+
+def mvn_pdf_emulated(table, ind, mu, inv_cov, norm):
+    """mvn_pdf_plain's function in the fused kernel's order, one torch op per
+    product or sum: diff_j = table[ind_j] - mu_j, t_k = (((0 + diff_0
+    C[0, k]) + diff_1 C[1, k]) + ...), q = ((0 + t_0 diff_0) + t_1 diff_1)
+    + ..., then q * -0.5, exp, / norm.  Elementwise torch ops round each
+    product and sum on its own (no contraction), so on the card this is the
+    kernel's result bit for bit wherever torch.exp and the kernel's exp
+    agree.  The operands and the result as mvn_pdf_plain's."""
+    single = ind.dim() == 2
+    if single:
+        ind, mu, inv_cov, norm = ind[None], mu[None], inv_cov[None], norm.reshape(1)
+    L, B, d = ind.shape
+    x = small_table_lookup_plain(table[None], ind.reshape(-1, d))[0].reshape(L, B, d)
+    diff = x - mu[:, None, :]
+    q = torch.zeros((L, B), dtype=x.dtype, device=x.device)
+    for k in range(d):
+        t = torch.zeros_like(q)
+        for j in range(d):
+            t = t + diff[..., j] * inv_cov[:, j, k][:, None]
+        q = q + t * diff[..., k]
+    out = torch.exp(q * -0.5) / norm[:, None]
+    return out[0] if single else out
+
+
+def mvn_pdf_tolerance(table, ind, mu, inv_cov, want):
+    """The stated bound on |got - want| of an MVN integrand value against
+    another version of it (the fused kernel, the plain version, the JAX
+    package's), value by value, float64 on the CPU: (2d + 8) u (1 + 0.5
+    sum_jk |diff_j C_jk diff_k|) |want| + floor, with u = 2^-52 and floor
+    1e-300 for a float64 table, u = 2^-23 and floor 1e-37 for float32: a
+    few roundings of each product and sum of the form, of exp and of the
+    division.  Operands as mvn_pdf_plain's, want of its result's shape."""
+    u, floor = (2.0 ** -23, 1e-37) if table.dtype == torch.float32 else (2.0 ** -52, 1e-300)
+    table, ind, mu, inv_cov = (a.cpu() for a in (table, ind, mu, inv_cov))
+    n, d = table.shape[0], ind.shape[-1]
+    x = small_table_lookup_plain(table.double()[None], ind.reshape(-1, d))[0].reshape(ind.shape)
+    diff = (x - mu.double().unsqueeze(-2)).abs()
+    absq = torch.einsum("...bj,...jk,...bk->...b", diff, inv_cov.double().abs(), diff)
+    return (2 * d + 8) * u * (1 + 0.5 * absq) * torch.as_tensor(want).double().cpu().abs() + floor
+
+
+def mvn_pdf_fused(table, ind, mu, inv_cov, norm):
+    """The MVN density integrand in one launch, of the table's dtype
+    (float64, or float32: the whole row in f32).
+
+    Kernel B's redesign on the MVN path: replaces
+    ttcross_tpu/ops/pallas_kernels.py::small_table_lookup_limbs (:151-197)
+    there, with the chain of ttcross_tpu/apps/mvn.py::MvnDensity.pdf
+    (:42-48) and MvnFamily.fun (:105-111) fused in.  Operands as
+    mvn_pdf_plain's: one problem (ind (B, d)) or L lanes (ind (L, B, d)).
+    On a CPU tensor this is mvn_pdf_plain; on a CUDA tensor it launches the
+    fused kernel of csrc/kernels.cu as _mvn_plan lays it out (every lane in
+    one launch) and adds one to ``mvn_pdf_fused.launches``; its result is
+    mvn_pdf_emulated's."""
+    if ind.device.type == "cpu":
+        return mvn_pdf_plain(table, ind, mu, inv_cov, norm)
+    table, ind, mu, inv_cov, norm = _launchable(table, ind, mu, inv_cov, norm)
+    with torch._C._DisableFuncTorch():     # plain tensors from here on
+        dev = ind.device
+        dt = table.dtype
+        single = ind.dim() == 2
+        if single:
+            ind, mu, inv_cov, norm = ind[None], mu[None], inv_cov[None], norm.reshape(1)
+        _check_cuda("table", table, _REAL, 1, dev)
+        _check_cuda("ind", ind, _I32, 3, dev)
+        _check_cuda("mu", mu, (dt,), 2, dev)
+        _check_cuda("inv_cov", inv_cov, (dt,), 3, dev)
+        _check_cuda("norm", norm, (dt,), 1, dev)
+        L, B, d = ind.shape
+        n = table.shape[0]
+        if mu.shape != (L, d) or inv_cov.shape != (L, d, d) or norm.shape != (L,):
+            raise ValueError(f"shape mismatch: ind {tuple(ind.shape)}, mu {tuple(mu.shape)}, "
+                             f"inv_cov {tuple(inv_cov.shape)}, norm {tuple(norm.shape)}")
+        if L > 65535:
+            raise ValueError(f"{L} lanes exceed the fused MVN kernel's grid (65535)")
+        out = torch.empty((L, B), dtype=dt, device=dev)
+        if L * B > 0:
+            plan = _mvn_plan(B, d, n, table.element_size())
+            rc = _call(dev, _entry("ttc_mvn_pdf", dt), table.data_ptr(), n, ind.data_ptr(), L, B,
+                       d, mu.data_ptr(), inv_cov.data_ptr(), norm.data_ptr(), plan.rows,
+                       plan.blocks, plan.smem, out.data_ptr())
+            _raise_on(rc, "mvn_pdf_fused launch")
+            mvn_pdf_fused.launches += 1
+            _SHAPES["mvn_pdf_fused", (L, B, d, n) + _tag(dt)] += 1
+        return out[0] if single else out
+
+
+mvn_pdf_fused.launches = 0
 
 
 # ------------------------------------------------- the fused Ising integrand
@@ -1357,7 +1576,7 @@ def _ising_qd_launch(tables, ind, rows):
 ising_c_integrand_qd_fused.launches = 0
 
 _WRAPPERS = (score_residual_argmax, score_residual_argmax_batched, small_table_lookup,
-             ising_integrand_fused, dd_score_residual_argmax, dd_dot, dd_gather_tt_fused,
+             ising_integrand_fused, mvn_pdf_fused, dd_score_residual_argmax, dd_dot, dd_gather_tt_fused,
              ising_c_integrand_dd_fused, qd_score_residual_argmax, qd_dot, qd_gather_tt_fused,
              ising_c_integrand_qd_fused)
 
@@ -1370,7 +1589,8 @@ def launch_counts() -> dict[str, int]:
 def launch_shapes() -> dict[str, dict[tuple, int]]:
     """The launches since the last reset by the shape of the call, per
     wrapper: kernel A (M, K, R), batched (P, M, K, R), the lookup
-    (L, B, d, n), the fused integrand (B, d, n); an f32 launch's shape
+    (L, B, d, n), the fused integrand (B, d, n), the fused MVN integrand
+    (L, B, d, n) (one problem: L = 1); an f32 launch's shape
     ends in "f32"; the dd kernels: D1 (B, T), D4 (M, N, T), D3 (B, N) + the
     train's ranks (N its largest mode), D2 (B, d, n); the qd kernels: Q2
     (B, T), Q4 (M, N, T, "tree" | "seq"), Q3 (B, N) + the train's ranks,
