@@ -577,6 +577,55 @@ def test_an_all_bonds_sweep_makes_no_host_sync(mode, chain, cuda_device):
     assert int(st.neval) > neval0 + 10_000
 
 
+def test_spans_record_under_a_cuda_only_profiler_and_add_no_sync(cuda_device):
+    """The port's spans record under torch.profiler with the CUDA activity
+    alone (how the benchmark profiles its traced call): two all-bonds
+    sweeps of C_64 with the chain under torch's sync debug mode set to
+    raise give their hunts, accepts and state updates, and a small family
+    call gives one root with a sweep span per sweep."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ttcross_tpu_torch.apps import make_ising, make_mvn_family
+    from ttcross_tpu_torch.config import precision_thresholds
+    from ttcross_tpu_torch.cross import cross_batch
+    from ttcross_tpu_torch.cross.engine import CrossConfig, make_engine
+    from ttcross_tpu_torch.utils import reset_spans, spans
+
+    p = make_ising("C", 64, 17, device=cuda_device)
+    se, sp = precision_thresholds(torch.float64)
+    cfg = CrossConfig(d=p.d, n=(p.n,) * p.d, N=p.n, R=8, piv=1, small_element=se,
+                      small_pivot=sp, jacobi=True, rb=True)
+    kit = make_engine(p.fun, cfg, cuda_device, chain=p.chain)
+    st = kit.init_fn()
+    cs = kit.chain_ev.states_from_vip(st.vip)
+    U = torch.rand((2, p.d - 1, 2, 2 * (8 + p.n)), dtype=torch.float64, device=cuda_device)
+    torch.cuda.synchronize()
+    reset_spans()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        assert torch.autograd._profiler_enabled()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for it in (1, 2):
+                st, cs = kit.sweep_fn(st, it, U[it - 1], cs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    assert Counter(r.name for r in spans()) == {"engine.hunt": 4, "engine.accept": 4,
+                                                 "chain.update": 4}
+    fam = make_mvn_family(d=4, n=17, corrs=np.linspace(0.2, 0.6, 3), device=cuda_device)
+    reset_spans()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        res = cross_batch(fam.fun, [fam.n] * 4, fam.params, max_rank=6, key=3, pivoting=1,
+                          accuracy=500 * 2.2e-16, quad=[fam.quad_weights] * 4, truth=1.0,
+                          device=cuda_device)
+    recs = spans()
+    assert [r.name for r in recs if r.parent is None] == ["cross_batch"]
+    assert sum(r.name == "engine.sweep" for r in recs) == res.sweeps > 0
+    assert all(r.start <= r.end and r.call == 0 for r in recs)
+
+
 @pytest.mark.parametrize("extra", [dict(), dict(refine_sweeps=1), dict(oversample=2),
                                    dict(weighted_lottery=True)],
                          ids=["greedy", "refine", "oversample", "weighted"])

@@ -35,7 +35,7 @@ from torch.utils import _pytree as pytree
 from ..config import precision_thresholds
 from ..ops.dense import as_tensor
 from ..tt.types import TT
-from ..utils.metrics import history_from_run
+from ..utils.metrics import history_from_run, span
 from .engine import (CrossConfig, CrossResult, _values_errors, draw_uniforms, make_engine,
                      quad_matrix, run_sweeps)
 
@@ -145,9 +145,15 @@ def cross_batch(
                         device=device)
 
 
-def _cross_batch(fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
-                 verbose, max_sweeps, small_element, small_pivot, sweep_mode, mesh, device,
-                 uniforms=None):
+def _cross_batch(fun, n, params, *, sweep_mode, **kw):
+    """_run_cross_batch() as one `cross_batch` span, which it gives its lane count."""
+    with span("cross_batch", d=len(n), sweep_mode=sweep_mode) as root:
+        return _run_cross_batch(root, fun, n, params, sweep_mode=sweep_mode, **kw)
+
+
+def _run_cross_batch(root, fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, key,
+                     dtype, verbose, max_sweeps, small_element, small_pivot, sweep_mode, mesh,
+                     device, uniforms=None):
     """cross_batch() with one more input: uniforms, (max_sweeps, L, d-1, 2,
     NLOT) lottery uniforms of every lane in place of the lane keys' draws;
     the tests feed the JAX lanes' draws through it."""
@@ -168,6 +174,7 @@ def _cross_batch(fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, k
         raise ValueError("every params leaf needs a leading lane axis; got a 0-d leaf "
                          "(broadcast shared values to (L, ...) or close over them in fun)")
     L = int(np.shape(leaves[0])[0])
+    root.set(lanes=L)
     for leaf in leaves:
         if int(np.shape(leaf)[0]) != L:
             raise ValueError("every params leaf needs the same leading lane-axis size; "
@@ -204,12 +211,15 @@ def _cross_batch(fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, k
     if max_sweeps is None:
         max_sweeps = max_rank - 1
     NLOT = 2 * (cfg.R + cfg.N)
-    if uniforms is None:
-        uniforms = torch.stack([draw_uniforms(lane_key(key, i), max_sweeps, d, NLOT)
-                                for i in range(lane0, lane0 + L)], dim=1)
-    elif mesh is not None:
-        uniforms = uniforms[:, lane0:lane0 + L]
-    uniforms = torch.as_tensor(uniforms, dtype=torch.float64).to(dev)
+    with span("entry.uniforms"):
+        if uniforms is None:
+            uniforms = torch.stack([draw_uniforms(lane_key(key, i), max_sweeps, d, NLOT)
+                                    for i in range(lane0, lane0 + L)], dim=1)
+        elif mesh is not None:
+            uniforms = uniforms[:, lane0:lane0 + L]
+        uniforms = torch.as_tensor(uniforms, dtype=torch.float64)
+        with span("entry.upload", bytes=uniforms.nbytes):
+            uniforms = uniforms.to(dev)
     if uniforms.shape[0] < max_sweeps or uniforms.shape[1:] != (L, d - 1, 2, NLOT):
         raise ValueError(f"uniforms must be ({max_sweeps}, {L}, {d - 1}, 2, {NLOT}), "
                          f"got {tuple(uniforms.shape)}")
@@ -217,37 +227,40 @@ def _cross_batch(fun, n, params, *, max_rank, accuracy, pivoting, quad, truth, k
     t0 = time.perf_counter()
     with_quad = quad is not None
     w = quad_matrix(quad, n, cfg.N, dev, dtype) if with_quad else None
-    st, _, last, vals, pmax, nev, _ = run_sweeps(kit, kit.init_fn(), uniforms, w,
-                                              accuracy=accuracy, max_sweeps=max_sweeps)
-    solved = kit.finalize_fn(st)
-    if mesh is not None:
-        # every rank's lanes, in lane order, to every rank
-        solved, st = _gather_lanes(mesh, solved, 1), st._replace(
-            **{f: _gather_lanes(mesh, getattr(st, f), 1) for f in ("rk", "vip")},
-            **{f: _gather_lanes(mesh, getattr(st, f), 0) for f in ("neval", "padded")})
-        last, vals, pmax, nev = (_gather_lanes(mesh, torch.from_numpy(a).to(dev), a.ndim - 1)
-                                 .cpu().numpy() for a in (last, vals, pmax, nev))
-    rk, vip, neval, padded = (t.cpu().numpy() for t in (st.rk, st.vip, st.neval, st.padded))
-    wall = time.perf_counter() - t0
+    with span("engine.init"):
+        st = kit.init_fn()
+    st, _, last, vals, pmax, nev, _ = run_sweeps(kit, st, uniforms, w, accuracy=accuracy,
+                                                 max_sweeps=max_sweeps)
+    with span("entry.results", lanes=L_all):
+        solved = kit.finalize_fn(st)
+        if mesh is not None:
+            # every rank's lanes, in lane order, to every rank
+            solved, st = _gather_lanes(mesh, solved, 1), st._replace(
+                **{f: _gather_lanes(mesh, getattr(st, f), 1) for f in ("rk", "vip")},
+                **{f: _gather_lanes(mesh, getattr(st, f), 0) for f in ("neval", "padded")})
+            last, vals, pmax, nev = (_gather_lanes(mesh, torch.from_numpy(a).to(dev), a.ndim - 1)
+                                     .cpu().numpy() for a in (last, vals, pmax, nev))
+        rk, vip, neval, padded = (t.cpu().numpy() for t in (st.rk, st.vip, st.neval, st.padded))
+        wall = time.perf_counter() - t0
 
-    lanes = []
-    for i in range(L_all):
-        last_it = int(last[i])
-        values, errors = _values_errors(vals[:, i], last_it, truths[i], with_quad)
-        r = rk[:, i]
-        lanes.append(CrossResult(
-            tt=TT(tuple(solved[c, i, : r[c], : n[c], : r[c + 1]].clone() for c in range(d))),
-            neval=int(neval[i]), sweeps=last_it, ranks=tuple(int(x) for x in r),
-            values=values, errors=errors, time=wall,
-            converged=accuracy is not None and last_it < max_sweeps,
-            history=history_from_run(last_it, vals[:, i], pmax[:, i], nev[:, i], truths[i],
-                                     with_quad),
-            state=SimpleNamespace(vip=vip[:, i], rk=r), padded_evals=int(padded[i])))
-        if verbose:
-            tail = f" err {errors[-1]:9.3e}" if errors else ""
-            tail += f" val {values[-1]:.14e}" if values else ""
-            print(f"lane {i:3d}: sweeps {last_it:3d} ranks {lanes[-1].ranks} "
-                  f"n_evals {lanes[-1].neval:9d}{tail}")
+        lanes = []
+        for i in range(L_all):
+            last_it = int(last[i])
+            values, errors = _values_errors(vals[:, i], last_it, truths[i], with_quad)
+            r = rk[:, i]
+            lanes.append(CrossResult(
+                tt=TT(tuple(solved[c, i, : r[c], : n[c], : r[c + 1]].clone() for c in range(d))),
+                neval=int(neval[i]), sweeps=last_it, ranks=tuple(int(x) for x in r),
+                values=values, errors=errors, time=wall,
+                converged=accuracy is not None and last_it < max_sweeps,
+                history=history_from_run(last_it, vals[:, i], pmax[:, i], nev[:, i], truths[i],
+                                         with_quad),
+                state=SimpleNamespace(vip=vip[:, i], rk=r), padded_evals=int(padded[i])))
+            if verbose:
+                tail = f" err {errors[-1]:9.3e}" if errors else ""
+                tail += f" val {values[-1]:.14e}" if values else ""
+                print(f"lane {i:3d}: sweeps {last_it:3d} ranks {lanes[-1].ranks} "
+                      f"n_evals {lanes[-1].neval:9d}{tail}")
     return BatchCrossResult(lanes=lanes, neval=sum(r.neval for r in lanes), time=wall,
                             sweeps=max(r.sweeps for r in lanes))
 

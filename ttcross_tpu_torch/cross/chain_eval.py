@@ -32,6 +32,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops.dense import masked_slot_write
+from ..utils.metrics import span
 
 __all__ = ["ChainSpec", "chain_fun", "reduce_merge", "interface_states",
            "interface_states_scan", "ChainEvaluator"]
@@ -151,6 +152,11 @@ class ChainEvaluator:
         return self._pack(Ls), self._pack(Rs)
 
     def states_from_vip(self, vip):
+        """_states_from_vip() as one `chain.states` span."""
+        with span("chain.states"):
+            return self._states_from_vip(vip)
+
+    def _states_from_vip(self, vip):
         """Packed interface states (Ls, Rs), each (d-1, R, K), straight from
         the vip chains: a Hillis-Steele doubling scan of (link gather,
         payload) operators, log2(d) levels of one gather and one merge.
@@ -200,6 +206,11 @@ class ChainEvaluator:
         return torch.cat([identRow, eP[:-1]]), torch.cat([fS[1:], identRow])
 
     def update_states(self, Ls, Rs, ii, jj, kk, qq, upd, slots):
+        """_update_states() as one `chain.update` span."""
+        with span("chain.update"):
+            return self._update_states(Ls, Rs, ii, jj, kk, qq, upd, slots)
+
+    def _update_states(self, Ls, Rs, ii, jj, kk, qq, upd, slots):
         """Append the accepted pivots' interface-state rows, IN PLACE.
 
         vip is append-only (accepted pivots extend the chains, existing

@@ -40,7 +40,7 @@ from ..ops.kernels import score_residual_argmax, score_residual_argmax_batched
 from ..tt.ops import contract
 from ..tt.ortho import svd_round
 from ..tt.types import TT
-from ..utils.metrics import SweepRecord, history_from_run
+from ..utils.metrics import SweepRecord, history_from_run, span
 from .chain_eval import ChainEvaluator
 from .chains import (advance_left, advance_right, all_left_tables,
                      all_right_tables, assemble_indices, pivot_index_sets)
@@ -542,37 +542,39 @@ def make_engine(fun: Callable, cfg: CrossConfig, device,
         integrand calls still run: the saving is in counted evaluations,
         and no host sync decides the gate)."""
         Rl, Rr, Rb = _caps(p)
-        if cfg.piv == -1:
-            st, piv_idx, pivot, acol, arow = _hunt_full(st, p, ltab, rtab)
-        else:
-            st0, seed, pivot0 = _hunt_lottery(st, p, ltab, rtab, u2, lw, Rl, Rr)
-            if cfg.piv == 0:
-                st, piv_idx, pivot, acol, arow = _hunt_piv0(st0, p, ltab, rtab, seed, pivot0,
-                                                            Rl, Rr)
+        with span("engine.hunt", bond=p):
+            if cfg.piv == -1:
+                st, piv_idx, pivot, acol, arow = _hunt_full(st, p, ltab, rtab)
             else:
-                st, piv_idx, pivot, acol, arow = _rook(st0, p, ltab, rtab, seed, pivot0,
-                                                       fwd or cfg.caps is not None, Rl, Rr)
-            if cfg.adaptive > 0:
-                probe = pivot0.abs() * cfg.adaptive
-                gate = ((probe > cfg.small_element * st0.amax)
-                        & (probe > cfg.small_pivot * st0.pivotmax_prev)
-                        & (st0.rk[p + 1] < R))
-                st = st._replace(**{f: torch.where(gate, getattr(st, f), getattr(st0, f))
-                                    for f in ("amax", "neval", "padded")})
-                piv_idx = tuple(torch.where(gate, a, s) for a, s in zip(piv_idx, seed))
-                pivot = torch.where(gate, pivot, 0.0)
-                acol = torch.where(gate[:, None, None], acol, 0.0)
-                arow = torch.where(gate[:, None, None], arow, 0.0)
-            if Rl < R:
-                acol = F.pad(acol, (0, 0, 0, R - Rl))
-            if Rr < R:
-                arow = F.pad(arow, (0, R - Rr))
-        upd = ((pivot.abs() > cfg.small_element * st.amax)
-               & (pivot.abs() > cfg.small_pivot * st.pivotmax_prev)
-               & (st.rk[p + 1] < Rb))
-        if live is not None:
-            upd = upd & live
-        st, c_new, u_new = _accept(st, p, piv_idx, pivot, acol, arow, upd, own_lo, own_hi)
+                st0, seed, pivot0 = _hunt_lottery(st, p, ltab, rtab, u2, lw, Rl, Rr)
+                if cfg.piv == 0:
+                    st, piv_idx, pivot, acol, arow = _hunt_piv0(st0, p, ltab, rtab, seed, pivot0,
+                                                                Rl, Rr)
+                else:
+                    st, piv_idx, pivot, acol, arow = _rook(st0, p, ltab, rtab, seed, pivot0,
+                                                           fwd or cfg.caps is not None, Rl, Rr)
+                if cfg.adaptive > 0:
+                    probe = pivot0.abs() * cfg.adaptive
+                    gate = ((probe > cfg.small_element * st0.amax)
+                            & (probe > cfg.small_pivot * st0.pivotmax_prev)
+                            & (st0.rk[p + 1] < R))
+                    st = st._replace(**{f: torch.where(gate, getattr(st, f), getattr(st0, f))
+                                        for f in ("amax", "neval", "padded")})
+                    piv_idx = tuple(torch.where(gate, a, s) for a, s in zip(piv_idx, seed))
+                    pivot = torch.where(gate, pivot, 0.0)
+                    acol = torch.where(gate[:, None, None], acol, 0.0)
+                    arow = torch.where(gate[:, None, None], arow, 0.0)
+                if Rl < R:
+                    acol = F.pad(acol, (0, 0, 0, R - Rl))
+                if Rr < R:
+                    arow = F.pad(arow, (0, R - Rr))
+        with span("engine.accept"):
+            upd = ((pivot.abs() > cfg.small_element * st.amax)
+                   & (pivot.abs() > cfg.small_pivot * st.pivotmax_prev)
+                   & (st.rk[p + 1] < Rb))
+            if live is not None:
+                upd = upd & live
+            st, c_new, u_new = _accept(st, p, piv_idx, pivot, acol, arow, upd, own_lo, own_hi)
         return st, upd, piv_idx, pivot, c_new, u_new
 
     def sweep_lanes(st: CrossState, it: int, U, lw=None, live=None) -> CrossState:
@@ -805,28 +807,31 @@ def run_sweeps(kit: EngineKit, st: CrossState, uniforms, w=None, *, accuracy=Non
     pmax = torch.zeros_like(vals)
     nev = torch.zeros((max_sweeps + 1,) + shape, dtype=torch.int64, device=dev)
     if w is not None:
-        vals[0] = kit.value_fn(st, w)
+        with span("engine.value"):
+            vals[0] = kit.value_fn(st, w)
     strike = torch.full(shape, int(strike or 0), dtype=torch.int64, device=dev)
     live = strike < 3
     last = torch.zeros(shape, dtype=torch.int64, device=dev)
     for it in range(1, max_sweeps + 1):
-        if cs is None:
-            st = kit.sweep_fn(st, it0 + it, uniforms[it - 1], lw=lw,
-                              live=live if kit.lanes else None)
-        else:
-            st, cs = kit.sweep_fn(st, it0 + it, uniforms[it - 1], cs, lw=lw)
-        st = st._replace(sweeps=st.sweeps + live)
-        if w is not None:
-            vals[it] = kit.value_fn(st, w)
-        pmax[it] = st.pivotmax
-        nev[it] = st.neval
-        last = torch.where(live, it, last)
-        if accuracy is not None:
-            strike = torch.where(live, torch.where(st.pivotmax <= accuracy * st.amax,
-                                                   strike + 1, 0), strike)
-            live = live & (strike < 3)
-            if not bool(live.any()):
-                break
+        with span("engine.sweep", it=it0 + it):
+            if cs is None:
+                st = kit.sweep_fn(st, it0 + it, uniforms[it - 1], lw=lw,
+                                  live=live if kit.lanes else None)
+            else:
+                st, cs = kit.sweep_fn(st, it0 + it, uniforms[it - 1], cs, lw=lw)
+            st = st._replace(sweeps=st.sweeps + live)
+            if w is not None:
+                with span("engine.value"):
+                    vals[it] = kit.value_fn(st, w)
+            pmax[it] = st.pivotmax
+            nev[it] = st.neval
+            last = torch.where(live, it, last)
+            if accuracy is not None:
+                strike = torch.where(live, torch.where(st.pivotmax <= accuracy * st.amax,
+                                                       strike + 1, 0), strike)
+                live = live & (strike < 3)
+                if not bool(live.any()):
+                    break
     return (st, cs, last.cpu().numpy(), vals.cpu().numpy(), pmax.cpu().numpy(),
             nev.cpu().numpy(), strike.cpu().numpy())
 
@@ -985,11 +990,17 @@ def cross(
                   rank_caps=rank_caps, adaptive=adaptive)
 
 
-def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
-           verbose, return_state, max_sweeps, small_element, small_pivot,
-           oversample, sweep_mode, device, chain=None, weighted_lottery=False,
-           refine_sweeps=0, init_state=None, return_pivots=False, host_reeval=None,
-           rank_chunks=None, rank_caps=None, adaptive=0.0, uniforms=None):
+def _cross(fun, n, *, sweep_mode, chain=None, **kw):
+    """_run_cross() as one `cross` span."""
+    with span("cross", d=len(n), sweep_mode=sweep_mode, chain=chain is not None):
+        return _run_cross(fun, n, sweep_mode=sweep_mode, chain=chain, **kw)
+
+
+def _run_cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
+               verbose, return_state, max_sweeps, small_element, small_pivot,
+               oversample, sweep_mode, device, chain=None, weighted_lottery=False,
+               refine_sweeps=0, init_state=None, return_pivots=False, host_reeval=None,
+               rank_chunks=None, rank_caps=None, adaptive=0.0, uniforms=None):
     """cross() with one more input: uniforms, (max_sweeps, d-1, 2, NLOT)
     lottery uniforms of the (possibly oversampled) run in place of the
     key's draws, and for a chunked run a sequence of one such block per
@@ -1105,25 +1116,28 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
                              f"run as {(d, cfg.R, cfg.N, cfg.R)} (cross/state.py::pad_state "
                              "re-embeds a state at a larger rank)")
         it0 = int(init_state.sweeps)
-    if uniforms is None:
-        # one block per sweep at the largest padding; a chunk draws the
-        # first 2(R_c + N) uniforms of each of its sweeps' blocks
-        drawn = draw_uniforms(key, it0 + max_sweeps, d, 2 * (cfg.R + cfg.N))[it0:]
-        uniforms, s0 = [], 0
-        for Rc, len_c in plan:
-            uniforms.append(drawn[s0:s0 + len_c, :, :, :2 * (Rc + cfg.N)])
-            s0 += len_c
-    elif chunks is None:
-        uniforms = [uniforms]
-    if len(uniforms) != len(plan):
-        raise ValueError(f"uniforms must hold one block per chunk of {plan}")
-    for i, (Rc, len_c) in enumerate(plan):
-        U = torch.as_tensor(uniforms[i], dtype=torch.float64).to(dev)
-        nlot = 2 * (Rc + cfg.N)
-        if U.shape[0] < len_c or U.shape[1:] != (d - 1, 2, nlot):
-            raise ValueError(f"uniforms must be ({len_c}, {d - 1}, 2, {nlot}), "
-                             f"got {tuple(U.shape)}")
-        uniforms[i] = U
+    with span("entry.uniforms"):
+        if uniforms is None:
+            # one block per sweep at the largest padding; a chunk draws the
+            # first 2(R_c + N) uniforms of each of its sweeps' blocks
+            drawn = draw_uniforms(key, it0 + max_sweeps, d, 2 * (cfg.R + cfg.N))[it0:]
+            uniforms, s0 = [], 0
+            for Rc, len_c in plan:
+                uniforms.append(drawn[s0:s0 + len_c, :, :, :2 * (Rc + cfg.N)])
+                s0 += len_c
+        elif chunks is None:
+            uniforms = [uniforms]
+        if len(uniforms) != len(plan):
+            raise ValueError(f"uniforms must hold one block per chunk of {plan}")
+        for i, (Rc, len_c) in enumerate(plan):
+            U = torch.as_tensor(uniforms[i], dtype=torch.float64)
+            with span("entry.upload", bytes=U.nbytes):
+                U = U.to(dev)
+            nlot = 2 * (Rc + cfg.N)
+            if U.shape[0] < len_c or U.shape[1:] != (d - 1, 2, nlot):
+                raise ValueError(f"uniforms must be ({len_c}, {d - 1}, 2, {nlot}), "
+                                 f"got {tuple(U.shape)}")
+            uniforms[i] = U
 
     t0 = time.perf_counter()
     with_quad = quad is not None
@@ -1140,11 +1154,12 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
     done = 0
     for i, (Rc, len_c) in enumerate(plan):
         kit = make_engine(fun, replace(cfg, R=Rc), dev, dtype, chain=chain)
-        if i == 0:
-            st = kit.init_fn() if init_state is None else CrossState(
-                *(t.clone().to(dev) for t in init_state))
-        else:
-            st = pad_state(st, Rc)
+        with span("engine.init"):
+            if i == 0:
+                st = kit.init_fn() if init_state is None else CrossState(
+                    *(t.clone().to(dev) for t in init_state))
+            else:
+                st = pad_state(st, Rc)
         # chain + all-bonds sweeps: the packed interface states are built
         # once per chunk and carried through it, kept up to date after every
         # apply (vip is append-only, so existing rows never go stale)
@@ -1161,31 +1176,32 @@ def _cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
         done += last
         if last < len_c or (accuracy is not None and int(strike) >= 3):
             break
-    last_it = done
-    vals_h = np.concatenate(vals_h)
-    pmax_h = np.concatenate([[0.0]] + pmax_h)
-    nev_h = np.concatenate([[0]] + nev_h)
-    values, errors = _values_errors(vals_h, last_it, truth, with_quad)
-    history = history_from_run(last_it, vals_h, pmax_h, nev_h, truth, with_quad, it0=it0)
-    if verbose:
-        _print_history(history)
-    converged = accuracy is not None and (int(strike) >= 3 if chunks else last_it < max_sweeps)
-    res = CrossResult(
-        tt=finalize(st, kit), neval=int(st.neval), sweeps=last_it,
-        ranks=tuple(st.rk.tolist()), values=values, errors=errors,
-        time=time.perf_counter() - t0, converged=converged,
-        history=history, padded_evals=int(st.padded))
-    if refine_sweeps:
-        res = _apply_refine(res, fun, n, refine_sweeps, quad, truth, st, dev)
-        res.time = time.perf_counter() - t0
-    if return_state:
-        res.state, res.chain_states = st, cs
-    elif return_pivots or host_reeval is not None:
-        res.state = _pivot_shim(st)
-    if host_reeval is not None:
-        res = _apply_host_reeval(res, host_reeval, n, None, quad, truth)
-        if not (return_state or return_pivots):
-            res.state = None
+    with span("entry.results", lanes=1):
+        last_it = done
+        vals_h = np.concatenate(vals_h)
+        pmax_h = np.concatenate([[0.0]] + pmax_h)
+        nev_h = np.concatenate([[0]] + nev_h)
+        values, errors = _values_errors(vals_h, last_it, truth, with_quad)
+        history = history_from_run(last_it, vals_h, pmax_h, nev_h, truth, with_quad, it0=it0)
+        if verbose:
+            _print_history(history)
+        converged = accuracy is not None and (int(strike) >= 3 if chunks else last_it < max_sweeps)
+        res = CrossResult(
+            tt=finalize(st, kit), neval=int(st.neval), sweeps=last_it,
+            ranks=tuple(st.rk.tolist()), values=values, errors=errors,
+            time=time.perf_counter() - t0, converged=converged,
+            history=history, padded_evals=int(st.padded))
+        if refine_sweeps:
+            res = _apply_refine(res, fun, n, refine_sweeps, quad, truth, st, dev)
+            res.time = time.perf_counter() - t0
+        if return_state:
+            res.state, res.chain_states = st, cs
+        elif return_pivots or host_reeval is not None:
+            res.state = _pivot_shim(st)
+        if host_reeval is not None:
+            res = _apply_host_reeval(res, host_reeval, n, None, quad, truth)
+            if not (return_state or return_pivots):
+                res.state = None
     return res
 
 

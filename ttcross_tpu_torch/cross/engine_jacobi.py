@@ -38,6 +38,7 @@ import torch
 
 from ..ops.dense import batched_row_lookup, masked_slot_write, matmul_by_sums
 from ..ops.kernels import score_residual_argmax_batched
+from ..utils.metrics import span
 from .chains import all_left_tables, all_right_tables, assemble_indices
 from .state import CrossState, as_lanes, lane
 
@@ -441,9 +442,11 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=None,
         if cfg.rb:
             st, cs = _rb_phases(st, Uw, dir_fwd, rows_live, live is not None, cs, lw)
         else:
-            hunt, amax, neval, padded = _hunt(st, Uw, dir_fwd, 0, nb, rows_live, lw=lw, cs=cs)
-            st = st._replace(amax=amax, neval=neval, padded=padded)
-            st, upd, slots = _apply(st, hunt, live=None if live is None else rows_live)
+            with span("engine.hunt", bond="all"):
+                hunt, amax, neval, padded = _hunt(st, Uw, dir_fwd, 0, nb, rows_live, lw=lw, cs=cs)
+                st = st._replace(amax=amax, neval=neval, padded=padded)
+            with span("engine.accept"):
+                st, upd, slots = _apply(st, hunt, live=None if live is None else rows_live)
             if cs is not None:
                 cs = ce.update_states(cs[0], cs[1], hunt["ii"], hunt["jj"], hunt["kk"],
                                       hunt["qq"], upd, slots)
@@ -469,9 +472,11 @@ def build_jacobi(cfg, fun, d, N, R, NLOT, iR, iN, n_t, chain_ev=None,
         for par in (0, 1):
             live = rows_live & ((ps % 2) == par) if gate else (ps % 2) == par
             st = st._replace(pivotmax_prev=pm_prev)
-            hunt, amax, neval, padded = _hunt(st, Uw, dir_fwd, 0, nb, live, lw=lw, cs=cs)
-            st = st._replace(amax=amax, neval=neval, padded=padded)
-            st, upd, slots = _apply(st, hunt, live=live, skip_corners=True)
+            with span("engine.hunt", bond="all", phase=par):
+                hunt, amax, neval, padded = _hunt(st, Uw, dir_fwd, 0, nb, live, lw=lw, cs=cs)
+                st = st._replace(amax=amax, neval=neval, padded=padded)
+            with span("engine.accept"):
+                st, upd, slots = _apply(st, hunt, live=live, skip_corners=True)
             if cs is not None:
                 cs = ce.update_states(cs[0], cs[1], hunt["ii"], hunt["jj"], hunt["kk"],
                                       hunt["qq"], upd, slots)
