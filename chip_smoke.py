@@ -63,7 +63,13 @@ Phases, each printing its result as it goes:
      bit for bit its emulation (mvn_pdf_emulated) and within its stated
      tolerance of the plain version on the card and on the host, one kernel
      per call; the batched kernel A also at the family's, the mesh's and
-     the lane jacobi's fibers of 1300 (a cluster per fiber); and the f32
+     the lane jacobi's fibers of 1300 (a cluster per fiber); the lanes'
+     lottery uniforms (lane_uniforms: one MT19937 kernel, a block per lane)
+     bit for bit the host's per-lane draws at the benchmark's 1024-lane
+     family (19, 1024, 5, 2, 170), a mesh rank's half of it (lanes
+     512-1023) and the 4-lane family's (19, 4, 5, 2, 170), one kernel per
+     call, its device time beside its bound (the bytes it writes) and the
+     host draw's time; and the f32
      instantiation of every kernel (f32_cases) at the shapes the f32 runs
      of phase 14 give it, and kernel A's 2-D path (the SIMT kernel), the
      batched kernel A and the integrand's warp path at the f64 phase's;
@@ -280,6 +286,13 @@ LOOKUP_KERNELS = ("score_residual_argmax", "small_table_lookup")   # stdnorm, th
 FAMILY_LANES = 4
 FAMILY_KERNELS = ("score_residual_argmax_batched", "mvn_pdf_fused")
 FAMILY_RTOL = 1e-13         # a lane's values against its single run's
+# The lanes' lottery uniforms (phase 3): (sweeps, first lane, end lane, d,
+# nlot) of the benchmark's 1024-lane mvn_d6 family at rank 20, a mesh rank's
+# half of it and phase 9's 4-lane family; the lane keys of key LANE_KEY.
+LANE_UNIFORM_CASES = {"family_1024": (19, 0, 1024, 6, 170),
+                      "mesh_half_1024": (19, 512, 1024, 6, 170),
+                      "family_4": (19, 0, FAMILY_LANES, 6, 170)}
+LANE_KEY = 2**40 + 7
 # Worst-lane digits of the family over keys 0-3, from CPU runs of both
 # packages (PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_batch.py;
 # the worst lane is always corr 0.6, the others reach 6.4-12.8):
@@ -325,6 +338,7 @@ KERNEL_REPLACES = {   # the TPU kernel each CUDA kernel stands for
     "small_table_lookup": "ttcross_tpu/ops/pallas_kernels.py:151",
     "ising_integrand_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
     "mvn_pdf_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
+    "lane_uniforms": "none (the JAX package draws its lanes' uniforms with jax.random)",
     # the dd tier's variants (csrc/dd_kernels.cu): D1 and D4 of kernel A's
     # residual and its dd products, D2 and D3 of the lookup kernel's gathers
     "dd_score_residual_argmax": "ttcross_tpu/ops/pallas_kernels.py:62",
@@ -888,6 +902,54 @@ def mvn_cases(dev, gen):
     names = {1300: "rook_fiber", 1690: "rook_fiber"}
     return [(f"mvn_{L}x{B}x{d}_n{n}" + (f"_{names[B]}" if B in names and L == 1 else ""),
              mvn_case(gen, L, B, d, n, dev)) for L, B, d, n in m]
+
+
+def check_lane_uniforms(dev, cases=LANE_UNIFORM_CASES):
+    """Phase 3, the lanes' lottery uniforms: the MT19937 kernel
+    (K.lane_uniforms) bit for bit the host's per-lane draws
+    (K.lane_uniforms_plain, timed on the host clock) at each case's shape;
+    one kernel and the seeds' copy per call; the kernel's device time beside
+    its bound (the doubles it writes and the seeds it reads, over the
+    memory rate).  No one PyTorch call draws these bits (the CUDA generator
+    is another one), so it has no library yardstick."""
+    import torch
+
+    from ttcross_tpu_torch.cross import lane_key
+    from ttcross_tpu_torch.ops import kernels as K
+
+    rows = []
+    for name, (sweeps, lane0, lane1, d, nlot) in cases.items():
+        keys = [lane_key(LANE_KEY, lane) for lane in range(lane0, lane1)]
+        got = K.lane_uniforms(keys, sweeps, d, nlot, dev).cpu()
+        t0 = time.perf_counter()
+        want = K.lane_uniforms_plain(keys, sweeps, d, nlot)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got, want):
+            bad = got != want
+            raise AssertionError(f"lane uniforms {name}: {int(bad.sum())} of {got.numel()} "
+                                 f"draws differ from the host's (first at "
+                                 f"{bad.nonzero()[0].tolist()})")
+        fn = lambda: K.lane_uniforms(keys, sweeps, d, nlot, dev)  # noqa: E731
+        dev_k = device_per_call(fn, calls=20)
+        # the profiler may miss a launch (device_per_call): time a recorded one
+        mt = [v for k, v in dev_k["by_kernel"].items() if "lane_mt19937" in k]
+        launches = sum(count for _, count in mt)
+        if not 0 < launches <= dev_k["calls"] or any(
+                "lane_mt19937" not in k and "Memcpy HtoD" not in k for k in dev_k["by_kernel"]):
+            raise AssertionError(f"lane uniforms {name}: {dev_k['by_kernel_us']} per call "
+                                 "(one MT19937 kernel and the seeds' copy a call is the design)")
+        device_us = sum(us for us, _ in mt) / launches
+        shape = list(got.shape)
+        bound, by = _bound_us(8 * got.numel() + 4 * len(keys), 0)
+        row = {"kernel": "lane_uniforms", "shape": shape, "case": name,
+               "bit_equal_to_plain": True, "max_abs_err": 0.0, "ms": _time_ms(fn),
+               "plain_ms": plain_ms, "library_ms": None, "device_us": device_us,
+               "seed_copy_us": dev_k["device_us"] - launches * device_us / dev_k["calls"],
+               "kernels_per_call": dev_k["kernels_per_call"], "bound_us": bound,
+               "bound_by": by, "share_of_bound": bound / device_us}
+        _emit(row)
+        rows.append(row)
+    return rows
 
 
 def check_kernels(dev, a_cases, b_cases):
@@ -1815,12 +1877,15 @@ def hold_new_shapes(dev, gen, shapes, held, checked, label="skeleton") -> None:
         p_cases.append(((f"{label}_{P}x{M}x{Kc}", P, M, Kc, R), dt))
     m_cases = [(f"{label}_{L}x{B}x{d}_n{n}", mvn_case(gen, L, B, d, n, dev, dt))
                for (L, B, d, n), dt in new("mvn_pdf_fused")]
+    u_cases = {f"{label}_{S}x{L}x{d1 + 1}_n{nlot}": (S, 0, L, d1 + 1, nlot)
+               for (S, L, d1, _, nlot), _ in new("lane_uniforms")}
     a_rows, b_rows = check_kernels(dev, a_cases, b_cases)
     p_rows = [r for case, dt in p_cases for r in check_batched(dev, gen, [case], dt)]
     for name, rows in [("score_residual_argmax", a_rows), ("small_table_lookup", b_rows),
                        ("ising_integrand_fused", check_integrand(i_cases)),
                        ("score_residual_argmax_batched", p_rows),
-                       ("mvn_pdf_fused", check_mvn(m_cases))]:
+                       ("mvn_pdf_fused", check_mvn(m_cases)),
+                       ("lane_uniforms", check_lane_uniforms(dev, u_cases))]:
         for r in rows:
             checked[name][tuple(r["shape"])] = r
             held[name].add(tuple(r["shape"]))
@@ -4734,6 +4799,7 @@ def main() -> int:
     i_rows = part("integrand", check_integrand, i_cases)
     ab_rows = part("batched", check_batched, dev, gen)
     m_rows = part("mvn", check_mvn, m_cases)
+    u_rows = part("lane_uniforms", check_lane_uniforms, dev)
     # the f32 instantiations of every kernel
     a32, b32, i32, m32, p32 = f32_cases(dev, gen)
     a32_rows, b32_rows = part("kernels_a_b", check_kernels, dev, a32, b32)
@@ -4749,7 +4815,7 @@ def main() -> int:
     checked = {name: {tuple(r["shape"]): r for r in reversed(rows)} for name, rows in
                [("score_residual_argmax", a_rows), ("score_residual_argmax_batched", ab_rows),
                 ("small_table_lookup", b_rows), ("ising_integrand_fused", i_rows),
-                ("mvn_pdf_fused", m_rows)]}
+                ("mvn_pdf_fused", m_rows), ("lane_uniforms", u_rows)]}
     checked.update({name: {} for name in DD_KERNELS})   # held by phase 15 at its runs' shapes
     checked.update({name: {} for name in QD_KERNELS})   # held by phase 17 at its runs' shapes
     held = {name: set(by) for name, by in checked.items()}

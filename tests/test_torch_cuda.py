@@ -427,6 +427,81 @@ def test_mvn_wrapper_raises_on_what_the_kernel_does_not_take(gen, cuda_device):
                         norm[:1])
 
 
+# (sweeps, keys, d, nlot): the benchmark's 1024-lane family, a mesh rank's
+# half of it, the 4-lane family, and the CPU tests' keys and shapes
+# (tests/test_torch_lane_uniforms.py), odd row lengths among them
+LANE_UNIFORM_CASES = [(19, ("lanes", 0, 1024), 6, 170), (19, ("lanes", 512, 1024), 6, 170),
+                      (19, ("lanes", 0, 4), 6, 170), (1, [2**62 + 987654321], 2, 6),
+                      (3, [0, 1, 2**32 - 1], 4, 7), (3, [2**32 + 5], 6, 170),
+                      (1, ("lanes", 100, 117), 4, 7), (3, ("lanes", 5, 22), 2, 6)]
+
+
+@pytest.mark.parametrize("sweeps,keys,d,nlot", LANE_UNIFORM_CASES)
+def test_lane_uniforms_kernel_is_the_host_draws_bit_for_bit(sweeps, keys, d, nlot, cuda_device):
+    """The MT19937 kernel draws every lane's block of uniforms, bit for bit
+    the host's per-lane torch.Generator draws, in one launch a call."""
+    from ttcross_tpu_torch.cross import lane_key
+
+    if keys[0] == "lanes":
+        keys = [lane_key(2**40 + 7, lane) for lane in range(keys[1], keys[2])]
+    K.reset_launch_counts()
+    got = K.lane_uniforms(keys, sweeps, d, nlot, cuda_device)
+    shape = (sweeps, len(keys), d - 1, 2, nlot)
+    assert got.device.type == "cuda" and got.dtype == torch.float64 and got.shape == shape
+    assert K.lane_uniforms.launches == 1
+    assert K.launch_shapes()["lane_uniforms"] == {shape: 1}
+    assert torch.equal(got.cpu(), K.lane_uniforms_plain(keys, sweeps, d, nlot))
+
+
+def test_lane_uniforms_wrapper_raises_on_what_has_no_uniforms(cuda_device):
+    with pytest.raises(ValueError):
+        K.lane_uniforms([], 2, 4, 7, cuda_device)
+    with pytest.raises(ValueError):
+        K.lane_uniforms([1], 2, 1, 7, cuda_device)
+    with pytest.raises(ValueError, match="32-bit"):
+        K.lane_uniforms([1], 2**22, 1025, 1024, cuda_device)
+
+
+@pytest.mark.parametrize("mode", ["sequential", "jacobi"])
+def test_cross_batch_draws_on_the_card_bit_for_bit(mode, cuda_device):
+    """A small MVN family's cross_batch on the card draws its uniforms with
+    one launch a call (drawn="card", the seeds' copy under entry.upload),
+    and is the same run as the family fed the host's draws through
+    _run_cross_batch(uniforms=): vip, ranks, n_evals and values equal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ttcross_tpu_torch.apps import make_mvn_family
+    from ttcross_tpu_torch.cross import cross_batch, lane_key
+    from ttcross_tpu_torch.cross.batch import _cross_batch
+    from ttcross_tpu_torch.utils import reset_spans, spans
+
+    d, R, L = 4, 6, 3
+    fam = make_mvn_family(d=d, n=17, corrs=np.linspace(0.2, 0.6, L), device=cuda_device)
+    kw = dict(max_rank=R, key=3, pivoting=1, accuracy=500 * 2.2e-16,
+              quad=[fam.quad_weights] * d, truth=1.0, device=cuda_device)
+    K.reset_launch_counts()
+    reset_spans()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        res = cross_batch(fam.fun, [fam.n] * d, fam.params, sweep_mode=mode, **kw)
+    recs = spans()
+    up = [i for i, r in enumerate(recs) if r.name == "entry.uniforms"]
+    assert len(up) == 1 and recs[up[0]].attrs == {"drawn": "card"}
+    assert [(r.parent, r.attrs) for r in recs if r.name == "entry.upload"] == [(up[0],
+                                                                                {"bytes": 4 * L})]
+    assert K.lane_uniforms.launches == 1
+    again = cross_batch(fam.fun, [fam.n] * d, fam.params, sweep_mode=mode, **kw)
+    assert K.lane_uniforms.launches == 2 and again.neval == res.neval
+    U = K.lane_uniforms_plain([lane_key(3, lane) for lane in range(L)], R - 1, d, 2 * (R + fam.n))
+    base = dict(dtype=torch.float64, verbose=False, max_sweeps=None, small_element=None,
+                small_pivot=None, sweep_mode=mode, mesh=None)
+    fed = _cross_batch(fam.fun, [fam.n] * d, fam.params, uniforms=U, **base, **kw)
+    assert K.lane_uniforms.launches == 2              # the injected draws launch nothing
+    assert fed.neval == res.neval > 0 and fed.sweeps == res.sweeps
+    for a, b in zip(fed.lanes, res.lanes):
+        assert a.values == b.values and a.ranks == b.ranks and a.neval == b.neval
+        assert np.array_equal(a.state.vip, b.state.vip)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     tables = torch.zeros((2, 9), dtype=torch.float64, device=cuda_device)
     with pytest.raises(TypeError):

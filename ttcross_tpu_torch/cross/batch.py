@@ -34,10 +34,11 @@ from torch.utils import _pytree as pytree
 
 from ..config import precision_thresholds
 from ..ops.dense import as_tensor
+from ..ops.kernels import lane_uniforms
 from ..tt.types import TT
 from ..utils.metrics import history_from_run, span
-from .engine import (CrossConfig, CrossResult, _values_errors, draw_uniforms, make_engine,
-                     quad_matrix, run_sweeps)
+from .engine import (CrossConfig, CrossResult, _values_errors, make_engine, quad_matrix,
+                     run_sweeps)
 
 __all__ = ["BatchCrossResult", "cross_batch", "lane_batched", "lane_key"]
 
@@ -125,7 +126,9 @@ def cross_batch(
     integrand, which takes ind (L, B, d) and the whole params and returns
     (L, B).  params: a pytree of tensors or arrays, every leaf with a
     leading lane axis of size L (arrays go to ``device``).  key: lane l
-    draws the lottery uniforms of cross(key=lane_key(key, l)).  truth: a
+    draws the lottery uniforms of cross(key=lane_key(key, l)), bit for bit
+    (on a CUDA device every lane's in one kernel, ops/kernels.py::
+    lane_uniforms).  truth: a
     scalar or one value per lane.  Other arguments as cross(), shared by
     the lanes.  The post-passes of single runs (oversample, refine_sweeps,
     state passing) are per-lane concepts: run cross() on a lane for them.
@@ -211,15 +214,19 @@ def _run_cross_batch(root, fun, n, params, *, max_rank, accuracy, pivoting, quad
     if max_sweeps is None:
         max_sweeps = max_rank - 1
     NLOT = 2 * (cfg.R + cfg.N)
-    with span("entry.uniforms"):
+    with span("entry.uniforms") as drawing:
         if uniforms is None:
-            uniforms = torch.stack([draw_uniforms(lane_key(key, i), max_sweeps, d, NLOT)
-                                    for i in range(lane0, lane0 + L)], dim=1)
-        elif mesh is not None:
-            uniforms = uniforms[:, lane0:lane0 + L]
-        uniforms = torch.as_tensor(uniforms, dtype=torch.float64)
-        with span("entry.upload", bytes=uniforms.nbytes):
-            uniforms = uniforms.to(dev)
+            # every lane's stream in one kernel on a CUDA device, else on the host
+            drawing.set(drawn="card" if dev.type == "cuda" else "host")
+            uniforms = lane_uniforms([lane_key(key, i) for i in range(lane0, lane0 + L)],
+                                     max_sweeps, d, NLOT, dev)
+        else:
+            drawing.set(drawn="host")
+            if mesh is not None:
+                uniforms = uniforms[:, lane0:lane0 + L]
+            uniforms = torch.as_tensor(uniforms, dtype=torch.float64)
+            with span("entry.upload", bytes=uniforms.nbytes):
+                uniforms = uniforms.to(dev)
     if uniforms.shape[0] < max_sweeps or uniforms.shape[1:] != (L, d - 1, 2, NLOT):
         raise ValueError(f"uniforms must be ({max_sweeps}, {L}, {d - 1}, 2, {NLOT}), "
                          f"got {tuple(uniforms.shape)}")

@@ -1314,6 +1314,108 @@ int mvn_pdf(const S* table, int n, const int32_t* ind, long long L, long long B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The lottery uniforms of a lane family: every lane's MT19937 stream at once.
+//
+// Replaces no TPU kernel: the JAX package draws its lanes' uniforms with
+// jax.random (ttcross_tpu/cross/batch.py).  The port's lane l draws what
+// torch.rand((sweeps, d-1, 2, nlot), dtype=float64,
+// generator=torch.Generator().manual_seed(key_l)) draws on the CPU, and this
+// kernel writes those bits, every lane's block of them, straight into the
+// (sweeps, L, d-1, 2, nlot) float64 array the cross_batch sweeps read.  The
+// CPU generator is plain MT19937 (Matsumoto and Nishimura 1998): the state is
+// seeded by init_genrand(key mod 2^32), and each float64 is
+// ((w0 << 32) | w1) & (2^53 - 1) times 2^-53, for w0 and w1 two consecutive
+// tempered words.  Element j of lane l goes to out[j / row][l][j % row], row
+// = (d-1) * 2 * nlot.  A twist yields 624 words, 312 doubles, so a pair
+// never straddles two twists.
+//
+// What bounds it: the bytes written.  The 1024-lane family at mvn_d6 (19
+// sweeps, d = 6, nlot = 170) writes 264.6 MB, 79 us at 3.35 TB/s; its 66 M
+// words take ~15 integer operations each (twist, temper, pairing), ~30 us
+// spread over the card.  The host drew the same bits one lane at a time
+// (932 ms on the host of an H100 80GB HBM3 machine) and copied them from
+// pageable memory; this kernel takes 187 us there (700 W), 42 % of the
+// bound, and 70 us at 4 lanes, where a lane's 104 dependent twists set the
+// time.
+//
+// Design.  One block per lane, its 624-word state in shared memory; one
+// thread seeds it (624 dependent steps, a few us).  A twist reads the old
+// state and writes the new one into the other of two buffers, in three
+// barrier-separated phases that follow the recurrence's dependences: i in
+// [0, 227) reads the old s[i + 397]; i in [227, 454) the new s[i - 227];
+// i in [454, 624) likewise, and s[623] reads the new s[0] for its low bits.
+// Then each thread tempers its pairs of new words and stores their doubles
+// with streaming stores: a warp stores 32 consecutive doubles of one lane's
+// row, and the 265 MB, which does not fit the 50 MB L2, is read a sweep at a
+// time, later.  1024 lanes are one wave at 8 blocks of 256 threads an SM.
+// ---------------------------------------------------------------------------
+
+constexpr int kMtThreads = 256;      // a block: one lane
+constexpr int kMtN = 624;            // words of the state
+constexpr int kMtM = 397;
+constexpr int kMtPhase = kMtN - kMtM;  // 227: a phase of the twist
+constexpr int kMtPairs = kMtN / 2;   // doubles of a twist
+
+__device__ __forceinline__ uint32_t mt_next(uint32_t hi, uint32_t lo, uint32_t far) {
+  const uint32_t y = (hi & 0x80000000u) | (lo & 0x7fffffffu);
+  return far ^ (y >> 1) ^ ((y & 1u) ? 0x9908b0dfu : 0u);
+}
+
+__device__ __forceinline__ uint32_t mt_temper(uint32_t y) {
+  y ^= y >> 11;
+  y ^= (y << 7) & 0x9d2c5680u;
+  y ^= (y << 15) & 0xefc60000u;
+  return y ^ (y >> 18);
+}
+
+__global__ void __launch_bounds__(kMtThreads)
+lane_mt19937_kernel(const uint32_t* __restrict__ seeds, unsigned elems, unsigned row,
+                    long long sweep_stride, double* __restrict__ out) {
+  __shared__ uint32_t st[2][kMtN];
+  const int t = threadIdx.x;
+  const long long lane = blockIdx.x;
+  if (t == 0) {
+    uint32_t x = seeds[lane];
+    st[0][0] = x;
+    for (int i = 1; i < kMtN; ++i) {
+      x = 1812433253u * (x ^ (x >> 30)) + (uint32_t)i;
+      st[0][i] = x;
+    }
+  }
+  __syncthreads();
+  double* lane_out = out + lane * row;
+  int cur = 0;
+  for (unsigned j0 = 0; j0 < elems; j0 += kMtPairs) {
+    const uint32_t* a = st[cur];
+    uint32_t* b = st[cur ^ 1];
+    if (t < kMtPhase) b[t] = mt_next(a[t], a[t + 1], a[t + kMtM]);
+    __syncthreads();
+    if (t < kMtPhase) {
+      const int i = t + kMtPhase;
+      b[i] = mt_next(a[i], a[i + 1], b[i - kMtPhase]);
+    }
+    __syncthreads();
+    if (t + 2 * kMtPhase < kMtN) {
+      const int i = t + 2 * kMtPhase;
+      b[i] = mt_next(a[i], i + 1 < kMtN ? a[i + 1] : b[0], b[i - kMtPhase]);
+    }
+    __syncthreads();
+    // the next twist writes the other buffer, so these reads need no barrier
+    for (int k = t; k < kMtPairs; k += kMtThreads) {
+      const unsigned j = j0 + k;
+      if (j < elems) {
+        const unsigned long long w =
+            ((unsigned long long)mt_temper(b[2 * k]) << 32 | mt_temper(b[2 * k + 1])) &
+            ((1ull << 53) - 1);
+        const unsigned r = j / row;
+        __stcs(lane_out + r * sweep_stride + (j - r * row), (double)w * 0x1p-53);
+      }
+    }
+    cur ^= 1;
+  }
+}
+
 // The entry points' bodies, one per scalar type (extern "C" below).
 template <typename S>
 cudaError_t configure(int fiber_smem) {
@@ -1629,6 +1731,22 @@ int ttc_mvn_pdf_f32(const float* table, int n, const int32_t* ind, long long L, 
 }
 
 int ttc_mvn_threads(void) { return kMvnThreads; }
+
+// The lottery uniforms of L lanes: seeds (L,) uint32, each lane's key mod
+// 2^32; out (sweeps, L, row) f64, lane l's stream of sweeps * row doubles in
+// C order, row = (d-1) * 2 * nlot.  One block of kMtThreads threads a lane.
+int ttc_lane_uniforms(const uint32_t* seeds, long long L, int sweeps, int row, double* out,
+                      void* stream) {
+  if (L < 1 || L > INT_MAX || sweeps < 1 || row < 1 ||
+      (long long)sweeps * row > (long long)UINT_MAX - kMtPairs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  lane_mt19937_kernel<<<(unsigned)L, kMtThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      seeds, (unsigned)((long long)sweeps * row), (unsigned)row, L * row, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ttc_mt_threads(void) { return kMtThreads; }
 
 int ttc_threads_per_block(void) { return kThreads; }
 

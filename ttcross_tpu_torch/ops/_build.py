@@ -24,7 +24,7 @@ from pathlib import Path
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "kernels.cu",      # kernels A and B, the fused integrands
+SOURCES = (_PKG / "csrc" / "kernels.cu",      # kernels A and B, the fused integrands, MT19937
            _PKG / "csrc" / "dd_kernels.cu",   # the dd tier's kernels
            _PKG / "csrc" / "qd_kernels.cu")   # the qd tier's kernels
 HEADERS = (_PKG / "csrc" / "ising_rows.cuh",)   # D2's and Q1's body, launch and plan
@@ -47,6 +47,8 @@ _SIGNATURES = {
     "ttc_ising_integrand": ([_P, _I, _P, _LL, _I, _I, _I, _I, _I, _I, _D, _P, _P], _I),
     "ttc_mvn_pdf": ([_P, _I, _P, _LL, _LL, _I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "ttc_mvn_threads": ([], _I),
+    "ttc_lane_uniforms": ([_P, _LL, _I, _I, _P, _P], _I),
+    "ttc_mt_threads": ([], _I),
     "ttc_threads_per_block": ([], _I),
     "ttc_tile_threads": ([], _I),
     "ttc_tile_smem": ([], _I),

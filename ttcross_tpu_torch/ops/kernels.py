@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels, their plain PyTorch versions and
 their launch counters: kernel A (the masked residual argmax, also batched
 over fibers), kernel B (the small-table lookup) and kernel B's redesigns,
-the fused Ising integrand and the fused MVN density integrand; the dd
+the fused Ising integrand and the fused MVN density integrand; the lanes'
+lottery uniforms (one MT19937 stream a lane, on the card); the dd
 tier's kernels (csrc/dd_kernels.cu): D1 the dd residual argmax, D2 the dd Ising integrand, D3 the dd train gather, D4 the
 small dd GEMM; and the qd tier's (csrc/qd_kernels.cu): Q1 the qd Ising
 integrand, Q2 the qd residual argmax, Q3 the qd train gather, Q4 the small
@@ -12,10 +13,10 @@ Counterpart of ttcross_tpu/ops/pallas_kernels.py.  The CUDA sources are
 ``ops/_build.py``).  Each wrapper routes a
 tensor that lies on the CPU to the plain version and a CUDA tensor to the
 kernel; on a CUDA tensor it launches the kernel or raises, never falling
-back.  Every kernel has a float64 and a float32 instantiation (the f32
-tier): a wrapper launches the one of its inputs' dtype, which must be one
-of the two and the same for every floating input (TypeError otherwise; no
-input is converted).  ``<wrapper>.launches`` counts the kernel launches of
+back.  Every kernel but the lane uniforms' (float64 only) has a float64
+and a float32 instantiation (the f32 tier): a wrapper launches the one of
+its inputs' dtype, which must be one of the two and the same for every
+floating input (TypeError otherwise; no input is converted).  ``<wrapper>.launches`` counts the kernel launches of
 that wrapper, and ``launch_shapes()`` breaks them down by the shape of the
 call, an f32 launch's shape ending in "f32".
 """
@@ -36,6 +37,7 @@ __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
            "small_table_lookup", "small_table_lookup_plain",
            "ising_integrand_fused", "ising_integrand_plain",
            "mvn_pdf_fused", "mvn_pdf_plain", "mvn_pdf_emulated", "mvn_pdf_tolerance",
+           "lane_uniforms", "lane_uniforms_plain", "lane_uniforms_emulated",
            "score_residual_argmax_batched_planned",
            "dd_score_residual_argmax", "dd_score_residual_argmax_plain",
            "dd_score_residual_argmax_planned", "dd_score_plan", "DdScorePlan", "dd_dot",
@@ -136,9 +138,9 @@ def _lib():
     lib = _build.load()
     if ((lib.ttc_threads_per_block(), lib.ttc_tile_threads(), lib.ttc_tile_smem(),
          lib.ttc_simt_threads(), lib.ttc_integrand_rows_threads(), lib.ttc_integrand_rows_d_max(),
-         lib.ttc_integrand_warp_d_max(), lib.ttc_mvn_threads())
+         lib.ttc_integrand_warp_d_max(), lib.ttc_mvn_threads(), lib.ttc_mt_threads())
             != (_THREADS, _TILE_THREADS, _TILE_SMEM, _SIMT_THREADS, _ROWS_THREADS, _ROWS_D_MAX,
-                _WARP_D_MAX, _MVN_THREADS)):
+                _WARP_D_MAX, _MVN_THREADS, _MT_THREADS)):
         raise RuntimeError("the constants of csrc/kernels.cu disagree with ops/kernels.py")
     if (lib.ttd_threads(), lib.ttd_gather_rmax()) != (_DD_THREADS, _DD_GATHER_RMAX):
         raise RuntimeError("the constants of csrc/dd_kernels.cu disagree with ops/kernels.py")
@@ -760,6 +762,111 @@ def ising_integrand_fused(tables, ind, kind: str):
 
 
 ising_integrand_fused.launches = 0
+
+
+# ------------------------------------------------- the lanes' lottery uniforms
+_MT_THREADS = 256          # kMtThreads: a block of the MT19937 kernel, one lane
+_MT_N, _MT_M = 624, 397    # MT19937's state words and its recurrence's offset
+
+
+def _lane_uniforms_shape(keys, sweeps: int, d: int, nlot: int) -> tuple:
+    if d < 2 or nlot < 1 or not len(keys):
+        raise ValueError(f"no lane uniforms for {len(keys)} lanes, d = {d}, nlot = {nlot}")
+    return max(int(sweeps), 1), len(keys), d - 1, 2, nlot
+
+
+def lane_uniforms_plain(keys, sweeps: int, d: int, nlot: int) -> torch.Tensor:
+    """The lottery uniforms of lanes with these keys, on the CPU: each lane's
+    cross/engine.py::draw_uniforms (torch.Generator().manual_seed(key)),
+    stacked on dim 1: (max(sweeps, 1), L, d-1, 2, nlot) float64."""
+    from ..cross.engine import draw_uniforms    # cross/engine.py imports this module
+
+    _lane_uniforms_shape(keys, sweeps, d, nlot)
+    return torch.stack([draw_uniforms(int(k), sweeps, d, nlot) for k in keys], dim=1)
+
+
+def lane_uniforms_emulated(keys, sweeps: int, d: int, nlot: int) -> torch.Tensor:
+    """lane_uniforms_plain's result by the MT19937 kernel's arithmetic, every
+    lane at once in NumPy: init_genrand(key mod 2^32); each twist in the
+    kernel's three phases, from the old state into a new one; tempering;
+    the double ((w0 << 32) | w1) & (2^53 - 1) times 2^-53 of each pair of
+    words; element j of a lane at [j // row, lane, j % row], row = (d-1) 2
+    nlot.  For the CPU tests."""
+    import numpy as np
+
+    S, L, _, _, _ = shape = _lane_uniforms_shape(keys, sweeps, d, nlot)
+    u32 = np.uint32
+    old = np.empty((L, _MT_N), u32)
+    x = np.array([int(k) & 0xFFFFFFFF for k in keys], dtype=np.uint64)
+    old[:, 0] = x
+    for i in range(1, _MT_N):
+        x = (1812433253 * (x ^ (x >> np.uint64(30))) + np.uint64(i)) & np.uint64(0xFFFFFFFF)
+        old[:, i] = x
+
+    def step(hi, lo, far):
+        y = (hi & u32(0x80000000)) | (lo & u32(0x7FFFFFFF))
+        return far ^ (y >> u32(1)) ^ np.where(y & u32(1), u32(0x9908B0DF), u32(0))
+
+    P = _MT_N - _MT_M
+    elems = S * (d - 1) * 2 * nlot
+    twists = -(-elems // (_MT_N // 2))
+    out = np.empty((L, twists * (_MT_N // 2)), np.float64)
+    for tw in range(twists):
+        new = np.empty_like(old)
+        a = np.arange(P)
+        new[:, a] = step(old[:, a], old[:, a + 1], old[:, a + _MT_M])
+        a = a + P
+        new[:, a] = step(old[:, a], old[:, a + 1], new[:, a - P])
+        a = np.arange(2 * P, _MT_N)
+        lo = np.concatenate([old[:, a[:-1] + 1], new[:, :1]], axis=1)
+        new[:, a] = step(old[:, a], lo, new[:, a - P])
+        old = y = new
+        y = y ^ (y >> u32(11))
+        y = y ^ ((y << u32(7)) & u32(0x9D2C5680))
+        y = y ^ ((y << u32(15)) & u32(0xEFC60000))
+        y = (y ^ (y >> u32(18))).astype(np.uint64)
+        w = ((y[:, 0::2] << np.uint64(32)) | y[:, 1::2]) & np.uint64((1 << 53) - 1)
+        out[:, tw * (_MT_N // 2):(tw + 1) * (_MT_N // 2)] = w.astype(np.float64) * 2.0 ** -53
+    out = out[:, :elems].reshape(L, S, -1).transpose(1, 0, 2)
+    return torch.from_numpy(np.ascontiguousarray(out)).reshape(shape)
+
+
+def lane_uniforms(keys, sweeps: int, d: int, nlot: int, device) -> torch.Tensor:
+    """The lottery uniforms of the lanes with these keys (Python ints, one a
+    lane) on `device`: (max(sweeps, 1), L, d-1, 2, nlot) float64, lane l's
+    block the uniforms cross(key=keys[l]) draws (cross/engine.py::
+    draw_uniforms), bit for bit.
+
+    Replaces no TPU kernel (the JAX package draws with jax.random).  For a
+    device other than CUDA this is lane_uniforms_plain, copied to the device
+    under the span entry.upload; on a CUDA device it copies the keys mod
+    2^32 (the span entry.upload), allocates the output and launches
+    csrc/kernels.cu's lane_mt19937_kernel once, a block per lane, and adds
+    one to ``lane_uniforms.launches``; its result is lane_uniforms_emulated's."""
+    from ..utils.metrics import span    # utils imports ops/dense.py, which imports this module
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        out = lane_uniforms_plain(keys, sweeps, d, nlot)
+        with span("entry.upload", bytes=out.nbytes):
+            return out.to(dev)
+    shape = _lane_uniforms_shape(keys, sweeps, d, nlot)
+    S, L, row = shape[0], shape[1], (d - 1) * 2 * nlot
+    if S * row > 2**32 - 1 - _MT_N // 2:
+        raise ValueError(f"{S * row} uniforms a lane exceed the MT19937 kernel's 32-bit count")
+    # each key's low 32 bits, read as int32 (the kernel reads them as uint32)
+    seeds = torch.tensor([(int(k) + 2**31) % 2**32 - 2**31 for k in keys], dtype=torch.int32)
+    with span("entry.upload", bytes=seeds.nbytes):
+        seeds = seeds.to(dev)
+    out = torch.empty(shape, dtype=torch.float64, device=dev)
+    rc = _call(dev, _lib().ttc_lane_uniforms, seeds.data_ptr(), L, S, row, out.data_ptr())
+    _raise_on(rc, "lane_uniforms launch")
+    lane_uniforms.launches += 1
+    _SHAPES["lane_uniforms", shape] += 1
+    return out
+
+
+lane_uniforms.launches = 0
 
 # ------------------------------------------------------------ the dd kernels
 # csrc/dd_kernels.cu, linked into the one library.  Each kernel computes in the
@@ -1576,9 +1683,9 @@ def _ising_qd_launch(tables, ind, rows):
 ising_c_integrand_qd_fused.launches = 0
 
 _WRAPPERS = (score_residual_argmax, score_residual_argmax_batched, small_table_lookup,
-             ising_integrand_fused, mvn_pdf_fused, dd_score_residual_argmax, dd_dot, dd_gather_tt_fused,
-             ising_c_integrand_dd_fused, qd_score_residual_argmax, qd_dot, qd_gather_tt_fused,
-             ising_c_integrand_qd_fused)
+             ising_integrand_fused, mvn_pdf_fused, lane_uniforms, dd_score_residual_argmax,
+             dd_dot, dd_gather_tt_fused, ising_c_integrand_dd_fused, qd_score_residual_argmax,
+             qd_dot, qd_gather_tt_fused, ising_c_integrand_qd_fused)
 
 
 def launch_counts() -> dict[str, int]:
@@ -1590,7 +1697,8 @@ def launch_shapes() -> dict[str, dict[tuple, int]]:
     """The launches since the last reset by the shape of the call, per
     wrapper: kernel A (M, K, R), batched (P, M, K, R), the lookup
     (L, B, d, n), the fused integrand (B, d, n), the fused MVN integrand
-    (L, B, d, n) (one problem: L = 1); an f32 launch's shape
+    (L, B, d, n) (one problem: L = 1), the lane uniforms their output's
+    (sweeps, L, d-1, 2, nlot); an f32 launch's shape
     ends in "f32"; the dd kernels: D1 (B, T), D4 (M, N, T), D3 (B, N) + the
     train's ranks (N its largest mode), D2 (B, d, n); the qd kernels: Q2
     (B, T), Q4 (M, N, T, "tree" | "seq"), Q3 (B, N) + the train's ranks,
