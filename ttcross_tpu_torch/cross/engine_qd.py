@@ -28,6 +28,14 @@ of the pivot; QdEngine.host_reads counts them.  Thresholds and amax live in
 the log10 domain (dmrggmp.f90:50-53, 107, 364): small_element defaults to
 -QD_DPS + 2, small_pivot -7.  The log10 of a fiber's leading limbs is taken
 with numpy on the host copy, so it is the JAX package's bit for bit.
+
+While a torch.profiler session is active, cross_qd records the f64
+engine's spans (utils/metrics.py::span) where they mean the same: the root
+cross_qd [d, n, max_rank], engine.init, engine.sweep [it; host_reads, the
+engine's count at its end], engine.hunt [bond] (the lottery, the rook
+passes and the accept test), engine.accept [bond] (the owner's accept and
+the neighbours' slices), engine.value (the per-sweep value chain); and
+qd.solve (the solved cores and their value).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 from ..ops.kernels import qd_score_residual_argmax
 from ..ops.qd import (QD, qd, qd_concat, qd_div, qd_get, qd_matmul, qd_neg, qd_to_mp,
                       qd_tt_value, qd_vdot_axis, qd_zeros)
+from ..utils.metrics import span
 from .hostwalk import walk_index
 
 __all__ = ["cross_qd", "QdCrossResult", "QdEngine", "QD_DPS", "as_qd"]
@@ -58,6 +67,8 @@ class QdCrossResult:
     ranks: tuple
     history: list            # per-sweep dicts {it, dir, pivotmax_log10, n_evals, value, err,
                              # host_reads}
+    vip: np.ndarray | None = None   # (d-1, R, 4) int64 pivots (row of I[b-1], i_b, i_b+1,
+                                    # row of J[b+1]) of each bond, zero-padded past its rank
 
 
 def as_qd(x, device) -> QD:
@@ -209,6 +220,13 @@ class QdEngine:
         """Hunt + (maybe) accept at owned bond b.  Returns a tape record
         (dict) when a pivot was accepted, else None (the JAX package's
         record schema, QD payloads on the device)."""
+        rec = self.hunt(b, dir_fwd)
+        return None if rec is None else self.accept(rec)
+
+    def hunt(self, b, dir_fwd):
+        """The lottery, the rook passes and the two-threshold test at bond
+        b: the chosen pivot's record {b, ijkq, pivot, acol, arow, lp}, or
+        None where the bond accepts nothing."""
         r, n, vip, d = self.r, self.n, self.vip, self.d
         Cf, Rf = self.Cf, self.Rf
         piv = self.piv
@@ -286,11 +304,18 @@ class QdEngine:
                 and lp > self.lsp + self.log_pivotmax_prev
                 and r[b + 1] < self.max_rank):
             return None
-        c_new = qd_get(Cf[b], (ii, jj, slice(None)))
-        u_new = qd_get(Rf[b], (slice(None), kk, qq))
-        self._accept_owner(b, ii, jj, kk, qq, pivot, acol, arow, c_new, u_new)
-        return {"b": b, "ijkq": (ii, jj, kk, qq), "pivot": pivot,
-                "c_new": c_new, "u_new": u_new, "acol": acol, "arow": arow, "lp": lp}
+        return {"b": b, "ijkq": (ii, jj, kk, qq), "pivot": pivot, "acol": acol, "arow": arow,
+                "lp": lp}
+
+    def accept(self, rec):
+        """Accept hunt()'s pivot at its bond; returns the record with the
+        pivot's factor rows (c_new, u_new) added: the tape record."""
+        b, (ii, jj, kk, qq) = rec["b"], rec["ijkq"]
+        rec["c_new"] = qd_get(self.Cf[b], (ii, jj, slice(None)))
+        rec["u_new"] = qd_get(self.Rf[b], (slice(None), kk, qq))
+        self._accept_owner(b, ii, jj, kk, qq, rec["pivot"], rec["acol"], rec["arow"],
+                           rec["c_new"], rec["u_new"])
+        return rec
 
     def _accept_owner(self, b, ii, jj, kk, qq, pivot, acol, arow, c_new, u_new):
         """Owner-side accept: extend vip / cores / factors / inverses."""
@@ -394,37 +419,54 @@ def cross_qd(
     lacc = accuracy_log10 if accuracy_log10 is not None else -QD_DPS + 4
     dev = torch.device(device)
 
-    eng = QdEngine(fun_qd, n, max_rank, pivoting, small_element_log10, small_pivot_log10,
-                   snum, seed, dev)
-    eng.init_state()
-    w = [as_qd(quad[c], dev) for c in range(d)] if quad is not None else None
-    history = []
-    strike = 0
-    it = 0
-    while it + 1 < max_rank:
-        it += 1
-        dir_fwd = it % 2 == 1
-        log_pivotmax = sweep_qd(eng, dir_fwd)
-        rec = {"it": it, "dir": ">>" if dir_fwd else "<<", "pivotmax_log10": log_pivotmax,
-               "n_evals": eng.neval, "value": None, "err": None, "host_reads": eng.host_reads}
-        if w is not None:
-            rec["value"] = _value_chain_qd(eng.G, eng.itl, eng.itt, w, d)
-            if truth is not None:
-                rec["err"] = qd_err(rec["value"], truth)
-        history.append(rec)
-        if verbose:
-            print(_sweep_line(rec, eng.neval, log_pivotmax, "qd"))
-        if log_pivotmax is not None:
-            eng.log_pivotmax_prev = log_pivotmax
-        quiet = log_pivotmax is None or log_pivotmax <= lacc + eng.log_amax
-        strike = strike + 1 if quiet else 0
-        if strike >= 3:
-            break
+    with span("cross_qd", d=d, n=n, max_rank=int(max_rank)):
+        eng = QdEngine(fun_qd, n, max_rank, pivoting, small_element_log10, small_pivot_log10,
+                       snum, seed, dev)
+        with span("engine.init") as sp:
+            eng.init_state()
+            w = [as_qd(quad[c], dev) for c in range(d)] if quad is not None else None
+            sp.set(host_reads=eng.host_reads)
+        history = []
+        strike = 0
+        it = 0
+        while it + 1 < max_rank:
+            it += 1
+            with span("engine.sweep", it=it) as sp:
+                dir_fwd = it % 2 == 1
+                log_pivotmax = sweep_qd(eng, dir_fwd)
+                rec = {"it": it, "dir": ">>" if dir_fwd else "<<",
+                       "pivotmax_log10": log_pivotmax, "n_evals": eng.neval, "value": None,
+                       "err": None, "host_reads": eng.host_reads}
+                if w is not None:
+                    with span("engine.value"):
+                        rec["value"] = _value_chain_qd(eng.G, eng.itl, eng.itt, w, d)
+                    if truth is not None:
+                        rec["err"] = qd_err(rec["value"], truth)
+                history.append(rec)
+                if verbose:
+                    print(_sweep_line(rec, eng.neval, log_pivotmax, "qd"))
+                if log_pivotmax is not None:
+                    eng.log_pivotmax_prev = log_pivotmax
+                quiet = log_pivotmax is None or log_pivotmax <= lacc + eng.log_amax
+                strike = strike + 1 if quiet else 0
+                sp.set(host_reads=eng.host_reads)
+            if strike >= 3:
+                break
 
-    solved = [eng.solve_core(c) for c in range(d)]
-    value = qd_tt_value(solved, w) if w is not None else None
+        with span("qd.solve"):
+            solved = [eng.solve_core(c) for c in range(d)]
+            value = qd_tt_value(solved, w) if w is not None else None
     return QdCrossResult(cores=solved, value=value, neval=eng.neval, sweeps=it,
-                         ranks=tuple(eng.r), history=history)
+                         ranks=tuple(eng.r), history=history, vip=_vip_array(eng.vip))
+
+
+def _vip_array(vip) -> np.ndarray:
+    """The engine's per-bond pivot lists as one (d-1, R, 4) int64 array,
+    zero-padded past each bond's rank (R the largest)."""
+    out = np.zeros((len(vip), max(len(v) for v in vip), 4), np.int64)
+    for b, v in enumerate(vip):
+        out[b, :len(v)] = v
+    return out
 
 
 def sweep_qd(eng: QdEngine, dir_fwd: bool):
@@ -434,14 +476,17 @@ def sweep_qd(eng: QdEngine, dir_fwd: bool):
     d = eng.d
     log_pivotmax = None
     for b in (range(d - 1) if dir_fwd else range(d - 2, -1, -1)):
-        rec = eng.visit_bond(b, dir_fwd)
+        with span("engine.hunt", bond=b):
+            rec = eng.hunt(b, dir_fwd)
         if rec is None:
             continue
+        with span("engine.accept", bond=b):
+            eng.accept(rec)
+            if b > 0:
+                eng.apply_left_slice(b, rec["acol"])
+            if b < d - 2:
+                eng.apply_right_slice(b, rec["arow"])
         log_pivotmax = rec["lp"] if log_pivotmax is None else max(log_pivotmax, rec["lp"])
-        if b > 0:
-            eng.apply_left_slice(b, rec["acol"])
-        if b < d - 2:
-            eng.apply_right_slice(b, rec["arow"])
     return log_pivotmax
 
 
