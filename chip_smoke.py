@@ -18,7 +18,9 @@
                                      # and Q4 in every plan or regime at
                                      # the dd and qd paths' shapes and
                                      # sweeps of row and output counts
-                                     # (the data of the plans' rules), D3
+                                     # (the data of the plans' rules), Q5
+                                     # in every block over quotient
+                                     # counts (div_block's data), D3
                                      # and Q3 with other rows and threads
                                      # a block, and D1, D3, D4, Q2-Q4
                                      # against DIR's at the kernel
@@ -156,7 +158,7 @@ Phases, each printing its result as it goes:
      cross_batch(sweep_mode="jacobi") of that family, each lane its single
      jacobi run.  Every rank's launches are held as phase 3 holds its
      shapes;
- 17. the qd tier (csrc/qd_kernels.cu's kernels Q1-Q4): cross_qd on Ising C_4
+ 17. the qd tier (csrc/qd_kernels.cu's kernels Q1-Q5): cross_qd on Ising C_4
      at n = 65, rank 55 (the JAX package's 64.2-digit record configuration;
      digits, wall, n_evals, launches, host reads per bond visit, the card's
      busy share from one profiled run), bench.py's stdnorm_d4_qd_engine
@@ -167,7 +169,8 @@ Phases, each printing its result as it goes:
      kernel held bit for bit against its plain version at every shape these
      runs launched it at, with device time, bound and host time at the
      shape of each path that holds the most work and at the kernel table's
-     shapes (QD_TABLE_SHAPES: Q4 in each regime), and each qd and dd
+     shapes (QD_TABLE_SHAPES: Q4 in each regime; Q5 held in every block
+     too), and each qd and dd
      kernel's device time summed over the shapes its path launched it at
      (device_totals);
  18. the host libraries, the mp tier and the drivers: both native libraries
@@ -351,13 +354,15 @@ KERNEL_REPLACES = {   # the TPU kernel each CUDA kernel stands for
     "qd_dot": "ttcross_tpu/ops/pallas_kernels.py:62",
     "ising_c_integrand_qd_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
     "qd_gather_tt_fused": "ttcross_tpu/ops/pallas_kernels.py:151",
+    # Q5, the qd division: the JAX package divides in qd with numpy on the host
+    "qd_div": "none (ttcross_tpu/ops/qd.py::qd_div runs in numpy on the host)",
 }
 F32_KERNELS = ("score_residual_argmax", "score_residual_argmax_batched", "small_table_lookup",
                "ising_integrand_fused", "mvn_pdf_fused")   # the kernels with an f32 instantiation
 DD_KERNELS = ("dd_score_residual_argmax", "dd_dot", "ising_c_integrand_dd_fused",
               "dd_gather_tt_fused")
 QD_KERNELS = ("qd_score_residual_argmax", "qd_dot", "ising_c_integrand_qd_fused",
-              "qd_gather_tt_fused")
+              "qd_gather_tt_fused", "qd_div")
 # The dd tier (phase 15).  Digits of each configuration over its keys, from
 # CPU runs of both packages (PYTHONPATH=. JAX_PLATFORMS=cpu python
 # tests/test_torch_engine_dd.py prints them), port / JAX package as minimum,
@@ -3372,7 +3377,8 @@ QD_REFINE_ABS, QD_REFINE_DIGITS = 1e-27, 28.0   # tests/test_refine.py's cases
 QD_MUL_FLOPS, QD_ADD_FLOPS, QD_DIV_FLOPS = 508, 172, 1586   # ops/qd.py's qd_mul, qd_add, qd_div
 QD_KERNEL_SYMBOLS = {"qd_score_residual_argmax": "qd_score_", "qd_dot": "qd_dot_",
                      "qd_gather_tt_fused": "qd_gather_tt_kernel",
-                     "ising_c_integrand_qd_fused": "ising_c_qd_kernel"}   # csrc/qd_kernels.cu
+                     "ising_c_integrand_qd_fused": "ising_c_qd_kernel",
+                     "qd_div": "qd_div_kernel"}   # csrc/qd_kernels.cu
 # the kernel table's shapes (PERF.md): Q2's rook fibers at C_4 rank 55 and on
 # two workers, the lottery, stdnorm's rank-1 fibers; Q4's heaviest and
 # lightest calls (solve_core, its two workers' size, qd_contract, refine_dd's
@@ -3385,13 +3391,20 @@ QD_TABLE_SHAPES = {"qd_score_residual_argmax": [(3575, 54), (2080, 32), (240, 55
                               (1, 55, 55, "tree"), (1, 1, 55, "seq")],
                    "qd_gather_tt_fused": [(1089, 33, 1, 33, 33, 1), (1089, 33, 1, 15, 14, 1)],
                    # Q1's (B, d, n): C_4 n = 65's smallest and largest batch, the defect's
-                   "ising_c_integrand_qd_fused": [(65, 3, 65), (3575, 3, 65), (1089, 3, 33)]}
+                   "ising_c_integrand_qd_fused": [(65, 3, 65), (3575, 3, 65), (1089, 3, 33)],
+                   # Q5's divisor + output shape: C_4 rank 55's accept fiber (r, n) over its
+                   # pivot, the inverse's new column, 1 / pivot; init_state's (1, n, 1) core;
+                   # refine_dd's column over its pivot
+                   "qd_div": [("one", 55, 65), ("one", 54), ("one", 1), ("one", 1, 65, 1),
+                              ("each", 3)]}
 QD_MUL_F64_FLOPS = 199   # qd_mul_f64: 3 two_prods, a product, a distill of 7 terms (Q3's leaf)
-QD_PATH_KERNELS = {"cross_qd": ("qd_score_residual_argmax", "qd_dot", "ising_c_integrand_qd_fused"),
-                   "stdnorm": ("qd_score_residual_argmax", "qd_dot"),
+QD_DIV_BLOCKS = (32, 64, 128, 256)   # every block Q5 takes
+QD_PATH_KERNELS = {"cross_qd": ("qd_score_residual_argmax", "qd_dot", "ising_c_integrand_qd_fused",
+                                "qd_div"),
+                   "stdnorm": ("qd_score_residual_argmax", "qd_dot", "qd_div"),
                    "defect": ("score_residual_argmax", "ising_integrand_fused",
                               "ising_c_integrand_qd_fused", "qd_gather_tt_fused", "qd_dot"),
-                   "refine": ("score_residual_argmax", "qd_dot")}
+                   "refine": ("score_residual_argmax", "qd_dot", "qd_div")}
 
 
 def _qd_bound(name, shape):
@@ -3408,6 +3421,10 @@ def _qd_bound(name, shape):
         M, N, T = shape[:3]
         nbytes = 32 * (M * T + T * N + M * N)
         flops = M * N * (T * QD_MUL_FLOPS + max(T - 1, 0) * QD_ADD_FLOPS)
+    elif name == "qd_div":     # "one" | "each" (the divisor) + the output's shape
+        E = math.prod(shape[1:])
+        nbytes = 32 * (2 * E + (1 if shape[0] == "one" else E))
+        flops = E * QD_DIV_FLOPS
     elif name == "qd_gather_tt_fused":     # (B, N) + the train's ranks
         # a leaf multiplies by an f64 core entry: qd_mul_f64, bit for bit the
         # plain version's qd_mul by (g, 0, 0, 0) at 199 flops of its 508
@@ -3443,8 +3460,10 @@ def _qd_cases(dev, gen, name, shape):
     column pass (y a broadcast vector) and a row pass (x a broadcast vector,
     y a transposed view); Q4 on GEMM views (a row broadcast over N, a
     transposed column over M), in the launch's mode; Q3 on a random train
-    of the run's ranks and modes of N; Q1 on make_ising_qd's tables.
-    `inputs` are the call's arguments."""
+    of the run's ranks and modes of N; Q1 on make_ising_qd's tables; Q5 on a
+    contiguous and a strided dividend (every other element of a wider
+    tensor), over one 0-d divisor ("one"), or one of its shape and a 0-d
+    divisor's expand ("each").  `inputs` are the call's arguments."""
     import torch
 
     from ttcross_tpu_torch.ops import kernels as K
@@ -3467,6 +3486,19 @@ def _qd_cases(dev, gen, name, shape):
         args = (QD(*(e[:, None, :].expand(M, N, T) for e in a)),
                 QD(*(e.T[None].expand(M, N, T) for e in b)), mode == "tree")
         out.append(("gemm", (lambda: K.qd_dot(*args)), (lambda: K.qd_dot_plain(*args)), args))
+    elif name == "qd_div":
+        dims, E = tuple(shape[1:]), math.prod(shape[1:])
+        x = QD(*(e.reshape(dims) for e in _qd_rand(gen, (E,), dev)))
+        xs = QD(*(e[..., 0] for e in _qd_rand(gen, dims + (2,), dev)))
+        one = QD(*(e[0] for e in _qd_rand(gen, (1,), dev)))
+        if shape[0] == "one":
+            cases = (("x", (x, one)), ("strided", (xs, one)))
+        else:
+            y = QD(*(e.reshape(dims) for e in _qd_rand(gen, (E,), dev)))
+            cases = (("each", (x, y)), ("expand", (xs, QD(*(e.expand(dims) for e in one)))))
+        for label, args in cases:
+            out.append((label, (lambda a=args: K.qd_div_fused(*a)),
+                        (lambda a=args: K.qd_div_plain(*a)), args))
     elif name == "qd_gather_tt_fused":
         B, N, ranks = shape[0], shape[1], shape[2:]
         args = (_qd_train(gen, N, ranks, dev),
@@ -3522,7 +3554,10 @@ def _qd_parts(r):
 
 def _qd_group(name, shape):
     """Shapes whose plain versions run as one call: the per-output
-    arithmetic depends on T (and Q4's mode), Q3's train, Q1's table."""
+    arithmetic depends on T (and Q4's mode), Q3's train, Q1's table; Q5's
+    on nothing."""
+    if name == "qd_div":
+        return ()
     if name == "qd_score_residual_argmax":
         return shape[1]
     if name == "qd_dot":
@@ -3556,6 +3591,15 @@ def _qd_plain_of_group(name, calls):
             q = QD(*part)
             out.append((q, torch.argmax(q.e0.abs())))
         return out
+    if name == "qd_div":
+        # every quotient flattened, the divisor broadcast to its dividend
+        shapes = [torch.broadcast_shapes(x[0].shape, y[0].shape) for x, y in calls]
+        r = K.qd_div_plain(*(QD(*(torch.cat([op[k].expand(sh).reshape(-1)
+                                             for op, sh in zip(ops, shapes)]) for k in range(4)))
+                             for ops in zip(*calls)))
+        sizes = [math.prod(sh) for sh in shapes]
+        return [QD(*(e.reshape(sh) for e in part))
+                for part, sh in zip(zip(*(e.split(sizes) for e in r)), shapes)]
     if name == "qd_dot":
         T, tree = calls[0][0][0].shape[2], calls[0][2]
         flat = [(QD(*(e.reshape(-1, 1, T) for e in x)), QD(*(e.reshape(-1, 1, T) for e in y)))
@@ -3581,7 +3625,8 @@ def hold_qd_shapes(dev, gen, shapes, held, checked) -> None:
     one call (_qd_plain_of_group): a qd plain version is some hundreds of
     launches per qd operation whatever the shape.  Each shape's row
     (max_abs_err over its layouts, 0 when bit-equal) joins `checked` and
-    `held`; Q1 is held in each of ROWS_TUNE_PLANS too.  Times: time_qd_row."""
+    `held`; Q1 is held in each of ROWS_TUNE_PLANS too, Q5 in each block of
+    QD_DIV_BLOCKS.  Times: time_qd_row."""
     import torch
 
     from ttcross_tpu_torch.ops import kernels as K
@@ -3608,6 +3653,10 @@ def hold_qd_shapes(dev, gen, shapes, held, checked) -> None:
                                       want):
                         raise AssertionError(f"{name} {shape} in {plan}: not bit-equal to its "
                                              "plain version")
+                for threads in QD_DIV_BLOCKS if name == "qd_div" else []:
+                    if not _bit_equal(_qd_parts(K.qd_div_planned(*args, threads)), want):
+                        raise AssertionError(f"{name} {shape} in blocks of {threads}: not "
+                                             "bit-equal to its plain version")
                 errs[shape] = max([errs.get(shape, 0.0)] + [
                     float((a.double() - b.double()).abs().max()) for a, b in zip(got, want)])
             for shape in group:
@@ -3689,6 +3738,8 @@ def time_qd_table(dev, gen, held, checked) -> None:
             elif name == "ising_c_integrand_qd_fused":
                 out["plan"] = list(K.ising_c_qd_plan(*shape))
                 out["one_row_us"] = q1_one_row["at"](shape[1])
+            elif name == "qd_div":
+                out["plan"] = list(K.qd_div_plan(math.prod(shape[1:])))
             _emit(out)
 
 
@@ -3882,6 +3933,40 @@ def tune_qd_kernels(dev, gen) -> None:
             us["/".join(map(str, plan))] = device_us_idle(
                 lambda p=plan: K.qd_gather_tt_planned(*args, *p))
         _emit({"phase": "qd_gather_regimes", "shape": list(shape), "device_us": us})
+    tune_qd_div(dev, gen)
+
+
+# Q5's tuning data: quotient counts from one to 10^5 over one divisor (the
+# engine's 1-3,575; a warp on every SM, 4,224; a block of 256 on every SM,
+# 33,792), each in every block of QD_DIV_BLOCKS, ROWS_TUNE_ROUNDS readings in turns
+QD_DIV_TUNE_COUNTS = (1, 55, 65, 1024, 2145, 3575, 4224, 4225, 8448, 33792, 100000)
+
+
+def tune_qd_div(dev, gen) -> None:
+    """Q5 at QD_DIV_TUNE_COUNTS quotients in its own block (the rule,
+    div_block) and in each of QD_DIV_BLOCKS, every launch bit-equal to the
+    rule's, device µs per call (device_us_idle, the median of
+    ROWS_TUNE_ROUNDS readings taken in turns)."""
+    import functools
+
+    from ttcross_tpu_torch.ops import kernels as K
+
+    for E in QD_DIV_TUNE_COUNTS:
+        _, fn, _, args = _qd_cases(dev, gen, "qd_div", ("one", E))[0]
+        want = _qd_parts(fn())
+        fns = {"rule": fn}
+        for threads in QD_DIV_BLOCKS:
+            got = functools.partial(K.qd_div_planned, *args, threads)
+            if not _bit_equal(_qd_parts(got()), want):
+                raise AssertionError(f"qd_div ({E},) in blocks of {threads}: not bit-equal")
+            fns[str(threads)] = got
+        reads = {k: [] for k in fns}
+        for _ in range(ROWS_TUNE_ROUNDS):
+            for k, f in fns.items():
+                reads[k].append(device_us_idle(f))
+        _emit({"phase": "q5_blocks", "E": E, "rule": list(K.qd_div_plan(E)),
+               "bound_us": _qd_bound("qd_div", ("one", E))[0],
+               "device_us": {k: statistics.median(v) for k, v in reads.items()}, "reads": reads})
 
 
 def _bit_equal(got, want) -> bool:

@@ -1,4 +1,4 @@
-"""The qd tier's CUDA kernels (csrc/qd_kernels.cu, Q1-Q4) on the card.
+"""The qd tier's CUDA kernels (csrc/qd_kernels.cu, Q1-Q5) on the card.
 
 These need an NVIDIA GPU and skip without one.  They import nothing of JAX:
 
@@ -257,8 +257,145 @@ def test_wrappers_route_by_device(cuda_device, gen):
     K.qd_dot(QD(*(e[None] for e in x)), QD(*(e[None] for e in y)), True)
     assert K.launch_counts()["qd_score_residual_argmax"] == 0
     assert K.launch_counts()["qd_dot"] == 0
+    K.qd_div_fused(x, y)
+    assert K.launch_counts()["qd_div"] == 0
     vc, xc, yc = (QD(*(e.to(cuda_device) for e in q)) for q in (v, x, y))
     K.qd_score_residual_argmax(vc, xc, yc)
     K.qd_dot(QD(*(e[None] for e in xc)), QD(*(e[None] for e in yc)), False)
+    K.qd_div_fused(xc, yc)
     counts = K.launch_counts()
     assert counts["qd_score_residual_argmax"] == 1 and counts["qd_dot"] == 1
+    assert counts["qd_div"] == 1
+
+
+def _q5_operands(gen, shape, divisor, dev, tiny=False):
+    """The engine's layouts: a 0-d quotient, refine_dd's strided column
+    A[1:, 0], the accept's (r, n) fiber, init_state's (1, n, 1) core; the
+    divisor one 0-d value (a view into a residual, as the pivot), its
+    expand, or one of x's shape."""
+    if shape == "col":
+        x = QD(*(e[1:, 0] for e in _qd(gen, (56, 56), dev, tiny=tiny)))
+        shape = (55,)
+    else:
+        x = QD(*(e.reshape(shape) for e in _qd(gen, (int(np.prod(shape)),), dev, tiny=tiny)))
+    if divisor == "each":
+        y = QD(*(e.reshape(shape) for e in _qd(gen, (int(np.prod(shape)),), dev)))
+    else:
+        y = QD(*(e[3, 2] for e in _qd(gen, (5, 4), dev)))
+        if divisor == "expand":
+            y = QD(*(e.expand(shape) for e in y))
+    return x, y
+
+
+@pytest.mark.parametrize("shape", [(), "col", (55, 65), (1, 65, 1), (33, 65), (1, 1)])
+@pytest.mark.parametrize("divisor", ["one", "expand", "each"])
+@pytest.mark.parametrize("tiny", [False, True])
+def test_q5_is_its_plain_version(shape, divisor, tiny, cuda_device, gen):
+    """Q5 at the qd engine's shapes and layouts, in its own block and in
+    every other: four limbs bit for bit the plain long division on the
+    card."""
+    x, y = _q5_operands(gen, shape, divisor, cuda_device, tiny)
+    want = K.qd_div_plain(x, y)
+    got = K.qd_div_fused(x, y)
+    assert _same(got, want) and got.e0.shape == want.e0.shape
+    assert all(e.is_contiguous() for e in got)
+    for threads in (32, 64, 128, 256):
+        assert _same(K.qd_div_planned(x, y, threads), want), threads
+
+
+def test_q5_special_values(cuda_device):
+    """Signed zeros, subnormals, inf and NaN in x, over tiny, huge, zero
+    and infinite divisors: every limb bit-equal, NaN where the plain
+    version has NaN."""
+    rng = np.random.default_rng(17)
+    v = rng.standard_normal((4, 9, 13))
+    flat = v.reshape(4, -1)
+    for k, s in enumerate([0.0, -0.0, 5e-324, -2.5e-310, np.inf, -np.inf, np.nan, 1e-300]):
+        flat[:, 7 * k + 3] = s
+    x = QD(*(torch.as_tensor(e).to(cuda_device) for e in v))
+    for d in (1e-300, -5e-324, 1e300, -1.7976931348623157e308, 0.0, -0.0, np.inf, 3.0):
+        lo = d * 1e-17 if np.isfinite(d) else 0.0
+        y = QD(*(torch.tensor(e, dtype=torch.float64, device=cuda_device)
+                 for e in (d, lo, 0.0, 0.0)))
+        got, want = K.qd_div_fused(x, y), K.qd_div_plain(x, y)
+        for g, w in zip(got, want):
+            assert torch.equal(torch.isnan(g), torch.isnan(w)), d
+            keep = ~torch.isnan(w)
+            assert torch.equal(g[keep].view(torch.int64), w[keep].view(torch.int64)), d
+
+
+def test_q5_one_launch_per_qd_div(cuda_device, gen):
+    """ops/qd.py::qd_div on card tensors is one launch of Q5, counted by
+    shape, at each of the engine's calls; nothing of the plain division
+    runs on the card."""
+    from ttcross_tpu_torch.ops.qd import qd_div
+
+    calls = [("col", "expand"), ((55, 65), "one"), ((1, 65, 1), "one"), ((), "one"),
+             ((1, 1), "one"), ((54,), "one")]
+    K.reset_launch_counts()
+    for shape, divisor in calls:
+        qd_div(*_q5_operands(gen, shape, divisor, cuda_device))
+    assert K.launch_counts()["qd_div"] == len(calls)
+    assert K.launch_shapes()["qd_div"] == {("each", 55): 1, ("one", 55, 65): 1,
+                                           ("one", 1, 65, 1): 1, ("one",): 1, ("one", 1, 1): 1,
+                                           ("one", 54): 1}
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = _q5_operands(gen, (55, 65), "one", cuda_device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            qd_div(x, y)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    if kernels:   # a sandbox's profiler may record no device activity
+        assert {e.key for e in kernels} <= {e.key for e in kernels if "qd_div_kernel" in e.key}
+
+
+def test_q5_refusals(cuda_device, gen):
+    """Mixed devices, a limb not float64, limbs of unequal layout, more
+    than four axes, a block the entry point refuses: each raises, nothing
+    falls back to the plain division."""
+    x, y = _q5_operands(gen, (5, 7), "each", cuda_device)
+    with pytest.raises(ValueError):
+        K.qd_div_fused(x, QD(*(e.cpu() for e in y)))
+    with pytest.raises(ValueError):
+        K.qd_div_fused(QD(*(e.cpu() for e in x)), y)
+    with pytest.raises(TypeError):
+        K.qd_div_fused(QD(x.e0, x.e1, x.e2, x.e3.float()), y)
+    with pytest.raises(ValueError):
+        K.qd_div_fused(QD(x.e0, x.e1, x.e2, x.e3.T.contiguous().T), y)
+    five = QD(*(e.reshape(1, 1, 1, 5, 7) for e in x))
+    with pytest.raises(ValueError):
+        K.qd_div_fused(five, y)
+    for threads in (0, 16, 48, 512):
+        with pytest.raises(RuntimeError):
+            K.qd_div_planned(x, y, threads)
+
+
+def test_q5_plan_is_the_count_s(cuda_device):
+    """Q5's block at the engine's counts (csrc/qd_kernels.cu::div_block)."""
+    assert K.qd_div_plan(1) == K.QdDivPlan(128, 1)
+    assert K.qd_div_plan(3575) == K.QdDivPlan(128, 28)
+    assert K.qd_div_plan(33792).threads == 256
+
+
+def test_small_cross_qd_is_the_cpu_s(cuda_device):
+    """cross_qd on C_4 (n = 17, rank 10, seed 0) on the card, every qd_div
+    in Q5, gives the CPU run's four limbs, pivots, evaluations and sweeps."""
+    from ttcross_tpu_torch.apps import ISING_C_STR, make_ising_qd
+    from ttcross_tpu_torch.cross import cross_qd
+
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        prob, fun_qd, wq = make_ising_qd(m=4, n=17, device=dev)
+        K.reset_launch_counts()
+        res = cross_qd(fun_qd, [prob.n] * prob.d, max_rank=10, pivoting=1, quad=wq,
+                       truth=ISING_C_STR[4], seed=0, device=dev)
+        out[str(dev)] = (res, K.launch_counts()["qd_div"])
+    (card, launched), (cpu, none) = out[str(cuda_device)], out["cpu"]
+    assert [float(e) for e in card.value] == [float(e) for e in cpu.value]
+    assert np.array_equal(card.vip, cpu.vip)
+    assert (card.neval, card.sweeps, card.ranks) == (cpu.neval, cpu.sweeps, cpu.ranks)
+    # init_state: a core over delta and 1 / delta a bond; then 3 an accept
+    bonds = len(card.ranks) - 2
+    assert none == 0 and launched == 2 * bonds + 3 * sum(r - 1 for r in card.ranks[1:-1])

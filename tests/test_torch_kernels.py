@@ -208,13 +208,15 @@ def test_cpu_wrappers_take_the_plain_path(rng):
     mu, icov, norm = (torch.from_numpy(a) for a in (rng.normal(size=(3,)), np.eye(3), np.ones(1)))
     assert K.mvn_pdf_fused(nodes, torch.from_numpy(ind[:, :3]), mu, icov, norm).shape == (len(ind),)
     assert K.lane_uniforms([3, 4], 2, 3, 5, "cpu").shape == (2, 2, 2, 2, 5)
+    assert K.qd_div_fused(q, QD(*(e[0] for e in q))).e0.shape == (6, 4)
     assert K.launch_counts() == {"score_residual_argmax": 0, "score_residual_argmax_batched": 0,
                                  "small_table_lookup": 0, "ising_integrand_fused": 0,
                                  "mvn_pdf_fused": 0, "lane_uniforms": 0,
                                  "dd_score_residual_argmax": 0, "dd_dot": 0,
                                  "dd_gather_tt_fused": 0, "ising_c_integrand_dd_fused": 0,
                                  "qd_score_residual_argmax": 0, "qd_dot": 0,
-                                 "qd_gather_tt_fused": 0, "ising_c_integrand_qd_fused": 0}
+                                 "qd_gather_tt_fused": 0, "ising_c_integrand_qd_fused": 0,
+                                 "qd_div": 0}
     assert K.launch_shapes() == {name: {} for name in K.launch_counts()}
 
 

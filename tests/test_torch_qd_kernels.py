@@ -471,3 +471,130 @@ def test_q1_refuses_what_the_card_refuses(host_lib, q1_tables):
     out = (LL * 4)()
     for shape in [(0, 3, 65), (5, 0, 65), (5, 3, 0), (5, 3, 769), (5, 60000, 65)]:
         assert host_lib.ttq_q1_plan(LL(shape[0]), shape[1], shape[2], out) == -1, shape
+
+
+def _q5_host(host_lib, x, y, threads=None):
+    """Q5's call through the host emulation with `threads` a block (default:
+    the card's, ttq_div_plan): the output's shape left-padded to four axes,
+    each operand at its own strides along them; -> QD of the broadcast
+    shape."""
+    shape = torch.broadcast_shapes(x[0].shape, y[0].shape)
+    lead = 4 - len(shape)
+    size = (LL * 4)(*((1,) * lead + tuple(shape)))
+    xs, ys = ((LL * 4)(*((0,) * lead + op[0].expand(shape).stride())) for op in (x, y))
+    E = max(1, int(np.prod(shape)))
+    if threads is None:
+        plan = (LL * 2)()
+        assert host_lib.ttq_div_plan(LL(E), plan) == 0
+        threads = plan[0]
+    out = torch.empty((4, *shape), dtype=torch.float64)
+    rc = host_lib.ttq_host_q5(_ptrs(x), _ptrs(y), size, xs, ys, threads, VP(out.data_ptr()))
+    assert rc == 0, f"the host emulation refused {threads} threads at {tuple(shape)}"
+    return QD(*out)
+
+
+def _q5_operands(gen, shape, divisor, tiny):
+    """The engine's layouts: a 0-d quotient, the strided column A[1:, 0] of
+    refine_dd's elimination, the accept's (r, n) fiber, init_state's (1, n,
+    1) core; the divisor one 0-d value (the pivot, a view into the
+    residual; or its expand) or one of x's shape."""
+    if shape == "col":
+        x = QD(*(e[1:, 0] for e in _qd(gen, (56, 56), tiny)))
+        shape = (55,)
+    elif shape == ():
+        x = QD(*(e[0] for e in _qd(gen, (1,), tiny)))
+    else:
+        x = _qd(gen, shape, tiny)
+    if divisor == "one":
+        y = QD(*(e[3, 2] for e in _qd(gen, (5, 4))))
+    elif divisor == "expand":
+        y = QD(*(e[3, 2].expand(shape) for e in _qd(gen, (5, 4))))
+    else:
+        y = QD(*(e.reshape(shape) for e in _qd(gen, (max(1, int(np.prod(shape))),))))
+    return x, y
+
+
+Q5_BLOCKS = [32, 64, 128, 256]
+
+
+@pytest.mark.parametrize("shape", [(), "col", (55, 65), (1, 65, 1), (3, 1, 2, 5)])
+@pytest.mark.parametrize("divisor", ["one", "expand", "each"])
+@pytest.mark.parametrize("tiny", [False, True])
+def test_q5_arithmetic(shape, divisor, tiny, host_lib):
+    """Q5's call at the engine's shapes and layouts, in the card's block and
+    in every other: four limbs bit-equal to the plain long division."""
+    x, y = _q5_operands(np.random.default_rng(len(str(shape)) * 10 + len(divisor)), shape,
+                        divisor, tiny)
+    want = K.qd_div_plain(x, y)
+    assert _same_qd(_q5_host(host_lib, x, y), want)
+    for threads in Q5_BLOCKS:
+        assert _same_qd(_q5_host(host_lib, x, y, threads), want), threads
+
+
+def test_q5_broadcast_dividend(host_lib):
+    """The dividend broadcast against the divisor (init_state's 1 / delta:
+    a (1, 1) one over a 0-d pivot; a row over a column)."""
+    gen = np.random.default_rng(3)
+    one = torch.ones((1, 1), dtype=torch.float64)
+    z = torch.zeros_like(one)
+    for x, y in [(QD(one, z, z, z), QD(*(e[0] for e in _qd(gen, (2,))))),
+                 (_qd(gen, (1, 7)), _qd(gen, (5, 1)))]:
+        assert _same_qd(_q5_host(host_lib, x, y), K.qd_div_plain(x, y))
+
+
+@pytest.mark.parametrize("divisor", [1e-300, -5e-324, 2.2250738585072014e-308, 1e300,
+                                     -1.7976931348623157e308, 3.0, 0.0, -0.0, np.inf, np.nan])
+def test_q5_special_values(divisor, host_lib):
+    """x holding signed zeros, subnormals, inf, -inf and NaN in every limb,
+    over tiny, huge, zero, infinite and NaN divisors (with populated low
+    limbs where finite): every limb bit-equal, NaN where the plain version
+    has NaN, in every block."""
+    gen = np.random.default_rng(17)
+    x = QD(*(torch.from_numpy(_special(gen, (9, 13))) for _ in range(4)))
+    lo = [divisor * 1e-17 if np.isfinite(divisor) else 0.0, 0.0, 0.0]
+    y = QD(*(torch.tensor(v, dtype=torch.float64) for v in [divisor] + lo))
+    want = K.qd_div_plain(x, y)
+    for threads in [None] + Q5_BLOCKS:
+        assert _same_qd(_q5_host(host_lib, x, y, threads), want), threads
+
+
+@pytest.mark.parametrize("E,want", [
+    (1, (128, 1)),              # a 0-d quotient, 1 / pivot (256 would put 2 warps on one)
+    (55, (128, 1)),             # the inverse's new column at rank 55
+    (65, (128, 1)),             # init_state's (1, 65, 1)
+    (3575, (128, 28)),          # the accept's (55, 65): a warp on each sub-partition of 28 SMs
+    (16896, (128, 132)),        # a warp on every sub-partition of the card
+    (16897, (256, 67)),         # past it: two warps on the busiest, the largest block
+    (33792, (256, 132)),        # a block of 256 on every SM
+    (10 ** 6, (256, 3907)),
+])
+def test_q5_plan(E, want, host_lib):
+    """Q5's block rule (csrc/qd_kernels.cu::div_block): the fewest warps on
+    the busiest SM sub-partition, the larger block on a tie."""
+    plan = (LL * 2)()
+    assert host_lib.ttq_div_plan(LL(E), plan) == 0
+    assert tuple(plan) == want
+
+
+def test_q5_refuses_what_the_card_refuses(host_lib):
+    """A block the card's entry point refuses, and no quotients."""
+    x = _qd(np.random.default_rng(0), (4,))
+    for threads in [0, 16, 48, 512]:
+        with pytest.raises(AssertionError):
+            _q5_host(host_lib, x, x, threads)
+    assert host_lib.ttq_div_plan(LL(0), (LL * 2)()) == -1
+
+
+def test_q5_wrapper_on_cpu_takes_the_plain_path():
+    """qd_div (ops/qd.py) and qd_div_fused on CPU tensors: the plain long
+    division, no launch counted; qd_div_planned refuses them."""
+    from ttcross_tpu_torch.ops.qd import qd_div
+
+    x, y = _q5_operands(np.random.default_rng(9), (55, 65), "one", False)
+    K.reset_launch_counts()
+    want = K.qd_div_plain(x, y)
+    assert _same_qd(K.qd_div_fused(x, y), want)
+    assert _same_qd(qd_div(x, y), want)
+    assert K.launch_counts()["qd_div"] == 0 and K.launch_shapes()["qd_div"] == {}
+    with pytest.raises(ValueError):
+        K.qd_div_planned(x, y, 128)

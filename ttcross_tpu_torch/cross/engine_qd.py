@@ -15,12 +15,13 @@ f64 breaks Dekker's two_prod.  A CUDA card's f64 is IEEE, so here the qd
 values live on the device (the card by default) and the arithmetic runs in
 the qd kernels of ops/kernels.py: the lottery, the rook passes and the
 accept's residual fibers in Q2, the products of _extend_inverses,
-apply_*_slice, solve_core and the per-sweep value chain in Q4; the rest
-(qd_div of a fiber by its pivot, the concatenations) are ops/qd.py's plain
-operations.  The structure is the JAX package's: a ragged state that grows
-rank by rank, the pivot chains (vip) and ranks on the host, index
-bookkeeping through cross/hostwalk.py::walk_index, the lottery drawn by
-np.random.default_rng(seed) (so both packages draw the same candidates).
+apply_*_slice, solve_core and the per-sweep value chain in Q4, every qd_div
+(a fiber by its pivot, the inverse's new column, 1 / pivot) in Q5; the rest
+(the concatenations, negations, slices) are torch ops.  The structure is the
+JAX package's: a ragged state that grows rank by rank, the pivot chains
+(vip) and ranks on the host, index bookkeeping through
+cross/hostwalk.py::walk_index, the lottery drawn by np.random.default_rng(seed)
+(so both packages draw the same candidates).
 
 The control flow reads the device per bond visit, as the host engine does:
 the argmax of each residual, the log10 magnitudes of each fiber (amax) and

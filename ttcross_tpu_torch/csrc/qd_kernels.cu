@@ -21,6 +21,8 @@
 //   Q3 qd_gather_tt_kernel   an f64 train at (B, d) indices, qd accumulation
 //   Q4 qd_dot_*_kernel       the small qd product: qd_matmul's sequential
 //                            k-loop or qd_vdot_axis's pairwise tree
+//   Q5 qd_div_kernel         qd_div elementwise (no TPU counterpart: the JAX
+//                            package divides with numpy on the host)
 //
 // Rounding.  Every step is written with __dadd_rn / __dsub_rn / __dmul_rn /
 // __ddiv_rn, which nvcc never contracts into an FMA, in the operation order
@@ -68,6 +70,11 @@
 //     the rows a block (score_plan = dot_plan of B outputs), then a thread
 //     per row for the residual; a tree longer than kDotTreeSmem holds keeps
 //     a thread per row walking it depth first.
+//   - Q5: a thread per quotient; its long division (4 qd_mul_f64, 4 qd_sub,
+//     5 divides and a distill of 5 terms, 1,586 flops) is one dependent
+//     chain of some 5 us, and the engine divides at most 3,575 values, so
+//     the blocks spread a call's warps over the SMs' sub-partitions
+//     (div_block).
 
 #include <climits>
 #include <cmath>
@@ -107,6 +114,7 @@ constexpr int kSMs = 132;               // the H100 SXM's SMs: Q4 spreads few ou
 constexpr int kDotTreeSmem = 200 * 1024;  // Q4 tree: a block's level-1 terms' bytes at most
 constexpr int kGatherSmem = 72 * 1024;  // Q3: a block's shared memory at most (three blocks an SM)
 constexpr int kFillBlocks = 3 * 132;    // Q3: blocks that fill the card (three on each SM)
+constexpr int kDivDims = 4;             // Q5: outputs of up to this many axes
 
 struct QD {
   double e0, e1, e2, e3;
@@ -380,6 +388,28 @@ TTQ_FN QD q4_out(const DotArgs& a, long long o) {
   QD acc = term(0);
   for (int t = 1; t < a.T; ++t) acc = qd_add(acc, term(t));
   return acc;
+}
+
+// Q5's output e: qd_div(x, y) at e's coordinates in the output's shape
+// (kDivDims axes, the leading ones 1), each operand at its own strides (0
+// along a broadcast axis), so a strided column or a broadcast pivot is read
+// where it lies.
+struct DivArgs {
+  Limbs x, y;
+  long long E;
+  long long size[kDivDims], xs[kDivDims], ys[kDivDims];
+};
+
+TTQ_FN QD q5_out(const DivArgs& a, long long e) {
+  long long ox = 0, oy = 0;
+  TTQ_UNROLL
+  for (int k = kDivDims - 1; k >= 0; --k) {
+    const long long i = e % a.size[k];
+    e /= a.size[k];
+    ox += i * a.xs[k];
+    oy += i * a.ys[k];
+  }
+  return qd_div(at(a.x, ox), at(a.y, oy));
 }
 
 // Q4's launch for one shape, from the shape alone.  regime kDotThread: a
@@ -831,6 +861,19 @@ ising_c_qd_kernel(const double* __restrict__ tables, int n, const int32_t* __res
   extern __shared__ __align__(16) unsigned char q1sm[];
   rows_body<Q1Row>(q1sm, tables, n, ind, B, d, P, out);
 }
+
+// ---------------------------------------------------------------------------
+// Q5: qd_div elementwise, a thread per quotient (ops/qd.py::qd_div, the
+// Hida-Li-Bailey long division; the qd engine's new column factor over its
+// pivot and the bordered inverse's new column, refine_dd's elimination).
+// Bound: operations, E x 1,586 flops; but at the engine's 1-3,575 quotients
+// a call is one quotient's dependent chain, whatever the rate.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads) qd_div_kernel(DivArgs a, double* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= a.E) return;
+  put_out(out, a.E, e, q5_out(a, e));
+}
 #endif  // __CUDACC__
 
 Limbs limbs_of(const double* const* p) {
@@ -886,6 +929,48 @@ DotPlan score_plan(long long B, int T) {
 bool score_shape_ok(long long B, int T) { return dot_shape_ok(1, B, T, 1); }
 
 bool score_plan_ok(const DotPlan& p) { return p.regime != kDotChain && dot_plan_ok(1, p); }
+
+// Q5's block for E quotients: 32, 64, 128 or 256 threads, the one that puts
+// the fewest warps on the busiest SM sub-partition (a block's warps spread
+// over its SM's four), the larger on a tie.  A quotient is one dependent
+// chain (5.2-5.5 us), so a call takes one chain's time while no
+// sub-partition holds two warps, whatever the block.  Measured on an H100
+// (chip_smoke.py --qd-regimes, tune_qd_div; PERF.md): at E = 1-8,448
+// quotients blocks of 32, 64 and 128 within 0.2 us of each other, 128 the
+// least from 1,024 up (3,575: 5.42 us against 5.52 in 32 and 6.64 in 256,
+// whose 8 warps pair up on a sub-partition); at 33,792 and 10^5, with
+// every SM full, 256 the least (6.80 / 13.12 against 6.89 / 13.34 in 128).
+int div_block(long long E) {
+  int best = kThreads;
+  long long load = 0;
+  for (int b = kThreads; b >= 32; b /= 2) {
+    const long long blocks = (E + b - 1) / b;
+    const long long warps = (blocks + kSMs - 1) / kSMs * (b / 32), l = (warps + 3) / 4;
+    if (load == 0 || l < load) {
+      best = b;
+      load = l;
+    }
+  }
+  return best;
+}
+
+bool div_shape_ok(long long E) { return E >= 1 && E <= (long long)INT_MAX * 32; }
+
+bool div_block_ok(int threads) {
+  return threads >= 32 && threads <= kThreads && threads % 32 == 0;
+}
+
+DivArgs div_args(const double* const* x, const double* const* y, const long long* size,
+                 const long long* xs, const long long* ys) {
+  DivArgs a{limbs_of(x), limbs_of(y), 1, {}, {}, {}};
+  for (int k = 0; k < kDivDims; ++k) {
+    a.size[k] = size[k];
+    a.xs[k] = xs[k];
+    a.ys[k] = ys[k];
+    a.E *= size[k];
+  }
+  return a;
+}
 
 }  // namespace
 
@@ -1001,6 +1086,27 @@ int ttq_ising_c_integrand(const double* tables, int n, const int32_t* ind, long 
                             RowsOut{{out, out + B, out + 2 * B, out + 3 * B}}, stream);
 }
 
+// Q5 with `threads` a block (ttq_div: div_block's).  x, y: host arrays of
+// the 4 limb pointers; size: the output's kDivDims axes (the leading ones
+// 1), xs / ys each operand's strides in elements along them (0 where it is
+// broadcast); out (4, E) contiguous, E the product of size.
+int ttq_div_planned(const double* const* x, const double* const* y, const long long* size,
+                    const long long* xs, const long long* ys, int threads, double* out,
+                    void* stream) {
+  const DivArgs a = div_args(x, y, size, xs, ys);
+  if (!div_shape_ok(a.E) || !div_block_ok(threads)) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = (unsigned)((a.E + threads - 1) / threads);
+  qd_div_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ttq_div(const double* const* x, const double* const* y, const long long* size,
+            const long long* xs, const long long* ys, double* out, void* stream) {
+  long long E = 1;
+  for (int k = 0; k < kDivDims; ++k) E *= size[k];
+  return ttq_div_planned(x, y, size, xs, ys, div_block(E), out, stream);
+}
+
 int ttq_threads(void) { return kThreads; }
 
 int ttq_rows_threads(void) { return kRowsThreads; }
@@ -1008,6 +1114,8 @@ int ttq_rows_threads(void) { return kRowsThreads; }
 int ttq_gather_rmax(void) { return kGatherRMax; }
 
 int ttq_tree_max(void) { return 1 << kTreeDepth; }
+
+int ttq_div_dims(void) { return kDivDims; }
 
 #else   // the host emulation: the kernels' functions in one host thread
 
@@ -1122,6 +1230,26 @@ void ttq_host_mul_by_f64(const double* const* x, const double* g, long long n, d
   }
 }
 
+// Q5's whole call with `threads` a block, arguments as ttq_div_planned's
+// (every pointer on the host): block after block, each thread's quotient
+// in turn.  out (4, E) limb-major.  Returns 0, or -1 for a shape or block
+// the card's entry point refuses.
+int ttq_host_q5(const double* const* x, const double* const* y, const long long* size,
+                const long long* xs, const long long* ys, int threads, double* out) {
+  const DivArgs a = div_args(x, y, size, xs, ys);
+  if (!div_shape_ok(a.E) || !div_block_ok(threads)) return -1;
+  for (long long e0 = 0; e0 < a.E; e0 += threads) {
+    for (long long e = e0; e < a.E && e < e0 + threads; ++e) {
+      const QD r = q5_out(a, e);
+      out[e] = r.e0;
+      out[a.E + e] = r.e1;
+      out[2 * a.E + e] = r.e2;
+      out[3 * a.E + e] = r.e3;
+    }
+  }
+  return 0;
+}
+
 // Q1's whole call with P rows a block, arguments as ttq_ising_c_integrand's
 // (every pointer on the host; ising_rows.cuh::rows_host); out (4, B)
 // limb-major.  Returns 0, or -1 for a shape or plan the card's entry point
@@ -1175,5 +1303,14 @@ int ttq_score_plan(long long B, int T, long long* plan) {
 
 // Q3's rows per block for (R, B) (gather_rows).
 int ttq_gather_rows(int R, long long B) { return gather_rows(R, B); }
+
+// Q5's launch for E quotients: plan[0..1] = threads (div_block), blocks.
+// Returns 0, or -1 for a count ttq_div refuses.
+int ttq_div_plan(long long E, long long* plan) {
+  if (!div_shape_ok(E)) return -1;
+  plan[0] = div_block(E);
+  plan[1] = (E + plan[0] - 1) / plan[0];
+  return 0;
+}
 
 }  // extern "C"

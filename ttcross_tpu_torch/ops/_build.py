@@ -37,6 +37,7 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _D = ctypes.c_double
 _PP = ctypes.POINTER(ctypes.c_void_p)   # a host array of the 4 limb pointers of a qd operand
+_LLP = ctypes.POINTER(_LL)              # a host array of long longs (a shape, strides, a plan)
 _SIGNATURES = {
     "ttc_configure": ([_I], _I),
     "ttc_score_residual_argmax": (
@@ -87,6 +88,10 @@ _SIGNATURES = {
     "ttq_rows_threads": ([], _I),
     "ttq_gather_rmax": ([], _I),
     "ttq_tree_max": ([], _I),
+    "ttq_div": ([_PP, _PP, _LLP, _LLP, _LLP, _P, _P], _I),
+    "ttq_div_planned": ([_PP, _PP, _LLP, _LLP, _LLP, _I, _P, _P], _I),
+    "ttq_div_plan": ([_LL, _LLP], _I),
+    "ttq_div_dims": ([], _I),
 }
 
 

@@ -6,7 +6,7 @@ lottery uniforms (one MT19937 stream a lane, on the card); the dd
 tier's kernels (csrc/dd_kernels.cu): D1 the dd residual argmax, D2 the dd Ising integrand, D3 the dd train gather, D4 the
 small dd GEMM; and the qd tier's (csrc/qd_kernels.cu): Q1 the qd Ising
 integrand, Q2 the qd residual argmax, Q3 the qd train gather, Q4 the small
-qd product.
+qd product, Q5 the qd division.
 
 Counterpart of ttcross_tpu/ops/pallas_kernels.py.  The CUDA sources are
 ``csrc/kernels.cu``, ``csrc/dd_kernels.cu`` and ``csrc/qd_kernels.cu`` (built into one library by
@@ -28,6 +28,7 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -52,6 +53,7 @@ __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
            "qd_gather_tt_fused", "qd_gather_tt_planned", "qd_gather_tt_plain",
            "ising_c_integrand_qd_fused", "ising_c_integrand_qd_plain",
            "ising_c_integrand_qd_planned", "ising_c_qd_plan", "ising_c_qd_plan_ok",
+           "qd_div_fused", "qd_div_plain", "qd_div_planned", "qd_div_plan", "QdDivPlan",
            "launch_counts", "launch_shapes", "reset_launch_counts"]
 
 _THREADS = 256             # kThreads: a block of kernel B
@@ -144,8 +146,9 @@ def _lib():
         raise RuntimeError("the constants of csrc/kernels.cu disagree with ops/kernels.py")
     if (lib.ttd_threads(), lib.ttd_gather_rmax()) != (_DD_THREADS, _DD_GATHER_RMAX):
         raise RuntimeError("the constants of csrc/dd_kernels.cu disagree with ops/kernels.py")
-    if ((lib.ttq_threads(), lib.ttq_rows_threads(), lib.ttq_gather_rmax(), lib.ttq_tree_max())
-            != (_QD_THREADS, _QD_ROWS_THREADS, _QD_GATHER_RMAX, _QD_TREE_MAX)):
+    if ((lib.ttq_threads(), lib.ttq_rows_threads(), lib.ttq_gather_rmax(), lib.ttq_tree_max(),
+         lib.ttq_div_dims())
+            != (_QD_THREADS, _QD_ROWS_THREADS, _QD_GATHER_RMAX, _QD_TREE_MAX, _QD_DIV_DIMS)):
         raise RuntimeError("the constants of csrc/qd_kernels.cu disagree with ops/kernels.py")
     return lib
 
@@ -1332,7 +1335,8 @@ ising_c_integrand_dd_fused.launches = 0
 
 # ------------------------------------------------------------ the qd kernels
 # csrc/qd_kernels.cu, linked into the one library: Q1 the qd Ising integrand,
-# Q2 the qd residual argmax, Q3 the qd train gather, Q4 the small qd product.
+# Q2 the qd residual argmax, Q3 the qd train gather, Q4 the small qd product,
+# Q5 the qd division.
 # Each computes in the operation order of ops/qd.py with intrinsics nvcc does
 # not contract, so it is bit for bit its plain version (the plain versions
 # below are ops/qd.py's functions, which the CPU tests hold against the JAX
@@ -1341,6 +1345,7 @@ _QD_THREADS = 256          # kThreads: a block of Q2, Q3, Q4
 _QD_ROWS_THREADS = 128     # kRowsThreads: a block of Q1 (and D2) at most (csrc/ising_rows.cuh)
 _QD_GATHER_RMAX = 64       # kGatherRMax: Q3 takes ranks up to this
 _QD_TREE_MAX = 1 << 16     # the pairwise tree's terms at most
+_QD_DIV_DIMS = 4           # kDivDims: Q5 takes outputs of up to this many axes
 
 
 def _qd_mod():
@@ -1619,8 +1624,8 @@ def ising_c_integrand_qd_plain(tables, ind):
 
     w_sum = cum_sum_of_prods(range(d))
     v_sum = cum_sum_of_prods(range(d - 1, -1, -1))
-    b = qdm.qd_div(qdm.qd(torch.full((B,), 2.0, dtype=torch.float64, device=ind.device)),
-                   qdm.qd_mul(v_sum, w_sum))
+    b = qd_div_plain(qdm.qd(torch.full((B,), 2.0, dtype=torch.float64, device=ind.device)),
+                     qdm.qd_mul(v_sum, w_sum))
     prodw = one()
     for c in range(d):
         prodw = qdm.qd_mul(prodw, qdm.QD(*(e[:, c] for e in g)))
@@ -1682,15 +1687,107 @@ def _ising_qd_launch(tables, ind, rows):
 
 ising_c_integrand_qd_fused.launches = 0
 
+
+class QdDivPlan(NamedTuple):
+    """Q5's launch for E quotients (csrc/qd_kernels.cu::div_block)."""
+    threads: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=4096)
+def qd_div_plan(E: int) -> QdDivPlan:
+    """The block Q5 takes for E quotients: a function of the count alone."""
+    out = (ctypes.c_longlong * 2)()
+    if _lib().ttq_div_plan(E, out) != 0:
+        raise ValueError(f"qd_div_fused takes no count of quotients {E}")
+    return QdDivPlan(*out)
+
+
+def qd_div_plain(x, y):
+    """x / y in qd, elementwise over the broadcast of the two shapes:
+    ops/qd.py's long division in plain torch ops (~1,600 of them)."""
+    qdm = _qd_mod()
+    return qdm._qd_div_plain(qdm.QD(*x), qdm.QD(*y))
+
+
+def qd_div_fused(x, y):
+    """Q5: qd_div_plain in one launch.
+
+    Replaces no TPU kernel: the JAX package divides in qd with numpy on the
+    host (ttcross_tpu/ops/qd.py::qd_div).  ops/qd.py::qd_div calls it, so
+    it serves the qd engine's init_state and accepts (the new column factor
+    over its pivot, the bordered inverse's new column and 1 / pivot),
+    cross_qd_parallel's replays and refine_dd's elimination.  x and y QD of
+    shapes that broadcast (a 0-d pivot, its expand, a strided column: each
+    operand at its own strides, its four limbs at one layout), the output
+    four contiguous limbs of the broadcast shape.  On CPU tensors this is
+    the plain version; on CUDA tensors it launches csrc/qd_kernels.cu's
+    qd_div_kernel (a thread per quotient, the block from qd_div_plan) or
+    raises, and adds one to ``qd_div_fused.launches`` (``launch_counts()``'s
+    "qd_div").  Bound: E x 1,586 flops over 33.5 TFLOP/s (0.17 us at the
+    engine's largest, 3,575 quotients); a quotient is one dependent chain of
+    some 5 us, which no rate shortens, so the design spreads a call's warps
+    over the SMs' sub-partitions (qd_div_plan) rather than packing them, and
+    takes one launch where the plain version takes ~1,600."""
+    if all(e.device.type == "cpu" for e in (*x, *y)):
+        return qd_div_plain(x, y)
+    return _qd_div_launch(x, y, None)
+
+
+def qd_div_planned(x, y, threads: int):
+    """Q5 on CUDA tensors with `threads` a block (32-256, a multiple of 32),
+    whatever qd_div_plan gives: the card tests and the tuning use it.
+    Counts its launch as qd_div_fused's."""
+    return _qd_div_launch(x, y, threads)
+
+
+def _qd_div_launch(x, y, threads):
+    qdm = _qd_mod()
+    dev = next((e.device for e in (*x, *y) if e.device.type == "cuda"), None)
+    if dev is None:
+        raise ValueError("qd_div_planned launches on CUDA tensors only")
+    _check_limbs("x", x, x[0].dim(), dev)
+    _check_limbs("y", y, y[0].dim(), dev)
+    # numpy's rule: torch.broadcast_shapes costs ~0.1 ms a call and imports sympy at its first
+    shape = np.broadcast_shapes(tuple(x[0].shape), tuple(y[0].shape))
+    if len(shape) > _QD_DIV_DIMS:
+        raise ValueError(f"qd_div_fused takes outputs of at most {_QD_DIV_DIMS} axes, "
+                         f"got shape {tuple(shape)}")
+    out = torch.empty((4, *shape), dtype=torch.float64, device=dev)
+    E = out[0].numel()
+    if E > 0:
+        lead = _QD_DIV_DIMS - len(shape)
+        size = (ctypes.c_longlong * _QD_DIV_DIMS)(*((1,) * lead + tuple(shape)))
+        xs, ys = ((ctypes.c_longlong * _QD_DIV_DIMS)(*((0,) * lead + op[0].expand(shape).stride()))
+                  for op in (x, y))
+        if threads is None:
+            rc = _call(dev, _lib().ttq_div, _limb_ptrs(x), _limb_ptrs(y), size, xs, ys,
+                       out.data_ptr())
+        else:
+            rc = _call(dev, _lib().ttq_div_planned, _limb_ptrs(x), _limb_ptrs(y), size, xs, ys,
+                       threads, out.data_ptr())
+        _raise_on(rc, "qd_div_fused launch")
+        qd_div_fused.launches += 1
+        _SHAPES["qd_div", ("one" if y[0].numel() == 1 else "each",) + tuple(shape)] += 1
+    return qdm.QD(out[0], out[1], out[2], out[3])
+
+
+qd_div_fused.launches = 0
+qd_div_fused.counted_as = "qd_div"   # its name in launch_counts() and launch_shapes()
+
 _WRAPPERS = (score_residual_argmax, score_residual_argmax_batched, small_table_lookup,
              ising_integrand_fused, mvn_pdf_fused, lane_uniforms, dd_score_residual_argmax,
              dd_dot, dd_gather_tt_fused, ising_c_integrand_dd_fused, qd_score_residual_argmax,
-             qd_dot, qd_gather_tt_fused, ising_c_integrand_qd_fused)
+             qd_dot, qd_gather_tt_fused, ising_c_integrand_qd_fused, qd_div_fused)
+
+
+def _counter_name(f) -> str:
+    return getattr(f, "counted_as", f.__name__)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {f.__name__: f.launches for f in _WRAPPERS}
+    return {_counter_name(f): f.launches for f in _WRAPPERS}
 
 
 def launch_shapes() -> dict[str, dict[tuple, int]]:
@@ -1702,8 +1799,9 @@ def launch_shapes() -> dict[str, dict[tuple, int]]:
     ends in "f32"; the dd kernels: D1 (B, T), D4 (M, N, T), D3 (B, N) + the
     train's ranks (N its largest mode), D2 (B, d, n); the qd kernels: Q2
     (B, T), Q4 (M, N, T, "tree" | "seq"), Q3 (B, N) + the train's ranks,
-    Q1 (B, d, n)."""
-    out = {f.__name__: {} for f in _WRAPPERS}
+    Q1 (B, d, n), Q5 ("one" (a single divisor broadcast) | "each") + the
+    output's shape."""
+    out = {_counter_name(f): {} for f in _WRAPPERS}
     for (name, shape), count in _SHAPES.items():
         out[name][shape] = count
     return out

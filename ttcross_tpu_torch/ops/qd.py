@@ -8,13 +8,14 @@ list (bottom-up VecSum, Ogita-Rump-Oishi), in the JAX package's operation
 order, with the error-free transforms of ops/dd.py.  Eager torch never
 contracts a multiply and an add into an FMA, so on the CPU these functions
 give the bits of the JAX package's numpy path, and they are the plain
-versions of the qd kernels Q1-Q4 (ops/kernels.py, csrc/qd_kernels.cu).
+versions of the qd kernels Q1-Q5 (ops/kernels.py, csrc/qd_kernels.cu).
 
 The JAX package keeps its qd tier on the host: a TPU's emulated f64 breaks
 Dekker's two_prod.  A CUDA card's f64 is IEEE binary64, so here the tier
 runs on whatever device its tensors lie on, the card by default.
-qd_gather_tt, qd_contract, qd_tt_value, qd_matmul and qd_vdot_axis launch
-the qd kernels on a CUDA tensor.
+qd_div, qd_gather_tt, qd_contract, qd_tt_value, qd_matmul and qd_vdot_axis
+launch the qd kernels on a CUDA tensor (qd_div's plain body is
+_qd_div_plain).
 
 There is no mpmath: the host conversions (qd_from_mp, qd_to_mp,
 qd_from_string, qd_to_string) work with Python's decimal at >= 80 digits,
@@ -132,9 +133,10 @@ def qd_mul_f64(x: QD, b) -> QD:
     return _distill([p0, p1, q0, p2, q1, p3, q2])
 
 
-def qd_div(x: QD, y: QD) -> QD:
-    """Long division (the Hida-Li-Bailey scheme): five quotient limbs, each
-    from the leading limb of the running residual, then distilled."""
+def _qd_div_plain(x: QD, y: QD) -> QD:
+    """The body of qd_div: long division (the Hida-Li-Bailey scheme), five
+    quotient limbs, each from the leading limb of the running residual,
+    then distilled."""
     q0 = x.e0 / y.e0
     r = qd_sub(x, qd_mul_f64(y, q0))
     q1 = r.e0 / y.e0
@@ -145,6 +147,13 @@ def qd_div(x: QD, y: QD) -> QD:
     r = qd_sub(r, qd_mul_f64(y, q3))
     q4 = r.e0 / y.e0
     return _distill([q0, q1, q2, q3, q4])
+
+
+def qd_div(x: QD, y: QD) -> QD:
+    """x / y elementwise (shapes that broadcast): _qd_div_plain on CPU
+    tensors, one launch of Q5 (ops/kernels.py::qd_div_fused) on CUDA
+    tensors."""
+    return _kernels.qd_div_fused(x, y)
 
 
 def qd_from_dd(x: DD) -> QD:
