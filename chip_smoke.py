@@ -1247,9 +1247,9 @@ def tune_batched(dev, gen) -> None:
                 args += ((torch.rand((P, M, Kc), generator=gen) > 0.2).to(dev),)
                 plans = sorted({K._plan(M, Kc, R, sms, bonds=P, cluster=c).cluster
                                 for c in BATCHED_TUNE_CLUSTERS})
-                base = K.score_residual_argmax_batched_planned(*args, 1)
+                base = K.planned(K.score_residual_argmax_batched, 1, *args)
                 for c in plans:
-                    got = K.score_residual_argmax_batched_planned(*args, c)
+                    got = K.planned(K.score_residual_argmax_batched, c, *args)
                     if not all(torch.equal(g, b) for g, b in zip(got, base)):
                         raise AssertionError(f"batched kernel A {[P, M, Kc, R]}: cluster {c} "
                                              "differs from the block body")
@@ -1257,7 +1257,7 @@ def tune_batched(dev, gen) -> None:
                 for rnd in range(BATCHED_TUNE_ROUNDS):
                     for c in (plans if rnd % 2 == 0 else plans[::-1]):
                         reads[c].append(device_us_idle(
-                            lambda c=c: K.score_residual_argmax_batched_planned(*args, c)))
+                            lambda c=c: K.planned(K.score_residual_argmax_batched, c, *args)))
                 us = {c: statistics.median(v) for c, v in reads.items()}
                 _emit({"phase": "batched_regimes", "shape": [P, M, Kc, R],
                        "us": {str(c): u for c, u in us.items()},
@@ -2638,13 +2638,13 @@ def hold_dd_shapes(dev, gen, shapes, held, checked) -> None:
                 err = max([err] + [float((a.double() - b.double()).abs().max())
                                    for a, b in zip(got, want)])
                 for plan in dd_dot_regimes(shape) if name == "dd_dot" else []:
-                    got = parts(K.dd_dot_planned(*args, plan))
+                    got = parts(K.planned(K.dd_dot, plan, *args))
                     if not all(torch.equal(a.reshape(-1), b.reshape(-1))
                                for a, b in zip(got, want)):
                         raise AssertionError(f"dd_dot {shape} ({label}) in {plan}: not bit-equal "
                                              "to its plain version")
                 for plan in ROWS_TUNE_PLANS if name == "ising_c_integrand_dd_fused" else []:
-                    got = parts(K.ising_c_integrand_dd_planned(*args, plan))
+                    got = parts(K.planned(K.ising_c_integrand_dd_fused, plan, *args))
                     if not _bit_equal(got, want):
                         raise AssertionError(f"ising_c_integrand_dd_fused {shape} in {plan}: not "
                                              "bit-equal to its plain version")
@@ -2678,8 +2678,8 @@ def d1_chain_floor_us(dev, gen) -> float:
     us = []
     for T in DD_CHAIN_FLOOR_T:
         x, y, v = _dd_pair(gen, (1, T), dev), _dd_pair(gen, (1, T), dev), _dd_pair(gen, (1,), dev)
-        us.append(device_us_idle(lambda: K.dd_score_residual_argmax_planned(
-            v, x, y, plan=(1, 224))))
+        us.append(device_us_idle(lambda: K.planned(K.dd_score_residual_argmax, (1, 224),
+                                                   v, x, y)))
     slope = (us[1] - us[0]) / (DD_CHAIN_FLOOR_T[1] - DD_CHAIN_FLOOR_T[0])
     _emit({"phase": "d1_chain_floor", "T": list(DD_CHAIN_FLOOR_T), "device_us": us,
            "us_per_dd_add": slope})
@@ -3649,12 +3649,13 @@ def hold_qd_shapes(dev, gen, shapes, held, checked) -> None:
                     raise AssertionError(f"{name} {shape} ({label}): not bit-equal to its plain "
                                          "version")
                 for plan in ROWS_TUNE_PLANS if name == "ising_c_integrand_qd_fused" else []:
-                    if not _bit_equal(_qd_parts(K.ising_c_integrand_qd_planned(*args, plan)),
-                                      want):
+                    if not _bit_equal(_qd_parts(K.planned(K.ising_c_integrand_qd_fused, plan,
+                                                          *args)), want):
                         raise AssertionError(f"{name} {shape} in {plan}: not bit-equal to its "
                                              "plain version")
                 for threads in QD_DIV_BLOCKS if name == "qd_div" else []:
-                    if not _bit_equal(_qd_parts(K.qd_div_planned(*args, threads)), want):
+                    if not _bit_equal(_qd_parts(K.planned(K.qd_div_fused, threads, *args)),
+                                      want):
                         raise AssertionError(f"{name} {shape} in blocks of {threads}: not "
                                              "bit-equal to its plain version")
                 errs[shape] = max([errs.get(shape, 0.0)] + [
@@ -3809,8 +3810,8 @@ D4_TUNE_SHAPES = (DD_DOT_TABLE_SHAPES + [(48, n, 48) for n in (1, 8, 130, 260, 5
 D4_TUNE_PLANS = ([("thread", b, 0) for b in (256, 128, 64)]
                  + [("chain", P, 28) for P in (1, 2, 4, 8, 16, 32)]
                  + [("chain", P, 224 // P) for P in (4, 8, 16)])
-# D3's: the table's shapes, rows x threads a block (those D3 takes there:
-# K.dd_gather_plan_ok)
+# D3's: the table's shapes, rows x threads a block (those D3 takes there; it
+# refuses the others)
 D3_TUNE_PLANS = [(r, 32 * r) for r in (1, 2, 3, 4, 6, 8)] + [
     (1, 64), (2, 128), (4, 256), (3, 32), (8, 32), (16, 64), (32, 128)]
 # Q3's tuning data: the defect's trains at its batch sizes, rows x threads a block
@@ -3843,7 +3844,7 @@ def tune_qd_kernels(dev, gen) -> None:
         want = _d1_parts(fn())
         us = {"rule": device_us_idle(fn)}
         for plan in D1_TUNE_PLANS:
-            got = functools.partial(K.dd_score_residual_argmax_planned, *args, plan=plan)
+            got = functools.partial(K.planned, K.dd_score_residual_argmax, plan, *args)
             if not _bit_equal(_d1_parts(got()), want):
                 raise AssertionError(f"dd_score {(B, T)} in {plan}: not bit-equal to its own plan")
             us["/".join(map(str, plan))] = device_us_idle(got)
@@ -3855,7 +3856,7 @@ def tune_qd_kernels(dev, gen) -> None:
         want = list(fn())
         us = {"rule": device_us_idle(fn)}
         for plan in D4_TUNE_PLANS:
-            got = functools.partial(K.dd_dot_planned, *args, plan)
+            got = functools.partial(K.planned, K.dd_dot, plan, *args)
             if not _bit_equal(list(got()), want):
                 raise AssertionError(f"dd_dot {shape} in {plan}: not bit-equal to its own plan")
             us["/".join(map(str, plan))] = device_us_idle(got)
@@ -3866,12 +3867,13 @@ def tune_qd_kernels(dev, gen) -> None:
         _, fn, _, (packed, ind) = _dd_cases(dev, gen, "dd_gather_tt_fused", shape)[0]
         want = list(fn())
         us = {"rule": device_us_idle(fn)}
-        d, (R, N) = len(shape) - 3, (max(shape[2:]), shape[1])
         for plan in D3_TUNE_PLANS:
-            if not K.dd_gather_plan_ok(shape[0], d, R, N, *plan):
+            got = functools.partial(K.planned, K.dd_gather_tt_fused, plan, packed, ind)
+            try:
+                r = got()
+            except ValueError:      # a plan D3 does not take at this shape
                 continue
-            got = functools.partial(K.dd_gather_tt_planned, packed, ind, *plan)
-            if not _bit_equal(list(got()), want):
+            if not _bit_equal(list(r), want):
                 raise AssertionError(f"dd_gather_tt {shape} in {plan}: not bit-equal to its rule")
             us["/".join(map(str, plan))] = device_us_idle(got)
         _emit({"phase": "d3_regimes", "shape": list(shape), "rule": _dd_plan(
@@ -3881,7 +3883,7 @@ def tune_qd_kernels(dev, gen) -> None:
         want = _qd_parts(fn())
         us = {"rule": device_us_idle(fn)}
         for plan in Q2_TUNE_PLANS:
-            got = functools.partial(K.qd_score_residual_argmax_planned, *args, plan)
+            got = functools.partial(K.planned, K.qd_score_residual_argmax, plan, *args)
             if not _bit_equal(_qd_parts(got()), want):
                 raise AssertionError(f"qd_score {shape} in {plan}: not bit-equal to its own plan")
             us["/".join(map(str, plan))] = device_us_idle(got)
@@ -3894,21 +3896,22 @@ def tune_qd_kernels(dev, gen) -> None:
         rule = K.qd_dot_plan(*shape[:3], shape[3] == "tree")
         us = {"rule": device_us_idle(fn)}
         for plan in QD_TUNE_PLANS[shape[3]]:
-            if not _bit_equal(_qd_parts(K.qd_dot_planned(*args, plan)), want):
+            got = functools.partial(K.planned, K.qd_dot, plan, *args)
+            if not _bit_equal(_qd_parts(got()), want):
                 raise AssertionError(f"qd_dot {shape} in {plan}: not bit-equal to its own plan")
-            us["/".join(map(str, plan))] = device_us_idle(lambda p=plan: K.qd_dot_planned(*args, p))
+            us["/".join(map(str, plan))] = device_us_idle(got)
         _emit({"phase": "qd_regimes", "shape": list(shape), "rule": list(rule), "device_us": us})
-    for name, shapes, planned in (
-            ("ising_c_integrand_dd_fused", DD_ISING_TABLE_SHAPES, K.ising_c_integrand_dd_planned),
+    for name, shapes, wrapper in (
+            ("ising_c_integrand_dd_fused", DD_ISING_TABLE_SHAPES, K.ising_c_integrand_dd_fused),
             ("ising_c_integrand_qd_fused", QD_TABLE_SHAPES["ising_c_integrand_qd_fused"],
-             K.ising_c_integrand_qd_planned)):
+             K.ising_c_integrand_qd_fused)):
         for shape in shapes:
             cases = (_dd_cases if name in DD_KERNELS else _qd_cases)(dev, gen, name, shape)
             _, fn, _, args = cases[0]
             want = _qd_parts(fn()) if name in QD_KERNELS else list(fn())
             fns = {"rule": fn}
             for plan in ROWS_TUNE_PLANS:
-                got = functools.partial(planned, *args, plan)
+                got = functools.partial(K.planned, wrapper, plan, *args)
                 r = got()
                 if not _bit_equal(_qd_parts(r) if name in QD_KERNELS else list(r), want):
                     raise AssertionError(f"{name} {shape} in {plan}: not bit-equal to its rule")
@@ -3928,10 +3931,10 @@ def tune_qd_kernels(dev, gen) -> None:
         want = _qd_parts(fn())
         us = {"rule": device_us_idle(fn)}
         for plan in QD_TUNE_GATHER_PLANS:
-            if not _bit_equal(_qd_parts(K.qd_gather_tt_planned(*args, *plan)), want):
+            got = functools.partial(K.planned, K.qd_gather_tt_fused, plan, *args)
+            if not _bit_equal(_qd_parts(got()), want):
                 raise AssertionError(f"qd_gather_tt {shape} in {plan}: not bit-equal to its rule")
-            us["/".join(map(str, plan))] = device_us_idle(
-                lambda p=plan: K.qd_gather_tt_planned(*args, *p))
+            us["/".join(map(str, plan))] = device_us_idle(got)
         _emit({"phase": "qd_gather_regimes", "shape": list(shape), "device_us": us})
     tune_qd_div(dev, gen)
 
@@ -3956,7 +3959,7 @@ def tune_qd_div(dev, gen) -> None:
         want = _qd_parts(fn())
         fns = {"rule": fn}
         for threads in QD_DIV_BLOCKS:
-            got = functools.partial(K.qd_div_planned, *args, threads)
+            got = functools.partial(K.planned, K.qd_div_fused, threads, *args)
             if not _bit_equal(_qd_parts(got()), want):
                 raise AssertionError(f"qd_div ({E},) in blocks of {threads}: not bit-equal")
             fns[str(threads)] = got
@@ -4004,10 +4007,11 @@ def compare_qd_with(root: str, dev, gen) -> None:
                 cases.append((name, shape, label, lambda n=name, a=args: getattr(K, n)(*a),
                               lambda n=name, a=args: getattr(other_k, n)(*a), list))
     for name, shapes in QD_TABLE_SHAPES.items():
+        wrapper = "qd_div_fused" if name == "qd_div" else name    # counted as "qd_div"
         for shape in shapes:
             label, _, _, args = _qd_cases(dev, gen, name, shape)[0]
-            cases.append((name, shape, label, lambda n=name, a=args: getattr(K, n)(*a),
-                          lambda n=name, a=args: getattr(other_k, n)(*a), _qd_parts))
+            cases.append((name, shape, label, lambda n=wrapper, a=args: getattr(K, n)(*a),
+                          lambda n=wrapper, a=args: getattr(other_k, n)(*a), _qd_parts))
     for name, shape, label, this, other, parts in cases:
         fns = {"other": other, "this": this}
         if not _bit_equal(parts(this()), parts(other())):

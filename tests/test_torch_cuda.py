@@ -189,7 +189,7 @@ def test_score_batched_cluster_body_is_single_launches_bit_for_bit(P, M, Kc, R, 
     mask[1] = False
     args = (vals, colf, rowf, mask)
     if cluster:
-        got = K.score_residual_argmax_batched_planned(*args, cluster)
+        got = K.planned(K.score_residual_argmax_batched, cluster, *args)
     else:
         got = K.score_residual_argmax_batched(*args)
     single = [K.score_residual_argmax(*(a[p] for a in args)) for p in range(P)]
@@ -213,7 +213,7 @@ def test_score_batched_cluster_body_first_maximum_and_nan(cluster, cuda_device):
     mask = torch.ones((P, M, 1), dtype=torch.bool, device=cuda_device)
     mask[2] = False
     colf, rowf = torch.zeros((P, M, R), **f64), torch.zeros((P, R, 1), **f64)
-    got = K.score_residual_argmax_batched_planned(vals, colf, rowf, mask, cluster)
+    got = K.planned(K.score_residual_argmax_batched, cluster, vals, colf, rowf, mask)
     assert got[0].tolist() == [37, 1299, 0]
     assert float(got[1][0]) == 4.0 and torch.isnan(got[1][1]) and float(got[1][2]) == -1.0
 

@@ -96,7 +96,7 @@ def test_dd_score_kernel_ties_and_empty_mask(gen, cuda_device):
     assert int(flat) == 0
 
 
-# D1's other plans (K.dd_score_residual_argmax_planned), (P rows a block, C
+# D1's other plans (K.planned), (P rows a block, C
 # terms a chunk): one row a block (all terms in one chunk, chunks of 5),
 # several (P = 3: a last block partly empty; chunks longer than a producer
 # pass loads), 8, 16 and 32
@@ -133,7 +133,7 @@ def test_dd_score_every_plan(B, T, kind, gen, cuda_device):
     want = K.dd_score_residual_argmax_plain(*args)
     for plan in [None] + D1_PLANS:
         got = (K.dd_score_residual_argmax(*args) if plan is None
-               else K.dd_score_residual_argmax_planned(*args, plan=plan))
+               else K.planned(K.dd_score_residual_argmax, plan, *args))
         assert _same(got[0], want[0]) and int(got[1]) == int(want[1]), plan
         assert _same(got[2], want[2]), plan
 
@@ -171,7 +171,7 @@ def test_dd_dot_kernel_matches_plain(M, N, T, layout, gen, cuda_device):
     assert _same(got, want)
 
 
-# D4's regimes (K.dd_dot_planned), (regime, P, C): a thread per output in
+# D4's regimes (K.planned), (regime, P, C): a thread per output in
 # blocks of 256 and 64; the chain with 1 output a block (one chunk, chunks
 # of 5), 3 (a last block partly empty), 8, 16 and 32
 D4_PLANS = [("thread", 256, 0), ("thread", 64, 0), ("chain", 1, 896), ("chain", 1, 5),
@@ -189,7 +189,7 @@ def test_dd_dot_every_regime(M, N, T, layout, gen, cuda_device):
     x, y = _d4_layout(layout, M, N, T, gen, cuda_device)
     want = K.dd_dot_plain(x, y)
     for plan in [None] + D4_PLANS:
-        got = K.dd_dot(x, y) if plan is None else K.dd_dot_planned(x, y, plan)
+        got = K.dd_dot(x, y) if plan is None else K.planned(K.dd_dot, plan, x, y)
         assert _bits_same(got, want), plan
 
 
@@ -206,7 +206,7 @@ def test_dd_dot_repeats_without_state(gen, cuda_device):
     first = K.dd_dot(x, y)
     for _ in range(10):
         for plan in [None] + D4_PLANS:
-            got = K.dd_dot(x, y) if plan is None else K.dd_dot_planned(x, y, plan)
+            got = K.dd_dot(x, y) if plan is None else K.planned(K.dd_dot, plan, x, y)
             assert _same(got, first), plan
 
 
@@ -217,7 +217,7 @@ def test_dd_dot_special_values(gen, cuda_device):
     want = K.dd_dot_plain(x, y)
     assert torch.isnan(want.hi).any() and (want.hi == 0).any()
     for plan in [None] + D4_PLANS:
-        got = K.dd_dot(x, y) if plan is None else K.dd_dot_planned(x, y, plan)
+        got = K.dd_dot(x, y) if plan is None else K.planned(K.dd_dot, plan, x, y)
         assert _bits_same(got, want), plan
 
 
@@ -237,16 +237,21 @@ def test_dd_gather_tt_kernel_matches_plain(B, ranks, n, gen, cuda_device):
     assert _same(got, want)
 
 
-# D3's plans (K.dd_gather_tt_planned), (rows, threads) a block: one row (its
+# D3's plans (K.planned), (rows, threads) a block: one row (its
 # lanes; more threads, idle), several (a last block partly empty), those a
 # block can have at the train's rank
 D3_PLANS = [(1, 32), (1, 256), (2, 64), (2, 256), (3, 96), (4, 128), (8, 256)]
 
 
-def _plans(packed, B):
-    """The plans of D3_PLANS that D3 takes for B rows of the train."""
-    d, R, N, _ = packed.cores.shape
-    return [p for p in D3_PLANS if K.dd_gather_plan_ok(B, d, R, N, *p)]
+def _every_plan(packed, ind):
+    """(plan, D3's result) in its own plan (None) and in each of D3_PLANS
+    that it takes for these rows of the train (it refuses the others)."""
+    yield None, K.dd_gather_tt_fused(packed, ind)
+    for plan in D3_PLANS:
+        try:
+            yield plan, K.planned(K.dd_gather_tt_fused, plan, packed, ind)
+        except ValueError:      # a plan D3 does not take at this shape
+            continue
 
 
 @pytest.mark.parametrize("B,ranks,n", [(3120, (1, 16, 32, 32, 16, 1), 65),
@@ -262,9 +267,7 @@ def test_dd_gather_every_plan(B, ranks, n, gen, cuda_device):
     ind = torch.as_tensor(gen.integers(0, n, (B, len(ranks) - 1)), dtype=torch.int32)
     ind = ind.to(cuda_device)
     want = K.dd_gather_tt_plain(packed, ind)
-    for plan in [None] + _plans(packed, B):
-        got = (K.dd_gather_tt_fused(packed, ind) if plan is None
-               else K.dd_gather_tt_planned(packed, ind, *plan))
+    for plan, got in _every_plan(packed, ind):
         assert _same(got, want), plan
 
 
@@ -275,17 +278,13 @@ def test_dd_gather_padding_clamp_and_specials(gen, cuda_device):
     packed = _d3_train(gen, (1, 7, 12, 5, 1), 17, cuda_device, R=32, N=20)
     ind = torch.as_tensor(gen.integers(0, 17, (300, 4)), dtype=torch.int32).to(cuda_device)
     want = K.dd_gather_tt_plain(packed, ind)
-    for plan in [None] + _plans(packed, 300):
-        got = (K.dd_gather_tt_fused(packed, ind) if plan is None
-               else K.dd_gather_tt_planned(packed, ind, *plan))
+    for plan, got in _every_plan(packed, ind):
         assert _same(got, want), plan
     packed = cases.d3_specials(gen, cuda_device)
     ind = torch.as_tensor(gen.integers(-20, 30, (400, 4)), dtype=torch.int32).to(cuda_device)
     want = K.dd_gather_tt_plain(packed, ind.clamp(0, 6))
     assert torch.isnan(want.hi).any() and (want.hi == 0).any()
-    for plan in [None] + _plans(packed, 400):
-        got = (K.dd_gather_tt_fused(packed, ind) if plan is None
-               else K.dd_gather_tt_planned(packed, ind, *plan))
+    for plan, got in _every_plan(packed, ind):
         assert _bits_same(got, want), plan
 
 
@@ -316,12 +315,12 @@ def test_dd_ising_kernel_matches_plain(B, d, n, gen, cuda_device):
     want = K.ising_c_integrand_dd_plain(tables, ind)
     assert _same(K.ising_c_integrand_dd_fused(tables, ind), want)
     for plan in cases.ROWS_PLANS:
-        assert _same(K.ising_c_integrand_dd_planned(tables, ind, plan), want), plan
+        assert _same(K.planned(K.ising_c_integrand_dd_fused, plan, tables, ind), want), plan
     specials = cases.strew(gen, tables.clone())
     want = K.ising_c_integrand_dd_plain(specials, ind)
     for plan in [None] + cases.ROWS_PLANS:
         got = (K.ising_c_integrand_dd_fused(specials, ind) if plan is None
-               else K.ising_c_integrand_dd_planned(specials, ind, plan))
+               else K.planned(K.ising_c_integrand_dd_fused, plan, specials, ind))
         assert _bits_same(got, want), plan
 
 
@@ -329,7 +328,10 @@ def test_dd_ising_plan(cuda_device):
     """D2's launch at the dd paths' shapes (csrc/ising_rows.cuh::rows_plan)."""
     assert K.ising_c_dd_plan(3120, 5, 65)[:3] == (40, 128, 78)
     assert K.ising_c_dd_plan(226, 5, 65)[:3] == (40, 128, 6)
-    assert all(K.ising_c_dd_plan_ok(10, 3, 65, plan) for plan in cases.ROWS_PLANS)
+    tables = torch.zeros((4, 65), dtype=torch.float64, device=cuda_device)
+    rows = torch.zeros((10, 3), dtype=torch.int32, device=cuda_device)
+    for plan in cases.ROWS_PLANS:     # D2 takes each (it refuses a plan with ValueError)
+        K.planned(K.ising_c_integrand_dd_fused, plan, tables, rows)
 
 
 def test_dd_contract_card_equals_cpu(gen, cuda_device):
@@ -359,22 +361,21 @@ def test_dd_kernels_refuse_wrong_input(gen, cuda_device):
     tables = torch.zeros((4, 5), dtype=torch.float64, device=cuda_device)
     rows = torch.zeros((10, 3), dtype=torch.int32, device=cuda_device)
     for plan in [0, -1, 41, 129]:
-        assert not K.ising_c_dd_plan_ok(10, 3, 5, plan)
-        with pytest.raises(RuntimeError):
-            K.ising_c_integrand_dd_planned(tables, rows, plan)
+        with pytest.raises(ValueError):
+            K.planned(K.ising_c_integrand_dd_fused, plan, tables, rows)
     with pytest.raises(TypeError):
         K.ising_c_integrand_dd_fused(tables, rows.long())
     xd, yd = _d4_layout("mm", 4, 5, 6, gen, cuda_device)
     for plan in [("chain", 33, 4), ("chain", 4, 0), ("thread", 48, 0), ("thread", 512, 0)]:
-        with pytest.raises(RuntimeError):
-            K.dd_dot_planned(xd, yd, plan)
+        with pytest.raises(ValueError):
+            K.planned(K.dd_dot, plan, xd, yd)
     with pytest.raises(ValueError):
         K.dd_dot(xd, DD(*(p[:, :4] for p in yd)))
     packed = _d3_train(gen, (1, 3, 1), 5, cuda_device)
     ind = torch.zeros((10, 2), dtype=torch.int32, device=cuda_device)
     for plan in [(0, 64), (1, 16), (1, 512), (1, 48), (16, 32)]:
-        with pytest.raises(RuntimeError):
-            K.dd_gather_tt_planned(packed, ind, *plan)
+        with pytest.raises(ValueError):
+            K.planned(K.dd_gather_tt_fused, plan, packed, ind)
     with pytest.raises(TypeError):
         K.dd_gather_tt_fused(packed, ind.long())
     with pytest.raises(ValueError):

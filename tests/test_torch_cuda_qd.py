@@ -91,7 +91,7 @@ def test_q2_every_plan(B, T, kind, cuda_device, gen):
     want, wflat = K.qd_score_residual_argmax_plain(vals, x, y)
     for plan in [None] + Q2_PLANS:
         r, flat = (K.qd_score_residual_argmax(vals, x, y) if plan is None
-                   else K.qd_score_residual_argmax_planned(vals, x, y, plan))
+                   else K.planned(K.qd_score_residual_argmax, plan, vals, x, y))
         assert _same(r, want) and int(flat) == int(wflat), plan
 
 
@@ -140,7 +140,7 @@ def test_q4_is_its_plain_version(M, N, T, tree, tiny, cuda_device, gen):
     assert _same(K.qd_dot(x, y, tree), K.qd_dot_plain(x, y, tree))
 
 
-# Q4 in each regime it can take at a shape (K.qd_dot_planned): a thread per
+# Q4 in each regime it can take at a shape (K.planned): a thread per
 # output, 64 or 256 a block (the depth-first walk for the tree), chain warps with one output a
 # block, several, and all 32, the shared tree with one output a block and with
 # several; the shapes on each side of the sequential switch point
@@ -166,7 +166,7 @@ def test_q4_every_regime(M, N, T, tree, cuda_device, gen):
     want = K.qd_dot_plain(x, y, tree)
     assert _same(K.qd_dot(x, y, tree), want)
     for plan in REGIMES[tree]:
-        assert _same(K.qd_dot_planned(x, y, tree, plan), want), plan
+        assert _same(K.planned(K.qd_dot, plan, x, y, tree), want), plan
 
 
 @pytest.mark.parametrize("tree", [False, True])
@@ -181,7 +181,7 @@ def test_q4_broadcast_vector(tree, cuda_device, gen):
     want = K.qd_dot_plain(x, y, tree)
     assert _same(K.qd_dot(x, y, tree), want)
     for plan in REGIMES[tree]:
-        assert _same(K.qd_dot_planned(x, y, tree, plan), want), plan
+        assert _same(K.planned(K.qd_dot, plan, x, y, tree), want), plan
 
 
 def test_q4_plan_is_the_shape_s(cuda_device):
@@ -212,7 +212,8 @@ def test_q3_is_its_plain_version(ranks, B, N, cuda_device, gen):
     want = K.qd_gather_tt_plain(packed, ind)
     assert _same(K.qd_gather_tt_fused(packed, ind), want)
     for rows, threads in ((1, 32), (3, 96), (7, 256) if max(ranks) < 64 else (2, 256)):
-        assert _same(K.qd_gather_tt_planned(packed, ind, rows, threads), want), (rows, threads)
+        assert _same(K.planned(K.qd_gather_tt_fused, (rows, threads), packed, ind), want), (
+            rows, threads)
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 5, 15, 31])
@@ -227,7 +228,8 @@ def test_q1_is_its_plain_version(d, B, cuda_device, gen):
     want = K.ising_c_integrand_qd_plain(fun_qd.tables, ind)
     assert _same(K.ising_c_integrand_qd_fused(fun_qd.tables, ind), want)
     for plan in ROWS_PLANS:
-        assert _same(K.ising_c_integrand_qd_planned(fun_qd.tables, ind, plan), want), plan
+        assert _same(K.planned(K.ising_c_integrand_qd_fused, plan, fun_qd.tables, ind),
+                     want), plan
 
 
 def test_q1_plan_and_refusals(cuda_device):
@@ -235,13 +237,14 @@ def test_q1_plan_and_refusals(cuda_device):
     and the plans and inputs its entry point refuses."""
     assert K.ising_c_qd_plan(65, 3, 65)[:3] == (40, 128, 2)
     assert K.ising_c_qd_plan(3575, 3, 65)[:3] == (40, 128, 90)
-    assert all(K.ising_c_qd_plan_ok(10, 3, 65, plan) for plan in ROWS_PLANS)
-    tables = torch.zeros((8, 5), dtype=torch.float64, device=cuda_device)
     rows = torch.zeros((10, 3), dtype=torch.int32, device=cuda_device)
+    table65 = torch.zeros((8, 65), dtype=torch.float64, device=cuda_device)
+    for plan in ROWS_PLANS:     # Q1 takes each (it refuses a plan with ValueError)
+        K.planned(K.ising_c_integrand_qd_fused, plan, table65, rows)
+    tables = torch.zeros((8, 5), dtype=torch.float64, device=cuda_device)
     for plan in [0, -1, 41, 129]:
-        assert not K.ising_c_qd_plan_ok(10, 3, 5, plan)
-        with pytest.raises(RuntimeError):
-            K.ising_c_integrand_qd_planned(tables, rows, plan)
+        with pytest.raises(ValueError):
+            K.planned(K.ising_c_integrand_qd_fused, plan, tables, rows)
     with pytest.raises(ValueError):
         K.ising_c_integrand_qd_fused(tables[:4], rows)
     with pytest.raises(TypeError):
@@ -300,7 +303,7 @@ def test_q5_is_its_plain_version(shape, divisor, tiny, cuda_device, gen):
     assert _same(got, want) and got.e0.shape == want.e0.shape
     assert all(e.is_contiguous() for e in got)
     for threads in (32, 64, 128, 256):
-        assert _same(K.qd_div_planned(x, y, threads), want), threads
+        assert _same(K.planned(K.qd_div_fused, threads, x, y), want), threads
 
 
 def test_q5_special_values(cuda_device):
@@ -368,8 +371,8 @@ def test_q5_refusals(cuda_device, gen):
     with pytest.raises(ValueError):
         K.qd_div_fused(five, y)
     for threads in (0, 16, 48, 512):
-        with pytest.raises(RuntimeError):
-            K.qd_div_planned(x, y, threads)
+        with pytest.raises(ValueError):
+            K.planned(K.qd_div_fused, threads, x, y)
 
 
 def test_q5_plan_is_the_count_s(cuda_device):

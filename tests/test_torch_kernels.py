@@ -4,6 +4,9 @@ package's Pallas kernels and references, and their launch plans.
 On the CPU the wrappers run their plain PyTorch versions; the kernels
 themselves are held against those on the card by tests/test_torch_cuda.py."""
 
+import ast
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -326,3 +329,92 @@ def test_integrand_plan_covers_each_row_once_within_shared_memory(B, d, n):
 def test_integrand_plan_refuses_what_the_kernel_does_not_take(B, d, n):
     with pytest.raises(ValueError):
         K._integrand_plan(B, d, n)
+
+
+# ops/ is the lowest layer of the port: no module there imports one above it
+_ABOVE_OPS = {"cross", "tt", "utils", "apps", "parallel", "interop", "drivers", "native"}
+_OPS_DIR = Path(K.__file__).resolve().parent
+
+
+def _imported(node) -> list:
+    """The dotted modules an import statement of a module in ops/ names."""
+    if isinstance(node, ast.Import):
+        return [alias.name for alias in node.names]
+    base = ["ttcross_tpu_torch", "ops"][:3 - node.level] if node.level else []
+    if node.module:
+        return [".".join(base + node.module.split("."))]
+    return [".".join(base + [alias.name]) for alias in node.names]
+
+
+@pytest.mark.parametrize("path", sorted(_OPS_DIR.glob("*.py")), ids=lambda p: p.name)
+def test_ops_imports_nothing_above_it(path):
+    """Every import of the module, at module level or inside a function,
+    names a package below ttcross_tpu_torch's entry layers."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    named = [m for node in ast.walk(tree) if isinstance(node, (ast.Import, ast.ImportFrom))
+             for m in _imported(node)]
+    above = [m for m in named
+             if m.split(".")[0] == "ttcross_tpu_torch" and len(m.split(".")) > 1
+             and m.split(".")[1] in _ABOVE_OPS]
+    assert not above, (path.name, above)
+
+
+def _planned_cases():
+    """(wrapper, a plan it takes, CPU operands it takes) for every wrapper
+    that launches in a named plan."""
+    from ttcross_tpu_torch.ops.dd import DD
+    from ttcross_tpu_torch.ops.qd import QD
+    from ttcross_tpu_torch.tt.types import TT
+
+    gen = torch.Generator().manual_seed(5)
+
+    def f64(*shape):
+        return torch.rand(shape, generator=gen, dtype=torch.float64) + 0.5
+
+    dd = lambda *shape: DD(f64(*shape), f64(*shape) * 2.0 ** -60)     # noqa: E731
+    qd = lambda *shape: QD(f64(*shape), *(f64(*shape) * 2.0 ** -60 for _ in range(3)))  # noqa: E731
+    packed = K.pack_tt(TT((f64(1, 5, 3), f64(3, 5, 1))))
+    ind = torch.tensor([[0, 1], [4, 2], [3, 3]], dtype=torch.int32)
+    return {
+        "score_residual_argmax_batched": (1, (f64(2, 5, 1), f64(2, 5, 2), f64(2, 2, 1),
+                                              torch.ones((2, 5, 1), dtype=torch.bool))),
+        "dd_score_residual_argmax": ((1, 2), (dd(3), dd(3, 2), dd(3, 2))),
+        "dd_dot": (("thread", 64, 0), (dd(2, 3, 4), dd(2, 3, 4))),
+        "dd_gather_tt_fused": ((1, 32), (packed, ind)),
+        "ising_c_integrand_dd_fused": (40, (f64(4, 5), ind)),
+        "qd_score_residual_argmax": (("tree", 1), (qd(3), qd(3, 2), qd(3, 2))),
+        "qd_dot": (("tree", 1, 0), (qd(2, 3, 4), qd(2, 3, 4), True)),
+        "qd_gather_tt_fused": ((1, 32), (packed, ind)),
+        "ising_c_integrand_qd_fused": (40, (f64(8, 5), ind)),
+        "qd_div_fused": (128, (qd(3), qd(3))),
+    }
+
+
+# every wrapper that had a test-only twin forcing its plan
+PLANNED_WRAPPERS = ["score_residual_argmax_batched", "dd_score_residual_argmax", "dd_dot",
+                    "dd_gather_tt_fused", "ising_c_integrand_dd_fused", "qd_score_residual_argmax",
+                    "qd_dot", "qd_gather_tt_fused", "ising_c_integrand_qd_fused", "qd_div_fused"]
+
+
+@pytest.mark.parametrize("name", PLANNED_WRAPPERS)
+def test_planned_refuses_cpu_tensors_and_counts_nothing(name):
+    """planned knows the wrapper and refuses CPU operands with a ValueError,
+    no launch counted; the wrapper itself takes its plain path on them."""
+    wrapper = getattr(K, name)
+    plan, args = _planned_cases()[name]
+    K.reset_launch_counts()
+    wrapper(*args)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        K.planned(wrapper, plan, *args)
+    assert sum(K.launch_counts().values()) == 0
+    assert all(not shapes for shapes in K.launch_shapes().values())
+
+
+def test_planned_takes_only_wrappers_with_plans():
+    """A wrapper whose kernel has a single launch, or anything else, takes
+    no plan: TypeError, whatever the operands."""
+    table = torch.zeros((1, 4), dtype=torch.float64)
+    ind = torch.zeros((2, 3), dtype=torch.int32)
+    for fn in (K.small_table_lookup, K.small_table_lookup_plain, print):
+        with pytest.raises(TypeError):
+            K.planned(fn, 1, table, ind)

@@ -587,7 +587,7 @@ def test_q5_refuses_what_the_card_refuses(host_lib):
 
 def test_q5_wrapper_on_cpu_takes_the_plain_path():
     """qd_div (ops/qd.py) and qd_div_fused on CPU tensors: the plain long
-    division, no launch counted; qd_div_planned refuses them."""
+    division, no launch counted; planned refuses them."""
     from ttcross_tpu_torch.ops.qd import qd_div
 
     x, y = _q5_operands(np.random.default_rng(9), (55, 65), "one", False)
@@ -597,4 +597,4 @@ def test_q5_wrapper_on_cpu_takes_the_plain_path():
     assert _same_qd(qd_div(x, y), want)
     assert K.launch_counts()["qd_div"] == 0 and K.launch_shapes()["qd_div"] == {}
     with pytest.raises(ValueError):
-        K.qd_div_planned(x, y, 128)
+        K.planned(K.qd_div_fused, 128, x, y)

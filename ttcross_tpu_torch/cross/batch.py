@@ -34,7 +34,7 @@ from torch.utils import _pytree as pytree
 
 from ..config import precision_thresholds
 from ..ops.dense import as_tensor
-from ..ops.kernels import lane_uniforms
+from ..ops.kernels import lane_seeds, lane_uniforms, lane_uniforms_plain
 from ..tt.types import TT
 from ..utils.metrics import history_from_run, span
 from .engine import (CrossConfig, CrossResult, _values_errors, make_engine, quad_matrix,
@@ -214,15 +214,21 @@ def _run_cross_batch(root, fun, n, params, *, max_rank, accuracy, pivoting, quad
     if max_sweeps is None:
         max_sweeps = max_rank - 1
     NLOT = 2 * (cfg.R + cfg.N)
+    lanes = range(lane0, lane0 + L)
     with span("entry.uniforms") as drawing:
-        if uniforms is None:
-            # every lane's stream in one kernel on a CUDA device, else on the host
-            drawing.set(drawn="card" if dev.type == "cuda" else "host")
-            uniforms = lane_uniforms([lane_key(key, i) for i in range(lane0, lane0 + L)],
-                                     max_sweeps, d, NLOT, dev)
+        if uniforms is None and dev.type == "cuda":
+            # every lane's stream in one kernel
+            drawing.set(drawn="card")
+            seeds = lane_seeds([lane_key(key, i) for i in lanes])
+            with span("entry.upload", bytes=seeds.nbytes):
+                seeds = seeds.to(dev)
+            uniforms = lane_uniforms(seeds, max_sweeps, d, NLOT, dev)
         else:
             drawing.set(drawn="host")
-            if mesh is not None:
+            if uniforms is None:
+                uniforms = lane_uniforms_plain([lane_key(key, i) for i in lanes], max_sweeps, d,
+                                               NLOT)
+            elif mesh is not None:
                 uniforms = uniforms[:, lane0:lane0 + L]
             uniforms = torch.as_tensor(uniforms, dtype=torch.float64)
             with span("entry.upload", bytes=uniforms.nbytes):

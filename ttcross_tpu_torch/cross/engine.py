@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from ..config import precision_thresholds
 from ..ops.dense import (balanced_matmul_chain, batched_row_lookup, masked_slot_write,
                          matmul_by_sums, scale_pow2)
-from ..ops.kernels import score_residual_argmax, score_residual_argmax_batched
+from ..ops.kernels import draw_uniforms, score_residual_argmax, score_residual_argmax_batched
 from ..tt.ops import contract
 from ..tt.ortho import svd_round
 from ..tt.types import TT
@@ -1203,15 +1203,6 @@ def _run_cross(fun, n, *, max_rank, accuracy, pivoting, quad, truth, key, dtype,
             if not (return_state or return_pivots):
                 res.state = None
     return res
-
-
-def draw_uniforms(key: int, sweeps: int, d: int, nlot: int) -> torch.Tensor:
-    """The lottery uniforms of a run with this key: one draw of (sweeps,
-    d-1, 2, nlot) f64 on the CPU from torch.Generator().manual_seed(key),
-    so that CPU and CUDA runs see the same stream and a run of s sweeps
-    sees its first s blocks (a resumed run skips the blocks already used)."""
-    gen = torch.Generator(device="cpu").manual_seed(int(key))
-    return torch.rand((max(sweeps, 1), d - 1, 2, nlot), generator=gen, dtype=torch.float64)
 
 
 def quad_matrix(quad, n, N: int, device, dtype) -> torch.Tensor:

@@ -508,8 +508,9 @@ bool dot_plan_ok(const DotPlan& p) {
 // row's value.  Shared memory: v (4 R doubles a row), the ranks and the
 // indices, so every row of the defect's batches is resident at once.
 //
-// Designs that lost on an H100 (tools/d3_variants.cu, timed in turns by
-// tools/d3_variants.py; PERF.md), at (3120, 5) / (226, 5) against this
+// Designs that lost on an H100 (timed in turns against this kernel by a
+// harness kept in the history at commit 90d94cb, tools/d3_variants.*;
+// PERF.md), at (3120, 5) / (226, 5) against this
 // kernel's 30.6 / 12.4 us: each product on its own producer thread into
 // shared memory and a chain lane per column adding them, the rows' slices
 // staged by cp.async a core ahead, 100-106 / 30-37; the same reading G
@@ -683,7 +684,7 @@ bool gather_plan_ok(const GatherPlan& p, int R) {
 
 // The terms of a lane's group at packed rank R (the kernel's kG): groups of
 // kGatherGroup from that rank, single terms below it, where a group would
-// only repeat its clamped loads (tools/d3_variants.py on an H100: the
+// only repeat its clamped loads (the harness above, on an H100: the
 // rank-1 train at (390, 4) 5.5 us in single terms against 6.2 in groups of
 // 8; the defect's rank-32 train at (226, 5) 12.4 in groups of 8, 16.1 in
 // groups of 4, 24.2 in single terms).

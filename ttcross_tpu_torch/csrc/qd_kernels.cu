@@ -1006,9 +1006,7 @@ int ttq_score_residual_argmax(const double* const* vals, const double* const* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Q4.  out (4, M, N) contiguous; strides in elements; tree: 1 for the
-// pairwise tree (T >= 1), 0 for the sequential sum (T >= 0).  The launch
-// is dot_plan's for the shape.
+// Q4's launch in the plan p (checked by ttq_dot).
 int launch_dot(const DotArgs& a, const DotPlan& p, double* out, cudaStream_t st) {
   const unsigned blocks = (unsigned)p.blocks;
   if (p.regime == kDotThread) {
@@ -1027,23 +1025,14 @@ int launch_dot(const DotArgs& a, const DotPlan& p, double* out, cudaStream_t st)
   return static_cast<int>(cudaGetLastError());
 }
 
+// Q4 in the regime (regime, P, C) that ttq_dot_plan gives the shape, or
+// another the caller names (C is the chain's chunk, ignored by the other
+// regimes; the card tests and the tuning of kChainOutputsMax launch every
+// regime at one shape).  out (4, M, N) contiguous; strides in elements;
+// tree: 1 for the pairwise tree (T >= 1), 0 for the sequential sum (T >= 0).
 int ttq_dot(const double* const* x, const double* const* y, long long M, long long N, int T,
             long long xs0, long long xs1, long long xs2, long long ys0, long long ys1,
-            long long ys2, int tree, double* out, void* stream) {
-  if (!dot_shape_ok(M, N, T, tree)) return static_cast<int>(cudaErrorInvalidValue);
-  const DotPlan p = dot_plan(M, N, T, tree);
-  if (!dot_plan_ok(tree, p)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_dot(dot_args(x, y, M, N, T, xs0, xs1, xs2, ys0, ys1, ys2, tree), p, out,
-                    static_cast<cudaStream_t>(stream));
-}
-
-// Q4 in a regime the caller names (regime, P, C as ttq_dot_plan gives them;
-// C is the chain's chunk, ignored by the other regimes): the card tests and
-// the tuning of kChainOutputsMax launch every regime at one shape.
-int ttq_dot_planned(const double* const* x, const double* const* y, long long M, long long N,
-                    int T, long long xs0, long long xs1, long long xs2, long long ys0,
-                    long long ys1, long long ys2, int tree, int regime, int P, int C,
-                    double* out, void* stream) {
+            long long ys2, int tree, int regime, int P, int C, double* out, void* stream) {
   const DotPlan p = dot_plan_of(M, N, T, regime, P, C);
   if (!dot_shape_ok(M, N, T, tree) || !dot_plan_ok(tree, p)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1052,13 +1041,13 @@ int ttq_dot_planned(const double* const* x, const double* const* y, long long M,
                     static_cast<cudaStream_t>(stream));
 }
 
-// Q3.  cores (d, R, N, R) f64 contiguous, ranks d + 1 int32 on the device
-// (every rank <= R <= kGatherRMax), ind (B, d) int32; out 4B doubles.
-// Q3 with `rows` rows and `threads` threads a block (ttq_gather_tt: gather_rows
-// and kThreads; the card tests and the tuning launch others).
-int ttq_gather_tt_planned(const double* cores, const int32_t* ranks, int d, int R, int N,
-                          const int32_t* ind, long long B, int rows, int threads, double* out,
-                          void* stream) {
+// Q3 with `rows` rows and `threads` threads a block (the rule: ttq_gather_rows
+// and kThreads; the card tests and the tuning launch others).  cores (d, R,
+// N, R) f64 contiguous, ranks d + 1 int32 on the device (every rank <= R <=
+// kGatherRMax), ind (B, d) int32; out 4B doubles.
+int ttq_gather_tt(const double* cores, const int32_t* ranks, int d, int R, int N,
+                  const int32_t* ind, long long B, int rows, int threads, double* out,
+                  void* stream) {
   const long long smem = gather_smem(R, rows);
   if (B < 1 || d < 1 || R < 1 || R > kGatherRMax || rows < 1 || threads < 32 ||
       threads > kThreads || threads % 32 != 0 || smem > 227 * 1024) {
@@ -1071,12 +1060,6 @@ int ttq_gather_tt_planned(const double* cores, const int32_t* ranks, int d, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-int ttq_gather_tt(const double* cores, const int32_t* ranks, int d, int R, int N,
-                  const int32_t* ind, long long B, double* out, void* stream) {
-  return ttq_gather_tt_planned(cores, ranks, d, R, N, ind, B, gather_rows(R, B), kThreads, out,
-                               stream);
-}
-
 // Q1 with P rows a block, as ttq_q1_plan gives them the shape or as the
 // caller names them.  tables (8, n) f64: node limbs e0..e3, weight limbs
 // e0..e3; ind (B, d) int32, d >= 1; out 4B doubles.
@@ -1086,25 +1069,18 @@ int ttq_ising_c_integrand(const double* tables, int n, const int32_t* ind, long 
                             RowsOut{{out, out + B, out + 2 * B, out + 3 * B}}, stream);
 }
 
-// Q5 with `threads` a block (ttq_div: div_block's).  x, y: host arrays of
-// the 4 limb pointers; size: the output's kDivDims axes (the leading ones
-// 1), xs / ys each operand's strides in elements along them (0 where it is
-// broadcast); out (4, E) contiguous, E the product of size.
-int ttq_div_planned(const double* const* x, const double* const* y, const long long* size,
-                    const long long* xs, const long long* ys, int threads, double* out,
-                    void* stream) {
+// Q5 with `threads` a block (the rule: ttq_div_plan's, div_block; the card
+// tests and the tuning launch others).  x, y: host arrays of the 4 limb
+// pointers; size: the output's kDivDims axes (the leading ones 1), xs / ys
+// each operand's strides in elements along them (0 where it is broadcast);
+// out (4, E) contiguous, E the product of size.
+int ttq_div(const double* const* x, const double* const* y, const long long* size,
+            const long long* xs, const long long* ys, int threads, double* out, void* stream) {
   const DivArgs a = div_args(x, y, size, xs, ys);
   if (!div_shape_ok(a.E) || !div_block_ok(threads)) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = (unsigned)((a.E + threads - 1) / threads);
   qd_div_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a, out);
   return static_cast<int>(cudaGetLastError());
-}
-
-int ttq_div(const double* const* x, const double* const* y, const long long* size,
-            const long long* xs, const long long* ys, double* out, void* stream) {
-  long long E = 1;
-  for (int k = 0; k < kDivDims; ++k) E *= size[k];
-  return ttq_div_planned(x, y, size, xs, ys, div_block(E), out, stream);
 }
 
 int ttq_threads(void) { return kThreads; }
@@ -1155,7 +1131,7 @@ int ttq_host_q2(const double* const* vals, const double* const* x, const double*
   return 0;
 }
 
-// Q4's whole call in a regime (arguments as ttq_dot_planned's): block after
+// Q4's whole call in a regime (arguments as ttq_dot's): block after
 // block, each stage's items in turn, the stages in the kernel's order.  out
 // (4, M, N) limb-major.  Returns 0, or -1 for a shape or plan the card's
 // entry point refuses.
@@ -1230,7 +1206,7 @@ void ttq_host_mul_by_f64(const double* const* x, const double* g, long long n, d
   }
 }
 
-// Q5's whole call with `threads` a block, arguments as ttq_div_planned's
+// Q5's whole call with `threads` a block, arguments as ttq_div's
 // (every pointer on the host): block after block, each thread's quotient
 // in turn.  out (4, E) limb-major.  Returns 0, or -1 for a shape or block
 // the card's entry point refuses.

@@ -66,30 +66,25 @@ _SIGNATURES = {
     "ttd_dd_dot_plan": ([_LL, _LL, _I, ctypes.POINTER(_LL)], _I),
     "ttd_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _I, _I, _P, _P, _P], _I),
     "ttd_dd_gather_plan": ([_LL, _I, _I, _I, ctypes.POINTER(_LL)], _I),
-    "ttd_dd_gather_plan_ok": ([_LL, _I, _I, _I, _I, _I], _I),
     "ttd_ising_c_integrand": ([_P, _I, _P, _LL, _I, _I, _P, _P, _P], _I),
     "ttd_dd_ising_plan": ([_LL, _I, _I, ctypes.POINTER(_LL)], _I),
-    "ttd_dd_ising_plan_ok": ([_LL, _I, _I, _I], _I),
     "ttd_threads": ([], _I),
     "ttd_gather_rmax": ([], _I),
     "ttq_score_residual_argmax": (
         [_PP, _PP, _PP, _LL, _I, _LL, _LL, _LL, _LL, _I, _I, _P, _P, _P], _I),
     "ttq_score_plan": ([_LL, _I, ctypes.POINTER(_LL)], _I),
-    "ttq_dot": ([_PP, _PP, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P, _P], _I),
-    "ttq_dot_planned": (
+    "ttq_dot": (
         [_PP, _PP, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P], _I),
     "ttq_dot_plan": ([_LL, _LL, _I, _I, ctypes.POINTER(_LL)], _I),
-    "ttq_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _P, _P], _I),
-    "ttq_gather_tt_planned": ([_P, _P, _I, _I, _I, _P, _LL, _I, _I, _P, _P], _I),
+    "ttq_gather_tt": ([_P, _P, _I, _I, _I, _P, _LL, _I, _I, _P, _P], _I),
+    "ttq_gather_rows": ([_I, _LL], _I),
     "ttq_ising_c_integrand": ([_P, _I, _P, _LL, _I, _I, _P, _P], _I),
     "ttq_q1_plan": ([_LL, _I, _I, ctypes.POINTER(_LL)], _I),
-    "ttq_q1_plan_ok": ([_LL, _I, _I, _I], _I),
     "ttq_threads": ([], _I),
     "ttq_rows_threads": ([], _I),
     "ttq_gather_rmax": ([], _I),
     "ttq_tree_max": ([], _I),
-    "ttq_div": ([_PP, _PP, _LLP, _LLP, _LLP, _P, _P], _I),
-    "ttq_div_planned": ([_PP, _PP, _LLP, _LLP, _LLP, _I, _P, _P], _I),
+    "ttq_div": ([_PP, _PP, _LLP, _LLP, _LLP, _I, _P, _P], _I),
     "ttq_div_plan": ([_LL, _LLP], _I),
     "ttq_div_dims": ([], _I),
 }

@@ -261,12 +261,18 @@ def dd_gather_tt(t, ind) -> DD:
     cores (the defect pipeline's, cross/defect.py).  On the card the defect
     integrand takes the one-launch kernel ops/kernels.py::dd_gather_tt_fused,
     whose plain version this is."""
-    ind = torch.as_tensor(ind, device=t.device).long()
+    return _dd_gather_tt_plain(t.cores, ind)
+
+
+def _dd_gather_tt_plain(cores, ind) -> DD:
+    """The body of dd_gather_tt: v = (1), then per core the products
+    dd_mul(v, (G_c[:, i_c, :], 0)) summed over the left rank by dd_sum."""
+    ind = torch.as_tensor(ind, device=cores[0].device).long()
     B = ind.shape[0]
-    one = torch.ones((B, 1), dtype=torch.float64, device=t.device)
+    one = torch.ones((B, 1), dtype=torch.float64, device=cores[0].device)
     v = DD(one, torch.zeros_like(one))
-    for c in range(t.d):
-        g = t.cores[c].index_select(1, ind[:, c]).movedim(1, 0)    # (B, r, r2)
+    for c, core in enumerate(cores):
+        g = core.index_select(1, ind[:, c]).movedim(1, 0)          # (B, r, r2)
         prod = dd_mul(DD(v.hi[:, :, None].expand(g.shape), v.lo[:, :, None].expand(g.shape)),
                       DD(g, torch.zeros_like(g)))                  # (B, r, r2)
         v = dd_sum(prod, axis=1)                                   # (B, r2)

@@ -19,7 +19,7 @@ from .kernels import small_table_lookup
 
 __all__ = ["as_tensor", "table_lookup", "row_lookup", "batched_row_lookup",
            "masked_slot_write", "matmul_by_sums", "pow2_balance_mats", "balanced_matmul_chain",
-           "scale_pow2", "svd_chopped", "matinv", "eye", "laplace", "norm2p",
+           "scale_pow2", "chop_rank", "svd_chopped", "matinv", "eye", "laplace", "norm2p",
            "qr_ort", "gram_schmidt", "orto_block", "aca", "greedy_cur",
            "transpose2d", "transpose3d"]
 
@@ -149,12 +149,40 @@ def as_tensor(a, device=None, dtype: torch.dtype | None = None) -> torch.Tensor:
     return a.to(device=device, dtype=dtype)
 
 
+def chop_rank(s, tol: float | None = None, rmax: int | None = None) -> int:
+    """Truncation rank: largest r with tail energy below (tol*|s|)^2,
+    capped at rmax (chop, mat.f90:433-458)."""
+    s = np.asarray(s)
+    r = s.size
+    er2 = 0.0
+    if rmax is not None and rmax < r:
+        er2 = float(np.dot(s[rmax:], s[rmax:]))
+        r = rmax
+    if tol is not None and r > 1:
+        bound = tol * tol * float(np.dot(s, s))
+        er = er2 + float(s[r - 1]) ** 2
+        while er < bound and r > 1:
+            er2 = er
+            r -= 1
+            er += float(s[r - 1]) ** 2
+    return max(r, 1)
+
+
+def _svd(m):
+    """Thin SVD.  On CUDA this asks cuSOLVER for gesvd (QR iteration, as
+    LAPACK): torch's default there, the Jacobi gesvdj, leaves the rounded
+    C_6 train's quadrature value ~2.6e-14 (median) off the LAPACK
+    rounding of the same train, which costs the headline ~0.3 digits;
+    gesvd stays within ~1e-15 (PERF.md)."""
+    if m.device.type == "cuda":
+        return torch.linalg.svd(m, full_matrices=False, driver="gesvd")
+    return torch.linalg.svd(m, full_matrices=False)
+
+
 def svd_chopped(a, tol: float | None = None, rmax: int | None = None, device=None):
     """SVD with rank truncation: (u, s, vh, err) with the chopped rank of
     the reference's tail-energy rule (svd + chop, mat.f90:340-458).  The
-    factorization is tt/ortho.py's: gesvd on the card, LAPACK on the CPU."""
-    from ..tt.ortho import _svd, chop_rank
-
+    factorization is _svd's: gesvd on the card, LAPACK on the CPU."""
     u, s, vh = _svd(as_tensor(a, device))
     r = chop_rank(s.cpu().numpy(), tol=tol, rmax=rmax)
     err = float(torch.linalg.norm(s[r:]))
@@ -164,8 +192,6 @@ def svd_chopped(a, tol: float | None = None, rmax: int | None = None, device=Non
 def matinv(a, method: str = "svd", tol: float = 0.0, device=None):
     """Matrix (pseudo-)inverse via SVD with a small-singular-value cutoff,
     or a plain LU inverse (matinv, mat.f90:23-236)."""
-    from ..tt.ortho import _svd
-
     a = as_tensor(a, device)
     if method == "lu":
         return torch.linalg.inv(a)

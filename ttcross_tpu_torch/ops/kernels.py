@@ -18,7 +18,9 @@ and a float32 instantiation (the f32 tier): a wrapper launches the one of
 its inputs' dtype, which must be one of the two and the same for every
 floating input (TypeError otherwise; no input is converted).  ``<wrapper>.launches`` counts the kernel launches of
 that wrapper, and ``launch_shapes()`` breaks them down by the shape of the
-call, an f32 launch's shape ending in "f32".
+call, an f32 launch's shape ending in "f32".  A wrapper launches in the
+plan its rule gives the shape; ``planned(wrapper, plan, ...)`` launches it
+in another (the card tests and the tuning).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves     # DD, QD and PackedTT are its nodes
 
 from . import _build
 
@@ -38,23 +41,20 @@ __all__ = ["score_residual_argmax", "score_residual_argmax_plain",
            "small_table_lookup", "small_table_lookup_plain",
            "ising_integrand_fused", "ising_integrand_plain",
            "mvn_pdf_fused", "mvn_pdf_plain", "mvn_pdf_emulated", "mvn_pdf_tolerance",
-           "lane_uniforms", "lane_uniforms_plain", "lane_uniforms_emulated",
-           "score_residual_argmax_batched_planned",
-           "dd_score_residual_argmax", "dd_score_residual_argmax_plain",
-           "dd_score_residual_argmax_planned", "dd_score_plan", "DdScorePlan", "dd_dot",
-           "dd_dot_plain", "dd_dot_plan", "dd_dot_planned", "DdDotPlan",
-           "dd_gather_tt_fused", "dd_gather_tt_planned", "dd_gather_plan", "dd_gather_plan_ok",
-           "DdGatherPlan", "dd_gather_tt_plain", "PackedTT", "pack_tt",
-           "ising_c_integrand_dd_fused", "ising_c_integrand_dd_plain",
-           "ising_c_integrand_dd_planned", "ising_c_dd_plan", "ising_c_dd_plan_ok", "IsingRowsPlan",
-           "qd_score_residual_argmax", "qd_score_residual_argmax_plain",
-           "qd_score_residual_argmax_planned", "qd_score_plan", "qd_dot", "qd_dot_plain",
-           "qd_dot_plan", "qd_dot_planned", "QdDotPlan",
-           "qd_gather_tt_fused", "qd_gather_tt_planned", "qd_gather_tt_plain",
-           "ising_c_integrand_qd_fused", "ising_c_integrand_qd_plain",
-           "ising_c_integrand_qd_planned", "ising_c_qd_plan", "ising_c_qd_plan_ok",
-           "qd_div_fused", "qd_div_plain", "qd_div_planned", "qd_div_plan", "QdDivPlan",
-           "launch_counts", "launch_shapes", "reset_launch_counts"]
+           "draw_uniforms", "lane_seeds", "lane_uniforms", "lane_uniforms_plain",
+           "lane_uniforms_emulated",
+           "dd_score_residual_argmax", "dd_score_residual_argmax_plain", "dd_score_plan",
+           "DdScorePlan", "dd_dot", "dd_dot_plain", "dd_dot_plan", "DdDotPlan",
+           "dd_gather_tt_fused", "dd_gather_plan", "DdGatherPlan", "dd_gather_tt_plain",
+           "PackedTT", "pack_tt",
+           "ising_c_integrand_dd_fused", "ising_c_integrand_dd_plain", "ising_c_dd_plan",
+           "IsingRowsPlan",
+           "qd_score_residual_argmax", "qd_score_residual_argmax_plain", "qd_score_plan",
+           "qd_dot", "qd_dot_plain", "qd_dot_plan", "QdDotPlan",
+           "qd_gather_tt_fused", "qd_gather_tt_plain",
+           "ising_c_integrand_qd_fused", "ising_c_integrand_qd_plain", "ising_c_qd_plan",
+           "qd_div_fused", "qd_div_plain", "qd_div_plan", "QdDivPlan",
+           "planned", "launch_counts", "launch_shapes", "reset_launch_counts"]
 
 _THREADS = 256             # kThreads: a block of kernel B
 _TILE_THREADS = 512        # kTileThreads: a block of the 2-D kernel
@@ -163,7 +163,14 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _raise_on(rc: int, what: str) -> None:
+_INVALID_VALUE = 1         # cudaErrorInvalidValue: an entry point refuses a shape or plan
+
+
+def _raise_on(rc: int, what: str, plan=None) -> None:
+    """RuntimeError for a CUDA error; ValueError where an entry point refuses
+    a plan its caller named (planned)."""
+    if rc == _INVALID_VALUE and plan is not None:
+        raise ValueError(f"{what}: the kernel takes no plan {plan} at this shape")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
@@ -398,20 +405,13 @@ def score_residual_argmax_batched(vals, colf, rowf, mask):
     buffer allocated per call."""
     if vals.device.type == "cpu":
         return score_residual_argmax_batched_plain(vals, colf, rowf, mask)
-    return _batched_launch(vals, colf, rowf, mask, 0)
+    return _batched_launch(vals, colf, rowf, mask)
 
 
-def score_residual_argmax_batched_planned(vals, colf, rowf, mask, cluster: int):
-    """The batched kernel A on CUDA tensors with `cluster` blocks per fiber
-    (1: the block body), whatever _plan's rule gives the shape: the card
-    tests and the tuning hold and time both bodies with it.  Counts its
-    launch as score_residual_argmax_batched's."""
-    if cluster < 1:
-        raise ValueError(f"cluster must be at least 1, got {cluster}")
-    return _batched_launch(vals, colf, rowf, mask, cluster)
-
-
-def _batched_launch(vals, colf, rowf, mask, cluster: int):
+def _batched_launch(vals, colf, rowf, mask, plan=None):
+    """plan: blocks a fiber (1: the block body), else _plan's rule."""
+    if plan is not None and plan < 1:
+        raise ValueError(f"cluster must be at least 1, got {plan}")
     vals, colf, rowf, mask = _launchable(vals, colf, rowf, mask)
     with torch._C._DisableFuncTorch():     # plain tensors from here on
         dev = vals.device
@@ -429,7 +429,7 @@ def _batched_launch(vals, colf, rowf, mask, cluster: int):
         if P * M * K == 0:
             raise ValueError("score_residual_argmax_batched of an empty stack")
         plan = _plan(M, K, R, _sms(dev.index), bonds=P, esz=vals.element_size(),
-                     cluster=cluster)
+                     cluster=plan or 0)     # the named cluster, else the rule's
         # 8-byte words: [P indices, P scores, P residuals, nparts scores,
         # indices, residuals]; f32 scores and residuals packed from the start
         # of their P words, an f32 partial at the start of its word
@@ -778,12 +778,19 @@ def _lane_uniforms_shape(keys, sweeps: int, d: int, nlot: int) -> tuple:
     return max(int(sweeps), 1), len(keys), d - 1, 2, nlot
 
 
+def draw_uniforms(key: int, sweeps: int, d: int, nlot: int) -> torch.Tensor:
+    """The lottery uniforms of a run with this key: one draw of (sweeps,
+    d-1, 2, nlot) f64 on the CPU from torch.Generator().manual_seed(key),
+    so that CPU and CUDA runs see the same stream and a run of s sweeps
+    sees its first s blocks (a resumed run skips the blocks already used)."""
+    gen = torch.Generator(device="cpu").manual_seed(int(key))
+    return torch.rand((max(sweeps, 1), d - 1, 2, nlot), generator=gen, dtype=torch.float64)
+
+
 def lane_uniforms_plain(keys, sweeps: int, d: int, nlot: int) -> torch.Tensor:
     """The lottery uniforms of lanes with these keys, on the CPU: each lane's
-    cross/engine.py::draw_uniforms (torch.Generator().manual_seed(key)),
-    stacked on dim 1: (max(sweeps, 1), L, d-1, 2, nlot) float64."""
-    from ..cross.engine import draw_uniforms    # cross/engine.py imports this module
-
+    draw_uniforms, stacked on dim 1: (max(sweeps, 1), L, d-1, 2, nlot)
+    float64."""
     _lane_uniforms_shape(keys, sweeps, d, nlot)
     return torch.stack([draw_uniforms(int(k), sweeps, d, nlot) for k in keys], dim=1)
 
@@ -795,8 +802,6 @@ def lane_uniforms_emulated(keys, sweeps: int, d: int, nlot: int) -> torch.Tensor
     the double ((w0 << 32) | w1) & (2^53 - 1) times 2^-53 of each pair of
     words; element j of a lane at [j // row, lane, j % row], row = (d-1) 2
     nlot.  For the CPU tests."""
-    import numpy as np
-
     S, L, _, _, _ = shape = _lane_uniforms_shape(keys, sweeps, d, nlot)
     u32 = np.uint32
     old = np.empty((L, _MT_N), u32)
@@ -834,33 +839,34 @@ def lane_uniforms_emulated(keys, sweeps: int, d: int, nlot: int) -> torch.Tensor
     return torch.from_numpy(np.ascontiguousarray(out)).reshape(shape)
 
 
+def lane_seeds(keys) -> torch.Tensor:
+    """The MT19937 kernel's seeds of lanes with these keys: each key's low 32
+    bits, read as int32 (the kernel reads them as uint32), on the CPU."""
+    return torch.tensor([(int(k) + 2**31) % 2**32 - 2**31 for k in keys], dtype=torch.int32)
+
+
 def lane_uniforms(keys, sweeps: int, d: int, nlot: int, device) -> torch.Tensor:
     """The lottery uniforms of the lanes with these keys (Python ints, one a
-    lane) on `device`: (max(sweeps, 1), L, d-1, 2, nlot) float64, lane l's
-    block the uniforms cross(key=keys[l]) draws (cross/engine.py::
-    draw_uniforms), bit for bit.
+    lane; on a CUDA device also their lane_seeds, already there) on
+    `device`: (max(sweeps, 1), L, d-1, 2, nlot) float64, lane l's block the
+    uniforms cross(key=keys[l]) draws (draw_uniforms), bit for bit.
 
     Replaces no TPU kernel (the JAX package draws with jax.random).  For a
-    device other than CUDA this is lane_uniforms_plain, copied to the device
-    under the span entry.upload; on a CUDA device it copies the keys mod
-    2^32 (the span entry.upload), allocates the output and launches
-    csrc/kernels.cu's lane_mt19937_kernel once, a block per lane, and adds
-    one to ``lane_uniforms.launches``; its result is lane_uniforms_emulated's."""
-    from ..utils.metrics import span    # utils imports ops/dense.py, which imports this module
-
+    device other than CUDA this is lane_uniforms_plain, copied to the
+    device; on a CUDA device it copies the seeds there unless they are,
+    allocates the output and launches csrc/kernels.cu's lane_mt19937_kernel
+    once, a block per lane, and adds one to ``lane_uniforms.launches``; its
+    result is lane_uniforms_emulated's."""
     dev = torch.device(device)
     if dev.type != "cuda":
-        out = lane_uniforms_plain(keys, sweeps, d, nlot)
-        with span("entry.upload", bytes=out.nbytes):
-            return out.to(dev)
+        return lane_uniforms_plain(keys, sweeps, d, nlot).to(dev)
     shape = _lane_uniforms_shape(keys, sweeps, d, nlot)
     S, L, row = shape[0], shape[1], (d - 1) * 2 * nlot
     if S * row > 2**32 - 1 - _MT_N // 2:
         raise ValueError(f"{S * row} uniforms a lane exceed the MT19937 kernel's 32-bit count")
-    # each key's low 32 bits, read as int32 (the kernel reads them as uint32)
-    seeds = torch.tensor([(int(k) + 2**31) % 2**32 - 2**31 for k in keys], dtype=torch.int32)
-    with span("entry.upload", bytes=seeds.nbytes):
-        seeds = seeds.to(dev)
+    seeds = (keys if torch.is_tensor(keys) else lane_seeds(keys)).to(dev)
+    dev = seeds.device                      # "cuda" names the current card
+    _check_cuda("seeds", seeds, _I32, 1, dev)
     out = torch.empty(shape, dtype=torch.float64, device=dev)
     rc = _call(dev, _lib().ttc_lane_uniforms, seeds.data_ptr(), L, S, row, out.data_ptr())
     _raise_on(rc, "lane_uniforms launch")
@@ -968,19 +974,10 @@ def dd_score_residual_argmax(vals, x, y, rank=None, mask=None, mask_side: int = 
     of another."""
     if x[0].device.type == "cpu":
         return dd_score_residual_argmax_plain(vals, x, y, rank, mask, mask_side)
-    return _dd_score_launch(vals, x, y, rank, mask, mask_side, None)
+    return _dd_score_launch(vals, x, y, rank, mask, mask_side)
 
 
-def dd_score_residual_argmax_planned(vals, x, y, rank=None, mask=None,
-                                     mask_side: int = MASK_NONE, plan: tuple = None):
-    """D1 on CUDA tensors in the plan `plan` = (P, C) names (as
-    DdScorePlan's first two fields), whatever dd_score_plan gives the
-    shape: the card tests and the tuning hold other plans to the plain
-    version with it.  Counts its launch as dd_score_residual_argmax's."""
-    return _dd_score_launch(vals, x, y, rank, mask, mask_side, plan)
-
-
-def _dd_score_launch(vals, x, y, rank, mask, mask_side, plan):
+def _dd_score_launch(vals, x, y, rank=None, mask=None, mask_side: int = MASK_NONE, plan=None):
     ddm = _dd_mod()
     dev = x[0].device
     _check_pair("x", x, 2, dev)
@@ -1017,7 +1014,7 @@ def _dd_score_launch(vals, x, y, rank, mask, mask_side, plan):
                rank.data_ptr() if rank is not None else null, mask_side,
                mask.data_ptr() if mask is not None else null, P, C, out.data_ptr(),
                words.data_ptr())
-    _raise_on(rc, "dd_score_residual_argmax launch")
+    _raise_on(rc, "dd_score_residual_argmax launch", plan)
     dd_score_residual_argmax.launches += 1
     _SHAPES["dd_score_residual_argmax", (B, T)] += 1
     best = words[:4].view(torch.float64)
@@ -1072,18 +1069,10 @@ def dd_dot(x, y):
     terms a thread per output) and adds one to ``dd_dot.launches``."""
     if x[0].device.type == "cpu":
         return dd_dot_plain(x, y)
-    return _dd_dot_launch(x, y, None)
+    return _dd_dot_launch(x, y)
 
 
-def dd_dot_planned(x, y, plan: tuple):
-    """D4 on CUDA tensors in the regime `plan` = (regime, P, C) names (as
-    DdDotPlan's first three fields), whatever dd_dot_plan gives the shape:
-    the card tests and the tuning hold every regime to the plain version
-    with it.  Counts its launch as dd_dot's."""
-    return _dd_dot_launch(x, y, plan)
-
-
-def _dd_dot_launch(x, y, plan):
+def _dd_dot_launch(x, y, plan=None):
     ddm = _dd_mod()
     dev = x[0].device
     _check_pair("x", x, 3, dev)
@@ -1098,7 +1087,7 @@ def _dd_dot_launch(x, y, plan):
     rc = _call(dev, _lib().ttd_dot, x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(),
                y[1].data_ptr(), M, N, T, *x[0].stride(), *y[0].stride(),
                _DD_REGIMES.index(regime), P, C, out[0].data_ptr(), out[1].data_ptr())
-    _raise_on(rc, "dd_dot launch")
+    _raise_on(rc, "dd_dot launch", plan)
     dd_dot.launches += 1
     _SHAPES["dd_dot", (M, N, T)] += 1
     return ddm.DD(out[0], out[1])
@@ -1128,14 +1117,15 @@ def pack_tt(t) -> PackedTT:
     return PackedTT(cores, ranks, torch.tensor(ranks, dtype=torch.int32).to(dev), n)
 
 
+def _active_cores(tt: PackedTT) -> tuple:
+    """Each core's active block of a packed train."""
+    r = tt.ranks
+    return tuple(tt.cores[c, : r[c], : tt.n[c], : r[c + 1]] for c in range(len(tt.n)))
+
+
 def dd_gather_tt_plain(tt: PackedTT, ind):
     """ops/dd.py::dd_gather_tt of the packed train: each core's active block."""
-    ddm = _dd_mod()
-    from ..tt.types import TT
-
-    r = tt.ranks
-    cores = tuple(tt.cores[c, : r[c], : tt.n[c], : r[c + 1]] for c in range(len(tt.n)))
-    return ddm.dd_gather_tt(TT(cores), ind)
+    return _dd_mod()._dd_gather_tt_plain(_active_cores(tt), ind)
 
 
 class DdGatherPlan(NamedTuple):
@@ -1156,12 +1146,6 @@ def dd_gather_plan(B: int, d: int, R: int, N: int) -> DdGatherPlan:
     return DdGatherPlan(*out)
 
 
-def dd_gather_plan_ok(B: int, d: int, R: int, N: int, rows: int, threads: int) -> bool:
-    """Whether D3 takes `rows` rows and `threads` threads a block at this
-    shape (dd_gather_tt_planned raises on a plan it does not take)."""
-    return _lib().ttd_dd_gather_plan_ok(B, d, R, N, rows, threads) == 1
-
-
 def dd_gather_tt_fused(tt: PackedTT, ind):
     """D3: the f64 train evaluated at (B, d) int32 indices with dd
     accumulation, DD (B,), in one launch.
@@ -1175,17 +1159,10 @@ def dd_gather_tt_fused(tt: PackedTT, ind):
     ``dd_gather_tt_fused.launches``.  An index outside [0, N) is clamped."""
     if ind.device.type == "cpu":
         return dd_gather_tt_plain(tt, ind)
-    return _dd_gather_tt_launch(tt, ind, None)
+    return _dd_gather_tt_launch(tt, ind)
 
 
-def dd_gather_tt_planned(tt: PackedTT, ind, rows: int, threads: int):
-    """D3 on CUDA tensors with `rows` rows and `threads` threads a block,
-    whatever dd_gather_plan gives the shape: the card tests and the tuning
-    use it.  Counts its launch as dd_gather_tt_fused's."""
-    return _dd_gather_tt_launch(tt, ind, (rows, threads))
-
-
-def _dd_gather_tt_launch(tt, ind, plan):
+def _dd_gather_tt_launch(tt, ind, plan=None):
     ddm = _dd_mod()
     dev = ind.device
     _check_cuda("ind", ind, _I32, 2, dev)
@@ -1203,7 +1180,7 @@ def _dd_gather_tt_launch(tt, ind, plan):
     P, threads = dd_gather_plan(B, d, R, N)[:2] if plan is None else plan
     rc = _call(dev, _lib().ttd_gather_tt, tt.cores.data_ptr(), tt.ranks_t.data_ptr(), d, R, N,
                ind.data_ptr(), B, P, threads, out[0].data_ptr(), out[1].data_ptr())
-    _raise_on(rc, "dd_gather_tt_fused launch")
+    _raise_on(rc, "dd_gather_tt_fused launch", plan)
     dd_gather_tt_fused.launches += 1
     _SHAPES["dd_gather_tt_fused", (B, N) + tt.ranks] += 1
     return ddm.DD(out[0], out[1])
@@ -1268,12 +1245,6 @@ def ising_c_dd_plan(B: int, d: int, n: int) -> IsingRowsPlan:
     return _rows_plan(_lib().ttd_dd_ising_plan, "ising_c_integrand_dd_fused", B, d, n)
 
 
-def ising_c_dd_plan_ok(B: int, d: int, n: int, rows: int) -> bool:
-    """Whether D2 takes `rows` rows a block at this shape
-    (ising_c_integrand_dd_planned raises on a plan it does not take)."""
-    return _lib().ttd_dd_ising_plan_ok(B, d, n, rows) == 1
-
-
 def _check_rows(name: str, tables, ind, limbs: int):
     """The checks of D2's and Q1's inputs on the card: (B, d, n)."""
     dev = ind.device
@@ -1305,27 +1276,20 @@ def ising_c_integrand_dd_fused(tables, ind):
     ``ising_c_integrand_dd_fused.launches``."""
     if ind.device.type == "cpu":
         return ising_c_integrand_dd_plain(tables, ind)
-    return _ising_dd_launch(tables, ind, None)
+    return _ising_dd_launch(tables, ind)
 
 
-def ising_c_integrand_dd_planned(tables, ind, rows: int):
-    """D2 on CUDA tensors with `rows` rows a block (IsingRowsPlan.P),
-    whatever ising_c_dd_plan gives the shape: the card tests and the tuning
-    use it.  Counts its launch as ising_c_integrand_dd_fused's."""
-    return _ising_dd_launch(tables, ind, rows)
-
-
-def _ising_dd_launch(tables, ind, rows):
+def _ising_dd_launch(tables, ind, plan=None):
     ddm = _dd_mod()
     dev = ind.device
     B, d, n = _check_rows("ising_c_integrand_dd_fused", tables, ind, 2)
     out = torch.empty((2, B), dtype=torch.float64, device=dev)
     if B == 0:
         return ddm.DD(out[0], out[1])
-    P = ising_c_dd_plan(B, d, n).P if rows is None else rows
+    P = ising_c_dd_plan(B, d, n).P if plan is None else plan
     rc = _call(dev, _lib().ttd_ising_c_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d, P,
                out[0].data_ptr(), out[1].data_ptr())
-    _raise_on(rc, "ising_c_integrand_dd_fused launch")
+    _raise_on(rc, "ising_c_integrand_dd_fused launch", plan)
     ising_c_integrand_dd_fused.launches += 1
     _SHAPES["ising_c_integrand_dd_fused", (B, d, n)] += 1
     return ddm.DD(out[0], out[1])
@@ -1407,17 +1371,10 @@ def qd_score_residual_argmax(vals, x, y):
     ``qd_score_residual_argmax.launches``."""
     if x[0].device.type == "cpu":
         return qd_score_residual_argmax_plain(vals, x, y)
-    return _qd_score_launch(vals, x, y, None)
+    return _qd_score_launch(vals, x, y)
 
 
-def qd_score_residual_argmax_planned(vals, x, y, plan: tuple):
-    """Q2 on CUDA tensors in the plan `plan` = (regime, P) names ("tree" or
-    "thread"), whatever qd_score_plan gives the shape: the card tests and
-    the tuning use it.  Counts its launch as qd_score_residual_argmax's."""
-    return _qd_score_launch(vals, x, y, plan)
-
-
-def _qd_score_launch(vals, x, y, plan):
+def _qd_score_launch(vals, x, y, plan=None):
     qdm = _qd_mod()
     dev = x[0].device
     _check_limbs("x", x, 2, dev)
@@ -1439,7 +1396,7 @@ def _qd_score_launch(vals, x, y, plan):
     rc = _call(dev, _lib().ttq_score_residual_argmax, _limb_ptrs(vals), _limb_ptrs(x),
                _limb_ptrs(y), B, T, x[0].stride(0), x[0].stride(1), y[0].stride(0),
                y[0].stride(1), _QD_REGIMES.index(regime), P, out.data_ptr(), words.data_ptr())
-    _raise_on(rc, "qd_score_residual_argmax launch")
+    _raise_on(rc, "qd_score_residual_argmax launch", plan)
     qd_score_residual_argmax.launches += 1
     _SHAPES["qd_score_residual_argmax", (B, T)] += 1
     return qdm.QD(out[0], out[1], out[2], out[3]), words[0]
@@ -1477,6 +1434,7 @@ class QdDotPlan(NamedTuple):
 _QD_REGIMES = ("thread", "chain", "tree")
 
 
+@functools.lru_cache(maxsize=4096)
 def qd_dot_plan(M: int, N: int, T: int, tree: bool) -> QdDotPlan:
     """The launch Q4 takes at (M, N, T, mode): a function of the shape
     alone, so each shape of launch_shapes() names its regime."""
@@ -1501,18 +1459,10 @@ def qd_dot(x, y, tree: bool):
     ``qd_dot.launches``."""
     if x[0].device.type == "cpu":
         return qd_dot_plain(x, y, tree)
-    return _qd_dot_launch(x, y, tree, None)
+    return _qd_dot_launch(x, y, tree)
 
 
-def qd_dot_planned(x, y, tree: bool, plan: tuple):
-    """Q4 on CUDA tensors in the regime `plan` = (regime, P, C) names (as
-    QdDotPlan's first three fields), whatever qd_dot_plan gives the shape:
-    the card tests hold every regime to the plain version with it.  Counts
-    its launch as qd_dot's."""
-    return _qd_dot_launch(x, y, tree, plan)
-
-
-def _qd_dot_launch(x, y, tree, plan):
+def _qd_dot_launch(x, y, tree, plan=None):
     qdm = _qd_mod()
     dev = x[0].device
     _check_limbs("x", x, 3, dev)
@@ -1523,15 +1473,11 @@ def _qd_dot_launch(x, y, tree, plan):
     if M * N == 0 or T > _QD_TREE_MAX or (tree and T == 0):
         raise ValueError(f"qd_dot takes a non-empty output and T <= {_QD_TREE_MAX} (T >= 1 for "
                          f"the tree), got ({M}, {N}, {T})")
+    regime, P, C = qd_dot_plan(M, N, T, tree)[:3] if plan is None else plan
     out = torch.empty((4, M, N), dtype=torch.float64, device=dev)
-    args = (_limb_ptrs(x), _limb_ptrs(y), M, N, T, *x[0].stride(), *y[0].stride(), int(tree))
-    if plan is None:
-        rc = _call(dev, _lib().ttq_dot, *args, out.data_ptr())
-    else:
-        regime, P, C = plan
-        rc = _call(dev, _lib().ttq_dot_planned, *args, _QD_REGIMES.index(regime), P, C,
-                   out.data_ptr())
-    _raise_on(rc, "qd_dot launch")
+    rc = _call(dev, _lib().ttq_dot, _limb_ptrs(x), _limb_ptrs(y), M, N, T, *x[0].stride(),
+               *y[0].stride(), int(tree), _QD_REGIMES.index(regime), P, C, out.data_ptr())
+    _raise_on(rc, "qd_dot launch", plan)
     qd_dot.launches += 1
     _SHAPES["qd_dot", (M, N, T, "tree" if tree else "seq")] += 1
     return qdm.QD(out[0], out[1], out[2], out[3])
@@ -1542,9 +1488,14 @@ qd_dot.launches = 0
 
 def qd_gather_tt_plain(tt: PackedTT, ind):
     """ops/qd.py::qd_gather_tt of the packed train: each core's active block."""
-    r = tt.ranks
-    cores = tuple(tt.cores[c, : r[c], : tt.n[c], : r[c + 1]] for c in range(len(tt.n)))
-    return _qd_mod()._qd_gather_tt_plain(cores, ind)
+    return _qd_mod()._qd_gather_tt_plain(_active_cores(tt), ind)
+
+
+@functools.lru_cache(maxsize=4096)
+def _qd_gather_rows(R: int, B: int) -> int:
+    """The rows a block of _QD_THREADS threads Q3 takes for B rows at packed
+    rank R (csrc/qd_kernels.cu::gather_rows)."""
+    return _lib().ttq_gather_rows(R, B)
 
 
 def qd_gather_tt_fused(tt: PackedTT, ind):
@@ -1555,22 +1506,15 @@ def qd_gather_tt_fused(tt: PackedTT, ind):
     164-173, ops/qd.py:384-403).  On a CPU tensor this is
     qd_gather_tt_plain; on a CUDA tensor it launches csrc/qd_kernels.cu's
     qd_gather_tt_kernel (a block of rows, every leaf of a core on its own
-    thread, the trees level by level; ranks up to _QD_GATHER_RMAX) and
-    adds one to ``qd_gather_tt_fused.launches``."""
+    thread, the trees level by level; ranks up to _QD_GATHER_RMAX; the rows
+    a block from _qd_gather_rows, _QD_THREADS threads) and adds one to
+    ``qd_gather_tt_fused.launches``."""
     if ind.device.type == "cpu":
         return qd_gather_tt_plain(tt, ind)
-    return _qd_gather_tt_launch(tt, ind, None)
+    return _qd_gather_tt_launch(tt, ind)
 
 
-def qd_gather_tt_planned(tt: PackedTT, ind, rows: int, threads: int):
-    """Q3 on CUDA tensors with `rows` rows and `threads` threads a block,
-    whatever the launch rule (ttq_gather_rows, 256 threads) gives: the card
-    tests and the tuning use it.  Counts its launch as
-    qd_gather_tt_fused's."""
-    return _qd_gather_tt_launch(tt, ind, (rows, threads))
-
-
-def _qd_gather_tt_launch(tt, ind, plan):
+def _qd_gather_tt_launch(tt, ind, plan=None):
     qdm = _qd_mod()
     dev = ind.device
     _check_cuda("ind", ind, _I32, 2, dev)
@@ -1585,13 +1529,10 @@ def _qd_gather_tt_launch(tt, ind, plan):
     out = torch.empty((4, B), dtype=torch.float64, device=dev)
     if B == 0:
         return qdm.QD(out[0], out[1], out[2], out[3])
-    if plan is None:
-        rc = _call(dev, _lib().ttq_gather_tt, tt.cores.data_ptr(), tt.ranks_t.data_ptr(), d, R,
-                   N, ind.data_ptr(), B, out.data_ptr())
-    else:
-        rc = _call(dev, _lib().ttq_gather_tt_planned, tt.cores.data_ptr(), tt.ranks_t.data_ptr(),
-                   d, R, N, ind.data_ptr(), B, *plan, out.data_ptr())
-    _raise_on(rc, "qd_gather_tt_fused launch")
+    rows, threads = (_qd_gather_rows(R, B), _QD_THREADS) if plan is None else plan
+    rc = _call(dev, _lib().ttq_gather_tt, tt.cores.data_ptr(), tt.ranks_t.data_ptr(), d, R, N,
+               ind.data_ptr(), B, rows, threads, out.data_ptr())
+    _raise_on(rc, "qd_gather_tt_fused launch", plan)
     qd_gather_tt_fused.launches += 1
     _SHAPES["qd_gather_tt_fused", (B, N) + tt.ranks] += 1
     return qdm.QD(out[0], out[1], out[2], out[3])
@@ -1639,12 +1580,6 @@ def ising_c_qd_plan(B: int, d: int, n: int) -> IsingRowsPlan:
     return _rows_plan(_lib().ttq_q1_plan, "ising_c_integrand_qd_fused", B, d, n)
 
 
-def ising_c_qd_plan_ok(B: int, d: int, n: int, rows: int) -> bool:
-    """Whether Q1 takes `rows` rows a block at this shape
-    (ising_c_integrand_qd_planned raises on a plan it does not take)."""
-    return _lib().ttq_q1_plan_ok(B, d, n, rows) == 1
-
-
 def ising_c_integrand_qd_fused(tables, ind):
     """Q1: the qd Ising integrand with its table lookup, QD (B,), in one
     launch.
@@ -1659,27 +1594,20 @@ def ising_c_integrand_qd_fused(tables, ind):
     ``ising_c_integrand_qd_fused.launches``."""
     if ind.device.type == "cpu":
         return ising_c_integrand_qd_plain(tables, ind)
-    return _ising_qd_launch(tables, ind, None)
+    return _ising_qd_launch(tables, ind)
 
 
-def ising_c_integrand_qd_planned(tables, ind, rows: int):
-    """Q1 on CUDA tensors with `rows` rows a block (IsingRowsPlan.P),
-    whatever ising_c_qd_plan gives the shape: the card tests and the tuning
-    use it.  Counts its launch as ising_c_integrand_qd_fused's."""
-    return _ising_qd_launch(tables, ind, rows)
-
-
-def _ising_qd_launch(tables, ind, rows):
+def _ising_qd_launch(tables, ind, plan=None):
     qdm = _qd_mod()
     dev = ind.device
     B, d, n = _check_rows("ising_c_integrand_qd_fused", tables, ind, 4)
     out = torch.empty((4, B), dtype=torch.float64, device=dev)
     if B == 0:
         return qdm.QD(out[0], out[1], out[2], out[3])
-    P = ising_c_qd_plan(B, d, n).P if rows is None else rows
+    P = ising_c_qd_plan(B, d, n).P if plan is None else plan
     rc = _call(dev, _lib().ttq_ising_c_integrand, tables.data_ptr(), n, ind.data_ptr(), B, d, P,
                out.data_ptr())
-    _raise_on(rc, "ising_c_integrand_qd_fused launch")
+    _raise_on(rc, "ising_c_integrand_qd_fused launch", plan)
     ising_c_integrand_qd_fused.launches += 1
     _SHAPES["ising_c_integrand_qd_fused", (B, d, n)] += 1
     return qdm.QD(out[0], out[1], out[2], out[3])
@@ -1731,21 +1659,12 @@ def qd_div_fused(x, y):
     takes one launch where the plain version takes ~1,600."""
     if all(e.device.type == "cpu" for e in (*x, *y)):
         return qd_div_plain(x, y)
-    return _qd_div_launch(x, y, None)
+    return _qd_div_launch(x, y)
 
 
-def qd_div_planned(x, y, threads: int):
-    """Q5 on CUDA tensors with `threads` a block (32-256, a multiple of 32),
-    whatever qd_div_plan gives: the card tests and the tuning use it.
-    Counts its launch as qd_div_fused's."""
-    return _qd_div_launch(x, y, threads)
-
-
-def _qd_div_launch(x, y, threads):
+def _qd_div_launch(x, y, plan=None):
     qdm = _qd_mod()
-    dev = next((e.device for e in (*x, *y) if e.device.type == "cuda"), None)
-    if dev is None:
-        raise ValueError("qd_div_planned launches on CUDA tensors only")
+    dev = next(e.device for e in (*x, *y) if e.device.type == "cuda")
     _check_limbs("x", x, x[0].dim(), dev)
     _check_limbs("y", y, y[0].dim(), dev)
     # numpy's rule: torch.broadcast_shapes costs ~0.1 ms a call and imports sympy at its first
@@ -1760,13 +1679,10 @@ def _qd_div_launch(x, y, threads):
         size = (ctypes.c_longlong * _QD_DIV_DIMS)(*((1,) * lead + tuple(shape)))
         xs, ys = ((ctypes.c_longlong * _QD_DIV_DIMS)(*((0,) * lead + op[0].expand(shape).stride()))
                   for op in (x, y))
-        if threads is None:
-            rc = _call(dev, _lib().ttq_div, _limb_ptrs(x), _limb_ptrs(y), size, xs, ys,
-                       out.data_ptr())
-        else:
-            rc = _call(dev, _lib().ttq_div_planned, _limb_ptrs(x), _limb_ptrs(y), size, xs, ys,
-                       threads, out.data_ptr())
-        _raise_on(rc, "qd_div_fused launch")
+        threads = qd_div_plan(E).threads if plan is None else plan
+        rc = _call(dev, _lib().ttq_div, _limb_ptrs(x), _limb_ptrs(y), size, xs, ys, threads,
+                   out.data_ptr())
+        _raise_on(rc, "qd_div_fused launch", plan)
         qd_div_fused.launches += 1
         _SHAPES["qd_div", ("one" if y[0].numel() == 1 else "each",) + tuple(shape)] += 1
     return qdm.QD(out[0], out[1], out[2], out[3])
@@ -1779,6 +1695,41 @@ _WRAPPERS = (score_residual_argmax, score_residual_argmax_batched, small_table_l
              ising_integrand_fused, mvn_pdf_fused, lane_uniforms, dd_score_residual_argmax,
              dd_dot, dd_gather_tt_fused, ising_c_integrand_dd_fused, qd_score_residual_argmax,
              qd_dot, qd_gather_tt_fused, ising_c_integrand_qd_fused, qd_div_fused)
+
+# the wrappers that launch in a named plan, and each one's launch
+_LAUNCHES = {score_residual_argmax_batched: _batched_launch,
+             dd_score_residual_argmax: _dd_score_launch, dd_dot: _dd_dot_launch,
+             dd_gather_tt_fused: _dd_gather_tt_launch, ising_c_integrand_dd_fused: _ising_dd_launch,
+             qd_score_residual_argmax: _qd_score_launch, qd_dot: _qd_dot_launch,
+             qd_gather_tt_fused: _qd_gather_tt_launch, ising_c_integrand_qd_fused: _ising_qd_launch,
+             qd_div_fused: _qd_div_launch}
+
+
+def planned(wrapper, plan, *args, **kw):
+    """wrapper(*args, **kw) on CUDA tensors in the plan `plan`, whatever the
+    wrapper's rule gives the shape, its launch counted as the wrapper's:
+    the card tests and the tuning hold and time every plan with it.  A plan
+    is named as the rule's is:
+
+    score_residual_argmax_batched   cluster: blocks a fiber (1: the block body)
+    dd_score_residual_argmax        (P, C), as DdScorePlan's first two fields
+    dd_dot, qd_dot                  (regime, P, C), as DdDotPlan's / QdDotPlan's
+    qd_score_residual_argmax        (regime, P): "tree" or "thread"
+    dd_gather_tt_fused,
+    qd_gather_tt_fused              (rows, threads) a block
+    ising_c_integrand_dd_fused,
+    ising_c_integrand_qd_fused      rows a block (IsingRowsPlan.P)
+    qd_div_fused                    threads a block (32-256, a multiple of 32)
+
+    ValueError on CPU tensors and on a plan the kernel refuses at the shape
+    (its entry point's own check), with no launch counted; TypeError for a
+    wrapper that takes no plan."""
+    launch = _LAUNCHES.get(wrapper)
+    if launch is None:
+        raise TypeError(f"{getattr(wrapper, '__name__', wrapper)} launches in no named plan")
+    if not any(torch.is_tensor(t) and t.is_cuda for t in tree_leaves((args, kw))):
+        raise ValueError(f"planned launches {wrapper.__name__} on CUDA tensors only")
+    return launch(*args, plan=plan, **kw)
 
 
 def _counter_name(f) -> str:

@@ -49,11 +49,11 @@ from ..config import precision_thresholds
 from ..cross.chains import (advance_left, advance_right, all_left_tables, all_right_tables,
                             left_table, right_table)
 from ..cross.engine import (CrossConfig, CrossResult, EngineKit, _apply_refine, _print_history,
-                            _values_errors, draw_uniforms, finalize, make_engine, quad_matrix,
-                            round_and_revalue)
+                            _values_errors, finalize, make_engine, quad_matrix, round_and_revalue)
 from ..cross.state import CrossState
 from ..ops.dense import (balanced_matmul_chain, masked_slot_write, matmul_by_sums,
                          pow2_balance_mats, scale_pow2)
+from ..ops.kernels import draw_uniforms
 from ..utils.metrics import history_from_run
 from .mesh import BondMesh, all_gather, bond_mesh, psum, share, shift
 

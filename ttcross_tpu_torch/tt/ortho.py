@@ -19,29 +19,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..ops.dense import as_tensor
+from ..ops.dense import _svd, as_tensor, chop_rank
 from .types import TT
 
 __all__ = ["chop_rank", "orthogonalize", "svd_round", "svd_round_host", "from_dense"]
-
-
-def chop_rank(s, tol: float | None = None, rmax: int | None = None) -> int:
-    """Truncation rank: largest r with tail energy below (tol*|s|)^2,
-    capped at rmax (chop, mat.f90:433-458)."""
-    s = np.asarray(s)
-    r = s.size
-    er2 = 0.0
-    if rmax is not None and rmax < r:
-        er2 = float(np.dot(s[rmax:], s[rmax:]))
-        r = rmax
-    if tol is not None and r > 1:
-        bound = tol * tol * float(np.dot(s, s))
-        er = er2 + float(s[r - 1]) ** 2
-        while er < bound and r > 1:
-            er2 = er
-            r -= 1
-            er += float(s[r - 1]) ** 2
-    return max(r, 1)
 
 
 def orthogonalize(t: TT) -> TT:
@@ -66,17 +47,6 @@ def orthogonalize(t: TT) -> TT:
         lognrm += math.log(nrm)
     common = math.exp(lognrm / d)
     return TT(tuple(c * common for c in cores))
-
-
-def _svd(m):
-    """Thin SVD.  On CUDA this asks cuSOLVER for gesvd (QR iteration, as
-    LAPACK): torch's default there, the Jacobi gesvdj, leaves the rounded
-    C_6 train's quadrature value ~2.6e-14 (median) off the LAPACK
-    rounding of the same train, which costs the headline ~0.3 digits;
-    gesvd stays within ~1e-15 (PERF.md)."""
-    if m.device.type == "cuda":
-        return torch.linalg.svd(m, full_matrices=False, driver="gesvd")
-    return torch.linalg.svd(m, full_matrices=False)
 
 
 def svd_round(t: TT, tol: float = 1e-14, rmax: int | None = None) -> TT:
