@@ -19,9 +19,12 @@ apply_*_slice, solve_core and the per-sweep value chain in Q4, every qd_div
 (a fiber by its pivot, the inverse's new column, 1 / pivot) in Q5; the rest
 (the concatenations, negations, slices) are torch ops.  The structure is the
 JAX package's: a ragged state that grows rank by rank, the pivot chains
-(vip) and ranks on the host, index bookkeeping through
-cross/hostwalk.py::walk_index, the lottery drawn by np.random.default_rng(seed)
-(so both packages draw the same candidates).
+(vip) and ranks on the host, the lottery drawn by np.random.default_rng(seed)
+(so both packages draw the same candidates).  The index bookkeeping is whole
+numpy arrays, entry for entry the JAX package's lists: a hunt's candidate
+pairs are the row-major free cells of a mask, and its fibers' and lottery's
+multi-indices one cross/hostwalk.py::walk_indices call each, over the pivot
+chains taken as arrays once a hunt.
 
 The control flow reads the device per bond visit, as the host engine does:
 the argmax of each residual, the log10 magnitudes of each fiber (amax) and
@@ -52,7 +55,7 @@ from ..ops.kernels import qd_score_residual_argmax
 from ..ops.qd import (QD, qd, qd_concat, qd_div, qd_get, qd_matmul, qd_neg, qd_to_mp,
                       qd_tt_value, qd_vdot_axis, qd_zeros)
 from ..utils.metrics import span
-from .hostwalk import walk_index
+from .hostwalk import walk_indices
 
 __all__ = ["cross_qd", "QdCrossResult", "QdEngine", "QD_DPS", "as_qd"]
 
@@ -86,6 +89,14 @@ def as_qd(x, device) -> QD:
 
 def _expand(x: QD, pos: int) -> QD:
     return QD(*(e.unsqueeze(pos) for e in x))
+
+
+def _free_pairs(shape, rows, cols) -> np.ndarray:
+    """The (N, 2) cells of a shape's grid that (rows, cols) leave free, in
+    row-major order."""
+    free = np.ones(shape, bool)
+    free[rows, cols] = False
+    return np.argwhere(free)
 
 
 def _value_chain_qd(G, itl, itt, w, d) -> QD:
@@ -182,16 +193,18 @@ class QdEngine:
         self.log_pivotmax_prev = self.log_amax
 
     # ------------------------------------------------------- fiber batches
-    def eval_col(self, b, kk, qq) -> QD:
-        """Raw column fiber (r[b], n[b]) at fixed (kk, qq)."""
-        r, n, vip, d = self.r, self.n, self.vip, self.d
-        idx = [walk_index(vip, b, d, i, j, kk, qq) for i in range(r[b]) for j in range(n[b])]
+    def eval_col(self, b, kk, qq, vip) -> QD:
+        """Raw column fiber (r[b], n[b]) at fixed (kk, qq); vip: each bond's
+        pivots as an (r_s, 4) int64 array."""
+        r, n = self.r, self.n
+        idx = walk_indices(vip, b, self.d, np.arange(r[b])[:, None], np.arange(n[b]), kk, qq)
         return QD(*(e.reshape(r[b], n[b]) for e in self._eval(idx)))
 
-    def eval_row(self, b, ii, jj) -> QD:
-        r, n, vip, d = self.r, self.n, self.vip, self.d
-        idx = [walk_index(vip, b, d, ii, jj, k, q)
-               for k in range(n[b + 1]) for q in range(r[b + 2])]
+    def eval_row(self, b, ii, jj, vip) -> QD:
+        """Raw row fiber (n[b+1], r[b+2]) at fixed (ii, jj)."""
+        r, n = self.r, self.n
+        idx = walk_indices(vip, b, self.d, ii, jj, np.arange(n[b + 1])[:, None],
+                           np.arange(r[b + 2]))
         return QD(*(e.reshape(n[b + 1], r[b + 2]) for e in self._eval(idx)))
 
     def _col_resid(self, b, acol: QD, u: QD) -> tuple[QD, torch.Tensor]:
@@ -228,20 +241,19 @@ class QdEngine:
         """The lottery, the rook passes and the two-threshold test at bond
         b: the chosen pivot's record {b, ijkq, pivot, acol, arow, lp}, or
         None where the bond accepts nothing."""
-        r, n, vip, d = self.r, self.n, self.vip, self.d
+        r, n, d = self.r, self.n, self.d
         Cf, Rf = self.Cf, self.Rf
         piv = self.piv
-        used_c = {(pv[0], pv[1]) for pv in vip[b]}
-        used_r = {(pv[2], pv[3]) for pv in vip[b]}
-        all_c = [(i, j) for i in range(r[b]) for j in range(n[b]) if (i, j) not in used_c]
-        all_r = [(k, q) for k in range(n[b + 1]) for q in range(r[b + 2]) if (k, q) not in used_r]
-        if not all_c or not all_r:
+        vip = [np.asarray(v, np.int64) for v in self.vip]
+        all_c = _free_pairs((r[b], n[b]), vip[b][:, 0], vip[b][:, 1])
+        all_r = _free_pairs((n[b + 1], r[b + 2]), vip[b][:, 2], vip[b][:, 3])
+        if not len(all_c) or not len(all_r):
             return None
         nlot = r[b] + n[b] + n[b + 1] + r[b + 2]
-        sel_c = np.array([all_c[i] for i in self.rng.integers(0, len(all_c), nlot)])
-        sel_r = np.array([all_r[i] for i in self.rng.integers(0, len(all_r), nlot)])
-        idx = [walk_index(vip, b, d, i, j, k, q) for (i, j), (k, q) in zip(sel_c, sel_r)]
-        bvals = self._eval(idx)
+        sel_c = all_c[self.rng.integers(0, len(all_c), nlot)]
+        sel_r = all_r[self.rng.integers(0, len(all_r), nlot)]
+        bvals = self._eval(walk_indices(vip, b, d, sel_c[:, 0], sel_c[:, 1],
+                                        sel_r[:, 0], sel_r[:, 1]))
         self.log_amax = max(self.log_amax, self._max_mag10(bvals))
         sel = torch.from_numpy(np.concatenate([sel_c, sel_r], axis=1)).to(self.device)
         cf = QD(*(e[sel[:, 0], sel[:, 1], :] for e in Cf[b]))          # (B, R)
@@ -259,12 +271,12 @@ class QdEngine:
         skipcol = not dir_fwd
         done = piv == 0
         if piv == 0:
-            acol = self.eval_col(b, kk, qq)
-            arow = self.eval_row(b, ii, jj)
+            acol = self.eval_col(b, kk, qq, vip)
+            arow = self.eval_row(b, ii, jj, vip)
             havecol = haverow = True
         while not done:
             if not skipcol:
-                acol = self.eval_col(b, kk, qq)
+                acol = self.eval_col(b, kk, qq, vip)
                 havecol = True
                 crs += 1
                 if not (havecol and haverow and crs >= 2 * piv):
@@ -279,7 +291,7 @@ class QdEngine:
                 else:
                     break
             skipcol = False
-            arow = self.eval_row(b, ii, jj)
+            arow = self.eval_row(b, ii, jj, vip)
             haverow = True
             crs += 1
             if not (havecol and haverow and crs >= 2 * piv):
@@ -294,9 +306,9 @@ class QdEngine:
             else:
                 break
         if not havecol:
-            acol = self.eval_col(b, kk, qq)
+            acol = self.eval_col(b, kk, qq, vip)
         if not haverow:
-            arow = self.eval_row(b, ii, jj)
+            arow = self.eval_row(b, ii, jj, vip)
         self.log_amax = max(self.log_amax, self._max_mag10(acol), self._max_mag10(arow))
 
         # two-threshold accept, log domain (dmrggmp.f90:364)
