@@ -35,6 +35,15 @@ draws integers below a bound that depends on the state
 floor(u * count) from uniforms u that a torch.Generator seeded by `key`
 makes for the whole run up front (one copy to the device, no sync); the
 test-only hook ``draws`` replaces them (the tests replay JAX's key chain).
+
+While a torch.profiler session is active, cross_dd records the qd engine's
+spans (utils/metrics.py::span) where they mean the same: the root cross_dd
+[d, n, max_rank], engine.init (the kit, the initial cross, the draws),
+engine.sweep [it] (its bond visits and the stop rule's read),
+engine.hunt [bond] (the lottery, the rook passes and the accept test),
+engine.accept [bond] (the masked writes and the inverses' update),
+engine.value (the dd contraction: the solve's value, and each sweep's with
+verbose) and dd.solve (the solved cores and their host copies).
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import torch
 from ..ops.dd import DD, _contract_pairs, dd_div, dd_neg
 from ..ops.dense import masked_slot_write
 from ..ops.kernels import MASK_X, MASK_Y, dd_dot, dd_score_residual_argmax
+from ..utils.metrics import span
 from .chains import (advance_left, advance_right, all_left_tables, all_right_tables,
                      assemble_indices)
 
@@ -244,134 +254,137 @@ def get_dd_engine(fun_dd: Callable, cfg: DDConfig, device="cuda") -> DDKit:
         """Lottery, rook passes and (maybe) accept at bond p.  draw(count_c,
         count_r) -> (u_c, u_r): NLOT integers below max(count, 1) each.
         Returns (state, tape_i, tape_f) as the JAX engine's visit_bond."""
-        rk1 = st.rk[p + 1:p + 2]                     # the bond's rank, read on the card
-        colmask = ((iR[:, None] < st.rk[p]) & (iN[None, :] < n[p])).reshape(-1)
-        rowmask = ((iR[:, None] < st.rk[p + 2]) & (iN[None, :] < n[p + 1])).reshape(-1)
-        vb = st.vip[p].long()
-        smask = (iR < st.rk[p + 1]).to(torch.int32)
-        used_col = torch.zeros(R * N, dtype=torch.int32, device=dev).scatter_reduce_(
-            0, vb[:, 0] * N + vb[:, 1], smask, "amax")
-        used_row = torch.zeros(N * R, dtype=torch.int32, device=dev).scatter_reduce_(
-            0, vb[:, 3] * N + vb[:, 2], smask, "amax")
-        cdf_c = torch.cumsum((colmask & (used_col == 0)).long(), 0)
-        cdf_r = torch.cumsum((rowmask & (used_row == 0)).long(), 0)
-        u_c, u_r = draw(cdf_c[-1], cdf_r[-1])
-        lin_c = torch.searchsorted(cdf_c, u_c.long(), right=True)
-        lin_r = torch.searchsorted(cdf_r, u_r.long(), right=True)
-        # a pick past the end (no candidate left) clamps per axis, as JAX's gathers do
-        i_c, j_c = (lin_c // N).clamp(max=R - 1), lin_c % N
-        q_c, k_c = (lin_r // N).clamp(max=R - 1), lin_r % N
-        nlot_act = st.rk[p] + n[p] + n[p + 1] + st.rk[p + 2]
-        candmask = lot < nlot_act
+        with span("engine.hunt", bond=p):
+            rk1 = st.rk[p + 1:p + 2]                     # the bond's rank, read on the card
+            colmask = ((iR[:, None] < st.rk[p]) & (iN[None, :] < n[p])).reshape(-1)
+            rowmask = ((iR[:, None] < st.rk[p + 2]) & (iN[None, :] < n[p + 1])).reshape(-1)
+            vb = st.vip[p].long()
+            smask = (iR < st.rk[p + 1]).to(torch.int32)
+            used_col = torch.zeros(R * N, dtype=torch.int32, device=dev).scatter_reduce_(
+                0, vb[:, 0] * N + vb[:, 1], smask, "amax")
+            used_row = torch.zeros(N * R, dtype=torch.int32, device=dev).scatter_reduce_(
+                0, vb[:, 3] * N + vb[:, 2], smask, "amax")
+            cdf_c = torch.cumsum((colmask & (used_col == 0)).long(), 0)
+            cdf_r = torch.cumsum((rowmask & (used_row == 0)).long(), 0)
+            u_c, u_r = draw(cdf_c[-1], cdf_r[-1])
+            lin_c = torch.searchsorted(cdf_c, u_c.long(), right=True)
+            lin_r = torch.searchsorted(cdf_r, u_r.long(), right=True)
+            # a pick past the end (no candidate left) clamps per axis, as JAX's gathers do
+            i_c, j_c = (lin_c // N).clamp(max=R - 1), lin_c % N
+            q_c, k_c = (lin_r // N).clamp(max=R - 1), lin_r % N
+            nlot_act = st.rk[p] + n[p] + n[p + 1] + st.rk[p + 2]
+            candmask = lot < nlot_act
 
-        b = fun_dd(assemble_indices(ltab, rtab, p, i_c, j_c, k_c, q_c, d))
-        amax = torch.maximum(st.amax, _l10max(torch.where(candmask, b.hi.abs(), 0.0)))
-        st = st._replace(amax=amax, neval=st.neval + nlot_act.long())
+            b = fun_dd(assemble_indices(ltab, rtab, p, i_c, j_c, k_c, q_c, d))
+            amax = torch.maximum(st.amax, _l10max(torch.where(candmask, b.hi.abs(), 0.0)))
+            st = st._replace(amax=amax, neval=st.neval + nlot_act.long())
 
-        colf_p = _sel(st.colf, p)                                       # (R, N, R)
-        rowf_p1 = _sel(st.rowf, p + 1)
-        cf = _map(lambda t: t.reshape(R * N, R).index_select(0, i_c * N + j_c), colf_p)
-        rf = _map(lambda t: t.reshape(R, N * R).index_select(1, k_c * R + q_c).T, rowf_p1)
-        _, best, pivot = dd_score_residual_argmax(b, cf, rf, rk1, candmask, MASK_X)
-        # the pivot's (i, j, k, q) as (1,) tensors: indexing with a 0-d
-        # tensor would read it on the host
-        best = best.view(1)
-        ii, jj, kk, qq = (x.index_select(0, best) for x in (i_c, j_c, k_c, q_c))
+            colf_p = _sel(st.colf, p)                                       # (R, N, R)
+            rowf_p1 = _sel(st.rowf, p + 1)
+            cf = _map(lambda t: t.reshape(R * N, R).index_select(0, i_c * N + j_c), colf_p)
+            rf = _map(lambda t: t.reshape(R, N * R).index_select(1, k_c * R + q_c).T, rowf_p1)
+            _, best, pivot = dd_score_residual_argmax(b, cf, rf, rk1, candmask, MASK_X)
+            # the pivot's (i, j, k, q) as (1,) tensors: indexing with a 0-d
+            # tensor would read it on the host
+            best = best.view(1)
+            ii, jj, kk, qq = (x.index_select(0, best) for x in (i_c, j_c, k_c, q_c))
 
-        def col_of_rowf(k, q):      # rowf[p+1][:, k, q], (R,)
-            return _map(lambda x: x.reshape(R, N * R).index_select(1, k * R + q)[:, 0], rowf_p1)
+            def col_of_rowf(k, q):      # rowf[p+1][:, k, q], (R,)
+                return _map(lambda x: x.reshape(R, N * R).index_select(1, k * R + q)[:, 0], rowf_p1)
 
-        def row_of_colf(i, j):      # colf[p][i, j, :], (R,)
-            return _map(lambda x: x.reshape(R * N, R).index_select(0, i * N + j)[0], colf_p)
+            def row_of_colf(i, j):      # colf[p][i, j, :], (R,)
+                return _map(lambda x: x.reshape(R * N, R).index_select(0, i * N + j)[0], colf_p)
 
-        # rook passes (fixed 2*piv alternating passes; the LAST pass
-        # evaluates the fiber at the chosen indices but does not move them)
-        acol, arow = _ddz((R, N), dev), _ddz((N, R), dev)
-        colf_flat = _map(lambda t: t.reshape(R * N, R), colf_p)
-        rowf_t = _map(lambda t: t.reshape(R, N * R).T, rowf_p1)        # (N*R, R) view
-        n_passes = 2 * max(cfg.piv, 1)
-        for t in range(n_passes):
-            last = t == n_passes - 1
-            if (t % 2 == 0) == fwd:                                     # column pass
-                acol, amax, neval = eval_col(st, p, ltab, rtab, kk, qq)
-                st = st._replace(amax=amax, neval=neval)
-                u = _map(lambda x: x.expand(R * N, R), col_of_rowf(kk, qq))
-                _, flat, piv2 = dd_score_residual_argmax(
-                    _map(lambda x: x.reshape(-1), acol), colf_flat, u, rk1,
-                    mask2(st, p, True).reshape(-1), MASK_Y)
-                if not last:
-                    ii, jj, pivot = flat.view(1) // N, flat.view(1) % N, piv2
-            else:                                                       # row pass
-                arow, amax, neval = eval_row(st, p, ltab, rtab, ii, jj)
-                st = st._replace(amax=amax, neval=neval)
-                c = _map(lambda x: x.expand(N * R, R), row_of_colf(ii, jj))
-                _, flat, piv2 = dd_score_residual_argmax(
-                    _map(lambda x: x.reshape(-1), arow), c, rowf_t, rk1,
-                    mask2(st, p, False).reshape(-1), MASK_X)
-                if not last:
-                    kk, qq, pivot = flat.view(1) // R, flat.view(1) % R, piv2
+            # rook passes (fixed 2*piv alternating passes; the LAST pass
+            # evaluates the fiber at the chosen indices but does not move them)
+            acol, arow = _ddz((R, N), dev), _ddz((N, R), dev)
+            colf_flat = _map(lambda t: t.reshape(R * N, R), colf_p)
+            rowf_t = _map(lambda t: t.reshape(R, N * R).T, rowf_p1)        # (N*R, R) view
+            n_passes = 2 * max(cfg.piv, 1)
+            for t in range(n_passes):
+                last = t == n_passes - 1
+                if (t % 2 == 0) == fwd:                                     # column pass
+                    acol, amax, neval = eval_col(st, p, ltab, rtab, kk, qq)
+                    st = st._replace(amax=amax, neval=neval)
+                    u = _map(lambda x: x.expand(R * N, R), col_of_rowf(kk, qq))
+                    _, flat, piv2 = dd_score_residual_argmax(
+                        _map(lambda x: x.reshape(-1), acol), colf_flat, u, rk1,
+                        mask2(st, p, True).reshape(-1), MASK_Y)
+                    if not last:
+                        ii, jj, pivot = flat.view(1) // N, flat.view(1) % N, piv2
+                else:                                                       # row pass
+                    arow, amax, neval = eval_row(st, p, ltab, rtab, ii, jj)
+                    st = st._replace(amax=amax, neval=neval)
+                    c = _map(lambda x: x.expand(N * R, R), row_of_colf(ii, jj))
+                    _, flat, piv2 = dd_score_residual_argmax(
+                        _map(lambda x: x.reshape(-1), arow), c, rowf_t, rk1,
+                        mask2(st, p, False).reshape(-1), MASK_X)
+                    if not last:
+                        kk, qq, pivot = flat.view(1) // R, flat.view(1) % R, piv2
 
-        # two-threshold acceptance in log10 (dmrggmp.f90:50-53, 364):
-        # log10|pivot| must clear lse + lg(amax) and lsp + lg(pivotmax');
-        # an exact-zero pivot gives -inf and is always rejected
-        lpiv = torch.log10(pivot.hi.abs())
-        upd = (lpiv > lse + st.amax) & (lpiv > lsp + st.pivotmax_prev) & (st.rk[p + 1] < R)
+            # two-threshold acceptance in log10 (dmrggmp.f90:50-53, 364):
+            # log10|pivot| must clear lse + lg(amax) and lsp + lg(pivotmax');
+            # an exact-zero pivot gives -inf and is always rejected
+            lpiv = torch.log10(pivot.hi.abs())
+            upd = (lpiv > lse + st.amax) & (lpiv > lsp + st.pivotmax_prev) & (st.rk[p + 1] < R)
 
-        s = st.rk[p + 1].long()
-        rmask = (iR < s).to(torch.float64)
-        c_new = _map(lambda x: x * rmask, row_of_colf(ii, jj))          # (R,)
-        u_new = _map(lambda x: x * rmask, col_of_rowf(kk, qq))          # (R,)
-        # tape rows for the distributed engine: (accepted, i, j, k, q) ints
-        # + dd borders and pivot (the JAX engine's :360-372)
-        tape_i = torch.where(upd, torch.cat([torch.ones_like(ii), ii, jj, kk, qq]).to(torch.int32),
-                             0)
-        tape_f = torch.where(upd, torch.cat([c_new.hi, c_new.lo, u_new.hi, u_new.lo,
-                                             pivot.hi[None], pivot.lo[None]]), 0.0)
+        with span("engine.accept", bond=p):
+            s = st.rk[p + 1].long()
+            rmask = (iR < s).to(torch.float64)
+            c_new = _map(lambda x: x * rmask, row_of_colf(ii, jj))          # (R,)
+            u_new = _map(lambda x: x * rmask, col_of_rowf(kk, qq))          # (R,)
+            # tape rows for the distributed engine: (accepted, i, j, k, q) ints
+            # + dd borders and pivot (the JAX engine's :360-372)
+            tape_i = torch.where(
+                upd, torch.cat([torch.ones_like(ii), ii, jj, kk, qq]).to(torch.int32), 0)
+            tape_f = torch.where(upd, torch.cat([c_new.hi, c_new.lo, u_new.hi, u_new.lo,
+                                                 pivot.hi[None], pivot.lo[None]]), 0.0)
 
-        # the accept's pieces, all from the state as it was before it
-        pivB = _map(lambda x: x.expand(R * N), pivot)
-        acol_f = _map(lambda x: x.reshape(-1), acol)
-        arow_f = _map(lambda x: x.reshape(-1), arow)
-        r_col, _, _ = dd_score_residual_argmax(acol_f, colf_flat,
-                                               _map(lambda x: x.expand(R * N, R), u_new))
-        new_colf = dd_div(r_col, pivB)                                  # (R*N,)
-        new_rowf, _, _ = dd_score_residual_argmax(
-            arow_f, _map(lambda x: x.expand(N * R, R), c_new), rowf_t)  # (N*R,)
-        itl_p, itt_p = _sel(st.itl, p), _sel(st.itt, p)
-        row_raw = dd_neg(dd_score_residual_argmax(
-            None, _map(lambda x: x.expand(R, R), c_new), _map(lambda x: x.T, itl_p))[0])
-        one_hot = iR == s
-        new_row = DD(torch.where(one_hot, 1.0, row_raw.hi), torch.where(one_hot, 0.0, row_raw.lo))
-        col_raw = dd_div(dd_neg(dd_score_residual_argmax(
-            None, itt_p, _map(lambda x: x.expand(R, R), u_new))[0]),
-            _map(lambda x: x.expand(R), pivot))
-        inv_piv = dd_div(DD(torch.ones_like(pivot.hi), torch.zeros_like(pivot.hi)), pivot)
-        new_col = DD(torch.where(one_hot, inv_piv.hi, col_raw.hi),
-                     torch.where(one_hot, inv_piv.lo, col_raw.lo))
-        left = _mm(_sel(st.itl, max(p - 1, 0)), acol) if p > own_lo else None       # (R, N)
-        right = _mm(arow, _sel(st.itt, min(p + 1, d - 2))) if p < own_hi - 1 else None  # (N, R)
+            # the accept's pieces, all from the state as it was before it
+            pivB = _map(lambda x: x.expand(R * N), pivot)
+            acol_f = _map(lambda x: x.reshape(-1), acol)
+            arow_f = _map(lambda x: x.reshape(-1), arow)
+            r_col, _, _ = dd_score_residual_argmax(acol_f, colf_flat,
+                                                   _map(lambda x: x.expand(R * N, R), u_new))
+            new_colf = dd_div(r_col, pivB)                                  # (R*N,)
+            new_rowf, _, _ = dd_score_residual_argmax(
+                arow_f, _map(lambda x: x.expand(N * R, R), c_new), rowf_t)  # (N*R,)
+            itl_p, itt_p = _sel(st.itl, p), _sel(st.itt, p)
+            row_raw = dd_neg(dd_score_residual_argmax(
+                None, _map(lambda x: x.expand(R, R), c_new), _map(lambda x: x.T, itl_p))[0])
+            one_hot = iR == s
+            new_row = DD(torch.where(one_hot, 1.0, row_raw.hi),
+                         torch.where(one_hot, 0.0, row_raw.lo))
+            col_raw = dd_div(dd_neg(dd_score_residual_argmax(
+                None, itt_p, _map(lambda x: x.expand(R, R), u_new))[0]),
+                _map(lambda x: x.expand(R), pivot))
+            inv_piv = dd_div(DD(torch.ones_like(pivot.hi), torch.zeros_like(pivot.hi)), pivot)
+            new_col = DD(torch.where(one_hot, inv_piv.hi, col_raw.hi),
+                         torch.where(one_hot, inv_piv.lo, col_raw.lo))
+            left = _mm(_sel(st.itl, max(p - 1, 0)), acol) if p > own_lo else None       # (R, N)
+            right = _mm(arow, _sel(st.itt, min(p + 1, d - 2))) if p < own_hi - 1 else None  # (N, R)
 
-        slot = s.clamp(max=R - 1).view(1)      # a saturated bond never accepts
-        u1 = upd.view(1)
+            slot = s.clamp(max=R - 1).view(1)      # a saturated bond never accepts
+            u1 = upd.view(1)
 
-        def put(buf: DD, index, dim, new: DD):
-            for part, val in zip(buf, new):
-                masked_slot_write(part[index:index + 1], dim, slot, val[None], u1)
+            def put(buf: DD, index, dim, new: DD):
+                for part, val in zip(buf, new):
+                    masked_slot_write(part[index:index + 1], dim, slot, val[None], u1)
 
-        masked_slot_write(st.vip[p:p + 1], 1, slot,
-                          torch.cat([ii, jj, kk, qq]).to(torch.int32)[None], u1)
-        put(st.cores, p, 3, acol)
-        put(st.cores, p + 1, 1, arow)
-        put(st.colf, p, 3, _map(lambda x: x.reshape(R, N), new_colf))
-        put(st.rowf, p + 1, 1, _map(lambda x: x.reshape(N, R), new_rowf))
-        put(st.itl, p, 1, new_row)
-        put(st.itt, p, 2, new_col)
-        if left is not None:
-            put(st.rowf, p, 3, left)
-        if right is not None:
-            put(st.colf, p + 1, 1, right)
-        st.rk[p + 1:p + 2] += u1.to(torch.int32)
-        pivotmax = torch.where(upd, torch.maximum(st.pivotmax, lpiv), st.pivotmax)
+            masked_slot_write(st.vip[p:p + 1], 1, slot,
+                              torch.cat([ii, jj, kk, qq]).to(torch.int32)[None], u1)
+            put(st.cores, p, 3, acol)
+            put(st.cores, p + 1, 1, arow)
+            put(st.colf, p, 3, _map(lambda x: x.reshape(R, N), new_colf))
+            put(st.rowf, p + 1, 1, _map(lambda x: x.reshape(N, R), new_rowf))
+            put(st.itl, p, 1, new_row)
+            put(st.itt, p, 2, new_col)
+            if left is not None:
+                put(st.rowf, p, 3, left)
+            if right is not None:
+                put(st.colf, p + 1, 1, right)
+            st.rk[p + 1:p + 2] += u1.to(torch.int32)
+            pivotmax = torch.where(upd, torch.maximum(st.pivotmax, lpiv), st.pivotmax)
         return st._replace(pivotmax=pivotmax), tape_i, tape_f
 
     def sweep_fn(st: DDState, it: int, draw) -> DDState:
@@ -514,57 +527,71 @@ def cross_dd(
     dev = torch.device(device)
     cfg = DDConfig(d=d, n=n, N=max(n), R=max_rank, piv=int(pivoting),
                    small_element=small_element, small_pivot=small_pivot)
-    kit = get_dd_engine(fun_dd, cfg, dev)
-    st = kit.init_fn()
-    if draws is None:
-        draw_of = key_draws(key, max(max_rank - 1, 1), d, 2 * (cfg.R + cfg.N), dev)
-    else:
-        def draw_of(it):
-            return lambda b, cc, cr: draws((it - 1) * (d - 1) + b, cc, cr)
+    with span("cross_dd", d=d, n=n, max_rank=int(max_rank)):
+        with span("engine.init"):
+            kit = get_dd_engine(fun_dd, cfg, dev)
+            st = kit.init_fn()
+            if draws is None:
+                draw_of = key_draws(key, max(max_rank - 1, 1), d, 2 * (cfg.R + cfg.N), dev)
+            else:
+                def draw_of(it):
+                    return lambda b, cc, cr: draws((it - 1) * (d - 1) + b, cc, cr)
 
-    wh_pad = wl_pad = None
-    if verbose:   # per-sweep value telemetry only; skip the transfer otherwise
-        wh_pad = _pad_weights(weights_hi, n, cfg.N, dev)
-        wl_pad = _pad_weights(weights_lo, n, cfg.N, dev)
-    lacc = float(np.log10(accuracy))
-    val_prev = None
-    strike = 0
-    it = 0
-    while it + 1 < max_rank:
-        it += 1
-        st = kit.sweep_fn(st, it, draw_of(it))
-        pm = float(st.pivotmax)     # log10 magnitudes (dmrggmp.f90:50-53)
-        am = float(st.amax)
-        if verbose:
-            v = kit.value_fn(st, wh_pad, wl_pad)
-            with localcontext() as ctx:
-                ctx.prec = 50
-                val = Decimal(float(v.hi)) + Decimal(float(v.lo))
-                if truth is not None:
-                    rel = abs(1 - val / Decimal(truth if isinstance(truth, str)
-                                                else float(truth)))
-                    tag = f"err {float(rel):9.3e}"
-                elif val_prev not in (None, 0):
-                    tag = f"cnv {float(abs(1 - val / val_prev)):9.3e}"
+            wh_pad = wl_pad = None
+            if verbose:   # per-sweep value telemetry only; skip the transfer otherwise
+                wh_pad = _pad_weights(weights_hi, n, cfg.N, dev)
+                wl_pad = _pad_weights(weights_lo, n, cfg.N, dev)
+        lacc = float(np.log10(accuracy))
+        val_prev = None
+        strike = 0
+        it = 0
+        while it + 1 < max_rank:
+            it += 1
+            with span("engine.sweep", it=it):
+                st = kit.sweep_fn(st, it, draw_of(it))
+                pm = float(st.pivotmax)     # log10 magnitudes (dmrggmp.f90:50-53)
+                am = float(st.amax)
+                if verbose:
+                    with span("engine.value"):
+                        v = kit.value_fn(st, wh_pad, wl_pad)
+                        val_prev = _print_sweep(it, pm, am, int(st.neval), v, truth, val_prev)
+                if pm <= lacc + am:
+                    strike += 1
                 else:
-                    tag = ""
-                val_prev = val
-                print(f"{it:3d}{'>>' if it % 2 == 1 else '<<'} dd "
-                      f"lg(pivotmax) {pm:8.2f} lg(amax) {am:8.2f} "
-                      f"n_evals {int(st.neval)} {tag} val {val:.32e}")
-        if pm <= lacc + am:
-            strike += 1
-        else:
-            strike = 0
-        if strike >= 3:
-            break
+                    strike = 0
+            if strike >= 3:
+                break
 
-    solved = kit.finalize_fn(st)
-    rk = st.rk.cpu().numpy()
-    cores = [_map(lambda x: x[c][: rk[c], : n[c], : rk[c + 1]], solved) for c in range(d)]
-    # dd quadrature of the dd train (mptt_quad), on the run's device
-    value = dd_quad_cores([g.hi for g in cores], [g.lo for g in cores], weights_hi, weights_lo)
-    return DDCrossResult(cores_hi=[g.hi.cpu().numpy() for g in cores],
-                         cores_lo=[g.lo.cpu().numpy() for g in cores], value=value,
-                         neval=int(st.neval), sweeps=it, ranks=tuple(int(x) for x in rk),
-                         vip=st.vip.cpu().numpy())
+        with span("dd.solve"):
+            solved = kit.finalize_fn(st)
+            rk = st.rk.cpu().numpy()
+            cores = [_map(lambda x: x[c][: rk[c], : n[c], : rk[c + 1]], solved) for c in range(d)]
+            cores_hi = [g.hi.cpu().numpy() for g in cores]
+            cores_lo = [g.lo.cpu().numpy() for g in cores]
+            vip, neval = st.vip.cpu().numpy(), int(st.neval)
+        with span("engine.value"):
+            # dd quadrature of the dd train (mptt_quad), on the run's device
+            value = dd_quad_cores([g.hi for g in cores], [g.lo for g in cores], weights_hi,
+                                  weights_lo)
+    return DDCrossResult(cores_hi=cores_hi, cores_lo=cores_lo, value=value, neval=neval,
+                         sweeps=it, ranks=tuple(int(x) for x in rk), vip=vip)
+
+
+def _print_sweep(it, pm, am, neval, v, truth, val_prev):
+    """The mp tier's per-iteration value line (dmrggmp.f90:655-672) of the
+    sweep's dd value v; returns the value as a Decimal, the next line's
+    val_prev."""
+    with localcontext() as ctx:
+        ctx.prec = 50
+        val = Decimal(float(v.hi)) + Decimal(float(v.lo))
+        if truth is not None:
+            rel = abs(1 - val / Decimal(truth if isinstance(truth, str) else float(truth)))
+            tag = f"err {float(rel):9.3e}"
+        elif val_prev not in (None, 0):
+            tag = f"cnv {float(abs(1 - val / val_prev)):9.3e}"
+        else:
+            tag = ""
+        print(f"{it:3d}{'>>' if it % 2 == 1 else '<<'} dd "
+              f"lg(pivotmax) {pm:8.2f} lg(amax) {am:8.2f} "
+              f"n_evals {neval} {tag} val {val:.32e}")
+    return val
